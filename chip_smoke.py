@@ -6,19 +6,32 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), and a measured
    device-to-device copy rate;
-2. build: the four kernels of ``neural_tpu_torch/csrc`` from source;
-3. kernels: each kernel against its plain PyTorch version on the same CUDA
-   tensors at the Llama-2-7B q4_j main-path shapes, with its time, the
-   plain version's time, one library call's time (a yardstick the port
-   never calls) and its bound;
-4. main path: a Llama-2-7B-shaped q4_j model (random weights from a seed,
+2. build: the kernels of ``neural_tpu_torch/csrc`` from source, one nvcc
+   per source, all at once;
+3. kernels: each kernel (K1 at M=1, 8 and 128, K2, K3 and K4 in their bf16
+   and int8 variants, K6 paged decode in both) against its plain PyTorch
+   version on the same CUDA tensors at the Llama-2-7B q4_j main-path
+   shapes, with its time, the plain version's time, one library call's
+   time (a yardstick the port never calls) and its bound;
+4. generation: a Llama-2-7B-shaped q4_j model (random weights from a seed,
    FFN 11008 padded to 11264) generates greedily through ``Model.generate``
-   with every kernel's launch count set to 0 just before and read just
-   after; then decode ms/token (slope of ``decode_loop`` n=4 vs n=36) at
-   fills 128 and 1975, and the 1975-token prefill time (TTFT);
+   with bf16 and with int8 KV, every launch count set to 0 just before each
+   path and read just after; ``decode_loop``'s CUDA graph against eager
+   steps; decode ms/token (slope of ``decode_loop`` n=4 vs n=36) at fills
+   128 and 1975 (bf16 KV), at fill 1975 with int8 KV (leg decode_i8kv) and
+   at batch 8, fill 128, int8 KV (leg batch8); the 1975-token prefill time
+   (TTFT) with bf16 and int8 KV;
 5. card vs plain: a 2-layer copy at the same width runs its prefill logits
    and greedy steps through the kernels on the card and through the plain
-   path on the CPU; logits within tolerance, greedy ids equal.
+   path on the CPU; then the same through the Scheduler (paged int8 KV,
+   batch 4, 6 requests); logits within tolerance, greedy ids equal where
+   the margin proves it;
+6. serving: the same 7B model behind ``ModelServer(max_batch=8,
+   max_len=2048, kv_mode="paged", page_size=256, memory_dtype="int8")``
+   answers 12 queries (prompts of 32-1500 tokens, 32 new tokens each) with
+   launch counts; the graphed decode step against the same steps run
+   eagerly (ids and pool bytes); short slots-mode bf16 and paged bf16 runs;
+   aggregate tok/s, decode-iteration ms at 8 running slots, TTFT.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -45,11 +58,15 @@ from neural_tpu_torch.core.qtensor import (dequantize, quantize,  # noqa: E402
 from neural_tpu_torch.models.config import ModelConfig  # noqa: E402
 from neural_tpu_torch.ops import _cuda  # noqa: E402
 from neural_tpu_torch.ops import attention as A  # noqa: E402
+from neural_tpu_torch.ops import paged_attention as PA  # noqa: E402
 from neural_tpu_torch.ops import qmatmul as Q  # noqa: E402
 from neural_tpu_torch.runtime.generate import (decode_loop,  # noqa: E402
                                                greedy_generate, model_step,
                                                prefill_step)
 from neural_tpu_torch.runtime.kvcache import init_cache  # noqa: E402
+from neural_tpu_torch.runtime.sampling import SamplingParams  # noqa: E402
+from neural_tpu_torch.serving import (ModelServer, Query,  # noqa: E402
+                                      Scheduler)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BPS = 3.35e12
@@ -120,8 +137,33 @@ def time_ms(fns, reps=20):
 
 
 def bound_ms(nbytes, ops, peak_ops):
-    b, o = nbytes / HBM_BPS * 1e3, ops / peak_ops * 1e3
+    return bound_ms_s(nbytes, ops / peak_ops)
+
+
+def bound_ms_s(nbytes, op_seconds):
+    """The larger of the bytes over the HBM rate and the operations' least
+    time (summed over the operand types' peaks), in ms."""
+    b, o = nbytes / HBM_BPS * 1e3, op_seconds * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+LAUNCHES = {}   # path name -> launch counts of that path's run
+
+
+def run_path(name, required, fn):
+    """Drive one main path with every launch count set to 0 just before and
+    read just after; fail if a kernel of the path was never launched."""
+    _cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    LAUNCHES[name] = counts
+    missing = [k for k in required if counts[k] == 0]
+    log(f"path {name}: launches {counts}")
+    if missing:
+        raise AssertionError(f"kernels not launched on path {name}: "
+                             f"{missing}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -162,14 +204,25 @@ def _copies(nbytes):
 
 
 def check_k1(gen, results):
-    """Decode products at M=1: q/k/v/o, gate/up, down and the lm_head."""
+    """Decode products at M=1 (batch 1) and M=8 (the server's batch-8
+    step): q/k/v/o, gate/up, down and the lm_head; and M=128, a server
+    prefill chunk in the 128 bucket (prompts of 65-128 tokens, tails of
+    longer ones), whose lm_head runs on one row."""
+    for M in (1, 8, 128):
+        _check_k1(gen, results, M)
+
+
+def _check_k1(gen, results, M):
     shapes = [(D, D, 4 * L, torch.bfloat16), (D, I_PAD, 2 * L, torch.bfloat16),
-              (I_PAD, D, L, torch.bfloat16), (D, V, 1, torch.float32)]
+              (I_PAD, D, L, torch.bfloat16)]
+    if M < 128:
+        shapes.append((D, V, 1, torch.float32))
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+    bound_by = {"bytes": 0.0, "operations": 0.0}
     for K, N, count, odt in shapes:
         nbytes = K * N // 2 + K // 128 * N * 2
         ws = _qweight(K, N, gen, _copies(nbytes))
-        x = torch.randn((1, K), generator=gen, device=DEV).bfloat16()
+        x = torch.randn((M, K), generator=gen, device=DEV).bfloat16()
         planes, scales, qt = ws[0]
         out = Q.qmm4_npack(x, planes, scales, 128, odt)
         ref = Q.qmm4_npack_plain(x, planes, scales, 128, odt)
@@ -187,10 +240,12 @@ def check_k1(gen, results):
         wds = [wd] + [wd.clone() for _ in range(_copies(K * N * 2) - 1)]
         lms = time_ms([lambda w=w: torch.matmul(x, w) for w in wds])
         del wds, wd
-        bnd, by = bound_ms(nbytes + K * 2 + N * (2 if odt == torch.bfloat16
-                                                 else 4), 2 * K * N,
-                           F32_FLOPS)
-        log(f"K1 qmm4_npack M=1 {K}x{N} x{count}/token: err {err:.3g} "
+        # bf16 activations times dequantized int4 weights: the bf16 peak
+        bnd, by = bound_ms(nbytes + M * K * 2
+                           + M * N * (2 if odt == torch.bfloat16 else 4),
+                           2 * M * K * N, BF16_FLOPS)
+        bound_by[by] += count * bnd
+        log(f"K1 qmm4_npack M={M} {K}x{N} x{count}/step: err {err:.3g} "
             f"(tol {tol:.3g}) | kernel {ms:.4f} ms, plain {pms:.3f} ms, "
             f"torch.matmul bf16 {lms:.4f} ms, bound {bnd:.4f} ms ({by}); "
             f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s of weights")
@@ -199,8 +254,14 @@ def check_k1(gen, results):
             agg[k] += count * v
         agg["err"] = max(agg["err"], err)
         del ws
-    results["K1"] = dict(agg, bound_by="bytes", per="decode token "
-                         "(225 launches)")
+    key = "K1" if M == 1 else f"K1_M{M}"
+    launches = sum(count for _, _, count, _ in shapes)
+    what = "prefill chunk" if M == 128 else "decode step"
+    results[key] = dict(agg, bound_by=max(bound_by, key=bound_by.get),
+                        per=f"{what} at M={M} ({launches} launches)")
+    log(f"K1 M={M} per {what}: kernel {agg['ms']:.4f} ms, bound "
+        f"{agg['bound_ms']:.4f} ms ({results[key]['bound_by']}), plain "
+        f"{agg['plain_ms']:.3f} ms, torch.matmul {agg['library_ms']:.4f} ms")
 
 
 def check_k2(gen, results):
@@ -306,7 +367,7 @@ def check_k4(gen, results):
             lambda k=k, v=v: torch.nn.functional.scaled_dot_product_attention(
                 qs, k[:, :, :fill], v[:, :, :fill]) for k, v in kvs])
         nbytes = fill * H * DH * 2 * 2 + H * DH * (2 + 4)
-        bnd, by = bound_ms(nbytes, 4 * DH * H * fill, F32_FLOPS)
+        bnd, by = bound_ms(nbytes, 4 * DH * H * fill, BF16_FLOPS)
         log(f"K4 flash_decode fill={fill} S={S} H={H} x{L}/token: err "
             f"{err:.3g} (tol {tol}) | kernel {ms:.4f} ms, plain {pms:.3f} "
             f"ms, sdpa {lms:.4f} ms, bound {bnd:.4f} ms ({by}); "
@@ -317,38 +378,233 @@ def check_k4(gen, results):
                          per="decode token at fill 1975 (32 launches)")
 
 
+def _kv_i8(gen, shape):
+    """int8 codes and bf16 scales of a random normal K or V cache."""
+    return A.quantize_kv(torch.randn(shape, generator=gen, device=DEV))
+
+
+def _dequant(c, s):
+    return (c.float() * s.float()[..., None]).bfloat16()
+
+
+def _check_close(name, out, ref, tol):
+    err = (out - ref).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{name}: max err {err} > tol {tol}")
+    return err
+
+
+# int8 attention: the exact int8 QK dot and q's quantization are the same
+# arithmetic on both sides, the softmax sums run in another order; K3 also
+# rounds P·vs to bf16 against its running max where the plain version uses
+# the final max (<= 2^-9 relative), and |v| here reaches ~4: 4e-3 for K3,
+# as for the bf16 K3 check, and 1e-4 for the f32-PV decode kernels
+I8_PREFILL_TOL, I8_DECODE_TOL = 4e-3, 1e-4
+
+
+def check_k3_i8(gen, results):
+    T, S = T_PREFILL, S_CACHE
+    scale = DH ** -0.5
+    q = torch.randn((1, T, H, DH), generator=gen, device=DEV).bfloat16()
+    k, ks = _kv_i8(gen, (1, H, S, DH))
+    v, vs = _kv_i8(gen, (1, H, S, DH))
+    starts = torch.zeros(1, dtype=torch.int32, device=DEV)
+    args = (q, k, v, ks, vs, starts, scale)
+    out = A.flash_prefill_i8(*args)
+    ref = A.flash_prefill_i8_plain(*args)
+    torch.cuda.synchronize()
+    err = _check_close("K3 int8", out, ref, I8_PREFILL_TOL)
+    ms = time_ms([lambda: A.flash_prefill_i8(*args)])
+    pms = time_ms([lambda: A.flash_prefill_i8_plain(*args)], reps=5)
+    kd, vd = _dequant(k, ks)[:, :, :T], _dequant(v, vs)[:, :, :T]
+    qt_ = q.transpose(1, 2)
+    lms = time_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt_, kd, vd, is_causal=True)])
+    pairs = 2 * DH * H * T * (T + 1) // 2      # per product, causal half
+    nbytes = T * H * DH * 2 + 2 * T * H * (DH + 2) + T * H * DH * 4
+    bnd, by = bound_ms_s(nbytes, pairs / INT8_OPS + pairs / BF16_FLOPS)
+    log(f"K3 flash_prefill_i8 T={T} S={S} H={H} x{L}/prefill: err {err:.3g} "
+        f"(tol {I8_PREFILL_TOL}) | kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"sdpa (dequantized bf16) {lms:.3f} ms, bound {bnd:.4f} ms ({by})")
+    results["K3_i8"] = dict(ms=L * ms, plain_ms=L * pms, library_ms=L * lms,
+                            bound_ms=L * bnd, bound_by=by, err=err,
+                            per="1975-token prefill, int8 KV (32 launches)")
+
+
+def check_k4_i8(gen, results):
+    S, fill = S_CACHE, T_PREFILL
+    scale = DH ** -0.5
+    q = torch.randn((1, H, DH), generator=gen, device=DEV).bfloat16()
+    caches = [(*_kv_i8(gen, (1, H, S, DH)), *_kv_i8(gen, (1, H, S, DH)))
+              for _ in range(_copies(fill * H * (DH + 2) * 2))]
+    k, ks, v, vs = caches[0]
+    lengths = torch.tensor([fill], dtype=torch.int32, device=DEV)
+    out = A.flash_decode_i8(q, k, v, ks, vs, lengths, scale)
+    ref = A.flash_decode_i8_plain(q, k, v, ks, vs, lengths, scale)
+    torch.cuda.synchronize()
+    err = _check_close("K4 int8", out, ref, I8_DECODE_TOL)
+    ms = time_ms([lambda c=c: A.flash_decode_i8(q, c[0], c[2], c[1], c[3],
+                                                lengths, scale)
+                  for c in caches])
+    pms = time_ms([lambda: A.flash_decode_i8_plain(q, k, v, ks, vs, lengths,
+                                                   scale)], reps=5)
+    kd, vd = _dequant(k, ks)[:, :, :fill], _dequant(v, vs)[:, :, :fill]
+    qs = q[:, :, None]
+    lms = time_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kd, vd)])
+    nbytes = fill * H * (DH + 2) * 2 + H * DH * (2 + 4)
+    ops = 2 * DH * H * fill
+    # int8 QK; the PV is f32 by contract (P·vs in f32, as the TPU kernel)
+    bnd, by = bound_ms_s(nbytes, ops / INT8_OPS + ops / F32_FLOPS)
+    log(f"K4 flash_decode_i8 fill={fill} S={S} H={H} x{L}/token: err "
+        f"{err:.3g} (tol {I8_DECODE_TOL}) | kernel {ms:.4f} ms, plain "
+        f"{pms:.3f} ms, sdpa (dequantized bf16) {lms:.4f} ms, bound "
+        f"{bnd:.4f} ms ({by}); {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+    del caches
+    results["K4_i8"] = dict(ms=L * ms, plain_ms=L * pms, library_ms=L * lms,
+                            bound_ms=L * bnd, bound_by=by, err=err,
+                            per="decode token at fill 1975, int8 KV "
+                                "(32 launches)")
+
+
+def check_k6(gen, results):
+    """K6 at the server's shape: B=8, Hkv=32, ps=256, MAXP=8, a shuffled
+    table over a pool of 8*8 + 1 pages, fills spread over 1..2048."""
+    B, ps, maxp = 8, 256, 8
+    P = B * maxp + 1
+    scale = DH ** -0.5
+    cpu = torch.Generator().manual_seed(6)
+    table = torch.randperm(P - 1, generator=cpu)[:B * maxp] \
+        .reshape(B, maxp).to(torch.int32).to(DEV)
+    fills = torch.tensor([1, 2048, 1975, 128, 700, 1300, 33, 1024],
+                         dtype=torch.int32, device=DEV)
+    q = torch.randn((B, H, DH), generator=gen, device=DEV).bfloat16()
+    n = int(fills.sum())
+    mask = (torch.arange(maxp * ps, device=DEV)[None, :]
+            < fills[:, None].long())[:, None, None, :]
+    for int8 in (False, True):
+        if int8:
+            k, ks = _kv_i8(gen, (P, H, ps, DH))
+            v, vs = _kv_i8(gen, (P, H, ps, DH))
+            args = (q, k, v, ks, vs, table, fills, scale)
+            fn, name, tol = PA.paged_decode_i8, "K6_i8", I8_DECODE_TOL
+            kd = PA.gather_pages(_dequant(k, ks), table)
+            vd = PA.gather_pages(_dequant(v, vs), table)
+            nbytes = n * H * (DH + 2) * 2
+        else:
+            k = torch.randn((P, H, ps, DH), generator=gen,
+                            device=DEV).bfloat16()
+            v = (torch.rand((P, H, ps, DH), generator=gen, device=DEV) * 2
+                 - 1).bfloat16()
+            args = (q, k, v, table, fills, scale)
+            fn, name, tol = PA.paged_decode, "K6", 4e-3
+            kd, vd = PA.gather_pages(k, table), PA.gather_pages(v, table)
+            nbytes = n * H * DH * 2 * 2
+            ks = vs = None
+        out = fn(*args)
+        ref = PA.paged_decode_plain(q, k, v, ks, vs, table, fills, scale)
+        torch.cuda.synchronize()
+        err = _check_close(name, out, ref, tol)
+        ms = time_ms([lambda: fn(*args)])
+        pms = time_ms([lambda: PA.paged_decode_plain(q, k, v, ks, vs, table,
+                                                     fills, scale)], reps=5)
+        qs = q[:, :, None]
+        lms = time_ms([
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, kd, vd, attn_mask=mask)])
+        nbytes += B * maxp * 4 + B * 4 + B * H * DH * (2 + 4)
+        ops = 2 * DH * H * n
+        # QK and PV at their operands' peaks: bf16 x bf16 for the bf16 pool;
+        # int8 QK and the f32 PV of the contract for the int8 pool
+        bnd, by = bound_ms_s(nbytes, ops / INT8_OPS + ops / F32_FLOPS
+                             if int8 else 2 * ops / BF16_FLOPS)
+        log(f"{name} paged_decode{'_i8' if int8 else ''} B={B} ps={ps} "
+            f"MAXP={maxp} fills {fills.tolist()} x{L}/step: err {err:.3g} "
+            f"(tol {tol}) | kernel {ms:.4f} ms, plain {pms:.3f} ms, sdpa "
+            f"(gathered{', dequantized' if int8 else ''} bf16) {lms:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}); {nbytes / (ms * 1e-3) / 1e9:.0f} "
+            "GB/s")
+        results[name] = dict(ms=L * ms, plain_ms=L * pms, library_ms=L * lms,
+                             bound_ms=L * bnd, bound_by=by, err=err,
+                             per=f"batch-8 decode step, {'int8' if int8 else 'bf16'} "
+                                 "KV, fills above (32 launches)")
+        del kd, vd
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
 
 
-def phase_main_path():
-    t0 = time.time()
-    params = init_random(CFG, seed=0, quant="q4_j", device=DEV)
-    torch.cuda.synchronize()
-    log(f"init_random Llama-2-7B q4_j on the card: {time.time() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+GEN_BF16 = ("qmm4_npack", "qmm_a8", "flash_prefill", "flash_decode")
+GEN_INT8 = ("qmm4_npack", "qmm_a8", "flash_prefill_i8", "flash_decode_i8")
+
+
+def _check_ids(new, n, what):
+    if len(new) != n or not all(0 <= t < V for t in new):
+        raise AssertionError(f"{what}: bad generated ids {new}")
+
+
+def decode_ms(params, fill, batch=1, kv_dtype=torch.bfloat16, lo=4, hi=36):
+    """ms per decode step: slope of ``decode_loop`` between lo and hi steps
+    (best of 3 each) from a cache filled to ``fill``."""
+    token = torch.full((batch, 1), 17, dtype=torch.long, device=DEV)
+
+    def run(n):
+        cache = init_cache(CFG, batch, S_CACHE, kv_dtype, device=DEV)
+        pos = torch.full((batch,), fill, dtype=torch.long, device=DEV)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        decode_loop(params, token, pos, cache, n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    run(lo)
+    t_lo = min(run(lo) for _ in range(3))
+    t_hi = min(run(hi) for _ in range(3))
+    return (t_hi - t_lo) / (hi - lo) * 1e3
+
+
+def ttft_ms(params, kv_dtype=torch.bfloat16):
+    """1975-token prefill with last-row logits on a fresh cache, best of 3
+    after a warm-up."""
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, V, (1, T_PREFILL), generator=gen).to(DEV)
+    start = torch.zeros(1, dtype=torch.long, device=DEV)
+
+    def once():
+        cache = init_cache(CFG, 1, S_CACHE, kv_dtype, device=DEV)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = prefill_step(params, tokens, start, cache)
+        torch.cuda.synchronize()
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite prefill logits")
+        return (time.perf_counter() - t) * 1e3
+
+    once()
+    return min(once() for _ in range(3))
+
+
+def phase_generation(params):
     model = Model().init_params(params, CFG)
     gen = torch.Generator().manual_seed(0)
     prompts = [torch.randint(3, V, (n,), generator=gen).tolist()
                for n in (64, 512)]
-    for kern in _cuda.KERNELS:
-        kern.launches = 0
-    outs = [model.generate(p, max_new_tokens=16, do_sample=False,
-                           stop_at_eos=False)[0] for p in prompts]
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in _cuda.KERNELS}
-    log(f"main path: Model.generate greedy, prompts of 64 and 512 tokens, 16 "
-        f"new each; launches {launches}")
+    outs = run_path("generate_bf16", GEN_BF16, lambda: [
+        model.generate(p, max_new_tokens=16, do_sample=False,
+                       stop_at_eos=False)[0] for p in prompts])
+    log("Model.generate greedy, bf16 KV, prompts of 64 and 512 tokens, 16 "
+        "new each")
     for p, o in zip(prompts, outs):
-        new = o[len(p):]
-        if len(new) != 16 or not all(0 <= t < V for t in new):
-            raise AssertionError(f"bad generated ids {new}")
-        log(f"  prompt {len(p)}: new ids {new}")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+        _check_ids(o[len(p):], 16, "generate bf16")
+        log(f"  prompt {len(p)}: new ids {o[len(p):]}")
+    out8 = run_path("generate_int8", GEN_INT8, lambda: model.generate(
+        prompts[1], max_new_tokens=16, do_sample=False, stop_at_eos=False,
+        kv_dtype="int8")[0])
+    _check_ids(out8[512:], 16, "generate int8")
+    log(f"Model.generate greedy, int8 KV, 512-token prompt: new ids "
+        f"{out8[512:]}")
 
     # decode_loop replays one CUDA graph per token: it must give the ids of
     # the same steps run eagerly
@@ -375,48 +631,23 @@ def phase_main_path():
     log(f"decode_loop (CUDA graph) = eager steps: {eager}")
     del caches
 
-    def decode_ms(fill, lo=4, hi=36):
-        token = torch.full((1, 1), 17, dtype=torch.long, device=DEV)
-
-        def run(n):
-            cache = init_cache(CFG, 1, S_CACHE, device=DEV)
-            pos = torch.full((1,), fill, dtype=torch.long, device=DEV)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            decode_loop(params, token, pos, cache, n)
-            torch.cuda.synchronize()
-            return time.perf_counter() - t
-
-        run(lo)
-        t_lo = min(run(lo) for _ in range(3))
-        t_hi = min(run(hi) for _ in range(3))
-        return (t_hi - t_lo) / (hi - lo) * 1e3
-
-    d128, d1975 = decode_ms(128), decode_ms(T_PREFILL)
+    d128, d1975 = decode_ms(params, 128), decode_ms(params, T_PREFILL)
     log(f"decode (slope n=4..36, batch 1, bf16 KV): fill 128 {d128:.3f} "
         f"ms/token ({1e3 / d128:.1f} tok/s), fill 1975 {d1975:.3f} ms/token "
         f"({1e3 / d1975:.1f} tok/s)")
-
-    tokens = torch.randint(0, V, (1, T_PREFILL), generator=gen).to(DEV)
-    start = torch.zeros(1, dtype=torch.long, device=DEV)
-
-    def ttft():
-        cache = init_cache(CFG, 1, S_CACHE, device=DEV)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        logits = prefill_step(params, tokens, start, cache)
-        torch.cuda.synchronize()
-        if not torch.isfinite(logits).all():
-            raise AssertionError("non-finite prefill logits")
-        return (time.perf_counter() - t) * 1e3
-
-    ttft()
-    ms = min(ttft() for _ in range(3))
-    log(f"TTFT 1975-token prefill (last-row logits): {ms:.2f} ms")
-    del params, model
-    torch.cuda.empty_cache()
-    return launches, dict(decode_ms_fill128=d128, decode_ms_fill1975=d1975,
-                          ttft_1975_ms=ms)
+    d1975_i8 = decode_ms(params, T_PREFILL, kv_dtype=torch.int8)
+    log(f"leg decode_i8kv (slope, batch 1, int8 KV): fill 1975 "
+        f"{d1975_i8:.3f} ms/token ({1e3 / d1975_i8:.1f} tok/s)")
+    b8 = decode_ms(params, 128, batch=8, kv_dtype=torch.int8)
+    log(f"leg batch8 (slope, batch 8, int8 KV, fill 128): {b8:.3f} ms/step "
+        f"({8e3 / b8:.1f} tok/s aggregate)")
+    ttft, ttft_i8 = ttft_ms(params), ttft_ms(params, torch.int8)
+    log(f"TTFT 1975-token prefill (last-row logits): bf16 KV {ttft:.2f} ms, "
+        f"int8 KV {ttft_i8:.2f} ms")
+    return dict(decode_ms_fill128=d128, decode_ms_fill1975=d1975,
+                decode_i8kv_ms_fill1975=d1975_i8, batch8_step_ms=b8,
+                batch8_tok_s=8e3 / b8, ttft_1975_ms=ttft,
+                ttft_1975_int8kv_ms=ttft_i8)
 
 
 # ---------------------------------------------------------------------------
@@ -487,10 +718,254 @@ def phase_card_vs_plain():
     if provable < 3:
         raise AssertionError("too few steps with a margin wide enough to "
                              "compare the argmax")
+    return worst, _sched_card_vs_plain(card, host, cfg2, rel_tol)
+
+
+class _LogitsRecorder:
+    """Stands in for the decoder inside a Scheduler: calls it, and keeps
+    each logits row that becomes a token, keyed (request id, token index).
+    A decode step's row of slot s is token len(output_ids) of the request
+    there; a prefill chunk's row is token 0 when the chunk ends the
+    prompt."""
+
+    def __init__(self, model):
+        self.model, self.sched, self.rows = model, None, {}
+
+    @property
+    def device(self):
+        return self.model.device
+
+    def __call__(self, tokens, start, cache, **kw):
+        logits = self.model(tokens, start, cache, **kw)
+        s = self.sched
+        if tokens.shape[1] == 1:
+            for slot, seq in s.running.items():
+                self.rows[(seq.request_id, len(seq.output_ids))] = \
+                    logits[slot, -1].float().cpu()
+        else:
+            seq = s._prefilling
+            if seq.prefill_pos + (seq.chunk or len(seq.prompt_ids)) >= \
+                    len(seq.prompt_ids):
+                self.rows[(seq.request_id, 0)] = logits[0, -1].float().cpu()
+        return logits
+
+
+def _sched_card_vs_plain(card, host, cfg2, rel_tol):
+    """The 2-layer model through the Scheduler (paged int8 KV, batch 4, 6
+    requests) on the card, decode step eager so each step's logits can be
+    read, and on the CPU's plain path: per request, logits within the
+    tolerance and greedy ids equal at every token whose plain top-2 margin
+    exceeds twice the logit difference, up to the first token where the two
+    sides' ids part (past it their inputs differ)."""
+    gen = torch.Generator().manual_seed(5)
+    lens = torch.randint(20, 64, (6,), generator=gen).tolist()
+    prompts = [torch.randint(3, V, (n,), generator=gen).tolist()
+               for n in lens]
+    n_new = 3           # the plain path's CPU time sets the size
+    done, recs = [], []
+    for model in (card, host):
+        rec = _LogitsRecorder(model)
+        sched = Scheduler(model, cfg2, max_batch=4, max_len=256,
+                          kv_mode="paged", page_size=64,
+                          kv_dtype=torch.int8,
+                          sampling=SamplingParams(greedy=True,
+                                                  repeat_penalty=1.0))
+        sched._graphs = None      # the decode step eagerly: logits readable
+        rec.sched, sched.params = sched, rec
+        for i, p in enumerate(prompts):
+            sched.add_request(i, p, max_new_tokens=n_new)
+        done.append({q.request_id: q.output_ids
+                     for q in sched.run_to_completion()})
+        recs.append(rec.rows)
+    worst, provable = 0.0, 0
+    for i in range(len(prompts)):
+        for t in range(n_new):
+            if (i, t) not in recs[1]:
+                break
+            a, b = recs[0][(i, t)], recs[1][(i, t)]
+            err = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            worst = max(worst, err / scale)
+            if not err <= rel_tol * scale:
+                raise AssertionError(f"scheduler card vs plain logits, "
+                                     f"request {i} token {t}: max err {err}")
+            top2 = b.topk(2).values
+            ca, ho = done[0][i][t], done[1][i][t]
+            if (top2[0] - top2[1]).item() > 2 * err:
+                provable += 1
+                if ca != ho:
+                    raise AssertionError(f"scheduler ids differ at request "
+                                         f"{i} token {t} despite the margin")
+            if ca != ho:
+                break
+    log(f"scheduler card vs plain (2 layers, paged int8, batch 4, prompts "
+        f"{lens}): logits max err {worst:.3g}·max|logit| (tol {rel_tol}); "
+        f"ids card {[done[0][i] for i in range(6)]}, plain "
+        f"{[done[1][i] for i in range(6)]}; provably comparable at "
+        f"{provable} tokens, equal at all of them")
+    if provable < 3:
+        raise AssertionError("too few scheduler steps with a margin wide "
+                             "enough to compare the argmax")
     return worst
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the server at full width
+# ---------------------------------------------------------------------------
+
+SERVE_PAGED_I8 = ("qmm4_npack", "qmm_a8", "flash_prefill_i8",
+                  "paged_decode_i8")
+
+
+def _serve(srv, prompts, n_new, timeout=300.0):
+    """Issue every prompt at once, wait for Empty() under a timeout that
+    raises; return (finished sequences by id, issue time, wall seconds)."""
+    t0 = time.time()
+    srv.issueQuery([Query(i, p, n_new) for i, p in enumerate(prompts)])
+    while not srv.Empty():
+        if time.time() - t0 > timeout:
+            raise TimeoutError(f"server did not answer {len(prompts)} "
+                               f"queries in {timeout} s")
+        time.sleep(0.002)
+    wall = time.time() - t0
+    with srv._lock:
+        done, srv.finished = {q.request_id: q for q in srv.finished}, []
+    if sorted(done) != list(range(len(prompts))):
+        raise AssertionError(f"answered {sorted(done)} of "
+                             f"{len(prompts)} queries")
+    for i, q in done.items():
+        out = q.output_ids
+        stopped = out and out[-1] in CFG.eos_token_ids and len(out) < n_new
+        if not (len(out) == n_new or stopped) \
+                or not all(0 <= t < V for t in out):
+            raise AssertionError(f"query {i}: bad ids {out}")
+    return done, t0, wall
+
+
+def _graph_vs_eager(params):
+    """The same 8 requests through two paged int8 Schedulers, one replaying
+    the decode-step CUDA graph, one running the step eagerly: equal ids and
+    equal pool bytes (the trash page aside)."""
+    gen = torch.Generator().manual_seed(7)
+    lens = torch.randint(40, 400, (8,), generator=gen).tolist()
+    prompts = [torch.randint(3, V, (n,), generator=gen).tolist()
+               for n in lens]
+    runs = []
+    for graph in (True, False):
+        sched = Scheduler(params, CFG, max_batch=8, max_len=1024,
+                          kv_mode="paged", page_size=256,
+                          kv_dtype=torch.int8)
+        if not graph:
+            sched._graphs = None  # the same decode step, run eagerly
+        for i, p in enumerate(prompts):
+            sched.add_request(i, p, max_new_tokens=10)
+        runs.append(({q.request_id: q.output_ids
+                      for q in sched.run_to_completion()}, sched.cache))
+    (ids_g, pool_g), (ids_e, pool_e) = runs
+    if ids_g != ids_e:
+        raise AssertionError(f"graphed server steps {ids_g} != eager {ids_e}")
+    for name in ("k", "v", "k_scale", "v_scale"):
+        a, b = getattr(pool_g, name), getattr(pool_e, name)
+        if not torch.equal(a[:, :-1], b[:, :-1]):
+            raise AssertionError(f"graphed server steps wrote another {name} "
+                                 "pool than the eager steps")
+    log(f"server decode step (CUDA graph) = eager steps: ids and pool bytes "
+        f"equal over 8 requests (prompts {lens}), 10 new tokens each")
+    del runs, pool_g, pool_e
+    torch.cuda.empty_cache()
+
+
+def phase_server(params):
+    _graph_vs_eager(params)
+    gen = torch.Generator().manual_seed(6)
+    lens = torch.randint(32, 1501, (12,), generator=gen).tolist()
+    prompts = [torch.randint(3, V, (n,), generator=gen).tolist()
+               for n in lens]
+    srv = ModelServer(params, CFG, max_batch=8, max_len=S_CACHE,
+                      kv_mode="paged", page_size=256, memory_dtype="int8")
+    try:
+        sched = srv.scheduler
+        step_ms = []
+        decode_step = sched._decode_step
+
+        def timed_decode_step():
+            n = len(sched.running)
+            t = time.perf_counter()
+            decode_step()
+            step_ms.append((n, (time.perf_counter() - t) * 1e3))
+
+        sched._decode_step = timed_decode_step
+        # warm-up query: the decode graph is captured once per server
+        _serve(srv, [prompts[0][:600]], 4)
+        step_ms.clear()
+        done, t0, wall = run_path("server_paged_int8", SERVE_PAGED_I8,
+                                  lambda: _serve(srv, prompts, 32))
+    finally:
+        srv.stop()
+    n_tok = sum(len(q.output_ids) for q in done.values())
+    full = [ms for n, ms in step_ms if n == 8]
+    ttft = [(q.first_token_time - t0) * 1e3 for q in done.values()]
+    if not full:
+        raise AssertionError("no decode iteration ran with 8 slots")
+    res = dict(server_tok_s=n_tok / wall,
+               server_decode_iter_ms_8slots=statistics.median(full),
+               server_ttft_median_ms=statistics.median(ttft),
+               server_ttft_max_ms=max(ttft), server_wall_s=wall)
+    log(f"server (paged int8, batch 8, page 256, 12 queries, prompts {lens}, "
+        f"32 new each): {n_tok} tokens in {wall:.2f} s = "
+        f"{res['server_tok_s']:.1f} tok/s aggregate; decode iteration with "
+        f"8 running slots median {res['server_decode_iter_ms_8slots']:.3f} "
+        f"ms over {len(full)}; TTFT from issue median "
+        f"{res['server_ttft_median_ms']:.1f} ms, max "
+        f"{res['server_ttft_max_ms']:.1f} ms")
+    for i in range(3):
+        log(f"  query {i} ({lens[i]} tokens): {done[i].output_ids}")
+    del srv, sched
+    torch.cuda.empty_cache()
+
+    for name, kw, required, queries, n_new in (
+            ("server_slots_bf16", dict(kv_mode="slots"),
+             ("qmm4_npack", "qmm_a8", "flash_prefill", "flash_decode"),
+             [p[:n] for p, n in zip(prompts, (64, 300, 700, 1200))], 16),
+            ("server_paged_bf16", dict(kv_mode="paged", page_size=256),
+             ("qmm4_npack", "flash_prefill", "paged_decode"),
+             [p[:n] for p, n in zip(prompts, (90, 200))], 8)):
+        srv = ModelServer(params, CFG, max_batch=8, max_len=S_CACHE,
+                          memory_dtype="auto", **kw)
+        try:
+            done, _, wall = run_path(name, required,
+                                     lambda: _serve(srv, queries, n_new))
+        finally:
+            srv.stop()
+        log(f"{name}: {len(queries)} queries, {n_new} new each, in "
+            f"{wall:.2f} s; query 0: {done[0].output_ids}")
+        del srv
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+
+
+KERNEL_META = {
+    # results key: (C entry point, source, TPU kernel it replaces)
+    "K1": ("qmm4_npack", "neural_tpu_torch/csrc/qmm4_npack.cu",
+           "neural_tpu/ops/qmatmul.py:619"),
+    "K2": ("qmm_a8", "neural_tpu_torch/csrc/qmm_a8.cu",
+           "neural_tpu/ops/qmatmul.py:161"),
+    "K3": ("flash_prefill", "neural_tpu_torch/csrc/flash_prefill.cu",
+           "neural_tpu/ops/attention.py:433"),
+    "K3_i8": ("flash_prefill_i8", "neural_tpu_torch/csrc/flash_prefill.cu",
+              "neural_tpu/ops/attention.py:433"),
+    "K4": ("flash_decode", "neural_tpu_torch/csrc/flash_decode.cu",
+           "neural_tpu/ops/attention.py:110"),
+    "K4_i8": ("flash_decode_i8", "neural_tpu_torch/csrc/flash_decode.cu",
+              "neural_tpu/ops/attention.py:110"),
+    "K6": ("paged_decode", "neural_tpu_torch/csrc/paged_decode.cu",
+           "neural_tpu/ops/paged_attention.py:31"),
+    "K6_i8": ("paged_decode_i8", "neural_tpu_torch/csrc/paged_decode.cu",
+              "neural_tpu/ops/paged_attention.py:31"),
+}
 
 
 def main():
@@ -501,41 +976,61 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(os.cpu_count() or 1)
     t_start = time.time()
-    smi, name, bw = phase_device()
-    build_s = _cuda.build_all(_cuda.KERNELS)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        seconds[name] = time.time() - t
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    smi, name, bw = phase("1 device", phase_device)
+    build_s = phase("2 build", _cuda.build_all, _cuda.KERNELS)
     for k in _cuda.KERNELS:
         k.load()
     log(f"built {[k.source for k in _cuda.KERNELS]} in {build_s:.1f} s")
 
     results = {}
     gen = torch.Generator(device=DEV).manual_seed(0)
-    for check in (check_k1, check_k2, check_k3, check_k4):
-        check(gen, results)
-        torch.cuda.empty_cache()
-    launches, e2e = phase_main_path()
-    worst = phase_card_vs_plain()
 
-    meta = {
-        "K1": ("qmm4_npack", "neural_tpu_torch/csrc/qmm4_npack.cu",
-               "neural_tpu/ops/qmatmul.py:619"),
-        "K2": ("qmm_a8", "neural_tpu_torch/csrc/qmm_a8.cu",
-               "neural_tpu/ops/qmatmul.py:161"),
-        "K3": ("flash_prefill", "neural_tpu_torch/csrc/flash_prefill.cu",
-               "neural_tpu/ops/attention.py:433"),
-        "K4": ("flash_decode", "neural_tpu_torch/csrc/flash_decode.cu",
-               "neural_tpu/ops/attention.py:110"),
-    }
+    def kernels():
+        for check in (check_k1, check_k2, check_k3, check_k4, check_k3_i8,
+                      check_k4_i8, check_k6):
+            check(gen, results)
+            torch.cuda.empty_cache()
+    phase("3 kernels", kernels)
+    t = time.time()
+    params = init_random(CFG, seed=0, quant="q4_j", device=DEV)
+    torch.cuda.synchronize()
+    log(f"init_random Llama-2-7B q4_j on the card: {time.time() - t:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    e2e = phase("4 generation", phase_generation, params)
+    worst, sched_worst = phase("5 card vs plain", phase_card_vs_plain)
+    e2e.update(phase("6 server", phase_server, params))
+    del params
+    torch.cuda.empty_cache()
+
     kernels = []
-    for kid, (kname, src, repl) in meta.items():
+    for kid, (kname, src, repl) in KERNEL_META.items():
         r = results[kid]
+        by_path = {p: c[kname] for p, c in LAUNCHES.items() if c[kname]}
+        if not by_path:
+            raise AssertionError(f"{kname} was launched on no main path")
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,
-            "launches": launches[kname], "max_abs_err": r["err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "per": r["per"], "ok": True})
+    k1_more = {key: {k: results[key][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "err")}
+        for key in ("K1_M8", "K1_M128")}
     log(json.dumps({"e2e": e2e, "copy_tb_s": bw / 1e12,
                     "card_vs_plain_rel_err": worst,
+                    "sched_card_vs_plain_rel_err": sched_worst,
+                    "k1_more": k1_more,
+                    "phase_seconds": seconds,
                     "seconds": time.time() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

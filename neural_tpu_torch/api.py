@@ -61,9 +61,10 @@ class Model:
         """Greedy generation of one prompt: full id lists (prompt + new
         tokens), or new tokens only with ``ignore_prompt``. The repetition
         penalty applies before the argmax, as in the reference.
+        ``kv_dtype``: "bf16" or "int8" KV cache (reference memory_dtype).
 
-        Sampling, beam search, batches of prompts, int8 KV, streaming,
-        sessions and meshes are later slices and raise."""
+        Sampling, beam search, batches of prompts, streaming, sessions and
+        meshes are later slices and raise."""
         if self.params is None:
             raise RuntimeError("call init_from_hf_model or init_params first")
         rows = _to_id_list(input_ids)
@@ -74,8 +75,9 @@ class Model:
             asked.append("num_beams")
         if len(rows) != 1:
             asked.append("a batch of prompts")
-        if kv_dtype != "bf16":
-            asked.append(f"kv_dtype={kv_dtype}")
+        if kv_dtype not in ("bf16", "int8", torch.bfloat16, torch.int8):
+            raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
+                             f"{kv_dtype!r}")
         if asked:
             raise NotImplementedError(
                 f"generate({', '.join(asked)}) is not ported yet: this slice "
@@ -89,6 +91,8 @@ class Model:
         from .runtime.generate import generate
         sp = SamplingParams(greedy=True, temperature=temperature, top_k=top_k,
                             top_p=top_p, repeat_penalty=repetition_penalty)
+        kvdt = torch.int8 if kv_dtype in ("int8", torch.int8) else \
+            torch.bfloat16
         out = generate(self.params, self.cfg, rows[0], sp, max_new_tokens,
-                       max_len, stop_at_eos)
+                       max_len, stop_at_eos, kvdt)
         return [out[len(rows[0]):] if ignore_prompt else out]

@@ -1,24 +1,32 @@
-// K3 flash_prefill: causal flash attention over a bf16 KV cache for Hopper.
+// K3 flash_prefill: causal flash attention over a bf16 or int8 KV cache for
+// Hopper.
 //
 // Replaces neural_tpu/ops/attention.py:_prefill_kernel (launched by
 // flash_prefill). q [B, T, Hq, 128] bf16; the cache k, v [B, Hkv, S, 128]
-// bf16 already holds this prefill's keys; query row t sits at position
+// already holds this prefill's keys; query row t sits at position
 // starts[b] + t and sees keys s <= starts[b] + t; query head h reads KV
-// head h / (Hq / Hkv). QK^T and PV are bf16 products with f32
-// accumulation, the softmax statistics are f32, masked scores are -1e30,
-// l is floored at 1e-30, and the output is f32 [B, T, Hq, 128] — the TPU
-// kernel's rounding (P is rounded to bf16 for the PV product; l sums the
-// unrounded P).
+// head h / (Hq / Hkv). Masked scores are -1e30, l is floored at 1e-30 and
+// sums the unrounded P, the softmax statistics are f32, and the output is
+// f32 [B, T, Hq, 128] — the TPU kernel's rounding:
+// - bf16 cache (flash_prefill): QK^T and PV are bf16 products with f32
+//   accumulation; P is rounded to bf16 for the PV product.
+// - int8 cache with bf16 scales [B, Hkv, S] (flash_prefill_i8): each q row
+//   is quantized, q8 = rint(q * (127 / qa)) with qa = max|q| + 1e-9 (a true
+//   division); QK^T is an exact int8 product (mma.sync m16n8k32 s8, int32
+//   accumulation) and s = d * (qa * scale / 127) * k_scale; the v scale
+//   multiplies P, which is rounded to bf16 for a bf16 PV product against the
+//   int8 v codes widened to bf16 (exact).
 //
 // What bounds it on the H100: the operations (4 * T * S_visible * 128 per
 // head, about half of T x S under the causal mask). The design is
 // FlashAttention-2 style: one block per (b * Hq + h, 64 query rows), 4
-// warps of 16 rows each; K and V tiles of 64 keys go through shared memory;
-// QK^T and PV run on the tensor cores with mma.sync m16n8k16 bf16; the
-// score fragment is reused in registers as PV's A operand; key tiles above
-// the causal diagonal of the block are never loaded. Any T and S: ragged
-// edges are masked. The TPU's sequential S grid becomes the in-block loop
-// over key tiles. wgmma and TMA are later work.
+// warps of 16 rows each; K and V tiles of 64 keys go through shared memory
+// (the int8 tiles at half the bytes, with their scales as f32 rows); QK^T
+// and PV run on the tensor cores with mma.sync; the score fragment is
+// reused in registers as PV's A operand; key tiles above the causal
+// diagonal of the block are never loaded. Any T and S: ragged edges are
+// masked. The TPU's sequential S grid becomes the in-block loop over key
+// tiles. wgmma and TMA are later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -29,6 +37,7 @@ constexpr int D = 128;      // head dim
 constexpr int BQ = 64;      // query rows per block
 constexpr int BKV = 64;     // keys per tile
 constexpr int LD = D + 8;   // shared row stride in bf16
+constexpr int LD8 = D + 16; // shared row stride in int8 (16-byte rows)
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
@@ -40,23 +49,68 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// four bf16 q values → floats
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, bool ok,
+                                      float* x) {
+  if (!ok) {
+    x[0] = x[1] = x[2] = x[3] = 0.f;
+    return;
+  }
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  x[0] = __low2float(a);
+  x[1] = __high2float(a);
+  x[2] = __low2float(b);
+  x[3] = __high2float(b);
+}
+
+// rint(x * r) of four values as int8 codes, the first in the low byte
+__device__ __forceinline__ uint32_t pack_codes(const float* x, float r) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w |= (uint32_t)(uint8_t)(int8_t)(int)rintf(x[i] * r) << (8 * i);
+  return w;
+}
+
+template <bool I8>
 __global__ void __launch_bounds__(128)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
+                     const void* __restrict__ k_, const void* __restrict__ v_,
+                     const __nv_bfloat16* __restrict__ ks,
+                     const __nv_bfloat16* __restrict__ vs,
                      const int* __restrict__ starts, float* __restrict__ out,
                      int T, int Hq, int Hkv, int S, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[BKV * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BKV * LD];
+  // bf16: K and V tiles [BKV][LD]; int8: K and V tiles [BKV][LD8] and the
+  // tile's k and v scales as f32
+  __shared__ __align__(16) unsigned char smem[2 * BKV * LD * 2];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Vs = Ks + BKV * LD;
+  int8_t* Ks8 = reinterpret_cast<int8_t*>(smem);
+  int8_t* Vs8 = Ks8 + BKV * LD8;
+  float* kss = reinterpret_cast<float*>(smem + 2 * BKV * LD8);
+  float* vss = kss + BKV;
+
   const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
   const int t0 = blockIdx.x * BQ;
@@ -66,17 +120,51 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int ra = t0 + warp * 16 + g, rb = ra + 8;   // this thread's rows
   const int posa = start + ra, posb = start + rb;
 
-  // Q fragments (A operand, row-major [query][dim]) for the 8 k16 steps
+  // Q fragments (A operand, row-major [query][dim]): the 8 k16 steps of
+  // bf16, or the 4 k32 steps of int8 codes
   uint32_t qf[8][4];
+  float qsa = 0.f, qsb = 0.f;   // int8: qa * scale / 127 of rows ra, rb
   const __nv_bfloat16* qa = q + ((size_t)(b * T + ra) * Hq + h) * D;
   const __nv_bfloat16* qb = q + ((size_t)(b * T + rb) * Hq + h) * D;
+  if constexpr (I8) {
+    float xa[32], xb[32];
+    float mxa = 0.f, mxb = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const int c = kk * 16 + tq * 2;
-    qf[kk][0] = ra < T ? ld32(qa + c) : 0u;
-    qf[kk][1] = rb < T ? ld32(qb + c) : 0u;
-    qf[kk][2] = ra < T ? ld32(qa + c + 8) : 0u;
-    qf[kk][3] = rb < T ? ld32(qb + c + 8) : 0u;
+    for (int i = 0; i < 8; ++i) {   // k32 step i / 2, half i % 2
+      const int c = (i / 2) * 32 + (i % 2) * 16 + tq * 4;
+      load4(qa + c, ra < T, xa + i * 4);
+      load4(qb + c, rb < T, xb + i * 4);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      mxa = fmaxf(mxa, fabsf(xa[i]));
+      mxb = fmaxf(mxb, fabsf(xb[i]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {   // the quad holds the row
+      mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, off));
+      mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
+    }
+    const float qaa = mxa + 1e-9f, qab = mxb + 1e-9f;
+    const float rA = 127.f / qaa, rB = 127.f / qab;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      qf[kk][0] = pack_codes(xa + kk * 8, rA);
+      qf[kk][1] = pack_codes(xb + kk * 8, rB);
+      qf[kk][2] = pack_codes(xa + kk * 8 + 4, rA);
+      qf[kk][3] = pack_codes(xb + kk * 8 + 4, rB);
+    }
+    qsa = qaa * scale;
+    qsb = qab * scale;
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int c = kk * 16 + tq * 2;
+      qf[kk][0] = ra < T ? ld32(qa + c) : 0u;
+      qf[kk][1] = rb < T ? ld32(qb + c) : 0u;
+      qf[kk][2] = ra < T ? ld32(qa + c + 8) : 0u;
+      qf[kk][3] = rb < T ? ld32(qb + c + 8) : 0u;
+    }
   }
 
   float o[16][4];
@@ -88,21 +176,44 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int last_q = start + min(t0 + BQ, T) - 1;   // causal diagonal
   const int kv_end = min(last_q + 1, S);
-  const __nv_bfloat16* kbase = k + (size_t)(b * Hkv + hk) * S * D;
-  const __nv_bfloat16* vbase = v + (size_t)(b * Hkv + hk) * S * D;
+  const size_t head = (size_t)(b * Hkv + hk) * S;   // first key row
   const unsigned short* Vu = reinterpret_cast<const unsigned short*>(Vs);
 
   for (int s0 = 0; s0 < kv_end; s0 += BKV) {
     __syncthreads();                  // the previous tile is consumed
-    for (int i = threadIdx.x; i < BKV * D / 8; i += 128) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (s0 + r < S) {
-        kv = *reinterpret_cast<const uint4*>(kbase + (size_t)(s0 + r) * D + c);
-        vv = *reinterpret_cast<const uint4*>(vbase + (size_t)(s0 + r) * D + c);
+    if constexpr (I8) {
+      const int8_t* kbase = reinterpret_cast<const int8_t*>(k_) + head * D;
+      const int8_t* vbase = reinterpret_cast<const int8_t*>(v_) + head * D;
+      for (int i = threadIdx.x; i < BKV * D / 16; i += 128) {
+        const int r = i / (D / 16), c = (i % (D / 16)) * 16;
+        uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+        if (s0 + r < S) {
+          kv = *reinterpret_cast<const uint4*>(kbase + (size_t)(s0 + r) * D + c);
+          vv = *reinterpret_cast<const uint4*>(vbase + (size_t)(s0 + r) * D + c);
+        }
+        *reinterpret_cast<uint4*>(Ks8 + r * LD8 + c) = kv;
+        *reinterpret_cast<uint4*>(Vs8 + r * LD8 + c) = vv;
       }
-      *reinterpret_cast<uint4*>(Ks + r * LD + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * LD + c) = vv;
+      if (threadIdx.x < BKV) {
+        const int s = s0 + threadIdx.x;
+        kss[threadIdx.x] = s < S ? __bfloat162float(ks[head + s]) : 0.f;
+        vss[threadIdx.x] = s < S ? __bfloat162float(vs[head + s]) : 0.f;
+      }
+    } else {
+      const __nv_bfloat16* kbase =
+          reinterpret_cast<const __nv_bfloat16*>(k_) + head * D;
+      const __nv_bfloat16* vbase =
+          reinterpret_cast<const __nv_bfloat16*>(v_) + head * D;
+      for (int i = threadIdx.x; i < BKV * D / 8; i += 128) {
+        const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+        uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+        if (s0 + r < S) {
+          kv = *reinterpret_cast<const uint4*>(kbase + (size_t)(s0 + r) * D + c);
+          vv = *reinterpret_cast<const uint4*>(vbase + (size_t)(s0 + r) * D + c);
+        }
+        *reinterpret_cast<uint4*>(Ks + r * LD + c) = kv;
+        *reinterpret_cast<uint4*>(Vs + r * LD + c) = vv;
+      }
     }
     __syncthreads();
 
@@ -110,17 +221,34 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     float sc[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
+      if constexpr (I8) {
+        int si[4] = {0, 0, 0, 0};
+        const int8_t* krow = Ks8 + (nt * 8 + g) * LD8;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
-      const __nv_bfloat16* krow = Ks + (nt * 8 + g) * LD;
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t bf[2] = {ld32(krow + kk * 32 + tq * 4),
+                                  ld32(krow + kk * 32 + 16 + tq * 4)};
+          mma_s8(si, qf[kk], bf);
+        }
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint32_t bf[2] = {ld32(krow + kk * 16 + tq * 2),
-                                ld32(krow + kk * 16 + 8 + tq * 2)};
-        mma_bf16(sc[nt], qf[kk], bf);
+        for (int j = 0; j < 4; ++j)
+          sc[nt][j] = (float)si[j] * (j < 2 ? qsa : qsb) *
+                      kss[nt * 8 + tq * 2 + (j & 1)];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
+        const __nv_bfloat16* krow = Ks + (nt * 8 + g) * LD;
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t bf[2] = {ld32(krow + kk * 16 + tq * 2),
+                                  ld32(krow + kk * 16 + 8 + tq * 2)};
+          mma_bf16(sc[nt], qf[kk], bf);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[nt][j] *= scale;
       }
     }
-    // scale, mask, running max
+    // mask, running max
     float mxa = ma, mxb = mb;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -128,9 +256,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         const int key = s0 + nt * 8 + tq * 2 + (j & 1);
         const int qpos = j < 2 ? posa : posb;
-        float x = sc[nt][j] * scale;
-        if (key > qpos || key >= S) x = NEG;
-        sc[nt][j] = x;
+        if (key > qpos || key >= S) sc[nt][j] = NEG;
       }
       mxa = fmaxf(mxa, fmaxf(sc[nt][0], sc[nt][1]));
       mxb = fmaxf(mxb, fmaxf(sc[nt][2], sc[nt][3]));
@@ -167,6 +293,16 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
       o[nt][2] *= alpha_b;
       o[nt][3] *= alpha_b;
     }
+    if constexpr (I8) {   // fold the v scale into P's columns
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float v0 = vss[nt * 8 + tq * 2], v1 = vss[nt * 8 + tq * 2 + 1];
+        sc[nt][0] *= v0;
+        sc[nt][1] *= v1;
+        sc[nt][2] *= v0;
+        sc[nt][3] *= v1;
+      }
+    }
     // O += P V: P (bf16) from the score fragments, V as B operand [key][dim]
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -178,11 +314,18 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int nt = 0; nt < 16; ++nt) {
         const int dcol = nt * 8 + g;
-        const uint32_t bf[2] = {
-            (uint32_t)Vu[key0 * LD + dcol] |
-                ((uint32_t)Vu[(key0 + 1) * LD + dcol] << 16),
-            (uint32_t)Vu[(key0 + 8) * LD + dcol] |
-                ((uint32_t)Vu[(key0 + 9) * LD + dcol] << 16)};
+        uint32_t bf[2];
+        if constexpr (I8) {
+          const int8_t* vc = Vs8 + dcol;
+          bf[0] = pack_bf16((float)vc[key0 * LD8], (float)vc[(key0 + 1) * LD8]);
+          bf[1] = pack_bf16((float)vc[(key0 + 8) * LD8],
+                            (float)vc[(key0 + 9) * LD8]);
+        } else {
+          bf[0] = (uint32_t)Vu[key0 * LD + dcol] |
+                  ((uint32_t)Vu[(key0 + 1) * LD + dcol] << 16);
+          bf[1] = (uint32_t)Vu[(key0 + 8) * LD + dcol] |
+                  ((uint32_t)Vu[(key0 + 9) * LD + dcol] << 16);
+        }
         mma_bf16(o[nt], pa, bf);
       }
     }
@@ -205,19 +348,37 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <bool I8>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* starts, void* out, int B, int T,
+           int Hq, int Hkv, int S, float scale, void* stream) {
+  const dim3 grid((T + BQ - 1) / BQ, B * Hq);
+  flash_prefill_kernel<I8><<<grid, 128, 0,
+                             reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const __nv_bfloat16*>(q), k, v,
+      reinterpret_cast<const __nv_bfloat16*>(ks),
+      reinterpret_cast<const __nv_bfloat16*>(vs),
+      reinterpret_cast<const int*>(starts), reinterpret_cast<float*>(out), T,
+      Hq, Hkv, S, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const void* starts, void* out, int B, int T,
                              int Hq, int Hkv, int S, float scale,
                              void* stream) {
-  const dim3 grid((T + BQ - 1) / BQ, B * Hq);
-  flash_prefill_kernel<<<grid, 128, 0,
-                         reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q),
-      reinterpret_cast<const __nv_bfloat16*>(k),
-      reinterpret_cast<const __nv_bfloat16*>(v),
-      reinterpret_cast<const int*>(starts), reinterpret_cast<float*>(out), T,
-      Hq, Hkv, S, scale);
-  return (int)cudaGetLastError();
+  return launch<false>(q, k, v, nullptr, nullptr, starts, out, B, T, Hq, Hkv,
+                       S, scale, stream);
+}
+
+// scale here is the softmax scale / 127
+extern "C" int flash_prefill_i8(const void* q, const void* k, const void* v,
+                                const void* k_scale, const void* v_scale,
+                                const void* starts, void* out, int B, int T,
+                                int Hq, int Hkv, int S, float scale,
+                                void* stream) {
+  return launch<true>(q, k, v, k_scale, v_scale, starts, out, B, T, Hq, Hkv,
+                      S, scale, stream);
 }

@@ -7,6 +7,13 @@ output projection → residual → RMS pre-norm → SwiGLU MLP → residual] →
 final norm → lm_head, optionally on one row per sequence
 (``logit_positions``). Parameter names are the JAX package's.
 
+The cache is a contiguous :class:`~neural_tpu_torch.runtime.kvcache.KVCache`
+(bf16, or int8: the append quantizes with ``quantize_kv`` and writes the
+scale rows too) or a paged
+:class:`~neural_tpu_torch.runtime.paged.PagedKVCache` (the append goes
+through ``paged_update_kv``, attention through ``attend_paged``), as in
+``neural_tpu/models/transformer.py:462-494``.
+
 Every projection is a :class:`QLinear` holding the at-rest native-pack
 buffers; bf16 (unquantized) projections are a later slice. A tied lm_head
 is a torch product with the embedding, as the JAX package leaves it to
@@ -21,8 +28,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.qtensor import QTensor
-from ..ops.attention import attend
+from ..ops.attention import attend, quantize_kv
 from ..ops.norms import rms_norm
+from ..ops.paged_attention import attend_paged, paged_update_kv
 from ..ops.qmatmul import qmatmul
 from ..ops.rope import apply_rope, rope_cos_sin
 from .config import ModelConfig
@@ -68,9 +76,10 @@ class LlamaBlock(nn.Module):
         self.register_buffer("attn_norm_w", weights["attn_norm_w"])
         self.register_buffer("ffn_norm_w", weights["ffn_norm_w"])
 
-    def forward(self, x, k_layer, v_layer, positions, cos, sin):
-        """x [B, T, D]; k_layer/v_layer this layer's cache [B, Hkv, S, Dh],
-        written in place at ``positions`` [B, T]."""
+    def forward(self, x, kv, positions, cos, sin):
+        """x [B, T, D]; ``kv`` this layer's
+        :class:`~neural_tpu_torch.runtime.kvcache.LayerKV`, written in place
+        at ``positions`` [B, T]."""
         cfg = self.cfg
         B, T, _ = x.shape
         Dh = cfg.head_dim
@@ -82,10 +91,24 @@ class LlamaBlock(nn.Module):
         k = apply_rope(k, cos, sin)
         # append only the new tokens, at each row's own offset (no host
         # sync: the positions stay on the device)
-        rows = torch.arange(B, device=x.device)[:, None]
-        k_layer[rows, :, positions] = k.to(k_layer.dtype)
-        v_layer[rows, :, positions] = v.to(v_layer.dtype)
-        out = attend(q, k_layer, v_layer, positions, cfg).to(x.dtype)
+        if kv.table is not None:
+            paged_update_kv(kv.k, kv.v, kv.k_scale, kv.v_scale,
+                            k.transpose(1, 2), v.transpose(1, 2), kv.table,
+                            positions[:, 0])
+            out = attend_paged(q, kv.k, kv.v, kv.k_scale, kv.v_scale,
+                               kv.table, positions, cfg)
+        else:
+            rows = torch.arange(B, device=x.device)[:, None]
+            if kv.k_scale is not None:
+                k, ks = quantize_kv(k)                 # scales [B, T, Hkv]
+                v, vs = quantize_kv(v)
+                kv.k_scale[rows, :, positions] = ks
+                kv.v_scale[rows, :, positions] = vs
+            kv.k[rows, :, positions] = k.to(kv.k.dtype)
+            kv.v[rows, :, positions] = v.to(kv.v.dtype)
+            out = attend(q, kv.k, kv.v, positions, cfg, kv.k_scale,
+                         kv.v_scale)
+        out = out.to(x.dtype)
         x = x + self.wo(out)
         h2 = rms_norm(x, self.ffn_norm_w, cfg.norm_eps, cfg.norm_offset)
         return x + self.w_down(F.silu(self.w_gate(h2)) * self.w_up(h2))
@@ -132,7 +155,9 @@ class Transformer(nn.Module):
                 logits_dtype: torch.dtype = torch.float32,
                 logit_positions: Optional[torch.Tensor] = None):
         """tokens [B, T]; start [B] (cache write offset per row); cache a
-        :class:`~neural_tpu_torch.runtime.kvcache.KVCache`, updated in place.
+        :class:`~neural_tpu_torch.runtime.kvcache.KVCache` or
+        :class:`~neural_tpu_torch.runtime.paged.PagedKVCache`, updated in
+        place.
         ``logit_positions`` [B]: the one token per row whose logits are
         wanted — the lm_head then runs on [B, 1, D]. Returns logits
         [B, T, V] (or [B, 1, V])."""
@@ -143,7 +168,7 @@ class Transformer(nn.Module):
         x = self.embed[tokens.long()].to(torch.bfloat16)
         cos, sin = rope_cos_sin(positions, self.rope_inv_freqs)
         for l, blk in enumerate(self.layers):
-            x = blk(x, cache.k[l], cache.v[l], positions, cos, sin)
+            x = blk(x, cache.layer(l), positions, cos, sin)
         if logit_positions is not None:
             rows = torch.arange(B, device=x.device)[:, None]
             x = x[rows, logit_positions.long()[:, None]]

@@ -14,7 +14,10 @@ the CPU tests import every module of the port.
 
 Every exported C function takes its pointers and the stream as
 ``void*`` and returns ``cudaGetLastError()``; :meth:`Kernel.call` raises
-when that is not 0, so a refused launch never passes silently.
+when that is not 0, so a refused launch never passes silently, and counts
+each launch under the C function's name (``Kernel.launches``), so a run
+can tell which entry points — the bf16 and the int8 variant of an
+attention kernel apart — its path went through.
 """
 from __future__ import annotations
 
@@ -46,13 +49,16 @@ def _nvcc() -> str:
 
 
 class Kernel:
-    """One ``.cu`` source: its C functions' signatures, its loaded library,
-    and ``launches``, the number of times its wrapper launched it."""
+    """One ``.cu`` source: its C functions' signatures, the ``.cuh`` headers
+    it includes, its loaded library, and ``launches``, the number of times
+    each C function was launched."""
 
-    def __init__(self, source: str, functions: Dict[str, Sequence]):
+    def __init__(self, source: str, functions: Dict[str, Sequence],
+                 headers: Sequence[str] = ()):
         self.source = source
         self.functions = functions
-        self.launches = 0
+        self.headers = tuple(headers)
+        self.launches = {fn: 0 for fn in functions}
         self._lib = None
 
     @property
@@ -61,6 +67,8 @@ class Kernel:
 
     def lib_path(self) -> Path:
         h = hashlib.sha256((CSRC / self.source).read_bytes())
+        for header in self.headers:
+            h.update((CSRC / header).read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
@@ -86,6 +94,7 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.source}:{fn} failed to launch: "
                                f"CUDA error {err}")
+        self.launches[fn] += 1
 
 
 def build_all(kernels: Sequence[Kernel]) -> float:
@@ -141,14 +150,60 @@ QMM_A8 = Kernel("qmm_a8.cu", {
     # xq, sa, planes, scales, out, M, K, N, gd, group, out_f32, stream
     "qmm_a8": [P, P, P, P, P, I, I, I, I, I, I, P],
 })
+F = ctypes.c_float
 FLASH_PREFILL = Kernel("flash_prefill.cu", {
     # q, k, v, starts, out, B, T, Hq, Hkv, S, scale, stream
-    "flash_prefill": [P, P, P, P, P, I, I, I, I, I, ctypes.c_float, P],
+    "flash_prefill": [P, P, P, P, P, I, I, I, I, I, F, P],
+    # q, k8, v8, k_scale, v_scale, starts, out, B, T, Hq, Hkv, S,
+    # scale / 127, stream
+    "flash_prefill_i8": [P, P, P, P, P, P, P, I, I, I, I, I, F, P],
 })
+_DECODE_ARGS = [
+    # q, k, v, k_scale, v_scale, table, lengths, part_o, part_ml, out,
+    # B, Hq, Hkv, S (contiguous) or MAXP * ps (paged), ps, maxp, n_split,
+    # scale (bf16) or scale / 127 (int8), stream
+    P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
 FLASH_DECODE = Kernel("flash_decode.cu", {
-    # q, k, v, lengths, part_o, part_ml, out, B, Hq, Hkv, S, n_split, scale,
-    # stream
-    "flash_decode": [P, P, P, P, P, P, P, I, I, I, I, I, ctypes.c_float, P],
-})
+    "flash_decode": _DECODE_ARGS, "flash_decode_i8": _DECODE_ARGS},
+    headers=("decode_attn.cuh",))
+PAGED_DECODE = Kernel("paged_decode.cu", {
+    "paged_decode": _DECODE_ARGS, "paged_decode_i8": _DECODE_ARGS},
+    headers=("decode_attn.cuh",))
 
-KERNELS = (QMM4, QMM_A8, FLASH_PREFILL, FLASH_DECODE)
+KERNELS = (QMM4, QMM_A8, FLASH_PREFILL, FLASH_DECODE, PAGED_DECODE)
+
+
+def reset_launches():
+    """Set every launch count to 0."""
+    for k in KERNELS:
+        for fn in k.launches:
+            k.launches[fn] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches per C function name, over every kernel source."""
+    return {fn: n for k in KERNELS for fn, n in k.launches.items()}
+
+
+def capture(graph, fn):
+    """Capture ``fn()`` into the CUDA graph ``graph``; return its output
+    and the launches the capture recorded. A capture executes nothing, so
+    those launches are taken back out of the counts; :func:`add_launches`
+    puts them in again at each replay, where the kernels do run."""
+    before = launch_counts()
+    with torch.cuda.graph(graph):
+        out = fn()
+    recorded = {fn_: n - before[fn_] for fn_, n in launch_counts().items()
+                if n != before[fn_]}
+    add_launches(recorded, -1)
+    return out, recorded
+
+
+_OWNER = {fn: k for k in KERNELS for fn in k.functions}
+
+
+def add_launches(recorded: Dict[str, int], times: int = 1):
+    """Count ``times`` replays of a graph whose capture recorded
+    ``recorded``."""
+    for fn, n in recorded.items():
+        _OWNER[fn].launches[fn] += times * n

@@ -1,19 +1,27 @@
-"""Attention over the bf16 KV cache: the K3 and K4 kernels, their plain
-versions, the f32 reference and the dispatch.
+"""Attention over the KV cache: the K3 and K4 kernels in their bf16 and int8
+variants, their plain versions, ``quantize_kv``, the f32 reference and the
+dispatch.
 
 Port of ``neural_tpu/ops/attention.py`` for the main path. The cache is
-head-major ``[B, Hkv, S, Dh]`` per layer.
+head-major ``[B, Hkv, S, Dh]`` per layer: bf16, or int8 codes with flat
+bf16 per-(token, head) scales ``[B, Hkv, S]``.
 
-- **K4** :func:`flash_decode` (``csrc/flash_decode.cu``) replaces the TPU's
-  ``_decode_kernel``: T = 1, split over S with a combine pass.
-- **K3** :func:`flash_prefill` (``csrc/flash_prefill.cu``) replaces
-  ``_prefill_kernel``: causal flash attention for T > 1 queries against a
-  cache that already holds them.
+- **K4** :func:`flash_decode` / :func:`flash_decode_i8`
+  (``csrc/flash_decode.cu``) replace the TPU's ``_decode_kernel``: T = 1,
+  split over S with a combine pass.
+- **K3** :func:`flash_prefill` / :func:`flash_prefill_i8`
+  (``csrc/flash_prefill.cu``) replace ``_prefill_kernel``: causal flash
+  attention for T > 1 queries against a cache that already holds them.
 
-Both follow the TPU kernels' rounding: bf16 QK^T and PV operands, f32
-softmax statistics, P rounded to bf16 before PV, masked scores at -1e30, l
-floored at 1e-30, f32 output. Head dim 128 only; int8 KV, sliding windows,
-ALiBi, softcaps and the GLM prefix mask are later slices.
+The bf16 variants follow the TPU kernels' rounding: bf16 QK^T and PV
+operands, f32 softmax statistics, P rounded to bf16 before PV, masked
+scores at -1e30, l floored at 1e-30, f32 output. The int8 variants quantize
+q per row (``q8 = round(q · 127/qa)``, ``qa = max|q| + 1e-9``), take an
+exact int8·int8 QK dot and form ``s = d · (qa·scale/127) · k_scale``; l
+sums the unscaled P, and the v scale is folded into P — in f32 for the PV
+product of decode, rounded to bf16 for the bf16 PV product of prefill, as
+each TPU kernel does. Head dim 128 only; sliding windows, ALiBi, softcaps
+and the GLM prefix mask are later slices.
 """
 from __future__ import annotations
 
@@ -24,23 +32,43 @@ from . import _cuda
 NEG = -1e30
 
 
-def attend_xla(q, k_cache, v_cache, positions, cfg):
-    """Reference attention, all f32 (the JAX package's ``attend_xla`` for a
-    bf16 cache). q [B, T, Hq, Dh]; caches [B, Hkv, S, Dh]; positions [B, T]
-    → [B, T, Hq*Dh] f32."""
+def quantize_kv(x: torch.Tensor):
+    """[..., Dh] → (int8 codes, bf16 scales [...]), per-token-head absmax.
+    The scale is rounded to bf16 first and the codes are quantized against
+    the rounded value, by a division (a tensor divisor: the IEEE quotient
+    on the card too), then clipped to ±127."""
+    absmax = x.to(torch.float32).abs().amax(dim=-1)
+    scale = (absmax / torch.full_like(absmax, 127.0) + 1e-9) \
+        .to(torch.bfloat16)
+    q = torch.round(x.to(torch.float32) / scale.to(torch.float32)[..., None])
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
+def _dequant(cache, scale):
+    if scale is None:
+        return cache.to(torch.float32)
+    return cache.to(torch.float32) * scale.to(torch.float32)[..., None]
+
+
+def attend_xla(q, k_cache, v_cache, positions, cfg, k_scale=None,
+               v_scale=None):
+    """Reference attention, all f32 (the JAX package's ``attend_xla``).
+    q [B, T, Hq, Dh]; caches [B, Hkv, S, Dh] (bf16, or int8 with scales
+    [B, Hkv, S]); positions [B, T] → [B, T, Hq*Dh] f32."""
     B, T, Hq, Dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
     qh = q.reshape(B, T, Hkv, G, Dh).permute(0, 2, 3, 1, 4)
     scale = cfg.attn_scale if cfg.attn_scale is not None else Dh ** -0.5
     scores = torch.einsum("bhgtd,bhsd->bhgts", qh.to(torch.float32) * scale,
-                          k_cache.to(torch.float32))
+                          _dequant(k_cache, k_scale))
     s_idx = torch.arange(S, device=q.device)[None, None, :]
     mask = s_idx <= positions[:, :, None]
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, NEG))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgts,bhsd->bhgtd", probs, v_cache.to(torch.float32))
+    out = torch.einsum("bhgts,bhsd->bhgtd", probs,
+                       _dequant(v_cache, v_scale))
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq * Dh)
 
 
@@ -55,25 +83,92 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor, eq: str) -> torch.Tensor:
     return pv / l.clamp_min(1e-30)
 
 
+def _quantize_q(q: torch.Tensor):
+    """Per-row int8 quantization of bf16 q [..., Dh] as the int8 kernels do
+    it: codes (integer-valued f32) and ``qa = max|q| + 1e-9`` [..., 1]. The
+    127/qa is a true division (a tensor over a tensor)."""
+    qf = q.to(torch.bfloat16).to(torch.float32)
+    qa = qf.abs().amax(dim=-1, keepdim=True) + 1e-9
+    return torch.round(qf * (torch.full_like(qa, 127.0) / qa)), qa
+
+
+def _i8_scores(q8, qa, k8, k_scale, scale: float, eq: str, ks_view):
+    """``d · (qa·scale/127) · k_scale`` with the int8·int8 dot d computed in
+    f32: every partial sum is an integer below 2^24 (127·127·128), so it is
+    exact in any order, as the kernels' int32 dot is."""
+    d = torch.einsum(eq, q8, k8.to(torch.float32))
+    return d * (qa * (scale / 127.0)) * ks_view(k_scale.to(torch.float32))
+
+
 # ---------------------------------------------------------------------------
 # K4: decode (T = 1)
 # ---------------------------------------------------------------------------
+
+
+def _decode_mask(s, lengths):
+    S = s.shape[-1]
+    mask = torch.arange(S, device=s.device)[None, :] < lengths[:, None]
+    return torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG))
 
 
 def flash_decode_plain(q, k_cache, v_cache, lengths, scale: float):
     """Plain version of K4. q [B, Hq, Dh] bf16; caches [B, Hkv, S, Dh];
     keys at positions >= lengths[b] masked → [B, Hq, Dh] f32."""
     B, Hq, Dh = q.shape
-    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    Hkv = k_cache.shape[1]
     qh = q.to(torch.bfloat16).reshape(B, Hkv, Hq // Hkv, Dh)
     s = torch.einsum("bhgd,bhsd->bhgs", qh.to(torch.float32),
                      k_cache.to(torch.float32)) * scale
-    mask = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
-    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG))
+    s = _decode_mask(s, lengths)
     return _softmax_pv(s, v_cache, "bhgs,bhsd->bhgd").reshape(B, Hq, Dh)
 
 
-DECODE_CHUNK = 64     # keys per block of K4's first pass
+def flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                          scale: float):
+    """Plain version of K4's int8 variant. Caches int8 [B, Hkv, S, Dh] with
+    bf16 scales [B, Hkv, S]; the v scale multiplies P in f32 and PV is an
+    f32 product → [B, Hq, Dh] f32."""
+    B, Hq, Dh = q.shape
+    Hkv = k_cache.shape[1]
+    q8, qa = _quantize_q(q.reshape(B, Hkv, Hq // Hkv, Dh))
+    s = _i8_scores(q8, qa, k_cache, k_scale, scale, "bhgd,bhsd->bhgs",
+                   lambda ks: ks[:, :, None, :])
+    s = _decode_mask(s, lengths)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p * v_scale.to(torch.float32)[:, :, None, :]
+    pv = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.to(torch.float32))
+    return (pv / l.clamp_min(1e-30)).reshape(B, Hq, Dh)
+
+
+DECODE_CHUNK = 64     # keys per block of the decode kernels' first pass
+
+
+def decode_launch(kernel, fn, q, k, v, k_scale, v_scale, table, lengths,
+                  B, Hkv, S, ps, maxp, qk_scale):
+    """Launch one of the split-S decode entry points (K4's, or K6's over a
+    page table) and return [B, Hq, Dh] f32. The number of splits comes from
+    the key capacity S, never from the fill: the kernel reads the lengths
+    on the device and chunks past a row's fill return at once, so the
+    launch needs no host sync and can be captured in a CUDA graph."""
+    Hq, Dh = q.shape[1], q.shape[2]
+    if Hq // Hkv > 8:
+        raise ValueError(f"the decode kernels take at most 8 query heads per "
+                         f"KV head, got {Hq // Hkv}")
+    n_split = -(-S // DECODE_CHUNK)
+    part_o = torch.empty((B * Hq, n_split, Dh), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((B * Hq, n_split, 2), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty((B, Hq, Dh), dtype=torch.float32, device=q.device)
+    opt = lambda t: 0 if t is None else _cuda.ptr(t)
+    kernel.call(fn, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), opt(k_scale),
+                opt(v_scale), opt(table), _cuda.ptr(lengths),
+                _cuda.ptr(part_o), _cuda.ptr(part_ml), _cuda.ptr(out), B, Hq,
+                Hkv, S, ps, maxp, n_split, float(qk_scale),
+                _cuda.stream_ptr())
+    return out
 
 
 def flash_decode(q, k_cache, v_cache, lengths, scale: float):
@@ -84,24 +179,29 @@ def flash_decode(q, k_cache, v_cache, lengths, scale: float):
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     q = q.to(torch.bfloat16).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B)
+    _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B, torch.bfloat16)
     _cuda.check(lengths, "lengths", torch.int32, (B,))
-    if Hq // Hkv > 8:
-        raise ValueError(f"flash_decode takes at most 8 query heads per KV "
-                         f"head, got {Hq // Hkv}")
-    n_split = -(-S // DECODE_CHUNK)
-    part_o = torch.empty((B * Hq, n_split, Dh), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((B * Hq, n_split, 2), dtype=torch.float32,
-                          device=q.device)
-    out = torch.empty((B, Hq, Dh), dtype=torch.float32, device=q.device)
-    _cuda.FLASH_DECODE.call(
-        "flash_decode", _cuda.ptr(q), _cuda.ptr(k_cache), _cuda.ptr(v_cache),
-        _cuda.ptr(lengths), _cuda.ptr(part_o), _cuda.ptr(part_ml),
-        _cuda.ptr(out), B, Hq, Hkv, S, n_split, float(scale),
-        _cuda.stream_ptr())
-    _cuda.FLASH_DECODE.launches += 1
-    return out
+    return decode_launch(_cuda.FLASH_DECODE, "flash_decode", q, k_cache,
+                         v_cache, None, None, None, lengths, B, Hkv, S, 0, 0,
+                         scale)
+
+
+def flash_decode_i8(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                    scale: float):
+    """K4, int8 variant. Same contract as :func:`flash_decode_i8_plain`."""
+    if q.device.type == "cpu":
+        return flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale,
+                                     lengths, scale)
+    B, Hq, Dh = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    q = q.to(torch.bfloat16).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B, torch.int8)
+    _check_scales(k_scale, v_scale, (B, Hkv, S))
+    _cuda.check(lengths, "lengths", torch.int32, (B,))
+    return decode_launch(_cuda.FLASH_DECODE, "flash_decode_i8", q, k_cache,
+                         v_cache, k_scale, v_scale, None, lengths, B, Hkv, S,
+                         0, 0, scale / 127.0)
 
 
 # ---------------------------------------------------------------------------
@@ -109,50 +209,110 @@ def flash_decode(q, k_cache, v_cache, lengths, scale: float):
 # ---------------------------------------------------------------------------
 
 
+def _prefill_mask(s, starts):
+    T, S = s.shape[-2], s.shape[-1]
+    qpos = starts[:, None] + torch.arange(T, device=s.device)[None, :]
+    mask = torch.arange(S, device=s.device)[None, None, :] <= qpos[:, :, None]
+    return torch.where(mask[:, None, None], s, torch.full_like(s, NEG))
+
+
+def _heads_first(q, Hkv):
+    B, T, Hq, Dh = q.shape
+    return q.reshape(B, T, Hkv, Hq // Hkv, Dh).permute(0, 2, 3, 1, 4)
+
+
 def flash_prefill_plain(q, k_cache, v_cache, starts, scale: float):
     """Plain version of K3. q [B, T, Hq, Dh] bf16; caches [B, Hkv, S, Dh]
     already holding these keys; query t at position starts[b] + t sees keys
     s <= starts[b] + t → [B, T, Hq, Dh] f32."""
     B, T, Hq, Dh = q.shape
-    Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    qh = q.to(torch.bfloat16).reshape(B, T, Hkv, Hq // Hkv, Dh) \
-        .permute(0, 2, 3, 1, 4)
+    qh = _heads_first(q.to(torch.bfloat16), k_cache.shape[1])
     s = torch.einsum("bhgtd,bhsd->bhgts", qh.to(torch.float32),
                      k_cache.to(torch.float32)) * scale
-    qpos = starts[:, None] + torch.arange(T, device=q.device)[None, :]
-    mask = torch.arange(S, device=q.device)[None, None, :] <= qpos[:, :, None]
-    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG))
-    out = _softmax_pv(s, v_cache, "bhgts,bhsd->bhgtd")
+    out = _softmax_pv(_prefill_mask(s, starts), v_cache, "bhgts,bhsd->bhgtd")
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, Dh)
+
+
+def flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale, starts,
+                           scale: float):
+    """Plain version of K3's int8 variant: the v scale multiplies P, which
+    is then rounded to bf16 for a bf16 PV product with the int8 v codes
+    widened to bf16 (exact) → [B, T, Hq, Dh] f32."""
+    B, T, Hq, Dh = q.shape
+    q8, qa = _quantize_q(_heads_first(q, k_cache.shape[1]))
+    s = _i8_scores(q8, qa, k_cache, k_scale, scale, "bhgtd,bhsd->bhgts",
+                   lambda ks: ks[:, :, None, None, :])
+    s = _prefill_mask(s, starts)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p * v_scale.to(torch.float32)[:, :, None, None, :]
+    pv = torch.einsum("bhgts,bhsd->bhgtd",
+                      p.to(torch.bfloat16).to(torch.float32),
+                      v_cache.to(torch.float32))
+    out = pv / l.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, Dh)
+
+
+def _prefill_launch(fn, q, k_cache, v_cache, k_scale, v_scale, starts,
+                    qk_scale):
+    B, T, Hq, Dh = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=q.device)
+    scales = [] if k_scale is None else [_cuda.ptr(k_scale),
+                                         _cuda.ptr(v_scale)]
+    _cuda.FLASH_PREFILL.call(
+        fn, _cuda.ptr(q), _cuda.ptr(k_cache), _cuda.ptr(v_cache), *scales,
+        _cuda.ptr(starts), _cuda.ptr(out), B, T, Hq, Hkv, S, float(qk_scale),
+        _cuda.stream_ptr())
+    return out
+
+
+def _prefill_args(q, k_cache, v_cache, starts, kv_dtype):
+    B, T, Hq, Dh = q.shape
+    q = q.to(torch.bfloat16).contiguous()
+    starts = starts.to(torch.int32).contiguous()
+    _check_attention(q, k_cache, v_cache, Hq, k_cache.shape[1], Dh, B,
+                     kv_dtype)
+    _cuda.check(starts, "starts", torch.int32, (B,))
+    return q, starts
 
 
 def flash_prefill(q, k_cache, v_cache, starts, scale: float):
     """K3. Same contract as :func:`flash_prefill_plain`."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k_cache, v_cache, starts, scale)
-    B, T, Hq, Dh = q.shape
-    Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    q = q.to(torch.bfloat16).contiguous()
-    starts = starts.to(torch.int32).contiguous()
-    _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B)
-    _cuda.check(starts, "starts", torch.int32, (B,))
-    out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=q.device)
-    _cuda.FLASH_PREFILL.call(
-        "flash_prefill", _cuda.ptr(q), _cuda.ptr(k_cache), _cuda.ptr(v_cache),
-        _cuda.ptr(starts), _cuda.ptr(out), B, T, Hq, Hkv, S, float(scale),
-        _cuda.stream_ptr())
-    _cuda.FLASH_PREFILL.launches += 1
-    return out
+    q, starts = _prefill_args(q, k_cache, v_cache, starts, torch.bfloat16)
+    return _prefill_launch("flash_prefill", q, k_cache, v_cache, None, None,
+                           starts, scale)
 
 
-def _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B):
+def flash_prefill_i8(q, k_cache, v_cache, k_scale, v_scale, starts,
+                     scale: float):
+    """K3, int8 variant. Same contract as :func:`flash_prefill_i8_plain`."""
+    if q.device.type == "cpu":
+        return flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale,
+                                      starts, scale)
+    q, starts = _prefill_args(q, k_cache, v_cache, starts, torch.int8)
+    B, Hkv, S = k_cache.shape[:3]
+    _check_scales(k_scale, v_scale, (B, Hkv, S))
+    return _prefill_launch("flash_prefill_i8", q, k_cache, v_cache, k_scale,
+                           v_scale, starts, scale / 127.0)
+
+
+def _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B, kv_dtype):
     if Dh != 128:
         raise ValueError(f"the attention kernels take head_dim 128, got {Dh}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     S = k_cache.shape[2]
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
-        _cuda.check(c, name, torch.bfloat16, (B, Hkv, S, Dh))
+        _cuda.check(c, name, kv_dtype, (B, Hkv, S, Dh))
+
+
+def _check_scales(k_scale, v_scale, shape):
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _cuda.check(s, name, torch.bfloat16, shape)
 
 
 # ---------------------------------------------------------------------------
@@ -160,22 +320,39 @@ def _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B):
 # ---------------------------------------------------------------------------
 
 
-def attend(q, k_cache, v_cache, positions, cfg):
-    """q [B, T, Hq, Dh] at ``positions`` [B, T] against one layer's cache
-    [B, Hkv, S, Dh] (already holding these keys) → [B, T, Hq*Dh] f32.
-    T == 1 goes to K4, T > 1 to K3."""
+def check_unported(cfg):
     if cfg.attn_softcap or cfg.sliding_window or cfg.use_alibi \
             or cfg.prefix_lm:
         raise NotImplementedError(
             "softcap, sliding-window, ALiBi and prefix-LM attention are "
             "later slices")
-    if k_cache.dtype != torch.bfloat16:
-        raise NotImplementedError("int8 KV cache is a later slice")
+
+
+def attn_scale(cfg, Dh: int) -> float:
+    return cfg.attn_scale if cfg.attn_scale is not None else Dh ** -0.5
+
+
+def attend(q, k_cache, v_cache, positions, cfg, k_scale=None, v_scale=None):
+    """q [B, T, Hq, Dh] at ``positions`` [B, T] against one layer's cache
+    [B, Hkv, S, Dh] (already holding these keys; int8 with ``k_scale`` /
+    ``v_scale`` [B, Hkv, S]) → [B, T, Hq*Dh] f32. T == 1 goes to K4, T > 1
+    to K3, each in the variant of the cache's dtype."""
+    check_unported(cfg)
     B, T, Hq, Dh = q.shape
-    scale = cfg.attn_scale if cfg.attn_scale is not None else Dh ** -0.5
-    if T == 1:
+    scale = attn_scale(cfg, Dh)
+    int8 = k_cache.dtype == torch.int8
+    if int8 != (k_scale is not None):
+        raise ValueError("an int8 KV cache comes with its scales, a bf16 one "
+                         "without")
+    if T == 1 and int8:
+        out = flash_decode_i8(q[:, 0], k_cache, v_cache, k_scale, v_scale,
+                              positions[:, 0] + 1, scale)
+    elif T == 1:
         out = flash_decode(q[:, 0], k_cache, v_cache, positions[:, 0] + 1,
                            scale)
+    elif int8:
+        out = flash_prefill_i8(q, k_cache, v_cache, k_scale, v_scale,
+                               positions[:, 0], scale)
     else:
         out = flash_prefill(q, k_cache, v_cache, positions[:, 0], scale)
     return out.reshape(B, T, Hq * Dh)

@@ -1,0 +1,163 @@
+"""Paged-KV attention: K6, its plain version, the page gathers, the paged
+dispatch and the page-pool writes (port of
+``neural_tpu/ops/paged_attention.py``).
+
+- **K6** :func:`paged_decode` / :func:`paged_decode_i8`
+  (``csrc/paged_decode.cu``) replace the TPU's ``_paged_decode_kernel``:
+  K4's split-S body (``csrc/decode_attn.cuh``, shared with
+  ``flash_decode.cu``) with each key's row found through ``table[b, s //
+  ps]``. Keys past a row's fill are never read, so table entries past the
+  fill may point anywhere in the pool.
+- :func:`attend_paged`: T == 1 goes to K6; T > 1 gathers the slot's pages
+  into a contiguous ``[B, Hkv, MAXP·ps, Dh]`` view and runs K3 over it, the
+  JAX package's own route for paged prefill.
+
+Layouts (``runtime/paged.py``): per layer a pool ``[P, Hkv, ps, Dh]``,
+int8 scales ``[P, Hkv, ps]`` bf16, table ``[B, MAXP]`` int32.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .attention import (attn_scale, check_unported, decode_launch,
+                        flash_decode_i8_plain, flash_decode_plain,
+                        flash_prefill, flash_prefill_i8, quantize_kv)
+
+
+def gather_pages(pool, table):
+    """[P, Hkv, ps, Dh] + [B, MAXP] → contiguous [B, Hkv, MAXP*ps, Dh]."""
+    g = pool[table.long()]                      # [B, MAXP, Hkv, ps, Dh]
+    B, MP, H, ps, Dh = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(B, H, MP * ps, Dh)
+
+
+def gather_scales(spool, table):
+    """[P, Hkv, ps] + [B, MAXP] → [B, Hkv, MAXP*ps]."""
+    g = spool[table.long()]                     # [B, MAXP, Hkv, ps]
+    B, MP, H, ps = g.shape
+    return g.permute(0, 2, 1, 3).reshape(B, H, MP * ps)
+
+
+def paged_decode_plain(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
+                       scale: float):
+    """Plain version of K6: gather the pages, then K4's plain version (bf16
+    or int8 by the pool's scales). q [B, Hq, Dh]; pools [P, Hkv, ps, Dh];
+    table [B, MAXP]; lengths [B] → [B, Hq, Dh] f32."""
+    k, v = gather_pages(k_pool, table), gather_pages(v_pool, table)
+    if k_scale is None:
+        return flash_decode_plain(q, k, v, lengths, scale)
+    return flash_decode_i8_plain(q, k, v, gather_scales(k_scale, table),
+                                 gather_scales(v_scale, table), lengths,
+                                 scale)
+
+
+def _paged_args(q, k_pool, v_pool, table, lengths, kv_dtype):
+    B, Hq, Dh = q.shape
+    P, Hkv, ps = k_pool.shape[:3]
+    if Dh != 128:
+        raise ValueError(f"the attention kernels take head_dim 128, got {Dh}")
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if ps % 16:
+        raise ValueError(f"paged_decode takes page sizes that are multiples "
+                         f"of 16, got {ps}")
+    q = q.to(torch.bfloat16).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    for name, c in (("k_pool", k_pool), ("v_pool", v_pool)):
+        _cuda.check(c, name, kv_dtype, (P, Hkv, ps, Dh))
+    _cuda.check(table, "table", torch.int32)
+    if table.shape[0] != B:
+        raise ValueError(f"table has {table.shape[0]} rows for B={B}")
+    _cuda.check(lengths, "lengths", torch.int32, (B,))
+    return q, lengths, B, Hkv, ps, table.shape[1]
+
+
+def paged_decode(q, k_pool, v_pool, table, lengths, scale: float):
+    """K6 over a bf16 pool. Same contract as :func:`paged_decode_plain`."""
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pool, v_pool, None, None, table,
+                                  lengths, scale)
+    q, lengths, B, Hkv, ps, maxp = _paged_args(q, k_pool, v_pool, table,
+                                               lengths, torch.bfloat16)
+    return decode_launch(_cuda.PAGED_DECODE, "paged_decode", q, k_pool,
+                         v_pool, None, None, table, lengths, B, Hkv,
+                         maxp * ps, ps, maxp, scale)
+
+
+def paged_decode_i8(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
+                    scale: float):
+    """K6 over an int8 pool. Same contract as :func:`paged_decode_plain`."""
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pool, v_pool, k_scale, v_scale, table,
+                                  lengths, scale)
+    q, lengths, B, Hkv, ps, maxp = _paged_args(q, k_pool, v_pool, table,
+                                               lengths, torch.int8)
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _cuda.check(s, name, torch.bfloat16, k_pool.shape[:3])
+    return decode_launch(_cuda.PAGED_DECODE, "paged_decode_i8", q, k_pool,
+                         v_pool, k_scale, v_scale, table, lengths, B, Hkv,
+                         maxp * ps, ps, maxp, scale / 127.0)
+
+
+def attend_paged(q, k_pool, v_pool, k_scale, v_scale, table, positions, cfg):
+    """Paged dispatch, mirroring :func:`~.attention.attend`: K6 for T == 1;
+    for T > 1 the slot's pages are gathered into a contiguous view for K3.
+    q [B, T, Hq, Dh]; positions [B, T] → [B, T, Hq*Dh] f32."""
+    check_unported(cfg)
+    B, T, Hq, Dh = q.shape
+    scale = attn_scale(cfg, Dh)
+    if T == 1:
+        lengths = positions[:, 0] + 1
+        if k_scale is None:
+            out = paged_decode(q[:, 0], k_pool, v_pool, table, lengths, scale)
+        else:
+            out = paged_decode_i8(q[:, 0], k_pool, v_pool, k_scale, v_scale,
+                                  table, lengths, scale)
+        return out.reshape(B, 1, Hq * Dh)
+    k, v = gather_pages(k_pool, table), gather_pages(v_pool, table)
+    if k_scale is None:
+        out = flash_prefill(q, k, v, positions[:, 0], scale)
+    else:
+        out = flash_prefill_i8(q, k, v, gather_scales(k_scale, table),
+                               gather_scales(v_scale, table),
+                               positions[:, 0], scale)
+    return out.reshape(B, T, Hq * Dh)
+
+
+def paged_update_kv(k_pool, v_pool, ks_pool, vs_pool, k_new, v_new, table,
+                    start):
+    """Write new tokens' K/V into one layer's page pool, in place.
+
+    k_new/v_new [B, Hkv, T, Dh] (RoPE'd). For T == 1 the write lands at
+    ``(table[b, start // ps], start % ps)``; for T > 1 the start must be
+    page-aligned and whole pages stream in (a last partial page writes its
+    leading rows only). With an int8 pool the codes and scales come from
+    :func:`quantize_kv`. Every index stays on the device: no host sync."""
+    ps = k_pool.shape[-2]
+    B, H, T, Dh = k_new.shape
+    if ks_pool is not None:
+        k_new, ks_new = quantize_kv(k_new)           # scales [B, Hkv, T]
+        v_new, vs_new = quantize_kv(v_new)
+        writes = ((k_pool, k_new), (v_pool, v_new), (ks_pool, ks_new),
+                  (vs_pool, vs_new))
+    else:
+        writes = ((k_pool, k_new), (v_pool, v_new))
+    start = start.long()
+    if T == 1:
+        page = table[torch.arange(B, device=table.device), start // ps].long()
+        row = start % ps
+        for pool, new in writes:
+            pool[page, :, row] = new[:, :, 0].to(pool.dtype)
+        return
+    npages = -(-T // ps)
+    ords = start[:, None] // ps + torch.arange(npages, device=start.device)
+    pages = table.gather(1, ords).long()            # [B, npages]
+    full, tail = divmod(T, ps)
+    for pool, new in writes:
+        new = new.to(pool.dtype)
+        if full:
+            chunk = new[:, :, :full * ps].unflatten(2, (full, ps))
+            pool[pages[:, :full]] = chunk.transpose(1, 2)
+        if tail:
+            pool[pages[:, full], :, :tail] = new[:, :, full * ps:]

@@ -135,7 +135,6 @@ def qmm4_npack(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
                     _cuda.ptr(scales), _cuda.ptr(partial), _cuda.ptr(out),
                     M, K, N, group, int(out_dtype == torch.float32), splits,
                     _cuda.stream_ptr())
-    _cuda.QMM4.launches += 1
     return out
 
 
@@ -187,7 +186,6 @@ def qmm_a8(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
                       _cuda.ptr(planes), _cuda.ptr(scales), _cuda.ptr(out),
                       M, K, N, gd, group, int(out_dtype == torch.float32),
                       _cuda.stream_ptr())
-    _cuda.QMM_A8.launches += 1
     return out
 
 

@@ -16,6 +16,7 @@ import torch
 from ..core.qtensor import QTensor, to_native_packed
 from ..models.config import ModelConfig
 from ..models.transformer import Transformer
+from ..ops import _cuda
 from .kvcache import KVCache, init_cache
 from .sampling import SamplingParams, sample
 
@@ -86,15 +87,15 @@ def greedy_generate(model: Transformer, cfg: ModelConfig,
 def generate(model: Transformer, cfg: ModelConfig, prompt_ids: Sequence[int],
              sampling: Optional[SamplingParams] = None,
              max_new_tokens: int = 128, max_len: Optional[int] = None,
-             stop_at_eos: bool = True) -> list:
+             stop_at_eos: bool = True, kv_dtype=torch.bfloat16) -> list:
     """Single-sequence generation through the sampling pipeline (penalties
-    over the last ``repeat_last_n`` ids, then greedy). Returns the full id
-    list."""
+    over the last ``repeat_last_n`` ids, then greedy) over a bf16 or int8
+    KV cache. Returns the full id list."""
     sampling = sampling or SamplingParams()
     dev = model.device
     T = len(prompt_ids)
     S = max_len or min(cfg.max_seq_len, T + max_new_tokens)
-    cache = init_cache(cfg, 1, S, device=dev)
+    cache = init_cache(cfg, 1, S, kv_dtype, device=dev)
     logits = prefill_step(model, _prompt(prompt_ids, dev),
                           torch.zeros(1, dtype=torch.long, device=dev), cache)
     out = list(prompt_ids)
@@ -141,8 +142,9 @@ class _StepGraph:
             _greedy_step(model, self.token, self.pos, cache)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.next = _greedy_step(model, self.token, self.pos, cache)
+        self.next, self.launches = _cuda.capture(
+            self.graph, lambda: _greedy_step(model, self.token, self.pos,
+                                             cache))
 
 
 @torch.inference_mode()
@@ -163,6 +165,7 @@ def decode_loop(model: Transformer, token: torch.Tensor, pos: torch.Tensor,
     g = _StepGraph(model, token, pos, cache)
     for _ in range(n_steps):
         g.graph.replay()
+        _cuda.add_launches(g.launches)
         toks.append(g.next.clone())
         g.token.copy_(g.next[:, None])
         g.pos.add_(1)

@@ -1,14 +1,16 @@
-"""KV cache (port of ``neural_tpu/runtime/kvcache.py``, bf16 only).
+"""KV cache (port of ``neural_tpu/runtime/kvcache.py``).
 
 Layout is head-major ``[L, B, Hkv, S, Dh]``: each layer's ``[B, Hkv, S,
 Dh]`` slice is one contiguous block the attention kernels read directly.
-Unlike the JAX cache, the port's cache is updated in place: the forward
-pass writes only the new tokens' slots, so no step copies the cache.
+int8 KV keeps flat bf16 per-(token, head) scales ``[L, B, Hkv, S]`` beside
+the codes. Unlike the JAX cache, the port's cache is updated in place: the
+forward pass writes only the new tokens' slots, so no step copies the
+cache.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -16,20 +18,52 @@ from ..core.device import resolve_device
 from ..models.config import ModelConfig
 
 
+class LayerKV(NamedTuple):
+    """One layer's view of a cache, as the decoder block takes it: a
+    contiguous ``[B, Hkv, S, Dh]`` slice, or a page pool ``[P, Hkv, ps,
+    Dh]`` with its ``table`` [B, MAXP]; scales iff int8."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    table: Optional[torch.Tensor] = None
+
+
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor                  # [L, B, Hkv, S, Dh]
+    k: torch.Tensor                            # [L, B, Hkv, S, Dh]
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None     # [L, B, Hkv, S] bf16 iff int8
+    v_scale: Optional[torch.Tensor] = None
+
+    def layer(self, l: int) -> LayerKV:
+        sc = (None, None) if self.k_scale is None else \
+            (self.k_scale[l], self.v_scale[l])
+        return LayerKV(self.k[l], self.v[l], *sc)
+
+    def rows(self, start: int, n: int) -> "KVCache":
+        """Batch rows [start, start+n) as a view: its writes land in this
+        cache, and each layer's slice stays contiguous."""
+        return KVCache(*(None if c is None else c[:, start:start + n]
+                         for c in (self.k, self.v, self.k_scale,
+                                   self.v_scale)))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[Union[str, torch.device]] = None) -> KVCache:
-    if dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"KV cache dtype {dtype}: only bf16 is ported (int8 KV is a "
-            "later slice)")
+    """A zeroed cache: bf16, or int8 codes with bf16 scales."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     dev = resolve_device(device)
+    if dtype == torch.int8:
+        return KVCache(torch.zeros(shape, dtype=torch.int8, device=dev),
+                       torch.zeros(shape, dtype=torch.int8, device=dev),
+                       torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                   device=dev),
+                       torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                   device=dev))
+    if dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"KV cache dtype {dtype}: the port keeps bf16 or int8 KV")
     return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                    torch.zeros(shape, dtype=dtype, device=dev))
