@@ -8,11 +8,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    device-to-device copy rate;
 2. build: the kernels of ``neural_tpu_torch/csrc`` from source, one nvcc
    per source, all at once;
-3. kernels: each kernel (K1 at M=1, 8 and 128, K2, K3 and K4 in their bf16
+3. kernels: each kernel (K1 at M=1 and 8, K2, K3 and K4 in their bf16
    and int8 variants, K6 paged decode in both) against its plain PyTorch
    version on the same CUDA tensors at the Llama-2-7B q4_j main-path
    shapes, with its time, the plain version's time, one library call's
-   time (a yardstick the port never calls) and its bound;
+   time (a yardstick the port never calls) and its bound; then K5 (nf4 at
+   M=1 and 1975, q4_0 at 1975, q4_j at 128, 64, 32 and 24, fp4, fp8
+   e4m3/e5m2, int1 and bit-plane int3 asym at 1), K1's other entry points
+   (asym nibbles, int2 and int8 codes, sym and asym) at M=1 and 8, and
+   K2-asym at 1975, the same way;
 4. generation: a Llama-2-7B-shaped q4_j model (random weights from a seed,
    FFN 11008 padded to 11264) generates greedily through ``Model.generate``
    with bf16 and with int8 KV, every launch count set to 0 just before each
@@ -20,12 +24,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps; decode ms/token (slope of ``decode_loop`` n=4 vs n=36) at fills
    128 and 1975 (bf16 KV), at fill 1975 with int8 KV (leg decode_i8kv) and
    at batch 8, fill 128, int8 KV (leg batch8); the 1975-token prefill time
-   (TTFT) with bf16 and int8 KV;
+   (TTFT) with bf16 and int8 KV; then (4b) the same model at nf4, q4_0 and
+   q4_j_i8_g128, one at a time: ``Model.generate``, the TTFT and decode
+   ms/token at fill 128, each a path with its own launch counts;
 5. card vs plain: a 2-layer copy at the same width runs its prefill logits
    and greedy steps through the kernels on the card and through the plain
    path on the CPU; then the same through the Scheduler (paged int8 KV,
-   batch 4, 6 requests); logits within tolerance, greedy ids equal where
-   the margin proves it;
+   batch 4, 6 requests); then, for fp4, fp8, fp8_e5m2, int1, int2, int2
+   asym, int3, int5, int5 asym, q8_0 and int8 (per channel),
+   ``Model.generate`` on the card (a
+   path each) and its logits against the plain path; logits within
+   tolerance, greedy ids equal where the margin proves it;
 6. serving: the same 7B model behind ``ModelServer(max_batch=8,
    max_len=2048, kv_mode="paged", page_size=256, memory_dtype="int8")``
    answers 12 queries (prompts of 32-1500 tokens, 32 new tokens each) with
@@ -52,9 +61,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from neural_tpu_torch.api import Model  # noqa: E402
 from neural_tpu_torch.convert.hf import init_random  # noqa: E402
-from neural_tpu_torch.core.dtypes import PRESETS  # noqa: E402
+from neural_tpu_torch.core.dtypes import PRESETS, QuantConfig  # noqa: E402
 from neural_tpu_torch.core.qtensor import (dequantize, quantize,  # noqa: E402
-                                           to_native_packed)
+                                           to_native, to_native_packed)
 from neural_tpu_torch.models.config import ModelConfig  # noqa: E402
 from neural_tpu_torch.ops import _cuda  # noqa: E402
 from neural_tpu_torch.ops import attention as A  # noqa: E402
@@ -203,79 +212,121 @@ def _copies(nbytes):
     return max(1, math.ceil(2 * L2_BYTES / nbytes))
 
 
-def check_k1(gen, results):
-    """Decode products at M=1 (batch 1) and M=8 (the server's batch-8
-    step): q/k/v/o, gate/up, down and the lm_head; and M=128, a server
-    prefill chunk in the 128 bucket (prompts of 65-128 tokens, tails of
-    longer ones), whose lm_head runs on one row."""
-    for M in (1, 8, 128):
-        _check_k1(gen, results, M)
+# the 7B's products per token: q/k/v/o, gate/up, down; and its lm_head
+PROJ = [(D, D, 4 * L), (D, I_PAD, 2 * L), (I_PAD, D, L)]
+LM_HEAD = [(D, V, 1)]
 
 
-def _check_k1(gen, results, M):
-    shapes = [(D, D, 4 * L, torch.bfloat16), (D, I_PAD, 2 * L, torch.bfloat16),
-              (I_PAD, D, L, torch.bfloat16)]
-    if M < 128:
-        shapes.append((D, V, 1, torch.float32))
+def _qt_bytes(qt):
+    return sum(t.numel() * t.element_size() for t in (
+        *qt.planes, qt.scales, *(() if qt.zeros is None else (qt.zeros,))))
+
+
+def _qt_copy(qt):
+    c = lambda t: None if t is None else t.clone()
+    return dataclasses.replace(qt, planes=tuple(map(c, qt.planes)),
+                               scales=c(qt.scales), zeros=c(qt.zeros))
+
+
+def _case(gen, label, cfg, M, shapes, fn, plain, entry, peak, at_rest=True):
+    """One format at one M over ``shapes`` (K, N, products per step): the
+    wrapper ``fn(x, qt, out_dtype)`` against ``plain`` on the same CUDA
+    tensors, checking that ``entry`` is the C function it launched; its
+    time, the plain version's, one bf16 ``torch.matmul`` on the
+    pre-dequantized weight (a yardstick) and the bound, each summed over the
+    step. The lm_head (N = V) writes f32 logits, the rest bf16: a bf16
+    output is one rounding away, 1e-2·max|ref|; f32 only the order of the
+    sums, 1e-4·max|ref|."""
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
     bound_by = {"bytes": 0.0, "operations": 0.0}
-    for K, N, count, odt in shapes:
-        nbytes = K * N // 2 + K // 128 * N * 2
-        ws = _qweight(K, N, gen, _copies(nbytes))
+    for K, N, count in shapes:
+        odt = torch.float32 if N == V else torch.bfloat16
+        qt = quantize(torch.randn((K, N), generator=gen, device=DEV) * 0.02,
+                      cfg)
+        if at_rest:
+            qt = to_native(qt)
+        wbytes = _qt_bytes(qt)
+        qts = [qt] + [_qt_copy(qt) for _ in range(_copies(wbytes) - 1)]
         x = torch.randn((M, K), generator=gen, device=DEV).bfloat16()
-        planes, scales, qt = ws[0]
-        out = Q.qmm4_npack(x, planes, scales, 128, odt)
-        ref = Q.qmm4_npack_plain(x, planes, scales, 128, odt)
+        before = _cuda.launch_counts()[entry]
+        out = fn(x, qt, odt)
+        if _cuda.launch_counts()[entry] != before + 1:
+            raise AssertionError(f"{label} {K}x{N}: {entry} was not launched")
+        ref = plain(x, qt, odt)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        tol = (1e-2 if odt == torch.bfloat16 else 1e-4) * scale
-        if not err <= tol:
-            raise AssertionError(f"K1 {K}x{N}: max err {err} > tol {tol}")
-        ms = time_ms([lambda p=p, s=s: Q.qmm4_npack(x, p, s, 128, odt)
-                      for p, s, _ in ws])
-        pms = time_ms([lambda: Q.qmm4_npack_plain(x, planes, scales, 128,
-                                                  odt)], reps=5)
-        wd = dequantize(qt, torch.bfloat16)
+        tol = (1e-2 if odt == torch.bfloat16 else 1e-4) \
+            * ref.float().abs().max().item()
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"{label} {K}x{N}: max err {err} > tol {tol}")
+        ms = time_ms([lambda q=q: fn(x, q, odt) for q in qts])
+        pms = time_ms([lambda: plain(x, qt, odt)], reps=5)
+        wd = Q.dequant_bf16(qt)
         wds = [wd] + [wd.clone() for _ in range(_copies(K * N * 2) - 1)]
         lms = time_ms([lambda w=w: torch.matmul(x, w) for w in wds])
-        del wds, wd
-        # bf16 activations times dequantized int4 weights: the bf16 peak
-        bnd, by = bound_ms(nbytes + M * K * 2
-                           + M * N * (2 if odt == torch.bfloat16 else 4),
-                           2 * M * K * N, BF16_FLOPS)
+        del wds, wd, qts
+        bnd, by = bound_ms(wbytes + M * K * 2 + M * N * odt.itemsize,
+                           2 * M * K * N, peak)
         bound_by[by] += count * bnd
-        log(f"K1 qmm4_npack M={M} {K}x{N} x{count}/step: err {err:.3g} "
+        log(f"{label} {entry} M={M} {K}x{N} x{count}/step: err {err:.3g} "
             f"(tol {tol:.3g}) | kernel {ms:.4f} ms, plain {pms:.3f} ms, "
             f"torch.matmul bf16 {lms:.4f} ms, bound {bnd:.4f} ms ({by}); "
-            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s of weights")
+            f"{wbytes / (ms * 1e-3) / 1e9:.0f} GB/s of weights, "
+            f"{2 * M * K * N / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
         for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
                      ("bound_ms", bnd)):
             agg[k] += count * v
         agg["err"] = max(agg["err"], err)
-        del ws
-    key = "K1" if M == 1 else f"K1_M{M}"
-    launches = sum(count for _, _, count, _ in shapes)
-    what = "prefill chunk" if M == 128 else "decode step"
-    results[key] = dict(agg, bound_by=max(bound_by, key=bound_by.get),
-                        per=f"{what} at M={M} ({launches} launches)")
-    log(f"K1 M={M} per {what}: kernel {agg['ms']:.4f} ms, bound "
-        f"{agg['bound_ms']:.4f} ms ({results[key]['bound_by']}), plain "
+    n = sum(count for _, _, count in shapes)
+    agg.update(bound_by=max(bound_by, key=bound_by.get),
+               per=f"{label} at M={M} ({n} launches)")
+    log(f"{label} at M={M}, per step: kernel {agg['ms']:.4f} ms, bound "
+        f"{agg['bound_ms']:.4f} ms ({agg['bound_by']}), plain "
         f"{agg['plain_ms']:.3f} ms, torch.matmul {agg['library_ms']:.4f} ms")
+    return agg
+
+
+def _record(results, key, cases):
+    """The first case is the kernel's line; every case is kept beside it."""
+    first = next(iter(cases.values()))
+    results[key] = dict(first, cases=cases)
+
+
+def check_k1(gen, results):
+    """K1 over sym int4 (q4_j) at M=1 (batch 1) and M=8 (the server's
+    batch-8 step): q/k/v/o, gate/up, down and the lm_head."""
+    k1 = lambda x, qt, odt: Q.qmm_native(x, qt.planes[0], qt.scales, None,
+                                         qt.group_size, 4, odt)
+    pl = lambda x, qt, odt: Q.qmm_native_plain(x, qt.planes[0], qt.scales,
+                                               None, qt.group_size, 4, odt)
+    _record(results, "K1", {
+        label: _case(gen, label, PRESETS["q4_j"], M, PROJ + LM_HEAD, k1, pl,
+                     "qmm4_npack", BF16_FLOPS)
+        for M, label in ((1, "q4_j decode step"), (8, "q4_j batch-8 step"))})
 
 
 def check_k2(gen, results):
-    """Prefill products at M=1975 through the int8-activation path."""
+    """Prefill products at M=1975 through the int8-activation path; and its
+    first pass, the activation quantization, alone (its codes must equal
+    the plain version's; its time is inside K2's, and PyTorch has no one
+    call for it)."""
     M = T_PREFILL
-    shapes = [(D, D, 4 * L), (D, I_PAD, 2 * L), (I_PAD, D, L)]
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
-    for K, N, count in shapes:
+    act = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for K, N, count in PROJ:
         planes, scales, qt = _qweight(K, N, gen)[0]
         x = torch.randn((M, K), generator=gen, device=DEV).bfloat16()
         xq, sa = Q.act_quant_i8(x, 128)
         rq, rsa = Q.quantize_act_i8(x, 128)
         if not (torch.equal(xq, rq) and torch.equal(sa, rsa)):
             raise AssertionError(f"K2 act quant codes differ at {M}x{K}")
+        # read x, write codes and f32 scales; ~4 f32 operations an element
+        abnd, act["bound_by"] = bound_ms(M * K * 3 + M * K // 128 * 4,
+                                         4 * M * K, F32_FLOPS)
+        for k, v in (("ms", time_ms([lambda: Q.act_quant_i8(x, 128)])),
+                     ("plain_ms", time_ms([lambda: Q.quantize_act_i8(x, 128)],
+                                          reps=5)), ("bound_ms", abnd)):
+            act[k] += count * v
         out = Q.qmm_a8(x, planes, scales, 128, 128, torch.bfloat16)
         ref = Q.qmm_a8_plain(x, planes, scales, 128, 128, torch.bfloat16)
         torch.cuda.synchronize()
@@ -303,6 +354,85 @@ def check_k2(gen, results):
         del wd
     results["K2"] = dict(agg, bound_by="operations",
                          per="1975-token prefill (224 launches)")
+    results["K2_act"] = dict(act, library_ms=None, err=0.0,
+                             per="1975-token prefill (224 launches), inside "
+                                 "K2's time")
+    log(f"K2 quantize_act_i8 per prefill: kernel {act['ms']:.3f} ms, plain "
+        f"{act['plain_ms']:.3f} ms, bound {act['bound_ms']:.4f} ms "
+        f"({act['bound_by']})")
+
+
+def check_k5(gen, results):
+    """K5 in every format of the main paths, and at M=1 in the formats that
+    run only in phase 5: nf4 decode (every product and the lm_head, M=1)
+    and prefill (M=1975); the q4_0 prefill; the q4_j model's products at
+    M=128, 64 and 32 (server chunks in those buckets, and the 64-token
+    prompt of phase 4; each M picks its own tile height: 16, 64 or 128
+    rows) and at M=24 (the 24-token prompt of phase 5, a partial tile);
+    and fp4, fp8 e4m3/e5m2, int1 and bit-plane int3 asym (uint8
+    zero-points, not at rest) at M=1."""
+    k5 = lambda x, qt, odt: Q.qmm_general(x, qt, odt)
+    pl = lambda x, qt, odt: Q.qmm_general_plain(x, qt, odt)
+    cases = {}
+    for label, cfg, M, shapes, at_rest in (
+            ("nf4 decode step", PRESETS["nf4"], 1, PROJ + LM_HEAD, True),
+            ("nf4 1975-token prefill", PRESETS["nf4"], T_PREFILL, PROJ,
+             True),
+            ("q4_0 1975-token prefill", PRESETS["q4_0"], T_PREFILL, PROJ,
+             True),
+            ("q4_j server chunk", PRESETS["q4_j"], 128, PROJ, True),
+            ("q4_j 64-token prompt", PRESETS["q4_j"], 64, PROJ, True),
+            ("q4_j server chunk, 32 bucket", PRESETS["q4_j"], 32, PROJ,
+             True),
+            ("q4_j 24-token prompt", PRESETS["q4_j"], 24, PROJ, True),
+            ("fp4 decode step", PRESETS["fp4"], 1, PROJ + LM_HEAD, True),
+            ("fp8_e4m3 decode step", PRESETS["fp8"], 1, PROJ + LM_HEAD, True),
+            ("fp8_e5m2 decode step", PRESETS["fp8_e5m2"], 1, PROJ + LM_HEAD,
+             True),
+            ("int1 decode step", PRESETS["int1"], 1, PROJ + LM_HEAD, True),
+            ("int3 asym bit planes decode step",
+             QuantConfig(bits=3, group_size=32, sym=False), 1,
+             PROJ + LM_HEAD, False)):
+        cases[label] = _case(gen, label, cfg, M, shapes, k5, pl,
+                             "qmm_general", BF16_FLOPS, at_rest)
+        torch.cuda.empty_cache()
+    _record(results, "K5", cases)
+
+
+def check_k1_branches(gen, results):
+    """K1's other entry points at M=1 and 8, every decode product and the
+    lm_head: asym nibbles (q4_j_i8_g128), int2 and int8 codes (int5), sym
+    and asym."""
+    args = lambda qt: (qt.planes[0], qt.scales, qt.zeros, qt.group_size,
+                       qt.cfg.bits)
+    k1 = lambda x, qt, odt: Q.qmm_native(x, *args(qt), odt)
+    pl = lambda x, qt, odt: Q.qmm_native_plain(x, *args(qt), odt)
+    for key, entry, fmt in (("K1_asym", "qmm4_npack_asym", "q4_j_i8_g128"),
+                            ("K1_int2", "qmm2_npack", "int2"),
+                            ("K1_int2_asym", "qmm2_npack_asym", "int2_asym"),
+                            ("K1_int8", "qmm8_native", "int5"),
+                            ("K1_int8_asym", "qmm8_native_asym", "int5_asym")):
+        cfg = QUANTS.get(fmt) or PRESETS[fmt]
+        _record(results, key, {
+            f"{fmt} {what}": _case(gen, f"{fmt} {what}", cfg, M,
+                                   PROJ + LM_HEAD, k1, pl, entry, BF16_FLOPS)
+            for M, what in ((1, "decode step"), (8, "batch-8 step"))})
+        torch.cuda.empty_cache()
+
+
+def check_k2_asym(gen, results):
+    """K2 over asymmetric int4 (q4_j_i8_g128) at the 1975-token prefill.
+    Equal int8 codes, exact integer dots and the fold in the same order;
+    only the start ``-(xsa @ zwp)`` is summed in another order, which can
+    move the bf16 output by one rounding: 1e-2·max|ref|."""
+    k2 = lambda x, qt, odt: Q.qmm_a8(x, qt.planes[0], qt.scales,
+                                     qt.group_size, 128, odt, qt.zeros)
+    pl = lambda x, qt, odt: Q.qmm_a8_plain(x, qt.planes[0], qt.scales,
+                                           qt.group_size, 128, odt, qt.zeros)
+    label = "q4_j_i8_g128 1975-token prefill"
+    _record(results, "K2_asym", {label: _case(
+        gen, label, PRESETS["q4_j_i8_g128"], T_PREFILL, PROJ, k2, pl,
+        "qmm_a8_asym", INT8_OPS)})
 
 
 def _kv(gen, S, copies=1):
@@ -536,7 +666,9 @@ def check_k6(gen, results):
 # ---------------------------------------------------------------------------
 
 
-GEN_BF16 = ("qmm4_npack", "qmm_a8", "flash_prefill", "flash_decode")
+# the 64-token prompt prefills through K5, the 512-token one through K2
+GEN_BF16 = ("qmm4_npack", "qmm_a8", "qmm_general", "flash_prefill",
+            "flash_decode")
 GEN_INT8 = ("qmm4_npack", "qmm_a8", "flash_prefill_i8", "flash_decode_i8")
 
 
@@ -650,9 +782,97 @@ def phase_generation(params):
                 ttft_1975_int8kv_ms=ttft_i8)
 
 
+# the kernels each format's prefill (1975 tokens, last-row lm_head at M=1)
+# and decode (M=1) must launch, by the JAX package's route
+FORMAT_PATHS = {
+    "nf4": (("qmm_general", "flash_prefill"), ("qmm_general", "flash_decode")),
+    "q4_0": (("qmm_general", "qmm4_npack", "flash_prefill"),
+             ("qmm4_npack", "flash_decode")),
+    "q4_j_i8_g128": (("quantize_act_i8", "qmm_a8_asym", "qmm4_npack_asym",
+                      "flash_prefill"), ("qmm4_npack_asym", "flash_decode")),
+}
+
+
+def phase_formats():
+    """The same 7B shape at nf4, q4_0 and q4_j_i8_g128, one model at a time:
+    ``Model.generate`` (300-token prompt, 16 new tokens, greedy, bf16 KV),
+    the 1975-token TTFT and decode ms/token at fill 128, each a path of its
+    own with the launch counts set to 0 just before it."""
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(3, V, (300,), generator=gen).tolist()
+    res = {}
+    for fmt, (pre, dec) in FORMAT_PATHS.items():
+        t = time.time()
+        params = init_random(CFG, seed=0, quant=fmt, device=DEV)
+        torch.cuda.synchronize()
+        log(f"init_random Llama-2-7B {fmt} on the card: "
+            f"{time.time() - t:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f}"
+            " GiB allocated")
+        model = Model().init_params(params, CFG)
+        out = run_path(f"generate_{fmt}", sorted(set(pre + dec)),
+                       lambda: model.generate(prompt, max_new_tokens=16,
+                                              do_sample=False,
+                                              stop_at_eos=False)[0])
+        _check_ids(out[300:], 16, f"generate {fmt}")
+        ttft = run_path(f"prefill_{fmt}", pre, lambda: ttft_ms(params))
+        d128 = run_path(f"decode_{fmt}", dec, lambda: decode_ms(params, 128))
+        log(f"{fmt}: Model.generate new ids {out[300:]}; TTFT 1975-token "
+            f"prefill {ttft:.2f} ms; decode (slope n=4..36, batch 1, bf16 KV) "
+            f"fill 128 {d128:.3f} ms/token ({1e3 / d128:.1f} tok/s)")
+        res[f"{fmt}_ttft_1975_ms"] = ttft
+        res[f"{fmt}_decode_ms_fill128"] = d128
+        del model, params
+        torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the card against the plain path on the CPU
 # ---------------------------------------------------------------------------
+
+
+def _steps_card_vs_plain(card, host, cfg2, ids, feed, rel_tol):
+    """Logits of the prefill's last row and of one decode step per id of
+    ``feed``, on the card and on the CPU's plain path: within ``rel_tol``
+    of max|logit| at every step, and the argmax equal wherever the plain
+    top-2 margin exceeds twice that step's largest logit difference.
+    Returns (worst relative difference, steps so proven, argmax equal at
+    each step)."""
+    caches = [init_cache(cfg2, 1, len(ids) + len(feed) + 1, device=d)
+              for d in (DEV, "cpu")]
+    logits = [prefill_step(m, torch.tensor([ids], device=c.k.device),
+                           torch.zeros(1, dtype=torch.long,
+                                       device=c.k.device), c)
+              for m, c in zip((card, host), caches)]
+    worst, provable, sames = 0.0, 0, []
+    for step in range(len(feed) + 1):
+        a, b = logits[0][0, -1].float().cpu(), logits[1][0, -1].float()
+        err = (a - b).abs().max().item()
+        tol = rel_tol * b.abs().max().item()
+        worst = max(worst, err / b.abs().max().item())
+        top2 = b.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        same = int(a.argmax()) == int(b.argmax())
+        sames.append(same)
+        log(f"  step {step}: max |card - plain| {err:.4g}, max|logit| "
+            f"{b.abs().max().item():.4g}, plain top-2 margin {margin:.4g}, "
+            f"argmax equal {same}")
+        if not err <= tol:
+            raise AssertionError(f"card vs plain logits, step {step}: max "
+                                 f"err {err} > {tol}")
+        if margin > 2 * err:
+            provable += 1
+            if not same:
+                raise AssertionError(f"card vs plain argmax differs at step "
+                                     f"{step} despite margin {margin}")
+        if step == len(feed):
+            break
+        logits = [model_step(m, torch.tensor([[feed[step]]],
+                                             device=c.k.device),
+                             torch.tensor([len(ids) + step],
+                                          device=c.k.device), c)
+                  for m, c in zip((card, host), caches)]
+    return worst, provable, sames
 
 
 def phase_card_vs_plain():
@@ -666,49 +886,16 @@ def phase_card_vs_plain():
                              stop_at_eos=False)[len(ids):]
     g_host = greedy_generate(host, cfg2, ids, max_new_tokens=n_new + 1,
                              stop_at_eos=False)[len(ids):]
-    # logits of the prefill's last row and of n_new decode steps fed the
-    # card's ids, on both sides
-    # bf16 activations: last-bit differences (split-K order in K1, where K3
-    # rounds P, the card's rsqrt/exp) move int8 activation codes of the
-    # next K2 product by a step, and two layers amplify that; the tiny
-    # model shows 1.8e-2 between the JAX package and the port on the CPU
+    # bf16 activations: last-bit differences (split-K order in K1 and K5,
+    # where K3 rounds P, the card's rsqrt/exp) move int8 activation codes
+    # of the next K2 product by a step, and two layers amplify that; the
+    # tiny model shows 1.8e-2 between the JAX package and the port on the
+    # CPU
     rel_tol = 5e-2
-    caches = [init_cache(cfg2, 1, 320, device=d) for d in (DEV, "cpu")]
-    logits = [prefill_step(m, torch.tensor([ids], device=c.k.device),
-                           torch.zeros(1, dtype=torch.long,
-                                       device=c.k.device), c)
-              for m, c in zip((card, host), caches)]
-    worst, provable, agree = 0.0, 0, True
-    for step in range(n_new + 1):
-        a, b = logits[0][0, -1].float().cpu(), logits[1][0, -1].float()
-        err = (a - b).abs().max().item()
-        tol = rel_tol * b.abs().max().item()
-        worst = max(worst, err / b.abs().max().item())
-        top2 = b.topk(2).values
-        margin = (top2[0] - top2[1]).item()
-        # the argmax provably agrees where the plain top-2 margin exceeds
-        # twice this step's largest logit difference
-        same = int(a.argmax()) == int(b.argmax())
-        log(f"  step {step}: max |card - plain| {err:.4g}, max|logit| "
-            f"{b.abs().max().item():.4g}, plain top-2 margin {margin:.4g}, "
-            f"argmax equal {same}")
-        if not err <= tol:
-            raise AssertionError(f"card vs plain logits, step {step}: max "
-                                 f"err {err} > {tol}")
-        if margin > 2 * err:
-            provable += 1
-            if not same:
-                raise AssertionError(f"card vs plain argmax differs at step "
-                                     f"{step} despite margin {margin}")
-        agree = agree and same
-        if step == n_new:
-            break
-        tok = g_card[step]
-        logits = [model_step(m, torch.tensor([[tok]], device=c.k.device),
-                             torch.tensor([len(ids) + step],
-                                          device=c.k.device), c)
-                  for m, c in zip((card, host), caches)]
-        if agree and g_host[step] != tok:
+    worst, provable, sames = _steps_card_vs_plain(card, host, cfg2, ids,
+                                                  g_card[:n_new], rel_tol)
+    for step in range(n_new):
+        if all(sames[:step + 1]) and g_host[step] != g_card[step]:
             raise AssertionError(f"free-running greedy ids differ at step "
                                  f"{step} while every argmax so far agreed")
     log(f"card vs plain (2 layers, full width, 300-token prompt): logits "
@@ -718,7 +905,75 @@ def phase_card_vs_plain():
     if provable < 3:
         raise AssertionError("too few steps with a margin wide enough to "
                              "compare the argmax")
-    return worst, _sched_card_vs_plain(card, host, cfg2, rel_tol)
+    sched_worst = _sched_card_vs_plain(card, host, cfg2, rel_tol)
+    del card, host
+    return worst, sched_worst, _formats_card_vs_plain(cfg2)
+
+
+# asymmetric int2 and int5 (uint8 zero-points, group 32), what
+# ``quant_config_from_args("int2" | "int5", alg="asym")`` gives; no preset
+# holds them, and K1 has an entry point for each
+QUANTS = {
+    "int2_asym": QuantConfig(bits=2, group_size=32, sym=False, act_bits=8),
+    "int5_asym": QuantConfig(bits=5, group_size=32, sym=False, act_bits=8),
+}
+
+# the formats with no full-width path, and the kernels a card run of each
+# must launch: a 24-token prompt prefills through K5 (M=24 > 16), its
+# one-row lm_head and the decode steps through K1's branch for codes at
+# rest, through K5 for the stored layouts
+PLAIN_FORMATS = {
+    "fp4": ("qmm_general",), "fp8": ("qmm_general",),
+    "fp8_e5m2": ("qmm_general",), "int1": ("qmm_general",),
+    "int2": ("qmm_general", "qmm2_npack"),
+    "int2_asym": ("qmm_general", "qmm2_npack_asym"),
+    "int3": ("qmm_general", "qmm4_npack"),
+    "int5": ("qmm_general", "qmm8_native"),
+    "int5_asym": ("qmm_general", "qmm8_native_asym"),
+    "q8_0": ("qmm_general", "qmm8_native"),
+    "int8": ("qmm_general", "qmm8_native"),
+}
+
+
+def _formats_card_vs_plain(cfg2, rel_tol=2e-2):
+    """Each format of PLAIN_FORMATS: the 2-layer copy at full width runs
+    ``Model.generate`` on the card (a path of its own, with launch counts;
+    24-token prompt, 3 new tokens), then its logits, fed the card's ids,
+    are held against the plain path on the CPU. Every product here has
+    bf16 activations (24 rows are too few for the int8 path), so no int8
+    code moves; what differs is the order of f32 sums and the bf16
+    roundings between layers, one bf16 step (2^-8 relative) at a time.
+    The H100 showed 7e-3 to 9e-3·max|logit|; the tolerance is 2e-2, not
+    the q4_j check's 5e-2. The worst relative difference is printed per
+    format."""
+    gen = torch.Generator().manual_seed(8)
+    ids = torch.randint(3, V, (24,), generator=gen).tolist()
+    res, total = {}, 0
+    for i, (fmt, required) in enumerate(PLAIN_FORMATS.items()):
+        quant = QUANTS.get(fmt, fmt)
+        card = init_random(cfg2, seed=10 + i, quant=quant, device=DEV)
+        host = init_random(cfg2, seed=10 + i, quant=quant,
+                           device=DEV).to("cpu")
+        model = Model().init_params(card, cfg2)
+        new = run_path(f"card_{fmt}", required, lambda: model.generate(
+            ids, max_new_tokens=3, do_sample=False,
+            stop_at_eos=False)[0])[len(ids):]
+        _check_ids(new, 3, f"card {fmt}")
+        log(f"{fmt}: card vs plain, fed the card's ids {new}")
+        worst, provable, _ = _steps_card_vs_plain(card, host, cfg2, ids, new,
+                                                  rel_tol)
+        log(f"{fmt}: logits max err {worst:.3g}·max|logit| (tol {rel_tol}); "
+            f"argmax provably comparable at {provable} of 4 steps, equal at "
+            "all of them")
+        res[fmt] = worst
+        total += provable
+        del card, host, model
+        torch.cuda.empty_cache()
+    if total < len(PLAIN_FORMATS):
+        raise AssertionError(f"only {total} steps over {len(PLAIN_FORMATS)} "
+                             "formats had a margin wide enough to compare "
+                             "the argmax")
+    return res
 
 
 class _LogitsRecorder:
@@ -813,7 +1068,8 @@ def _sched_card_vs_plain(card, host, cfg2, rel_tol):
 # phase 6: the server at full width
 # ---------------------------------------------------------------------------
 
-SERVE_PAGED_I8 = ("qmm4_npack", "qmm_a8", "flash_prefill_i8",
+# prompt tails in the 32/64/128 buckets prefill through K5
+SERVE_PAGED_I8 = ("qmm4_npack", "qmm_a8", "qmm_general", "flash_prefill_i8",
                   "paged_decode_i8")
 
 
@@ -965,6 +1221,23 @@ KERNEL_META = {
            "neural_tpu/ops/paged_attention.py:31"),
     "K6_i8": ("paged_decode_i8", "neural_tpu_torch/csrc/paged_decode.cu",
               "neural_tpu/ops/paged_attention.py:31"),
+    "K5": ("qmm_general", "neural_tpu_torch/csrc/qmm_general.cu",
+           "neural_tpu/ops/qmatmul.py:485"),
+    "K1_asym": ("qmm4_npack_asym", "neural_tpu_torch/csrc/qmm4_npack.cu",
+                "neural_tpu/ops/qmatmul.py:619"),
+    "K1_int2": ("qmm2_npack", "neural_tpu_torch/csrc/qmm4_npack.cu",
+                "neural_tpu/ops/qmatmul.py:619"),
+    "K1_int2_asym": ("qmm2_npack_asym", "neural_tpu_torch/csrc/qmm4_npack.cu",
+                     "neural_tpu/ops/qmatmul.py:619"),
+    "K1_int8": ("qmm8_native", "neural_tpu_torch/csrc/qmm4_npack.cu",
+                "neural_tpu/ops/qmatmul.py:619"),
+    "K1_int8_asym": ("qmm8_native_asym",
+                     "neural_tpu_torch/csrc/qmm4_npack.cu",
+                     "neural_tpu/ops/qmatmul.py:619"),
+    "K2_asym": ("qmm_a8_asym", "neural_tpu_torch/csrc/qmm_a8.cu",
+                "neural_tpu/ops/qmatmul.py:161"),
+    "K2_act": ("quantize_act_i8", "neural_tpu_torch/csrc/qmm_a8.cu",
+               "neural_tpu/ops/qmatmul.py:161"),
 }
 
 
@@ -996,7 +1269,8 @@ def main():
 
     def kernels():
         for check in (check_k1, check_k2, check_k3, check_k4, check_k3_i8,
-                      check_k4_i8, check_k6):
+                      check_k4_i8, check_k6, check_k5, check_k1_branches,
+                      check_k2_asym):
             check(gen, results)
             torch.cuda.empty_cache()
     phase("3 kernels", kernels)
@@ -1006,7 +1280,9 @@ def main():
     log(f"init_random Llama-2-7B q4_j on the card: {time.time() - t:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     e2e = phase("4 generation", phase_generation, params)
-    worst, sched_worst = phase("5 card vs plain", phase_card_vs_plain)
+    e2e.update(phase("4b formats", phase_formats))
+    worst, sched_worst, formats_worst = phase("5 card vs plain",
+                                              phase_card_vs_plain)
     e2e.update(phase("6 server", phase_server, params))
     del params
     torch.cuda.empty_cache()
@@ -1022,14 +1298,12 @@ def main():
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "per": r["per"], "ok": True})
-    k1_more = {key: {k: results[key][k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "err")}
-        for key in ("K1_M8", "K1_M128")}
+            "library_ms": r["library_ms"], "per": r["per"], "ok": True,
+            **({"cases": r["cases"]} if "cases" in r else {})})
     log(json.dumps({"e2e": e2e, "copy_tb_s": bw / 1e12,
                     "card_vs_plain_rel_err": worst,
                     "sched_card_vs_plain_rel_err": sched_worst,
-                    "k1_more": k1_more,
+                    "formats_card_vs_plain_rel_err": formats_worst,
                     "phase_seconds": seconds,
                     "seconds": time.time() - t_start}))
     print(json.dumps({"kernels": kernels}))

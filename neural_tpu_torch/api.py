@@ -1,5 +1,6 @@
 """Top-level Model API (port of the single-row, greedy part of
-``neural_tpu/api.py``)."""
+``neural_tpu/api.py``; its ``quant_config_from_args`` lives in
+:mod:`neural_tpu_torch.core.dtypes`)."""
 from __future__ import annotations
 
 from typing import List, Optional, Union
@@ -7,7 +8,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from .core.dtypes import QuantConfig
+from .core.dtypes import QuantConfig, quant_config_from_args
 from .models.config import ModelConfig
 from .models.transformer import Transformer
 from .runtime.sampling import SamplingParams
@@ -35,14 +36,23 @@ class Model:
 
     def init_from_hf_model(self, model,
                            weight_dtype: Union[str, QuantConfig, None] = "q4_0",
-                           dtype: str = "bfloat16", device=None):
-        """In-memory HF torch model → ready Model. Weights are quantized on
-        ``device`` (the card unless ``device="cpu"``)."""
+                           dtype: str = "bfloat16", device=None,
+                           alg: str = "sym", group_size: int = 32,
+                           scale_dtype: str = "fp32",
+                           compute_dtype: str = "int8",
+                           use_ggml: bool = False):
+        """In-memory HF torch model → ready Model. ``weight_dtype`` and the
+        reference-style knobs are those of the JAX ``Model.init``
+        (:func:`quant_config_from_args`); None keeps bf16 projections.
+        Weights are quantized on ``device`` (the card unless
+        ``device="cpu"``)."""
         from .convert.hf import from_hf_model
         if dtype != "bfloat16":
             raise NotImplementedError("only bf16 activations are ported")
-        self.params, self.cfg = from_hf_model(model, weight_dtype,
-                                              torch.bfloat16, device)
+        qcfg = quant_config_from_args(weight_dtype, alg, group_size,
+                                      scale_dtype, compute_dtype, use_ggml)
+        self.params, self.cfg = from_hf_model(model, qcfg, torch.bfloat16,
+                                              device)
         return self
 
     def init_params(self, params: Transformer, cfg: ModelConfig):

@@ -4,13 +4,18 @@ The tree is the JAX package's param pytree with every array turned into
 numpy, so that no JAX import is needed here:
 
 - a bf16 array arrives as its ``uint16`` bit pattern (numpy has no bf16);
-  every other dtype arrives as itself;
+  the int8 code planes of 5-8 bit weights and float zero-points (f32, or
+  bf16 bits) arrive as themselves, as do the other integer and f32 arrays;
 - a QTensor arrives as a dict ``{"planes": [...], "scales": ...,
   "zeros": ... | None, "perm": ... | None, "cfg": {QuantConfig fields}}``;
+  an fp8 plane (an ml_dtypes float8 array on the JAX side, which torch
+  cannot read) arrives as its ``uint8`` bit pattern, and the cfg's kind
+  says which fp8 it is;
 - ``layers`` is a list of per-layer dicts (the JAX at-rest tuple layout) or
   one dict of arrays stacked along a leading L axis.
 
-QTensors not yet in the native-pack layout are converted on the way in.
+QTensors not yet at rest are converted on the way in
+(``runtime.generate.params_to_native``).
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.dtypes import QuantConfig
-from ..core.qtensor import QTensor
+from ..core.qtensor import FP8_DTYPES, QTensor
 from ..models.config import ModelConfig
 from ..models.transformer import Transformer
 from ..runtime.generate import params_to_native
@@ -37,18 +42,24 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Inverse of :func:`tensor_from_numpy` (bf16 → ``uint16`` bits)."""
+    """Inverse of :func:`tensor_from_numpy` (bf16 → ``uint16`` bits, fp8 →
+    ``uint8`` bits)."""
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
+    if t.dtype in FP8_DTYPES.values():
+        return t.view(torch.uint8).numpy()
     return t.numpy()
 
 
 def qtensor_from_numpy(d: Dict[str, Any], device) -> QTensor:
     opt = lambda a: None if a is None else tensor_from_numpy(a, device)
-    return QTensor(tuple(tensor_from_numpy(p, device) for p in d["planes"]),
-                   tensor_from_numpy(d["scales"], device), opt(d["zeros"]),
-                   opt(d["perm"]), QuantConfig(**d["cfg"]))
+    cfg = QuantConfig(**d["cfg"])
+    planes = tuple(tensor_from_numpy(p, device) for p in d["planes"])
+    if cfg.kind in FP8_DTYPES:
+        planes = tuple(p.view(FP8_DTYPES[cfg.kind]) for p in planes)
+    return QTensor(planes, tensor_from_numpy(d["scales"], device),
+                   opt(d["zeros"]), opt(d["perm"]), cfg)
 
 
 def _leaf(a, device):

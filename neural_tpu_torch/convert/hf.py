@@ -1,11 +1,13 @@
 """HF model / random weights → the port's decoder (port of the Llama part
 of ``neural_tpu/convert/hf.py``).
 
-Every quantized tensor is converted once, here, to the at-rest native-pack
-layout (``core.qtensor.to_native_packed``) that the kernels read; the port
-keeps no second layout. Dtypes follow the JAX package's ``build_params``:
-layer norms in the model dtype, ``final_norm_w`` in f32, the embedding in
-the model dtype, the RoPE table in f32.
+Every quantized tensor is converted once, here, to the at-rest layout
+(``runtime.generate.params_to_native``) that the kernels read; the port
+keeps no second layout. A ``quant`` of None keeps the projections in bf16
+(and the FFN unpadded, as the JAX package does). Dtypes follow the JAX
+package's ``build_params``: layer norms in the model dtype,
+``final_norm_w`` in f32, the embedding in the model dtype, the RoPE table
+in f32.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Any, Dict, Union
 import torch
 
 from ..core.device import resolve_device
-from ..core.dtypes import PRESETS, QuantConfig
+from ..core.dtypes import QuantConfig, quant_config_from_args
 from ..core.qtensor import quantize
 from ..models import llama as llama_mod
 from ..models.config import ModelConfig
@@ -23,15 +25,6 @@ from ..ops.rope import rope_freqs
 from ..runtime.generate import params_to_native
 
 ARCH_MODULES = {"llama": llama_mod, "mistral": llama_mod}
-
-
-def resolve_quant(quant: Union[str, QuantConfig]) -> QuantConfig:
-    """Preset name or QuantConfig → QuantConfig. Unquantized (bf16)
-    projections are a later slice."""
-    if quant is None:
-        raise NotImplementedError("bf16 (unquantized) projections are a "
-                                  "later slice; pass a quant preset")
-    return quant if isinstance(quant, QuantConfig) else PRESETS[quant]
 
 
 def ffn_padded_size(I: int, tile: int = 1024, max_overhead: float = 0.05):
@@ -77,9 +70,11 @@ def build_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig, mod=llama_mod,
     """Assemble the decoder from an f32 HF-named state dict. Weights are
     moved to ``device`` before they are quantized, one at a time."""
     dev = resolve_device(device)
-    qcfg = resolve_quant(quant)
+    qcfg = quant_config_from_args(quant)
     qnames = set(mod.QUANT_TENSORS)
-    Ip = ffn_padded_size(cfg.intermediate_size)
+    # as in the JAX package, only a quantized FFN is padded
+    Ip = cfg.intermediate_size if qcfg is None else \
+        ffn_padded_size(cfg.intermediate_size)
 
     def get(hf_name, transpose):
         w = sd[hf_name].to(device=dev, dtype=torch.float32)
@@ -91,14 +86,15 @@ def build_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig, mod=llama_mod,
         for name, (hf_name, tr) in mod.hf_layer_map(i, cfg).items():
             w = get(hf_name, tr)
             if w.ndim == 2 and name in qnames:
-                lp[name] = quantize(_pad_ffn(name, w, cfg, Ip), qcfg)
+                w = _pad_ffn(name, w, cfg, Ip)
+                lp[name] = w.to(dtype) if qcfg is None else quantize(w, qcfg)
             else:
                 lp[name] = w.to(dtype)
         layers.append(lp)
     params: Dict[str, Any] = {"layers": layers}
     for name, (hf_name, tr) in mod.hf_top_map(cfg).items():
         w = get(hf_name, tr)
-        if name == "lm_head" and name in qnames:
+        if name == "lm_head" and name in qnames and qcfg is not None:
             params[name] = quantize(w, qcfg)
         elif name == "embed":
             params[name] = w.to(dtype)
@@ -136,14 +132,17 @@ def init_random(cfg: ModelConfig, seed: int = 0,
     builds the whole f32 state dict on the host instead; the two draw
     different numbers.)"""
     dev = resolve_device(device)
-    qcfg = resolve_quant(quant)
+    qcfg = quant_config_from_args(quant)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    Ip = ffn_padded_size(cfg.intermediate_size)
+    Ip = cfg.intermediate_size if qcfg is None else \
+        ffn_padded_size(cfg.intermediate_size)
 
     def weight(K, N):
         w = torch.randn((K, N), generator=gen, device=dev,
                         dtype=torch.float32) * 0.02
+        if qcfg is None:
+            return w.to(dtype)
         return params_to_native(quantize(w, qcfg))
 
     layers = []

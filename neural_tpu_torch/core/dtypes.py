@@ -8,10 +8,32 @@ quantized by either package describes itself the same way.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import torch
 
-# the JAX package's kinds; this port quantizes and multiplies "int" only
+# "int": 1-8 bit integers, optional asymmetric zero-point; "nf4"/"fp4": 4-bit
+# indices into a 16-entry table; "fp8_e4m3"/"fp8_e5m2": 8-bit floats
 KINDS = ("int", "nf4", "fp4", "fp8_e4m3", "fp8_e5m2")
+
+# NF4 lookup table (16 entries), the standard QLoRA codebook
+NF4_LUT = torch.tensor(
+    [
+        -1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+        -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+        0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+        0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+        0.7229568362236023, 1.0,
+    ],
+    dtype=torch.float32,
+)
+
+# FP4 E2M1 lookup table: sign x {0, .5, 1, 1.5, 2, 3, 4, 6} / 6, with a -0.0
+# entry; the f32 quotient of a tensor division, as numpy computes it
+_FP4 = torch.tensor([0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0,
+                     -0.0, -0.5, -1.0, -1.5, -2.0, -3.0, -4.0, -6.0],
+                    dtype=torch.float32)
+FP4_LUT = _FP4 / torch.full_like(_FP4, 6.0)
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
@@ -54,6 +76,14 @@ class QuantConfig:
             raise ValueError("act_bits must be 8 (dynamic int8) or 16 (bf16)")
 
     @property
+    def lut(self) -> Optional[torch.Tensor]:
+        if self.kind == "nf4":
+            return NF4_LUT
+        if self.kind == "fp4":
+            return FP4_LUT
+        return None
+
+    @property
     def scale_torch(self) -> torch.dtype:
         return torch.float32 if self.scale_dtype == "f32" else torch.bfloat16
 
@@ -88,6 +118,51 @@ PRESETS = {
     "fp8": QuantConfig(kind="fp8_e4m3", group_size=128),
     "fp8_e5m2": QuantConfig(kind="fp8_e5m2", group_size=128),
 }
+
+
+# the JAX package's mixed presets (``convert/quant_registry.py``), which
+# this port does not carry yet
+MIXED_PRESETS = ("mix_int2_int4", "mix_i2_ffn")
+
+
+def quant_config_from_args(weight_dtype="int4", alg="sym", group_size=32,
+                           scale_dtype="fp32", compute_dtype="int8",
+                           use_ggml=False) -> Optional[QuantConfig]:
+    """Reference-style quant knobs → QuantConfig, the JAX package's rule
+    (``neural_tpu/api.py``).
+
+    ``weight_dtype``: int1..int8 / nf4 / fp4 / fp8 / fp8_e5m2, a preset
+    name or a QuantConfig (passed through), or None (bf16 projections).
+    ``compute_dtype="int8"`` enables the dynamic int8-activation path for
+    prefill; "bf16"/"fp16"/"fp32" keep bf16 activations. ``use_ggml`` maps
+    to q4_0/q4_1 (sym/asym, group 32). The mixed presets raise until
+    ``quant_registry`` is ported."""
+    if weight_dtype is None or isinstance(weight_dtype, QuantConfig):
+        return weight_dtype
+    if weight_dtype in MIXED_PRESETS:
+        raise NotImplementedError(
+            f"weight_dtype={weight_dtype!r}: mixed presets (quant_registry) "
+            "are a later slice")
+    if weight_dtype in PRESETS:
+        return PRESETS[weight_dtype]
+    sym = alg == "sym"
+    if use_ggml:
+        return PRESETS["q4_0" if sym else "q4_1"]
+    act_bits = 8 if compute_dtype == "int8" else 16
+    sd = "f32" if scale_dtype in ("fp32", "f32") else "bf16"
+    if weight_dtype.startswith("int"):
+        return QuantConfig(bits=int(weight_dtype[3:]), group_size=group_size,
+                           sym=sym, act_bits=act_bits, scale_dtype=sd)
+    if weight_dtype in ("nf4", "fp4"):
+        return QuantConfig(kind=weight_dtype, group_size=group_size,
+                           scale_dtype=sd)
+    if weight_dtype in ("fp8", "fp8_e4m3"):
+        return QuantConfig(kind="fp8_e4m3", group_size=group_size,
+                           scale_dtype=sd)
+    if weight_dtype == "fp8_e5m2":
+        return QuantConfig(kind="fp8_e5m2", group_size=group_size,
+                           scale_dtype=sd)
+    raise ValueError(f"unknown weight_dtype {weight_dtype!r}")
 
 
 def bit_planes(bits: int) -> tuple[int, ...]:

@@ -6,13 +6,23 @@ A weight ``W`` of shape ``[K, N]`` (so the product is ``x @ W``) is stored as
 - unsigned codes bit-plane packed along K, chunk-locally: one uint8 array per
   plane of 4, 2 or 1 bits (8-bit weights use one full-byte plane). Within
   each run of ``chunk`` K-values, sub-chunk ``c`` sits at bit offset ``p*c``;
+  nf4/fp4 store 4-bit table indices the same way; fp8 kinds store the values
+  themselves as one ``torch.float8_e4m3fn`` or ``torch.float8_e5m2`` plane;
 - per-group scales ``[K // group_size, N]``;
-- optional per-group uint8 zero-points (asymmetric);
+- optional per-group zero-points (asymmetric): uint8, or float (GGUF Q4_1
+  style, and the shifted bf16 zero-points of the at-rest layouts);
 - an optional K-permutation ``perm`` (GPTQ act-order).
 
-:func:`to_native_packed` turns a 2-4 bit tensor into the at-rest layout the
-port's kernels read: one uint8 plane ``[K/2, N]`` of centered int4 nibbles
-and bf16 scales. Every entry point of the port converts once at load.
+The at-rest layouts the port's kernels read, made once at load by
+:func:`to_native` (``runtime.generate.params_to_native``):
+
+- 2-4 bit int → native-pack (:func:`to_native_packed`): one uint8 plane of
+  centered two's-complement fields, two nibbles a byte (four 2-bit fields a
+  byte for int2), LSB first;
+- 5-8 bit int → one ``torch.int8`` plane ``[K, N]`` of centered codes;
+
+both with bf16 scales and zero-points shifted like the codes. 1-bit,
+nf4/fp4 and fp8 weights stay in their stored layout with their scales.
 
 All pack/unpack arithmetic is integer shift/mask on torch tensors, so it
 runs on whatever device holds the weights.
@@ -25,6 +35,9 @@ from typing import Optional, Tuple
 import torch
 
 from .dtypes import QuantConfig, bit_planes
+
+FP8_DTYPES = {"fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
+FP8_MAX = {"fp8_e4m3": 448.0, "fp8_e5m2": 57344.0}
 
 
 def pack_plane(vals: torch.Tensor, p: int, chunk: int) -> torch.Tensor:
@@ -105,7 +118,7 @@ def pack_chunk(cfg: QuantConfig, K: int) -> int:
 class QTensor:
     """A quantized ``[K, N]`` weight: tensors plus a static config."""
 
-    planes: Tuple[torch.Tensor, ...]   # packed code planes
+    planes: Tuple[torch.Tensor, ...]   # packed code planes (or fp8 data)
     scales: torch.Tensor               # [G, N]
     zeros: Optional[torch.Tensor]      # [G, N], asym only
     perm: Optional[torch.Tensor]       # [K] act-order permutation or None
@@ -114,10 +127,11 @@ class QTensor:
     @property
     def K(self) -> int:
         rows = self.planes[0].shape[-2]
+        if self.cfg.kind.startswith("fp8") or \
+                self.planes[0].dtype == torch.int8:
+            return rows
         if self.cfg.native_pack:
             return rows * npack_codes_per_byte(self.cfg.bits)
-        if self.cfg.kind.startswith("fp8"):
-            return rows
         p0 = bit_planes(self.cfg.bits)[0]
         return rows * (8 // p0) if p0 != 8 else rows
 
@@ -134,17 +148,76 @@ class QTensor:
         g = self.cfg.group_size
         return self.K if g == -1 else g
 
+    def nbytes(self) -> int:
+        """Bytes of planes and scales, plus one per zero-point — the JAX
+        package's count, which takes every zero-point as one byte."""
+        tot = sum(p.numel() * p.element_size() for p in self.planes)
+        tot += self.scales.numel() * self.scales.element_size()
+        if self.zeros is not None:
+            tot += self.zeros.numel()
+        return tot
+
+
+def _div(a: torch.Tensor, d: float) -> torch.Tensor:
+    """``a / d`` as the IEEE quotient: PyTorch's CUDA division by a Python
+    scalar multiplies by the reciprocal, so the divisor is a tensor."""
+    return a / torch.full_like(a, d)
+
+
+def _xla_sum(a: torch.Tensor) -> torch.Tensor:
+    """``a.sum(dim=1)`` of [G, g, N] in the order XLA's CPU reduction takes
+    (measured against jax 0.9 for g a multiple of 32), so that the 1-bit
+    scales are the JAX package's bit for bit: rows are added in order
+    within runs of 32, and the run sums the same way, level by level."""
+    while a.shape[1] > 1:
+        runs = []
+        for r0 in range(0, a.shape[1], 32):
+            run = a[:, r0]
+            for i in range(r0 + 1, min(r0 + 32, a.shape[1])):
+                run = run + a[:, i]
+            runs.append(run)
+        a = torch.stack(runs, dim=1)
+    return a[:, 0]
+
+
+_LUTS = {}
+
+
+def lut_on(cfg: QuantConfig, device) -> torch.Tensor:
+    """The nf4/fp4 table of ``cfg`` on ``device``, copied there once: a copy
+    from the host cannot run inside a CUDA graph capture."""
+    key = (cfg.kind, torch.device(device))
+    if key not in _LUTS:
+        _LUTS[key] = cfg.lut.to(device)
+    return _LUTS[key]
+
+
+# nf4/fp4 find each weight's nearest table entry through a [G, g, n, 16]
+# distance tensor; N is cut into slices whose tensor stays near this size
+_LUT_SLICE_BYTES = 1 << 28
+
+
+def _lut_codes(wg: torch.Tensor, absmax: torch.Tensor,
+               lut: torch.Tensor) -> torch.Tensor:
+    """Index of the nearest LUT entry of ``wg / absmax`` (first one on a
+    tie, as ``jnp.argmin``), uint8 [G, g, N]; per element, so slicing N
+    changes nothing."""
+    G, g, N = wg.shape
+    step = max(1, _LUT_SLICE_BYTES // (G * g * 16 * 4))
+    out = []
+    for n0 in range(0, N, step):
+        normed = wg[:, :, n0:n0 + step] / absmax[:, None, n0:n0 + step]
+        d = (normed[..., None] - lut).abs()
+        out.append(torch.argmin(d, dim=-1).to(torch.uint8))
+    return torch.cat(out, dim=2)
+
 
 def quantize(w: torch.Tensor, cfg: QuantConfig) -> QTensor:
     """Round-to-nearest quantization of ``w`` [K, N] → :class:`QTensor`,
-    per K-group, symmetric or asymmetric, 2-8 bit int. ``torch.round``
-    rounds half to even, as ``jnp.round`` does, and the scale arithmetic is
-    the JAX package's op for op, so the codes agree bit for bit."""
-    if cfg.kind != "int" or cfg.bits < 2:
-        raise NotImplementedError(
-            f"quantize({cfg.short_name()}): only 2-8 bit int kinds are "
-            "ported; 1-bit, nf4/fp4 and fp8 come with the general dequant "
-            "kernel in a later slice")
+    per K-group: 1-8 bit int (sym or asym), nf4/fp4 and fp8. ``torch.round``
+    rounds half to even, as ``jnp.round`` does, and the arithmetic is the
+    JAX package's op for op, so planes, scales and zero-points agree bit
+    for bit."""
     w = w.to(torch.float32)
     K, N = w.shape
     g = K if cfg.group_size == -1 else cfg.group_size
@@ -156,29 +229,65 @@ def quantize(w: torch.Tensor, cfg: QuantConfig) -> QTensor:
         raise ValueError(f"K={K} not divisible by group_size={g}")
     wg = w.reshape(K // g, g, N)
     eps = 1e-9
-    # tensor divisors throughout: PyTorch's CUDA division by a Python scalar
-    # multiplies by the reciprocal, which is not the IEEE quotient
-    div = lambda a, d: a / torch.full_like(a, d)
-    b = cfg.bits
-    if cfg.sym:
-        half = 1 << (b - 1)
-        absmax = wg.abs().amax(dim=1)
-        scales = div(absmax, half) + eps
-        q = torch.clamp(torch.round(wg / scales[:, None, :]), -half, half - 1)
-        codes = (q + half).to(torch.uint8).reshape(K, N)
+
+    if cfg.kind == "int":
+        b = cfg.bits
         zeros = None
-    else:
-        maxq = (1 << b) - 1
-        wmin = torch.clamp(wg.amin(dim=1), max=0.0)
-        wmax = torch.clamp(wg.amax(dim=1), min=0.0)
-        scales = div(wmax - wmin, maxq) + eps
-        zp = torch.clamp(torch.round(-wmin / scales), 0, maxq)
-        q = torch.clamp(torch.round(wg / scales[:, None, :]) + zp[:, None, :],
-                        0, maxq)
-        codes = q.to(torch.uint8).reshape(K, N)
-        zeros = zp.to(torch.uint8)
-    planes = pack_codes(codes, b, pack_chunk(cfg, K))
-    return QTensor(planes, scales.to(cfg.scale_torch), zeros, None, cfg)
+        if b == 1:
+            # codes {0, 1} → {-1, +1} · scale, scale = mean |w| per group
+            # (the sum times the f32 reciprocal of g, as jnp.mean)
+            one = torch.ones((), device=w.device)
+            scales = _xla_sum(wg.abs()) * (one / (one * g)) + eps
+            codes = (wg >= 0).to(torch.uint8).reshape(K, N)
+        elif cfg.sym:
+            half = 1 << (b - 1)
+            absmax = wg.abs().amax(dim=1)
+            scales = _div(absmax, half) + eps
+            q = torch.clamp(torch.round(wg / scales[:, None, :]), -half,
+                            half - 1)
+            codes = (q + half).to(torch.uint8).reshape(K, N)
+        else:
+            maxq = (1 << b) - 1
+            wmin = torch.clamp(wg.amin(dim=1), max=0.0)
+            wmax = torch.clamp(wg.amax(dim=1), min=0.0)
+            scales = _div(wmax - wmin, maxq) + eps
+            zp = torch.clamp(torch.round(-wmin / scales), 0, maxq)
+            q = torch.clamp(torch.round(wg / scales[:, None, :])
+                            + zp[:, None, :], 0, maxq)
+            codes = q.to(torch.uint8).reshape(K, N)
+            zeros = zp.to(torch.uint8)
+        planes = pack_codes(codes, b, pack_chunk(cfg, K))
+        return QTensor(planes, scales.to(cfg.scale_torch), zeros, None, cfg)
+
+    if cfg.kind in ("nf4", "fp4"):
+        absmax = wg.abs().amax(dim=1) + eps
+        codes = _lut_codes(wg, absmax, lut_on(cfg, w.device)).reshape(K, N)
+        planes = pack_codes(codes, 4, pack_chunk(cfg, K))
+        return QTensor(planes, absmax.to(cfg.scale_torch), None, None, cfg)
+
+    if cfg.kind in FP8_DTYPES:
+        absmax = wg.abs().amax(dim=1) + eps
+        scales = _div(absmax, FP8_MAX[cfg.kind])
+        data = (wg / scales[:, None, :]).reshape(K, N) \
+            .to(FP8_DTYPES[cfg.kind])
+        return QTensor((data,), scales.to(cfg.scale_torch), None, None, cfg)
+
+    raise ValueError(cfg.kind)
+
+
+def centered_codes(qt: QTensor) -> torch.Tensor:
+    """Unsigned codes → signed values int8 [K, N]: code - 2^(b-1) for sym
+    int, 2·code - 1 for 1-bit; asym codes stay biased by their zero-point
+    (:func:`dequantize` subtracts it)."""
+    if qt.cfg.kind != "int":
+        raise ValueError(f"centered_codes of a {qt.cfg.kind} tensor")
+    codes = unpack_codes(qt.planes, qt.cfg.bits, pack_chunk(qt.cfg, qt.K))
+    b = qt.cfg.bits
+    if b == 1:
+        return codes.to(torch.int8) * 2 - 1
+    if qt.cfg.sym:
+        return codes.to(torch.int8) - (1 << (b - 1))
+    return codes.to(torch.int8)
 
 
 def native_fields(packed: torch.Tensor, bits: int) -> torch.Tensor:
@@ -193,27 +302,43 @@ def native_fields(packed: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.stack(fields, dim=1).reshape(rows * len(fields), N)
 
 
+def is_native(qt: QTensor) -> bool:
+    """At rest for the decode kernel (K1): int8 code planes or native-pack."""
+    return qt.planes[0].dtype == torch.int8 or qt.cfg.native_pack
+
+
 def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     """Full-precision reconstruction [K, N], the oracle of every kernel."""
     cfg = qt.cfg
-    if cfg.kind != "int" or cfg.bits < 2:
-        raise NotImplementedError(
-            f"dequantize({cfg.short_name()}): only 2-8 bit int kinds are "
-            "ported")
     K, N = qt.shape
     g = qt.group_size
-    if cfg.native_pack:
-        codes = native_fields(qt.planes[0], cfg.bits)
-        if cfg.sym:
-            codes = codes + (1 << (cfg.bits - 1))
+    scales = torch.repeat_interleave(qt.scales.to(torch.float32), g, dim=0)
+    if cfg.kind == "int":
+        if qt.planes[0].dtype == torch.int8:
+            codes = qt.planes[0].to(torch.int32)
+            if cfg.sym:
+                codes = codes + (1 << (cfg.bits - 1))   # back to unsigned
+        elif cfg.native_pack:
+            codes = native_fields(qt.planes[0], cfg.bits)
+            if cfg.sym:
+                codes = codes + (1 << (cfg.bits - 1))
+        else:
+            codes = unpack_codes(qt.planes, cfg.bits, pack_chunk(cfg, K))
+        if cfg.bits == 1:
+            vals = codes.to(torch.float32) * 2.0 - 1.0
+        elif cfg.sym:
+            vals = codes.to(torch.float32) - (1 << (cfg.bits - 1))
+        else:
+            zp = torch.repeat_interleave(qt.zeros.to(torch.float32), g, dim=0)
+            vals = codes.to(torch.float32) - zp
+        w = vals * scales
+    elif cfg.kind in ("nf4", "fp4"):
+        codes = unpack_codes(qt.planes, 4, pack_chunk(cfg, K))
+        w = lut_on(cfg, codes.device)[codes.long()] * scales
+    elif cfg.kind in FP8_DTYPES:
+        w = qt.planes[0].to(torch.float32) * scales
     else:
-        codes = unpack_codes(qt.planes, cfg.bits, pack_chunk(cfg, K))
-    if cfg.sym:
-        vals = codes.to(torch.float32) - (1 << (cfg.bits - 1))
-    else:
-        zp = torch.repeat_interleave(qt.zeros.to(torch.float32), g, dim=0)
-        vals = codes.to(torch.float32) - zp
-    w = vals * torch.repeat_interleave(qt.scales.to(torch.float32), g, dim=0)
+        raise ValueError(cfg.kind)
     if qt.perm is not None:
         # stored rows are in act-order; undo it
         w = w[torch.argsort(qt.perm)]
@@ -241,11 +366,35 @@ def to_native_packed(qt: QTensor) -> QTensor:
     else:
         nib = (codes - shift) & 0xF
         plane = nib[0::2] | (nib[1::2] << 4)
-    zeros = qt.zeros
-    if zeros is not None:
-        zeros = (zeros.to(torch.float32) - shift).to(torch.bfloat16)
     return QTensor((plane.to(torch.uint8),), qt.scales.to(torch.bfloat16),
-                   zeros, qt.perm, dataclasses.replace(cfg, native_pack=True))
+                   _shift_zeros(qt.zeros, shift), qt.perm,
+                   dataclasses.replace(cfg, native_pack=True))
+
+
+def _shift_zeros(zeros: Optional[torch.Tensor], shift: int):
+    """Zero-points (uint8 or float) moved by the codes' shift, as bf16."""
+    if zeros is None:
+        return None
+    return (zeros.to(torch.float32) - shift).to(torch.bfloat16)
+
+
+def to_native(qt: QTensor) -> QTensor:
+    """The at-rest layout of an int QTensor: native-pack for 2-4 bit
+    (:func:`to_native_packed`; the JAX package's ``jnp.int4`` planes hold
+    the same centered values, and torch has no int4), and for 5-8 bit one
+    int8 plane of centered codes ``code - 2^(bits-1)`` with bf16 scales and
+    zero-points shifted by the same amount, so (c-S) - (z-S) = c - z.
+    1-bit, nf4/fp4, fp8 and already-converted tensors pass through."""
+    cfg = qt.cfg
+    if cfg.kind != "int" or cfg.bits < 2 or is_native(qt):
+        return qt
+    if cfg.bits <= 4:
+        return to_native_packed(qt)
+    shift = 1 << (cfg.bits - 1)
+    codes = unpack_codes(qt.planes, cfg.bits, pack_chunk(cfg, qt.K))
+    return QTensor(((codes - shift).to(torch.int8),),
+                   qt.scales.to(torch.bfloat16), _shift_zeros(qt.zeros, shift),
+                   qt.perm, cfg)
 
 
 def matmul_ref(x: torch.Tensor, qt: QTensor, dtype=None) -> torch.Tensor:

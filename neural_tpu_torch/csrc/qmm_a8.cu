@@ -13,6 +13,12 @@
 //      (mma.sync m16n8k32 s8), then acc += d * (sa[m, g] * sw[g, n]) in f32,
 //      rounded op by op (__fmul_rn/__fadd_rn, no contraction) in group
 //      order, exactly as the plain version computes it.
+//      qmm_a8_asym: asymmetric weights (centered nibbles, bf16 zero-points
+//      shifted like them). The dots run over the centered codes and the
+//      zero-points fold into the accumulator's start, as in the TPU kernel:
+//      acc = -(xsa @ zwp), with xsa = sa * rowsum_gd(x_i8) [M, K/gd] and
+//      zwp = z * sw [K/gd, N] in f32 from the wrapper. The kernel computes
+//      that rank-K/gd product itself, in group order, before the K loop.
 //
 // What bounds it on the H100: the operations. At the 7B prefill shapes
 // (M=1975) each weight byte is reused by ~2000 rows, far above the card's
@@ -78,11 +84,14 @@ __device__ __forceinline__ uint32_t nib8(uint32_t byte, int hi) {
   return (uint32_t)(uint8_t)(int8_t)((int)(n ^ 8u) - 8);
 }
 
+template <bool ASYM>
 __global__ void __launch_bounds__(256)
 qmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sa,
               const uint8_t* __restrict__ planes,
-              const __nv_bfloat16* __restrict__ scales, void* out, int M,
-              int K, int N, int gd, int group, int out_f32) {
+              const __nv_bfloat16* __restrict__ scales,
+              const float* __restrict__ zwp, const float* __restrict__ xsa,
+              void* out, int M, int K, int N, int gd, int group,
+              int out_f32) {
   __shared__ __align__(16) int8_t As[BM * LDS];   // [m][k]
   __shared__ __align__(16) int8_t Bs[BN * LDS];   // [n][k]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -102,6 +111,26 @@ qmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sa,
         accf[i][j][r] = 0.f;
         acci[i][j][r] = 0;
       }
+  if constexpr (ASYM) {   // acc = -(xsa @ zwp) for this thread's elements
+    for (int ga = 0; ga < Ga; ++ga) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int ra = m_base + wm * 32 + mt * 16 + g, rb = ra + 8;
+        const float xa = ra < M ? xsa[(size_t)ra * Ga + ga] : 0.f;
+        const float xb = rb < M ? xsa[(size_t)rb * Ga + ga] : 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int c0 = n_base + wn * 32 + nt * 8 + t * 2;
+          const float z0 = zwp[(size_t)ga * N + c0];
+          const float z1 = zwp[(size_t)ga * N + c0 + 1];
+          accf[mt][nt][0] -= xa * z0;
+          accf[mt][nt][1] -= xa * z1;
+          accf[mt][nt][2] -= xb * z0;
+          accf[mt][nt][3] -= xb * z1;
+        }
+      }
+    }
+  }
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     // A: 64 rows x 128 int8, 16-byte loads, rows past M are zero
@@ -211,6 +240,22 @@ qmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sa,
   }
 }
 
+template <bool ASYM>
+int launch(const void* xq, const void* sa, const void* planes,
+           const void* scales, const void* zwp, const void* xsa, void* out,
+           int M, int K, int N, int gd, int group, int out_f32,
+           void* stream) {
+  const dim3 grid(N / BN, (M + BM - 1) / BM);
+  qmm_a8_kernel<ASYM><<<grid, 256, 0,
+                        reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const int8_t*>(xq), reinterpret_cast<const float*>(sa),
+      reinterpret_cast<const uint8_t*>(planes),
+      reinterpret_cast<const __nv_bfloat16*>(scales),
+      reinterpret_cast<const float*>(zwp), reinterpret_cast<const float*>(xsa),
+      out, M, K, N, gd, group, out_f32);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int quantize_act_i8(const void* x, int x_f32, void* xq, void* sa,
@@ -228,11 +273,15 @@ extern "C" int quantize_act_i8(const void* x, int x_f32, void* xq, void* sa,
 extern "C" int qmm_a8(const void* xq, const void* sa, const void* planes,
                       const void* scales, void* out, int M, int K, int N,
                       int gd, int group, int out_f32, void* stream) {
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-  qmm_a8_kernel<<<grid, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const int8_t*>(xq), reinterpret_cast<const float*>(sa),
-      reinterpret_cast<const uint8_t*>(planes),
-      reinterpret_cast<const __nv_bfloat16*>(scales), out, M, K, N, gd,
-      group, out_f32);
-  return (int)cudaGetLastError();
+  return launch<false>(xq, sa, planes, scales, nullptr, nullptr, out, M, K,
+                       N, gd, group, out_f32, stream);
+}
+
+// zwp: f32 [K/gd, N] = z * sw per dot group; xsa: f32 [M, K/gd]
+extern "C" int qmm_a8_asym(const void* xq, const void* sa, const void* planes,
+                           const void* scales, const void* zwp,
+                           const void* xsa, void* out, int M, int K, int N,
+                           int gd, int group, int out_f32, void* stream) {
+  return launch<true>(xq, sa, planes, scales, zwp, xsa, out, M, K, N, gd,
+                      group, out_f32, stream);
 }

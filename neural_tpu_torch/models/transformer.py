@@ -14,10 +14,9 @@ scale rows too) or a paged
 through ``paged_update_kv``, attention through ``attend_paged``), as in
 ``neural_tpu/models/transformer.py:462-494``.
 
-Every projection is a :class:`QLinear` holding the at-rest native-pack
-buffers; bf16 (unquantized) projections are a later slice. A tied lm_head
-is a torch product with the embedding, as the JAX package leaves it to
-XLA.
+Every projection is a :class:`QLinear`: a quantized weight at rest
+(``core.qtensor.to_native``) or a bf16 one. A tied lm_head is a torch
+product with the embedding, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -39,29 +38,41 @@ LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 class QLinear(nn.Module):
-    """A quantized ``[K, N]`` weight at rest: ``planes`` (uint8 [K/2, N]
-    native-pack nibbles) and ``scales`` (bf16 [G, N]) buffers plus its
-    QuantConfig."""
+    """A ``[K, N]`` projection: a QTensor at rest (its planes, scales and
+    zero-points as buffers, plus its QuantConfig) multiplied by
+    :func:`~neural_tpu_torch.ops.qmatmul.qmatmul`, or an unquantized bf16
+    weight (``weight_dtype=None``), a plain ``torch.matmul`` as the JAX
+    package leaves it to XLA."""
 
-    def __init__(self, qt: QTensor):
+    def __init__(self, w):
         super().__init__()
-        if len(qt.planes) != 1 or not qt.cfg.native_pack:
-            raise ValueError("QLinear holds the native-pack layout; convert "
-                             "with core.qtensor.to_native_packed first")
-        if qt.perm is not None or qt.zeros is not None:
-            raise NotImplementedError(
-                "asymmetric and act-order weights are a later slice")
-        self.cfg = qt.cfg
-        self.register_buffer("planes", qt.planes[0])
-        self.register_buffer("scales", qt.scales)
+        if isinstance(w, torch.Tensor):
+            self.cfg = None
+            self.register_buffer("weight", w)
+            return
+        if w.perm is not None:
+            raise NotImplementedError("act-order weights are a later slice")
+        self.cfg = w.cfg
+        self.n_planes = len(w.planes)
+        for i, p in enumerate(w.planes):
+            self.register_buffer("planes" if i == 0 else f"planes_{i}", p)
+        self.register_buffer("scales", w.scales)
+        self.register_buffer("zeros", w.zeros)
 
     @property
     def qt(self) -> QTensor:
-        return QTensor((self.planes,), self.scales, None, None, self.cfg)
+        planes = tuple(getattr(self, "planes" if i == 0 else f"planes_{i}")
+                       for i in range(self.n_planes))
+        return QTensor(planes, self.scales, self.zeros, None, self.cfg)
 
     def forward(self, x: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        return qmatmul(x, self.qt, out_dtype)
+        out_dtype = out_dtype or x.dtype
+        if self.cfg is not None:
+            return qmatmul(x, self.qt, out_dtype)
+        if out_dtype == torch.float32:
+            return x.to(torch.float32) @ self.weight.to(torch.float32)
+        return torch.matmul(x.to(self.weight.dtype), self.weight).to(out_dtype)
 
 
 class LlamaBlock(nn.Module):

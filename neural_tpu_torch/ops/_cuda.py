@@ -140,17 +140,29 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None):
                          f"{tuple(shape)}")
 
 
+# x, planes, scales, zeros, xs, partial, out, M, K, N, group, out_f32,
+# splits, stream
+_K1_ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+K1_ENTRIES = ("qmm4_npack", "qmm2_npack", "qmm8_native")
 QMM4 = Kernel("qmm4_npack.cu", {
-    # x, planes, scales, partial, out, M, K, N, group, out_f32, splits, stream
-    "qmm4_npack": [P, P, P, P, P, I, I, I, I, I, I, P],
-})
+    fn + asym: _K1_ARGS for fn in K1_ENTRIES for asym in ("", "_asym")})
 QMM_A8 = Kernel("qmm_a8.cu", {
     # x, x_f32, xq, sa, M, K, gd, stream
     "quantize_act_i8": [P, I, P, P, I, I, I, P],
     # xq, sa, planes, scales, out, M, K, N, gd, group, out_f32, stream
     "qmm_a8": [P, P, P, P, P, I, I, I, I, I, I, P],
+    # xq, sa, planes, scales, zwp, xsa, out, M, K, N, gd, group, out_f32,
+    # stream
+    "qmm_a8_asym": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
 })
 F = ctypes.c_float
+QMM_GENERAL = Kernel("qmm_general.cu", {
+    # x, plane0, plane1, plane2, scales, zeros, lut, partial, out, M, K, N,
+    # group, chunk, fmt, bits, vmode, scale_f32, zkind, zconst, fp8_e5m2,
+    # out_f32, splits, kps, stream
+    "qmm_general": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                    F, I, I, I, I, P],
+})
 FLASH_PREFILL = Kernel("flash_prefill.cu", {
     # q, k, v, starts, out, B, T, Hq, Hkv, S, scale, stream
     "flash_prefill": [P, P, P, P, P, I, I, I, I, I, F, P],
@@ -170,7 +182,8 @@ PAGED_DECODE = Kernel("paged_decode.cu", {
     "paged_decode": _DECODE_ARGS, "paged_decode_i8": _DECODE_ARGS},
     headers=("decode_attn.cuh",))
 
-KERNELS = (QMM4, QMM_A8, FLASH_PREFILL, FLASH_DECODE, PAGED_DECODE)
+KERNELS = (QMM4, QMM_A8, QMM_GENERAL, FLASH_PREFILL, FLASH_DECODE,
+           PAGED_DECODE)
 
 
 def reset_launches():

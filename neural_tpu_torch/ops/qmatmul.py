@@ -1,20 +1,26 @@
-"""Quantized matmul: the K1 and K2 kernels, their plain versions, dispatch.
+"""Quantized matmul: the K1, K2 and K5 kernels, their plain versions and
+the dispatch (port of ``neural_tpu/ops/qmatmul.py``).
 
-Port of ``neural_tpu/ops/qmatmul.py`` for the at-rest layout of the port:
-int4 sym native-pack weights, a uint8 plane ``[K/2, N]`` of centered
-nibbles with bf16 scales ``[G, N]``.
+The weights arrive in the layouts of :mod:`neural_tpu_torch.core.qtensor`:
+at rest (native-pack 2-4 bit, int8 code planes for 5-8 bit, bf16 scales) or
+stored (bit planes, nf4/fp4 indices, fp8; f32 or bf16 scales).
 
-- **K1** :func:`qmm4_npack` (``csrc/qmm4_npack.cu``) replaces the TPU's
-  ``_qmm4_kernel``: ``out = x @ (codes · s)`` for any M below 256, f32
-  dequant and f32 accumulation, the group scale applied to each group's
-  partial sum.
+- **K1** :func:`qmm_native` (``csrc/qmm4_npack.cu``) replaces the TPU's
+  ``_qmm4_kernel``: ``out = x @ (codes · s)`` for at-rest codes at M <= 16,
+  f32 dequant and f32 accumulation, the group scale applied to each group's
+  partial sum, zero-points as a rank-G correction.
 - **K2** :func:`qmm_a8` (``csrc/qmm_a8.cu``) replaces ``_qmm_a8_kernel``:
   x is quantized per row and per ``gd`` K-group to sym int8, each group is
-  an int8·int8→int32 dot, folded as ``acc += d · (sa_g ⊗ sw_g)`` in f32.
-  The TPU kernel quantizes x inside the kernel or in ``quantize_act_i8``
-  depending on N; the two are bit-identical, so one port kernel serves both.
+  an int8·int8→int32 dot, folded as ``acc += d · (sa_g ⊗ sw_g)`` in f32;
+  asymmetric weights start the accumulator at ``-(xsa @ zwp)``. The TPU
+  kernel quantizes x inside the kernel or in ``quantize_act_i8`` depending
+  on N; the two are bit-identical, so one port kernel serves both.
+- **K5** :func:`qmm_general` (``csrc/qmm_general.cu``) replaces
+  ``_qmm_kernel``: every weight tile dequantized in f32 and rounded once to
+  bf16, a bf16 × bf16 product with f32 accumulation, any M, every layout.
 
-Each wrapper takes its plain PyTorch version only for CPU tensors; on a CUDA
+:func:`qmatmul` routes as the JAX package does (:func:`route`). Each
+wrapper takes its plain PyTorch version only for CPU tensors; on a CUDA
 tensor it launches the kernel or raises.
 """
 from __future__ import annotations
@@ -23,7 +29,8 @@ from typing import Optional
 
 import torch
 
-from ..core.qtensor import QTensor, native_fields, dequantize
+from ..core.qtensor import (QTensor, dequantize, is_native, lut_on,
+                           native_fields, pack_chunk)
 from . import _cuda
 
 # ---------------------------------------------------------------------------
@@ -83,57 +90,92 @@ def matmul_a8_ref(x: torch.Tensor, qt: QTensor, gd: int, dtype=None):
 
 
 # ---------------------------------------------------------------------------
-# K1: int4 native-pack GEMV / skinny GEMM (M < 256)
+# K1: native-code GEMV / skinny GEMM (M <= 16)
 # ---------------------------------------------------------------------------
 
 
-def qmm4_npack_plain(x: torch.Tensor, planes: torch.Tensor,
-                     scales: torch.Tensor, group: int,
+def native_codes(planes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Centered codes int32 [K, N] of an at-rest plane: int8 code planes as
+    they are, native-pack fields sign-extended."""
+    if planes.dtype == torch.int8:
+        return planes.to(torch.int32)
+    return native_fields(planes, bits)
+
+
+def qmm_native_plain(x: torch.Tensor, planes: torch.Tensor,
+                     scales: torch.Tensor, zeros: Optional[torch.Tensor],
+                     group: int, bits: int,
                      out_dtype: torch.dtype) -> torch.Tensor:
     """Plain version of K1, with its rounding: x rounded to bf16 then widened
-    to f32, f32 codes, one f32 partial product per group, times the group's
-    bf16 scale widened to f32, summed over groups."""
+    to f32, f32 codes, one f32 partial product per group times the group's
+    bf16 scale widened to f32, summed over groups; zero-points as the rank-G
+    correction ``- xs @ (z · s)``, xs the f32 per-group sums of x."""
     M, K = x.shape
     N = planes.shape[1]
     G = K // group
     xf = x.to(torch.bfloat16).to(torch.float32).reshape(M, G, group)
-    w = native_fields(planes, 4).to(torch.float32).reshape(G, group, N)
+    w = native_codes(planes, bits).to(torch.float32).reshape(G, group, N)
+    s = scales.to(torch.float32)
     part = torch.einsum("mgk,gkn->mgn", xf, w)
-    return (part * scales.to(torch.float32)[None]).sum(dim=1).to(out_dtype)
+    out = (part * s[None]).sum(dim=1)
+    if zeros is not None:
+        out = out - xf.sum(dim=2) @ (zeros.to(torch.float32) * s)
+    return out.to(out_dtype)
 
 
 QMM4_CTA_K = 512      # K values per CTA of the first pass (16 chunks of 32)
 
 
-def qmm4_npack(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
-               group: int, out_dtype: torch.dtype) -> torch.Tensor:
-    """K1: ``x [M, K] @ W`` for native-pack int4 sym ``W``, M < 256.
-    Split over K into ``ceil(K/512)`` f32 partials that a second pass adds
-    in a fixed order: no atomics, so reruns give identical outputs."""
+def qmm_native(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
+               zeros: Optional[torch.Tensor], group: int, bits: int,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """K1: ``x [M, K] @ W`` for at-rest native codes, M <= 16: native-pack
+    nibbles (int3/int4), native-pack int2, or int8 code planes (5-8 bit),
+    with optional bf16 zero-points. Split over K into ``ceil(K/512)`` f32
+    partials that a second pass adds in a fixed order: no atomics, so
+    reruns give identical outputs. The C entry point names the branch: the
+    layout (``qmm4_npack`` nibbles, ``qmm2_npack``, ``qmm8_native``), with
+    ``_asym`` when there are zero-points."""
     if x.device.type == "cpu":
-        return qmm4_npack_plain(x, planes, scales, group, out_dtype)
+        return qmm_native_plain(x, planes, scales, zeros, group, bits,
+                                out_dtype)
     x = x.to(torch.bfloat16).contiguous()
     M, K = x.shape
     N = planes.shape[1]
     _cuda.check(x, "x", torch.bfloat16)
-    _cuda.check(planes, "planes", torch.uint8, (K // 2, N))
+    if planes.dtype == torch.int8:
+        fn, rows = "qmm8_native", K
+    elif bits == 2:
+        fn, rows = "qmm2_npack", K // 4
+    else:
+        fn, rows = "qmm4_npack", K // 2
+    _cuda.check(planes, "planes", planes.dtype, (rows, N))
     _cuda.check(scales, "scales", torch.bfloat16, (K // group, N))
-    if not 1 <= M < 256:
-        raise ValueError(f"qmm4_npack takes 1 <= M < 256, got M={M}")
+    if zeros is not None:
+        _cuda.check(zeros, "zeros", torch.bfloat16, (K // group, N))
+    if not 1 <= M <= 16:
+        raise ValueError(f"K1 takes 1 <= M <= 16, got M={M}")
     if K % 32 or group % 32 or K % group or N % 16:
-        raise ValueError(f"qmm4_npack needs K, group % 32 == 0 and "
-                         f"N % 16 == 0 (K={K}, group={group}, N={N})")
+        raise ValueError(f"K1 needs K, group % 32 == 0 and N % 16 == 0 "
+                         f"(K={K}, group={group}, N={N})")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
-    if planes.data_ptr() % 16 or scales.data_ptr() % 16:
-        raise ValueError("planes and scales must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (planes, scales)
+           + (() if zeros is None else (zeros,))):
+        raise ValueError("planes, scales and zeros must be 16-byte aligned")
     splits = -(-K // QMM4_CTA_K)
     partial = torch.empty((splits, M, N), dtype=torch.float32,
                           device=x.device)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    _cuda.QMM4.call("qmm4_npack", _cuda.ptr(x), _cuda.ptr(planes),
-                    _cuda.ptr(scales), _cuda.ptr(partial), _cuda.ptr(out),
-                    M, K, N, group, int(out_dtype == torch.float32), splits,
+    xs = None
+    if zeros is not None:   # per-group sums of x, outside the kernel
+        fn += "_asym"
+        xs = x.to(torch.float32).reshape(M, K // group, group).sum(dim=2)
+    _cuda.QMM4.call(fn, _cuda.ptr(x), _cuda.ptr(planes), _cuda.ptr(scales),
+                    None if zeros is None else _cuda.ptr(zeros),
+                    None if xs is None else _cuda.ptr(xs), _cuda.ptr(partial),
+                    _cuda.ptr(out), M, K, N, group,
+                    int(out_dtype == torch.float32), splits,
                     _cuda.stream_ptr())
     return out
 
@@ -143,19 +185,39 @@ def qmm4_npack(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _a8_zero_terms(xq: torch.Tensor, sa: torch.Tensor, zeros: torch.Tensor,
+                   scales: torch.Tensor, gd: int):
+    """The asymmetric K2's two rank-K/gd operands, as the JAX launcher
+    computes them: ``xsa = sa · rowsum_gd(x_i8)`` [M, K/gd] and ``zwp = z ·
+    sw`` repeated to one row per dot group [K/gd, N], both f32."""
+    M, K = xq.shape
+    Ga = K // gd
+    xsa = xq.to(torch.float32).reshape(M, Ga, gd).sum(dim=2) * sa
+    zwp = zeros.to(torch.float32) * scales.to(torch.float32)
+    if zwp.shape[0] != Ga:
+        zwp = torch.repeat_interleave(zwp, Ga // zwp.shape[0], dim=0)
+    return xsa, zwp.contiguous()
+
+
 def qmm_a8_plain(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
-                 group: int, gd: int, out_dtype: torch.dtype) -> torch.Tensor:
+                 group: int, gd: int, out_dtype: torch.dtype,
+                 zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K2: int8 codes of x, int4 codes of W, one integer
     dot per gd-group (exact in f32: |d| < 2^24), and the fold
     ``acc = acc + d * (sa_g * sw_g)`` in f32 in group order — the kernel's
-    own order of operations."""
+    own order of operations. With zero-points the accumulator starts at
+    ``-(xsa @ zwp)``."""
     M, K = x.shape
     N = planes.shape[1]
     xq, sa = quantize_act_i8(x, gd)
     w = native_fields(planes, 4).to(torch.float32)
     sw = scales.to(torch.float32)
     r = max(group // gd, 1)
-    acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    if zeros is None:
+        acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    else:
+        xsa, zwp = _a8_zero_terms(xq, sa, zeros, scales, gd)
+        acc = -(xsa @ zwp)
     for ga in range(K // gd):
         d = xq[:, ga * gd:(ga + 1) * gd].to(torch.float32) \
             @ w[ga * gd:(ga + 1) * gd]
@@ -164,12 +226,14 @@ def qmm_a8_plain(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
 
 
 def qmm_a8(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
-           group: int, gd: int, out_dtype: torch.dtype) -> torch.Tensor:
-    """K2: int8-activation GEMM over native-pack int4 sym weights. Two
-    launches: the activation quantization, then the int8 tensor-core GEMM
-    with the per-group f32 fold."""
+           group: int, gd: int, out_dtype: torch.dtype,
+           zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2: int8-activation GEMM over native-pack int4 weights, sym
+    (``qmm_a8``) or with bf16 zero-points (``qmm_a8_asym``). Two launches:
+    the activation quantization, then the int8 tensor-core GEMM with the
+    per-group f32 fold."""
     if x.device.type == "cpu":
-        return qmm_a8_plain(x, planes, scales, group, gd, out_dtype)
+        return qmm_a8_plain(x, planes, scales, group, gd, out_dtype, zeros)
     M, K = x.shape
     N = planes.shape[1]
     _cuda.check(planes, "planes", torch.uint8, (K // 2, N))
@@ -182,10 +246,132 @@ def qmm_a8(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
     xq, sa = act_quant_i8(x, gd)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    _cuda.QMM_A8.call("qmm_a8", _cuda.ptr(xq), _cuda.ptr(sa),
-                      _cuda.ptr(planes), _cuda.ptr(scales), _cuda.ptr(out),
-                      M, K, N, gd, group, int(out_dtype == torch.float32),
-                      _cuda.stream_ptr())
+    tail = (M, K, N, gd, group, int(out_dtype == torch.float32),
+            _cuda.stream_ptr())
+    if zeros is None:
+        _cuda.QMM_A8.call("qmm_a8", _cuda.ptr(xq), _cuda.ptr(sa),
+                          _cuda.ptr(planes), _cuda.ptr(scales),
+                          _cuda.ptr(out), *tail)
+        return out
+    _cuda.check(zeros, "zeros", torch.bfloat16, (K // group, N))
+    xsa, zwp = _a8_zero_terms(xq, sa, zeros, scales, gd)
+    _cuda.QMM_A8.call("qmm_a8_asym", _cuda.ptr(xq), _cuda.ptr(sa),
+                      _cuda.ptr(planes), _cuda.ptr(scales), _cuda.ptr(zwp),
+                      _cuda.ptr(xsa), _cuda.ptr(out), *tail)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5: the general dequant GEMM (any M, every weight layout)
+# ---------------------------------------------------------------------------
+
+
+def dequant_bf16(qt: QTensor) -> torch.Tensor:
+    """The weight as K5 multiplies it, [K, N] bf16: each element taken in
+    f32 (code minus zero-point, table value, fp8 value or ±1), times its
+    group's scale in f32, rounded once to bf16 — ``_dequant_tile``'s
+    rounding, which is :func:`dequantize`'s f32 value rounded to bf16."""
+    if qt.perm is not None:
+        raise NotImplementedError("act-order weights are a later slice")
+    return dequantize(qt, torch.float32).to(torch.bfloat16)
+
+
+def qmm_general_plain(x: torch.Tensor, qt: QTensor,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of K5: x rounded to bf16 times :func:`dequant_bf16`,
+    accumulated in f32 (the products of two bf16 values are exact in f32),
+    cast to ``out_dtype``."""
+    xf = x.to(torch.bfloat16).to(torch.float32)
+    return (xf @ dequant_bf16(qt).to(torch.float32)).to(out_dtype)
+
+
+# the layouts K5 reads (csrc/qmm_general.cu Fmt) and the values of PLANES
+K5_PLANES, K5_NPACK4, K5_NPACK2, K5_INT8, K5_FP8 = range(5)
+V_INT, V_ONEBIT, V_LUT = range(3)
+_ZKIND = {None: 0, torch.uint8: 1, torch.bfloat16: 2, torch.float32: 3}
+K5_BK, K5_BN = 32, 128
+K5_TARGET_BLOCKS = 264          # two blocks for each of the H100's 132 SMs
+
+
+def _k5_layout(qt: QTensor):
+    """(fmt, vmode, zconst) of a QTensor for K5."""
+    cfg = qt.cfg
+    if cfg.kind.startswith("fp8"):
+        return K5_FP8, V_INT, 0.0
+    if cfg.kind in ("nf4", "fp4"):
+        return K5_PLANES, V_LUT, 0.0
+    if qt.planes[0].dtype == torch.int8:
+        return K5_INT8, V_INT, 0.0
+    if cfg.native_pack:
+        return (K5_NPACK2 if cfg.bits == 2 else K5_NPACK4), V_INT, 0.0
+    if cfg.bits == 1:
+        return K5_PLANES, V_ONEBIT, 0.0
+    # sym bit-plane codes are unsigned: the zero-point is 2^(bits-1)
+    return K5_PLANES, V_INT, 0.0 if qt.zeros is not None \
+        else float(1 << (cfg.bits - 1))
+
+
+def k5_splits(M: int, K: int, N: int):
+    """(splits, K rows per split) of K5's grid: K is split until the grid
+    has about two blocks per SM, each split keeping >= 4 K tiles."""
+    bm = 16 if M <= 16 else 64 if M <= 64 else 128
+    tiles = -(-N // K5_BN) * -(-M // bm)
+    ktiles = K // K5_BK
+    splits = max(1, min(ktiles // 4, -(-K5_TARGET_BLOCKS // tiles)))
+    kps = -(-ktiles // splits) * K5_BK
+    return -(-K // kps), kps
+
+
+def qmm_general(x: torch.Tensor, qt: QTensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """K5: ``x [M, K] @ W`` for any M and every weight layout of the port
+    (bit-plane 1-8 bit int, nf4/fp4, fp8, native-pack int2-4, int8 codes;
+    f32 or bf16 scales; uint8, bf16 or f32 zero-points)."""
+    if x.device.type == "cpu":
+        return qmm_general_plain(x, qt, out_dtype)
+    if qt.perm is not None:
+        raise NotImplementedError("act-order weights are a later slice")
+    x = x.to(torch.bfloat16).contiguous()
+    _cuda.check(x, "x", torch.bfloat16)
+    M, K = x.shape
+    N, g = qt.N, qt.group_size
+    cfg = qt.cfg
+    fmt, vmode, zconst = _k5_layout(qt)
+    for i, p in enumerate(qt.planes):
+        _cuda.check(p, f"plane {i}", p.dtype)
+    if qt.K != K or K % K5_BK or N % 16 or K % g:
+        raise ValueError(f"K5 needs K % 32 == 0, N % 16 == 0 and K % group "
+                         f"== 0 (x K={K}, weight {qt.shape}, group {g})")
+    if len(qt.planes) > 3 or qt.scales.dtype not in (torch.float32,
+                                                     torch.bfloat16):
+        raise ValueError("K5 takes at most 3 planes and f32/bf16 scales")
+    _cuda.check(qt.scales, "scales", qt.scales.dtype, (K // g, N))
+    zeros = qt.zeros
+    if zeros is not None:
+        if zeros.dtype not in _ZKIND:
+            raise ValueError(f"zeros must be uint8, bf16 or f32, got "
+                             f"{zeros.dtype}")
+        _cuda.check(zeros, "zeros", zeros.dtype, (K // g, N))
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
+    tensors = (*qt.planes, qt.scales) + (() if zeros is None else (zeros,))
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("planes, scales and zeros must be 16-byte aligned")
+    lut = lut_on(cfg, x.device) if vmode == V_LUT else None
+    splits, kps = k5_splits(M, K, N)
+    partial = torch.empty((splits, M, N) if splits > 1 else (1,),
+                          dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    planes = [_cuda.ptr(p) for p in qt.planes] + [None] * (3 - len(qt.planes))
+    _cuda.QMM_GENERAL.call(
+        "qmm_general", _cuda.ptr(x), *planes, _cuda.ptr(qt.scales),
+        None if zeros is None else _cuda.ptr(zeros),
+        None if lut is None else _cuda.ptr(lut), _cuda.ptr(partial),
+        _cuda.ptr(out), M, K, N, g, pack_chunk(cfg, K), fmt, cfg.bits, vmode,
+        int(qt.scales.dtype == torch.float32),
+        _ZKIND[None if zeros is None else zeros.dtype], zconst,
+        int(cfg.kind == "fp8_e5m2"), int(out_dtype == torch.float32), splits,
+        kps, _cuda.stream_ptr())
     return out
 
 
@@ -209,34 +395,50 @@ def _pick_a8(M: int, K: int, N: int, qt: QTensor) -> Optional[int]:
     return gd
 
 
+def route(M: int, K: int, N: int, qt: QTensor) -> str:
+    """The kernel that takes ``[M, K] @ qt``, by the JAX package's rule
+    (``ops/qmatmul.py qmatmul``): "K2" when the int8-activation rule picks
+    it, "K1" for at-rest native codes (native-pack or int8 planes) at
+    M <= 16, "K5" for everything else."""
+    if _pick_a8(M, K, N, qt) is not None:
+        return "K2"
+    if is_native(qt) and M <= 16 and K % 32 == 0 and qt.group_size % 32 == 0:
+        return "K1"
+    return "K5"
+
+
 def qmatmul(x: torch.Tensor, qt: QTensor,
             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``x [..., K] @ W_q`` → ``[..., N]``.
-
-    int4 sym native-pack only: K2 when the int8-activation rule picks it
-    (M >= 256), else K1 for M < 256. Anything else raises: the general
-    dequant kernel (act16 prefill, other widths, nf4/fp4/fp8), asymmetric
-    and act-order weights come in later slices."""
+    """``x [..., K] @ W_q`` → ``[..., N]``, through the kernel
+    :func:`route` names. Act-order weights, and the int8-activation path
+    over weights that are not 4-bit, raise: later slices."""
     out_dtype = out_dtype or x.dtype
     cfg = qt.cfg
-    if not (cfg.kind == "int" and cfg.bits == 4 and cfg.native_pack
-            and cfg.sym and qt.zeros is None and qt.perm is None):
+    if qt.perm is not None:
         raise NotImplementedError(
-            f"qmatmul({cfg.short_name()}, native_pack={cfg.native_pack}): "
-            "this slice runs int4 sym native-pack weights only")
+            f"qmatmul({cfg.short_name()}): act-order weights (perm) are a "
+            "later slice")
     *lead, K = x.shape
     if K != qt.K:
         raise ValueError(f"x has K={K}, weight is {qt.shape}")
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
-    planes, scales = qt.planes[0], qt.scales
-    gd = _pick_a8(M, K, qt.N, qt)
-    if gd is not None:
-        out = qmm_a8(x2, planes, scales, qt.group_size, gd, out_dtype)
-    elif M < 256:
-        out = qmm4_npack(x2, planes, scales, qt.group_size, out_dtype)
+    kernel = route(M, K, qt.N, qt)
+    if kernel == "K2":
+        if cfg.bits != 4:
+            raise NotImplementedError(
+                f"qmatmul({cfg.short_name()}) at M={M}: the int8-activation "
+                "path over weights that are not 4-bit is a later slice")
+        if not is_native(qt):
+            raise ValueError(
+                f"qmatmul({cfg.short_name()}) at M={M}: the int8-activation "
+                "path reads native-pack nibbles; convert the weight once "
+                "with runtime.generate.params_to_native")
+        out = qmm_a8(x2, qt.planes[0], qt.scales, qt.group_size,
+                     _pick_a8(M, K, qt.N, qt), out_dtype, qt.zeros)
+    elif kernel == "K1":
+        out = qmm_native(x2, qt.planes[0], qt.scales, qt.zeros,
+                         qt.group_size, cfg.bits, out_dtype)
     else:
-        raise NotImplementedError(
-            f"qmatmul at M={M} without the int8-activation path runs the "
-            "general dequant kernel (TPU _qmm_kernel), a later slice")
+        out = qmm_general(x2, qt, out_dtype)
     return out.reshape(*lead, qt.N)

@@ -13,7 +13,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..core.qtensor import QTensor, to_native_packed
+from ..core.qtensor import QTensor, to_native
 from ..models.config import ModelConfig
 from ..models.transformer import Transformer
 from ..ops import _cuda
@@ -22,13 +22,16 @@ from .sampling import SamplingParams, sample
 
 
 def params_to_native(params):
-    """The one conversion to the at-rest layout, at load: every QTensor in a
-    param tree (dicts and lists) becomes native-pack (uint8 nibbles, bf16
-    scales). Every builder of the port runs its weights through here before
-    the decoder is built, so the kernels see one layout only — what the JAX
-    package's ``params_to_native(..., force=True, min_elems=0)`` gives."""
+    """The one conversion to the at-rest layouts, at load, by the rule of the
+    JAX package's ``params_to_native`` (``conv_one``): every 2-4 bit int
+    QTensor in a param tree (dicts and lists) becomes native-pack, at every
+    size (what ``params_to_native(..., force=True, min_elems=0)`` gives);
+    5-8 bit int becomes int8 code planes; 1-bit, nf4/fp4 and fp8 stay in
+    their stored layout (``core.qtensor.to_native``). Every entry point
+    that builds params runs its weights through here before the decoder
+    is built."""
     if isinstance(params, QTensor):
-        return to_native_packed(params)
+        return to_native(params)
     if isinstance(params, dict):
         return {k: params_to_native(v) for k, v in params.items()}
     if isinstance(params, (list, tuple)):

@@ -1,6 +1,7 @@
 """The bridge between the packages: a JAX param tree as numpy, read by the
-port's ``convert.from_jax``. bf16 travels as its uint16 bit pattern and a
-QTensor as a dict of its fields; both round trips must be exact.
+port's ``convert.from_jax``. bf16 travels as its uint16 bit pattern, fp8 as
+its uint8 bit pattern and a QTensor as a dict of its fields; every round
+trip must be exact.
 
 ``jax_tree_to_numpy`` here is the test side of the bridge; the other
 ``test_torch_*`` files import it.
@@ -16,11 +17,14 @@ import torch
 from neural_tpu.core.qtensor import QTensor as JQTensor
 from neural_tpu.core.qtensor import quantize as jquantize
 from neural_tpu.core.qtensor import to_native_packed as jto_native_packed
+from neural_tpu.core.qtensor import (dequantize as jdequantize,
+                                     to_native as jto_native)
 from neural_tpu.core.dtypes import PRESETS as JPRESETS, QuantConfig as JQC
 
 from neural_tpu_torch.convert.from_jax import (
     params_from_numpy, qtensor_from_numpy, tensor_from_numpy,
     tensor_to_numpy)
+from neural_tpu_torch.core.qtensor import dequantize
 from neural_tpu_torch.models.config import ModelConfig
 
 
@@ -28,6 +32,8 @@ def jax_array_to_numpy(a):
     a = np.asarray(a)
     if a.dtype == jnp.bfloat16:
         return a.view(np.uint16)
+    if a.dtype in (jnp.float8_e4m3fn, jnp.float8_e5m2):
+        return a.view(np.uint8)
     return a
 
 
@@ -93,6 +99,44 @@ def test_qtensor_fields_round_trip(cfg):
         assert qt.zeros is None
     else:
         np.testing.assert_array_equal(to_np(qt.zeros), d["zeros"])
+
+
+@pytest.mark.parametrize("cfg,to_rest", [
+    (JPRESETS["fp8"], None), (JPRESETS["fp8_e5m2"], None),
+    (JPRESETS["int5"], jto_native), (JQC(bits=6, group_size=64, sym=False),
+                                     jto_native),
+    (JQC(bits=8, group_size=-1), jto_native), (JPRESETS["nf4"], None),
+    (JPRESETS["int1"], None)],
+    ids=["fp8_e4m3", "fp8_e5m2", "int5_codes", "int6_asym_codes",
+         "int8_codes_per_channel", "nf4", "int1"])
+def test_fp8_and_int8_code_qtensors_cross(cfg, to_rest):
+    """fp8 planes come across as their bytes and are read back as the fp8
+    kind the cfg names; int8 code planes and their bf16 zero-points as
+    themselves."""
+    rng = np.random.default_rng(2)
+    w = rng.standard_normal((256, 96)).astype(np.float32)
+    w[0, 0] = 1e4                                 # a saturating outlier
+    jqt = jquantize(jnp.asarray(w), cfg)
+    if to_rest is not None:
+        jqt = to_rest(jqt)
+    d = jax_qtensor_to_numpy(jqt)
+    qt = qtensor_from_numpy(d, "cpu")
+    assert dataclasses.asdict(qt.cfg) == dataclasses.asdict(jqt.cfg)
+    assert qt.shape == jqt.shape
+    for p, jp, raw in zip(qt.planes, jqt.planes, d["planes"]):
+        np.testing.assert_array_equal(to_np(p), raw)
+        if cfg.kind.startswith("fp8"):
+            assert p.dtype == {"fp8_e4m3": torch.float8_e4m3fn,
+                               "fp8_e5m2": torch.float8_e5m2}[cfg.kind]
+            np.testing.assert_array_equal(
+                p.float().numpy(), np.asarray(jp.astype(jnp.float32)))
+    if to_rest is not None:
+        assert qt.planes[0].dtype == torch.int8
+    np.testing.assert_array_equal(to_np(qt.scales), d["scales"])
+    if jqt.zeros is not None:
+        np.testing.assert_array_equal(to_np(qt.zeros), d["zeros"])
+    np.testing.assert_array_equal(dequantize(qt).numpy(),
+                                  np.asarray(jdequantize(jqt)))
 
 
 def test_stacked_and_per_layer_trees_build_the_same_model():

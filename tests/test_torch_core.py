@@ -88,9 +88,15 @@ def test_other_widths_bit_equal(bits):
 
 
 def test_matmul_ref_and_unported_kinds():
+    """Every kind quantizes now (``test_torch_quant.py`` holds them to
+    JAX); the native-pack layout still takes 2-4 bit int codes only."""
     _, qt = _pair("q4_0")
     x = torch.randn(3, qt.K)
     ref = x @ dequantize(qt)
     torch.testing.assert_close(matmul_ref(x, qt), ref, rtol=0, atol=0)
+    nf4 = quantize(torch.zeros(64, 64), PRESETS["nf4"])
+    assert nf4.shape == (64, 64)
     with pytest.raises(NotImplementedError):
-        quantize(torch.zeros(64, 64), PRESETS["nf4"])
+        to_native_packed(nf4)
+    with pytest.raises(NotImplementedError):
+        to_native_packed(quantize(torch.zeros(64, 64), PRESETS["q8_0"]))

@@ -10,9 +10,12 @@ Tolerances:
   scales are EQUAL to ``quantize_act_i8``'s; outputs within rtol 1e-5 plus
   1e-5·max|ref| — in the in-kernel mode, on the rows whose codes XLA's
   jitted CPU division does not move (see the test).
-- K1 at M=40 vs ``qmatmul_native`` (the JAX CPU path): 1e-2·max|ref|, the
-  bf16 rounding of the dequantized weight and of the product inputs in
-  ``qmatmul_native`` that K1's f32 dequant does not have.
+- ``qmatmul`` at M=40 vs ``qmatmul_native`` (the JAX CPU path): the
+  product now goes to K5, as the JAX dispatch sends it on the TPU (the
+  test keeps the name it had when K1 took it). Both sides round x and
+  the dequantized weight to bf16, the same values for sym int4 codes at
+  rest; the 1e-2·max|ref| set when K1's f32 dequant took this product
+  stays.
 """
 import jax
 import jax.numpy as jnp
@@ -31,8 +34,8 @@ from neural_tpu.ops.qmatmul import (matmul_a8_ref as jmatmul_a8_ref,
 from neural_tpu_torch.core.dtypes import PRESETS
 from neural_tpu_torch.core.qtensor import quantize, to_native_packed
 from neural_tpu_torch.ops.qmatmul import (
-    _pick_a8, act_quant_i8, matmul_a8_ref, qmatmul, qmm4_npack,
-    qmm4_npack_plain, qmm_a8, qmm_a8_plain, quantize_act_i8)
+    _pick_a8, act_quant_i8, matmul_a8_ref, qmatmul, qmm_a8, qmm_a8_plain,
+    qmm_native, qmm_native_plain, quantize_act_i8)
 from test_torch_bridge import jax_qtensor_to_numpy
 from neural_tpu_torch.convert.from_jax import qtensor_from_numpy
 
@@ -80,13 +83,12 @@ def test_k1_plain_matches_pallas_interpret(M, K, N):
     x = _x(M, K, seed=7)
     ref = jqmatmul(jnp.asarray(x, jnp.bfloat16), jnpk, out_dtype=jnp.float32,
                    interpret=True)
-    out = qmm4_npack_plain(torch.from_numpy(x), qt.planes[0], qt.scales,
-                           qt.group_size, torch.float32)
+    args = (qt.planes[0], qt.scales, None, qt.group_size, 4, torch.float32)
+    out = qmm_native_plain(torch.from_numpy(x), *args)
     _close(out.numpy(), ref, 1e-5)
     # the wrapper on a CPU tensor is the plain version
-    torch.testing.assert_close(
-        qmm4_npack(torch.from_numpy(x), qt.planes[0], qt.scales,
-                   qt.group_size, torch.float32), out, rtol=0, atol=0)
+    torch.testing.assert_close(qmm_native(torch.from_numpy(x), *args), out,
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("N", [256, 640], ids=["in_kernel_quant",
@@ -159,15 +161,30 @@ def test_dispatch_a8_matches_jax_oracle():
 
 
 def test_dispatch_rejects_what_this_slice_does_not_run():
+    """Act-order weights, the mixed presets and the int8-activation path
+    over weights that are not 4-bit raise; the stored layouts, bf16
+    activations at any M and asymmetric weights are taken. The int8-
+    activation path takes only weights converted to the at-rest layout."""
+    import dataclasses
+    from neural_tpu_torch.api import quant_config_from_args
+    from neural_tpu_torch.core.dtypes import QuantConfig
     rng = torch.Generator().manual_seed(0)
     w = torch.randn(256, 128, generator=rng)
     packed = quantize(w, PRESETS["q4_j"])
-    with pytest.raises(NotImplementedError):
-        qmatmul(torch.randn(2, 256), packed)                  # not at rest
+    assert qmatmul(torch.randn(2, 256), packed).shape == (2, 128)   # K5
+    with pytest.raises(ValueError):
+        qmatmul(torch.randn(300, 256), packed)   # K2 reads codes at rest only
     act16 = to_native_packed(quantize(w, PRESETS["q4_0"]))
     assert qmatmul(torch.randn(2, 256), act16).shape == (2, 128)
-    with pytest.raises(NotImplementedError):
-        qmatmul(torch.randn(300, 256), act16)   # act16 prefill: later slice
+    assert qmatmul(torch.randn(300, 256), act16).shape == (300, 128)
     asym = to_native_packed(quantize(w, PRESETS["q4_1"]))
+    assert qmatmul(torch.randn(2, 256), asym).shape == (2, 128)
+    perm = dataclasses.replace(act16, perm=torch.arange(256).flip(0))
     with pytest.raises(NotImplementedError):
-        qmatmul(torch.randn(2, 256), asym)
+        qmatmul(torch.randn(2, 256), perm)              # act-order: later
+    with pytest.raises(NotImplementedError):
+        quant_config_from_args("mix_int2_int4")        # mixed presets: later
+    a8_int8 = quantize(w, QuantConfig(bits=8, group_size=128, act_bits=8))
+    assert qmatmul(torch.randn(2, 256), a8_int8).shape == (2, 128)
+    with pytest.raises(NotImplementedError):
+        qmatmul(torch.randn(300, 256), a8_int8)     # a8 over int8: later
