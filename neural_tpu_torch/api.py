@@ -41,9 +41,10 @@ class Model:
                            scale_dtype: str = "fp32",
                            compute_dtype: str = "int8",
                            use_ggml: bool = False):
-        """In-memory HF torch model → ready Model. ``weight_dtype`` and the
-        reference-style knobs are those of the JAX ``Model.init``
-        (:func:`quant_config_from_args`); None keeps bf16 projections.
+        """In-memory HF torch model (Llama, Mistral, Gemma, Gemma-2) →
+        ready Model. ``weight_dtype`` and the reference-style knobs are
+        those of the JAX ``Model.init`` (:func:`quant_config_from_args`);
+        None keeps bf16 projections.
         Weights are quantized on ``device`` (the card unless
         ``device="cpu"``)."""
         from .convert.hf import from_hf_model

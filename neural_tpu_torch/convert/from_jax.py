@@ -12,7 +12,9 @@ numpy, so that no JAX import is needed here:
   cannot read) arrives as its ``uint8`` bit pattern, and the cfg's kind
   says which fp8 it is;
 - ``layers`` is a list of per-layer dicts (the JAX at-rest tuple layout) or
-  one dict of arrays stacked along a leading L axis.
+  one dict of arrays stacked along a leading L axis; a per-layer flag
+  (Gemma-2's ``use_sliding``) is a bool array, [L] when stacked, and
+  becomes a 0-d bool tensor in each layer.
 
 QTensors not yet at rest are converted on the way in
 (``runtime.generate.params_to_native``).
@@ -76,7 +78,7 @@ def _unstack(layers: Dict[str, Any]):
                     "scales": a["scales"][i],
                     "zeros": None if a["zeros"] is None else a["zeros"][i],
                     "perm": None if a["perm"] is None else a["perm"][i]}
-        return a[i]
+        return np.asarray(a[i])      # a 0-d array for a stacked flag
     first = next(iter(layers.values()))
     L = (first["scales"] if isinstance(first, dict) else first).shape[0]
     return [{k: take(v, i) for k, v in layers.items()} for i in range(L)]

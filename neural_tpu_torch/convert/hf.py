@@ -1,5 +1,5 @@
-"""HF model / random weights → the port's decoder (port of the Llama part
-of ``neural_tpu/convert/hf.py``).
+"""HF model / random weights → the port's decoder (port of the Llama and
+Gemma part of ``neural_tpu/convert/hf.py``).
 
 Every quantized tensor is converted once, here, to the at-rest layout
 (``runtime.generate.params_to_native``) that the kernels read; the port
@@ -18,13 +18,15 @@ import torch
 from ..core.device import resolve_device
 from ..core.dtypes import QuantConfig, quant_config_from_args
 from ..core.qtensor import quantize
+from ..models import gemma as gemma_mod
 from ..models import llama as llama_mod
 from ..models.config import ModelConfig
 from ..models.transformer import Transformer
 from ..ops.rope import rope_freqs
 from ..runtime.generate import params_to_native
 
-ARCH_MODULES = {"llama": llama_mod, "mistral": llama_mod}
+ARCH_MODULES = {"llama": llama_mod, "mistral": llama_mod,
+                "gemma": gemma_mod, "gemma2": gemma_mod}
 
 
 def ffn_padded_size(I: int, tile: int = 1024, max_overhead: float = 0.05):
@@ -42,6 +44,16 @@ def _shape_for(name: str, cfg: ModelConfig):
         "wo": (cfg.q_dim, D),
         "w_gate": (D, I_), "w_up": (D, I_), "w_down": (I_, D),
     }[name]
+
+
+def _add_flags(layers, cfg: ModelConfig, mod, device):
+    """The family's per-layer flags (Gemma-2's ``use_sliding``), as 0-d
+    tensors in each layer's dict, as the JAX ``build_params`` stacks
+    them."""
+    flags = mod.layer_flags(cfg) if hasattr(mod, "layer_flags") else {}
+    for name, arr in flags.items():
+        for lp, f in zip(layers, arr):
+            lp[name] = torch.tensor(bool(f), device=device)
 
 
 def _add_aux(params: Dict[str, Any], cfg: ModelConfig, device):
@@ -91,6 +103,7 @@ def build_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig, mod=llama_mod,
             else:
                 lp[name] = w.to(dtype)
         layers.append(lp)
+    _add_flags(layers, cfg, mod, dev)
     params: Dict[str, Any] = {"layers": layers}
     for name, (hf_name, tr) in mod.hf_top_map(cfg).items():
         w = get(hf_name, tr)
@@ -111,7 +124,8 @@ def from_hf_model(model, quant: Union[str, QuantConfig] = "q4_j",
     mod = ARCH_MODULES.get(model.config.model_type)
     if mod is None:
         raise NotImplementedError(
-            f"model type {model.config.model_type!r}: this slice ports Llama")
+            f"model type {model.config.model_type!r}: the port has "
+            f"{sorted(ARCH_MODULES)}")
     cfg = mod.config_from_hf(model.config)
     sd = {k: v.detach().to(torch.float32)
           for k, v in model.state_dict().items()}
@@ -128,10 +142,13 @@ def init_random(cfg: ModelConfig, seed: int = 0,
     Each weight is drawn on ``device`` by a seeded ``torch.Generator``
     (N(0, 0.02²)), quantized there and converted to the at-rest layout;
     its f32 copy is freed before the next one is drawn, so a 7B model never
-    exists in f32. Norm weights are ones. (The JAX package's ``init_random``
-    builds the whole f32 state dict on the host instead; the two draw
-    different numbers.)"""
+    exists in f32. Norm weights are drawn so that ``w + norm_offset`` is 1
+    (ones, Gemma's zeros); the family's post norms and per-layer flags are
+    there; a tied lm_head is the embedding. (The JAX package's
+    ``init_random`` builds the whole f32 state dict on the host instead,
+    with norm weights of ones; the two draw different numbers.)"""
     dev = resolve_device(device)
+    mod = ARCH_MODULES.get(cfg.arch, llama_mod)
     qcfg = quant_config_from_args(quant)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -145,6 +162,7 @@ def init_random(cfg: ModelConfig, seed: int = 0,
             return w.to(dtype)
         return params_to_native(quantize(w, qcfg))
 
+    norms = [n for n in mod.hf_layer_map(0, cfg) if n.endswith("norm_w")]
     layers = []
     for _ in range(cfg.n_layers):
         lp = {}
@@ -155,15 +173,17 @@ def init_random(cfg: ModelConfig, seed: int = 0,
             elif name == "w_down":
                 K = Ip
             lp[name] = weight(K, N)
-        for name in ("attn_norm_w", "ffn_norm_w"):
-            lp[name] = torch.ones(cfg.hidden_size, dtype=dtype, device=dev)
+        for name in norms:
+            lp[name] = torch.full((cfg.hidden_size,), 1.0 - cfg.norm_offset,
+                                  dtype=dtype, device=dev)
         layers.append(lp)
+    _add_flags(layers, cfg, mod, dev)
     params: Dict[str, Any] = {
         "layers": layers,
         "embed": (torch.randn((cfg.vocab_size, cfg.hidden_size),
                               generator=gen, device=dev) * 0.02).to(dtype),
-        "final_norm_w": torch.ones(cfg.hidden_size, dtype=torch.float32,
-                                   device=dev),
+        "final_norm_w": torch.full((cfg.hidden_size,), 1.0 - cfg.norm_offset,
+                                   dtype=torch.float32, device=dev),
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = weight(cfg.hidden_size, cfg.vocab_size)

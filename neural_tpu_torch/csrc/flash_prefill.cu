@@ -2,12 +2,15 @@
 // Hopper.
 //
 // Replaces neural_tpu/ops/attention.py:_prefill_kernel (launched by
-// flash_prefill). q [B, T, Hq, 128] bf16; the cache k, v [B, Hkv, S, 128]
-// already holds this prefill's keys; query row t sits at position
-// starts[b] + t and sees keys s <= starts[b] + t; query head h reads KV
-// head h / (Hq / Hkv). Masked scores are -1e30, l is floored at 1e-30 and
-// sums the unrounded P, the softmax statistics are f32, and the output is
-// f32 [B, T, Hq, 128] — the TPU kernel's rounding:
+// flash_prefill). q [B, T, Hq, D] bf16 with D = 128 or 256 (a template
+// parameter); the cache k, v [B, Hkv, S, D] already holds this prefill's
+// keys; query row t sits at position starts[b] + t and sees keys
+// s <= starts[b] + t, and with a sliding window (window > 0) only keys
+// s > starts[b] + t - window; query head h reads KV head h / (Hq / Hkv).
+// With softcap > 0 the scaled score becomes softcap * tanh(s / softcap)
+// before the mask. Masked scores are -1e30, l is floored at 1e-30 and sums
+// the unrounded P, the softmax statistics are f32, and the output is f32
+// [B, T, Hq, D] — the TPU kernel's rounding:
 // - bf16 cache (flash_prefill): QK^T and PV are bf16 products with f32
 //   accumulation; P is rounded to bf16 for the PV product.
 // - int8 cache with bf16 scales [B, Hkv, S] (flash_prefill_i8): each q row
@@ -17,27 +20,30 @@
 //   multiplies P, which is rounded to bf16 for a bf16 PV product against the
 //   int8 v codes widened to bf16 (exact).
 //
-// What bounds it on the H100: the operations (4 * T * S_visible * 128 per
-// head, about half of T x S under the causal mask). The design is
-// FlashAttention-2 style: one block per (b * Hq + h, 64 query rows), 4
-// warps of 16 rows each; K and V tiles of 64 keys go through shared memory
-// (the int8 tiles at half the bytes, with their scales as f32 rows); QK^T
-// and PV run on the tensor cores with mma.sync; the score fragment is
-// reused in registers as PV's A operand; key tiles above the causal
-// diagonal of the block are never loaded. Any T and S: ragged edges are
-// masked. The TPU's sequential S grid becomes the in-block loop over key
-// tiles. wgmma and TMA are later work.
+// What bounds it on the H100: the operations (4 * T * S_visible * D per
+// head: about half of T x S under the causal mask, T x window under a
+// window). The design is FlashAttention-2 style: one block per
+// (b * Hq + h, 64 query rows), 4 warps of 16 rows each; K and V tiles of 64
+// keys go through dynamic shared memory (the int8 tiles at half the bytes,
+// with their scales as f32 rows); QK^T and PV run on the tensor cores with
+// mma.sync; the score fragment is reused in registers as PV's A operand.
+// Key tiles above the causal diagonal of the block are never loaded, and
+// under a window neither are the tiles wholly below the window floor of the
+// block's first row, as the TPU kernel clamps its S blocks; the tile that
+// holds a row's floor masks per element. At D = 256 the output fragment is
+// 128 registers a thread, so bf16 q is read from a shared tile at each k
+// step instead of being held in 64 more registers (int8 q codes stay in
+// registers). Any T and S: ragged edges are masked. The TPU's sequential S
+// grid becomes the in-block loop over key tiles. wgmma and TMA are later
+// work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int D = 128;      // head dim
 constexpr int BQ = 64;      // query rows per block
 constexpr int BKV = 64;     // keys per tile
-constexpr int LD = D + 8;   // shared row stride in bf16
-constexpr int LD8 = D + 16; // shared row stride in int8 (16-byte rows)
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
@@ -93,19 +99,40 @@ __device__ __forceinline__ uint32_t pack_codes(const float* x, float r) {
   return w;
 }
 
-template <bool I8>
+// bf16 q in a shared tile instead of registers (see the note above)
+template <int D, bool I8>
+__host__ __device__ constexpr bool q_in_smem() {
+  return !I8 && D > 128;
+}
+
+// dynamic shared memory of one block, in bytes: bf16 K and V tiles
+// [BKV][D + 8] (and the q tile [BQ][D + 8]), or int8 K and V tiles
+// [BKV][D + 16] and the tile's k and v scales as f32
+template <int D, bool I8>
+__host__ __device__ constexpr int smem_bytes() {
+  return I8 ? 2 * BKV * (D + 16) + 2 * BKV * 4
+            : (2 * BKV + (q_in_smem<D, I8>() ? BQ : 0)) * (D + 8) * 2;
+}
+
+template <int D, bool I8>
 __global__ void __launch_bounds__(128)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const void* __restrict__ k_, const void* __restrict__ v_,
                      const __nv_bfloat16* __restrict__ ks,
                      const __nv_bfloat16* __restrict__ vs,
                      const int* __restrict__ starts, float* __restrict__ out,
-                     int T, int Hq, int Hkv, int S, float scale) {
-  // bf16: K and V tiles [BKV][LD]; int8: K and V tiles [BKV][LD8] and the
-  // tile's k and v scales as f32
-  __shared__ __align__(16) unsigned char smem[2 * BKV * LD * 2];
+                     int T, int Hq, int Hkv, int S, float scale,
+                     float softcap, int window) {
+  constexpr int LD = D + 8;      // shared row stride in bf16
+  constexpr int LD8 = D + 16;    // shared row stride in int8 (16-byte rows)
+  constexpr int NK = D / 16;     // k16 steps of the bf16 QK^T
+  constexpr int NK8 = D / 32;    // k32 steps of the int8 QK^T
+  constexpr int NO = D / 8;      // n8 tiles of the output
+  constexpr bool QSMEM = q_in_smem<D, I8>();
+  extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Vs = Ks + BKV * LD;
+  __nv_bfloat16* Qs = Vs + BKV * LD;
   int8_t* Ks8 = reinterpret_cast<int8_t*>(smem);
   int8_t* Vs8 = Ks8 + BKV * LD8;
   float* kss = reinterpret_cast<float*>(smem + 2 * BKV * LD8);
@@ -120,45 +147,61 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int ra = t0 + warp * 16 + g, rb = ra + 8;   // this thread's rows
   const int posa = start + ra, posb = start + rb;
 
-  // Q fragments (A operand, row-major [query][dim]): the 8 k16 steps of
-  // bf16, or the 4 k32 steps of int8 codes
-  uint32_t qf[8][4];
+  // Q fragments (A operand, row-major [query][dim]): the k16 steps of
+  // bf16, or the k32 steps of int8 codes
+  uint32_t qf[QSMEM ? 1 : (I8 ? NK8 : NK)][4];
   float qsa = 0.f, qsb = 0.f;   // int8: qa * scale / 127 of rows ra, rb
   const __nv_bfloat16* qa = q + ((size_t)(b * T + ra) * Hq + h) * D;
   const __nv_bfloat16* qb = q + ((size_t)(b * T + rb) * Hq + h) * D;
   if constexpr (I8) {
-    float xa[32], xb[32];
+    // the quad of a row holds it: group i of 4 dims of this thread sits at
+    // k32 step i / 2, half i % 2
     float mxa = 0.f, mxb = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {   // k32 step i / 2, half i % 2
+    for (int i = 0; i < 2 * NK8; ++i) {
       const int c = (i / 2) * 32 + (i % 2) * 16 + tq * 4;
-      load4(qa + c, ra < T, xa + i * 4);
-      load4(qb + c, rb < T, xb + i * 4);
+      float xa[4], xb[4];
+      load4(qa + c, ra < T, xa);
+      load4(qb + c, rb < T, xb);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mxa = fmaxf(mxa, fabsf(xa[j]));
+        mxb = fmaxf(mxb, fabsf(xb[j]));
+      }
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      mxa = fmaxf(mxa, fabsf(xa[i]));
-      mxb = fmaxf(mxb, fabsf(xb[i]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {   // the quad holds the row
+    for (int off = 1; off < 4; off <<= 1) {
       mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, off));
       mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
     }
     const float qaa = mxa + 1e-9f, qab = mxb + 1e-9f;
     const float rA = 127.f / qaa, rB = 127.f / qab;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      qf[kk][0] = pack_codes(xa + kk * 8, rA);
-      qf[kk][1] = pack_codes(xb + kk * 8, rB);
-      qf[kk][2] = pack_codes(xa + kk * 8 + 4, rA);
-      qf[kk][3] = pack_codes(xb + kk * 8 + 4, rB);
+    for (int kk = 0; kk < NK8; ++kk) {
+      const int c = kk * 32 + tq * 4;
+      float x[4][4];
+      load4(qa + c, ra < T, x[0]);
+      load4(qb + c, rb < T, x[1]);
+      load4(qa + c + 16, ra < T, x[2]);
+      load4(qb + c + 16, rb < T, x[3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qf[kk][i] = pack_codes(x[i], i % 2 ? rB : rA);
     }
     qsa = qaa * scale;
     qsb = qab * scale;
+  } else if constexpr (QSMEM) {
+    // made visible by the __syncthreads() that opens the key loop
+    for (int i = threadIdx.x; i < BQ * D / 8; i += 128) {
+      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (t0 + r < T)
+        x = *reinterpret_cast<const uint4*>(
+            q + ((size_t)(b * T + t0 + r) * Hq + h) * D + c);
+      *reinterpret_cast<uint4*>(Qs + r * LD + c) = x;
+    }
   } else {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < NK; ++kk) {
       const int c = kk * 16 + tq * 2;
       qf[kk][0] = ra < T ? ld32(qa + c) : 0u;
       qf[kk][1] = rb < T ? ld32(qb + c) : 0u;
@@ -167,19 +210,23 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  float o[16][4];
+  float o[NO][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < NO; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
   float ma = NEG, mb = NEG, la = 0.f, lb = 0.f;
 
   const int last_q = start + min(t0 + BQ, T) - 1;   // causal diagonal
   const int kv_end = min(last_q + 1, S);
+  // window floor of the block's first row, down to a tile edge
+  const int kv_begin =
+      window > 0 ? max(start + t0 - window + 1, 0) / BKV * BKV : 0;
   const size_t head = (size_t)(b * Hkv + hk) * S;   // first key row
   const unsigned short* Vu = reinterpret_cast<const unsigned short*>(Vs);
+  const __nv_bfloat16* qrow = Qs + (warp * 16 + g) * LD;   // QSMEM: row ra
 
-  for (int s0 = 0; s0 < kv_end; s0 += BKV) {
+  for (int s0 = kv_begin; s0 < kv_end; s0 += BKV) {
     __syncthreads();                  // the previous tile is consumed
     if constexpr (I8) {
       const int8_t* kbase = reinterpret_cast<const int8_t*>(k_) + head * D;
@@ -225,7 +272,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
         int si[4] = {0, 0, 0, 0};
         const int8_t* krow = Ks8 + (nt * 8 + g) * LD8;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < NK8; ++kk) {
           const uint32_t bf[2] = {ld32(krow + kk * 32 + tq * 4),
                                   ld32(krow + kk * 32 + 16 + tq * 4)};
           mma_s8(si, qf[kk], bf);
@@ -239,16 +286,23 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
         for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
         const __nv_bfloat16* krow = Ks + (nt * 8 + g) * LD;
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < NK; ++kk) {
           const uint32_t bf[2] = {ld32(krow + kk * 16 + tq * 2),
                                   ld32(krow + kk * 16 + 8 + tq * 2)};
-          mma_bf16(sc[nt], qf[kk], bf);
+          if constexpr (QSMEM) {
+            const __nv_bfloat16* qc = qrow + kk * 16 + tq * 2;
+            const uint32_t af[4] = {ld32(qc), ld32(qc + 8 * LD),
+                                    ld32(qc + 8), ld32(qc + 8 * LD + 8)};
+            mma_bf16(sc[nt], af, bf);
+          } else {
+            mma_bf16(sc[nt], qf[kk], bf);
+          }
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) sc[nt][j] *= scale;
       }
     }
-    // mask, running max
+    // softcap, mask, running max
     float mxa = ma, mxb = mb;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -256,7 +310,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         const int key = s0 + nt * 8 + tq * 2 + (j & 1);
         const int qpos = j < 2 ? posa : posb;
-        if (key > qpos || key >= S) sc[nt][j] = NEG;
+        if (softcap > 0.f) sc[nt][j] = softcap * tanhf(sc[nt][j] / softcap);
+        if (key > qpos || key >= S || (window > 0 && key <= qpos - window))
+          sc[nt][j] = NEG;
       }
       mxa = fmaxf(mxa, fmaxf(sc[nt][0], sc[nt][1]));
       mxb = fmaxf(mxb, fmaxf(sc[nt][2], sc[nt][3]));
@@ -266,6 +322,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
       mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, off));
       mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
     }
+    // A row whose keys in this tile are all masked (the tile below its own
+    // window floor) sums garbage at max -1e30 here; its first visible key
+    // raises the max and exp(-1e30 - max) = 0 then clears it.
     const float alpha_a = expf(ma - mxa), alpha_b = expf(mb - mxb);
     float suma = 0.f, sumb = 0.f;
 #pragma unroll
@@ -287,7 +346,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     ma = mxa;
     mb = mxb;
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
+    for (int nt = 0; nt < NO; ++nt) {
       o[nt][0] *= alpha_a;
       o[nt][1] *= alpha_a;
       o[nt][2] *= alpha_b;
@@ -312,7 +371,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                               pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
       const int key0 = kk * 16 + tq * 2;
 #pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
+      for (int nt = 0; nt < NO; ++nt) {
         const int dcol = nt * 8 + g;
         uint32_t bf[2];
         if constexpr (I8) {
@@ -335,7 +394,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   float* oa = out + ((size_t)(b * T + ra) * Hq + h) * D;
   float* ob = out + ((size_t)(b * T + rb) * Hq + h) * D;
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
+  for (int nt = 0; nt < NO; ++nt) {
     const int c = nt * 8 + tq * 2;
     if (ra < T) {
       oa[c] = o[nt][0] * inva;
@@ -348,37 +407,64 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool I8>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* starts, void* out, int B, int T,
-           int Hq, int Hkv, int S, float scale, void* stream) {
+template <int D, bool I8>
+int launch_d(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* starts, void* out, int B, int T,
+             int Hq, int Hkv, int S, float scale, float softcap, int window,
+             void* stream) {
+  constexpr int smem = smem_bytes<D, I8>();
+  // above 48 KB a block's dynamic shared memory must be allowed first;
+  // once per kernel, on its first launch (never inside a graph capture:
+  // every caller launches eagerly before it captures)
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_prefill_kernel<D, I8>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
   const dim3 grid((T + BQ - 1) / BQ, B * Hq);
-  flash_prefill_kernel<I8><<<grid, 128, 0,
-                             reinterpret_cast<cudaStream_t>(stream)>>>(
+  flash_prefill_kernel<D, I8><<<grid, 128, smem,
+                                reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const __nv_bfloat16*>(q), k, v,
       reinterpret_cast<const __nv_bfloat16*>(ks),
       reinterpret_cast<const __nv_bfloat16*>(vs),
       reinterpret_cast<const int*>(starts), reinterpret_cast<float*>(out), T,
-      Hq, Hkv, S, scale);
+      Hq, Hkv, S, scale, softcap, window);
   return (int)cudaGetLastError();
+}
+
+template <bool I8>
+int launch(int D, const void* q, const void* k, const void* v,
+           const void* ks, const void* vs, const void* starts, void* out,
+           int B, int T, int Hq, int Hkv, int S, float scale, float softcap,
+           int window, void* stream) {
+  if (D == 128)
+    return launch_d<128, I8>(q, k, v, ks, vs, starts, out, B, T, Hq, Hkv, S,
+                             scale, softcap, window, stream);
+  if (D == 256)
+    return launch_d<256, I8>(q, k, v, ks, vs, starts, out, B, T, Hq, Hkv, S,
+                             scale, softcap, window, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const void* starts, void* out, int B, int T,
-                             int Hq, int Hkv, int S, float scale,
-                             void* stream) {
-  return launch<false>(q, k, v, nullptr, nullptr, starts, out, B, T, Hq, Hkv,
-                       S, scale, stream);
+                             int Hq, int Hkv, int S, int D, float scale,
+                             float softcap, int window, void* stream) {
+  return launch<false>(D, q, k, v, nullptr, nullptr, starts, out, B, T, Hq,
+                       Hkv, S, scale, softcap, window, stream);
 }
 
 // scale here is the softmax scale / 127
 extern "C" int flash_prefill_i8(const void* q, const void* k, const void* v,
                                 const void* k_scale, const void* v_scale,
                                 const void* starts, void* out, int B, int T,
-                                int Hq, int Hkv, int S, float scale,
-                                void* stream) {
-  return launch<true>(q, k, v, k_scale, v_scale, starts, out, B, T, Hq, Hkv,
-                      S, scale, stream);
+                                int Hq, int Hkv, int S, int D, float scale,
+                                float softcap, int window, void* stream) {
+  return launch<true>(D, q, k, v, k_scale, v_scale, starts, out, B, T, Hq,
+                      Hkv, S, scale, softcap, window, stream);
 }

@@ -2,8 +2,10 @@
 
 The port's own copy of ``neural_tpu/models/config.py``, kept field for
 field so one configuration describes a model in both packages. The port's
-graph (models/transformer.py) implements the Llama subset of these knobs
-and raises ``NotImplementedError`` for the rest.
+graph (models/transformer.py) implements the Llama and Gemma 1/2 subset of
+these knobs (Gemma's norm offset, GELU, post norms, embedding scale,
+softcaps and sliding window included) and raises ``NotImplementedError``
+for the rest.
 """
 from __future__ import annotations
 

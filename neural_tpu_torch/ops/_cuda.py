@@ -164,17 +164,18 @@ QMM_GENERAL = Kernel("qmm_general.cu", {
                     F, I, I, I, I, P],
 })
 FLASH_PREFILL = Kernel("flash_prefill.cu", {
-    # q, k, v, starts, out, B, T, Hq, Hkv, S, scale, stream
-    "flash_prefill": [P, P, P, P, P, I, I, I, I, I, F, P],
-    # q, k8, v8, k_scale, v_scale, starts, out, B, T, Hq, Hkv, S,
-    # scale / 127, stream
-    "flash_prefill_i8": [P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    # q, k, v, starts, out, B, T, Hq, Hkv, S, head dim, scale, softcap,
+    # window, stream
+    "flash_prefill": [P, P, P, P, P, I, I, I, I, I, I, F, F, I, P],
+    # q, k8, v8, k_scale, v_scale, starts, out, B, T, Hq, Hkv, S, head dim,
+    # scale / 127, softcap, window, stream
+    "flash_prefill_i8": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, P],
 })
 _DECODE_ARGS = [
     # q, k, v, k_scale, v_scale, table, lengths, part_o, part_ml, out,
     # B, Hq, Hkv, S (contiguous) or MAXP * ps (paged), ps, maxp, n_split,
-    # scale (bf16) or scale / 127 (int8), stream
-    P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
+    # head dim, scale (bf16) or scale / 127 (int8), softcap, window, stream
+    P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P]
 FLASH_DECODE = Kernel("flash_decode.cu", {
     "flash_decode": _DECODE_ARGS, "flash_decode_i8": _DECODE_ARGS},
     headers=("decode_attn.cuh",))

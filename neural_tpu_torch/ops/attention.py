@@ -20,8 +20,12 @@ q per row (``q8 = round(q · 127/qa)``, ``qa = max|q| + 1e-9``), take an
 exact int8·int8 QK dot and form ``s = d · (qa·scale/127) · k_scale``; l
 sums the unscaled P, and the v scale is folded into P — in f32 for the PV
 product of decode, rounded to bf16 for the bf16 PV product of prefill, as
-each TPU kernel does. Head dim 128 only; sliding windows, ALiBi, softcaps
-and the GLM prefix mask are later slices.
+each TPU kernel does. Head dim 128 or 256. The options of the TPU kernels
+that are ported: the tanh softcap (``softcap · tanh(s / softcap)`` on the
+scaled f32 score, before the mask; 0 = off) and the sliding window (an int,
+0 = off: decode sees keys at ``pos >= length - window``, prefill keys at
+``kv_pos > q_pos - window``). ALiBi and the GLM prefix mask are later
+slices.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 from . import _cuda
 
 NEG = -1e30
+HEAD_DIMS = (128, 256)    # the head dims the attention kernels are built for
 
 
 def quantize_kv(x: torch.Tensor):
@@ -50,11 +55,16 @@ def _dequant(cache, scale):
     return cache.to(torch.float32) * scale.to(torch.float32)[..., None]
 
 
+def _softcap(s: torch.Tensor, softcap: float) -> torch.Tensor:
+    return softcap * torch.tanh(s / softcap) if softcap else s
+
+
 def attend_xla(q, k_cache, v_cache, positions, cfg, k_scale=None,
-               v_scale=None):
+               v_scale=None, window: int = 0):
     """Reference attention, all f32 (the JAX package's ``attend_xla``).
     q [B, T, Hq, Dh]; caches [B, Hkv, S, Dh] (bf16, or int8 with scales
-    [B, Hkv, S]); positions [B, T] → [B, T, Hq*Dh] f32."""
+    [B, Hkv, S]); positions [B, T]; the config's softcap and a sliding
+    ``window`` (0 = off) → [B, T, Hq*Dh] f32."""
     B, T, Hq, Dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -62,8 +72,12 @@ def attend_xla(q, k_cache, v_cache, positions, cfg, k_scale=None,
     scale = cfg.attn_scale if cfg.attn_scale is not None else Dh ** -0.5
     scores = torch.einsum("bhgtd,bhsd->bhgts", qh.to(torch.float32) * scale,
                           _dequant(k_cache, k_scale))
+    scores = _softcap(scores, cfg.attn_softcap)
     s_idx = torch.arange(S, device=q.device)[None, None, :]
-    mask = s_idx <= positions[:, :, None]
+    q_abs = positions[:, :, None]
+    mask = s_idx <= q_abs
+    if window:
+        mask = mask & (s_idx > q_abs - window)
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, NEG))
     probs = torch.softmax(scores, dim=-1)
@@ -94,8 +108,8 @@ def _quantize_q(q: torch.Tensor):
 
 def _i8_scores(q8, qa, k8, k_scale, scale: float, eq: str, ks_view):
     """``d · (qa·scale/127) · k_scale`` with the int8·int8 dot d computed in
-    f32: every partial sum is an integer below 2^24 (127·127·128), so it is
-    exact in any order, as the kernels' int32 dot is."""
+    f32: every partial sum is an integer below 2^24 (127·127·256 at head
+    dim 256), so it is exact in any order, as the kernels' int32 dot is."""
     d = torch.einsum(eq, q8, k8.to(torch.float32))
     return d * (qa * (scale / 127.0)) * ks_view(k_scale.to(torch.float32))
 
@@ -105,26 +119,33 @@ def _i8_scores(q8, qa, k8, k_scale, scale: float, eq: str, ks_view):
 # ---------------------------------------------------------------------------
 
 
-def _decode_mask(s, lengths):
-    S = s.shape[-1]
-    mask = torch.arange(S, device=s.device)[None, :] < lengths[:, None]
+def _decode_mask(s, lengths, window: int):
+    """Keys at positions < lengths[b] and, with a window, >= lengths[b] -
+    window stay; the rest score -1e30."""
+    pos = torch.arange(s.shape[-1], device=s.device)[None, :]
+    mask = pos < lengths[:, None]
+    if window:
+        mask = mask & (pos >= lengths[:, None] - window)
     return torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG))
 
 
-def flash_decode_plain(q, k_cache, v_cache, lengths, scale: float):
+def flash_decode_plain(q, k_cache, v_cache, lengths, scale: float,
+                       softcap: float = 0.0, window: int = 0):
     """Plain version of K4. q [B, Hq, Dh] bf16; caches [B, Hkv, S, Dh];
-    keys at positions >= lengths[b] masked → [B, Hq, Dh] f32."""
+    keys at positions >= lengths[b] (and, with a window, below lengths[b] -
+    window) masked → [B, Hq, Dh] f32."""
     B, Hq, Dh = q.shape
     Hkv = k_cache.shape[1]
     qh = q.to(torch.bfloat16).reshape(B, Hkv, Hq // Hkv, Dh)
     s = torch.einsum("bhgd,bhsd->bhgs", qh.to(torch.float32),
                      k_cache.to(torch.float32)) * scale
-    s = _decode_mask(s, lengths)
+    s = _decode_mask(_softcap(s, softcap), lengths, window)
     return _softmax_pv(s, v_cache, "bhgs,bhsd->bhgd").reshape(B, Hq, Dh)
 
 
 def flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
-                          scale: float):
+                          scale: float, softcap: float = 0.0,
+                          window: int = 0):
     """Plain version of K4's int8 variant. Caches int8 [B, Hkv, S, Dh] with
     bf16 scales [B, Hkv, S]; the v scale multiplies P in f32 and PV is an
     f32 product → [B, Hq, Dh] f32."""
@@ -133,7 +154,7 @@ def flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
     q8, qa = _quantize_q(q.reshape(B, Hkv, Hq // Hkv, Dh))
     s = _i8_scores(q8, qa, k_cache, k_scale, scale, "bhgd,bhsd->bhgs",
                    lambda ks: ks[:, :, None, :])
-    s = _decode_mask(s, lengths)
+    s = _decode_mask(_softcap(s, softcap), lengths, window)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -146,12 +167,13 @@ DECODE_CHUNK = 64     # keys per block of the decode kernels' first pass
 
 
 def decode_launch(kernel, fn, q, k, v, k_scale, v_scale, table, lengths,
-                  B, Hkv, S, ps, maxp, qk_scale):
+                  B, Hkv, S, ps, maxp, qk_scale, softcap, window):
     """Launch one of the split-S decode entry points (K4's, or K6's over a
     page table) and return [B, Hq, Dh] f32. The number of splits comes from
-    the key capacity S, never from the fill: the kernel reads the lengths
-    on the device and chunks past a row's fill return at once, so the
-    launch needs no host sync and can be captured in a CUDA graph."""
+    the key capacity S, never from the fill or the window: the kernel reads
+    the lengths on the device, and chunks past a row's fill or wholly below
+    its window return at once, so the launch needs no host sync and can be
+    captured in a CUDA graph."""
     Hq, Dh = q.shape[1], q.shape[2]
     if Hq // Hkv > 8:
         raise ValueError(f"the decode kernels take at most 8 query heads per "
@@ -166,15 +188,17 @@ def decode_launch(kernel, fn, q, k, v, k_scale, v_scale, table, lengths,
     kernel.call(fn, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), opt(k_scale),
                 opt(v_scale), opt(table), _cuda.ptr(lengths),
                 _cuda.ptr(part_o), _cuda.ptr(part_ml), _cuda.ptr(out), B, Hq,
-                Hkv, S, ps, maxp, n_split, float(qk_scale),
-                _cuda.stream_ptr())
+                Hkv, S, ps, maxp, n_split, Dh, float(qk_scale),
+                float(softcap), int(window), _cuda.stream_ptr())
     return out
 
 
-def flash_decode(q, k_cache, v_cache, lengths, scale: float):
+def flash_decode(q, k_cache, v_cache, lengths, scale: float,
+                 softcap: float = 0.0, window: int = 0):
     """K4. Same contract as :func:`flash_decode_plain`."""
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k_cache, v_cache, lengths, scale)
+        return flash_decode_plain(q, k_cache, v_cache, lengths, scale,
+                                  softcap, window)
     B, Hq, Dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     q = q.to(torch.bfloat16).contiguous()
@@ -183,15 +207,15 @@ def flash_decode(q, k_cache, v_cache, lengths, scale: float):
     _cuda.check(lengths, "lengths", torch.int32, (B,))
     return decode_launch(_cuda.FLASH_DECODE, "flash_decode", q, k_cache,
                          v_cache, None, None, None, lengths, B, Hkv, S, 0, 0,
-                         scale)
+                         scale, softcap, window)
 
 
 def flash_decode_i8(q, k_cache, v_cache, k_scale, v_scale, lengths,
-                    scale: float):
+                    scale: float, softcap: float = 0.0, window: int = 0):
     """K4, int8 variant. Same contract as :func:`flash_decode_i8_plain`."""
     if q.device.type == "cpu":
         return flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale,
-                                     lengths, scale)
+                                     lengths, scale, softcap, window)
     B, Hq, Dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     q = q.to(torch.bfloat16).contiguous()
@@ -201,7 +225,7 @@ def flash_decode_i8(q, k_cache, v_cache, k_scale, v_scale, lengths,
     _cuda.check(lengths, "lengths", torch.int32, (B,))
     return decode_launch(_cuda.FLASH_DECODE, "flash_decode_i8", q, k_cache,
                          v_cache, k_scale, v_scale, None, lengths, B, Hkv, S,
-                         0, 0, scale / 127.0)
+                         0, 0, scale / 127.0, softcap, window)
 
 
 # ---------------------------------------------------------------------------
@@ -209,10 +233,13 @@ def flash_decode_i8(q, k_cache, v_cache, k_scale, v_scale, lengths,
 # ---------------------------------------------------------------------------
 
 
-def _prefill_mask(s, starts):
+def _prefill_mask(s, starts, window: int):
     T, S = s.shape[-2], s.shape[-1]
     qpos = starts[:, None] + torch.arange(T, device=s.device)[None, :]
-    mask = torch.arange(S, device=s.device)[None, None, :] <= qpos[:, :, None]
+    kpos = torch.arange(S, device=s.device)[None, None, :]
+    mask = kpos <= qpos[:, :, None]
+    if window:
+        mask = mask & (kpos > qpos[:, :, None] - window)
     return torch.where(mask[:, None, None], s, torch.full_like(s, NEG))
 
 
@@ -221,20 +248,24 @@ def _heads_first(q, Hkv):
     return q.reshape(B, T, Hkv, Hq // Hkv, Dh).permute(0, 2, 3, 1, 4)
 
 
-def flash_prefill_plain(q, k_cache, v_cache, starts, scale: float):
+def flash_prefill_plain(q, k_cache, v_cache, starts, scale: float,
+                        softcap: float = 0.0, window: int = 0):
     """Plain version of K3. q [B, T, Hq, Dh] bf16; caches [B, Hkv, S, Dh]
     already holding these keys; query t at position starts[b] + t sees keys
-    s <= starts[b] + t → [B, T, Hq, Dh] f32."""
+    s <= starts[b] + t (and, with a window, s > starts[b] + t - window) →
+    [B, T, Hq, Dh] f32."""
     B, T, Hq, Dh = q.shape
     qh = _heads_first(q.to(torch.bfloat16), k_cache.shape[1])
     s = torch.einsum("bhgtd,bhsd->bhgts", qh.to(torch.float32),
                      k_cache.to(torch.float32)) * scale
-    out = _softmax_pv(_prefill_mask(s, starts), v_cache, "bhgts,bhsd->bhgtd")
+    s = _prefill_mask(_softcap(s, softcap), starts, window)
+    out = _softmax_pv(s, v_cache, "bhgts,bhsd->bhgtd")
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, Dh)
 
 
 def flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale, starts,
-                           scale: float):
+                           scale: float, softcap: float = 0.0,
+                           window: int = 0):
     """Plain version of K3's int8 variant: the v scale multiplies P, which
     is then rounded to bf16 for a bf16 PV product with the int8 v codes
     widened to bf16 (exact) → [B, T, Hq, Dh] f32."""
@@ -242,7 +273,7 @@ def flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale, starts,
     q8, qa = _quantize_q(_heads_first(q, k_cache.shape[1]))
     s = _i8_scores(q8, qa, k_cache, k_scale, scale, "bhgtd,bhsd->bhgts",
                    lambda ks: ks[:, :, None, None, :])
-    s = _prefill_mask(s, starts)
+    s = _prefill_mask(_softcap(s, softcap), starts, window)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -255,7 +286,7 @@ def flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale, starts,
 
 
 def _prefill_launch(fn, q, k_cache, v_cache, k_scale, v_scale, starts,
-                    qk_scale):
+                    qk_scale, softcap, window):
     B, T, Hq, Dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=q.device)
@@ -263,8 +294,8 @@ def _prefill_launch(fn, q, k_cache, v_cache, k_scale, v_scale, starts,
                                          _cuda.ptr(v_scale)]
     _cuda.FLASH_PREFILL.call(
         fn, _cuda.ptr(q), _cuda.ptr(k_cache), _cuda.ptr(v_cache), *scales,
-        _cuda.ptr(starts), _cuda.ptr(out), B, T, Hq, Hkv, S, float(qk_scale),
-        _cuda.stream_ptr())
+        _cuda.ptr(starts), _cuda.ptr(out), B, T, Hq, Hkv, S, Dh,
+        float(qk_scale), float(softcap), int(window), _cuda.stream_ptr())
     return out
 
 
@@ -278,31 +309,38 @@ def _prefill_args(q, k_cache, v_cache, starts, kv_dtype):
     return q, starts
 
 
-def flash_prefill(q, k_cache, v_cache, starts, scale: float):
+def flash_prefill(q, k_cache, v_cache, starts, scale: float,
+                  softcap: float = 0.0, window: int = 0):
     """K3. Same contract as :func:`flash_prefill_plain`."""
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k_cache, v_cache, starts, scale)
+        return flash_prefill_plain(q, k_cache, v_cache, starts, scale,
+                                   softcap, window)
     q, starts = _prefill_args(q, k_cache, v_cache, starts, torch.bfloat16)
     return _prefill_launch("flash_prefill", q, k_cache, v_cache, None, None,
-                           starts, scale)
+                           starts, scale, softcap, window)
 
 
 def flash_prefill_i8(q, k_cache, v_cache, k_scale, v_scale, starts,
-                     scale: float):
+                     scale: float, softcap: float = 0.0, window: int = 0):
     """K3, int8 variant. Same contract as :func:`flash_prefill_i8_plain`."""
     if q.device.type == "cpu":
         return flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale,
-                                      starts, scale)
+                                      starts, scale, softcap, window)
     q, starts = _prefill_args(q, k_cache, v_cache, starts, torch.int8)
     B, Hkv, S = k_cache.shape[:3]
     _check_scales(k_scale, v_scale, (B, Hkv, S))
     return _prefill_launch("flash_prefill_i8", q, k_cache, v_cache, k_scale,
-                           v_scale, starts, scale / 127.0)
+                           v_scale, starts, scale / 127.0, softcap, window)
+
+
+def check_head_dim(Dh: int):
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"the attention kernels take head_dim "
+                         f"{' or '.join(map(str, HEAD_DIMS))}, got {Dh}")
 
 
 def _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B, kv_dtype):
-    if Dh != 128:
-        raise ValueError(f"the attention kernels take head_dim 128, got {Dh}")
+    check_head_dim(Dh)
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     S = k_cache.shape[2]
@@ -321,38 +359,38 @@ def _check_scales(k_scale, v_scale, shape):
 
 
 def check_unported(cfg):
-    if cfg.attn_softcap or cfg.sliding_window or cfg.use_alibi \
-            or cfg.prefix_lm:
+    if cfg.use_alibi or cfg.prefix_lm:
         raise NotImplementedError(
-            "softcap, sliding-window, ALiBi and prefix-LM attention are "
-            "later slices")
+            "ALiBi and prefix-LM attention are later slices")
 
 
 def attn_scale(cfg, Dh: int) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else Dh ** -0.5
 
 
-def attend(q, k_cache, v_cache, positions, cfg, k_scale=None, v_scale=None):
+def attend(q, k_cache, v_cache, positions, cfg, k_scale=None, v_scale=None,
+           window: int = 0):
     """q [B, T, Hq, Dh] at ``positions`` [B, T] against one layer's cache
     [B, Hkv, S, Dh] (already holding these keys; int8 with ``k_scale`` /
     ``v_scale`` [B, Hkv, S]) → [B, T, Hq*Dh] f32. T == 1 goes to K4, T > 1
-    to K3, each in the variant of the cache's dtype."""
+    to K3, each in the variant of the cache's dtype, with the config's
+    softcap and this layer's sliding ``window`` (a Python int, 0 = off)."""
     check_unported(cfg)
     B, T, Hq, Dh = q.shape
-    scale = attn_scale(cfg, Dh)
+    opts = (attn_scale(cfg, Dh), cfg.attn_softcap, window)
     int8 = k_cache.dtype == torch.int8
     if int8 != (k_scale is not None):
         raise ValueError("an int8 KV cache comes with its scales, a bf16 one "
                          "without")
     if T == 1 and int8:
         out = flash_decode_i8(q[:, 0], k_cache, v_cache, k_scale, v_scale,
-                              positions[:, 0] + 1, scale)
+                              positions[:, 0] + 1, *opts)
     elif T == 1:
         out = flash_decode(q[:, 0], k_cache, v_cache, positions[:, 0] + 1,
-                           scale)
+                           *opts)
     elif int8:
         out = flash_prefill_i8(q, k_cache, v_cache, k_scale, v_scale,
-                               positions[:, 0], scale)
+                               positions[:, 0], *opts)
     else:
-        out = flash_prefill(q, k_cache, v_cache, positions[:, 0], scale)
+        out = flash_prefill(q, k_cache, v_cache, positions[:, 0], *opts)
     return out.reshape(B, T, Hq * Dh)

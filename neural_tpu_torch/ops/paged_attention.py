@@ -6,8 +6,9 @@ dispatch and the page-pool writes (port of
   (``csrc/paged_decode.cu``) replace the TPU's ``_paged_decode_kernel``:
   K4's split-S body (``csrc/decode_attn.cuh``, shared with
   ``flash_decode.cu``) with each key's row found through ``table[b, s //
-  ps]``. Keys past a row's fill are never read, so table entries past the
-  fill may point anywhere in the pool.
+  ps]``. Keys past a row's fill, and chunks wholly below its sliding
+  window, are never read, so table entries past the fill may point
+  anywhere in the pool. The softcap and the window are K4's.
 - :func:`attend_paged`: T == 1 goes to K6; T > 1 gathers the slot's pages
   into a contiguous ``[B, Hkv, MAXP·ps, Dh]`` view and runs K3 over it, the
   JAX package's own route for paged prefill.
@@ -20,9 +21,10 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .attention import (attn_scale, check_unported, decode_launch,
-                        flash_decode_i8_plain, flash_decode_plain,
-                        flash_prefill, flash_prefill_i8, quantize_kv)
+from .attention import (attn_scale, check_head_dim, check_unported,
+                        decode_launch, flash_decode_i8_plain,
+                        flash_decode_plain, flash_prefill, flash_prefill_i8,
+                        quantize_kv)
 
 
 def gather_pages(pool, table):
@@ -40,23 +42,22 @@ def gather_scales(spool, table):
 
 
 def paged_decode_plain(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                       scale: float):
+                       scale: float, softcap: float = 0.0, window: int = 0):
     """Plain version of K6: gather the pages, then K4's plain version (bf16
     or int8 by the pool's scales). q [B, Hq, Dh]; pools [P, Hkv, ps, Dh];
     table [B, MAXP]; lengths [B] → [B, Hq, Dh] f32."""
     k, v = gather_pages(k_pool, table), gather_pages(v_pool, table)
     if k_scale is None:
-        return flash_decode_plain(q, k, v, lengths, scale)
+        return flash_decode_plain(q, k, v, lengths, scale, softcap, window)
     return flash_decode_i8_plain(q, k, v, gather_scales(k_scale, table),
                                  gather_scales(v_scale, table), lengths,
-                                 scale)
+                                 scale, softcap, window)
 
 
 def _paged_args(q, k_pool, v_pool, table, lengths, kv_dtype):
     B, Hq, Dh = q.shape
     P, Hkv, ps = k_pool.shape[:3]
-    if Dh != 128:
-        raise ValueError(f"the attention kernels take head_dim 128, got {Dh}")
+    check_head_dim(Dh)
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     if ps % 16:
@@ -73,55 +74,58 @@ def _paged_args(q, k_pool, v_pool, table, lengths, kv_dtype):
     return q, lengths, B, Hkv, ps, table.shape[1]
 
 
-def paged_decode(q, k_pool, v_pool, table, lengths, scale: float):
+def paged_decode(q, k_pool, v_pool, table, lengths, scale: float,
+                 softcap: float = 0.0, window: int = 0):
     """K6 over a bf16 pool. Same contract as :func:`paged_decode_plain`."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, None, None, table,
-                                  lengths, scale)
+                                  lengths, scale, softcap, window)
     q, lengths, B, Hkv, ps, maxp = _paged_args(q, k_pool, v_pool, table,
                                                lengths, torch.bfloat16)
     return decode_launch(_cuda.PAGED_DECODE, "paged_decode", q, k_pool,
                          v_pool, None, None, table, lengths, B, Hkv,
-                         maxp * ps, ps, maxp, scale)
+                         maxp * ps, ps, maxp, scale, softcap, window)
 
 
 def paged_decode_i8(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                    scale: float):
+                    scale: float, softcap: float = 0.0, window: int = 0):
     """K6 over an int8 pool. Same contract as :func:`paged_decode_plain`."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, k_scale, v_scale, table,
-                                  lengths, scale)
+                                  lengths, scale, softcap, window)
     q, lengths, B, Hkv, ps, maxp = _paged_args(q, k_pool, v_pool, table,
                                                lengths, torch.int8)
     for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
         _cuda.check(s, name, torch.bfloat16, k_pool.shape[:3])
     return decode_launch(_cuda.PAGED_DECODE, "paged_decode_i8", q, k_pool,
                          v_pool, k_scale, v_scale, table, lengths, B, Hkv,
-                         maxp * ps, ps, maxp, scale / 127.0)
+                         maxp * ps, ps, maxp, scale / 127.0, softcap, window)
 
 
-def attend_paged(q, k_pool, v_pool, k_scale, v_scale, table, positions, cfg):
+def attend_paged(q, k_pool, v_pool, k_scale, v_scale, table, positions, cfg,
+                 window: int = 0):
     """Paged dispatch, mirroring :func:`~.attention.attend`: K6 for T == 1;
     for T > 1 the slot's pages are gathered into a contiguous view for K3.
-    q [B, T, Hq, Dh]; positions [B, T] → [B, T, Hq*Dh] f32."""
+    q [B, T, Hq, Dh]; positions [B, T]; the config's softcap and this
+    layer's sliding ``window`` (0 = off) → [B, T, Hq*Dh] f32."""
     check_unported(cfg)
     B, T, Hq, Dh = q.shape
-    scale = attn_scale(cfg, Dh)
+    opts = (attn_scale(cfg, Dh), cfg.attn_softcap, window)
     if T == 1:
         lengths = positions[:, 0] + 1
         if k_scale is None:
-            out = paged_decode(q[:, 0], k_pool, v_pool, table, lengths, scale)
+            out = paged_decode(q[:, 0], k_pool, v_pool, table, lengths, *opts)
         else:
             out = paged_decode_i8(q[:, 0], k_pool, v_pool, k_scale, v_scale,
-                                  table, lengths, scale)
+                                  table, lengths, *opts)
         return out.reshape(B, 1, Hq * Dh)
     k, v = gather_pages(k_pool, table), gather_pages(v_pool, table)
     if k_scale is None:
-        out = flash_prefill(q, k, v, positions[:, 0], scale)
+        out = flash_prefill(q, k, v, positions[:, 0], *opts)
     else:
         out = flash_prefill_i8(q, k, v, gather_scales(k_scale, table),
                                gather_scales(v_scale, table),
-                               positions[:, 0], scale)
+                               positions[:, 0], *opts)
     return out.reshape(B, T, Hq * Dh)
 
 

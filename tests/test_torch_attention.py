@@ -117,10 +117,11 @@ def test_ragged_s_port_only(T, fill):
 
 
 def test_unported_options_raise():
+    """ALiBi and the GLM prefix mask are still refused; the softcap and the
+    sliding window are held against JAX in test_torch_attention_opts.py."""
     _, cfg = _cfg()
     q, k, v = _inputs(1, 64, seed=0)
     pos = torch.zeros(1, 1, dtype=torch.long)
-    for change in ({"sliding_window": 16}, {"attn_softcap": 30.0},
-                   {"use_alibi": True}):
+    for change in ({"use_alibi": True}, {"prefix_lm": True}):
         with pytest.raises(NotImplementedError):
             attend(_t(q), _t(k), _t(v), pos, dataclasses.replace(cfg, **change))
