@@ -21,6 +21,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    4096 and 0 at fill or prompt 6000, K3 on a 1975-token prompt, K6 at
    batch 8 with mixed fills, and at head dim 128 with the softcap and a
    window (K4 and K3 must be faster with the window than without); then
+   the ALiBi branches of K3 (Bloom-7B1's 1975-token prefill, 32 heads),
+   K4 (fills 1975 and 128) and K6 (B=8, mixed fills) and K3's GLM prefix
+   branch (ChatGLM-6B's 1975-token prefill, all of it the prefix), bf16
+   and int8, each also timed with its option off and held against a
+   compiled ``flex_attention`` with the same score_mod / mask_mod; then
    K5 (nf4 at M=1 and 1975, q4_0 at 1975, q4_j at 128, 64, 32 and 24,
    fp4, fp8 e4m3/e5m2, int1 and bit-plane int3 asym at 1), K1's other
    entry points (asym nibbles, int2 and int8 codes, sym and asym) at M=1
@@ -38,7 +43,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    (4c) Gemma-2-9B at full depth, q4_j (random weights from a seed):
    ``Model.generate`` with bf16 and int8 KV, decode ms/token at fills 128
    and 6000 (bf16 KV) and 6000 (int8 KV), TTFT at 1975 and 6000 tokens,
-   caches of 8192 positions, each a path with its launch counts;
+   caches of 8192 positions, each a path with its launch counts; (4d)
+   Bloom-7B1 at full depth (``bigscience/bloom-7b1``'s config, q4_j,
+   random weights): ``Model.generate`` with bf16 and int8 KV, decode at
+   fills 128 and 1975, TTFT at 1975 tokens, peak memory; (6b, run while its
+   weights are loaded) its batch-8 paged int8 ``ModelServer`` over phase
+   6's 12 queries, and a short paged bf16 run; (4e) ChatGLM-6B at full
+   depth (``THUDM/chatglm-6b``'s config): ``Model.generate`` with bf16 and
+   int8 KV, decode at fill 128, TTFT at 1975 tokens, all of it the prefix;
 5. card vs plain: a 2-layer copy at the same width runs its prefill logits
    and greedy steps through the kernels on the card and through the plain
    path on the CPU; then the same through the Scheduler (paged int8 KV,
@@ -49,7 +61,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    tolerance, greedy ids equal where the margin proves it; (5b) a 2-layer
    Gemma-2-9B copy with its window cut to 32 (so that it acts on every
    prompt there): ``Model.generate`` on the card, its logits against the
-   plain path, and the paged int8 Scheduler check;
+   plain path, and the paged int8 Scheduler check; (5c) 2-layer full-width
+   copies of Bloom-7B1, MPT-7B and ChatGLM-6B (100-token prompts, bf16
+   activations, tolerance 2e-2·max|logit|) the same way, and the paged
+   int8 Scheduler check on the Bloom copy;
 6. serving: the same 7B model behind ``ModelServer(max_batch=8,
    max_len=2048, kv_mode="paged", page_size=256, memory_dtype="int8")``
    answers 12 queries (prompts of 32-1500 tokens, 32 new tokens each) with
@@ -69,6 +84,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -79,11 +95,13 @@ from neural_tpu_torch.convert.hf import init_random  # noqa: E402
 from neural_tpu_torch.core.dtypes import PRESETS, QuantConfig  # noqa: E402
 from neural_tpu_torch.core.qtensor import (dequantize, quantize,  # noqa: E402
                                            to_native, to_native_packed)
+from neural_tpu_torch.models import bloom, chatglm, mpt  # noqa: E402
 from neural_tpu_torch.models.config import ModelConfig  # noqa: E402
 from neural_tpu_torch.ops import _cuda  # noqa: E402
 from neural_tpu_torch.ops import attention as A  # noqa: E402
 from neural_tpu_torch.ops import paged_attention as PA  # noqa: E402
 from neural_tpu_torch.ops import qmatmul as Q  # noqa: E402
+from neural_tpu_torch.ops.rope import alibi_slopes  # noqa: E402
 from neural_tpu_torch.runtime.generate import (decode_loop,  # noqa: E402
                                                greedy_generate, model_step,
                                                prefill_step)
@@ -541,35 +559,53 @@ LIB_TOL = 1e-2
 _FLEX = []      # torch.compile(flex_attention), made on first use
 
 
-def _flex(q, kvs, offsets, window, scale, softcap, ref):
+def _flex(q, kvs, offsets, window, scale, softcap, ref, slopes=None,
+          prefix=None):
     """Closures of one compiled ``flex_attention`` call per (k, v) of
-    ``kvs`` (bf16, dequantized for int8; q [B, Hq, Tq, Dh]): the tanh
-    softcap as its score_mod and, as its block mask, the keys that query
-    row i of batch row b sees: kv <= i + offsets[b] and, with a window,
-    kv > i + offsets[b] - window. The library's fused kernel for the
+    ``kvs`` (bf16, dequantized for int8; q [B, Hq, Tq, Dh]): as its
+    score_mod the tanh softcap, then ALiBi's ``slopes[h] · (kv - q_pos)``
+    with q_pos = i + offsets[b]; as its block mask the keys that query row
+    i of batch row b sees: kv <= i + offsets[b] and, with a window, kv > i
+    + offsets[b] - window; or, with the GLM prefix bound ``prefix`` (the
+    prompt length P), any kv < P - 1. The library's fused kernel for the
     function K3/K4/K6 compute with their options, a yardstick the port
     never calls. It is compiled here, outside any timed window, one graph
-    per shape (the offsets and the window are tensors, so the cases of one
-    shape share it), and its output is held within LIB_TOL of ``ref()``,
-    the plain version on the same bf16 keys in the same layout."""
+    per shape and set of options (the offsets, the window, the slopes and
+    the prefix are tensors, so the cases of one shape share it), and its
+    output is held within LIB_TOL of ``ref()``, the plain version on the
+    same bf16 keys in the same layout."""
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
     if not _FLEX:
+        # one graph per shape and set of options: a dozen in all, past the
+        # default limit of 8, beyond which flex runs uncompiled, and that
+        # path copies from the host inside the timing's graph capture
+        torch._dynamo.config.recompile_limit = 64
         _FLEX.append(torch.compile(flex_attention, dynamic=False))
     off = torch.tensor(offsets, dtype=torch.int32, device=DEV)
     lo = off - (window or 1 << 30)
+    pm1 = torch.tensor([(prefix or 0) - 1], dtype=torch.int32, device=DEV)
 
     def mask(b, h, qi, ki):
         return (ki <= qi + off[b]) & (ki > qi + lo[b])
 
+    def prefix_mask(b, h, qi, ki):
+        return mask(b, h, qi, ki) | (ki < pm1[0])
+
     def score(s, b, h, qi, ki):
-        return softcap * torch.tanh(s / softcap)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        if slopes is not None:
+            s = s + slopes[h] * (ki - qi - off[b])
+        return s
 
     B, Hq, Tq, _ = q.shape
-    bm = create_block_mask(mask, B, None, Tq, kvs[0][0].shape[2], device=DEV)
+    bm = create_block_mask(prefix_mask if prefix else mask, B, None, Tq,
+                           kvs[0][0].shape[2], device=DEV)
+    mod = score if softcap or slopes is not None else None
     fns = [lambda k=k, v=v: _FLEX[0](
-        q, k, v, score_mod=score if softcap else None, block_mask=bm,
-        scale=scale, enable_gqa=Hq != k.shape[1]) for k, v in kvs]
+        q, k, v, score_mod=mod, block_mask=bm, scale=scale,
+        enable_gqa=Hq != k.shape[1]) for k, v in kvs]
     t = time.perf_counter()
     out = fns[0]()
     torch.cuda.synchronize()
@@ -583,16 +619,18 @@ def _flex(q, kvs, offsets, window, scale, softcap, ref):
 
 
 def _attn_case(label, entry, run, plain, nbytes, op_s, tol, count,
-               runs=None, library=None):
+               runs=None, library=None, off=None):
     """One attention case: the wrapper ``run()`` against ``plain()`` on the
     same CUDA tensors, checking that ``entry`` launched; its time (over
     ``runs``, closures on copies of the cache that defeat the L2, or
     ``run`` alone), the plain version's, ``library``'s (closures of one
     library call on the same keys, dequantized for int8:
     ``scaled_dot_product_attention`` with no option, a compiled
-    ``flex_attention`` with the softcap or a window), and the bound of
-    ``nbytes`` and ``op_s`` seconds of operations; each times ``count``,
-    the launches per token or prefill."""
+    ``flex_attention`` with the softcap, a window, ALiBi or the prefix),
+    and the bound of ``nbytes`` and ``op_s`` seconds of operations; each
+    times ``count``, the launches per token or prefill. ``off``: closures
+    of the same launches with the case's option off, timed beside it, so
+    the branch's cost shows."""
     before = _cuda.launch_counts()[entry]
     out = run()
     if _cuda.launch_counts()[entry] != before + 1:
@@ -610,9 +648,27 @@ def _attn_case(label, entry, run, plain, nbytes, op_s, tol, count,
     log(f"{label} {entry} x{count}: err {err:.3g} (tol {tol}) | kernel "
         f"{ms:.4f} ms, plain {pms:.3f} ms, library {lms:.4f} ms, bound "
         f"{bnd:.4f} ms ({by}); {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
-    return dict(ms=count * ms, plain_ms=count * pms, library_ms=count * lms,
-                bound_ms=count * bnd, bound_by=by, err=err,
-                ms_per_launch=ms, per=f"{label} ({count} launches)")
+    out = dict(ms=count * ms, plain_ms=count * pms, library_ms=count * lms,
+               bound_ms=count * bnd, bound_by=by, err=err,
+               ms_per_launch=ms, per=f"{label} ({count} launches)")
+    if off:
+        oms = time_ms(off)
+        out.update(off_ms_per_launch=oms, on_over_off=ms / oms)
+        log(f"  the same launch with the option off: {oms:.4f} ms; on / "
+            f"off {ms / oms:.3f}")
+    return out
+
+
+def _attn_ops(int8, Dh, Hq, pairs, alibi, decode):
+    """Seconds of operations at the peaks: QK^T and PV (int8 QK at the int8
+    rate; decode's int8 PV in f32, prefill's in bf16), and ALiBi's product
+    and sum per pair in f32."""
+    if int8:
+        pv = F32_FLOPS if decode else BF16_FLOPS
+        op_s = 2 * Dh * Hq * pairs * (1 / INT8_OPS + 1 / pv)
+    else:
+        op_s = 4 * Dh * Hq * pairs / BF16_FLOPS
+    return op_s + (2 * Hq * pairs / F32_FLOPS if alibi else 0.0)
 
 
 def check_k3(gen, results):
@@ -649,8 +705,7 @@ def check_k3(gen, results):
                 library = [lambda: _sdpa(qh, kd, vd, is_causal=True)]
             pairs = _pairs(T, W)
             row = Dh + 2 if int8 else 2 * Dh    # bytes of a K or V row
-            op_s = (2 * Dh * Hq * pairs * (1 / INT8_OPS + 1 / BF16_FLOPS)
-                    if int8 else 4 * Dh * Hq * pairs / BF16_FLOPS)
+            op_s = _attn_ops(int8, Dh, Hq, pairs, False, False)
             label = f"{what} {T}-token prefill, window {W}, softcap {cap:g}"
             cases[label] = _attn_case(
                 label, entry, lambda: fn(*args), lambda: plain(*args),
@@ -699,8 +754,7 @@ def check_k4(gen, results):
                 library = [lambda kv=kv: _sdpa(
                     q[:, :, None], kv[0][:, :, :fill], kv[1][:, :, :fill])
                     for kv in kvs]
-            op_s = (2 * Dh * Hq * vis * (1 / INT8_OPS + 1 / F32_FLOPS)
-                    if int8 else 4 * Dh * Hq * vis / BF16_FLOPS)
+            op_s = _attn_ops(int8, Dh, Hq, vis, False, True)
             label = f"{what} decode fill {fill}, window {W}, softcap {cap:g}"
             cases[label] = _attn_case(
                 label, entry, lambda: fn(*args[0]), lambda: plain(*args[0]),
@@ -758,8 +812,7 @@ def check_k6(gen, results):
                                          attn_mask=mask)]
             n = sum(_visible(f, W) for f in fills)
             row = Dh + 2 if int8 else 2 * Dh    # bytes of a K or V row
-            op_s = (2 * Dh * Hq * n * (1 / INT8_OPS + 1 / F32_FLOPS)
-                    if int8 else 4 * Dh * Hq * n / BF16_FLOPS)
+            op_s = _attn_ops(int8, Dh, Hq, n, False, True)
             label = (f"{what} B={B} decode fills {fills}, window {W}, "
                      f"softcap {cap:g}")
             cases[label] = _attn_case(
@@ -798,6 +851,154 @@ def window_speedups(results):
     return out
 
 
+# Bloom-7B1's and ChatGLM-6B's attention: 32 heads of 128 over as many KV
+# heads, as Llama-2-7B's; Bloom's ALiBi slopes 2^-(h+1)/4; 30 and 28 layers
+BLOOM_L, CHATGLM_L = 30, 28
+
+
+def _slopes(Hq):
+    return torch.from_numpy(alibi_slopes(Hq)).to(DEV)
+
+
+def _prefix_pairs(T, P):
+    """(query, key) pairs a T-row prefill from position 0 sees under the GLM
+    prefix mask of a P-token prompt: row t sees max(t + 1, P - 1) keys."""
+    return sum(max(t + 1, P - 1) for t in range(T))
+
+
+def check_k3_options(gen, results):
+    """K3's ALiBi branch at Bloom-7B1's 1975-token prefill (32 heads, its
+    slopes; 30 launches) and its GLM prefix branch at ChatGLM-6B's, where
+    the whole 1975-token prompt is the prefix (every row sees 1973 keys or
+    more; 28 launches), bf16 and int8 KV, each against the same launch with
+    the option off."""
+    starts = torch.zeros(1, dtype=torch.int32, device=DEV)
+    sl, T = _slopes(H), T_PREFILL
+    plen = torch.tensor([T], dtype=torch.int32, device=DEV)
+    for int8 in (False, True):
+        sfx = "_i8" if int8 else ""
+        entry = "flash_prefill_i8" if int8 else "flash_prefill"
+        fn = A.flash_prefill_i8 if int8 else A.flash_prefill
+        plain = A.flash_prefill_i8_plain if int8 else A.flash_prefill_plain
+        q = (torch.randn((1, T, H, DH), generator=gen, device=DEV)
+             * Q_SPREAD).bfloat16()
+        c = _attn_cache(gen, (1, H, S_CACHE, DH), int8)[0]
+        base = (q, c[0], c[1], *(c[2:] if int8 else ()), starts, DH ** -0.5)
+        kd, vd = (x[:, :, :T] for x in _bf16_kv(c))
+        qh = q.transpose(1, 2)
+        row = DH + 2 if int8 else 2 * DH    # bytes of a K or V row
+        nbytes = T * H * DH * 2 + 2 * T * H * row + T * H * DH * 4
+        for opt, kw, pairs, count, what in (
+                ("alibi", dict(slopes=sl), _pairs(T, 0), BLOOM_L, "bloom"),
+                ("prefix", dict(prefix_len=plen), _prefix_pairs(T, T),
+                 CHATGLM_L, "chatglm")):
+            library = _flex(
+                qh, [(kd, vd)], [0], 0, DH ** -0.5, 0.0,
+                lambda: A.flash_prefill_plain(q, kd, vd, starts, DH ** -0.5,
+                                              **kw).transpose(1, 2),
+                slopes=kw.get("slopes"), prefix=T if opt == "prefix" else None)
+            label = f"{what} {T}-token prefill, {opt}"
+            case = _attn_case(
+                label, f"{entry}+{opt}", lambda: fn(*base, **kw),
+                lambda: plain(*base, **kw), nbytes,
+                _attn_ops(int8, DH, H, pairs, opt == "alibi", False),
+                I8_PREFILL_TOL if int8 else BF16_TOL, count, library=library,
+                off=[lambda: fn(*base)])
+            _record(results, f"K3{sfx}_{opt}", {label: case})
+            del library
+        del q, c, kd, vd, qh
+        torch.cuda.empty_cache()
+
+
+def check_k4_alibi(gen, results):
+    """K4's ALiBi branch at Bloom-7B1's decode, fills 1975 and 128 of 2048,
+    bf16 and int8 KV, against the same launches without the slopes."""
+    sl = _slopes(H)
+    for int8, key in ((False, "K4_alibi"), (True, "K4_i8_alibi")):
+        entry = "flash_decode_i8" if int8 else "flash_decode"
+        fn = A.flash_decode_i8 if int8 else A.flash_decode
+        plain = A.flash_decode_i8_plain if int8 else A.flash_decode_plain
+        cases = {}
+        for fill in (T_PREFILL, 128):
+            q = (torch.randn((1, H, DH), generator=gen, device=DEV)
+                 * Q_SPREAD).bfloat16()
+            row = DH + 2 if int8 else 2 * DH
+            caches = _attn_cache(gen, (1, H, S_CACHE, DH), int8,
+                                 _copies(2 * fill * H * row))
+            lengths = torch.tensor([fill], dtype=torch.int32, device=DEV)
+            args = [(q, c[0], c[1], *(c[2:] if int8 else ()), lengths,
+                     DH ** -0.5) for c in caches]
+            kvs = [_bf16_kv(c) for c in caches]
+            library = _flex(q[:, :, None], kvs, [fill - 1], 0, DH ** -0.5,
+                            0.0, lambda: A.flash_decode_plain(
+                                q, *kvs[0], lengths, DH ** -0.5,
+                                slopes=sl)[:, :, None], slopes=sl)
+            label = f"bloom decode fill {fill}, alibi"
+            cases[label] = _attn_case(
+                label, f"{entry}+alibi", lambda: fn(*args[0], slopes=sl),
+                lambda: plain(*args[0], slopes=sl),
+                2 * fill * H * row + H * DH * (2 + 4),
+                _attn_ops(int8, DH, H, fill, True, True),
+                I8_DECODE_TOL if int8 else BF16_TOL, BLOOM_L,
+                runs=[lambda a=a: fn(*a, slopes=sl) for a in args],
+                library=library, off=[lambda a=a: fn(*a) for a in args])
+            del q, caches, args, kvs, library
+            torch.cuda.empty_cache()
+        _record(results, key, cases)
+
+
+def check_k6_alibi(gen, results):
+    """K6's ALiBi branch at the Bloom-7B1 server's step: B=8 over a
+    shuffled page table (page 256) with the server's mixed fills, bf16 and
+    int8 pools, against the same launch without the slopes."""
+    ps, sl = 256, _slopes(H)
+    cpu = torch.Generator().manual_seed(11)
+    fills = [1, 2048, 1975, 128, 700, 1300, 33, 1024]
+    B, maxp = len(fills), S_CACHE // ps
+    P = B * maxp + 1
+    for int8, key in ((False, "K6_alibi"), (True, "K6_i8_alibi")):
+        entry = "paged_decode_i8" if int8 else "paged_decode"
+        fn = PA.paged_decode_i8 if int8 else PA.paged_decode
+        table = torch.randperm(P - 1, generator=cpu)[:B * maxp] \
+            .reshape(B, maxp).to(torch.int32).to(DEV)
+        lengths = torch.tensor(fills, dtype=torch.int32, device=DEV)
+        q = (torch.randn((B, H, DH), generator=gen, device=DEV)
+             * Q_SPREAD).bfloat16()
+        c = _attn_cache(gen, (P, H, ps, DH), int8)[0]
+        args = (q, c[0], c[1], *(c[2:] if int8 else ()), table, lengths,
+                DH ** -0.5)
+        kd, vd = (PA.gather_pages(x, table) for x in _bf16_kv(c))
+        library = _flex(q[:, :, None], [(kd, vd)], [f - 1 for f in fills], 0,
+                        DH ** -0.5, 0.0, lambda: A.flash_decode_plain(
+                            q, kd, vd, lengths, DH ** -0.5,
+                            slopes=sl)[:, :, None], slopes=sl)
+        n = sum(fills)
+        row = DH + 2 if int8 else 2 * DH
+        label = f"bloom B={B} decode fills {fills}, alibi"
+        case = _attn_case(
+            label, f"{entry}+alibi", lambda: fn(*args, slopes=sl),
+            lambda: PA.paged_decode_plain(q, *c, table, lengths, DH ** -0.5,
+                                          slopes=sl),
+            2 * n * H * row + B * maxp * 4 + B * 4 + B * H * DH * (2 + 4),
+            _attn_ops(int8, DH, H, n, True, True),
+            I8_DECODE_TOL if int8 else BF16_TOL, BLOOM_L, library=library,
+            off=[lambda: fn(*args)])
+        _record(results, key, {label: case})
+        del q, c, args, kd, vd, library
+        torch.cuda.empty_cache()
+
+
+def branch_costs(results):
+    """Each ALiBi and prefix case's time per launch over the same launch
+    with the option off, as the checks recorded them."""
+    out = {}
+    for key in ("K3_alibi", "K3_i8_alibi", "K3_prefix", "K3_i8_prefix",
+                "K4_alibi", "K4_i8_alibi", "K6_alibi", "K6_i8_alibi"):
+        for label, c in results[key]["cases"].items():
+            out[f"{key}: {label}"] = c["on_over_off"]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -817,7 +1018,9 @@ def _check_ids(new, n, what, vocab=V):
 def decode_ms(params, fill, batch=1, kv_dtype=torch.bfloat16, lo=4, hi=36,
               cfg=CFG, S=S_CACHE):
     """ms per decode step: slope of ``decode_loop`` between lo and hi steps
-    (best of 3 each) from a cache of ``S`` positions filled to ``fill``."""
+    (best of 3 each) from a cache of ``S`` positions filled to ``fill``, a
+    prompt of ``fill`` tokens (which a prefix-LM model's 2-D RoPE reads;
+    the others ignore it)."""
     token = torch.full((batch, 1), 17, dtype=torch.long, device=DEV)
 
     def run(n):
@@ -825,7 +1028,7 @@ def decode_ms(params, fill, batch=1, kv_dtype=torch.bfloat16, lo=4, hi=36,
         pos = torch.full((batch,), fill, dtype=torch.long, device=DEV)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        decode_loop(params, token, pos, cache, n)
+        decode_loop(params, token, pos, cache, n, prompt_len=pos)
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
@@ -1088,9 +1291,10 @@ def _steps_card_vs_plain(card, host, cfg2, ids, feed, rel_tol):
     """Logits of the prefill's last row and of one decode step per id of
     ``feed``, on the card and on the CPU's plain path: within ``rel_tol``
     of max|logit| at every step, and the argmax equal wherever the plain
-    top-2 margin exceeds twice that step's largest logit difference.
-    Returns (worst relative difference, steps so proven, argmax equal at
-    each step)."""
+    top-2 margin exceeds twice that step's largest logit difference. Decode
+    steps take the prompt length, which a prefix-LM model reads. Returns
+    (worst relative difference, steps so proven, argmax equal at each
+    step)."""
     caches = [init_cache(cfg2, 1, len(ids) + len(feed) + 1, device=d)
               for d in (DEV, "cpu")]
     logits = [prefill_step(m, torch.tensor([ids], device=c.k.device),
@@ -1123,7 +1327,8 @@ def _steps_card_vs_plain(card, host, cfg2, ids, feed, rel_tol):
         logits = [model_step(m, torch.tensor([[feed[step]]],
                                              device=c.k.device),
                              torch.tensor([len(ids) + step],
-                                          device=c.k.device), c)
+                                          device=c.k.device), c,
+                             torch.tensor([len(ids)], device=c.k.device))
                   for m, c in zip((card, host), caches)]
     return worst, provable, sames
 
@@ -1327,7 +1532,7 @@ SERVE_PAGED_I8 = ("qmm4_npack", "qmm_a8", "qmm_general", "flash_prefill_i8",
                   "paged_decode_i8")
 
 
-def _serve(srv, prompts, n_new, timeout=300.0):
+def _serve(srv, prompts, n_new, cfg=CFG, timeout=300.0):
     """Issue every prompt at once, wait for Empty() under a timeout that
     raises; return (finished sequences by id, issue time, wall seconds)."""
     t0 = time.time()
@@ -1345,9 +1550,9 @@ def _serve(srv, prompts, n_new, timeout=300.0):
                              f"{len(prompts)} queries")
     for i, q in done.items():
         out = q.output_ids
-        stopped = out and out[-1] in CFG.eos_token_ids and len(out) < n_new
+        stopped = out and out[-1] in cfg.eos_token_ids and len(out) < n_new
         if not (len(out) == n_new or stopped) \
-                or not all(0 <= t < V for t in out):
+                or not all(0 <= t < cfg.vocab_size for t in out):
             raise AssertionError(f"query {i}: bad ids {out}")
     return done, t0, wall
 
@@ -1385,13 +1590,14 @@ def _graph_vs_eager(params):
     torch.cuda.empty_cache()
 
 
-def phase_server(params):
-    _graph_vs_eager(params)
-    gen = torch.Generator().manual_seed(6)
-    lens = torch.randint(32, 1501, (12,), generator=gen).tolist()
-    prompts = [torch.randint(3, V, (n,), generator=gen).tolist()
-               for n in lens]
-    srv = ModelServer(params, CFG, max_batch=8, max_len=S_CACHE,
+def _server_timed(params, cfg, name, required, prompts):
+    """The batch-8 ``ModelServer`` over a paged int8 pool (page 256,
+    max_len 2048) answers ``prompts`` (32 new tokens each, issued at once)
+    after a warm-up query that captures its decode graph, as the path
+    ``name`` with launch counts: aggregate tok/s, the decode iteration's
+    median ms at 8 running slots (host clock), TTFT from issue (median,
+    max; it includes the wait for a slot)."""
+    srv = ModelServer(params, cfg, max_batch=8, max_len=S_CACHE,
                       kv_mode="paged", page_size=256, memory_dtype="int8")
     try:
         sched = srv.scheduler
@@ -1406,10 +1612,10 @@ def phase_server(params):
 
         sched._decode_step = timed_decode_step
         # warm-up query: the decode graph is captured once per server
-        _serve(srv, [prompts[0][:600]], 4)
+        _serve(srv, [prompts[0][:600]], 4, cfg)
         step_ms.clear()
-        done, t0, wall = run_path("server_paged_int8", SERVE_PAGED_I8,
-                                  lambda: _serve(srv, prompts, 32))
+        done, t0, wall = run_path(name, required,
+                                  lambda: _serve(srv, prompts, 32, cfg))
     finally:
         srv.stop()
     n_tok = sum(len(q.output_ids) for q in done.values())
@@ -1417,39 +1623,241 @@ def phase_server(params):
     ttft = [(q.first_token_time - t0) * 1e3 for q in done.values()]
     if not full:
         raise AssertionError("no decode iteration ran with 8 slots")
-    res = dict(server_tok_s=n_tok / wall,
-               server_decode_iter_ms_8slots=statistics.median(full),
-               server_ttft_median_ms=statistics.median(ttft),
-               server_ttft_max_ms=max(ttft), server_wall_s=wall)
-    log(f"server (paged int8, batch 8, page 256, 12 queries, prompts {lens}, "
-        f"32 new each): {n_tok} tokens in {wall:.2f} s = "
-        f"{res['server_tok_s']:.1f} tok/s aggregate; decode iteration with "
-        f"8 running slots median {res['server_decode_iter_ms_8slots']:.3f} "
-        f"ms over {len(full)}; TTFT from issue median "
-        f"{res['server_ttft_median_ms']:.1f} ms, max "
-        f"{res['server_ttft_max_ms']:.1f} ms")
+    res = dict(tok_s=n_tok / wall,
+               decode_iter_ms_8slots=statistics.median(full),
+               ttft_median_ms=statistics.median(ttft), ttft_max_ms=max(ttft),
+               wall_s=wall)
+    log(f"{name} (batch 8, page 256, {len(prompts)} queries, prompts "
+        f"{[len(p) for p in prompts]}, 32 new each): {n_tok} tokens in "
+        f"{wall:.2f} s = {res['tok_s']:.1f} tok/s aggregate; decode "
+        f"iteration with 8 running slots median "
+        f"{res['decode_iter_ms_8slots']:.3f} ms over {len(full)}; TTFT from "
+        f"issue median {res['ttft_median_ms']:.1f} ms, max "
+        f"{res['ttft_max_ms']:.1f} ms")
     for i in range(3):
-        log(f"  query {i} ({lens[i]} tokens): {done[i].output_ids}")
+        log(f"  query {i} ({len(prompts[i])} tokens): {done[i].output_ids}")
     del srv, sched
     torch.cuda.empty_cache()
+    return res
 
-    for name, kw, required, queries, n_new in (
-            ("server_slots_bf16", dict(kv_mode="slots"),
-             ("qmm4_npack", "qmm_a8", "flash_prefill", "flash_decode"),
-             [p[:n] for p, n in zip(prompts, (64, 300, 700, 1200))], 16),
-            ("server_paged_bf16", dict(kv_mode="paged", page_size=256),
-             ("qmm4_npack", "flash_prefill", "paged_decode"),
-             [p[:n] for p, n in zip(prompts, (90, 200))], 8)):
-        srv = ModelServer(params, CFG, max_batch=8, max_len=S_CACHE,
+
+def _server_short(params, cfg, runs):
+    """Short server runs, each a path with launch counts: (name, server
+    kwargs, kernels it must launch, prompts, new tokens)."""
+    for name, kw, required, queries, n_new in runs:
+        srv = ModelServer(params, cfg, max_batch=8, max_len=S_CACHE,
                           memory_dtype="auto", **kw)
         try:
             done, _, wall = run_path(name, required,
-                                     lambda: _serve(srv, queries, n_new))
+                                     lambda: _serve(srv, queries, n_new, cfg))
         finally:
             srv.stop()
         log(f"{name}: {len(queries)} queries, {n_new} new each, in "
             f"{wall:.2f} s; query 0: {done[0].output_ids}")
         del srv
+        torch.cuda.empty_cache()
+
+
+def _server_prompts():
+    gen = torch.Generator().manual_seed(6)
+    lens = torch.randint(32, 1501, (12,), generator=gen).tolist()
+    return [torch.randint(3, V, (n,), generator=gen).tolist() for n in lens]
+
+
+def phase_server(params):
+    _graph_vs_eager(params)
+    prompts = _server_prompts()
+    res = {f"server_{k}": v for k, v in _server_timed(
+        params, CFG, "server_paged_int8", SERVE_PAGED_I8, prompts).items()}
+    _server_short(params, CFG, (
+        ("server_slots_bf16", dict(kv_mode="slots"),
+         ("qmm4_npack", "qmm_a8", "flash_prefill", "flash_decode"),
+         [p[:n] for p, n in zip(prompts, (64, 300, 700, 1200))], 16),
+        ("server_paged_bf16", dict(kv_mode="paged", page_size=256),
+         ("qmm4_npack", "flash_prefill", "paged_decode"),
+         [p[:n] for p, n in zip(prompts, (90, 200))], 8)))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 4d, 4e, 5c and 6b: Bloom-7B1, ChatGLM-6B and MPT-7B
+# ---------------------------------------------------------------------------
+
+# bigscience/bloom-7b1's config.json: 30 layers, hidden 4096, 32 heads
+# (head dim 128), FFN 4 x 4096, vocab 250880 with tied embeddings,
+# layer_norm_epsilon 1e-5, bos 1, eos 2; the family's ALiBi, LayerNorms with
+# biases, embedding LayerNorm, projection biases and tanh GELU come from
+# neural_tpu_torch/models/bloom.py
+BLOOM_CFG = bloom.config_from_hf(types.SimpleNamespace(
+    vocab_size=250880, hidden_size=4096, n_layer=BLOOM_L, n_head=H,
+    layer_norm_epsilon=1e-5, bos_token_id=1, eos_token_id=2))
+# THUDM/chatglm-6b's config.json: 28 layers, hidden 4096, 32 heads,
+# inner_hidden_size 16384, vocab 130528 with an untied lm_head,
+# layernorm_epsilon 1e-5, max_sequence_length 2048, bos 130004, eos 130005,
+# position_encoding_2d; the residual alpha sqrt(2 * 28) = sqrt(56), the 2-D
+# GLM RoPE and the prefix mask come from neural_tpu_torch/models/chatglm.py
+CHATGLM_CFG = chatglm.config_from_hf(types.SimpleNamespace(
+    position_encoding_2d=True, vocab_size=130528, hidden_size=4096,
+    num_layers=CHATGLM_L, num_attention_heads=H, inner_hidden_size=16384,
+    layernorm_epsilon=1e-5, max_sequence_length=2048, bos_token_id=130004,
+    eos_token_id=130005))
+# mosaicml/mpt-7b's config.json: 32 layers, d_model 4096, 32 heads,
+# expansion_ratio 4, vocab 50432 tied, max_seq_len 2048, ALiBi; no biases,
+# LayerNorms without bias, exact GELU (neural_tpu_torch/models/mpt.py)
+MPT_CFG = mpt.config_from_hf(types.SimpleNamespace(
+    d_model=4096, n_heads=H, n_layers=32, expansion_ratio=4,
+    vocab_size=50432, max_seq_len=2048, attn_config={"alibi": True}))
+BLOOM_GEN = ("qmm4_npack", "qmm_a8", "flash_prefill+alibi",
+             "flash_decode+alibi")
+BLOOM_GEN_INT8 = ("qmm4_npack", "qmm_a8", "flash_prefill_i8+alibi",
+                  "flash_decode_i8+alibi")
+CHATGLM_GEN = ("qmm4_npack", "qmm_a8", "flash_prefill+prefix",
+               "flash_decode")
+CHATGLM_GEN_INT8 = ("qmm4_npack", "qmm_a8", "flash_prefill_i8+prefix",
+                    "flash_decode_i8")
+# prompt tails in the 32/64/128 buckets prefill through K5
+BLOOM_SERVE_I8 = ("qmm4_npack", "qmm_a8", "qmm_general",
+                  "flash_prefill_i8+alibi", "paged_decode_i8+alibi")
+
+
+def _init_full(cfg, what):
+    t = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_random(cfg, seed=0, quant="q4_j", device=DEV)
+    torch.cuda.synchronize()
+    nbytes = sum(b.numel() * b.element_size() for b in params.buffers())
+    log(f"init_random {what} q4_j on the card: {time.time() - t:.1f} s, "
+        f"{nbytes / 1e9:.3f} GB of weights and embedding; decode bound "
+        f"{nbytes / HBM_BPS * 1e3:.3f} ms/token before the KV read")
+    return params
+
+
+def _generate_paths(params, cfg, what, paths):
+    """``Model.generate`` (512-token prompt, 16 new tokens, greedy) once
+    per (KV dtype, kernels it must launch), each a path."""
+    model = Model().init_params(params, cfg)
+    gen = torch.Generator().manual_seed(9)
+    prompt = torch.randint(3, cfg.vocab_size, (512,), generator=gen).tolist()
+    for kv, required in paths:
+        out = run_path(f"{what}_generate_{kv}", required,
+                       lambda: model.generate(prompt, max_new_tokens=16,
+                                              do_sample=False,
+                                              stop_at_eos=False,
+                                              kv_dtype=kv)[0])
+        _check_ids(out[512:], 16, f"{what} generate {kv}", cfg.vocab_size)
+        log(f"{what} Model.generate greedy, {kv} KV, 512-token prompt: new "
+            f"ids {out[512:]}")
+
+
+def phase_bloom():
+    """Bloom-7B1 at full depth, q4_j, random weights from seed 0 drawn and
+    quantized on the card: ``Model.generate`` with bf16 and int8 KV, decode
+    ms/token at fills 128 and 1975 (bf16 KV), TTFT at 1975 tokens, peak
+    memory; each a path with its launch counts. Returns (numbers,
+    params) for phase 6b."""
+    params = _init_full(BLOOM_CFG, "Bloom-7B1")
+    _generate_paths(params, BLOOM_CFG, "bloom",
+                    (("bf16", BLOOM_GEN), ("int8", BLOOM_GEN_INT8)))
+    res = {}
+    for fill in (128, T_PREFILL):
+        ms = run_path(f"bloom_decode_fill{fill}",
+                      ("qmm4_npack", "flash_decode+alibi"),
+                      lambda: decode_ms(params, fill, cfg=BLOOM_CFG))
+        log(f"bloom decode (slope n=4..36, batch 1, bf16 KV): fill {fill} "
+            f"{ms:.3f} ms/token ({1e3 / ms:.1f} tok/s)")
+        res[f"bloom_decode_ms_fill{fill}"] = ms
+    ms = run_path("bloom_prefill_1975", ("qmm_a8", "flash_prefill+alibi"),
+                  lambda: ttft_ms(params, cfg=BLOOM_CFG))
+    log(f"bloom TTFT 1975-token prefill (last-row logits, bf16 KV): "
+        f"{ms:.2f} ms")
+    res["bloom_ttft_1975_ms"] = ms
+    res["bloom_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"bloom peak device memory {res['bloom_peak_gib']:.2f} GiB")
+    return res, params
+
+
+def phase_bloom_server(params):
+    """Bloom-7B1 behind the batch-8 paged int8 ``ModelServer``, phase 6's
+    12 queries; then a short paged bf16 run (K6's bf16 ALiBi branch)."""
+    prompts = _server_prompts()
+    res = {f"bloom_server_{k}": v for k, v in _server_timed(
+        params, BLOOM_CFG, "bloom_server_paged_int8", BLOOM_SERVE_I8,
+        prompts).items()}
+    _server_short(params, BLOOM_CFG, (
+        ("bloom_server_paged_bf16", dict(kv_mode="paged", page_size=256),
+         ("qmm4_npack", "flash_prefill+alibi", "paged_decode+alibi"),
+         [p[:n] for p, n in zip(prompts, (90, 200))], 8),))
+    return res
+
+
+def phase_chatglm():
+    """ChatGLM-6B at full depth, q4_j (the lm_head too), random weights from
+    seed 0: ``Model.generate`` with bf16 and int8 KV, decode ms/token at
+    fill 128, TTFT at 1975 tokens (the whole prompt is the prefix), peak
+    memory; each a path with its launch counts."""
+    params = _init_full(CHATGLM_CFG, "ChatGLM-6B")
+    _generate_paths(params, CHATGLM_CFG, "chatglm",
+                    (("bf16", CHATGLM_GEN), ("int8", CHATGLM_GEN_INT8)))
+    ms = run_path("chatglm_decode_fill128", ("qmm4_npack", "flash_decode"),
+                  lambda: decode_ms(params, 128, cfg=CHATGLM_CFG))
+    log(f"chatglm decode (slope n=4..36, batch 1, bf16 KV): fill 128 "
+        f"{ms:.3f} ms/token ({1e3 / ms:.1f} tok/s)")
+    ttft = run_path("chatglm_prefill_1975", ("qmm_a8", "flash_prefill+prefix"),
+                    lambda: ttft_ms(params, cfg=CHATGLM_CFG))
+    log(f"chatglm TTFT 1975-token prefill, all of it the prefix (last-row "
+        f"logits, bf16 KV): {ttft:.2f} ms")
+    res = dict(chatglm_decode_ms_fill128=ms, chatglm_ttft_1975_ms=ttft,
+               chatglm_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"chatglm peak device memory {res['chatglm_peak_gib']:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+ZOO_COPIES = (
+    ("bloom", BLOOM_CFG, ("qmm_general", "qmm4_npack", "flash_prefill+alibi",
+                          "flash_decode+alibi")),
+    ("mpt", MPT_CFG, ("qmm_general", "qmm4_npack", "flash_prefill+alibi",
+                      "flash_decode+alibi")),
+    ("chatglm", CHATGLM_CFG, ("qmm_general", "qmm4_npack",
+                              "flash_prefill+prefix", "flash_decode")))
+
+
+def phase_zoo_card_vs_plain(rel_tol=2e-2):
+    """2-layer full-width copies of Bloom-7B1, MPT-7B and ChatGLM-6B:
+    ``Model.generate`` on the card (a path each: 100-token prompt, 4 new
+    tokens), then its logits, fed the card's ids, against the plain path
+    on the CPU, argmax equal wherever the margin proves it. Every product
+    here has bf16 activations (100 rows take K5, not the int8 path), as in
+    phase 5's formats, so the tolerance is theirs, 2e-2·max|logit|; then,
+    on the Bloom copy, phase 5's paged int8 Scheduler check."""
+    gen = torch.Generator().manual_seed(12)
+    res = {}
+    for i, (what, cfg, required) in enumerate(ZOO_COPIES):
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        card = init_random(cfg2, seed=20 + i, quant="q4_j", device=DEV)
+        host = init_random(cfg2, seed=20 + i, quant="q4_j",
+                           device=DEV).to("cpu")
+        ids = torch.randint(3, V, (100,), generator=gen).tolist()
+        model = Model().init_params(card, cfg2)
+        new = run_path(f"card_{what}", required, lambda: model.generate(
+            ids, max_new_tokens=4, do_sample=False,
+            stop_at_eos=False)[0])[len(ids):]
+        _check_ids(new, 4, f"card {what}", cfg2.vocab_size)
+        worst, provable, _ = _steps_card_vs_plain(card, host, cfg2, ids,
+                                                  new[:3], rel_tol)
+        log(f"{what} card vs plain (2 layers, full width, 100-token prompt, "
+            f"fed the card's ids {new}): logits max err {worst:.3g}·"
+            f"max|logit| (tol {rel_tol}); argmax provably comparable at "
+            f"{provable} of 4 steps, equal at all of them")
+        if provable < 2:
+            raise AssertionError(f"too few {what} steps with a margin wide "
+                                 "enough to compare the argmax")
+        res[f"{what}_card_vs_plain_rel_err"] = worst
+        if what == "bloom":
+            res["bloom_sched_card_vs_plain_rel_err"] = _sched_card_vs_plain(
+                card, host, cfg2, rel_tol)
+        del card, host, model
         torch.cuda.empty_cache()
     return res
 
@@ -1492,6 +1900,30 @@ KERNEL_META = {
                 "neural_tpu/ops/qmatmul.py:161"),
     "K2_act": ("quantize_act_i8", "neural_tpu_torch/csrc/qmm_a8.cu",
                "neural_tpu/ops/qmatmul.py:161"),
+    # the option branches, counted apart (``entry+branch`` launches)
+    "K3_alibi": ("flash_prefill+alibi",
+                 "neural_tpu_torch/csrc/flash_prefill.cu",
+                 "neural_tpu/ops/attention.py:433"),
+    "K3_i8_alibi": ("flash_prefill_i8+alibi",
+                    "neural_tpu_torch/csrc/flash_prefill.cu",
+                    "neural_tpu/ops/attention.py:433"),
+    "K3_prefix": ("flash_prefill+prefix",
+                  "neural_tpu_torch/csrc/flash_prefill.cu",
+                  "neural_tpu/ops/attention.py:433"),
+    "K3_i8_prefix": ("flash_prefill_i8+prefix",
+                     "neural_tpu_torch/csrc/flash_prefill.cu",
+                     "neural_tpu/ops/attention.py:433"),
+    "K4_alibi": ("flash_decode+alibi", "neural_tpu_torch/csrc/flash_decode.cu",
+                 "neural_tpu/ops/attention.py:110"),
+    "K4_i8_alibi": ("flash_decode_i8+alibi",
+                    "neural_tpu_torch/csrc/flash_decode.cu",
+                    "neural_tpu/ops/attention.py:110"),
+    "K6_alibi": ("paged_decode+alibi",
+                 "neural_tpu_torch/csrc/paged_decode.cu",
+                 "neural_tpu/ops/paged_attention.py:31"),
+    "K6_i8_alibi": ("paged_decode_i8+alibi",
+                    "neural_tpu_torch/csrc/paged_decode.cu",
+                    "neural_tpu/ops/paged_attention.py:31"),
 }
 
 
@@ -1567,11 +1999,13 @@ def main():
 
     def kernels():
         for check in (check_k1, check_k2, check_k3, check_k4, check_k6,
+                      check_k3_options, check_k4_alibi, check_k6_alibi,
                       check_k5, check_k1_branches, check_k2_asym):
             check(gen, results)
             torch.cuda.empty_cache()
     phase("3 kernels", kernels)
     window = window_speedups(results)
+    branches = branch_costs(results)
     t = time.time()
     params = init_random(CFG, seed=0, quant="q4_j", device=DEV)
     torch.cuda.synchronize()
@@ -1580,10 +2014,17 @@ def main():
     e2e = phase("4 generation", phase_generation, params)
     e2e.update(phase("4b formats", phase_formats))
     e2e.update(phase("4c gemma2", phase_gemma2))
+    bloom_e2e, bloom_params = phase("4d bloom", phase_bloom)
+    e2e.update(bloom_e2e)
+    e2e.update(phase("6b bloom server", phase_bloom_server, bloom_params))
+    del bloom_params
+    torch.cuda.empty_cache()
+    e2e.update(phase("4e chatglm", phase_chatglm))
     worst, sched_worst, formats_worst = phase("5 card vs plain",
                                               phase_card_vs_plain)
     gemma2_worst = phase("5b gemma2 card vs plain",
                          phase_gemma2_card_vs_plain)
+    zoo_worst = phase("5c zoo card vs plain", phase_zoo_card_vs_plain)
     e2e.update(phase("6 server", phase_server, params))
     del params
     torch.cuda.empty_cache()
@@ -1606,7 +2047,9 @@ def main():
                     "card_vs_plain_rel_err": worst,
                     "sched_card_vs_plain_rel_err": sched_worst,
                     "formats_card_vs_plain_rel_err": formats_worst,
-                    **gemma2_worst, "window_over_no_window": window,
+                    **gemma2_worst, **zoo_worst,
+                    "window_over_no_window": window,
+                    "option_on_over_off": branches,
                     "phase_seconds": seconds,
                     "seconds": time.time() - t_start}))
     print(json.dumps({"kernels": kernels}))

@@ -41,8 +41,9 @@ class Model:
                            scale_dtype: str = "fp32",
                            compute_dtype: str = "int8",
                            use_ggml: bool = False):
-        """In-memory HF torch model (Llama, Mistral, Gemma, Gemma-2) →
-        ready Model. ``weight_dtype`` and the reference-style knobs are
+        """In-memory HF torch model (Llama, Mistral, Gemma, Gemma-2, Bloom,
+        MPT; ChatGLM-1 through a model object with its config and state
+        dict) → ready Model. ``weight_dtype`` and the reference-style knobs are
         those of the JAX ``Model.init`` (:func:`quant_config_from_args`);
         None keeps bf16 projections.
         Weights are quantized on ``device`` (the card unless

@@ -14,7 +14,10 @@ numpy, so that no JAX import is needed here:
 - ``layers`` is a list of per-layer dicts (the JAX at-rest tuple layout) or
   one dict of arrays stacked along a leading L axis; a per-layer flag
   (Gemma-2's ``use_sliding``) is a bool array, [L] when stacked, and
-  becomes a 0-d bool tensor in each layer.
+  becomes a 0-d bool tensor in each layer;
+- every other leaf crosses under its own name: the projection and
+  LayerNorm biases, Bloom's ``embed_norm_w``/``_b``, ``final_norm_b`` and
+  the ``alibi_slopes`` (a tree without RoPE has no ``rope_inv_freqs``).
 
 QTensors not yet at rest are converted on the way in
 (``runtime.generate.params_to_native``).

@@ -1,13 +1,14 @@
-"""HF model / random weights → the port's decoder (port of the Llama and
-Gemma part of ``neural_tpu/convert/hf.py``).
+"""HF model / random weights → the port's decoder (port of the Llama,
+Gemma, Bloom, MPT and ChatGLM-1 part of ``neural_tpu/convert/hf.py``).
 
 Every quantized tensor is converted once, here, to the at-rest layout
 (``runtime.generate.params_to_native``) that the kernels read; the port
 keeps no second layout. A ``quant`` of None keeps the projections in bf16
 (and the FFN unpadded, as the JAX package does). Dtypes follow the JAX
-package's ``build_params``: layer norms in the model dtype,
-``final_norm_w`` in f32, the embedding in the model dtype, the RoPE table
-in f32.
+package's ``build_params``: layer norms and biases in the model dtype,
+the top-level 1-D tensors (``final_norm_w``/``_b``, Bloom's
+``embed_norm_w``/``_b``) in f32, the embedding in the model dtype, the RoPE
+table (absent under ALiBi) and the ALiBi slopes in f32.
 """
 from __future__ import annotations
 
@@ -18,15 +19,20 @@ import torch
 from ..core.device import resolve_device
 from ..core.dtypes import QuantConfig, quant_config_from_args
 from ..core.qtensor import quantize
+from ..models import bloom as bloom_mod
+from ..models import chatglm as chatglm_mod
 from ..models import gemma as gemma_mod
 from ..models import llama as llama_mod
+from ..models import mpt as mpt_mod
 from ..models.config import ModelConfig
-from ..models.transformer import Transformer
-from ..ops.rope import rope_freqs
+from ..models.transformer import LINEARS, Transformer
+from ..ops.rope import alibi_slopes, rope_freqs
 from ..runtime.generate import params_to_native
 
 ARCH_MODULES = {"llama": llama_mod, "mistral": llama_mod,
-                "gemma": gemma_mod, "gemma2": gemma_mod}
+                "gemma": gemma_mod, "gemma2": gemma_mod, "bloom": bloom_mod,
+                "mpt": mpt_mod, "chatglm": chatglm_mod,
+                "chatglm1": chatglm_mod}
 
 
 def ffn_padded_size(I: int, tile: int = 1024, max_overhead: float = 0.05):
@@ -37,12 +43,15 @@ def ffn_padded_size(I: int, tile: int = 1024, max_overhead: float = 0.05):
     return t if t <= I * (1 + max_overhead) else I
 
 
-def _shape_for(name: str, cfg: ModelConfig):
-    D, I_ = cfg.hidden_size, cfg.intermediate_size
+def _shape_for(name: str, cfg: ModelConfig, Ip: int):
+    """The shape of a projection (FFN padded to ``Ip``) or of a bias."""
+    D = cfg.hidden_size
     return {
         "wq": (D, cfg.q_dim), "wk": (D, cfg.kv_dim), "wv": (D, cfg.kv_dim),
         "wo": (cfg.q_dim, D),
-        "w_gate": (D, I_), "w_up": (D, I_), "w_down": (I_, D),
+        "w_gate": (D, Ip), "w_up": (D, Ip), "w_down": (Ip, D),
+        "bq": (cfg.q_dim,), "bk": (cfg.kv_dim,), "bv": (cfg.kv_dim,),
+        "bo": (D,), "b_gate": (Ip,), "b_up": (Ip,), "b_down": (D,),
     }[name]
 
 
@@ -57,18 +66,23 @@ def _add_flags(layers, cfg: ModelConfig, mod, device):
 
 
 def _add_aux(params: Dict[str, Any], cfg: ModelConfig, device):
-    params["rope_inv_freqs"] = torch.from_numpy(
-        rope_freqs(cfg.head_dim, cfg.rope_dim, cfg.rope_theta,
-                   cfg.rope_scaling_dict, max_seq_len=cfg.max_seq_len)
-    ).to(device)
+    if cfg.rope_style != "none":
+        params["rope_inv_freqs"] = torch.from_numpy(
+            rope_freqs(cfg.head_dim, cfg.rope_dim, cfg.rope_theta,
+                       cfg.rope_scaling_dict, max_seq_len=cfg.max_seq_len)
+        ).to(device)
+    if cfg.use_alibi:
+        params["alibi_slopes"] = torch.from_numpy(
+            alibi_slopes(cfg.n_heads)).to(device)
 
 
 def _pad_ffn(name: str, w: torch.Tensor, cfg: ModelConfig, Ip: int):
-    """Conversion-time FFN padding of gate/up columns and down rows."""
+    """Conversion-time FFN padding of gate/up columns (and biases) and down
+    rows."""
     I_ = cfg.intermediate_size
     if Ip == I_:
         return w
-    if name in ("w_gate", "w_up") and w.shape[-1] == I_:
+    if name in ("w_gate", "w_up", "b_gate", "b_up") and w.shape[-1] == I_:
         return torch.nn.functional.pad(w, (0, Ip - I_))
     if name == "w_down" and w.shape[-2] == I_:
         return torch.nn.functional.pad(w, (0, 0, 0, Ip - I_))
@@ -88,6 +102,9 @@ def build_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig, mod=llama_mod,
     Ip = cfg.intermediate_size if qcfg is None else \
         ffn_padded_size(cfg.intermediate_size)
 
+    if hasattr(mod, "preprocess_state_dict"):
+        sd = mod.preprocess_state_dict(dict(sd), cfg)
+
     def get(hf_name, transpose):
         w = sd[hf_name].to(device=dev, dtype=torch.float32)
         return w.T.contiguous() if transpose else w
@@ -96,9 +113,8 @@ def build_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig, mod=llama_mod,
     for i in range(cfg.n_layers):
         lp = {}
         for name, (hf_name, tr) in mod.hf_layer_map(i, cfg).items():
-            w = get(hf_name, tr)
+            w = _pad_ffn(name, get(hf_name, tr), cfg, Ip)
             if w.ndim == 2 and name in qnames:
-                w = _pad_ffn(name, w, cfg, Ip)
                 lp[name] = w.to(dtype) if qcfg is None else quantize(w, qcfg)
             else:
                 lp[name] = w.to(dtype)
@@ -144,9 +160,13 @@ def init_random(cfg: ModelConfig, seed: int = 0,
     its f32 copy is freed before the next one is drawn, so a 7B model never
     exists in f32. Norm weights are drawn so that ``w + norm_offset`` is 1
     (ones, Gemma's zeros); the family's post norms and per-layer flags are
-    there; a tied lm_head is the embedding. (The JAX package's
-    ``init_random`` builds the whole f32 state dict on the host instead,
-    with norm weights of ones; the two draw different numbers.)"""
+    there; projection and LayerNorm biases (Bloom, ChatGLM-1) are drawn
+    like the weights, after each layer's projections, so a model without
+    them draws what it drew before they existed; a tied lm_head is the
+    embedding; Bloom's embedding LayerNorm has a unit weight and a zero
+    bias. (The JAX package's ``init_random`` builds the whole f32 state
+    dict on the host instead, with norm weights and biases of ones; the
+    two draw different numbers.)"""
     dev = resolve_device(device)
     mod = ARCH_MODULES.get(cfg.arch, llama_mod)
     qcfg = quant_config_from_args(quant)
@@ -154,38 +174,46 @@ def init_random(cfg: ModelConfig, seed: int = 0,
     gen.manual_seed(seed)
     Ip = cfg.intermediate_size if qcfg is None else \
         ffn_padded_size(cfg.intermediate_size)
+    normal = lambda shape: torch.randn(shape, generator=gen, device=dev,
+                                       dtype=torch.float32) * 0.02
 
     def weight(K, N):
-        w = torch.randn((K, N), generator=gen, device=dev,
-                        dtype=torch.float32) * 0.02
+        w = normal((K, N))
         if qcfg is None:
             return w.to(dtype)
         return params_to_native(quantize(w, qcfg))
 
-    norms = [n for n in mod.hf_layer_map(0, cfg) if n.endswith("norm_w")]
+    names = list(mod.hf_layer_map(0, cfg))
+    ones = lambda: torch.full((cfg.hidden_size,), 1.0 - cfg.norm_offset,
+                              dtype=dtype, device=dev)
     layers = []
     for _ in range(cfg.n_layers):
-        lp = {}
-        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
-            K, N = _shape_for(name, cfg)
-            if name in ("w_gate", "w_up"):
-                N = Ip
-            elif name == "w_down":
-                K = Ip
-            lp[name] = weight(K, N)
-        for name in norms:
-            lp[name] = torch.full((cfg.hidden_size,), 1.0 - cfg.norm_offset,
-                                  dtype=dtype, device=dev)
+        lp = {n: weight(*_shape_for(n, cfg, Ip)) for n in LINEARS
+              if n in names}
+        for n in names:
+            if n.endswith("norm_w"):
+                lp[n] = ones()
+            elif n.endswith("norm_b"):
+                lp[n] = normal((cfg.hidden_size,)).to(dtype)
+            elif n not in lp:
+                lp[n] = normal(_shape_for(n, cfg, Ip)).to(dtype)
         layers.append(lp)
     _add_flags(layers, cfg, mod, dev)
+    D = cfg.hidden_size
     params: Dict[str, Any] = {
         "layers": layers,
-        "embed": (torch.randn((cfg.vocab_size, cfg.hidden_size),
-                              generator=gen, device=dev) * 0.02).to(dtype),
-        "final_norm_w": torch.full((cfg.hidden_size,), 1.0 - cfg.norm_offset,
+        "embed": (torch.randn((cfg.vocab_size, D), generator=gen,
+                              device=dev) * 0.02).to(dtype),
+        "final_norm_w": torch.full((D,), 1.0 - cfg.norm_offset,
                                    dtype=torch.float32, device=dev),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = weight(cfg.hidden_size, cfg.vocab_size)
+        params["lm_head"] = weight(D, cfg.vocab_size)
+    top = mod.hf_top_map(cfg)
+    if "final_norm_b" in top:
+        params["final_norm_b"] = normal((D,))
+    if "embed_norm_w" in top:
+        params["embed_norm_w"] = torch.ones(D, device=dev)
+        params["embed_norm_b"] = torch.zeros(D, device=dev)
     _add_aux(params, cfg, dev)
     return Transformer(cfg, params)

@@ -25,6 +25,10 @@
 //   with the int8 v codes.
 // - softcap > 0: s = softcap * tanh(s / softcap) on the scaled score,
 //   before the mask.
+// - slopes != nullptr (ALiBi, [Hq] f32): slopes[h] * (pos - (len - 1)) is
+//   added to the (softcapped) score of query head h, a product and a sum
+//   each rounded in f32 (no fused multiply-add, as the plain version
+//   computes it), before the mask. The off branch is one uniform test.
 // Softmax statistics are f32, masked scores -1e30, l floored at 1e-30.
 //
 // What bounds it on the H100: the bytes — each visible K and V row is read
@@ -62,6 +66,7 @@ struct Args {
   const __nv_bfloat16* vs;
   const int* table;          // paged only: [B, maxp]
   const int* lengths;
+  const float* slopes;       // ALiBi [Hq]; nullptr: off
   float* part_o;             // [B * Hq, n_split, D]
   float* part_ml;            // [B * Hq, n_split, 2]
   float* out;                // [B, Hq, D]
@@ -88,6 +93,14 @@ __device__ __forceinline__ int window_floor(const Args& a, int len) {
 
 __device__ __forceinline__ float softcap(const Args& a, float s) {
   return a.softcap > 0.f ? a.softcap * tanhf(s / a.softcap) : s;
+}
+
+// the score of query head h (of the whole Hq) at a key dist = pos - (len -
+// 1) <= 0 behind the query: softcapped, then the ALiBi bias
+__device__ __forceinline__ float score(const Args& a, float s, int h,
+                                       float dist) {
+  s = softcap(a, s);
+  return a.slopes ? __fadd_rn(s, __fmul_rn(a.slopes[h], dist)) : s;
 }
 
 template <int D, bool I8, bool PAGED>
@@ -148,6 +161,7 @@ __global__ void __launch_bounds__(128) decode_partial(const Args a) {
   for (int j = warp; j < CHUNK; j += 4) {
     if (j >= j0 && j < nj) {
       const size_t row = rows[j];
+      const float dist = (float)(s0 + j - (len - 1));
       if (I8) {
         int kw[WPL];
 #pragma unroll
@@ -166,7 +180,8 @@ __global__ void __launch_bounds__(128) decode_partial(const Args a) {
 #pragma unroll
           for (int o = 16; o > 0; o >>= 1)
             d += __shfl_xor_sync(0xffffffffu, d, o);
-          if (lane == 0) p[hg][j] = softcap(a, (float)d * qk[hg] * ksc);
+          if (lane == 0)
+            p[hg][j] = score(a, (float)d * qk[hg] * ksc, hk * G + hg, dist);
         }
       } else {
         float kf[VPL];
@@ -193,7 +208,7 @@ __global__ void __launch_bounds__(128) decode_partial(const Args a) {
 #pragma unroll
           for (int o = 16; o > 0; o >>= 1)
             d += __shfl_xor_sync(0xffffffffu, d, o);
-          if (lane == 0) p[hg][j] = softcap(a, d * a.scale);
+          if (lane == 0) p[hg][j] = score(a, d * a.scale, hk * G + hg, dist);
         }
       }
     } else if (lane == 0) {
@@ -314,16 +329,17 @@ int launch(const Args& a, int D, void* stream) {
 #define DECODE_ATTN_ENTRY(NAME, I8, PAGED)                                    \
   extern "C" int NAME(const void* q, const void* k, const void* v,            \
                       const void* ks, const void* vs, const void* table,      \
-                      const void* lengths, void* part_o, void* part_ml,       \
-                      void* out, int B, int Hq, int Hkv, int S, int ps,       \
-                      int maxp, int n_split, int D, float scale,              \
-                      float softcap, int window, void* stream) {              \
+                      const void* lengths, const void* slopes, void* part_o,  \
+                      void* part_ml, void* out, int B, int Hq, int Hkv,       \
+                      int S, int ps, int maxp, int n_split, int D,            \
+                      float scale, float softcap, int window, void* stream) { \
     const decode_attn::Args a{                                                \
         reinterpret_cast<const __nv_bfloat16*>(q), k, v,                      \
         reinterpret_cast<const __nv_bfloat16*>(ks),                           \
         reinterpret_cast<const __nv_bfloat16*>(vs),                           \
         reinterpret_cast<const int*>(table),                                  \
         reinterpret_cast<const int*>(lengths),                                \
+        reinterpret_cast<const float*>(slopes),                               \
         reinterpret_cast<float*>(part_o), reinterpret_cast<float*>(part_ml),  \
         reinterpret_cast<float*>(out), B, Hq, Hkv, S, ps, maxp, n_split,      \
         scale, softcap, window};                                              \

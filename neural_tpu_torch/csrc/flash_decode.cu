@@ -3,8 +3,8 @@
 //
 // Replaces neural_tpu/ops/attention.py:_decode_kernel (launched by
 // flash_decode). Caches [B, Hkv, S, D] with D = 128 or 256, bf16, or int8
-// with bf16 scales [B, Hkv, S]; the tanh softcap and the sliding window of
-// the TPU kernel. The device body, its numerics and its design are in
+// with bf16 scales [B, Hkv, S]; the tanh softcap, the ALiBi slopes and the
+// sliding window of the TPU kernel. The device body, its numerics and its design are in
 // decode_attn.cuh, which K6 (paged_decode.cu) shares.
 #include "decode_attn.cuh"
 

@@ -8,7 +8,13 @@
 // s <= starts[b] + t, and with a sliding window (window > 0) only keys
 // s > starts[b] + t - window; query head h reads KV head h / (Hq / Hkv).
 // With softcap > 0 the scaled score becomes softcap * tanh(s / softcap)
-// before the mask. Masked scores are -1e30, l is floored at 1e-30 and sums
+// before the mask. With ALiBi slopes [Hq] f32 (nullptr: off), query head h
+// adds slopes[h] * (kpos - qpos) to it, after the softcap and before the
+// mask, a product and a sum each rounded in f32 as the plain version does.
+// With the GLM prefix mask prefix_len [B] int32 (nullptr, or a row's 0:
+// off), keys kpos < prefix_len[b] - 1 are visible to every query of row b
+// as well: the mask is (causal and window) or prefix, the TPU kernel's.
+// Masked scores are -1e30, l is floored at 1e-30 and sums
 // the unrounded P, the softmax statistics are f32, and the output is f32
 // [B, T, Hq, D] — the TPU kernel's rounding:
 // - bf16 cache (flash_prefill): QK^T and PV are bf16 products with f32
@@ -30,7 +36,11 @@
 // Key tiles above the causal diagonal of the block are never loaded, and
 // under a window neither are the tiles wholly below the window floor of the
 // block's first row, as the TPU kernel clamps its S blocks; the tile that
-// holds a row's floor masks per element. At D = 256 the output fragment is
+// holds a row's floor masks per element. Under the prefix mask the key loop
+// runs up to the prefix's last visible key, prefix_len[b] - 2, where that
+// lies past the causal diagonal (the TPU kernel's clamp_s). Each option is
+// a uniform test per element, so a launch with both off does what it did
+// before they existed. At D = 256 the output fragment is
 // 128 registers a thread, so bf16 q is read from a shared tile at each k
 // step instead of being held in 64 more registers (int8 q codes stay in
 // registers). Any T and S: ragged edges are masked. The TPU's sequential S
@@ -120,9 +130,11 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const void* __restrict__ k_, const void* __restrict__ v_,
                      const __nv_bfloat16* __restrict__ ks,
                      const __nv_bfloat16* __restrict__ vs,
-                     const int* __restrict__ starts, float* __restrict__ out,
-                     int T, int Hq, int Hkv, int S, float scale,
-                     float softcap, int window) {
+                     const int* __restrict__ starts,
+                     const float* __restrict__ slopes,
+                     const int* __restrict__ prefix_len,
+                     float* __restrict__ out, int T, int Hq, int Hkv, int S,
+                     float scale, float softcap, int window) {
   constexpr int LD = D + 8;      // shared row stride in bf16
   constexpr int LD8 = D + 16;    // shared row stride in int8 (16-byte rows)
   constexpr int NK = D / 16;     // k16 steps of the bf16 QK^T
@@ -146,6 +158,11 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int start = starts[b];
   const int ra = t0 + warp * 16 + g, rb = ra + 8;   // this thread's rows
   const int posa = start + ra, posb = start + rb;
+  const bool alibi = slopes != nullptr;
+  const float slope = alibi ? slopes[h] : 0.f;
+  // keys below pref_m1 are visible to every row (-2^30: none)
+  const int pref = prefix_len != nullptr ? prefix_len[b] : 0;
+  const int pref_m1 = pref > 0 ? pref - 1 : -(1 << 30);
 
   // Q fragments (A operand, row-major [query][dim]): the k16 steps of
   // bf16, or the k32 steps of int8 codes
@@ -218,7 +235,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   float ma = NEG, mb = NEG, la = 0.f, lb = 0.f;
 
   const int last_q = start + min(t0 + BQ, T) - 1;   // causal diagonal
-  const int kv_end = min(last_q + 1, S);
+  const int kv_end = min(max(last_q + 1, pref_m1), S);
   // window floor of the block's first row, down to a tile edge
   const int kv_begin =
       window > 0 ? max(start + t0 - window + 1, 0) / BKV * BKV : 0;
@@ -311,8 +328,13 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
         const int key = s0 + nt * 8 + tq * 2 + (j & 1);
         const int qpos = j < 2 ? posa : posb;
         if (softcap > 0.f) sc[nt][j] = softcap * tanhf(sc[nt][j] / softcap);
-        if (key > qpos || key >= S || (window > 0 && key <= qpos - window))
-          sc[nt][j] = NEG;
+        if (alibi)
+          sc[nt][j] = __fadd_rn(sc[nt][j],
+                                __fmul_rn(slope, (float)(key - qpos)));
+        const bool hidden =
+            (key > qpos || (window > 0 && key <= qpos - window)) &&
+            key >= pref_m1;
+        if (hidden || key >= S) sc[nt][j] = NEG;
       }
       mxa = fmaxf(mxa, fmaxf(sc[nt][0], sc[nt][1]));
       mxb = fmaxf(mxb, fmaxf(sc[nt][2], sc[nt][3]));
@@ -409,9 +431,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D, bool I8>
 int launch_d(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* starts, void* out, int B, int T,
-             int Hq, int Hkv, int S, float scale, float softcap, int window,
-             void* stream) {
+             const void* vs, const void* starts, const void* slopes,
+             const void* prefix_len, void* out, int B, int T, int Hq, int Hkv,
+             int S, float scale, float softcap, int window, void* stream) {
   constexpr int smem = smem_bytes<D, I8>();
   // above 48 KB a block's dynamic shared memory must be allowed first;
   // once per kernel, on its first launch (never inside a graph capture:
@@ -430,41 +452,52 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
       reinterpret_cast<const __nv_bfloat16*>(q), k, v,
       reinterpret_cast<const __nv_bfloat16*>(ks),
       reinterpret_cast<const __nv_bfloat16*>(vs),
-      reinterpret_cast<const int*>(starts), reinterpret_cast<float*>(out), T,
-      Hq, Hkv, S, scale, softcap, window);
+      reinterpret_cast<const int*>(starts),
+      reinterpret_cast<const float*>(slopes),
+      reinterpret_cast<const int*>(prefix_len), reinterpret_cast<float*>(out),
+      T, Hq, Hkv, S, scale, softcap, window);
   return (int)cudaGetLastError();
 }
 
 template <bool I8>
 int launch(int D, const void* q, const void* k, const void* v,
-           const void* ks, const void* vs, const void* starts, void* out,
-           int B, int T, int Hq, int Hkv, int S, float scale, float softcap,
+           const void* ks, const void* vs, const void* starts,
+           const void* slopes, const void* prefix_len, void* out, int B,
+           int T, int Hq, int Hkv, int S, float scale, float softcap,
            int window, void* stream) {
   if (D == 128)
-    return launch_d<128, I8>(q, k, v, ks, vs, starts, out, B, T, Hq, Hkv, S,
-                             scale, softcap, window, stream);
+    return launch_d<128, I8>(q, k, v, ks, vs, starts, slopes, prefix_len,
+                             out, B, T, Hq, Hkv, S, scale, softcap, window,
+                             stream);
   if (D == 256)
-    return launch_d<256, I8>(q, k, v, ks, vs, starts, out, B, T, Hq, Hkv, S,
-                             scale, softcap, window, stream);
+    return launch_d<256, I8>(q, k, v, ks, vs, starts, slopes, prefix_len,
+                             out, B, T, Hq, Hkv, S, scale, softcap, window,
+                             stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// slopes [Hq] f32 and prefix_len [B] int32 may each be null (off)
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
-                             const void* starts, void* out, int B, int T,
+                             const void* starts, const void* slopes,
+                             const void* prefix_len, void* out, int B, int T,
                              int Hq, int Hkv, int S, int D, float scale,
                              float softcap, int window, void* stream) {
-  return launch<false>(D, q, k, v, nullptr, nullptr, starts, out, B, T, Hq,
-                       Hkv, S, scale, softcap, window, stream);
+  return launch<false>(D, q, k, v, nullptr, nullptr, starts, slopes,
+                       prefix_len, out, B, T, Hq, Hkv, S, scale, softcap,
+                       window, stream);
 }
 
 // scale here is the softmax scale / 127
 extern "C" int flash_prefill_i8(const void* q, const void* k, const void* v,
                                 const void* k_scale, const void* v_scale,
-                                const void* starts, void* out, int B, int T,
-                                int Hq, int Hkv, int S, int D, float scale,
-                                float softcap, int window, void* stream) {
-  return launch<true>(D, q, k, v, k_scale, v_scale, starts, out, B, T, Hq,
-                      Hkv, S, scale, softcap, window, stream);
+                                const void* starts, const void* slopes,
+                                const void* prefix_len, void* out, int B,
+                                int T, int Hq, int Hkv, int S, int D,
+                                float scale, float softcap, int window,
+                                void* stream) {
+  return launch<true>(D, q, k, v, k_scale, v_scale, starts, slopes,
+                      prefix_len, out, B, T, Hq, Hkv, S, scale, softcap,
+                      window, stream);
 }

@@ -9,8 +9,9 @@
 // pages past the fill or below the window floor clamped so their DMAs are
 // elided); here each key's row is looked up once per chunk from
 // table[b, s / ps], and keys past the fill or below the window floor are
-// never looked up, so any page size works. The device body, its numerics
-// and its design are K4's (decode_attn.cuh).
+// never looked up, so any page size works. The device body, its numerics,
+// its options (softcap, ALiBi, window) and its design are K4's
+// (decode_attn.cuh).
 #include "decode_attn.cuh"
 
 DECODE_ATTN_ENTRY(paged_decode, false, true)

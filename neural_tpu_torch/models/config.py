@@ -2,10 +2,13 @@
 
 The port's own copy of ``neural_tpu/models/config.py``, kept field for
 field so one configuration describes a model in both packages. The port's
-graph (models/transformer.py) implements the Llama and Gemma 1/2 subset of
-these knobs (Gemma's norm offset, GELU, post norms, embedding scale,
-softcaps and sliding window included) and raises ``NotImplementedError``
-for the rest.
+graph (models/transformer.py) implements the Llama, Gemma 1/2, Bloom, MPT
+and ChatGLM-1 subset of these knobs (Gemma's norm offset, GELU, post norms,
+embedding scale, softcaps and sliding window; LayerNorm with or without
+bias, projection biases, the non-gated MLP, exact GELU, ALiBi, no RoPE;
+ChatGLM-1's 2-D GLM RoPE on Dh/2, prefix-LM mask and DeepNorm
+``residual_alpha``) and raises ``NotImplementedError`` for the rest:
+learned positions, parallel residuals, qk-norm, MoE, other RoPE styles.
 """
 from __future__ import annotations
 

@@ -1,15 +1,20 @@
-"""The decoder graph, Llama and Gemma 1/2 subset (port of
-``neural_tpu/models/transformer.py`` :41-225 and :359-714).
+"""The decoder graph, Llama, Gemma 1/2, Bloom, MPT and ChatGLM-1 subset
+(port of ``neural_tpu/models/transformer.py`` :41-225 and :359-714).
 
-Embedding (times Gemma's bf16 embedding scale) → per layer [RMS pre-norm →
-q/k/v → RoPE → cache append at each row's ``start`` → GQA attention (f32,
-cast back to the activation dtype; the config's softcap, the layer's
-sliding window) → output projection → (post-attention norm) → residual →
-RMS pre-norm → gated MLP (SiLU or tanh GELU) → (post-FFN norm) → residual]
-→ final norm → lm_head (then Gemma-2's final softcap, in f32), optionally
-on one row per sequence (``logit_positions``). RMS norms scale by
-``w + norm_offset`` (Gemma: 1 + w). Parameter names are the JAX
-package's.
+Embedding (times Gemma's bf16 embedding scale; then Bloom's embedding
+LayerNorm) → per layer [pre-norm → q/k/v (+ biases) → RoPE (NeoX, the 2-D
+GLM one of ChatGLM-1, or none under ALiBi) → cache append at each row's
+``start`` → GQA attention (f32, cast back to the activation dtype; the
+config's softcap, the layer's sliding window, the ALiBi slopes, the GLM
+prefix mask) → output projection (+ bias) → (post-attention norm) →
+residual → pre-norm → gated MLP (SiLU or tanh GELU) or ``w_down(act(w_up
+h))`` (+ biases; exact or tanh GELU) → (post-FFN norm) → residual] → final
+norm → lm_head (then Gemma-2's final softcap, in f32), optionally on one
+row per sequence (``logit_positions``). Norms are RMS (scaled by ``w +
+norm_offset``, Gemma: 1 + w) or LayerNorm with an optional bias. ChatGLM-1's
+DeepNorm residual takes the normed branch input times ``residual_alpha``
+as its base. Biases are added in the output's dtype after the product, as
+the JAX package's ``linear`` does. Parameter names are the JAX package's.
 
 The cache is a contiguous :class:`~neural_tpu_torch.runtime.kvcache.KVCache`
 (bf16, or int8: the append quantizes with ``quantize_kv`` and writes the
@@ -33,14 +38,25 @@ from torch import nn
 
 from ..core.qtensor import QTensor
 from ..ops.attention import attend, quantize_kv
-from ..ops.norms import rms_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.paged_attention import attend_paged, paged_update_kv
 from ..ops.qmatmul import qmatmul
-from ..ops.rope import apply_rope, rope_cos_sin
+from ..ops.rope import apply_glm1, apply_rope, glm1_cos_sin, rope_cos_sin
 from .config import ModelConfig
 
 LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-ACTS = {"silu": F.silu, "gelu_tanh": partial(F.gelu, approximate="tanh")}
+BIASES = ("bq", "bk", "bv", "bo", "b_gate", "b_up", "b_down")
+NORMS = ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
+ACTS = {"silu": F.silu, "gelu": F.gelu,
+        "gelu_tanh": partial(F.gelu, approximate="tanh")}
+ARCHS = ("llama", "mistral", "gemma", "gemma2", "bloom", "mpt", "chatglm1")
+
+
+def bf16_scalar(v: float) -> float:
+    """A scale as the JAX package applies it, a bf16 scalar: sqrt(3584) =
+    59.87 becomes 60.0, sqrt(56) = 7.483 becomes 7.46875. A Python float
+    keeps the multiply free of a host-to-device copy."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
 
 
 class QLinear(nn.Module):
@@ -83,20 +99,25 @@ class QLinear(nn.Module):
 
 class Block(nn.Module):
     """One decoder layer. ``weights`` maps the JAX names to QTensors (the
-    projections), tensors (the norm weights) and, for Gemma-2, the 0-d
-    bool ``use_sliding`` flag."""
+    projections), tensors (norm weights and biases, projection biases) and,
+    for Gemma-2, the 0-d bool ``use_sliding`` flag."""
 
     def __init__(self, cfg: ModelConfig, weights: Dict[str, object]):
         super().__init__()
         self.cfg = cfg
         for name in LINEARS:
-            setattr(self, name, QLinear(weights[name]))
-        norms = ["attn_norm_w", "ffn_norm_w"]
-        norms += ["post_attn_norm_w"] if cfg.post_attn_norm else []
-        norms += ["post_ffn_norm_w"] if cfg.post_ffn_norm else []
+            if name in weights:
+                setattr(self, name, QLinear(weights[name]))
+        norms = ["attn_norm", "ffn_norm"]
+        norms += ["post_attn_norm"] if cfg.post_attn_norm else []
+        norms += ["post_ffn_norm"] if cfg.post_ffn_norm else []
         for name in norms:
-            self.register_buffer(name, weights[name])
+            self.register_buffer(name + "_w", weights[name + "_w"])
+        for name in [n + "_b" for n in NORMS] + list(BIASES):
+            # a bias the family does not have is None: added nowhere
+            self.register_buffer(name, weights.get(name))
         self.act = ACTS[cfg.act]
+        self.alpha = bf16_scalar(cfg.residual_alpha)
         flag = weights.get("use_sliding")
         if flag is not None:
             self.register_buffer("use_sliding", flag)
@@ -107,19 +128,37 @@ class Block(nn.Module):
         self.window = cfg.sliding_window \
             if flag is None or bool(flag) else 0
 
-    def forward(self, x, kv, positions, cos, sin):
+    def _norm(self, x, name):
+        cfg = self.cfg
+        w = getattr(self, name + "_w")
+        if cfg.norm_type == "rmsnorm":
+            return rms_norm(x, w, cfg.norm_eps, cfg.norm_offset)
+        return layer_norm(x, w, getattr(self, name + "_b"), cfg.norm_eps)
+
+    def _linear(self, name, x):
+        y = getattr(self, name)(x)
+        b = getattr(self, "b" + name[1:])
+        return y if b is None else y + b.to(y.dtype)
+
+    def forward(self, x, kv, positions, rope, slopes=None, prompt_len=None):
         """x [B, T, D]; ``kv`` this layer's
         :class:`~neural_tpu_torch.runtime.kvcache.LayerKV`, written in place
-        at ``positions`` [B, T]."""
+        at ``positions`` [B, T]; ``rope`` the RoPE tables of the config's
+        style (None for "none"); the model's ALiBi ``slopes`` and the
+        prompt lengths ``prompt_len`` [B], which the attention reads for a
+        prefix-LM config's prefill."""
         cfg = self.cfg
         B, T, _ = x.shape
         Dh = cfg.head_dim
-        h = rms_norm(x, self.attn_norm_w, cfg.norm_eps, cfg.norm_offset)
-        q = self.wq(h).reshape(B, T, -1, Dh)
-        k = self.wk(h).reshape(B, T, -1, Dh)
-        v = self.wv(h).reshape(B, T, -1, Dh)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        h = self._norm(x, "attn_norm")
+        q = self._linear("wq", h).reshape(B, T, -1, Dh)
+        k = self._linear("wk", h).reshape(B, T, -1, Dh)
+        v = self._linear("wv", h).reshape(B, T, -1, Dh)
+        if cfg.rope_style == "glm1":
+            q, k = apply_glm1(q, rope), apply_glm1(k, rope)
+        elif rope is not None:
+            q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+        opts = dict(window=self.window, slopes=slopes, prefix_len=prompt_len)
         # append only the new tokens, at each row's own offset (no host
         # sync: the positions stay on the device)
         if kv.table is not None:
@@ -127,7 +166,7 @@ class Block(nn.Module):
                             k.transpose(1, 2), v.transpose(1, 2), kv.table,
                             positions[:, 0])
             out = attend_paged(q, kv.k, kv.v, kv.k_scale, kv.v_scale,
-                               kv.table, positions, cfg, self.window)
+                               kv.table, positions, cfg, **opts)
         else:
             rows = torch.arange(B, device=x.device)[:, None]
             if kv.k_scale is not None:
@@ -138,53 +177,64 @@ class Block(nn.Module):
             kv.k[rows, :, positions] = k.to(kv.k.dtype)
             kv.v[rows, :, positions] = v.to(kv.v.dtype)
             out = attend(q, kv.k, kv.v, positions, cfg, kv.k_scale,
-                         kv.v_scale, self.window)
-        out = self.wo(out.to(x.dtype))
+                         kv.v_scale, **opts)
+        out = self._linear("wo", out.to(x.dtype))
         if cfg.post_attn_norm:
-            out = rms_norm(out, self.post_attn_norm_w, cfg.norm_eps,
-                           cfg.norm_offset)
+            out = self._norm(out, "post_attn_norm")
+        if cfg.residual_alpha != 1.0:
+            # ChatGLM-1's DeepNorm residuals: the normed branch input,
+            # times alpha as a bf16 scalar, is the residual base
+            x = h * self.alpha + out
+            h2 = self._norm(x, "ffn_norm")
+            return h2 * self.alpha + self._mlp(h2)
         x = x + out
-        h2 = rms_norm(x, self.ffn_norm_w, cfg.norm_eps, cfg.norm_offset)
-        mlp = self.w_down(self.act(self.w_gate(h2)) * self.w_up(h2))
+        mlp = self._mlp(self._norm(x, "ffn_norm"))
         if cfg.post_ffn_norm:
-            mlp = rms_norm(mlp, self.post_ffn_norm_w, cfg.norm_eps,
-                           cfg.norm_offset)
+            mlp = self._norm(mlp, "post_ffn_norm")
         return x + mlp
+
+    def _mlp(self, h):
+        if self.cfg.mlp_gated:
+            h = self.act(self._linear("w_gate", h)) * self._linear("w_up", h)
+        else:
+            h = self.act(self._linear("w_up", h))
+        return self._linear("w_down", h)
 
 
 class Transformer(nn.Module):
-    """The decoder: ``embed``, ``layers``, ``final_norm_w``, ``lm_head``
-    (absent when tied to the embedding) and the RoPE table."""
+    """The decoder: ``embed``, (``embed_norm_w``/``_b``), ``layers``,
+    ``final_norm_w`` (``final_norm_b``), ``lm_head`` (absent when tied to
+    the embedding), the RoPE table (absent without RoPE) and the ALiBi
+    slopes (with ALiBi)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, object]):
         super().__init__()
+        glm1_dim = cfg.rope_style == "glm1" and \
+            cfg.rope_dim == cfg.head_dim // 2
         unsupported = [n for n, on in (
-            ("arch", cfg.arch not in ("llama", "mistral", "gemma",
-                                      "gemma2")),
-            ("norm_type", cfg.norm_type != "rmsnorm"),
-            ("act", cfg.act not in ACTS), ("mlp_gated", not cfg.mlp_gated),
-            ("biases", cfg.qkv_bias or cfg.o_bias or cfg.mlp_bias),
-            ("qk_norm", cfg.qk_norm), ("rope_style", cfg.rope_style != "neox"),
-            ("rope_dim", cfg.rope_dim is not None),
+            ("arch", cfg.arch not in ARCHS),
+            ("norm_type", cfg.norm_type not in ("rmsnorm", "layernorm")),
+            ("act", cfg.act not in ACTS),
+            ("qk_norm", cfg.qk_norm),
+            ("rope_style", cfg.rope_style not in ("neox", "none", "glm1")),
+            ("rope_dim", cfg.rope_dim is not None and not glm1_dim),
             ("learned_pos_emb", cfg.learned_pos_emb),
             ("parallel_residual", cfg.parallel_residual),
             ("final_norm", not cfg.final_norm),
-            ("residual_alpha", cfg.residual_alpha != 1.0),
             ("moe", cfg.is_moe)) if on]
         if unsupported:
             raise NotImplementedError(
-                f"graph features {unsupported} belong to the model-zoo slice")
+                f"graph features {unsupported} belong to a later model-zoo "
+                "slice")
         self.cfg = cfg
         self.layers = nn.ModuleList(Block(cfg, lp)
                                     for lp in params["layers"])
-        # the JAX package multiplies the bf16 embedding rows by the scale
-        # as a bf16 scalar: sqrt(3584) = 59.87 rounds to 60.0. A Python
-        # float keeps the multiply free of a host-to-device copy.
-        self.embed_scale = float(torch.tensor(cfg.embed_scale,
-                                              dtype=torch.bfloat16))
-        self.register_buffer("embed", params["embed"])
-        self.register_buffer("final_norm_w", params["final_norm_w"])
-        self.register_buffer("rope_inv_freqs", params["rope_inv_freqs"])
+        self.embed_scale = bf16_scalar(cfg.embed_scale)
+        for name in ("embed", "embed_norm_w", "embed_norm_b", "final_norm_w",
+                     "final_norm_b", "rope_inv_freqs", "alibi_slopes"):
+            self.register_buffer(name, params.get(name))
+        if cfg.use_alibi and self.alibi_slopes is None:
+            raise ValueError("an ALiBi config needs params['alibi_slopes']")
         lm_head = params.get("lm_head")
         self.lm_head = None if lm_head is None else QLinear(lm_head)
 
@@ -194,14 +244,18 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor, start: torch.Tensor, cache,
                 logits_dtype: torch.dtype = torch.float32,
-                logit_positions: Optional[torch.Tensor] = None):
+                logit_positions: Optional[torch.Tensor] = None,
+                prompt_len: Optional[torch.Tensor] = None):
         """tokens [B, T]; start [B] (cache write offset per row); cache a
         :class:`~neural_tpu_torch.runtime.kvcache.KVCache` or
         :class:`~neural_tpu_torch.runtime.paged.PagedKVCache`, updated in
         place.
         ``logit_positions`` [B]: the one token per row whose logits are
-        wanted — the lm_head then runs on [B, 1, D]. Returns logits
-        [B, T, V] (or [B, 1, V])."""
+        wanted — the lm_head then runs on [B, 1, D]. ``prompt_len`` [B]:
+        each row's prompt size, which a prefix-LM config (ChatGLM-1) reads
+        for its prefix mask and its 2-D RoPE; by default start + T, the
+        whole call being the prompt (a prefill), as in the JAX package.
+        Other configs ignore it. Returns logits [B, T, V] (or [B, 1, V])."""
         cfg = self.cfg
         B, T = tokens.shape
         positions = start[:, None].long() + torch.arange(
@@ -209,13 +263,28 @@ class Transformer(nn.Module):
         x = self.embed[tokens.long()].to(torch.bfloat16)
         if self.embed_scale != 1.0:
             x = x * self.embed_scale
-        cos, sin = rope_cos_sin(positions, self.rope_inv_freqs)
+        if self.embed_norm_w is not None:     # Bloom's embedding LayerNorm
+            x = layer_norm(x, self.embed_norm_w, self.embed_norm_b,
+                           cfg.norm_eps)
+        if (cfg.prefix_lm or cfg.rope_style == "glm1") and prompt_len is None:
+            prompt_len = start.long() + T
+        if cfg.rope_style == "glm1":
+            rope = glm1_cos_sin(positions, prompt_len, self.rope_inv_freqs)
+        elif cfg.rope_style == "none":
+            rope = None
+        else:
+            rope = rope_cos_sin(positions, self.rope_inv_freqs)
         for l, blk in enumerate(self.layers):
-            x = blk(x, cache.layer(l), positions, cos, sin)
+            x = blk(x, cache.layer(l), positions, rope, self.alibi_slopes,
+                    prompt_len)
         if logit_positions is not None:
             rows = torch.arange(B, device=x.device)[:, None]
             x = x[rows, logit_positions.long()[:, None]]
-        x = rms_norm(x, self.final_norm_w, cfg.norm_eps, cfg.norm_offset)
+        if cfg.norm_type == "rmsnorm":
+            x = rms_norm(x, self.final_norm_w, cfg.norm_eps, cfg.norm_offset)
+        else:
+            x = layer_norm(x, self.final_norm_w, self.final_norm_b,
+                           cfg.norm_eps)
         if self.lm_head is None:          # tied embeddings
             logits = self._tied_logits(x)
         else:

@@ -17,7 +17,10 @@ Every exported C function takes its pointers and the stream as
 when that is not 0, so a refused launch never passes silently, and counts
 each launch under the C function's name (``Kernel.launches``), so a run
 can tell which entry points — the bf16 and the int8 variant of an
-attention kernel apart — its path went through.
+attention kernel apart — its path went through. A launch that takes one
+of an entry point's option branches (an attention kernel's ALiBi slopes or
+prefix mask) also counts under ``name+branch`` (``flash_prefill+alibi``),
+so a run can tell that its path went through the branch too.
 """
 from __future__ import annotations
 
@@ -51,14 +54,16 @@ def _nvcc() -> str:
 class Kernel:
     """One ``.cu`` source: its C functions' signatures, the ``.cuh`` headers
     it includes, its loaded library, and ``launches``, the number of times
-    each C function was launched."""
+    each C function, and each of its option ``branches``, was launched."""
 
     def __init__(self, source: str, functions: Dict[str, Sequence],
-                 headers: Sequence[str] = ()):
+                 headers: Sequence[str] = (), branches: Sequence[str] = ()):
         self.source = source
         self.functions = functions
         self.headers = tuple(headers)
         self.launches = {fn: 0 for fn in functions}
+        self.launches.update({f"{fn}+{b}": 0 for fn in functions
+                              for b in branches})
         self._lib = None
 
     @property
@@ -89,12 +94,14 @@ class Kernel:
             self._lib = lib
         return self._lib
 
-    def call(self, fn: str, *args):
+    def call(self, fn: str, *args, branches: Sequence[str] = ()):
         err = getattr(self.load(), fn)(*args)
         if err != 0:
             raise RuntimeError(f"{self.source}:{fn} failed to launch: "
                                f"CUDA error {err}")
         self.launches[fn] += 1
+        for b in branches:
+            self.launches[f"{fn}+{b}"] += 1
 
 
 def build_all(kernels: Sequence[Kernel]) -> float:
@@ -164,24 +171,26 @@ QMM_GENERAL = Kernel("qmm_general.cu", {
                     F, I, I, I, I, P],
 })
 FLASH_PREFILL = Kernel("flash_prefill.cu", {
-    # q, k, v, starts, out, B, T, Hq, Hkv, S, head dim, scale, softcap,
-    # window, stream
-    "flash_prefill": [P, P, P, P, P, I, I, I, I, I, I, F, F, I, P],
-    # q, k8, v8, k_scale, v_scale, starts, out, B, T, Hq, Hkv, S, head dim,
-    # scale / 127, softcap, window, stream
-    "flash_prefill_i8": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, P],
-})
+    # q, k, v, starts, slopes, prefix_len, out, B, T, Hq, Hkv, S, head dim,
+    # scale, softcap, window, stream
+    "flash_prefill": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, P],
+    # q, k8, v8, k_scale, v_scale, starts, slopes, prefix_len, out, B, T,
+    # Hq, Hkv, S, head dim, scale / 127, softcap, window, stream
+    "flash_prefill_i8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F,
+                         I, P],
+}, branches=("alibi", "prefix"))
 _DECODE_ARGS = [
-    # q, k, v, k_scale, v_scale, table, lengths, part_o, part_ml, out,
-    # B, Hq, Hkv, S (contiguous) or MAXP * ps (paged), ps, maxp, n_split,
-    # head dim, scale (bf16) or scale / 127 (int8), softcap, window, stream
-    P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P]
+    # q, k, v, k_scale, v_scale, table, lengths, slopes, part_o, part_ml,
+    # out, B, Hq, Hkv, S (contiguous) or MAXP * ps (paged), ps, maxp,
+    # n_split, head dim, scale (bf16) or scale / 127 (int8), softcap,
+    # window, stream
+    P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P]
 FLASH_DECODE = Kernel("flash_decode.cu", {
     "flash_decode": _DECODE_ARGS, "flash_decode_i8": _DECODE_ARGS},
-    headers=("decode_attn.cuh",))
+    headers=("decode_attn.cuh",), branches=("alibi",))
 PAGED_DECODE = Kernel("paged_decode.cu", {
     "paged_decode": _DECODE_ARGS, "paged_decode_i8": _DECODE_ARGS},
-    headers=("decode_attn.cuh",))
+    headers=("decode_attn.cuh",), branches=("alibi",))
 
 KERNELS = (QMM4, QMM_A8, QMM_GENERAL, FLASH_PREFILL, FLASH_DECODE,
            PAGED_DECODE)
@@ -195,7 +204,8 @@ def reset_launches():
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches per C function name, over every kernel source."""
+    """Launches per C function name (and ``name+branch``), over every
+    kernel source."""
     return {fn: n for k in KERNELS for fn, n in k.launches.items()}
 
 
@@ -213,7 +223,7 @@ def capture(graph, fn):
     return out, recorded
 
 
-_OWNER = {fn: k for k in KERNELS for fn in k.functions}
+_OWNER = {fn: k for k in KERNELS for fn in k.launches}
 
 
 def add_launches(recorded: Dict[str, int], times: int = 1):

@@ -20,12 +20,16 @@ q per row (``q8 = round(q · 127/qa)``, ``qa = max|q| + 1e-9``), take an
 exact int8·int8 QK dot and form ``s = d · (qa·scale/127) · k_scale``; l
 sums the unscaled P, and the v scale is folded into P — in f32 for the PV
 product of decode, rounded to bf16 for the bf16 PV product of prefill, as
-each TPU kernel does. Head dim 128 or 256. The options of the TPU kernels
-that are ported: the tanh softcap (``softcap · tanh(s / softcap)`` on the
-scaled f32 score, before the mask; 0 = off) and the sliding window (an int,
-0 = off: decode sees keys at ``pos >= length - window``, prefill keys at
-``kv_pos > q_pos - window``). ALiBi and the GLM prefix mask are later
-slices.
+each TPU kernel does. Head dim 128 or 256. The options of the TPU kernels,
+each off by default: the tanh softcap (``softcap · tanh(s / softcap)`` on
+the scaled f32 score, before the mask; 0 = off); ALiBi (``slopes`` [Hq]
+f32, None = off: ``slope_h · (kv_pos - q_pos)`` added in f32 after the
+softcap, before the mask); the sliding window (an int, 0 = off: decode
+sees keys at ``pos >= length - window``, prefill keys at ``kv_pos > q_pos
+- window``); and, in prefill only, the GLM prefix-LM mask (``prefix_len``
+[B] int32, None = off; a row's 0 is off too): keys at ``kv_pos <
+prefix_len[b] - 1`` are visible to every query of row b. Decode needs no
+prefix mask: every key a decode step sees is already causal.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from . import _cuda
 
 NEG = -1e30
 HEAD_DIMS = (128, 256)    # the head dims the attention kernels are built for
+PREFIX_OFF = -(1 << 30)   # a prefix bound no key is below
 
 
 def quantize_kv(x: torch.Tensor):
@@ -59,12 +64,31 @@ def _softcap(s: torch.Tensor, softcap: float) -> torch.Tensor:
     return softcap * torch.tanh(s / softcap) if softcap else s
 
 
+def _alibi(s: torch.Tensor, slopes, dist: torch.Tensor) -> torch.Tensor:
+    """s [B, Hkv, G, ..., S] + slope of the query head · dist [B, ..., S]
+    (kv_pos - q_pos, f32): a product, then a sum, each rounded in f32."""
+    if slopes is None:
+        return s
+    Hkv, G = s.shape[1:3]
+    extra = s.dim() - 3
+    sl = slopes.to(torch.float32).reshape(1, Hkv, G, *([1] * extra))
+    return s + sl * dist.to(torch.float32)[:, None, None]
+
+
+def _prefix_m1(prefix_len):
+    """[B] → prefix_len - 1, or a bound no key is below where it is 0."""
+    p = prefix_len.long()
+    return torch.where(p > 0, p - 1, torch.full_like(p, PREFIX_OFF))
+
+
 def attend_xla(q, k_cache, v_cache, positions, cfg, k_scale=None,
-               v_scale=None, window: int = 0):
+               v_scale=None, window: int = 0, slopes=None, prefix_len=None):
     """Reference attention, all f32 (the JAX package's ``attend_xla``).
     q [B, T, Hq, Dh]; caches [B, Hkv, S, Dh] (bf16, or int8 with scales
-    [B, Hkv, S]); positions [B, T]; the config's softcap and a sliding
-    ``window`` (0 = off) → [B, T, Hq*Dh] f32."""
+    [B, Hkv, S]); positions [B, T]; the config's softcap, ALiBi ``slopes``
+    [Hq] (read when the config uses ALiBi), the GLM prefix mask
+    ``prefix_len`` [B] and a sliding ``window`` (0 = off) →
+    [B, T, Hq*Dh] f32."""
     B, T, Hq, Dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -76,8 +100,12 @@ def attend_xla(q, k_cache, v_cache, positions, cfg, k_scale=None,
     s_idx = torch.arange(S, device=q.device)[None, None, :]
     q_abs = positions[:, :, None]
     mask = s_idx <= q_abs
+    if prefix_len is not None:
+        mask = mask | (s_idx < prefix_len.long()[:, None, None] - 1)
     if window:
         mask = mask & (s_idx > q_abs - window)
+    if cfg.use_alibi:
+        scores = _alibi(scores, slopes, s_idx - q_abs)
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, NEG))
     probs = torch.softmax(scores, dim=-1)
@@ -119,33 +147,36 @@ def _i8_scores(q8, qa, k8, k_scale, scale: float, eq: str, ks_view):
 # ---------------------------------------------------------------------------
 
 
-def _decode_mask(s, lengths, window: int):
-    """Keys at positions < lengths[b] and, with a window, >= lengths[b] -
-    window stay; the rest score -1e30."""
+def _decode_opts(s, lengths, softcap: float, window: int, slopes):
+    """The softcap, ALiBi at ``pos - (length - 1)``, then the mask: keys at
+    positions < lengths[b] and, with a window, >= lengths[b] - window stay;
+    the rest score -1e30."""
     pos = torch.arange(s.shape[-1], device=s.device)[None, :]
-    mask = pos < lengths[:, None]
+    lengths = lengths.long()[:, None]
+    s = _alibi(_softcap(s, softcap), slopes, pos - (lengths - 1))
+    mask = pos < lengths
     if window:
-        mask = mask & (pos >= lengths[:, None] - window)
+        mask = mask & (pos >= lengths - window)
     return torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG))
 
 
 def flash_decode_plain(q, k_cache, v_cache, lengths, scale: float,
-                       softcap: float = 0.0, window: int = 0):
+                       softcap: float = 0.0, window: int = 0, slopes=None):
     """Plain version of K4. q [B, Hq, Dh] bf16; caches [B, Hkv, S, Dh];
     keys at positions >= lengths[b] (and, with a window, below lengths[b] -
-    window) masked → [B, Hq, Dh] f32."""
+    window) masked; ALiBi ``slopes`` [Hq] or None → [B, Hq, Dh] f32."""
     B, Hq, Dh = q.shape
     Hkv = k_cache.shape[1]
     qh = q.to(torch.bfloat16).reshape(B, Hkv, Hq // Hkv, Dh)
     s = torch.einsum("bhgd,bhsd->bhgs", qh.to(torch.float32),
                      k_cache.to(torch.float32)) * scale
-    s = _decode_mask(_softcap(s, softcap), lengths, window)
+    s = _decode_opts(s, lengths, softcap, window, slopes)
     return _softmax_pv(s, v_cache, "bhgs,bhsd->bhgd").reshape(B, Hq, Dh)
 
 
 def flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
                           scale: float, softcap: float = 0.0,
-                          window: int = 0):
+                          window: int = 0, slopes=None):
     """Plain version of K4's int8 variant. Caches int8 [B, Hkv, S, Dh] with
     bf16 scales [B, Hkv, S]; the v scale multiplies P in f32 and PV is an
     f32 product → [B, Hq, Dh] f32."""
@@ -154,7 +185,7 @@ def flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
     q8, qa = _quantize_q(q.reshape(B, Hkv, Hq // Hkv, Dh))
     s = _i8_scores(q8, qa, k_cache, k_scale, scale, "bhgd,bhsd->bhgs",
                    lambda ks: ks[:, :, None, :])
-    s = _decode_mask(_softcap(s, softcap), lengths, window)
+    s = _decode_opts(s, lengths, softcap, window, slopes)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -166,18 +197,26 @@ def flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
 DECODE_CHUNK = 64     # keys per block of the decode kernels' first pass
 
 
+def _check_slopes(slopes, Hq: int):
+    """ALiBi slopes as a kernel takes them: [Hq] f32 on the card."""
+    if slopes is not None:
+        _cuda.check(slopes, "slopes", torch.float32, (Hq,))
+
+
 def decode_launch(kernel, fn, q, k, v, k_scale, v_scale, table, lengths,
-                  B, Hkv, S, ps, maxp, qk_scale, softcap, window):
+                  B, Hkv, S, ps, maxp, qk_scale, softcap, window, slopes):
     """Launch one of the split-S decode entry points (K4's, or K6's over a
     page table) and return [B, Hq, Dh] f32. The number of splits comes from
     the key capacity S, never from the fill or the window: the kernel reads
     the lengths on the device, and chunks past a row's fill or wholly below
     its window return at once, so the launch needs no host sync and can be
-    captured in a CUDA graph."""
+    captured in a CUDA graph. A launch with ALiBi counts under
+    ``fn+alibi`` as well."""
     Hq, Dh = q.shape[1], q.shape[2]
     if Hq // Hkv > 8:
         raise ValueError(f"the decode kernels take at most 8 query heads per "
                          f"KV head, got {Hq // Hkv}")
+    _check_slopes(slopes, Hq)
     n_split = -(-S // DECODE_CHUNK)
     part_o = torch.empty((B * Hq, n_split, Dh), dtype=torch.float32,
                          device=q.device)
@@ -186,19 +225,20 @@ def decode_launch(kernel, fn, q, k, v, k_scale, v_scale, table, lengths,
     out = torch.empty((B, Hq, Dh), dtype=torch.float32, device=q.device)
     opt = lambda t: 0 if t is None else _cuda.ptr(t)
     kernel.call(fn, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), opt(k_scale),
-                opt(v_scale), opt(table), _cuda.ptr(lengths),
+                opt(v_scale), opt(table), _cuda.ptr(lengths), opt(slopes),
                 _cuda.ptr(part_o), _cuda.ptr(part_ml), _cuda.ptr(out), B, Hq,
                 Hkv, S, ps, maxp, n_split, Dh, float(qk_scale),
-                float(softcap), int(window), _cuda.stream_ptr())
+                float(softcap), int(window), _cuda.stream_ptr(),
+                branches=() if slopes is None else ("alibi",))
     return out
 
 
 def flash_decode(q, k_cache, v_cache, lengths, scale: float,
-                 softcap: float = 0.0, window: int = 0):
+                 softcap: float = 0.0, window: int = 0, slopes=None):
     """K4. Same contract as :func:`flash_decode_plain`."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, lengths, scale,
-                                  softcap, window)
+                                  softcap, window, slopes)
     B, Hq, Dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     q = q.to(torch.bfloat16).contiguous()
@@ -207,15 +247,16 @@ def flash_decode(q, k_cache, v_cache, lengths, scale: float,
     _cuda.check(lengths, "lengths", torch.int32, (B,))
     return decode_launch(_cuda.FLASH_DECODE, "flash_decode", q, k_cache,
                          v_cache, None, None, None, lengths, B, Hkv, S, 0, 0,
-                         scale, softcap, window)
+                         scale, softcap, window, slopes)
 
 
 def flash_decode_i8(q, k_cache, v_cache, k_scale, v_scale, lengths,
-                    scale: float, softcap: float = 0.0, window: int = 0):
+                    scale: float, softcap: float = 0.0, window: int = 0,
+                    slopes=None):
     """K4, int8 variant. Same contract as :func:`flash_decode_i8_plain`."""
     if q.device.type == "cpu":
         return flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale,
-                                     lengths, scale, softcap, window)
+                                     lengths, scale, softcap, window, slopes)
     B, Hq, Dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     q = q.to(torch.bfloat16).contiguous()
@@ -225,7 +266,7 @@ def flash_decode_i8(q, k_cache, v_cache, k_scale, v_scale, lengths,
     _cuda.check(lengths, "lengths", torch.int32, (B,))
     return decode_launch(_cuda.FLASH_DECODE, "flash_decode_i8", q, k_cache,
                          v_cache, k_scale, v_scale, None, lengths, B, Hkv, S,
-                         0, 0, scale / 127.0, softcap, window)
+                         0, 0, scale / 127.0, softcap, window, slopes)
 
 
 # ---------------------------------------------------------------------------
@@ -233,13 +274,21 @@ def flash_decode_i8(q, k_cache, v_cache, k_scale, v_scale, lengths,
 # ---------------------------------------------------------------------------
 
 
-def _prefill_mask(s, starts, window: int):
+def _prefill_opts(s, starts, softcap: float, window: int, slopes,
+                  prefix_len):
+    """The softcap, ALiBi at ``kv_pos - q_pos``, then the mask of the TPU
+    kernel: (causal and the window) or the prefix, ``kv_pos <
+    prefix_len[b] - 1``."""
     T, S = s.shape[-2], s.shape[-1]
-    qpos = starts[:, None] + torch.arange(T, device=s.device)[None, :]
+    qpos = starts.long()[:, None, None] + \
+        torch.arange(T, device=s.device)[None, :, None]
     kpos = torch.arange(S, device=s.device)[None, None, :]
-    mask = kpos <= qpos[:, :, None]
+    s = _alibi(_softcap(s, softcap), slopes, kpos - qpos)
+    mask = kpos <= qpos
     if window:
-        mask = mask & (kpos > qpos[:, :, None] - window)
+        mask = mask & (kpos > qpos - window)
+    if prefix_len is not None:
+        mask = mask | (kpos < _prefix_m1(prefix_len)[:, None, None])
     return torch.where(mask[:, None, None], s, torch.full_like(s, NEG))
 
 
@@ -249,23 +298,25 @@ def _heads_first(q, Hkv):
 
 
 def flash_prefill_plain(q, k_cache, v_cache, starts, scale: float,
-                        softcap: float = 0.0, window: int = 0):
+                        softcap: float = 0.0, window: int = 0, slopes=None,
+                        prefix_len=None):
     """Plain version of K3. q [B, T, Hq, Dh] bf16; caches [B, Hkv, S, Dh]
     already holding these keys; query t at position starts[b] + t sees keys
-    s <= starts[b] + t (and, with a window, s > starts[b] + t - window) →
-    [B, T, Hq, Dh] f32."""
+    s <= starts[b] + t (and, with a window, s > starts[b] + t - window), or
+    with ``prefix_len`` [B] any key s < prefix_len[b] - 1; ALiBi ``slopes``
+    [Hq] or None → [B, T, Hq, Dh] f32."""
     B, T, Hq, Dh = q.shape
     qh = _heads_first(q.to(torch.bfloat16), k_cache.shape[1])
     s = torch.einsum("bhgtd,bhsd->bhgts", qh.to(torch.float32),
                      k_cache.to(torch.float32)) * scale
-    s = _prefill_mask(_softcap(s, softcap), starts, window)
+    s = _prefill_opts(s, starts, softcap, window, slopes, prefix_len)
     out = _softmax_pv(s, v_cache, "bhgts,bhsd->bhgtd")
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, Dh)
 
 
 def flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale, starts,
                            scale: float, softcap: float = 0.0,
-                           window: int = 0):
+                           window: int = 0, slopes=None, prefix_len=None):
     """Plain version of K3's int8 variant: the v scale multiplies P, which
     is then rounded to bf16 for a bf16 PV product with the int8 v codes
     widened to bf16 (exact) → [B, T, Hq, Dh] f32."""
@@ -273,7 +324,7 @@ def flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale, starts,
     q8, qa = _quantize_q(_heads_first(q, k_cache.shape[1]))
     s = _i8_scores(q8, qa, k_cache, k_scale, scale, "bhgtd,bhsd->bhgts",
                    lambda ks: ks[:, :, None, None, :])
-    s = _prefill_mask(_softcap(s, softcap), starts, window)
+    s = _prefill_opts(s, starts, softcap, window, slopes, prefix_len)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -286,16 +337,24 @@ def flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale, starts,
 
 
 def _prefill_launch(fn, q, k_cache, v_cache, k_scale, v_scale, starts,
-                    qk_scale, softcap, window):
+                    qk_scale, softcap, window, slopes, prefix_len):
     B, T, Hq, Dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    _check_slopes(slopes, Hq)
+    if prefix_len is not None:
+        prefix_len = prefix_len.to(torch.int32).contiguous()
+        _cuda.check(prefix_len, "prefix_len", torch.int32, (B,))
     out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=q.device)
     scales = [] if k_scale is None else [_cuda.ptr(k_scale),
                                          _cuda.ptr(v_scale)]
+    opt = lambda t: 0 if t is None else _cuda.ptr(t)
+    branches = (() if slopes is None else ("alibi",)) + \
+        (() if prefix_len is None else ("prefix",))
     _cuda.FLASH_PREFILL.call(
         fn, _cuda.ptr(q), _cuda.ptr(k_cache), _cuda.ptr(v_cache), *scales,
-        _cuda.ptr(starts), _cuda.ptr(out), B, T, Hq, Hkv, S, Dh,
-        float(qk_scale), float(softcap), int(window), _cuda.stream_ptr())
+        _cuda.ptr(starts), opt(slopes), opt(prefix_len), _cuda.ptr(out), B,
+        T, Hq, Hkv, S, Dh, float(qk_scale), float(softcap), int(window),
+        _cuda.stream_ptr(), branches=branches)
     return out
 
 
@@ -310,27 +369,31 @@ def _prefill_args(q, k_cache, v_cache, starts, kv_dtype):
 
 
 def flash_prefill(q, k_cache, v_cache, starts, scale: float,
-                  softcap: float = 0.0, window: int = 0):
+                  softcap: float = 0.0, window: int = 0, slopes=None,
+                  prefix_len=None):
     """K3. Same contract as :func:`flash_prefill_plain`."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k_cache, v_cache, starts, scale,
-                                   softcap, window)
+                                   softcap, window, slopes, prefix_len)
     q, starts = _prefill_args(q, k_cache, v_cache, starts, torch.bfloat16)
     return _prefill_launch("flash_prefill", q, k_cache, v_cache, None, None,
-                           starts, scale, softcap, window)
+                           starts, scale, softcap, window, slopes, prefix_len)
 
 
 def flash_prefill_i8(q, k_cache, v_cache, k_scale, v_scale, starts,
-                     scale: float, softcap: float = 0.0, window: int = 0):
+                     scale: float, softcap: float = 0.0, window: int = 0,
+                     slopes=None, prefix_len=None):
     """K3, int8 variant. Same contract as :func:`flash_prefill_i8_plain`."""
     if q.device.type == "cpu":
         return flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale,
-                                      starts, scale, softcap, window)
+                                      starts, scale, softcap, window, slopes,
+                                      prefix_len)
     q, starts = _prefill_args(q, k_cache, v_cache, starts, torch.int8)
     B, Hkv, S = k_cache.shape[:3]
     _check_scales(k_scale, v_scale, (B, Hkv, S))
     return _prefill_launch("flash_prefill_i8", q, k_cache, v_cache, k_scale,
-                           v_scale, starts, scale / 127.0, softcap, window)
+                           v_scale, starts, scale / 127.0, softcap, window,
+                           slopes, prefix_len)
 
 
 def check_head_dim(Dh: int):
@@ -358,26 +421,33 @@ def _check_scales(k_scale, v_scale, shape):
 # ---------------------------------------------------------------------------
 
 
-def check_unported(cfg):
-    if cfg.use_alibi or cfg.prefix_lm:
-        raise NotImplementedError(
-            "ALiBi and prefix-LM attention are later slices")
-
-
 def attn_scale(cfg, Dh: int) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else Dh ** -0.5
 
 
+def attn_options(cfg, T: int, slopes, prefix_len):
+    """The ALiBi slopes and the prefix bound a launch takes: the slopes when
+    the config uses ALiBi (then they must be given), the prefix bound for
+    a prefill (T > 1) of a prefix-LM config."""
+    if cfg.use_alibi and slopes is None:
+        raise ValueError("an ALiBi config needs its slopes "
+                         "(the model's alibi_slopes buffer)")
+    return (slopes if cfg.use_alibi else None,
+            prefix_len if cfg.prefix_lm and T > 1 else None)
+
+
 def attend(q, k_cache, v_cache, positions, cfg, k_scale=None, v_scale=None,
-           window: int = 0):
+           window: int = 0, slopes=None, prefix_len=None):
     """q [B, T, Hq, Dh] at ``positions`` [B, T] against one layer's cache
     [B, Hkv, S, Dh] (already holding these keys; int8 with ``k_scale`` /
     ``v_scale`` [B, Hkv, S]) → [B, T, Hq*Dh] f32. T == 1 goes to K4, T > 1
     to K3, each in the variant of the cache's dtype, with the config's
-    softcap and this layer's sliding ``window`` (a Python int, 0 = off)."""
-    check_unported(cfg)
+    softcap, this layer's sliding ``window`` (a Python int, 0 = off), the
+    ALiBi ``slopes`` [Hq] of an ALiBi config and, for a prefix-LM config's
+    prefill, the prompt lengths ``prefix_len`` [B]."""
     B, T, Hq, Dh = q.shape
-    opts = (attn_scale(cfg, Dh), cfg.attn_softcap, window)
+    slopes, prefix_len = attn_options(cfg, T, slopes, prefix_len)
+    opts = (attn_scale(cfg, Dh), cfg.attn_softcap, window, slopes)
     int8 = k_cache.dtype == torch.int8
     if int8 != (k_scale is not None):
         raise ValueError("an int8 KV cache comes with its scales, a bf16 one "
@@ -390,7 +460,8 @@ def attend(q, k_cache, v_cache, positions, cfg, k_scale=None, v_scale=None,
                            *opts)
     elif int8:
         out = flash_prefill_i8(q, k_cache, v_cache, k_scale, v_scale,
-                               positions[:, 0], *opts)
+                               positions[:, 0], *opts, prefix_len)
     else:
-        out = flash_prefill(q, k_cache, v_cache, positions[:, 0], *opts)
+        out = flash_prefill(q, k_cache, v_cache, positions[:, 0], *opts,
+                            prefix_len)
     return out.reshape(B, T, Hq * Dh)

@@ -8,10 +8,12 @@ dispatch and the page-pool writes (port of
   ``flash_decode.cu``) with each key's row found through ``table[b, s //
   ps]``. Keys past a row's fill, and chunks wholly below its sliding
   window, are never read, so table entries past the fill may point
-  anywhere in the pool. The softcap and the window are K4's.
+  anywhere in the pool. The softcap, ALiBi and the window are K4's.
 - :func:`attend_paged`: T == 1 goes to K6; T > 1 gathers the slot's pages
   into a contiguous ``[B, Hkv, MAXP·ps, Dh]`` view and runs K3 over it, the
-  JAX package's own route for paged prefill.
+  JAX package's own route for paged prefill. Unlike the JAX package's
+  ``attend_paged``, which takes no prefix bound (so its paged prefill of a
+  prefix-LM model is causal), the GLM prefix mask reaches K3 here too.
 
 Layouts (``runtime/paged.py``): per layer a pool ``[P, Hkv, ps, Dh]``,
 int8 scales ``[P, Hkv, ps]`` bf16, table ``[B, MAXP]`` int32.
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .attention import (attn_scale, check_head_dim, check_unported,
+from .attention import (attn_options, attn_scale, check_head_dim,
                         decode_launch, flash_decode_i8_plain,
                         flash_decode_plain, flash_prefill, flash_prefill_i8,
                         quantize_kv)
@@ -42,16 +44,19 @@ def gather_scales(spool, table):
 
 
 def paged_decode_plain(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                       scale: float, softcap: float = 0.0, window: int = 0):
+                       scale: float, softcap: float = 0.0, window: int = 0,
+                       slopes=None):
     """Plain version of K6: gather the pages, then K4's plain version (bf16
     or int8 by the pool's scales). q [B, Hq, Dh]; pools [P, Hkv, ps, Dh];
-    table [B, MAXP]; lengths [B] → [B, Hq, Dh] f32."""
+    table [B, MAXP]; lengths [B]; ALiBi ``slopes`` [Hq] or None →
+    [B, Hq, Dh] f32."""
     k, v = gather_pages(k_pool, table), gather_pages(v_pool, table)
     if k_scale is None:
-        return flash_decode_plain(q, k, v, lengths, scale, softcap, window)
+        return flash_decode_plain(q, k, v, lengths, scale, softcap, window,
+                                  slopes)
     return flash_decode_i8_plain(q, k, v, gather_scales(k_scale, table),
                                  gather_scales(v_scale, table), lengths,
-                                 scale, softcap, window)
+                                 scale, softcap, window, slopes)
 
 
 def _paged_args(q, k_pool, v_pool, table, lengths, kv_dtype):
@@ -75,42 +80,46 @@ def _paged_args(q, k_pool, v_pool, table, lengths, kv_dtype):
 
 
 def paged_decode(q, k_pool, v_pool, table, lengths, scale: float,
-                 softcap: float = 0.0, window: int = 0):
+                 softcap: float = 0.0, window: int = 0, slopes=None):
     """K6 over a bf16 pool. Same contract as :func:`paged_decode_plain`."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, None, None, table,
-                                  lengths, scale, softcap, window)
+                                  lengths, scale, softcap, window, slopes)
     q, lengths, B, Hkv, ps, maxp = _paged_args(q, k_pool, v_pool, table,
                                                lengths, torch.bfloat16)
     return decode_launch(_cuda.PAGED_DECODE, "paged_decode", q, k_pool,
                          v_pool, None, None, table, lengths, B, Hkv,
-                         maxp * ps, ps, maxp, scale, softcap, window)
+                         maxp * ps, ps, maxp, scale, softcap, window, slopes)
 
 
 def paged_decode_i8(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                    scale: float, softcap: float = 0.0, window: int = 0):
+                    scale: float, softcap: float = 0.0, window: int = 0,
+                    slopes=None):
     """K6 over an int8 pool. Same contract as :func:`paged_decode_plain`."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, k_scale, v_scale, table,
-                                  lengths, scale, softcap, window)
+                                  lengths, scale, softcap, window, slopes)
     q, lengths, B, Hkv, ps, maxp = _paged_args(q, k_pool, v_pool, table,
                                                lengths, torch.int8)
     for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
         _cuda.check(s, name, torch.bfloat16, k_pool.shape[:3])
     return decode_launch(_cuda.PAGED_DECODE, "paged_decode_i8", q, k_pool,
                          v_pool, k_scale, v_scale, table, lengths, B, Hkv,
-                         maxp * ps, ps, maxp, scale / 127.0, softcap, window)
+                         maxp * ps, ps, maxp, scale / 127.0, softcap, window,
+                         slopes)
 
 
 def attend_paged(q, k_pool, v_pool, k_scale, v_scale, table, positions, cfg,
-                 window: int = 0):
+                 window: int = 0, slopes=None, prefix_len=None):
     """Paged dispatch, mirroring :func:`~.attention.attend`: K6 for T == 1;
     for T > 1 the slot's pages are gathered into a contiguous view for K3.
-    q [B, T, Hq, Dh]; positions [B, T]; the config's softcap and this
-    layer's sliding ``window`` (0 = off) → [B, T, Hq*Dh] f32."""
-    check_unported(cfg)
+    q [B, T, Hq, Dh]; positions [B, T]; the config's softcap, this layer's
+    sliding ``window`` (0 = off), an ALiBi config's ``slopes`` [Hq] and a
+    prefix-LM config's prompt lengths ``prefix_len`` [B] (prefill only) →
+    [B, T, Hq*Dh] f32."""
     B, T, Hq, Dh = q.shape
-    opts = (attn_scale(cfg, Dh), cfg.attn_softcap, window)
+    slopes, prefix_len = attn_options(cfg, T, slopes, prefix_len)
+    opts = (attn_scale(cfg, Dh), cfg.attn_softcap, window, slopes)
     if T == 1:
         lengths = positions[:, 0] + 1
         if k_scale is None:
@@ -121,11 +130,11 @@ def attend_paged(q, k_pool, v_pool, k_scale, v_scale, table, positions, cfg,
         return out.reshape(B, 1, Hq * Dh)
     k, v = gather_pages(k_pool, table), gather_pages(v_pool, table)
     if k_scale is None:
-        out = flash_prefill(q, k, v, positions[:, 0], *opts)
+        out = flash_prefill(q, k, v, positions[:, 0], *opts, prefix_len)
     else:
         out = flash_prefill_i8(q, k, v, gather_scales(k_scale, table),
                                gather_scales(v_scale, table),
-                               positions[:, 0], *opts)
+                               positions[:, 0], *opts, prefix_len)
     return out.reshape(B, T, Hq * Dh)
 
 

@@ -1,6 +1,7 @@
-"""Rotary position embeddings (port of ``neural_tpu/ops/rope.py``: the
-frequency table, unscaled or with the "llama3" scaling, and the
-NeoX-style rotation Llama uses).
+"""Position encodings (port of ``neural_tpu/ops/rope.py``: the frequency
+table, unscaled or with the "llama3" scaling; the NeoX-style rotation
+Llama uses; ChatGLM-1's 2-D GLM rotation; the ALiBi slopes of Bloom and
+MPT).
 
 Conventions: q/k are [..., T, H, Dh]; ``positions`` is [..., T] int.
 """
@@ -56,3 +57,48 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+def glm1_cos_sin(positions: torch.Tensor, prompt_len: torch.Tensor,
+                 inv_freqs: torch.Tensor):
+    """The two cos/sin tables of ChatGLM-1's 2-D GLM RoPE for absolute
+    ``positions`` [B, T] and per-row prompt lengths P = ``prompt_len`` [B]:
+    the position id min(p, P-2) (clamped at the [gMASK] token) and the
+    block id max(p-(P-2), 0) (the generation counter). ``inv_freqs`` are
+    those of n_dims = Dh/2 (``rope_freqs(head_dim, head_dim // 2, ...)``)."""
+    anchor = (prompt_len.long() - 2)[:, None]
+    pos = torch.minimum(positions.clamp_min(0), anchor.clamp_min(0))
+    blk = (positions - anchor).clamp_min(0)
+    return (*rope_cos_sin(pos, inv_freqs), *rope_cos_sin(blk, inv_freqs))
+
+
+def apply_glm1(x: torch.Tensor, tables) -> torch.Tensor:
+    """Two NeoX rotations on the halves of [B, T, H, Dh]: the first half by
+    the position ids, the second by the block ids (``glm1_cos_sin``)."""
+    c1, s1, c2, s2 = tables
+    d = x.shape[-1] // 2
+    return torch.cat([apply_rope(x[..., :d], c1, s1),
+                      apply_rope(x[..., d:], c2, s2)], dim=-1)
+
+
+def apply_rope_glm1(x: torch.Tensor, positions: torch.Tensor,
+                    prompt_len: torch.Tensor,
+                    inv_freqs: torch.Tensor) -> torch.Tensor:
+    """ChatGLM-1's 2-D GLM RoPE on x [B, T, H, Dh] (the JAX package's
+    ``apply_rope_glm1``)."""
+    return apply_glm1(x, glm1_cos_sin(positions, prompt_len, inv_freqs))
+
+
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """ALiBi per-head slopes [n_heads] f32 (Bloom, MPT): the geometric
+    series 2^(-8/n·(i+1)) for the largest power of two n <= n_heads, and
+    for the rest every other slope of the series of 2n."""
+    def pow2slopes(n):
+        start = 2.0 ** (-(2.0 ** -(np.log2(n) - 3)))
+        return start * (start ** np.arange(n))
+    n = 2 ** int(np.floor(np.log2(n_heads)))
+    slopes = pow2slopes(n)
+    if n < n_heads:
+        slopes = np.concatenate([slopes,
+                                 pow2slopes(2 * n)[0::2][: n_heads - n]])
+    return slopes.astype(np.float32)

@@ -5,7 +5,9 @@
 eval of T tokens; ``greedy_generate``/``generate`` drive them from Python
 with one host read of the next id per token (as the JAX loops do);
 ``decode_loop`` is the benchmark unit: a Python loop whose argmax stays on
-the device, with one host sync at the end.
+the device, with one host sync at the end. A prefix-LM model (ChatGLM-1)
+takes its prompt length on every decode step (``prompt_len``, a [B] tensor
+on the model's device), as the JAX loops pass ``_plen``.
 """
 from __future__ import annotations
 
@@ -41,17 +43,20 @@ def params_to_native(params):
 
 @torch.inference_mode()
 def model_step(model: Transformer, tokens: torch.Tensor, start: torch.Tensor,
-               cache: KVCache) -> torch.Tensor:
+               cache: KVCache,
+               prompt_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One eval: tokens [B, T] at cache offsets ``start`` [B] → logits
-    [B, T, V] f32; the cache is updated in place."""
-    return model(tokens, start, cache)
+    [B, T, V] f32; the cache is updated in place. ``prompt_len`` [B]: the
+    prompt size a prefix-LM model needs on decode steps."""
+    return model(tokens, start, cache, prompt_len=prompt_len)
 
 
 @torch.inference_mode()
 def prefill_step(model: Transformer, tokens: torch.Tensor,
                  start: torch.Tensor, cache: KVCache) -> torch.Tensor:
     """Prefill eval returning only the last token's logits [B, 1, V]: the
-    lm_head runs on [B, 1, D] (``logit_positions``)."""
+    lm_head runs on [B, 1, D] (``logit_positions``). The call is the whole
+    prompt, which is what a prefix-LM model takes by default."""
     lens = torch.full(tokens.shape[:1], tokens.shape[1], dtype=torch.long,
                       device=tokens.device)
     return model(tokens, start, cache, logit_positions=lens - 1)
@@ -59,6 +64,15 @@ def prefill_step(model: Transformer, tokens: torch.Tensor,
 
 def _prompt(prompt_ids: Sequence[int], device) -> torch.Tensor:
     return torch.tensor([list(prompt_ids)], dtype=torch.long, device=device)
+
+
+def prompt_lens(cfg: ModelConfig, lens: Sequence[int],
+                device) -> Optional[torch.Tensor]:
+    """Prompt lengths [B] for the decode steps of a prefix-LM model
+    (ChatGLM-1); None for every other model (the JAX package's ``_plen``)."""
+    if cfg.prefix_lm or cfg.rope_style == "glm1":
+        return torch.tensor(list(lens), dtype=torch.long, device=device)
+    return None
 
 
 def greedy_generate(model: Transformer, cfg: ModelConfig,
@@ -71,6 +85,7 @@ def greedy_generate(model: Transformer, cfg: ModelConfig,
     T = len(prompt_ids)
     S = max_len or min(cfg.max_seq_len, T + max_new_tokens)
     cache = init_cache(cfg, 1, S, device=dev)
+    plen = prompt_lens(cfg, [T], dev)
     logits = prefill_step(model, _prompt(prompt_ids, dev),
                           torch.zeros(1, dtype=torch.long, device=dev), cache)
     next_id = int(torch.argmax(logits[0, -1]))
@@ -80,7 +95,7 @@ def greedy_generate(model: Transformer, cfg: ModelConfig,
         if stop_at_eos and next_id in cfg.eos_token_ids:
             break
         logits = model_step(model, torch.tensor([[next_id]], device=dev),
-                            torch.tensor([pos], device=dev), cache)
+                            torch.tensor([pos], device=dev), cache, plen)
         next_id = int(torch.argmax(logits[0, -1]))
         out.append(next_id)
         pos += 1
@@ -99,6 +114,7 @@ def generate(model: Transformer, cfg: ModelConfig, prompt_ids: Sequence[int],
     T = len(prompt_ids)
     S = max_len or min(cfg.max_seq_len, T + max_new_tokens)
     cache = init_cache(cfg, 1, S, kv_dtype, device=dev)
+    plen = prompt_lens(cfg, [T], dev)
     logits = prefill_step(model, _prompt(prompt_ids, dev),
                           torch.zeros(1, dtype=torch.long, device=dev), cache)
     out = list(prompt_ids)
@@ -117,55 +133,61 @@ def generate(model: Transformer, cfg: ModelConfig, prompt_ids: Sequence[int],
         if i == max_new_tokens - 1 or pos + 1 >= S:
             break
         logits = model_step(model, torch.tensor([[next_id]], device=dev),
-                            torch.tensor([pos], device=dev), cache)
+                            torch.tensor([pos], device=dev), cache, plen)
         pos += 1
     return out
 
 
 def _greedy_step(model: Transformer, token: torch.Tensor, pos: torch.Tensor,
-                 cache: KVCache) -> torch.Tensor:
-    logits = model(token, pos, cache, logits_dtype=torch.bfloat16)
+                 cache: KVCache, prompt_len=None) -> torch.Tensor:
+    logits = model(token, pos, cache, logits_dtype=torch.bfloat16,
+                   prompt_len=prompt_len)
     return torch.argmax(logits[:, -1], dim=-1)
 
 
 class _StepGraph:
     """One greedy decode step captured in a CUDA graph: ``token``/``pos``
-    are its static inputs, ``next`` its static output. Replaying it costs
-    one launch from the host instead of the step's ~30 per layer (the JAX
-    package runs the loop on the device with ``lax.scan`` for the same
-    reason). Capture runs the step once for real first, on a side stream,
-    as CUDA graphs require; that step writes the same cache slots the
-    first replay writes again, with the same values."""
+    (and a prefix-LM model's ``prompt_len``) are its static inputs, device
+    tensors the graph reads at each replay, so no host value is baked into
+    it; ``next`` is its static output. Replaying it costs one launch from
+    the host instead of the step's ~30 per layer (the JAX package runs the
+    loop on the device with ``lax.scan`` for the same reason). Capture runs
+    the step once for real first, on a side stream, as CUDA graphs
+    require; that step writes the same cache slots the first replay writes
+    again, with the same values."""
 
-    def __init__(self, model, token, pos, cache):
+    def __init__(self, model, token, pos, cache, prompt_len=None):
         self.token, self.pos = token.clone(), pos.clone()
+        self.prompt_len = None if prompt_len is None else prompt_len.clone()
+        step = lambda: _greedy_step(model, self.token, self.pos, cache,
+                                    self.prompt_len)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            _greedy_step(model, self.token, self.pos, cache)
+            step()
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        self.next, self.launches = _cuda.capture(
-            self.graph, lambda: _greedy_step(model, self.token, self.pos,
-                                             cache))
+        self.next, self.launches = _cuda.capture(self.graph, step)
 
 
 @torch.inference_mode()
 def decode_loop(model: Transformer, token: torch.Tensor, pos: torch.Tensor,
-                cache: KVCache, n_steps: int) -> torch.Tensor:
+                cache: KVCache, n_steps: int,
+                prompt_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy decode of ``n_steps`` tokens from ``token`` [B, 1] at ``pos``
-    [B]. The argmax feeds the next step on the device; the ids [n_steps, B]
-    come back to the host once, at the end. On the card the step is one
-    CUDA graph replayed per token; on the CPU it runs eagerly."""
+    [B] (and, for a prefix-LM model, its ``prompt_len`` [B]). The argmax
+    feeds the next step on the device; the ids [n_steps, B] come back to
+    the host once, at the end. On the card the step is one CUDA graph
+    replayed per token; on the CPU it runs eagerly."""
     token, pos = token.long(), pos.long()
     toks = []
     if token.device.type != "cuda":
         for _ in range(n_steps):
-            nxt = _greedy_step(model, token, pos, cache)
+            nxt = _greedy_step(model, token, pos, cache, prompt_len)
             toks.append(nxt)
             token, pos = nxt[:, None], pos + 1
         return torch.stack(toks).cpu()
-    g = _StepGraph(model, token, pos, cache)
+    g = _StepGraph(model, token, pos, cache, prompt_len)
     for _ in range(n_steps):
         g.graph.replay()
         _cuda.add_launches(g.launches)

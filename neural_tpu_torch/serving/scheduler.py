@@ -13,8 +13,12 @@ graph per penalty-history width (:class:`_DecodeGraph`): the JAX package
 runs it as one jitted executable (``_decode_sample_all``), and launched
 eagerly from Python the step would be bound by the host. The host fills
 the graph's static inputs (tokens, lengths, sampling rows, penalty
-history), replays it and reads back [B] ids; the page table is the cache's
-own device buffer, rewritten in place. Prefill chunks run eagerly.
+history, and for a prefix-LM model the per-slot prompt lengths), replays
+it and reads back [B] ids; the page table is the cache's own device
+buffer, rewritten in place. Prefill chunks run eagerly. A prefix-LM model
+(ChatGLM-1) prefills single-shot, as in the JAX package (its prefix mask
+needs the whole prompt); in paged mode its prefix mask reaches K3 too,
+where the JAX Scheduler's paged prefill is causal.
 
 Not ported here (they raise): beam search in the scheduler, StreamingLLM
 slots, ``decode_block > 1`` and stochastic sampling. The TPU's decode
@@ -96,12 +100,13 @@ def _is_greedy(sp: SamplingParams) -> bool:
 
 
 def _decode_sample_all(model, tokens, lengths, cache, bp, hist, valid,
-                       eos_ids: tuple):
+                       eos_ids: tuple, prompt_len=None):
     """One decode step for every slot plus the batched greedy sampling:
-    tokens [B, 1] at offsets lengths [B] → ids [B] int32; the cache is
-    written in place. Inactive slots still compute (static shapes): their
-    ids are ignored and their cache rows overwritten on the next prefill."""
-    logits = model(tokens, lengths, cache)
+    tokens [B, 1] at offsets lengths [B] (a prefix-LM model's per-slot
+    ``prompt_len`` [B]) → ids [B] int32; the cache is written in place.
+    Inactive slots still compute (static shapes): their ids are ignored and
+    their cache rows overwritten on the next prefill."""
+    logits = model(tokens, lengths, cache, prompt_len=prompt_len)
     return sample_batched(logits[:, -1], bp, eos_ids, prev_tokens=hist,
                           prev_valid=valid)
 
@@ -116,11 +121,14 @@ class _DecodeGraph:
     same values, so the step is not taken twice. Any failure to capture
     raises; there is no eager fallback."""
 
-    def __init__(self, model, cache, B: int, RL: int, eos_ids: tuple):
+    def __init__(self, model, cache, B: int, RL: int, eos_ids: tuple,
+                 prefix_lm: bool = False):
         dev = model.device
         self.model, self.cache, self.eos_ids = model, cache, eos_ids
         self.tokens = torch.zeros((B, 1), dtype=torch.long, device=dev)
         self.lengths = torch.zeros(B, dtype=torch.long, device=dev)
+        self.prompt_len = torch.zeros(B, dtype=torch.long, device=dev) \
+            if prefix_lm else None
         self.bp = batch_params([SamplingParams(greedy=True)] * B).to(dev)
         self.hist = self.valid = None
         if RL:
@@ -133,7 +141,7 @@ class _DecodeGraph:
     def _step(self):
         return _decode_sample_all(self.model, self.tokens, self.lengths,
                                   self.cache, self.bp, self.hist, self.valid,
-                                  self.eos_ids)
+                                  self.eos_ids, self.prompt_len)
 
     def _capture(self):
         side = torch.cuda.Stream()
@@ -145,9 +153,12 @@ class _DecodeGraph:
         self.out, self.launches = _cuda.capture(self.graph, self._step)
 
     def run(self, tokens: torch.Tensor, lengths: torch.Tensor,
-            bp: BatchedSamplingParams, hist, valid) -> np.ndarray:
+            bp: BatchedSamplingParams, hist, valid,
+            prompt_len=None) -> np.ndarray:
         self.tokens.copy_(tokens)
         self.lengths.copy_(lengths)
+        if self.prompt_len is not None:
+            self.prompt_len.copy_(prompt_len)
         self.bp.copy_(bp)
         if self.hist is not None:
             self.hist.copy_(hist)
@@ -202,8 +213,6 @@ class Scheduler:
         if decode_block > 1:
             raise NotImplementedError("decode_block > 1 is a later slice "
                                       "(ROADMAP A9)")
-        if cfg.prefix_lm or cfg.rope_style == "glm1":
-            raise NotImplementedError("prefix-LM models are a later slice")
         self.sampling = sampling or SamplingParams(greedy=True)
         self._check_sampling(self.sampling)
         self.params = params
@@ -232,11 +241,15 @@ class Scheduler:
             raise ValueError(f"kv_mode must be 'slots' or 'paged', got "
                              f"{kv_mode!r}")
         self.lengths = np.zeros(max_batch, np.int64)
+        self.prefix_lm = cfg.prefix_lm or cfg.rope_style == "glm1"
+        self.prompt_lens = np.zeros(max_batch, np.int64)
         self.buckets = [b for b in prefill_buckets if b <= max_len]
         if not self.buckets or self.buckets[-1] < max_len:
             # terminal bucket = the cache itself, so single-shot prefill
             # can hold any admissible prompt (T <= max_len)
             self.buckets.append(max_len)
+        if self.prefix_lm:
+            prefill_chunk = None   # the prefix mask needs the whole prompt
         if prefill_chunk is not None and kv_mode == "paged":
             # paged multi-token writes stream whole pages, so chunks must
             # begin page-aligned (paged_update_kv's T>1 path)
@@ -453,12 +466,14 @@ class Scheduler:
                              torch.tensor([begin], device=dev),
                              self.cache.rows(slot, 1),
                              logit_positions=torch.tensor([n - 1],
-                                                          device=dev))
+                                                          device=dev),
+                             prompt_len=torch.tensor([T], device=dev))
         seq.prefill_pos = end
         self.lengths[slot] = end
         if end < T:
             return
         self._prefilling = None
+        self.prompt_lens[slot] = T
         tok = self._sample_one(logits[0, -1], seq)
         seq.output_ids.append(tok)
         seq.first_token_time = time.time()
@@ -504,19 +519,22 @@ class Scheduler:
             hist, valid = torch.from_numpy(h), torch.from_numpy(v)
         tokens = torch.from_numpy(self._next_tokens[:, None].copy())
         lengths = torch.from_numpy(self.lengths.copy())
+        plens = torch.from_numpy(self.prompt_lens.copy()) \
+            if self.prefix_lm else None
         bp = batch_params(sps, mask_eos)
         eos = tuple(self.cfg.eos_token_ids)
         if self._graphs is not None:
             g = self._graphs.get(RL)
             if g is None:
                 g = self._graphs[RL] = _DecodeGraph(self.params, self.cache,
-                                                    B, RL, eos)
-            return g.run(tokens, lengths, bp, hist, valid)
+                                                    B, RL, eos,
+                                                    self.prefix_lm)
+            return g.run(tokens, lengths, bp, hist, valid, plens)
         dev = self.params.device
         opt = lambda t: None if t is None else t.to(dev)
         out = _decode_sample_all(self.params, tokens.to(dev),
                                  lengths.to(dev), self.cache, bp.to(dev),
-                                 opt(hist), opt(valid), eos)
+                                 opt(hist), opt(valid), eos, opt(plens))
         return out.cpu().numpy()
 
     def _maybe_finish(self, seq: Sequence):

@@ -7,7 +7,7 @@ operands with f32 statistics; what differs is where P is rounded to bf16
 final max here) and the f32 reference's unrounded P. With V drawn in
 [-1, 1], P's bf16 rounding moves the output by at most 2^-9 < 2e-3.
 """
-import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +19,8 @@ from neural_tpu.ops.attention import (attend_xla as jattend_xla,
                                       flash_decode as jflash_decode,
                                       flash_prefill as jflash_prefill)
 
+from neural_tpu_torch.convert.hf import init_random
+from neural_tpu_torch.models import chatglm
 from neural_tpu_torch.models.config import ModelConfig
 from neural_tpu_torch.ops.attention import (
     attend, attend_xla, flash_decode, flash_decode_plain, flash_prefill,
@@ -116,12 +118,28 @@ def test_ragged_s_port_only(T, fill):
     np.testing.assert_allclose(ref.numpy(), np.asarray(jref), atol=1e-5)
 
 
-def test_unported_options_raise():
-    """ALiBi and the GLM prefix mask are still refused; the softcap and the
-    sliding window are held against JAX in test_torch_attention_opts.py."""
-    _, cfg = _cfg()
-    q, k, v = _inputs(1, 64, seed=0)
-    pos = torch.zeros(1, 1, dtype=torch.long)
-    for change in ({"use_alibi": True}, {"prefix_lm": True}):
+UNPORTED = {"learned_pos_emb": dict(learned_pos_emb=True),
+            "parallel_residual": dict(parallel_residual=True),
+            "qk_norm": dict(qk_norm=True),
+            "moe": dict(n_experts=4, n_experts_active=2)}
+
+
+@pytest.mark.parametrize("what", [*UNPORTED, "chatglm2"])
+def test_unported_options_raise(what):
+    """ALiBi and the GLM prefix mask are ported (``test_torch_alibi.py``);
+    what the port still refuses raises ``NotImplementedError``: learned
+    positions, parallel residuals, qk-norm and MoE in the graph, and
+    ChatGLM-2/3 (no ``position_encoding_2d``) at its config."""
+    if what == "chatglm2":
+        hf_cfg = types.SimpleNamespace(
+            hidden_size=64, num_attention_heads=4, num_layers=2,
+            padded_vocab_size=128, ffn_hidden_size=128,
+            layernorm_epsilon=1e-5)
         with pytest.raises(NotImplementedError):
-            attend(_t(q), _t(k), _t(v), pos, dataclasses.replace(cfg, **change))
+            chatglm.config_from_hf(hf_cfg)
+        return
+    cfg = ModelConfig(vocab_size=64, hidden_size=64, n_layers=1, n_heads=2,
+                      n_kv_heads=2, head_dim=32, intermediate_size=64,
+                      **UNPORTED[what])
+    with pytest.raises(NotImplementedError):
+        init_random(cfg, quant=None, device="cpu")

@@ -298,7 +298,8 @@ def test_attend_paged_prefill_window_matches_jax(int8, sliding):
 
 def test_head_dims_outside_the_kernels_raise():
     """The wrappers take head dims 128 and 256 on the card; the plain
-    versions take any. On the CPU the dispatch runs at head dim 64."""
+    versions take any. On the CPU the dispatch runs at head dim 64. An
+    ALiBi config without its slopes is refused."""
     q, k, _, v, _ = _inputs(1, 64, False, seed=1)
     _, cfg = _cfgs(64, 0, softcap=0.0)
     out = attend(_t(q), _t(k), _t(v), torch.tensor([[9]]), cfg)
@@ -306,6 +307,6 @@ def test_head_dims_outside_the_kernels_raise():
     check_head_dim(256)
     with pytest.raises(ValueError, match="head_dim"):
         check_head_dim(64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="slopes"):
         attend(_t(q), _t(k), _t(v), torch.tensor([[9]]),
                dataclasses.replace(cfg, use_alibi=True))
