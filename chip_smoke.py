@@ -58,13 +58,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    asym, int3, int5, int5 asym, q8_0 and int8 (per channel),
    ``Model.generate`` on the card (a
    path each) and its logits against the plain path; logits within
-   tolerance, greedy ids equal where the margin proves it; (5b) a 2-layer
+   tolerance, greedy ids equal where the margin proves it (the formats'
+   copies have one layer); (5b) a 2-layer
    Gemma-2-9B copy with its window cut to 32 (so that it acts on every
    prompt there): ``Model.generate`` on the card, its logits against the
    plain path, and the paged int8 Scheduler check; (5c) 2-layer full-width
    copies of Bloom-7B1, MPT-7B and ChatGLM-6B (100-token prompts, bf16
    activations, tolerance 2e-2·max|logit|) the same way, and the paged
    int8 Scheduler check on the Bloom copy;
+   Then (4f) Mistral-7B as a GPTQ int4 act-order checkpoint (its state
+   dict synthesized on the host, converted on the card by
+   ``params_from_gptq_state_dict``): ``Model.generate`` with bf16 and
+   int8 KV, decode at fills 128 and 1975, TTFT at 1975 tokens with bf16
+   and int8 KV, peak memory, the act-order gather timed alone; (4g)
+   Llama-2-7B at q6_sym_g128_a8 and mix_i2_ffn as phase 4b's formats;
+   (4h) TinyLlama-1.1B (head dim 64: ``attend_xla``, no K3/K4/K6 launch)
+   through ``Model.generate``, the paged int8 Scheduler, decode at fill
+   128, TTFT; (5d) 2-layer copies against the CPU plain path: Mistral
+   GPTQ (``Model.generate``, the paged int8 Scheduler, and the copy
+   written as a checkpoint directory and loaded with ``Model.init(dir,
+   use_gptq=True)``), AWQ, mix_int2_int4, every K2 layout at act_bits 8,
+   linear RoPE scaling, TinyLlama, and 32 heads over 2 (G = 16); a copy
+   with StarCoder's 48 heads over 1 on the card alone. Phase 3 also holds
+   K2 over int8 codes, int2 and int3 (sym and asym), K1-asym and K5 at
+   Mistral GPTQ's widths, and K4/K6 at G = 16 and 48 against their plain
+   versions.
 6. serving: the same 7B model behind ``ModelServer(max_batch=8,
    max_len=2048, kv_mode="paged", page_size=256, memory_dtype="int8")``
    answers 12 queries (prompts of 32-1500 tokens, 32 new tokens each) with
@@ -81,27 +99,35 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from neural_tpu_torch.api import Model  # noqa: E402
+from neural_tpu_torch.convert.gptq import \
+    params_from_gptq_state_dict  # noqa: E402
 from neural_tpu_torch.convert.hf import init_random  # noqa: E402
-from neural_tpu_torch.core.dtypes import PRESETS, QuantConfig  # noqa: E402
+from neural_tpu_torch.convert.quant_registry import \
+    QuantRegistry  # noqa: E402
+from neural_tpu_torch.core.dtypes import (PRESETS, QuantConfig,  # noqa: E402
+                                          quant_config_from_args)
 from neural_tpu_torch.core.qtensor import (dequantize, quantize,  # noqa: E402
                                            to_native, to_native_packed)
-from neural_tpu_torch.models import bloom, chatglm, mpt  # noqa: E402
+from neural_tpu_torch.models import bloom, chatglm, llama, mpt  # noqa: E402
 from neural_tpu_torch.models.config import ModelConfig  # noqa: E402
 from neural_tpu_torch.ops import _cuda  # noqa: E402
 from neural_tpu_torch.ops import attention as A  # noqa: E402
 from neural_tpu_torch.ops import paged_attention as PA  # noqa: E402
 from neural_tpu_torch.ops import qmatmul as Q  # noqa: E402
-from neural_tpu_torch.ops.rope import alibi_slopes  # noqa: E402
+from neural_tpu_torch.ops.rope import alibi_slopes, rope_freqs  # noqa: E402
 from neural_tpu_torch.runtime.generate import (decode_loop,  # noqa: E402
                                                greedy_generate, model_step,
                                                prefill_step)
@@ -486,6 +512,65 @@ def check_k2_asym(gen, results):
     _record(results, "K2_asym", {label: _case(
         gen, label, PRESETS["q4_j_i8_g128"], T_PREFILL, PROJ, k2, pl,
         "qmm_a8_asym", INT8_OPS)})
+
+
+# K2 over the layouts that are not int4, group 128, act_bits 8: (results
+# key, C entry point (or its branch), bits, sym)
+K2_LAYOUTS = (("K2_int8", "qmm_a8_int8", 6, True),
+              ("K2_int8_asym", "qmm_a8_int8_asym", 6, False),
+              ("K2_int2", "qmm_a8_int2", 2, True),
+              ("K2_int2_asym", "qmm_a8_int2_asym", 2, False),
+              ("K2_int3", "qmm_a8+int3", 3, True),
+              ("K2_int3_asym", "qmm_a8_asym+int3", 3, False))
+
+
+def check_k2_layouts(gen, results):
+    """K2 at the 1975-token prefill over Llama-2-7B's products on int8 code
+    planes (int6), native-pack int2 fields and int3 nibbles, group 128,
+    sym and asym. Sym K2 is bit-equal to its plain version; asym sums the
+    start ``-(xsa @ zwp)`` in another order, one bf16 rounding:
+    1e-2·max|ref| (``_case``)."""
+    args = lambda qt: (qt.planes[0], qt.scales, qt.group_size, 128)
+    for key, entry, bits, sym in K2_LAYOUTS:
+        cfg = QuantConfig(bits=bits, group_size=128, sym=sym, act_bits=8)
+        k2 = lambda x, qt, odt: Q.qmm_a8(x, *args(qt), odt, qt.zeros,
+                                         qt.cfg.bits)
+        pl = lambda x, qt, odt: Q.qmm_a8_plain(x, *args(qt), odt, qt.zeros,
+                                               qt.cfg.bits)
+        label = f"{cfg.short_name()} 1975-token prefill"
+        _record(results, key, {label: _case(gen, label, cfg, T_PREFILL, PROJ,
+                                            k2, pl, entry, INT8_OPS)})
+        torch.cuda.empty_cache()
+
+
+# Mistral-7B GPTQ's products per token at rest (int4, group 128, asym, the
+# act-order projections fused): q|k|v, o, gate|up, down; the lm_head stays
+# in bf16
+MISTRAL_PROJ = [(4096, 6144, 32), (4096, 4096, 32), (4096, 28672, 32),
+                (14336, 4096, 32)]
+GPTQ_QCFG = QuantConfig(bits=4, group_size=128, sym=False)
+
+
+def check_gptq_products(gen, results):
+    """Mistral-7B GPTQ's decode step through K1-asym (M=1) and its
+    1975-token prefill through K5, x already gathered (the gathers are
+    timed apart in phase 4f); each a case beside the kernel's others."""
+    k1 = lambda x, qt, odt: Q.qmm_native(x, qt.planes[0], qt.scales,
+                                         qt.zeros, qt.group_size, 4, odt)
+    p1 = lambda x, qt, odt: Q.qmm_native_plain(x, qt.planes[0], qt.scales,
+                                               qt.zeros, qt.group_size, 4,
+                                               odt)
+    label = "mistral gptq decode step"
+    results["K1_asym"]["cases"][label] = _case(
+        gen, label, GPTQ_QCFG, 1, MISTRAL_PROJ, k1, p1, "qmm4_npack_asym",
+        BF16_FLOPS)
+    label = "mistral gptq 1975-token prefill"
+    results["K5"]["cases"][label] = _case(
+        gen, label, GPTQ_QCFG, T_PREFILL, MISTRAL_PROJ,
+        lambda x, qt, odt: Q.qmm_general(x, qt, odt),
+        lambda x, qt, odt: Q.qmm_general_plain(x, qt, odt), "qmm_general",
+        BF16_FLOPS)
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -988,6 +1073,78 @@ def check_k6_alibi(gen, results):
         torch.cuda.empty_cache()
 
 
+# more than 8 query heads per KV head: ChatGLM-2-6B's attention (32 heads of
+# 128 over 2 KV heads, 28 layers) and StarCoder's multi-query attention (48
+# heads of 128 over 1, 40 layers)
+MANY_G = (("chatglm2", 32, 2, 28), ("starcoder", 48, 1, 40))
+SERVER_FILLS = [1, 2048, 1975, 128, 700, 1300, 33, 1024]
+
+
+def check_many_heads(gen, results):
+    """K4 at fill 1975 and K6 at B=8 with the server's mixed fills (page
+    256, a shuffled table) at G = 16 and 48, bf16 and int8 KV, against
+    their plain versions; the library call is ``sdpa`` with GQA on the
+    gathered, dequantized keys."""
+    ps, cpu = 256, torch.Generator().manual_seed(13)
+    for int8 in (False, True):
+        sfx = "_i8" if int8 else ""
+        row = DH + 2 if int8 else 2 * DH
+        tol = I8_DECODE_TOL if int8 else BF16_TOL
+        k4 = A.flash_decode_i8 if int8 else A.flash_decode
+        p4 = A.flash_decode_i8_plain if int8 else A.flash_decode_plain
+        k6 = PA.paged_decode_i8 if int8 else PA.paged_decode
+        c4, c6 = {}, {}
+        for what, Hq, Hkv, count in MANY_G:
+            q = (torch.randn((1, Hq, DH), generator=gen, device=DEV)
+                 * Q_SPREAD).bfloat16()
+            fill = T_PREFILL
+            caches = _attn_cache(gen, (1, Hkv, S_CACHE, DH), int8,
+                                 _copies(2 * fill * Hkv * row))
+            lengths = torch.tensor([fill], dtype=torch.int32, device=DEV)
+            args = [(q, c[0], c[1], *(c[2:] if int8 else ()), lengths,
+                     DH ** -0.5) for c in caches]
+            kvs = [_bf16_kv(c) for c in caches]
+            label = f"{what} heads ({Hq} over {Hkv}) decode fill {fill}"
+            c4[label] = _attn_case(
+                label, f"flash_decode{sfx}+G>8", lambda: k4(*args[0]),
+                lambda: p4(*args[0]), 2 * fill * Hkv * row + Hq * DH * 6,
+                _attn_ops(int8, DH, Hq, fill, False, True), tol, count,
+                runs=[lambda a=a: k4(*a) for a in args],
+                library=[lambda kv=kv: _sdpa(
+                    q[:, :, None], kv[0][:, :, :fill], kv[1][:, :, :fill],
+                    enable_gqa=True) for kv in kvs])
+            del q, caches, args, kvs
+            B, maxp = len(SERVER_FILLS), S_CACHE // ps
+            P = B * maxp + 1
+            table = torch.randperm(P - 1, generator=cpu)[:B * maxp] \
+                .reshape(B, maxp).to(torch.int32).to(DEV)
+            lengths = torch.tensor(SERVER_FILLS, dtype=torch.int32,
+                                   device=DEV)
+            q = (torch.randn((B, Hq, DH), generator=gen, device=DEV)
+                 * Q_SPREAD).bfloat16()
+            c = _attn_cache(gen, (P, Hkv, ps, DH), int8)[0]
+            a6 = (q, c[0], c[1], *(c[2:] if int8 else ()), table, lengths,
+                  DH ** -0.5)
+            kd, vd = (PA.gather_pages(x, table) for x in _bf16_kv(c))
+            mask = (torch.arange(maxp * ps, device=DEV)[None, :]
+                    < lengths[:, None].long())[:, None, None, :]
+            n = sum(SERVER_FILLS)
+            label = f"{what} heads ({Hq} over {Hkv}) B={B} decode fills " \
+                f"{SERVER_FILLS}"
+            c6[label] = _attn_case(
+                label, f"paged_decode{sfx}+G>8", lambda: k6(*a6),
+                lambda: PA.paged_decode_plain(q, *c, table, lengths,
+                                              DH ** -0.5),
+                2 * n * Hkv * row + B * maxp * 4 + B * 4 + B * Hq * DH * 6,
+                _attn_ops(int8, DH, Hq, n, False, True), tol, count,
+                library=[lambda: _sdpa(q[:, :, None], kd, vd,
+                                       attn_mask=mask, enable_gqa=True)])
+            del q, c, a6, kd, vd, mask
+            torch.cuda.empty_cache()
+        _record(results, f"K4{sfx}_G>8", c4)
+        _record(results, f"K6{sfx}_G>8", c6)
+
+
 def branch_costs(results):
     """Each ALiBi and prefix case's time per launch over the same launch
     with the option off, as the checks recorded them."""
@@ -1013,6 +1170,12 @@ GEN_INT8 = ("qmm4_npack", "qmm_a8", "flash_prefill_i8", "flash_decode_i8")
 def _check_ids(new, n, what, vocab=V):
     if len(new) != n or not all(0 <= t < vocab for t in new):
         raise AssertionError(f"{what}: bad generated ids {new}")
+
+
+def _check_served(out, n, what, cfg):
+    """A Scheduler's ids: ``n`` of them, or fewer ending at an EOS."""
+    stopped = out and out[-1] in cfg.eos_token_ids
+    _check_ids(out, len(out) if stopped else n, what, cfg.vocab_size)
 
 
 def decode_ms(params, fill, batch=1, kv_dtype=torch.bfloat16, lo=4, hi=36,
@@ -1125,27 +1288,37 @@ def phase_generation(params):
 
 
 # the kernels each format's prefill (1975 tokens, last-row lm_head at M=1)
-# and decode (M=1) must launch, by the JAX package's route
+# and decode (M=1) must launch, by the JAX package's route; int6_g128_a8 is
+# ``quant_config_from_args("int6", group_size=128)`` (int8 code planes,
+# int8 activations), mix_i2_ffn the JAX package's decode-bytes recipe
+# (gate/up native int2 g32 sym with bf16 activations, the rest q4_j)
 FORMAT_PATHS = {
     "nf4": (("qmm_general", "flash_prefill"), ("qmm_general", "flash_decode")),
     "q4_0": (("qmm_general", "qmm4_npack", "flash_prefill"),
              ("qmm4_npack", "flash_decode")),
     "q4_j_i8_g128": (("quantize_act_i8", "qmm_a8_asym", "qmm4_npack_asym",
                       "flash_prefill"), ("qmm4_npack_asym", "flash_decode")),
+    "int6_g128_a8": (("quantize_act_i8", "qmm_a8_int8", "qmm8_native",
+                      "flash_prefill"), ("qmm8_native", "flash_decode")),
+    "mix_i2_ffn": (("quantize_act_i8", "qmm_a8", "qmm_general", "qmm4_npack",
+                    "flash_prefill"),
+                   ("qmm4_npack", "qmm2_npack", "flash_decode")),
 }
 
 
-def phase_formats():
-    """The same 7B shape at nf4, q4_0 and q4_j_i8_g128, one model at a time:
+def phase_formats(fmts=("nf4", "q4_0", "q4_j_i8_g128")):
+    """The same 7B shape in each format of ``fmts``, one model at a time:
     ``Model.generate`` (300-token prompt, 16 new tokens, greedy, bf16 KV),
     the 1975-token TTFT and decode ms/token at fill 128, each a path of its
     own with the launch counts set to 0 just before it."""
     gen = torch.Generator().manual_seed(2)
     prompt = torch.randint(3, V, (300,), generator=gen).tolist()
     res = {}
-    for fmt, (pre, dec) in FORMAT_PATHS.items():
+    for fmt in fmts:
+        pre, dec = FORMAT_PATHS[fmt]
         t = time.time()
-        params = init_random(CFG, seed=0, quant=fmt, device=DEV)
+        params = init_random(CFG, seed=0, quant=QUANTS.get(fmt, fmt),
+                             device=DEV)
         torch.cuda.synchronize()
         log(f"init_random Llama-2-7B {fmt} on the card: "
             f"{time.time() - t:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f}"
@@ -1365,7 +1538,10 @@ def phase_card_vs_plain():
                              "compare the argmax")
     sched_worst = _sched_card_vs_plain(card, host, cfg2, rel_tol)
     del card, host
-    return worst, sched_worst, _formats_card_vs_plain(cfg2)
+    # the formats' copies are cut to one layer, which runs every kernel of
+    # each format, to keep the script inside its time limit
+    return worst, sched_worst, _formats_card_vs_plain(
+        dataclasses.replace(cfg2, n_layers=1))
 
 
 # asymmetric int2 and int5 (uint8 zero-points, group 32), what
@@ -1374,6 +1550,7 @@ def phase_card_vs_plain():
 QUANTS = {
     "int2_asym": QuantConfig(bits=2, group_size=32, sym=False, act_bits=8),
     "int5_asym": QuantConfig(bits=5, group_size=32, sym=False, act_bits=8),
+    "int6_g128_a8": quant_config_from_args("int6", group_size=128),
 }
 
 # the formats with no full-width path, and the kernels a card run of each
@@ -1394,7 +1571,8 @@ PLAIN_FORMATS = {
 
 
 def _formats_card_vs_plain(cfg2, rel_tol=2e-2):
-    """Each format of PLAIN_FORMATS: the 2-layer copy at full width runs
+    """Each format of PLAIN_FORMATS: a copy at full width (``cfg2``: one
+    layer since the script's time limit pressed, two before) runs
     ``Model.generate`` on the card (a path of its own, with launch counts;
     24-token prompt, 3 new tokens), then its logits, fed the card's ids,
     are held against the plain path on the CPU. Every product here has
@@ -1463,13 +1641,14 @@ class _LogitsRecorder:
         return logits
 
 
-def _sched_card_vs_plain(card, host, cfg2, rel_tol):
-    """The 2-layer model through the Scheduler (paged int8 KV, batch 4, 6
-    requests) on the card, decode step eager so each step's logits can be
-    read, and on the CPU's plain path: per request, logits within the
-    tolerance and greedy ids equal at every token whose plain top-2 margin
-    exceeds twice the logit difference, up to the first token where the two
-    sides' ids part (past it their inputs differ)."""
+def _sched_card_vs_plain(card, host, cfg2, rel_tol, kv_dtype=torch.int8):
+    """The 2-layer model through the Scheduler (paged KV, int8 unless
+    ``kv_dtype`` says otherwise, batch 4, 6 requests) on the card, decode
+    step eager so each step's logits can be read, and on the CPU's plain
+    path: per request, logits within the tolerance and greedy ids equal at
+    every token whose plain top-2 margin exceeds twice the logit
+    difference, up to the first token where the two sides' ids part (past
+    it their inputs differ)."""
     gen = torch.Generator().manual_seed(5)
     lens = torch.randint(20, 64, (6,), generator=gen).tolist()
     prompts = [torch.randint(3, V, (n,), generator=gen).tolist()
@@ -1479,8 +1658,7 @@ def _sched_card_vs_plain(card, host, cfg2, rel_tol):
     for model in (card, host):
         rec = _LogitsRecorder(model)
         sched = Scheduler(model, cfg2, max_batch=4, max_len=256,
-                          kv_mode="paged", page_size=64,
-                          kv_dtype=torch.int8,
+                          kv_mode="paged", page_size=64, kv_dtype=kv_dtype,
                           sampling=SamplingParams(greedy=True,
                                                   repeat_penalty=1.0))
         sched._graphs = None      # the decode step eagerly: logits readable
@@ -1511,7 +1689,8 @@ def _sched_card_vs_plain(card, host, cfg2, rel_tol):
                                          f"{i} token {t} despite the margin")
             if ca != ho:
                 break
-    log(f"{cfg2.arch} scheduler card vs plain (2 layers, paged int8, batch 4, "
+    log(f"{cfg2.arch} scheduler card vs plain (2 layers, paged "
+        f"{'int8' if kv_dtype == torch.int8 else 'bf16'}, batch 4, "
         f"window {cfg2.sliding_window}, prompts "
         f"{lens}): logits max err {worst:.3g}·max|logit| (tol {rel_tol}); "
         f"ids card {[done[0][i] for i in range(6)]}, plain "
@@ -1863,6 +2042,466 @@ def phase_zoo_card_vs_plain(rel_tol=2e-2):
 
 
 # ---------------------------------------------------------------------------
+# phases 4f, 4g, 4h and 5d: GPTQ/AWQ, the mixed-bit and a8 layouts, head
+# dim 64, RoPE scaling and more than 8 query heads per KV head
+# ---------------------------------------------------------------------------
+
+# mistralai/Mistral-7B-v0.1's config.json: 32 layers, hidden 4096, 32 heads
+# over 8 KV heads of 128, FFN 14336, vocab 32000 untied, rope_theta 10000,
+# rms_norm_eps 1e-5, max_position_embeddings 32768, bos 1, eos 2 (its
+# sliding_window 4096 is not read, as the JAX package does not read it);
+# the checkpoint takes the form of TheBloke/Mistral-7B-v0.1-GPTQ's
+# quantize_config.json: bits 4, group_size 128, desc_act true
+MISTRAL_HF = dict(
+    model_type="mistral", vocab_size=V, hidden_size=D, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=H, num_key_value_heads=8,
+    max_position_embeddings=32768, rms_norm_eps=1e-5, rope_theta=10000.0,
+    tie_word_embeddings=False, bos_token_id=1, eos_token_id=2)
+MISTRAL_CFG = llama.config_from_hf(types.SimpleNamespace(**MISTRAL_HF))
+GPTQ_QUANTIZE_CONFIG = {"bits": 4, "group_size": 128, "desc_act": True,
+                        "sym": False}
+# GPTQ's same-Hessian rule: q/k/v share one act-order g_idx, gate/up
+# another; o_proj and down_proj have their own
+GPTQ_PROJ = (("self_attn.q_proj", "qkv"), ("self_attn.k_proj", "qkv"),
+             ("self_attn.v_proj", "qkv"), ("self_attn.o_proj", "o"),
+             ("mlp.gate_proj", "gu"), ("mlp.up_proj", "gu"),
+             ("mlp.down_proj", "down"))
+
+
+def _gptq_shape(name, cfg):
+    Dq, Dkv, I = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim, \
+        cfg.intermediate_size
+    return {"self_attn.q_proj": (cfg.hidden_size, Dq),
+            "self_attn.k_proj": (cfg.hidden_size, Dkv),
+            "self_attn.v_proj": (cfg.hidden_size, Dkv),
+            "self_attn.o_proj": (Dq, cfg.hidden_size),
+            "mlp.gate_proj": (cfg.hidden_size, I),
+            "mlp.up_proj": (cfg.hidden_size, I),
+            "mlp.down_proj": (I, cfg.hidden_size)}[name]
+
+
+def gptq_state_dict(cfg, seed, fmt="gptq"):
+    """A GPTQ (act-order) or AWQ 4-bit group-128 state dict of a Llama-family
+    ``cfg``, synthesized on the host from ``seed`` as safetensors holds one:
+    qweight int32 words (random words are valid packed codes, mean 7.5),
+    zero-points 7 or 8 packed (mean 7.5, so that the weights have no mean;
+    GPTQ stores z - 1), f16 scales in [0.003, 0.005] (weights
+    of about 0.02 rms, as ``init_random`` draws them, so that the logits
+    stay finite and their argmax is no tie), g_idx int32 with equal groups
+    in a random order, f16 norm weights of 1, embedding and lm_head
+    N(0, 0.02) in f16."""
+    rng = np.random.default_rng(seed)
+    g = GPTQ_QUANTIZE_CONFIG["group_size"]
+
+    def words(shape):
+        return rng.integers(0, 1 << 32, shape, dtype=np.uint32).view(np.int32)
+
+    def zero_words(G, N):
+        z = rng.integers(7, 9, (G, N // 8, 8), dtype=np.uint32)
+        if fmt == "gptq":
+            z -= 1
+        return np.bitwise_or.reduce(z << (4 * np.arange(8, dtype=np.uint32)),
+                                    axis=2).view(np.int32)
+
+    sd = {}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        gidx = {}
+        for name, share in GPTQ_PROJ:
+            K, N = _gptq_shape(name, cfg)
+            base = p + name
+            sd[base + ".qweight"] = words((K // 8, N) if fmt == "gptq"
+                                          else (K, N // 8))
+            sd[base + ".qzeros"] = zero_words(K // g, N)
+            sd[base + ".scales"] = rng.uniform(
+                0.003, 0.005, (K // g, N)).astype(np.float16)
+            if fmt == "gptq":
+                if share not in gidx:
+                    gi = np.empty(K, np.int32)
+                    gi[rng.permutation(K)] = np.arange(K, dtype=np.int32) // g
+                    gidx[share] = gi
+                sd[base + ".g_idx"] = gidx[share]
+        for n in ("input_layernorm", "post_attention_layernorm"):
+            sd[p + n + ".weight"] = np.ones(cfg.hidden_size, np.float16)
+    normal = lambda shape: (rng.standard_normal(shape, np.float32)
+                            * 0.02).astype(np.float16)
+    sd["model.embed_tokens.weight"] = normal((cfg.vocab_size,
+                                              cfg.hidden_size))
+    sd["model.norm.weight"] = np.ones(cfg.hidden_size, np.float16)
+    sd["lm_head.weight"] = normal((cfg.vocab_size, cfg.hidden_size))
+    return sd
+
+
+def write_safetensors(path, tensors):
+    """numpy arrays → one ``.safetensors`` file: the 8-byte header length,
+    the JSON header, the raw little-endian bytes in C order."""
+    names = {np.dtype(np.int32): "I32", np.dtype(np.float16): "F16",
+             np.dtype(np.float32): "F32"}
+    header, off = {}, 0
+    for k, a in tensors.items():
+        header[k] = {"dtype": names[a.dtype], "shape": list(a.shape),
+                     "data_offsets": [off, off + a.nbytes]}
+        off += a.nbytes
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(h)) + h)
+        for a in tensors.values():
+            fh.write(np.ascontiguousarray(a).tobytes())
+
+
+MISTRAL_GEN = ("act_order_gather", "qmm_general", "qmm4_npack_asym",
+               "flash_prefill", "flash_decode")
+MISTRAL_GEN_INT8 = ("act_order_gather", "qmm_general", "qmm4_npack_asym",
+                    "flash_prefill_i8", "flash_decode_i8")
+
+
+def phase_mistral_gptq():
+    """Mistral-7B GPTQ at full depth: its state dict synthesized on the host
+    (``gptq_state_dict``), converted on the card by
+    ``params_from_gptq_state_dict`` (what ``Model.init(dir,
+    use_gptq=True)`` calls); ``Model.generate`` with bf16 and int8 KV,
+    decode ms/token at fills 128 and 1975, TTFT at 1975 tokens with bf16
+    and int8 KV, peak memory from just after the conversion, each a path
+    with its launch counts; a decode step must gather x three times a
+    layer (wqkv, wo, w_gateup; w_down's perm is folded), one gather per
+    four K1 launches; and one ``index_select`` timed alone at [1, 4096] and
+    [1975, 4096]."""
+    t = time.time()
+    sd = gptq_state_dict(MISTRAL_CFG, seed=0)
+    t_synth = time.time() - t
+    resident = torch.cuda.memory_allocated()
+    t = time.time()
+    params = params_from_gptq_state_dict(sd, MISTRAL_CFG, bits=4,
+                                         group_size=128, device=DEV)
+    torch.cuda.synchronize()
+    nbytes = sum(b.numel() * b.element_size() for b in params.buffers())
+    log(f"Mistral-7B GPTQ state dict synthesized on the host in {t_synth:.1f}"
+        f" s ({sum(a.nbytes for a in sd.values()) / 1e9:.3f} GB), converted "
+        f"on the card in {time.time() - t:.1f} s: {nbytes / 1e9:.3f} GB of "
+        f"weights, perms and embedding; decode bound "
+        f"{nbytes / HBM_BPS * 1e3:.3f} ms/token before the KV read")
+    del sd
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _generate_paths(params, MISTRAL_CFG, "mistral_gptq",
+                    (("bf16", MISTRAL_GEN), ("int8", MISTRAL_GEN_INT8)))
+    res = {}
+    dec = ("act_order_gather", "qmm4_npack_asym", "flash_decode")
+    for fill in (128, T_PREFILL):
+        name = f"mistral_gptq_decode_fill{fill}"
+        ms = run_path(name, dec, lambda: decode_ms(params, fill,
+                                                   cfg=MISTRAL_CFG))
+        c = LAUNCHES[name]
+        if 4 * c["act_order_gather"] != 3 * c["qmm4_npack_asym"]:
+            raise AssertionError(f"{name}: {c['act_order_gather']} gathers "
+                                 f"for {c['qmm4_npack_asym']} K1 launches")
+        log(f"mistral gptq decode (slope n=4..36, batch 1, bf16 KV): fill "
+            f"{fill} {ms:.3f} ms/token ({1e3 / ms:.1f} tok/s)")
+        res[f"mistral_gptq_decode_ms_fill{fill}"] = ms
+    for kv_dtype, kv, k3 in ((torch.bfloat16, "bf16", "flash_prefill"),
+                             (torch.int8, "int8", "flash_prefill_i8")):
+        ms = run_path(f"mistral_gptq_prefill_{kv}",
+                      ("act_order_gather", "qmm_general", k3),
+                      lambda: ttft_ms(params, kv_dtype, cfg=MISTRAL_CFG))
+        log(f"mistral gptq TTFT 1975-token prefill (last-row logits, {kv} "
+            f"KV): {ms:.2f} ms")
+        res[f"mistral_gptq_ttft_1975_{kv}_ms"] = ms
+    res["mistral_gptq_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                    - resident) / 2 ** 30
+    perm = params.layers[0].wqkv.perm
+    for M in (1, T_PREFILL):
+        x = torch.randn((M, D), device=DEV).bfloat16()
+        ms = time_ms([lambda: x.index_select(1, perm)])
+        res[f"gather_ms_m{M}"] = ms
+        log(f"act-order gather, one index_select of [{M}, {D}] bf16: "
+            f"{ms:.4f} ms ({4 * M * D / (ms * 1e-3) / 1e9:.0f} GB/s read + "
+            "written)")
+    log(f"mistral gptq peak device memory since the conversion, less the "
+        f"{resident / 2 ** 30:.2f} GiB other phases left resident: "
+        f"{res['mistral_gptq_peak_gib']:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+# TinyLlama/TinyLlama-1.1B-Chat-v1.0's config.json: 22 layers, hidden 2048,
+# 32 heads over 4 KV heads of 64, FFN 5632, vocab 32000 untied,
+# rms_norm_eps 1e-5, rope_theta 10000, max_position_embeddings 2048
+TINY_CFG = llama.config_from_hf(types.SimpleNamespace(
+    model_type="llama", vocab_size=V, hidden_size=2048,
+    intermediate_size=5632, num_hidden_layers=22, num_attention_heads=H,
+    num_key_value_heads=4, max_position_embeddings=2048, rms_norm_eps=1e-5,
+    rope_theta=10000.0, bos_token_id=1, eos_token_id=2))
+ATTN_KERNELS = tuple(fn for k in (_cuda.FLASH_PREFILL, _cuda.FLASH_DECODE,
+                                  _cuda.PAGED_DECODE) for fn in k.launches)
+
+
+def _no_attention_kernels(path):
+    """Head dim 64 takes ``attend_xla``'s torch ops: no K3/K4/K6 launch."""
+    hit = {k: LAUNCHES[path][k] for k in ATTN_KERNELS if LAUNCHES[path][k]}
+    if hit:
+        raise AssertionError(f"{path}: attention kernels launched at head "
+                             f"dim 64: {hit}")
+
+
+def phase_tinyllama():
+    """TinyLlama-1.1B at full depth, q4_j, random weights from seed 0:
+    ``Model.generate`` with bf16 and int8 KV, the batch-8 paged int8
+    Scheduler (8 requests of 40-1200 tokens, 16 new each), decode ms/token
+    at fill 128, TTFT at 1975 tokens, peak memory less what other phases
+    left resident; attention at head dim 64 is ``attend_xla``'s torch ops,
+    so K3/K4/K6 must read 0 on every path."""
+    resident = torch.cuda.memory_allocated()
+    params = _init_full(TINY_CFG, "TinyLlama-1.1B")
+    paths = (("bf16", ("qmm4_npack", "qmm_a8", "attend_xla")),
+             ("int8", ("qmm4_npack", "qmm_a8", "attend_xla")))
+    _generate_paths(params, TINY_CFG, "tinyllama", paths)
+    for kv, _ in paths:
+        _no_attention_kernels(f"tinyllama_generate_{kv}")
+    gen = torch.Generator().manual_seed(14)
+    lens = torch.randint(40, 1200, (8,), generator=gen).tolist()
+    sched = Scheduler(params, TINY_CFG, max_batch=8, max_len=S_CACHE,
+                      kv_mode="paged", page_size=256, kv_dtype=torch.int8)
+    for i, n in enumerate(lens):
+        sched.add_request(i, torch.randint(3, V, (n,), generator=gen)
+                          .tolist(), max_new_tokens=16)
+    done = run_path("tinyllama_sched_paged_int8",
+                    ("qmm4_npack", "attend_xla_paged"),
+                    lambda: {q.request_id: q.output_ids
+                             for q in sched.run_to_completion()})
+    _no_attention_kernels("tinyllama_sched_paged_int8")
+    for i in range(8):
+        _check_served(done[i], 16, f"tinyllama scheduler request {i}",
+                      TINY_CFG)
+    log(f"tinyllama paged int8 Scheduler (batch 8, prompts {lens}): "
+        f"request 0 ids {done[0]}")
+    del sched
+    ms = run_path("tinyllama_decode_fill128", ("qmm4_npack", "attend_xla"),
+                  lambda: decode_ms(params, 128, cfg=TINY_CFG))
+    ttft = run_path("tinyllama_prefill_1975", ("qmm_a8", "attend_xla"),
+                    lambda: ttft_ms(params, cfg=TINY_CFG))
+    for path in ("tinyllama_decode_fill128", "tinyllama_prefill_1975"):
+        _no_attention_kernels(path)
+    log(f"tinyllama decode (slope n=4..36, batch 1, bf16 KV): fill 128 "
+        f"{ms:.3f} ms/token ({1e3 / ms:.1f} tok/s); TTFT 1975-token prefill "
+        f"{ttft:.2f} ms")
+    res = dict(tinyllama_decode_ms_fill128=ms, tinyllama_ttft_1975_ms=ttft,
+               tinyllama_peak_gib=(torch.cuda.max_memory_allocated()
+                                   - resident) / 2 ** 30)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+# a registry that puts every K2 layout on one prefill: int2, int3 and int6
+# (int8 code planes) at group 128 with int8 activations, sym and asym
+K2_LAYOUTS_REG = QuantRegistry(rules=[
+    ("wq", QuantConfig(bits=2, group_size=128, act_bits=8)),
+    ("wk", QuantConfig(bits=2, group_size=128, sym=False, act_bits=8)),
+    ("wv", QuantConfig(bits=3, group_size=128, act_bits=8)),
+    ("wo", QuantConfig(bits=3, group_size=128, sym=False, act_bits=8)),
+    ("w_gate", QuantConfig(bits=6, group_size=128, act_bits=8)),
+    ("w_up", QuantConfig(bits=6, group_size=128, sym=False, act_bits=8))],
+    default="q4_j")
+# Llama-2-7B's width with ChatGLM-2-6B's attention heads (32 over 2, G = 16)
+# and with StarCoder's (48 heads of 128 over 1, hidden 6144, FFN 24576)
+G16_CFG = dataclasses.replace(CFG, n_kv_heads=2)
+G48_CFG = dataclasses.replace(CFG, hidden_size=6144, n_heads=48,
+                              n_kv_heads=1, intermediate_size=24576)
+
+
+def _copy_card_vs_plain(what, card, host, cfg2, required, n_prompt=24,
+                        rel_tol=2e-2, seed=15, n_new=3):
+    """``Model.generate`` of a 2-layer copy on the card (a path with launch
+    counts; ``n_prompt`` tokens, ``n_new`` new), then its logits, fed the
+    card's ids, against the CPU plain path; returns (the prompt, the card's
+    new ids, the worst relative difference, the steps whose margin proved
+    the argmax)."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(3, min(cfg2.vocab_size, V), (n_prompt,),
+                        generator=gen).tolist()
+    model = Model().init_params(card, cfg2)
+    new = run_path(f"card_{what}", required, lambda: model.generate(
+        ids, max_new_tokens=n_new, do_sample=False,
+        stop_at_eos=False)[0])[len(ids):]
+    _check_ids(new, n_new, f"card {what}", cfg2.vocab_size)
+    worst, provable, _ = _steps_card_vs_plain(card, host, cfg2, ids, new,
+                                              rel_tol)
+    log(f"{what} card vs plain (2 layers, full width, {n_prompt}-token "
+        f"prompt, fed the card's ids {new}): logits max err {worst:.3g}·"
+        f"max|logit| (tol {rel_tol}); argmax provably comparable at "
+        f"{provable} of {n_new + 1} steps, equal at all of them")
+    return ids, new, worst, provable
+
+
+def _g_many_card_paths(card, cfg2, what):
+    """A copy with more than 8 query heads per KV head on the card alone:
+    ``Model.generate`` with int8 KV (K4's int8 branch), and the paged
+    Scheduler with bf16 and int8 pools (6 requests of 20-64 tokens, 3 new
+    each; K6's), each a path with launch counts, ids in range."""
+    gen = torch.Generator().manual_seed(16)
+    ids = torch.randint(3, V, (24,), generator=gen).tolist()
+    model = Model().init_params(card, cfg2)
+    new = run_path(f"card_{what}_int8", ("flash_decode_i8+G>8",),
+                   lambda: model.generate(ids, max_new_tokens=3,
+                                          stop_at_eos=False,
+                                          kv_dtype="int8")[0][24:])
+    _check_ids(new, 3, f"{what} int8 KV")
+    prompts = [torch.randint(3, V, (n,), generator=gen).tolist()
+               for n in torch.randint(20, 64, (6,), generator=gen).tolist()]
+    for kv_dtype, entry in ((torch.bfloat16, "paged_decode+G>8"),
+                            (torch.int8, "paged_decode_i8+G>8")):
+        sched = Scheduler(card, cfg2, max_batch=4, max_len=256,
+                          kv_mode="paged", page_size=64, kv_dtype=kv_dtype)
+        for i, p in enumerate(prompts):
+            sched.add_request(i, p, max_new_tokens=3)
+        done = run_path(f"sched_{what}_{entry}", (entry,),
+                        lambda: {q.request_id: q.output_ids
+                                 for q in sched.run_to_completion()})
+        for i in range(len(prompts)):
+            _check_served(done[i], 3, f"{what} scheduler {entry}", cfg2)
+    log(f"{what} on the card: generate int8 KV ids {new}; paged bf16 and "
+        "int8 Schedulers ran 6 requests each")
+
+
+def _random_pair(cfg2, seed, quant):
+    card = init_random(cfg2, seed=seed, quant=quant, device=DEV)
+    host = init_random(cfg2, seed=seed, quant=quant, device=DEV).to("cpu")
+    return card, host
+
+
+def phase_copies_card_vs_plain():
+    """2-layer full-width copies, card against the CPU plain path (logits
+    within 2e-2·max|logit| where every product has bf16 activations, 5e-2
+    where a prefill takes the int8 path, as phase 5's q4_j copy; argmax
+    equal where the margin proves it): the Mistral GPTQ copy through
+    ``Model.generate`` and the paged int8 Scheduler; the same copy written
+    to a temporary directory under build/neural_tpu_torch/ (config.json,
+    quantize_config.json, model.safetensors) and loaded by ``Model.init(dir,
+    use_gptq=True)`` on the card, whose ids and logits must be the
+    in-memory copy's; an AWQ copy; mix_int2_int4 (its g16 int2 asym at M=1
+    through K5); every K2 layout on one 256-token prefill (int2, int3 and
+    int6 at act_bits 8, sym and asym: the int3-a8 and int6-a8 copies);
+    Llama-2-7B with linear RoPE scaling (factor 4); the TinyLlama copy
+    (``attend_xla``; and its paged int8 Scheduler); Llama-2-7B's width
+    with ChatGLM-2's heads (G = 16: K4 and, through the paged int8
+    Scheduler, K6 past 8 heads a KV head), whose card-only paths and a
+    copy with StarCoder's heads (G = 48) also run K4's int8 and K6's bf16
+    branches past 8 heads (``_g_many_card_paths``)."""
+    res = {}
+    cfg2 = dataclasses.replace(MISTRAL_CFG, n_layers=2)
+    sd = gptq_state_dict(cfg2, seed=30)
+    card = params_from_gptq_state_dict(sd, cfg2, device=DEV)
+    host = params_from_gptq_state_dict(sd, cfg2, device=DEV).to("cpu")
+    gptq_req = ("act_order_gather", "qmm_general", "qmm4_npack_asym",
+                "flash_prefill", "flash_decode")
+    # random 2-layer copies give flat logits (top-2 margins of 0.01-0.8
+    # against differences of 0.03-0.08): as phase 5's formats, the argmax
+    # must be proven at as many steps as there are copies, over all of them
+    ids, new, res["mistral_gptq"], proven = _copy_card_vs_plain(
+        "mistral_gptq", card, host, cfg2, gptq_req)
+    res["mistral_gptq_sched"] = run_path(
+        "sched_mistral_gptq", ("act_order_gather", "paged_decode_i8"),
+        lambda: _sched_card_vs_plain(card, host, cfg2, 2e-2))
+    del host
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as d:
+        with open(os.path.join(d, "config.json"), "w") as fh:
+            json.dump({**MISTRAL_HF, "num_hidden_layers": 2}, fh)
+        with open(os.path.join(d, "quantize_config.json"), "w") as fh:
+            json.dump(GPTQ_QUANTIZE_CONFIG, fh)
+        write_safetensors(os.path.join(d, "model.safetensors"), sd)
+        filed = Model().init(d, use_gptq=True, device=DEV)
+    new_f = run_path("card_mistral_gptq_file", gptq_req, lambda: filed.generate(
+        ids, max_new_tokens=3, do_sample=False,
+        stop_at_eos=False)[0])[len(ids):]
+    with torch.inference_mode():
+        a, b = (prefill_step(m, torch.tensor([ids], device=DEV),
+                             torch.zeros(1, dtype=torch.long, device=DEV),
+                             init_cache(cfg2, 1, 32, device=DEV))
+                for m in (card, filed.params))
+    if new_f != new or not torch.equal(a, b):
+        raise AssertionError(f"Model.init(dir, use_gptq=True) gave ids "
+                             f"{new_f}, the in-memory copy {new}, logits max "
+                             f"diff {(a - b).abs().max().item()}")
+    log(f"Model.init(dir, use_gptq=True) on the card: ids {new_f} and "
+        "prefill logits equal to the in-memory copy's")
+    del sd, card, filed
+    torch.cuda.empty_cache()
+
+    sd = gptq_state_dict(cfg2, seed=31, fmt="awq")
+    card = params_from_gptq_state_dict(sd, cfg2, fmt="awq", device=DEV)
+    host = params_from_gptq_state_dict(sd, cfg2, fmt="awq",
+                                       device=DEV).to("cpu")
+    _, _, res["mistral_awq"], n = _copy_card_vs_plain(
+        "mistral_awq", card, host, cfg2,
+        ("qmm_general", "qmm4_npack_asym", "flash_prefill", "flash_decode"))
+    proven, copies = proven + n, 2
+    if LAUNCHES["card_mistral_awq"]["act_order_gather"]:
+        raise AssertionError("an AWQ checkpoint has no act-order gather")
+    del sd, card, host
+    llama2 = dataclasses.replace(CFG, n_layers=2)
+    # the K2 copy's prefill takes the int8 path, whose activation codes move
+    # a step where the card's bf16 roundings differ from the CPU's (as in
+    # phase 5's q4_j copy): 5e-2, over 8 steps
+    for i, (what, cfg2, quant, req, n_prompt, tol) in enumerate((
+            ("mix_int2_int4", llama2, "mix_int2_int4",
+             ("qmm_general", "qmm4_npack", "qmm4_npack_asym", "qmm8_native"),
+             24, 2e-2),
+            ("k2_layouts", llama2, K2_LAYOUTS_REG,
+             ("quantize_act_i8",) + tuple(e for _, e, _, _ in K2_LAYOUTS),
+             256, 5e-2),
+            ("llama_rope_linear",
+             dataclasses.replace(llama2, rope_scaling={"type": "linear",
+                                                       "factor": 4.0}),
+             "q4_j", ("qmm_general", "qmm4_npack", "flash_prefill",
+                      "flash_decode"), 24, 2e-2),
+            ("tinyllama", dataclasses.replace(TINY_CFG, n_layers=2), "q4_j",
+             ("qmm_general", "qmm4_npack", "attend_xla"), 24, 2e-2),
+            ("heads_g16", dataclasses.replace(G16_CFG, n_layers=2), "q4_j",
+             ("qmm_general", "flash_prefill", "flash_decode+G>8"), 24,
+             2e-2))):
+        card, host = _random_pair(cfg2, 40 + i, quant)
+        _, _, res[what], n = _copy_card_vs_plain(
+            what, card, host, cfg2, req, n_prompt, tol,
+            n_new=8 if what == "k2_layouts" else 3)
+        proven, copies = proven + n, copies + 1
+        if what == "llama_rope_linear":
+            base = rope_freqs(DH, None, 10000.0)
+            if not torch.equal(card.rope_inv_freqs.cpu(),
+                               torch.from_numpy(base / 4.0)):
+                raise AssertionError("linear RoPE scaling left the table "
+                                     "unscaled")
+        if what == "tinyllama":
+            _no_attention_kernels("card_tinyllama")
+            res["tinyllama_sched"] = run_path(
+                "sched_tinyllama", ("attend_xla_paged",),
+                lambda: _sched_card_vs_plain(card, host, cfg2, 2e-2))
+            _no_attention_kernels("sched_tinyllama")
+        if what == "heads_g16":
+            res["heads_g16_sched"] = run_path(
+                "sched_heads_g16", ("paged_decode_i8+G>8",),
+                lambda: _sched_card_vs_plain(card, host, cfg2, 2e-2))
+            _g_many_card_paths(card, cfg2, "heads_g16")
+        del card, host
+        torch.cuda.empty_cache()
+    # StarCoder's heads at hidden 6144: the card's paths alone (the copy is
+    # 2.3x a Llama copy's CPU time; its kernels are held to their plain
+    # versions at these heads in phase 3)
+    card = init_random(dataclasses.replace(G48_CFG, n_layers=2), seed=50,
+                       quant="q4_j", device=DEV)
+    _g_many_card_paths(card, dataclasses.replace(G48_CFG, n_layers=2),
+                       "heads_g48")
+    del card
+    torch.cuda.empty_cache()
+    if proven < copies:
+        raise AssertionError(f"only {proven} steps over {copies} copies had "
+                             "a margin wide enough to compare the argmax")
+    return {f"{k}_card_vs_plain_rel_err": v for k, v in res.items()}
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_META = {
@@ -1924,6 +2563,17 @@ KERNEL_META = {
     "K6_i8_alibi": ("paged_decode_i8+alibi",
                     "neural_tpu_torch/csrc/paged_decode.cu",
                     "neural_tpu/ops/paged_attention.py:31"),
+    # K2's other weight layouts, and decode past 8 query heads a KV head
+    **{key: (entry, "neural_tpu_torch/csrc/qmm_a8.cu",
+             "neural_tpu/ops/qmatmul.py:161")
+       for key, entry, _, _ in K2_LAYOUTS},
+    **{f"K4{s}_G>8": (f"flash_decode{s}+G>8",
+                      "neural_tpu_torch/csrc/flash_decode.cu",
+                      "neural_tpu/ops/attention.py:110") for s in ("", "_i8")},
+    **{f"K6{s}_G>8": (f"paged_decode{s}+G>8",
+                      "neural_tpu_torch/csrc/paged_decode.cu",
+                      "neural_tpu/ops/paged_attention.py:31")
+       for s in ("", "_i8")},
 }
 
 
@@ -2000,7 +2650,9 @@ def main():
     def kernels():
         for check in (check_k1, check_k2, check_k3, check_k4, check_k6,
                       check_k3_options, check_k4_alibi, check_k6_alibi,
-                      check_k5, check_k1_branches, check_k2_asym):
+                      check_k5, check_k1_branches, check_k2_asym,
+                      check_k2_layouts, check_gptq_products,
+                      check_many_heads):
             check(gen, results)
             torch.cuda.empty_cache()
     phase("3 kernels", kernels)
@@ -2020,11 +2672,17 @@ def main():
     del bloom_params
     torch.cuda.empty_cache()
     e2e.update(phase("4e chatglm", phase_chatglm))
+    e2e.update(phase("4f mistral gptq", phase_mistral_gptq))
+    e2e.update(phase("4g formats", phase_formats,
+                     ("int6_g128_a8", "mix_i2_ffn")))
+    e2e.update(phase("4h tinyllama", phase_tinyllama))
     worst, sched_worst, formats_worst = phase("5 card vs plain",
                                               phase_card_vs_plain)
     gemma2_worst = phase("5b gemma2 card vs plain",
                          phase_gemma2_card_vs_plain)
     zoo_worst = phase("5c zoo card vs plain", phase_zoo_card_vs_plain)
+    copies_worst = phase("5d copies card vs plain",
+                         phase_copies_card_vs_plain)
     e2e.update(phase("6 server", phase_server, params))
     del params
     torch.cuda.empty_cache()
@@ -2047,7 +2705,7 @@ def main():
                     "card_vs_plain_rel_err": worst,
                     "sched_card_vs_plain_rel_err": sched_worst,
                     "formats_card_vs_plain_rel_err": formats_worst,
-                    **gemma2_worst, **zoo_worst,
+                    **gemma2_worst, **zoo_worst, **copies_worst,
                     "window_over_no_window": window,
                     "option_on_over_off": branches,
                     "phase_seconds": seconds,

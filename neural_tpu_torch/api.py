@@ -1,6 +1,6 @@
 """Top-level Model API (port of the single-row, greedy part of
-``neural_tpu/api.py``; its ``quant_config_from_args`` lives in
-:mod:`neural_tpu_torch.core.dtypes`)."""
+``neural_tpu/api.py`` and of its GPTQ/AWQ ``Model.init``; its
+``quant_config_from_args`` lives in :mod:`neural_tpu_torch.core.dtypes`)."""
 from __future__ import annotations
 
 from typing import List, Optional, Union
@@ -33,6 +33,56 @@ class Model:
     def __init__(self):
         self.params: Optional[Transformer] = None
         self.cfg: Optional[ModelConfig] = None
+        self.tokenizer = None     # no tokenizer is ported yet
+
+    def init(self, model_name_or_path: str,
+             weight_dtype: Union[str, QuantConfig, None] = "q4_0",
+             use_quant: bool = True, use_gptq: bool = False,
+             use_awq: bool = False, use_autoround: bool = False,
+             alg: str = "sym", group_size: int = 32,
+             scale_dtype: str = "fp32", compute_dtype: str = "int8",
+             use_ggml: bool = False, model_hub: str = "huggingface",
+             dtype: str = "bfloat16", trust_remote_code: bool = False,
+             device=None):
+        """Load a local HF checkpoint directory, as the JAX ``Model.init``
+        does. The GPTQ/AWQ branch (``use_gptq``, ``use_awq``, and
+        ``use_autoround``, which exports the GPTQ format) reads
+        ``config.json``, the bits and group size of ``quantization_config``
+        or ``quantize_config.json``, and every ``*.safetensors`` file, with
+        the port's own readers (``convert.files``), and converts the
+        checkpoint on ``device`` (the card unless ``device="cpu"``). The
+        other branch, the streamed conversion of an fp checkpoint, is not
+        ported yet and raises. ``tokenizer`` stays None: no tokenizer is
+        ported yet."""
+        if model_hub != "huggingface":
+            raise ValueError(f"model_hub {model_hub!r} is not available "
+                             "offline; use a local huggingface-format "
+                             "directory")
+        if dtype != "bfloat16":
+            raise NotImplementedError("only bf16 activations are ported")
+        if not (use_gptq or use_awq or use_autoround):
+            raise NotImplementedError(
+                "Model.init of an fp checkpoint (the JAX package's streamed "
+                "conversion, convert/stream.py, or AutoModelForCausalLM) is "
+                "not ported yet; use init_from_hf_model with a model object, "
+                "or use_gptq / use_awq for a quantized checkpoint")
+        from .convert import files
+        from .convert.gptq import params_from_gptq_state_dict
+        from .convert.hf import ARCH_MODULES
+        hf_cfg = files.read_config(model_name_or_path)
+        mod = ARCH_MODULES.get(hf_cfg.model_type)
+        if mod is None:
+            raise NotImplementedError(
+                f"model type {hf_cfg.model_type!r}: the port has "
+                f"{sorted(ARCH_MODULES)}")
+        self.cfg = mod.config_from_hf(hf_cfg)
+        bits, gsize = files.quantize_config(model_name_or_path, hf_cfg)
+        sd = files.read_safetensors_dir(model_name_or_path)
+        self.params = params_from_gptq_state_dict(
+            sd, self.cfg, fmt="awq" if use_awq else "gptq", bits=bits,
+            dtype=torch.bfloat16, group_size=gsize, arch_mod=mod,
+            device=device)
+        return self
 
     def init_from_hf_model(self, model,
                            weight_dtype: Union[str, QuantConfig, None] = "q4_0",

@@ -4,8 +4,12 @@ Gemma, Bloom, MPT and ChatGLM-1 part of ``neural_tpu/convert/hf.py``).
 Every quantized tensor is converted once, here, to the at-rest layout
 (``runtime.generate.params_to_native``) that the kernels read; the port
 keeps no second layout. A ``quant`` of None keeps the projections in bf16
-(and the FFN unpadded, as the JAX package does). Dtypes follow the JAX
-package's ``build_params``: layer norms and biases in the model dtype,
+(and the FFN unpadded, as the JAX package does). ``quant`` may also be a
+:class:`~neural_tpu_torch.convert.quant_registry.QuantRegistry` (or a mixed
+preset's name), which gives each tensor of each layer its own config; the
+port's per-layer blocks hold such layers as they are. A QTensor already in
+the state dict (a GPTQ/AWQ import) passes through as it is. Dtypes follow
+the JAX package's ``build_params``: layer norms and biases in the model dtype,
 the top-level 1-D tensors (``final_norm_w``/``_b``, Bloom's
 ``embed_norm_w``/``_b``) in f32, the embedding in the model dtype, the RoPE
 table (absent under ALiBi) and the ALiBi slopes in f32.
@@ -18,7 +22,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.dtypes import QuantConfig, quant_config_from_args
-from ..core.qtensor import quantize
+from ..core.qtensor import QTensor, quantize
 from ..models import bloom as bloom_mod
 from ..models import chatglm as chatglm_mod
 from ..models import gemma as gemma_mod
@@ -89,14 +93,35 @@ def _pad_ffn(name: str, w: torch.Tensor, cfg: ModelConfig, Ip: int):
     return w
 
 
-def build_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig, mod=llama_mod,
-                 quant: Union[str, QuantConfig] = "q4_j",
-                 dtype: torch.dtype = torch.bfloat16,
-                 device=None) -> Transformer:
-    """Assemble the decoder from an f32 HF-named state dict. Weights are
-    moved to ``device`` before they are quantized, one at a time."""
+def _resolver(qcfg):
+    """(name, layer) → the QuantConfig of that tensor (None: keep it in the
+    model dtype), for one config or a QuantRegistry."""
+    from .quant_registry import QuantRegistry
+    if isinstance(qcfg, QuantRegistry):
+        return qcfg.resolve
+    return lambda name, layer=None: qcfg
+
+
+def qtensor_to(qt: QTensor, device) -> QTensor:
+    """A QTensor with every tensor moved to ``device``."""
+    mv = lambda t: None if t is None else t.to(device)
+    return QTensor(tuple(mv(p) for p in qt.planes), mv(qt.scales),
+                   mv(qt.zeros), mv(qt.perm), qt.cfg)
+
+
+def build_param_dict(sd: Dict[str, Any], cfg: ModelConfig, mod=llama_mod,
+                     quant: Union[str, QuantConfig, None] = "q4_j",
+                     dtype: torch.dtype = torch.bfloat16,
+                     device=None) -> Dict[str, Any]:
+    """The param dict (``layers`` a list of per-layer dicts) of an HF-named
+    state dict of f32 tensors or numpy arrays, with the QTensors of a
+    GPTQ/AWQ import passing through (moved to ``device``, in the [K, N]
+    orientation whatever the map's transpose flag says). Weights are moved
+    to ``device`` before they are quantized, one at a time; the result is
+    not yet at rest."""
     dev = resolve_device(device)
     qcfg = quant_config_from_args(quant)
+    resolve = _resolver(qcfg)
     qnames = set(mod.QUANT_TENSORS)
     # as in the JAX package, only a quantized FFN is padded
     Ip = cfg.intermediate_size if qcfg is None else \
@@ -106,16 +131,27 @@ def build_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig, mod=llama_mod,
         sd = mod.preprocess_state_dict(dict(sd), cfg)
 
     def get(hf_name, transpose):
-        w = sd[hf_name].to(device=dev, dtype=torch.float32)
+        w = sd[hf_name]
+        if isinstance(w, QTensor):
+            return qtensor_to(w, dev)
+        w = torch.as_tensor(w).to(device=dev, dtype=torch.float32)
         return w.T.contiguous() if transpose else w
+
+    def quantized(name, w, layer=None):
+        qc = resolve(name, layer)
+        return w.to(dtype) if qc is None else quantize(w, qc)
 
     layers = []
     for i in range(cfg.n_layers):
         lp = {}
         for name, (hf_name, tr) in mod.hf_layer_map(i, cfg).items():
-            w = _pad_ffn(name, get(hf_name, tr), cfg, Ip)
+            w = get(hf_name, tr)
+            if isinstance(w, QTensor):
+                lp[name] = w
+                continue
+            w = _pad_ffn(name, w, cfg, Ip)
             if w.ndim == 2 and name in qnames:
-                lp[name] = w.to(dtype) if qcfg is None else quantize(w, qcfg)
+                lp[name] = quantized(name, w, i)
             else:
                 lp[name] = w.to(dtype)
         layers.append(lp)
@@ -123,14 +159,27 @@ def build_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig, mod=llama_mod,
     params: Dict[str, Any] = {"layers": layers}
     for name, (hf_name, tr) in mod.hf_top_map(cfg).items():
         w = get(hf_name, tr)
-        if name == "lm_head" and name in qnames and qcfg is not None:
-            params[name] = quantize(w, qcfg)
+        if isinstance(w, QTensor):
+            params[name] = w
+        elif name == "lm_head" and name in qnames:
+            params[name] = quantized(name, w)
         elif name == "embed":
             params[name] = w.to(dtype)
         else:
             params[name] = w.to(dtype if w.ndim > 1 else torch.float32)
     _add_aux(params, cfg, dev)
-    return Transformer(cfg, params_to_native(params))
+    return params
+
+
+def build_params(sd: Dict[str, Any], cfg: ModelConfig, mod=llama_mod,
+                 quant: Union[str, QuantConfig, None] = "q4_j",
+                 dtype: torch.dtype = torch.bfloat16,
+                 device=None) -> Transformer:
+    """Assemble the decoder from an HF-named state dict
+    (:func:`build_param_dict`), its weights converted to the at-rest
+    layouts."""
+    return Transformer(cfg, params_to_native(build_param_dict(
+        sd, cfg, mod, quant, dtype, device)))
 
 
 def from_hf_model(model, quant: Union[str, QuantConfig] = "q4_j",
@@ -170,6 +219,7 @@ def init_random(cfg: ModelConfig, seed: int = 0,
     dev = resolve_device(device)
     mod = ARCH_MODULES.get(cfg.arch, llama_mod)
     qcfg = quant_config_from_args(quant)
+    resolve = _resolver(qcfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     Ip = cfg.intermediate_size if qcfg is None else \
@@ -177,18 +227,19 @@ def init_random(cfg: ModelConfig, seed: int = 0,
     normal = lambda shape: torch.randn(shape, generator=gen, device=dev,
                                        dtype=torch.float32) * 0.02
 
-    def weight(K, N):
+    def weight(name, K, N, layer=None):
         w = normal((K, N))
-        if qcfg is None:
+        qc = resolve(name, layer)
+        if qc is None:
             return w.to(dtype)
-        return params_to_native(quantize(w, qcfg))
+        return params_to_native(quantize(w, qc))
 
     names = list(mod.hf_layer_map(0, cfg))
     ones = lambda: torch.full((cfg.hidden_size,), 1.0 - cfg.norm_offset,
                               dtype=dtype, device=dev)
     layers = []
-    for _ in range(cfg.n_layers):
-        lp = {n: weight(*_shape_for(n, cfg, Ip)) for n in LINEARS
+    for i in range(cfg.n_layers):
+        lp = {n: weight(n, *_shape_for(n, cfg, Ip), i) for n in LINEARS
               if n in names}
         for n in names:
             if n.endswith("norm_w"):
@@ -208,7 +259,7 @@ def init_random(cfg: ModelConfig, seed: int = 0,
                                    dtype=torch.float32, device=dev),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = weight(D, cfg.vocab_size)
+        params["lm_head"] = weight("lm_head", D, cfg.vocab_size)
     top = mod.hf_top_map(cfg)
     if "final_norm_b" in top:
         params["final_norm_b"] = normal((D,))

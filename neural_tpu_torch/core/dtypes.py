@@ -120,29 +120,25 @@ PRESETS = {
 }
 
 
-# the JAX package's mixed presets (``convert/quant_registry.py``), which
-# this port does not carry yet
-MIXED_PRESETS = ("mix_int2_int4", "mix_i2_ffn")
-
-
 def quant_config_from_args(weight_dtype="int4", alg="sym", group_size=32,
                            scale_dtype="fp32", compute_dtype="int8",
-                           use_ggml=False) -> Optional[QuantConfig]:
+                           use_ggml=False):
     """Reference-style quant knobs → QuantConfig, the JAX package's rule
     (``neural_tpu/api.py``).
 
     ``weight_dtype``: int1..int8 / nf4 / fp4 / fp8 / fp8_e5m2, a preset
-    name or a QuantConfig (passed through), or None (bf16 projections).
-    ``compute_dtype="int8"`` enables the dynamic int8-activation path for
-    prefill; "bf16"/"fp16"/"fp32" keep bf16 activations. ``use_ggml`` maps
-    to q4_0/q4_1 (sym/asym, group 32). The mixed presets raise until
-    ``quant_registry`` is ported."""
-    if weight_dtype is None or isinstance(weight_dtype, QuantConfig):
+    name, a QuantConfig or a QuantRegistry (passed through), a mixed
+    preset's name (its registry, ``convert.quant_registry.MIXED_PRESETS``),
+    or None (bf16 projections). ``compute_dtype="int8"`` enables the
+    dynamic int8-activation path for prefill; "bf16"/"fp16"/"fp32" keep
+    bf16 activations. ``use_ggml`` maps to q4_0/q4_1 (sym/asym, group
+    32)."""
+    from ..convert.quant_registry import MIXED_PRESETS, QuantRegistry
+    if weight_dtype is None or isinstance(weight_dtype,
+                                          (QuantConfig, QuantRegistry)):
         return weight_dtype
     if weight_dtype in MIXED_PRESETS:
-        raise NotImplementedError(
-            f"weight_dtype={weight_dtype!r}: mixed presets (quant_registry) "
-            "are a later slice")
+        return MIXED_PRESETS[weight_dtype]
     if weight_dtype in PRESETS:
         return PRESETS[weight_dtype]
     sym = alg == "sym"

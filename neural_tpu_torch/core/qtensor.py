@@ -397,6 +397,33 @@ def to_native(qt: QTensor) -> QTensor:
                    qt.perm, cfg)
 
 
+def concat_n(qts) -> QTensor:
+    """Concatenate QTensors along N (output features), once at load: the
+    fused q|k|v and gate|up projections. Every input shares the config and
+    K; act-order tensors fuse only with the same K-permutation (GPTQ
+    quantizes same-input projections against one Hessian, so their g_idx
+    match), and the fused product then gathers x once instead of once per
+    projection."""
+    first = qts[0]
+    if any(q.cfg != first.cfg for q in qts):
+        raise ValueError("concat_n: mixed quant configs")
+    if any(q.K != first.K for q in qts):
+        raise ValueError("concat_n: mixed K")
+    if first.perm is not None:
+        if not all(q.perm is not None and torch.equal(q.perm, first.perm)
+                   for q in qts):
+            raise ValueError("concat_n: act-order tensors need matching "
+                             "perms")
+    elif any(q.perm is not None for q in qts):
+        raise ValueError("concat_n: act-order and plain tensors can't fuse")
+    planes = tuple(torch.cat([q.planes[i] for q in qts], dim=-1)
+                   for i in range(len(first.planes)))
+    scales = torch.cat([q.scales for q in qts], dim=-1)
+    zeros = None if first.zeros is None else \
+        torch.cat([q.zeros for q in qts], dim=-1)
+    return QTensor(planes, scales, zeros, first.perm, first.cfg)
+
+
 def matmul_ref(x: torch.Tensor, qt: QTensor, dtype=None) -> torch.Tensor:
     """Oracle product ``x @ dequantize(qt)`` in f32. [*, K] @ [K, N]."""
     out = x.to(torch.float32) @ dequantize(qt, torch.float32)

@@ -5,8 +5,13 @@
 // q [B, Hq, D] bf16 with D = 128 or 256 (a template parameter); keys at
 // positions >= lengths[b] masked, and with a sliding window (window > 0)
 // keys below lengths[b] - window too; the G = Hq / Hkv query heads of a KV
-// head are computed together and share each K/V row; output f32
-// [B, Hq, D]. Key s of (b, KV head hk) lives at row
+// head are computed together, up to MAXG = 8 of them in one block, and
+// share each K/V row; output f32 [B, Hq, D]. Any G: a third grid
+// dimension walks the KV head's query heads in groups of 8 (G = 16 for
+// ChatGLM-2's 32 over 2, 48 for StarCoder's multi-query 48 over 1, where the
+// TPU kernel pads G up instead), each group's block reading the same K/V
+// chunk, whose re-reads the 50 MB L2 serves; shared memory and registers
+// stay sized for 8 heads. Key s of (b, KV head hk) lives at row
 // - contiguous: (b * Hkv + hk) * S + s of a [B, Hkv, S] row space;
 // - paged: (table[b, s / ps] * Hkv + hk) * ps + s % ps of a [P, Hkv, ps]
 //   row space, so any page size works and pages past the fill or below
@@ -115,7 +120,10 @@ __global__ void __launch_bounds__(128) decode_partial(const Args a) {
   __shared__ float ms[MAXG], ls[MAXG];
   __shared__ size_t rows[CHUNK];
   const int split = blockIdx.x, bk = blockIdx.y;
-  const int b = bk / a.Hkv, hk = bk % a.Hkv, G = a.Hq / a.Hkv;
+  const int b = bk / a.Hkv, hk = bk % a.Hkv;
+  // this block's query heads: h0 .. h0 + G - 1 of the whole Hq
+  const int h0 = hk * (a.Hq / a.Hkv) + blockIdx.z * MAXG;
+  const int G = min(MAXG, a.Hq / a.Hkv - (int)blockIdx.z * MAXG);
   const int len = min(a.lengths[b], a.S);
   const int lo = window_floor(a, len);
   const int s0 = split * CHUNK;
@@ -126,7 +134,7 @@ __global__ void __launch_bounds__(128) decode_partial(const Args a) {
 
   for (int i = tid; i < G * D; i += 128)
     qs[i / D][i % D] = __bfloat162float(
-        a.q[((size_t)b * a.Hq + hk * G + i / D) * D + i % D]);
+        a.q[((size_t)b * a.Hq + h0 + i / D) * D + i % D]);
   if (tid >= j0 && tid < nj) rows[tid] = kv_row<PAGED>(a, b, hk, s0 + tid);
   __syncthreads();
 
@@ -181,7 +189,7 @@ __global__ void __launch_bounds__(128) decode_partial(const Args a) {
           for (int o = 16; o > 0; o >>= 1)
             d += __shfl_xor_sync(0xffffffffu, d, o);
           if (lane == 0)
-            p[hg][j] = score(a, (float)d * qk[hg] * ksc, hk * G + hg, dist);
+            p[hg][j] = score(a, (float)d * qk[hg] * ksc, h0 + hg, dist);
         }
       } else {
         float kf[VPL];
@@ -208,7 +216,7 @@ __global__ void __launch_bounds__(128) decode_partial(const Args a) {
 #pragma unroll
           for (int o = 16; o > 0; o >>= 1)
             d += __shfl_xor_sync(0xffffffffu, d, o);
-          if (lane == 0) p[hg][j] = score(a, d * a.scale, hk * G + hg, dist);
+          if (lane == 0) p[hg][j] = score(a, d * a.scale, h0 + hg, dist);
         }
       }
     } else if (lane == 0) {
@@ -267,7 +275,7 @@ __global__ void __launch_bounds__(128) decode_partial(const Args a) {
 #pragma unroll
   for (int hg = 0; hg < MAXG; ++hg) {
     if (hg >= G) break;
-    const size_t r = (size_t)b * a.Hq + hk * G + hg;
+    const size_t r = (size_t)b * a.Hq + h0 + hg;
 #pragma unroll
     for (int e = 0; e < DPT; ++e)
       a.part_o[(r * a.n_split + split) * D + tid + 128 * e] = acc[hg][e];
@@ -306,8 +314,9 @@ __global__ void __launch_bounds__(128) decode_combine(const Args a) {
 template <int D, bool I8, bool PAGED>
 int launch_d(const Args& a, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int G = a.Hq / a.Hkv;
   decode_partial<D, I8, PAGED>
-      <<<dim3(a.n_split, a.B * a.Hkv), 128, 0, st>>>(a);
+      <<<dim3(a.n_split, a.B * a.Hkv, (G + MAXG - 1) / MAXG), 128, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   decode_combine<D><<<a.B * a.Hq, 128, 0, st>>>(a);

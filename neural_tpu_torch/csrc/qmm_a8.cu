@@ -1,4 +1,5 @@
-// K2 qmm_a8: w4a8 GEMM for Hopper (int8 activations x int4 weights).
+// K2 qmm_a8: wNa8 GEMM for Hopper (int8 activations x int2/3/4/5-8 bit
+// weights at rest).
 //
 // Replaces neural_tpu/ops/qmatmul.py:_qmm_a8_kernel (launched by
 // _qmatmul_a8_pallas; picked by _pick_a8 for M >= 256, the prefill).
@@ -19,6 +20,16 @@
 //      acc = -(xsa @ zwp), with xsa = sa * rowsum_gd(x_i8) [M, K/gd] and
 //      zwp = z * sw [K/gd, N] in f32 from the wrapper. The kernel computes
 //      that rank-K/gd product itself, in group order, before the K loop.
+//
+// The weight layouts at rest, one entry point each (``_asym`` beside each),
+// as the TPU kernel reads them (neural_tpu/ops/qmatmul.py:248-260):
+//   qmm_a8       native-pack nibbles, centered int4 or int3 codes, two a
+//                byte (k = 2r low, 2r + 1 high): planes [K/2, N];
+//   qmm_a8_int2  native-pack 2-bit fields, four a byte, LSB first:
+//                planes [K/4, N];
+//   qmm_a8_int8  centered int8 code planes of 5-8 bit weights: [K, N].
+// Only the load of the weight tile differs: each widens its codes to int8
+// in shared memory, [n][k], and the rest of the kernel is one body.
 //
 // What bounds it on the H100: the operations. At the 7B prefill shapes
 // (M=1975) each weight byte is reused by ~2000 rows, far above the card's
@@ -84,7 +95,89 @@ __device__ __forceinline__ uint32_t nib8(uint32_t byte, int hi) {
   return (uint32_t)(uint8_t)(int8_t)((int)(n ^ 8u) - 8);
 }
 
-template <bool ASYM>
+__device__ __forceinline__ uint32_t f2x4(uint32_t byte) {
+  // four centered 2-bit fields (LSB first) -> four int8 bit patterns
+  uint32_t w = 0u;
+#pragma unroll
+  for (int f = 0; f < 4; ++f)
+    w |= (uint32_t)(uint8_t)(int8_t)((int)(((byte >> (2 * f)) & 3u) ^ 2u) - 2)
+         << (8 * f);
+  return w;
+}
+
+enum Layout { NIBBLES = 0, INT2 = 1, INT8 = 2 };
+
+// The weight tile of K rows k0 .. k0 + BK - 1 and columns n_base .. n_base +
+// BN - 1, widened to int8 into Bs [n][k]. Each of the 256 threads reads 4
+// neighbouring columns of a few byte rows as 32-bit words and writes each
+// column's run of k as one 8- or 16-byte store.
+template <int LAYOUT>
+__device__ __forceinline__ void load_b(const uint8_t* __restrict__ planes,
+                                       int8_t* Bs, int k0, int N,
+                                       int n_base, int tid) {
+  const int c4 = (tid % 32) * 4;
+  if constexpr (LAYOUT == NIBBLES) {
+    // 64 byte rows x 128 columns of nibbles; 4 byte rows = 8 k a thread
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int r0 = p * 32 + (tid / 32) * 4;      // byte row in the tile
+      uint32_t wrow[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wrow[i] = *reinterpret_cast<const uint32_t*>(
+            planes + (size_t)(k0 / 2 + r0 + i) * N + n_base + c4);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t lo = 0u, hi = 0u;                  // k = 2*r0 .. 2*r0+7
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t b0 = (wrow[i] >> (8 * j)) & 0xFFu;
+          const uint32_t b1 = (wrow[i + 2] >> (8 * j)) & 0xFFu;
+          lo |= nib8(b0, 0) << (16 * i) | nib8(b0, 1) << (16 * i + 8);
+          hi |= nib8(b1, 0) << (16 * i) | nib8(b1, 1) << (16 * i + 8);
+        }
+        *reinterpret_cast<uint2*>(Bs + (c4 + j) * LDS + 2 * r0) =
+            make_uint2(lo, hi);
+      }
+    }
+  } else if constexpr (LAYOUT == INT2) {
+    // 32 byte rows x 128 columns of 2-bit fields; 4 byte rows = 16 k
+    const int r0 = (tid / 32) * 4;
+    uint32_t wrow[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      wrow[i] = *reinterpret_cast<const uint32_t*>(
+          planes + (size_t)(k0 / 4 + r0 + i) * N + n_base + c4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<uint4*>(Bs + (c4 + j) * LDS + 4 * r0) = make_uint4(
+          f2x4((wrow[0] >> (8 * j)) & 0xFFu), f2x4((wrow[1] >> (8 * j)) & 0xFFu),
+          f2x4((wrow[2] >> (8 * j)) & 0xFFu), f2x4((wrow[3] >> (8 * j)) & 0xFFu));
+  } else {
+    // 128 rows x 128 columns of int8 codes; 16 rows = 16 k a thread
+    const int r0 = (tid / 32) * 16;
+    uint32_t wrow[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      wrow[i] = *reinterpret_cast<const uint32_t*>(
+          planes + (size_t)(k0 + r0 + i) * N + n_base + c4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {   // byte j of rows 4q .. 4q+3
+        w[q] = 0u;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[q] |= ((wrow[4 * q + i] >> (8 * j)) & 0xFFu) << (8 * i);
+      }
+      *reinterpret_cast<uint4*>(Bs + (c4 + j) * LDS + r0) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+template <bool ASYM, int LAYOUT>
 __global__ void __launch_bounds__(256)
 qmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sa,
               const uint8_t* __restrict__ planes,
@@ -141,32 +234,7 @@ qmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sa,
       if (m < M) v = *reinterpret_cast<const uint4*>(xq + (size_t)m * K + k0 + c);
       *reinterpret_cast<uint4*>(As + r * LDS + c) = v;
     }
-    // B: 64 byte rows x 128 columns of nibbles -> int8 [n][k]
-    {
-      const int c4 = (tid % 32) * 4;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int r0 = p * 32 + (tid / 32) * 4;      // byte row in the tile
-        uint32_t wrow[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wrow[i] = *reinterpret_cast<const uint32_t*>(
-              planes + (size_t)(k0 / 2 + r0 + i) * N + n_base + c4);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t lo = 0u, hi = 0u;                  // k = 2*r0 .. 2*r0+7
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const uint32_t b0 = (wrow[i] >> (8 * j)) & 0xFFu;
-            const uint32_t b1 = (wrow[i + 2] >> (8 * j)) & 0xFFu;
-            lo |= nib8(b0, 0) << (16 * i) | nib8(b0, 1) << (16 * i + 8);
-            hi |= nib8(b1, 0) << (16 * i) | nib8(b1, 1) << (16 * i + 8);
-          }
-          *reinterpret_cast<uint2*>(Bs + (c4 + j) * LDS + 2 * r0) =
-              make_uint2(lo, hi);
-        }
-      }
-    }
+    load_b<LAYOUT>(planes, Bs, k0, N, n_base, tid);
     __syncthreads();
 
 #pragma unroll
@@ -240,13 +308,13 @@ qmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sa,
   }
 }
 
-template <bool ASYM>
+template <bool ASYM, int LAYOUT>
 int launch(const void* xq, const void* sa, const void* planes,
            const void* scales, const void* zwp, const void* xsa, void* out,
            int M, int K, int N, int gd, int group, int out_f32,
            void* stream) {
   const dim3 grid(N / BN, (M + BM - 1) / BM);
-  qmm_a8_kernel<ASYM><<<grid, 256, 0,
+  qmm_a8_kernel<ASYM, LAYOUT><<<grid, 256, 0,
                         reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const int8_t*>(xq), reinterpret_cast<const float*>(sa),
       reinterpret_cast<const uint8_t*>(planes),
@@ -270,18 +338,24 @@ extern "C" int quantize_act_i8(const void* x, int x_f32, void* xq, void* sa,
   return (int)cudaGetLastError();
 }
 
-extern "C" int qmm_a8(const void* xq, const void* sa, const void* planes,
-                      const void* scales, void* out, int M, int K, int N,
-                      int gd, int group, int out_f32, void* stream) {
-  return launch<false>(xq, sa, planes, scales, nullptr, nullptr, out, M, K,
-                       N, gd, group, out_f32, stream);
-}
+// One sym and one asym entry point per layout. zwp: f32 [K/gd, N] = z * sw
+// per dot group; xsa: f32 [M, K/gd].
+#define QMM_A8_ENTRIES(NAME, LAYOUT)                                          \
+  extern "C" int NAME(const void* xq, const void* sa, const void* planes,     \
+                      const void* scales, void* out, int M, int K, int N,     \
+                      int gd, int group, int out_f32, void* stream) {         \
+    return launch<false, LAYOUT>(xq, sa, planes, scales, nullptr, nullptr,    \
+                                 out, M, K, N, gd, group, out_f32, stream);   \
+  }                                                                           \
+  extern "C" int NAME##_asym(const void* xq, const void* sa,                  \
+                             const void* planes, const void* scales,          \
+                             const void* zwp, const void* xsa, void* out,     \
+                             int M, int K, int N, int gd, int group,          \
+                             int out_f32, void* stream) {                     \
+    return launch<true, LAYOUT>(xq, sa, planes, scales, zwp, xsa, out, M, K,  \
+                                N, gd, group, out_f32, stream);               \
+  }
 
-// zwp: f32 [K/gd, N] = z * sw per dot group; xsa: f32 [M, K/gd]
-extern "C" int qmm_a8_asym(const void* xq, const void* sa, const void* planes,
-                           const void* scales, const void* zwp,
-                           const void* xsa, void* out, int M, int K, int N,
-                           int gd, int group, int out_f32, void* stream) {
-  return launch<true>(xq, sa, planes, scales, zwp, xsa, out, M, K, N, gd,
-                      group, out_f32, stream);
-}
+QMM_A8_ENTRIES(qmm_a8, NIBBLES)
+QMM_A8_ENTRIES(qmm_a8_int2, INT2)
+QMM_A8_ENTRIES(qmm_a8_int8, INT8)

@@ -9,7 +9,9 @@ from .config import ModelConfig
 
 def config_from_hf(c) -> ModelConfig:
     """Map a transformers LlamaConfig / MistralConfig (read as attributes,
-    so no import of transformers is needed)."""
+    so no import of transformers is needed). Mistral's ``sliding_window``
+    is not read, as the JAX package's ``config_from_hf`` does not read it:
+    neither package applies Mistral's window."""
     model_type = getattr(c, "model_type", "llama")
     n_kv = getattr(c, "num_key_value_heads", None) or c.num_attention_heads
     head_dim = getattr(c, "head_dim", None) or (

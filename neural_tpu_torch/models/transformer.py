@@ -46,6 +46,10 @@ from .config import ModelConfig
 
 LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 BIASES = ("bq", "bk", "bv", "bo", "b_gate", "b_up", "b_down")
+# the fused q|k|v and gate|up projections of ``runtime.generate.
+# fuse_layer_weights``, and their biases
+FUSED = ("wqkv", "w_gateup")
+FUSED_BIASES = ("bqkv", "b_gateup")
 NORMS = ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
 ACTS = {"silu": F.silu, "gelu": F.gelu,
         "gelu_tanh": partial(F.gelu, approximate="tanh")}
@@ -60,11 +64,11 @@ def bf16_scalar(v: float) -> float:
 
 
 class QLinear(nn.Module):
-    """A ``[K, N]`` projection: a QTensor at rest (its planes, scales and
-    zero-points as buffers, plus its QuantConfig) multiplied by
-    :func:`~neural_tpu_torch.ops.qmatmul.qmatmul`, or an unquantized bf16
-    weight (``weight_dtype=None``), a plain ``torch.matmul`` as the JAX
-    package leaves it to XLA."""
+    """A ``[K, N]`` projection: a QTensor at rest (its planes, scales,
+    zero-points and act-order ``perm`` as buffers, plus its QuantConfig)
+    multiplied by :func:`~neural_tpu_torch.ops.qmatmul.qmatmul`, or an
+    unquantized bf16 weight (``weight_dtype=None``), a plain
+    ``torch.matmul`` as the JAX package leaves it to XLA."""
 
     def __init__(self, w):
         super().__init__()
@@ -72,26 +76,32 @@ class QLinear(nn.Module):
             self.cfg = None
             self.register_buffer("weight", w)
             return
-        if w.perm is not None:
-            raise NotImplementedError("act-order weights are a later slice")
         self.cfg = w.cfg
         self.n_planes = len(w.planes)
         for i, p in enumerate(w.planes):
             self.register_buffer("planes" if i == 0 else f"planes_{i}", p)
         self.register_buffer("scales", w.scales)
         self.register_buffer("zeros", w.zeros)
+        self.register_buffer("perm", w.perm)
 
     @property
     def qt(self) -> QTensor:
         planes = tuple(getattr(self, "planes" if i == 0 else f"planes_{i}")
                        for i in range(self.n_planes))
-        return QTensor(planes, self.scales, self.zeros, None, self.cfg)
+        return QTensor(planes, self.scales, self.zeros, self.perm, self.cfg)
 
     def forward(self, x: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         out_dtype = out_dtype or x.dtype
         if self.cfg is not None:
             return qmatmul(x, self.qt, out_dtype)
+        if out_dtype == torch.float32 and x.device.type == "cuda" \
+                and self.weight.dtype == torch.bfloat16:
+            # bf16 operands, f32 sums, one product: no f32 copy of the
+            # weight per call (an untied 32000-row lm_head would be 0.5 GB)
+            x2 = x.reshape(-1, x.shape[-1]).to(self.weight.dtype)
+            return torch.mm(x2, self.weight, out_dtype=torch.float32) \
+                .reshape(*x.shape[:-1], -1)
         if out_dtype == torch.float32:
             return x.to(torch.float32) @ self.weight.to(torch.float32)
         return torch.matmul(x.to(self.weight.dtype), self.weight).to(out_dtype)
@@ -99,21 +109,26 @@ class QLinear(nn.Module):
 
 class Block(nn.Module):
     """One decoder layer. ``weights`` maps the JAX names to QTensors (the
-    projections), tensors (norm weights and biases, projection biases) and,
-    for Gemma-2, the 0-d bool ``use_sliding`` flag."""
+    projections, or the fused ``wqkv`` / ``w_gateup`` of
+    ``fuse_layer_weights``, whose outputs are split after the product, as
+    in ``neural_tpu/models/transformer.py``), tensors (norm weights and
+    biases, projection biases) and, for Gemma-2, the 0-d bool
+    ``use_sliding`` flag."""
 
     def __init__(self, cfg: ModelConfig, weights: Dict[str, object]):
         super().__init__()
         self.cfg = cfg
-        for name in LINEARS:
+        for name in LINEARS + FUSED:
             if name in weights:
                 setattr(self, name, QLinear(weights[name]))
+        self.fused_qkv = "wqkv" in weights
+        self.fused_gateup = "w_gateup" in weights
         norms = ["attn_norm", "ffn_norm"]
         norms += ["post_attn_norm"] if cfg.post_attn_norm else []
         norms += ["post_ffn_norm"] if cfg.post_ffn_norm else []
         for name in norms:
             self.register_buffer(name + "_w", weights[name + "_w"])
-        for name in [n + "_b" for n in NORMS] + list(BIASES):
+        for name in [n + "_b" for n in NORMS] + list(BIASES + FUSED_BIASES):
             # a bias the family does not have is None: added nowhere
             self.register_buffer(name, weights.get(name))
         self.act = ACTS[cfg.act]
@@ -151,9 +166,13 @@ class Block(nn.Module):
         B, T, _ = x.shape
         Dh = cfg.head_dim
         h = self._norm(x, "attn_norm")
-        q = self._linear("wq", h).reshape(B, T, -1, Dh)
-        k = self._linear("wk", h).reshape(B, T, -1, Dh)
-        v = self._linear("wv", h).reshape(B, T, -1, Dh)
+        if self.fused_qkv:
+            qkv = self._linear("wqkv", h)
+            nq, nkv = cfg.n_heads * Dh, cfg.n_kv_heads * Dh
+            q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
+        else:
+            q, k, v = (self._linear(n, h) for n in ("wq", "wk", "wv"))
+        q, k, v = (t.reshape(B, T, -1, Dh) for t in (q, k, v))
         if cfg.rope_style == "glm1":
             q, k = apply_glm1(q, rope), apply_glm1(k, rope)
         elif rope is not None:
@@ -194,7 +213,11 @@ class Block(nn.Module):
         return x + mlp
 
     def _mlp(self, h):
-        if self.cfg.mlp_gated:
+        if self.fused_gateup:
+            gu = self._linear("w_gateup", h)
+            ng = gu.shape[-1] // 2
+            h = self.act(gu[..., :ng]) * gu[..., ng:]
+        elif self.cfg.mlp_gated:
             h = self.act(self._linear("w_gate", h)) * self._linear("w_up", h)
         else:
             h = self.act(self._linear("w_up", h))

@@ -153,15 +153,19 @@ _K1_ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
 K1_ENTRIES = ("qmm4_npack", "qmm2_npack", "qmm8_native")
 QMM4 = Kernel("qmm4_npack.cu", {
     fn + asym: _K1_ARGS for fn in K1_ENTRIES for asym in ("", "_asym")})
+# K2's entry points per weight layout: native-pack nibbles (int4, and int3
+# under the branch "int3"), native-pack int2 fields, int8 code planes
+K2_ENTRIES = ("qmm_a8", "qmm_a8_int2", "qmm_a8_int8")
 QMM_A8 = Kernel("qmm_a8.cu", {
     # x, x_f32, xq, sa, M, K, gd, stream
     "quantize_act_i8": [P, I, P, P, I, I, I, P],
     # xq, sa, planes, scales, out, M, K, N, gd, group, out_f32, stream
-    "qmm_a8": [P, P, P, P, P, I, I, I, I, I, I, P],
+    **{fn: [P, P, P, P, P, I, I, I, I, I, I, P] for fn in K2_ENTRIES},
     # xq, sa, planes, scales, zwp, xsa, out, M, K, N, gd, group, out_f32,
     # stream
-    "qmm_a8_asym": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-})
+    **{fn + "_asym": [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+       for fn in K2_ENTRIES},
+}, branches=("int3",))
 F = ctypes.c_float
 QMM_GENERAL = Kernel("qmm_general.cu", {
     # x, plane0, plane1, plane2, scales, zeros, lut, partial, out, M, K, N,
@@ -185,28 +189,50 @@ _DECODE_ARGS = [
     # n_split, head dim, scale (bf16) or scale / 127 (int8), softcap,
     # window, stream
     P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P]
+# decode's branches: ALiBi slopes, and more than 8 query heads per KV head
+# (the grid's groups of 8)
 FLASH_DECODE = Kernel("flash_decode.cu", {
     "flash_decode": _DECODE_ARGS, "flash_decode_i8": _DECODE_ARGS},
-    headers=("decode_attn.cuh",), branches=("alibi",))
+    headers=("decode_attn.cuh",), branches=("alibi", "G>8"))
 PAGED_DECODE = Kernel("paged_decode.cu", {
     "paged_decode": _DECODE_ARGS, "paged_decode_i8": _DECODE_ARGS},
-    headers=("decode_attn.cuh",), branches=("alibi",))
+    headers=("decode_attn.cuh",), branches=("alibi", "G>8"))
 
 KERNELS = (QMM4, QMM_A8, QMM_GENERAL, FLASH_PREFILL, FLASH_DECODE,
            PAGED_DECODE)
 
 
+class Routes:
+    """The torch-op routes the JAX package also computes outside any Pallas
+    kernel, counted beside the kernels' launches so that a run can tell
+    which of its products and attention calls took them: ``attend_xla``
+    (attention at a head dim that is not a multiple of 128, in
+    ``attend``), ``attend_xla_paged`` (the same in ``attend_paged``, after
+    the page gather) and ``act_order_gather`` (the gather of x by a GPTQ
+    act-order ``perm`` before a quantized product)."""
+
+    def __init__(self, names: Sequence[str]):
+        self.launches = {n: 0 for n in names}
+
+    def count(self, name: str):
+        self.launches[name] += 1
+
+
+ROUTES = Routes(("attend_xla", "attend_xla_paged", "act_order_gather"))
+COUNTED = KERNELS + (ROUTES,)
+
+
 def reset_launches():
-    """Set every launch count to 0."""
-    for k in KERNELS:
+    """Set every launch count, and every route count, to 0."""
+    for k in COUNTED:
         for fn in k.launches:
             k.launches[fn] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches per C function name (and ``name+branch``), over every
-    kernel source."""
-    return {fn: n for k in KERNELS for fn, n in k.launches.items()}
+    kernel source, and the count of each torch-op route."""
+    return {fn: n for k in COUNTED for fn, n in k.launches.items()}
 
 
 def capture(graph, fn):
@@ -223,7 +249,7 @@ def capture(graph, fn):
     return out, recorded
 
 
-_OWNER = {fn: k for k in KERNELS for fn in k.launches}
+_OWNER = {fn: k for k in COUNTED for fn in k.launches}
 
 
 def add_launches(recorded: Dict[str, int], times: int = 1):

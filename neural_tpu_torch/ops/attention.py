@@ -29,7 +29,12 @@ sees keys at ``pos >= length - window``, prefill keys at ``kv_pos > q_pos
 - window``); and, in prefill only, the GLM prefix-LM mask (``prefix_len``
 [B] int32, None = off; a row's 0 is off too): keys at ``kv_pos <
 prefix_len[b] - 1`` are visible to every query of row b. Decode needs no
-prefix mask: every key a decode step sees is already causal.
+prefix mask: every key a decode step sees is already causal. Any number
+of query heads per KV head.
+
+The dispatch :func:`attend` sends a head dim that is not a multiple of 128
+to :func:`attend_xla`, as the JAX package does; the kernels' wrappers take
+head dims 128 and 256 only.
 """
 from __future__ import annotations
 
@@ -210,12 +215,11 @@ def decode_launch(kernel, fn, q, k, v, k_scale, v_scale, table, lengths,
     the key capacity S, never from the fill or the window: the kernel reads
     the lengths on the device, and chunks past a row's fill or wholly below
     its window return at once, so the launch needs no host sync and can be
-    captured in a CUDA graph. A launch with ALiBi counts under
-    ``fn+alibi`` as well."""
+    captured in a CUDA graph. Any number of query heads per KV head: the
+    kernel takes them 8 at a time. A launch with ALiBi counts under
+    ``fn+alibi`` as well, one with more than 8 query heads per KV head
+    under ``fn+G>8``."""
     Hq, Dh = q.shape[1], q.shape[2]
-    if Hq // Hkv > 8:
-        raise ValueError(f"the decode kernels take at most 8 query heads per "
-                         f"KV head, got {Hq // Hkv}")
     _check_slopes(slopes, Hq)
     n_split = -(-S // DECODE_CHUNK)
     part_o = torch.empty((B * Hq, n_split, Dh), dtype=torch.float32,
@@ -229,7 +233,8 @@ def decode_launch(kernel, fn, q, k, v, k_scale, v_scale, table, lengths,
                 _cuda.ptr(part_o), _cuda.ptr(part_ml), _cuda.ptr(out), B, Hq,
                 Hkv, S, ps, maxp, n_split, Dh, float(qk_scale),
                 float(softcap), int(window), _cuda.stream_ptr(),
-                branches=() if slopes is None else ("alibi",))
+                branches=(() if slopes is None else ("alibi",))
+                + (("G>8",) if Hq // Hkv > 8 else ()))
     return out
 
 
@@ -444,14 +449,21 @@ def attend(q, k_cache, v_cache, positions, cfg, k_scale=None, v_scale=None,
     to K3, each in the variant of the cache's dtype, with the config's
     softcap, this layer's sliding ``window`` (a Python int, 0 = off), the
     ALiBi ``slopes`` [Hq] of an ALiBi config and, for a prefix-LM config's
-    prefill, the prompt lengths ``prefix_len`` [B]."""
+    prefill, the prompt lengths ``prefix_len`` [B]. A head dim that is not
+    a multiple of 128 goes to :func:`attend_xla`, torch ops, as the JAX
+    package's ``attend`` routes it (counted as the route
+    ``attend_xla``)."""
     B, T, Hq, Dh = q.shape
     slopes, prefix_len = attn_options(cfg, T, slopes, prefix_len)
-    opts = (attn_scale(cfg, Dh), cfg.attn_softcap, window, slopes)
     int8 = k_cache.dtype == torch.int8
     if int8 != (k_scale is not None):
         raise ValueError("an int8 KV cache comes with its scales, a bf16 one "
                          "without")
+    if Dh % 128:
+        _cuda.ROUTES.count("attend_xla")
+        return attend_xla(q, k_cache, v_cache, positions, cfg, k_scale,
+                          v_scale, window, slopes, prefix_len)
+    opts = (attn_scale(cfg, Dh), cfg.attn_softcap, window, slopes)
     if T == 1 and int8:
         out = flash_decode_i8(q[:, 0], k_cache, v_cache, k_scale, v_scale,
                               positions[:, 0] + 1, *opts)

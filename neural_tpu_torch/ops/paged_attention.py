@@ -11,7 +11,8 @@ dispatch and the page-pool writes (port of
   anywhere in the pool. The softcap, ALiBi and the window are K4's.
 - :func:`attend_paged`: T == 1 goes to K6; T > 1 gathers the slot's pages
   into a contiguous ``[B, Hkv, MAXP·ps, Dh]`` view and runs K3 over it, the
-  JAX package's own route for paged prefill. Unlike the JAX package's
+  JAX package's own route for paged prefill; a head dim that is not a
+  multiple of 128 gathers the pages for ``attend_xla`` at any T. Unlike the JAX package's
   ``attend_paged``, which takes no prefix bound (so its paged prefill of a
   prefix-LM model is causal), the GLM prefix mask reaches K3 here too.
 
@@ -23,8 +24,8 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .attention import (attn_options, attn_scale, check_head_dim,
-                        decode_launch, flash_decode_i8_plain,
+from .attention import (attend_xla, attn_options, attn_scale,
+                        check_head_dim, decode_launch, flash_decode_i8_plain,
                         flash_decode_plain, flash_prefill, flash_prefill_i8,
                         quantize_kv)
 
@@ -116,9 +117,19 @@ def attend_paged(q, k_pool, v_pool, k_scale, v_scale, table, positions, cfg,
     q [B, T, Hq, Dh]; positions [B, T]; the config's softcap, this layer's
     sliding ``window`` (0 = off), an ALiBi config's ``slopes`` [Hq] and a
     prefix-LM config's prompt lengths ``prefix_len`` [B] (prefill only) →
-    [B, T, Hq*Dh] f32."""
+    [B, T, Hq*Dh] f32. A head dim that is not a multiple of 128 gathers the
+    pages and takes :func:`~.attention.attend_xla`, at T == 1 too, as the
+    JAX package's ``attend_paged`` does (counted as the route
+    ``attend_xla_paged``)."""
     B, T, Hq, Dh = q.shape
     slopes, prefix_len = attn_options(cfg, T, slopes, prefix_len)
+    if Dh % 128:
+        _cuda.ROUTES.count("attend_xla_paged")
+        ks, vs = (None if s is None else gather_scales(s, table)
+                  for s in (k_scale, v_scale))
+        return attend_xla(q, gather_pages(k_pool, table),
+                          gather_pages(v_pool, table), positions, cfg, ks, vs,
+                          window, slopes, prefix_len)
     opts = (attn_scale(cfg, Dh), cfg.attn_softcap, window, slopes)
     if T == 1:
         lengths = positions[:, 0] + 1

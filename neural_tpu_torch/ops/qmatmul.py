@@ -12,9 +12,11 @@ stored (bit planes, nf4/fp4 indices, fp8; f32 or bf16 scales).
 - **K2** :func:`qmm_a8` (``csrc/qmm_a8.cu``) replaces ``_qmm_a8_kernel``:
   x is quantized per row and per ``gd`` K-group to sym int8, each group is
   an int8·int8→int32 dot, folded as ``acc += d · (sa_g ⊗ sw_g)`` in f32;
-  asymmetric weights start the accumulator at ``-(xsa @ zwp)``. The TPU
-  kernel quantizes x inside the kernel or in ``quantize_act_i8`` depending
-  on N; the two are bit-identical, so one port kernel serves both.
+  asymmetric weights start the accumulator at ``-(xsa @ zwp)``. The
+  weights are at rest: native-pack int4/int3 nibbles, int2 fields or int8
+  code planes (5-8 bit). The TPU kernel quantizes x inside the kernel or
+  in ``quantize_act_i8`` depending on N; the two are bit-identical, so one
+  port kernel serves both.
 - **K5** :func:`qmm_general` (``csrc/qmm_general.cu``) replaces
   ``_qmm_kernel``: every weight tile dequantized in f32 and rounded once to
   bf16, a bf16 × bf16 product with f32 accumulation, any M, every layout.
@@ -22,9 +24,16 @@ stored (bit planes, nf4/fp4 indices, fp8; f32 or bf16 scales).
 :func:`qmatmul` routes as the JAX package does (:func:`route`). Each
 wrapper takes its plain PyTorch version only for CPU tensors; on a CUDA
 tensor it launches the kernel or raises.
+
+Act-order weights (GPTQ ``perm``: stored row r is W's row perm[r]) take x
+gathered by the permutation, ``x[:, perm]``, before any of the kernels, as
+the JAX package's ``gathered`` does in XLA; the kernels read the stored row
+order, and the int8 path quantizes the gathered x, so its K-groups are the
+stored ones.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -82,7 +91,10 @@ def matmul_a8_ref(x: torch.Tensor, qt: QTensor, gd: int, dtype=None):
     *lead, K = x.shape
     x2 = x.reshape(-1, K)
     if qt.perm is not None:
-        raise NotImplementedError("act-order weights are a later slice")
+        # quantization groups follow the stored (act-order) row order, as
+        # on the kernel path
+        x2 = x2.index_select(1, qt.perm)
+        qt = dataclasses.replace(qt, perm=None)
     x_i8, sa = quantize_act_i8(x2, gd)
     xd = x_i8.to(torch.float32).reshape(-1, K // gd, gd) * sa[:, :, None]
     out = xd.reshape(-1, K) @ dequantize(qt, torch.float32)
@@ -201,16 +213,18 @@ def _a8_zero_terms(xq: torch.Tensor, sa: torch.Tensor, zeros: torch.Tensor,
 
 def qmm_a8_plain(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
                  group: int, gd: int, out_dtype: torch.dtype,
-                 zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of K2: int8 codes of x, int4 codes of W, one integer
-    dot per gd-group (exact in f32: |d| < 2^24), and the fold
+                 zeros: Optional[torch.Tensor] = None,
+                 bits: int = 4) -> torch.Tensor:
+    """Plain version of K2: int8 codes of x, the centered codes of W
+    (native-pack int2-4 fields of ``bits``, or an int8 code plane), one
+    integer dot per gd-group (exact in f32: |d| < 2^24), and the fold
     ``acc = acc + d * (sa_g * sw_g)`` in f32 in group order — the kernel's
     own order of operations. With zero-points the accumulator starts at
     ``-(xsa @ zwp)``."""
     M, K = x.shape
     N = planes.shape[1]
     xq, sa = quantize_act_i8(x, gd)
-    w = native_fields(planes, 4).to(torch.float32)
+    w = native_codes(planes, bits).to(torch.float32)
     sw = scales.to(torch.float32)
     r = max(group // gd, 1)
     if zeros is None:
@@ -227,16 +241,30 @@ def qmm_a8_plain(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
 
 def qmm_a8(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
            group: int, gd: int, out_dtype: torch.dtype,
-           zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K2: int8-activation GEMM over native-pack int4 weights, sym
-    (``qmm_a8``) or with bf16 zero-points (``qmm_a8_asym``). Two launches:
-    the activation quantization, then the int8 tensor-core GEMM with the
-    per-group f32 fold."""
+           zeros: Optional[torch.Tensor] = None,
+           bits: int = 4) -> torch.Tensor:
+    """K2: int8-activation GEMM over weights at rest, sym or with bf16
+    zero-points (the ``_asym`` entry points). The C entry point names the
+    layout: ``qmm_a8`` native-pack nibbles (int4; int3 also counts as
+    ``qmm_a8+int3``), ``qmm_a8_int2`` native-pack 2-bit fields,
+    ``qmm_a8_int8`` int8 code planes. Two launches: the activation
+    quantization, then the int8 tensor-core GEMM with the per-group f32
+    fold."""
     if x.device.type == "cpu":
-        return qmm_a8_plain(x, planes, scales, group, gd, out_dtype, zeros)
+        return qmm_a8_plain(x, planes, scales, group, gd, out_dtype, zeros,
+                            bits)
     M, K = x.shape
     N = planes.shape[1]
-    _cuda.check(planes, "planes", torch.uint8, (K // 2, N))
+    if planes.dtype == torch.int8:
+        fn, rows = "qmm_a8_int8", K
+    elif bits == 2:
+        fn, rows = "qmm_a8_int2", K // 4
+    elif bits in (3, 4):
+        fn, rows = "qmm_a8", K // 2
+    else:
+        raise ValueError(f"K2 reads native-pack int2-4 or int8 code planes, "
+                         f"got {planes.dtype} at {bits} bits")
+    _cuda.check(planes, "planes", planes.dtype, (rows, N))
     _cuda.check(scales, "scales", torch.bfloat16, (K // group, N))
     if gd % 128 or K % gd or group % gd or N % 128:
         raise ValueError(f"qmm_a8 needs gd % 128 == 0, K % gd == 0, "
@@ -248,16 +276,18 @@ def qmm_a8(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     tail = (M, K, N, gd, group, int(out_dtype == torch.float32),
             _cuda.stream_ptr())
+    branches = ("int3",) if bits == 3 and planes.dtype == torch.uint8 else ()
     if zeros is None:
-        _cuda.QMM_A8.call("qmm_a8", _cuda.ptr(xq), _cuda.ptr(sa),
+        _cuda.QMM_A8.call(fn, _cuda.ptr(xq), _cuda.ptr(sa),
                           _cuda.ptr(planes), _cuda.ptr(scales),
-                          _cuda.ptr(out), *tail)
+                          _cuda.ptr(out), *tail, branches=branches)
         return out
     _cuda.check(zeros, "zeros", torch.bfloat16, (K // group, N))
     xsa, zwp = _a8_zero_terms(xq, sa, zeros, scales, gd)
-    _cuda.QMM_A8.call("qmm_a8_asym", _cuda.ptr(xq), _cuda.ptr(sa),
+    _cuda.QMM_A8.call(fn + "_asym", _cuda.ptr(xq), _cuda.ptr(sa),
                       _cuda.ptr(planes), _cuda.ptr(scales), _cuda.ptr(zwp),
-                      _cuda.ptr(xsa), _cuda.ptr(out), *tail)
+                      _cuda.ptr(xsa), _cuda.ptr(out), *tail,
+                      branches=branches)
     return out
 
 
@@ -270,9 +300,8 @@ def dequant_bf16(qt: QTensor) -> torch.Tensor:
     """The weight as K5 multiplies it, [K, N] bf16: each element taken in
     f32 (code minus zero-point, table value, fp8 value or ±1), times its
     group's scale in f32, rounded once to bf16 — ``_dequant_tile``'s
-    rounding, which is :func:`dequantize`'s f32 value rounded to bf16."""
-    if qt.perm is not None:
-        raise NotImplementedError("act-order weights are a later slice")
+    rounding, which is :func:`dequantize`'s f32 value rounded to bf16 (in
+    W's row order: an act-order weight is un-permuted)."""
     return dequantize(qt, torch.float32).to(torch.bfloat16)
 
 
@@ -280,7 +309,9 @@ def qmm_general_plain(x: torch.Tensor, qt: QTensor,
                       out_dtype: torch.dtype) -> torch.Tensor:
     """Plain version of K5: x rounded to bf16 times :func:`dequant_bf16`,
     accumulated in f32 (the products of two bf16 values are exact in f32),
-    cast to ``out_dtype``."""
+    cast to ``out_dtype``. The weight's rows in their stored order, as the
+    kernel reads them: x of an act-order weight comes gathered."""
+    _check_no_perm(qt)
     xf = x.to(torch.bfloat16).to(torch.float32)
     return (xf @ dequant_bf16(qt).to(torch.float32)).to(out_dtype)
 
@@ -329,8 +360,7 @@ def qmm_general(x: torch.Tensor, qt: QTensor,
     f32 or bf16 scales; uint8, bf16 or f32 zero-points)."""
     if x.device.type == "cpu":
         return qmm_general_plain(x, qt, out_dtype)
-    if qt.perm is not None:
-        raise NotImplementedError("act-order weights are a later slice")
+    _check_no_perm(qt)
     x = x.to(torch.bfloat16).contiguous()
     _cuda.check(x, "x", torch.bfloat16)
     M, K = x.shape
@@ -407,35 +437,48 @@ def route(M: int, K: int, N: int, qt: QTensor) -> str:
     return "K5"
 
 
+def gather_act_order(x2: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """x [M, K] in W's row order → ``x[:, perm]``, the stored (act-order)
+    row order that the kernels read: one ``index_select``, as the JAX
+    package's ``gathered`` is one XLA gather outside the kernels; ``perm``
+    lives beside the weight on its device, so a CUDA-graph capture copies
+    nothing from the host. Counted as the route ``act_order_gather``."""
+    _cuda.ROUTES.count("act_order_gather")
+    return x2.index_select(1, perm)
+
+
+def _check_no_perm(qt: QTensor):
+    if qt.perm is not None:
+        raise ValueError("the kernels read the stored row order of an "
+                         "act-order weight: gather x by its perm first "
+                         "(qmatmul does)")
+
+
 def qmatmul(x: torch.Tensor, qt: QTensor,
             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x [..., K] @ W_q`` → ``[..., N]``, through the kernel
-    :func:`route` names. Act-order weights, and the int8-activation path
-    over weights that are not 4-bit, raise: later slices."""
+    :func:`route` names; an act-order weight first gathers x
+    (:func:`gather_act_order`)."""
     out_dtype = out_dtype or x.dtype
     cfg = qt.cfg
-    if qt.perm is not None:
-        raise NotImplementedError(
-            f"qmatmul({cfg.short_name()}): act-order weights (perm) are a "
-            "later slice")
     *lead, K = x.shape
     if K != qt.K:
         raise ValueError(f"x has K={K}, weight is {qt.shape}")
     x2 = x.reshape(-1, K)
+    if qt.perm is not None:
+        x2 = gather_act_order(x2, qt.perm)
+        qt = dataclasses.replace(qt, perm=None)
     M = x2.shape[0]
     kernel = route(M, K, qt.N, qt)
     if kernel == "K2":
-        if cfg.bits != 4:
-            raise NotImplementedError(
-                f"qmatmul({cfg.short_name()}) at M={M}: the int8-activation "
-                "path over weights that are not 4-bit is a later slice")
         if not is_native(qt):
             raise ValueError(
                 f"qmatmul({cfg.short_name()}) at M={M}: the int8-activation "
-                "path reads native-pack nibbles; convert the weight once "
-                "with runtime.generate.params_to_native")
+                "path reads weights at rest; convert the weight once with "
+                "runtime.generate.params_to_native")
         out = qmm_a8(x2, qt.planes[0], qt.scales, qt.group_size,
-                     _pick_a8(M, K, qt.N, qt), out_dtype, qt.zeros)
+                     _pick_a8(M, K, qt.N, qt), out_dtype, qt.zeros,
+                     cfg.bits)
     elif kernel == "K1":
         out = qmm_native(x2, qt.planes[0], qt.scales, qt.zeros,
                          qt.group_size, cfg.bits, out_dtype)

@@ -1,7 +1,7 @@
 """Position encodings (port of ``neural_tpu/ops/rope.py``: the frequency
-table, unscaled or with the "llama3" scaling; the NeoX-style rotation
-Llama uses; ChatGLM-1's 2-D GLM rotation; the ALiBi slopes of Bloom and
-MPT).
+table, unscaled or with any of the JAX package's scalings; the NeoX-style
+rotation Llama uses; ChatGLM-1's 2-D GLM rotation; the ALiBi slopes of
+Bloom and MPT).
 
 Conventions: q/k are [..., T, H, Dh]; ``positions`` is [..., T] int.
 """
@@ -17,14 +17,31 @@ def rope_freqs(head_dim: int, rope_dim: Optional[int], theta: float,
                scaling: Optional[dict] = None,
                max_seq_len: Optional[int] = None) -> np.ndarray:
     """Per-pair inverse frequencies [rope_dim//2] (host-side constant),
-    computed in float64 and stored as float32 like the JAX table.
-    ``max_seq_len`` is accepted for signature parity; the scalings ported
-    here do not read it."""
+    computed in float64 and stored as float32 like the JAX table, with
+    every scaling the JAX package has: "linear", "longrope"/"su", its
+    simplified "yarn" (no mscale), "llama3" and "dynamic" NTK.
+    ``max_seq_len``: the context length the table must serve, which the
+    "dynamic" kind reads; the others ignore it."""
     d = rope_dim or head_dim
     inv = 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float64) / d))
     if scaling:
         kind = scaling.get("type", scaling.get("rope_type", "linear"))
-        if kind == "llama3":
+        if kind == "linear":
+            inv = inv / scaling["factor"]
+        elif kind in ("longrope", "su"):
+            # Phi-3 longrope: per-dim rescale factors (the long set)
+            inv = inv / np.asarray(scaling["long_factor"], np.float64)
+        elif kind == "yarn":
+            # the simplified yarn: low-frequency dims interpolated by factor
+            factor = scaling["factor"]
+            orig = scaling.get("original_max_position_embeddings", 4096)
+            low = scaling.get("beta_fast", 32)
+            high = scaling.get("beta_slow", 1)
+            wavelen = 2 * np.pi / inv
+            ramp = np.clip((wavelen - orig / high)
+                           / (orig / low - orig / high), 0, 1)
+            inv = inv / (factor * ramp + (1 - ramp))
+        elif kind == "llama3":
             # Llama-3.1 band scaling: long wavelengths divided by factor,
             # short kept, a smooth band between low/high_freq_factor
             factor = scaling["factor"]
@@ -35,9 +52,21 @@ def rope_freqs(head_dim: int, rope_dim: Optional[int], theta: float,
             smooth = np.clip((orig / wavelen - lo_f) / (hi_f - lo_f), 0, 1)
             inv = np.where(wavelen < orig / hi_f, inv,
                            (1 - smooth) * inv / factor + smooth * inv)
+        elif kind == "dynamic":
+            # NTK "dynamic", evaluated once for the table's serving length:
+            # theta grows only when max_seq_len passes the trained window
+            orig = (scaling.get("original_max_position_embeddings")
+                    or scaling.get("max_position_embeddings")
+                    or max_seq_len or 4096)
+            target = max(max_seq_len or orig, orig)
+            factor = scaling.get("factor", 1.0)
+            alpha = (factor * target / orig) - (factor - 1)
+            if target > orig and alpha > 1.0:
+                theta_d = theta * alpha ** (d / max(d - 2, 1))
+                inv = 1.0 / (theta_d **
+                             (np.arange(0, d, 2, dtype=np.float64) / d))
         else:
-            raise NotImplementedError(
-                f"rope scaling {kind!r} is not ported yet (model zoo slice)")
+            raise ValueError(f"unknown rope scaling {kind}")
     return inv.astype(np.float32)
 
 

@@ -41,6 +41,52 @@ def params_to_native(params):
     return params
 
 
+def fuse_layer_weights(params, cfg: ModelConfig):
+    """Concatenate each layer's q/k/v and gate/up projections along N into
+    ``wqkv`` / ``w_gateup`` (with ``bqkv`` / ``b_gateup``), once at load, by
+    the rule of the JAX package's ``fuse_layer_weights``: only QTensors of
+    one config, all plain or all act-order with identical perms (the GPTQ
+    same-Hessian case, where the fused product gathers x once instead of
+    three or two times), q/k/v of the config's widths, and biases all
+    present or all absent; other layers stay as they are. ``params``: the
+    param dict, its ``layers`` a list of per-layer dicts."""
+    from ..core.qtensor import concat_n
+
+    def fusable(ts, n_ok):
+        if not all(isinstance(t, QTensor) for t in ts) or not n_ok(ts):
+            return False
+        if len({t.cfg for t in ts}) != 1:
+            return False
+        if all(t.perm is None for t in ts):
+            return True
+        return all(t.perm is not None and torch.equal(t.perm, ts[0].perm)
+                   for t in ts)
+
+    def fuse(lp, names, biases, fused, fused_b, n_ok):
+        ts = [lp.get(k) for k in names]
+        bs = [lp.get(k) for k in biases]
+        if not fusable(ts, n_ok) or len({b is None for b in bs}) != 1:
+            return
+        lp[fused] = concat_n(ts)
+        if bs[0] is not None:
+            lp[fused_b] = torch.cat(bs, dim=-1)
+        for k in names + biases:
+            lp.pop(k, None)
+
+    if cfg.is_moe:
+        return params
+    q_n, kv_n = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    layers = []
+    for lp in params["layers"]:
+        lp = dict(lp)
+        fuse(lp, ("wq", "wk", "wv"), ("bq", "bk", "bv"), "wqkv", "bqkv",
+             lambda ts: ts[0].N == q_n and ts[1].N == kv_n)
+        fuse(lp, ("w_gate", "w_up"), ("b_gate", "b_up"), "w_gateup",
+             "b_gateup", lambda ts: ts[0].N == ts[1].N)
+        layers.append(lp)
+    return dict(params, layers=layers)
+
+
 @torch.inference_mode()
 def model_step(model: Transformer, tokens: torch.Tensor, start: torch.Tensor,
                cache: KVCache,

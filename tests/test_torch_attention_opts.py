@@ -298,12 +298,17 @@ def test_attend_paged_prefill_window_matches_jax(int8, sliding):
 
 def test_head_dims_outside_the_kernels_raise():
     """The wrappers take head dims 128 and 256 on the card; the plain
-    versions take any. On the CPU the dispatch runs at head dim 64. An
-    ALiBi config without its slopes is refused."""
+    versions take any. The dispatch sends head dim 64 to ``attend_xla``, as
+    the JAX package does, on the CPU and the card alike. An ALiBi config
+    without its slopes is refused."""
     q, k, _, v, _ = _inputs(1, 64, False, seed=1)
-    _, cfg = _cfgs(64, 0, softcap=0.0)
+    jcfg, cfg = _cfgs(64, 0, softcap=0.0)
     out = attend(_t(q), _t(k), _t(v), torch.tensor([[9]]), cfg)
     assert out.shape == (B, 1, HQ * 64)
+    ref = jattend_xla(jnp.asarray(q), _j(k), _j(v), None, None,
+                      jnp.asarray([[9]]), jcfg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=ATOL)
     check_head_dim(256)
     with pytest.raises(ValueError, match="head_dim"):
         check_head_dim(64)

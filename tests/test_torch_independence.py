@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``neural_tpu_torch`` (and the imports of
-``chip_smoke.py``) pulls in no JAX, no ``neural_tpu`` and no transformers —
-the machine with the card has none of them."""
+"""The port stands alone: importing ``neural_tpu_torch`` and its modules
+(and the imports of ``chip_smoke.py``) pulls in no JAX, no ``neural_tpu``,
+no transformers and no safetensors — the machine with the card has none of
+them; the port reads checkpoint files itself (``convert/files.py``)."""
 import ast
 import pathlib
 import subprocess
@@ -9,7 +10,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-BANNED = ("jax", "jaxlib", "ml_dtypes", "neural_tpu", "transformers")
+BANNED = ("jax", "jaxlib", "ml_dtypes", "neural_tpu", "transformers",
+          "safetensors")
 
 PROBE = """
 import sys
@@ -22,7 +24,10 @@ print(",".join(hit))
 """
 
 
-@pytest.mark.parametrize("module", ["neural_tpu_torch", "chip_smoke"])
+@pytest.mark.parametrize("module", [
+    "neural_tpu_torch", "chip_smoke", "neural_tpu_torch.convert.gptq",
+    "neural_tpu_torch.convert.files", "neural_tpu_torch.convert.lora",
+    "neural_tpu_torch.convert.quant_registry", "neural_tpu_torch.api"])
 def test_import_pulls_in_nothing_banned(module):
     out = subprocess.run(
         [sys.executable, "-c", PROBE.format(root=str(ROOT), module=module,

@@ -161,13 +161,20 @@ def test_dispatch_a8_matches_jax_oracle():
 
 
 def test_dispatch_rejects_what_this_slice_does_not_run():
-    """Act-order weights, the mixed presets and the int8-activation path
-    over weights that are not 4-bit raise; the stored layouts, bf16
-    activations at any M and asymmetric weights are taken. The int8-
-    activation path takes only weights converted to the at-rest layout."""
+    """What the dispatch once refused now runs as the JAX package runs it:
+    an act-order weight gathers x by its perm first (JAX's ``gathered``),
+    a mixed preset's name gives its registry (JAX's rules), and the
+    int8-activation path takes int8 code planes at rest (JAX's
+    ``matmul_a8_ref`` on the CPU). What still raises: the int8-activation
+    path over a weight not at rest. The stored layouts, bf16 activations
+    at any M and asymmetric weights are taken."""
     import dataclasses
+    from neural_tpu.api import quant_config_from_args as jqcfa
+    from neural_tpu.core.dtypes import QuantConfig as JQC
+    from neural_tpu.core.qtensor import to_native as jto_native
     from neural_tpu_torch.api import quant_config_from_args
     from neural_tpu_torch.core.dtypes import QuantConfig
+    from neural_tpu_torch.core.qtensor import to_native
     rng = torch.Generator().manual_seed(0)
     w = torch.randn(256, 128, generator=rng)
     packed = quantize(w, PRESETS["q4_j"])
@@ -179,12 +186,31 @@ def test_dispatch_rejects_what_this_slice_does_not_run():
     assert qmatmul(torch.randn(300, 256), act16).shape == (300, 128)
     asym = to_native_packed(quantize(w, PRESETS["q4_1"]))
     assert qmatmul(torch.randn(2, 256), asym).shape == (2, 128)
-    perm = dataclasses.replace(act16, perm=torch.arange(256).flip(0))
-    with pytest.raises(NotImplementedError):
-        qmatmul(torch.randn(2, 256), perm)              # act-order: later
-    with pytest.raises(NotImplementedError):
-        quant_config_from_args("mix_int2_int4")        # mixed presets: later
+    # act-order: the same as the gathered x through the weight without perm
+    jnpk, _ = _weights(256, 128, seed=5, preset="q4_0")
+    perm = np.random.default_rng(1).permutation(256).astype(np.int32)
+    jperm = dataclasses.replace(jnpk, perm=jnp.asarray(perm))
+    qperm = qtensor_from_numpy(jax_qtensor_to_numpy(jperm), "cpu")
+    x = _x(2, 256, seed=6)
+    ref = jqmatmul_native(jnp.asarray(x)[:, perm], jnpk,
+                          out_dtype=jnp.float32)
+    _close(qmatmul(torch.from_numpy(x), qperm, torch.float32).numpy(), ref,
+           1e-2)
+    # mixed presets: the registry, with JAX's rules
+    reg, jreg = quant_config_from_args("mix_int2_int4"), jqcfa("mix_int2_int4")
+    assert [(p, c.__dict__) for p, c in reg.rules] == \
+        [(p, c.__dict__) for p, c in jreg.rules]
+    # a8 over int8 code planes: at rest it takes K2, as JAX's oracle
     a8_int8 = quantize(w, QuantConfig(bits=8, group_size=128, act_bits=8))
     assert qmatmul(torch.randn(2, 256), a8_int8).shape == (2, 128)
-    with pytest.raises(NotImplementedError):
-        qmatmul(torch.randn(300, 256), a8_int8)     # a8 over int8: later
+    with pytest.raises(ValueError):
+        qmatmul(torch.randn(300, 256), a8_int8)     # not at rest: refused
+    jq8 = jto_native(jquantize(jnp.asarray(w.numpy()),
+                               JQC(bits=8, group_size=128, act_bits=8)))
+    q8 = qtensor_from_numpy(jax_qtensor_to_numpy(jq8), "cpu")
+    assert q8.planes[0].dtype == torch.int8
+    assert torch.equal(to_native(a8_int8).planes[0], q8.planes[0])
+    xb = jnp.asarray(_x(300, 256, seed=7), jnp.bfloat16)
+    ref8 = jmatmul_a8_ref(xb, jq8, 128, dtype=jnp.float32)
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).bfloat16()
+    _close(qmatmul(xt, q8, torch.float32).numpy(), ref8, 1e-5)

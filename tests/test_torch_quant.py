@@ -160,8 +160,13 @@ def test_quant_config_from_args_equals_jax(kw):
 
 
 def test_quant_config_from_args_rejects():
-    with pytest.raises(NotImplementedError):
-        quant_config_from_args("mix_int2_int4")
+    """An unknown name still raises; a mixed preset's name, refused before
+    the registry was ported, gives the JAX package's registry."""
+    reg, jreg = (quant_config_from_args("mix_int2_int4"),
+                 jquant_config_from_args("mix_int2_int4"))
+    assert [(p, c.__dict__) for p, c in reg.rules] == \
+        [(p, c.__dict__) for p, c in jreg.rules]
+    assert reg.default.__dict__ == jreg.default.__dict__
     with pytest.raises(ValueError):
         quant_config_from_args("int9x")
     cfg = QuantConfig(bits=3)
