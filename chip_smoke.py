@@ -29,7 +29,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    K5 (nf4 at M=1 and 1975, q4_0 at 1975, q4_j at 128, 64, 32 and 24,
    fp4, fp8 e4m3/e5m2, int1 and bit-plane int3 asym at 1), K1's other
    entry points (asym nibbles, int2 and int8 codes, sym and asym) at M=1
-   and 8, and K2-asym at 1975, the same way;
+   and 8, and K2-asym at 1975, the same way; K1's fusion options (the
+   RMS-norm and glu prologues, the residual epilogue) at M=1 and 8 over
+   the three sym layouts, at the 7B's widths and at Gemma-2-9B's with the
+   (1 + w) norm and tanh GELU, each also timed against the unfused chain
+   it replaces (the port's ``rms_norm`` / ``act(g) * u`` / bf16 add and
+   K1);
 4. generation: a Llama-2-7B-shaped q4_j model (random weights from a seed,
    FFN 11008 padded to 11264) generates greedily through ``Model.generate``
    with bf16 and with int8 KV, every launch count set to 0 just before each
@@ -37,7 +42,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps; decode ms/token (slope of ``decode_loop`` n=4 vs n=36) at fills
    128 and 1975 (bf16 KV), at fill 1975 with int8 KV (leg decode_i8kv) and
    at batch 8, fill 128, int8 KV (leg batch8); the 1975-token prefill time
-   (TTFT) with bf16 and int8 KV; then (4b) the same model at nf4, q4_0 and
+   (TTFT) with bf16 and int8 KV; the fused decode path's A/B on the same
+   model: ``Model.generate`` and ``decode_loop`` unfused, fused and fused
+   with GLU (``NTPU_FUSED_DECODE``, ``NTPU_FUSE_GLU``), ids against the
+   unfused ones where the margin proves them, every K1 launch of a fused
+   step through a fused entry point; the decode step's CUDA graph at fills
+   128 and 1975, bf16 and int8 KV, and at batch 8, each captured in the
+   three modes and replayed in turns, device-timed; the host-clock legs
+   and the TTFT by mode; then (4b) the same model at nf4, q4_0 and
    q4_j_i8_g128, one at a time: ``Model.generate``, the TTFT and decode
    ms/token at fill 128, each a path with its own launch counts; then
    (4c) Gemma-2-9B at full depth, q4_j (random weights from a seed):
@@ -51,18 +63,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    6's 12 queries, and a short paged bf16 run; (4e) ChatGLM-6B at full
    depth (``THUDM/chatglm-6b``'s config): ``Model.generate`` with bf16 and
    int8 KV, decode at fill 128, TTFT at 1975 tokens, all of it the prefix;
-5. card vs plain: a 2-layer copy at the same width runs its prefill logits
+5. card vs plain: a one-layer copy at the same width runs its prefill logits
    and greedy steps through the kernels on the card and through the plain
-   path on the CPU; then the same through the Scheduler (paged int8 KV,
-   batch 4, 6 requests); then, for fp4, fp8, fp8_e5m2, int1, int2, int2
-   asym, int3, int5, int5 asym, q8_0 and int8 (per channel),
+   path on the CPU, and the card's fused path (with and without GLU)
+   against the same CPU rows; then the same through the Scheduler (paged
+   int8 KV, batch 4, 6 requests); then, for fp4, fp8, fp8_e5m2, int1,
+   int2, int2 asym, int3, int5, int5 asym, q8_0 and int8 (per channel),
    ``Model.generate`` on the card (a
    path each) and its logits against the plain path; logits within
    tolerance, greedy ids equal where the margin proves it (the formats'
    copies have one layer); (5b) a 2-layer
    Gemma-2-9B copy with its window cut to 32 (so that it acts on every
    prompt there): ``Model.generate`` on the card, its logits against the
-   plain path, and the paged int8 Scheduler check; (5c) 2-layer full-width
+   plain path, and the paged int8 Scheduler check; (5c) one-layer full-width
    copies of Bloom-7B1, MPT-7B and ChatGLM-6B (100-token prompts, bf16
    activations, tolerance 2e-2·max|logit|) the same way, and the paged
    int8 Scheduler check on the Bloom copy;
@@ -71,10 +84,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``params_from_gptq_state_dict``): ``Model.generate`` with bf16 and
    int8 KV, decode at fills 128 and 1975, TTFT at 1975 tokens with bf16
    and int8 KV, peak memory, the act-order gather timed alone; (4g)
-   Llama-2-7B at q6_sym_g128_a8 and mix_i2_ffn as phase 4b's formats;
+   Llama-2-7B at q6_sym_g128_a8 and mix_i2_ffn as phase 4b's formats,
+   each also generating with the fused path and GLU on;
    (4h) TinyLlama-1.1B (head dim 64: ``attend_xla``, no K3/K4/K6 launch)
    through ``Model.generate``, the paged int8 Scheduler, decode at fill
-   128, TTFT; (5d) 2-layer copies against the CPU plain path: Mistral
+   128, TTFT; (5d) one-layer copies against the CPU plain path: Mistral
    GPTQ (``Model.generate``, the paged int8 Scheduler, and the copy
    written as a checkpoint directory and loaded with ``Model.init(dir,
    use_gptq=True)``), AWQ, mix_int2_int4, every K2 layout at act_bits 8,
@@ -87,13 +101,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    max_len=2048, kv_mode="paged", page_size=256, memory_dtype="int8")``
    answers 12 queries (prompts of 32-1500 tokens, 32 new tokens each) with
    launch counts; the graphed decode step against the same steps run
-   eagerly (ids and pool bytes); short slots-mode bf16 and paged bf16 runs;
+   eagerly (ids and pool bytes), also with the fused path on (with and
+   without GLU, the graph's K1 launches all fused); short slots-mode bf16
+   and paged bf16 runs;
    aggregate tok/s, decode-iteration ms at 8 running slots, TTFT.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 no CUDA device is present.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -127,12 +144,15 @@ from neural_tpu_torch.ops import _cuda  # noqa: E402
 from neural_tpu_torch.ops import attention as A  # noqa: E402
 from neural_tpu_torch.ops import paged_attention as PA  # noqa: E402
 from neural_tpu_torch.ops import qmatmul as Q  # noqa: E402
+from neural_tpu_torch.ops.norms import rms_norm  # noqa: E402
 from neural_tpu_torch.ops.rope import alibi_slopes, rope_freqs  # noqa: E402
-from neural_tpu_torch.runtime.generate import (decode_loop,  # noqa: E402
+from neural_tpu_torch.runtime.generate import (_StepGraph,  # noqa: E402
+                                               decode_loop,
                                                greedy_generate, model_step,
                                                prefill_step)
 from neural_tpu_torch.runtime.kvcache import init_cache  # noqa: E402
-from neural_tpu_torch.runtime.sampling import SamplingParams  # noqa: E402
+from neural_tpu_torch.runtime.sampling import (  # noqa: E402
+    SamplingParams, apply_penalties, token_counts)
 from neural_tpu_torch.serving import (ModelServer, Query,  # noqa: E402
                                       Scheduler)
 
@@ -150,6 +170,11 @@ CFG = ModelConfig(arch="llama", vocab_size=V, hidden_size=D, n_layers=L,
                   intermediate_size=11008, norm_eps=1e-5, rope_theta=10000.0,
                   max_seq_len=4096)
 DEV = "cuda"
+# The depth of the copies held against the CPU's plain path (phases 5, 5c
+# and 5d): one layer runs every kernel and branch of a copy, and the plain
+# path's CPU time, most of the script's, grows with each layer. Gemma-2's
+# copy (5b) keeps two: a sliding and a global layer.
+COPY_LAYERS = 1
 
 
 def log(*a):
@@ -218,6 +243,14 @@ def bound_ms_s(nbytes, op_seconds):
 LAUNCHES = {}   # path name -> launch counts of that path's run
 
 
+# a sym K1 entry point a path requires is also met by its fused twin: the
+# fused decode path, which this script turns on for every phase (``main``),
+# takes the decode steps' products there (the plain entries are required on
+# the explicitly unfused paths, and every entry of the kernels line on some
+# path)
+FUSED_TWIN = {fn: fn + "_fused" for fn in _cuda.K1_ENTRIES}
+
+
 def run_path(name, required, fn):
     """Drive one main path with every launch count set to 0 just before and
     read just after; fail if a kernel of the path was never launched."""
@@ -226,12 +259,62 @@ def run_path(name, required, fn):
     torch.cuda.synchronize()
     counts = _cuda.launch_counts()
     LAUNCHES[name] = counts
-    missing = [k for k in required if counts[k] == 0]
+    missing = [k for k in required
+               if counts[k] == 0 and counts.get(FUSED_TWIN.get(k), 0) == 0]
     log(f"path {name}: launches {counts}")
     if missing:
         raise AssertionError(f"kernels not launched on path {name}: "
                              f"{missing}")
     return out
+
+
+# The fusion switches of K1's fused decode path (``models/transformer.py
+# fuse_mode``), each leg of phase 4's A/B: (name, NTPU_FUSED_DECODE,
+# NTPU_FUSE_GLU)
+UNFUSED, FUSED, FUSED_GLU = MODES = (("unfused", "0", "0"),
+                                     ("fused", "1", "0"),
+                                     ("fused_glu", "1", "1"))
+
+
+@contextlib.contextmanager
+def fusion(mode):
+    """Run the block under the switches of ``mode``; the model reads them
+    at each forward call, so a capture inside records that path."""
+    keys = ("NTPU_FUSED_DECODE", "NTPU_FUSE_GLU")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update(zip(keys, mode[1:]))
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def k1_step_launches(mode, n_layers=L):
+    """K1's launches in one decode step of a Llama-shaped q4_j model (7
+    products a layer and the lm_head) under ``mode``: every one through a
+    fused entry point when the fusion is on (q/k/v and gate/up ``+rms``,
+    wo and w_down ``+res``, the lm_head ``+rms``; w_down ``+glu`` too with
+    GLU), none when it is off."""
+    n = 7 * n_layers + 1
+    if mode is UNFUSED:
+        return {"qmm4_npack": n, "qmm4_npack_fused": 0}
+    return {"qmm4_npack": 0, "qmm4_npack_fused": n,
+            "qmm4_npack_fused+rms": 5 * n_layers + 1,
+            "qmm4_npack_fused+res": 2 * n_layers,
+            "qmm4_npack_fused+glu": n_layers if mode is FUSED_GLU else 0}
+
+
+def check_step_launches(recorded, mode, what, n_layers=L):
+    """A captured decode step's K1 launches are those of ``mode``."""
+    want = k1_step_launches(mode, n_layers)
+    got = {k: recorded.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{what} ({mode[0]}): K1 launches {got}, "
+                             f"expected {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -496,6 +579,159 @@ def check_k1_branches(gen, results):
             f"{fmt} {what}": _case(gen, f"{fmt} {what}", cfg, M,
                                    PROJ + LM_HEAD, k1, pl, entry, BF16_FLOPS)
             for M, what in ((1, "decode step"), (8, "batch-8 step"))})
+        torch.cuda.empty_cache()
+
+
+# K1's fusion options on a decode step (``qmatmul_fused``): the products
+# whose input the RMS norm prologue makes (q/k/v, gate/up, the lm_head),
+# those whose output takes the residual (wo, w_down), and w_down with the
+# gated activation in its prologue too (NTPU_FUSE_GLU=1); Gemma-2-9B's
+# widths with the (1 + w) norm and tanh GELU
+RMS_PROJ = [(D, D, 3 * L), (D, I_PAD, 2 * L)] + LM_HEAD
+RES_PROJ = [(D, D, L), (I_PAD, D, L)]
+GLU_PROJ = [(I_PAD, D, L)]
+G2_RMS_PROJ = [(3584, 4096, 42), (3584, 2048, 84), (3584, 14336, 84)]
+G2_GLU_PROJ = [(14336, 3584, 42)]
+# a prologue element that rounds to the neighbouring bf16 value (the
+# card's rsqrtf, expf and tanhf against torch's, sums in another order)
+# moves an f32 output by |w|·2^-8|h|, about 1e-4·max|out| at these widths:
+# f32 outputs are held to 1e-3·max|ref|, bf16 ones to one rounding more,
+# 1e-2 as K1's
+FUSED_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+
+
+def _unfused_chain(x, u, nw, offset, act, res, qt, odt):
+    """What the graph runs without the fusion: the port's ``rms_norm`` or
+    ``act(g) * u`` in bf16, K1, the bf16 residual add."""
+    h = x
+    if u is not None:
+        h = Q.ACTS[act](x) * u
+    if nw is not None:
+        h = rms_norm(h, nw, 1e-5, offset)
+    out = Q.qmm_native(h, qt.planes[0], qt.scales, None, qt.group_size,
+                       qt.cfg.bits, odt)
+    return out if res is None else out + res
+
+
+def _fused_case(gen, label, cfg, M, shapes, entry, offset=None, act=None,
+                res=False):
+    """One fusion option of K1 at one M over ``shapes`` (K, N, products per
+    step): the wrapper against its plain version on the same CUDA tensors
+    (x the raw residual stream for rms, the gate input for glu), checking
+    that ``entry`` and its option branches were launched; its time, the
+    plain version's, the unfused chain's on the card (the yardstick this
+    fusion replaces), one bf16 ``torch.matmul`` on the dequantized weight,
+    and the bound: the unfused K1 bound plus the bytes of u, the norm
+    weight and the residual. The lm_head (N = V) writes f32 logits with an
+    f32 norm weight (the model's final norm), the rest bf16 with a bf16
+    one (a layer's)."""
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, chain_ms=0.0,
+               bound_ms=0.0, err=0.0)
+    bound_by = {"bytes": 0.0, "operations": 0.0}
+    branches = [b for b, on in (("rms", offset is not None),
+                                ("glu", act is not None), ("res", res)) if on]
+    for K, N, count in shapes:
+        odt = torch.float32 if N == V else torch.bfloat16
+        qt = to_native(quantize(
+            torch.randn((K, N), generator=gen, device=DEV) * 0.02, cfg))
+        wbytes = _qt_bytes(qt)
+        qts = [qt] + [_qt_copy(qt) for _ in range(_copies(wbytes) - 1)]
+        x = torch.randn((M, K), generator=gen, device=DEV).bfloat16()
+        u = torch.randn((M, K), generator=gen, device=DEV).bfloat16() \
+            if act else None
+        nw = None
+        if offset is not None:
+            nw = (1 + 0.3 * torch.randn(K, generator=gen, device=DEV)).to(
+                odt)
+        r = torch.randn((M, N), generator=gen, device=DEV).bfloat16() \
+            if res else None
+        fuse = dict(norm=None if nw is None else (nw, 1e-5, offset), u=u,
+                    act=act, res=r)
+        fn = lambda q: Q.qmm_native_fused(x, q.planes[0], q.scales,
+                                          q.group_size, q.cfg.bits, odt,
+                                          **fuse)
+        names = [entry] + [f"{entry}+{b}" for b in branches]
+        before = _cuda.launch_counts()
+        out = fn(qt)
+        after = _cuda.launch_counts()
+        if any(after[n] != before[n] + 1 for n in names):
+            raise AssertionError(f"{label} {K}x{N}: {names} not launched")
+        ref = Q.qmm_native_fused_plain(x, qt.planes[0], qt.scales,
+                                       qt.group_size, qt.cfg.bits, odt,
+                                       **fuse)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = FUSED_TOL[odt] * ref.float().abs().max().item()
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"{label} {K}x{N}: max err {err} > tol {tol}")
+        ms = time_ms([lambda q=q: fn(q) for q in qts])
+        pms = time_ms([lambda: Q.qmm_native_fused_plain(
+            x, qt.planes[0], qt.scales, qt.group_size, qt.cfg.bits, odt,
+            **fuse)], reps=5)
+        cms = time_ms([lambda q=q: _unfused_chain(x, u, nw, offset, act, r,
+                                                  q, odt) for q in qts])
+        wd = Q.dequant_bf16(qt)
+        wds = [wd] + [wd.clone() for _ in range(_copies(K * N * 2) - 1)]
+        lms = time_ms([lambda w=w: torch.matmul(x, w) for w in wds])
+        del wds, wd, qts
+        extra = (0 if u is None else M * K * 2) \
+            + (0 if nw is None else K * nw.element_size()) \
+            + (0 if r is None else M * N * 2)
+        bnd, by = bound_ms(wbytes + M * K * 2 + extra + M * N * odt.itemsize,
+                           2 * M * K * N, BF16_FLOPS)
+        bound_by[by] += count * bnd
+        log(f"{label} {'+'.join([entry] + branches)} M={M} {K}x{N} "
+            f"x{count}/step: err {err:.3g} (tol {tol:.3g}) | kernel "
+            f"{ms:.4f} ms, unfused chain {cms:.4f} ms, plain {pms:.3f} ms, "
+            f"torch.matmul bf16 {lms:.4f} ms, bound {bnd:.4f} ms ({by})")
+        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                     ("chain_ms", cms), ("bound_ms", bnd)):
+            agg[k] += count * v
+        agg["err"] = max(agg["err"], err)
+    n = sum(count for _, _, count in shapes)
+    agg.update(bound_by=max(bound_by, key=bound_by.get),
+               per=f"{label} at M={M} ({n} launches)")
+    log(f"{label} at M={M}, per step: kernel {agg['ms']:.4f} ms against the "
+        f"unfused chain's {agg['chain_ms']:.4f} ms; bound "
+        f"{agg['bound_ms']:.4f} ms ({agg['bound_by']}), plain "
+        f"{agg['plain_ms']:.3f} ms, torch.matmul {agg['library_ms']:.4f} ms")
+    return agg
+
+
+# (results key, C entry point, format, shapes and options of each case)
+K1_FUSED_CHECKS = (
+    ("K1_rms", "qmm4_npack_fused", "q4_j", (
+        ("q4_j rms, decode step", RMS_PROJ, dict(offset=0.0)),
+        ("gemma2 q4_j rms (1 + w), decode step", G2_RMS_PROJ,
+         dict(offset=1.0)))),
+    ("K1_res", "qmm4_npack_fused", "q4_j", (
+        ("q4_j res, decode step", RES_PROJ, dict(res=True)),)),
+    ("K1_glu", "qmm4_npack_fused", "q4_j", (
+        ("q4_j glu silu + res, decode step", GLU_PROJ,
+         dict(act="silu", res=True)),
+        ("gemma2 q4_j glu gelu_tanh + res, decode step", G2_GLU_PROJ,
+         dict(act="gelu_tanh", res=True)))),
+    ("K1_int2_fused", "qmm2_npack_fused", "int2", (
+        ("int2 rms, gate/up", [(D, I_PAD, 2 * L)], dict(offset=0.0)),
+        ("int2 glu silu + res, down", GLU_PROJ, dict(act="silu", res=True)))),
+    ("K1_int8_fused", "qmm8_native_fused", "int5", (
+        ("int5 rms, gate/up", [(D, I_PAD, 2 * L)], dict(offset=0.0)),
+        ("int5 glu silu + res, down", GLU_PROJ, dict(act="silu", res=True)))),
+)
+
+
+def check_k1_fused(gen, results):
+    """K1's fusion options, each at M=1 (batch 1) and M=8 (the server's
+    batch-8 step), over the three sym layouts at rest, against their plain
+    versions; timed beside the unfused chain they replace."""
+    for key, entry, fmt, cases in K1_FUSED_CHECKS:
+        out = {}
+        for label, shapes, opts in cases:
+            for M, what in ((1, ""), (8, " (batch 8)")):
+                out[label + what] = _fused_case(gen, label + what,
+                                                PRESETS[fmt], M, shapes,
+                                                entry, **opts)
+        _record(results, key, out)
         torch.cuda.empty_cache()
 
 
@@ -1243,30 +1479,17 @@ def phase_generation(params):
     log(f"Model.generate greedy, int8 KV, 512-token prompt: new ids "
         f"{out8[512:]}")
 
-    # decode_loop replays one CUDA graph per token: it must give the ids of
-    # the same steps run eagerly
-    caches = [init_cache(CFG, 1, 256, device=DEV) for _ in range(2)]
-    with torch.inference_mode():
-        for c in caches:
-            prefill_step(params, torch.tensor([prompts[0]], device=DEV),
-                         torch.zeros(1, dtype=torch.long, device=DEV), c)
-        token = torch.tensor([[outs[0][64]]], device=DEV)
-        pos = torch.tensor([64], device=DEV)
-        graphed = decode_loop(params, token, pos, caches[0], 12)[:, 0]
-        eager = []
-        for _ in range(12):
-            logits = params(token, pos, caches[1], logits_dtype=torch.bfloat16)
-            token = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            pos = pos + 1
-            eager.append(int(token))
-    if graphed.tolist() != eager:
-        raise AssertionError(f"decode_loop {graphed.tolist()} != eager "
-                             f"steps {eager}")
-    if not torch.equal(caches[0].k, caches[1].k):
-        raise AssertionError("decode_loop wrote another KV cache than the "
-                             "eager steps")
-    log(f"decode_loop (CUDA graph) = eager steps: {eager}")
-    del caches
+    _decode_loop_vs_eager(params, prompts[0], outs[0][64])
+    res = generate_fused(model, params, prompts[1])
+    for mode in (FUSED, FUSED_GLU):
+        with fusion(mode):
+            run_path(f"decode_loop_{mode[0]}", FUSED_DECODE[mode[0]],
+                     lambda: _decode_loop_vs_eager(params, prompts[0],
+                                                   outs[0][64], mode))
+    res.update(run_path("ab_legs", ("qmm4_npack", "flash_decode",
+                                    "flash_decode_i8")
+                        + FUSED_DECODE["fused_glu"],
+                        lambda: ab_device_legs(params)))
 
     d128, d1975 = decode_ms(params, 128), decode_ms(params, T_PREFILL)
     log(f"decode (slope n=4..36, batch 1, bf16 KV): fill 128 {d128:.3f} "
@@ -1281,10 +1504,253 @@ def phase_generation(params):
     ttft, ttft_i8 = ttft_ms(params), ttft_ms(params, torch.int8)
     log(f"TTFT 1975-token prefill (last-row logits): bf16 KV {ttft:.2f} ms, "
         f"int8 KV {ttft_i8:.2f} ms")
-    return dict(decode_ms_fill128=d128, decode_ms_fill1975=d1975,
-                decode_i8kv_ms_fill1975=d1975_i8, batch8_step_ms=b8,
-                batch8_tok_s=8e3 / b8, ttft_1975_ms=ttft,
-                ttft_1975_int8kv_ms=ttft_i8)
+    res.update(ab_host_legs(params))
+    res.update(decode_ms_fill128=d128, decode_ms_fill1975=d1975,
+               decode_i8kv_ms_fill1975=d1975_i8, batch8_step_ms=b8,
+               batch8_tok_s=8e3 / b8, ttft_1975_ms=ttft,
+               ttft_1975_int8kv_ms=ttft_i8)
+    return res
+
+
+def _decode_loop_vs_eager(params, prompt, first, mode=None):
+    """decode_loop replays one CUDA graph per token: it must give the ids
+    of the same steps run eagerly, and write the same KV cache; with
+    ``mode``, the graph's K1 launches are those of its fusion switches."""
+    caches = [init_cache(CFG, 1, 256, device=DEV) for _ in range(2)]
+    with torch.inference_mode():
+        for c in caches:
+            prefill_step(params, torch.tensor([prompt], device=DEV),
+                         torch.zeros(1, dtype=torch.long, device=DEV), c)
+        token = torch.tensor([[first]], device=DEV)
+        pos = torch.tensor([len(prompt)], device=DEV)
+        if mode is not None:
+            g = _StepGraph(params, token, pos, init_cache(CFG, 1, 256,
+                                                          device=DEV))
+            check_step_launches(g.launches, mode, "decode_loop's graph")
+            del g
+        graphed = decode_loop(params, token, pos, caches[0], 12)[:, 0]
+        eager = []
+        for _ in range(12):
+            logits = params(token, pos, caches[1], logits_dtype=torch.bfloat16)
+            token = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            pos = pos + 1
+            eager.append(int(token))
+    what = "" if mode is None else f" ({mode[0]})"
+    if graphed.tolist() != eager:
+        raise AssertionError(f"decode_loop{what} {graphed.tolist()} != eager "
+                             f"steps {eager}")
+    if not torch.equal(caches[0].k, caches[1].k):
+        raise AssertionError(f"decode_loop{what} wrote another KV cache than "
+                             "the eager steps")
+    log(f"decode_loop{what} (CUDA graph) = eager steps: {eager}")
+    del caches
+
+
+# the kernels a fused path must launch, by mode; the prefill's products
+# (M = 64 or 512) take K5 or K2 as before
+FUSED_DECODE = {
+    "fused": ("qmm4_npack_fused", "qmm4_npack_fused+rms",
+              "qmm4_npack_fused+res", "flash_decode"),
+    "fused_glu": ("qmm4_npack_fused", "qmm4_npack_fused+rms",
+                  "qmm4_npack_fused+res", "qmm4_npack_fused+glu",
+                  "flash_decode")}
+
+
+def _step_rows(model, cfg, ids, feed, kv_dtype=torch.bfloat16, cache=None):
+    """The logits [V] (f32, on the CPU) of the prefill's last row and of
+    one decode step per id of ``feed``, on the model's device, into a new
+    cache or ``cache`` (which then holds the prompt for later steps).
+    Decode steps take the prompt length, which a prefix-LM model reads."""
+    dev = model.device
+    if cache is None:
+        cache = init_cache(cfg, 1, len(ids) + len(feed) + 1, kv_dtype,
+                           device=dev)
+    logits = prefill_step(model, torch.tensor([ids], device=dev),
+                          torch.zeros(1, dtype=torch.long, device=dev), cache)
+    return [logits[0, -1].float().cpu()] + _decode_rows(model, len(ids),
+                                                        feed, cache)
+
+
+def _decode_rows(model, n, feed, cache):
+    """The logits rows (f32, on the CPU) of one decode step per id of
+    ``feed`` after a prompt of ``n`` tokens that ``cache`` holds."""
+    dev = model.device
+    rows = []
+    for step, tok in enumerate(feed):
+        logits = model_step(model, torch.tensor([[tok]], device=dev),
+                            torch.tensor([n + step], device=dev),
+                            cache, torch.tensor([n], device=dev))
+        rows.append(logits[0, -1].float().cpu())
+    return rows
+
+
+def _penalized(row, history):
+    """``Model.generate``'s penalized logits (repetition penalty 1.1 over
+    the last 64 ids of ``history``) of one step's row [V]."""
+    sp = SamplingParams(greedy=True)
+    hist = torch.tensor([history[-sp.repeat_last_n:]], dtype=torch.long)
+    counts = token_counts(hist, torch.ones_like(hist, dtype=torch.bool),
+                          row.shape[-1])
+    return apply_penalties(row[None], counts, sp)[0]
+
+
+def generate_fused(model, params, prompt, n_new=16):
+    """``Model.generate`` (512-token prompt, greedy, bf16 KV) unfused, fused
+    and fused with GLU, each a path with launch counts; then each mode's
+    logits, teacher-forced on the unfused ids, against the unfused ones:
+    the fused ids equal the unfused wherever the unfused penalized top-2
+    margin exceeds twice the step's logit difference times the penalty,
+    up to the first step where the runs part. Returns the largest
+    difference per mode, relative to max|logit|."""
+    new = {}
+    for mode in MODES:
+        with fusion(mode):
+            out = run_path(f"generate_{mode[0]}", FUSED_DECODE.get(
+                mode[0], ("qmm4_npack",)), lambda: model.generate(
+                    prompt, max_new_tokens=n_new, do_sample=False,
+                    stop_at_eos=False)[0])
+        new[mode[0]] = out[len(prompt):]
+        _check_ids(new[mode[0]], n_new, f"generate {mode[0]}")
+    feed = new["unfused"]
+    rows = {}
+    with torch.inference_mode():
+        for mode in MODES:
+            with fusion(mode):
+                rows[mode[0]] = _step_rows(params, CFG, prompt, feed[:-1])
+    res = {}
+    for name in ("fused", "fused_glu"):
+        worst, proven = 0.0, 0
+        for t, (a, b) in enumerate(zip(rows[name], rows["unfused"])):
+            err = (a - b).abs().max().item()
+            worst = max(worst, err / b.abs().max().item())
+            pen = _penalized(b, prompt + feed[:t]).topk(2).values
+            if (pen[0] - pen[1]).item() > 2 * 1.1 * err:
+                proven += 1
+                if new[name][t] != feed[t]:
+                    raise AssertionError(
+                        f"generate {name} id {new[name][t]} != unfused "
+                        f"{feed[t]} at step {t} despite the margin")
+            if new[name][t] != feed[t]:
+                break
+        log(f"Model.generate {name} (512-token prompt): ids {new[name]}, "
+            f"unfused {feed}; logits against unfused, teacher-forced: max "
+            f"err {worst:.3g}·max|logit|; ids proven equal at {proven} "
+            f"steps before the runs part")
+        # without GLU the fused step computes the unfused one's values (the
+        # same roundings); with GLU the activation is rounded once where
+        # the graph rounds it twice, and over 32 layers of random weights
+        # the logits part by a few 1e-2·max|logit| (H100), wider than most
+        # decode steps' margins: only the prefill, whose M = 512 products
+        # are not fused, is sure to be proven there. Phase 5 holds the GLU
+        # steps against the CPU's GLU path, with the same roundings
+        if proven < (3 if name == "fused" else 1):
+            raise AssertionError(f"generate {name}: too few steps with a "
+                                 "margin wide enough to compare the ids")
+        res[f"generate_{name}_rel_err"] = worst
+    return res
+
+
+# phase 4's device-timed legs: (name, fill, batch, KV dtype)
+AB_LEGS = (("fill128_bf16", 128, 1, torch.bfloat16),
+           ("fill1975_bf16", T_PREFILL, 1, torch.bfloat16),
+           ("fill128_int8", 128, 1, torch.int8),
+           ("fill1975_int8", T_PREFILL, 1, torch.int8),
+           ("batch8_int8_fill128", 128, 8, torch.int8))
+AB_REPS = 30
+
+
+def _quartiles(ts):
+    q = statistics.quantiles(ts, n=4)
+    return dict(median=statistics.median(ts), q25=q[0], q75=q[2],
+                min=min(ts), max=max(ts))
+
+
+def ab_device_legs(params):
+    """Each leg's decode step captured three times, once per mode, into
+    ``decode_loop``'s CUDA graph (``_StepGraph``) on a cache of its own;
+    the three graphs replayed in turns (the order rotated every round),
+    each replay timed with CUDA events, AB_REPS replays a mode: the median
+    and quartiles per mode. Each graph's K1 launches are checked against
+    its mode. Then the verdict of the default rule: fused takes the place
+    of unfused only if it is faster at fill 128 bf16 KV and at batch 8
+    beyond the spread (its 75th percentile under unfused's 25th) and at
+    no leg slower (its 25th percentile over unfused's 75th); the same rule
+    for GLU against fused without it."""
+    stats = {}
+    for leg, fill, batch, kv in AB_LEGS:
+        graphs = {}
+        with torch.inference_mode():
+            for mode in MODES:
+                with fusion(mode):
+                    cache = init_cache(CFG, batch, S_CACHE, kv, device=DEV)
+                    token = torch.full((batch, 1), 17, dtype=torch.long,
+                                       device=DEV)
+                    pos = torch.full((batch,), fill, dtype=torch.long,
+                                     device=DEV)
+                    g = _StepGraph(params, token, pos, cache)
+                check_step_launches(g.launches, mode, f"leg {leg}")
+                graphs[mode[0]] = (g, cache)
+        names = [m[0] for m in MODES]
+        ts = {n: [] for n in names}
+        torch.cuda.synchronize()
+        for r in range(AB_REPS):
+            for n in names[r % 3:] + names[:r % 3]:
+                g = graphs[n][0]
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                g.graph.replay()
+                e1.record()
+                e1.synchronize()
+                _cuda.add_launches(g.launches)
+                ts[n].append(e0.elapsed_time(e1))
+        stats[leg] = {n: _quartiles(t) for n, t in ts.items()}
+        log(f"A/B leg {leg} (device time of one graph replay, {AB_REPS} "
+            "each, in turns): " + "; ".join(
+                f"{n} median {v['median']:.4f} ms (q25 {v['q25']:.4f}, q75 "
+                f"{v['q75']:.4f}, min {v['min']:.4f}, max {v['max']:.4f})"
+                for n, v in stats[leg].items()))
+        del graphs
+        torch.cuda.empty_cache()
+
+    def verdict(new, old):
+        faster = lambda leg: stats[leg][new]["q75"] < stats[leg][old]["q25"]
+        slower = [leg for leg in stats
+                  if stats[leg][new]["q25"] > stats[leg][old]["q75"]]
+        return faster("fill128_bf16") and faster("batch8_int8_fill128") \
+            and not slower, slower
+    fused_on, fused_slower = verdict("fused", "unfused")
+    glu_on, glu_slower = verdict("fused_glu", "fused")
+    log(f"A/B verdict on {smi_line()}: fused over unfused: "
+        f"{'faster' if fused_on else 'not faster'} at fill 128 bf16 and "
+        f"batch 8, slower at {fused_slower or 'no leg'} -> this run "
+        f"{'meets' if fused_on else 'does not meet'} the rule for "
+        f"NTPU_FUSED_DECODE on; GLU over fused: "
+        f"{'faster' if glu_on else 'not faster'}, slower at "
+        f"{glu_slower or 'no leg'} -> {'meets' if glu_on else 'does not meet'}"
+        f" the rule for NTPU_FUSE_GLU on (the package's defaults: "
+        f"models.transformer.fuse_mode, fuse_glu)")
+    out = {f"ab_{leg}_{n}_ms": v["median"] for leg, d in stats.items()
+           for n, v in d.items()}
+    out.update(ab_fused_default=int(fused_on), ab_glu_default=int(glu_on))
+    return out
+
+
+def ab_host_legs(params):
+    """The host-clock slope legs (decode at fill 128 bf16 KV, batch 8 int8
+    KV) in each mode, and the 1975-token TTFT (whose only fused product is
+    the lm_head) unfused and fused, one after the other."""
+    out = {}
+    for mode in MODES:
+        with fusion(mode):
+            out[f"decode_ms_fill128_{mode[0]}"] = decode_ms(params, 128)
+            out[f"batch8_step_ms_{mode[0]}"] = decode_ms(
+                params, 128, batch=8, kv_dtype=torch.int8)
+            if mode is not FUSED_GLU:
+                out[f"ttft_1975_ms_{mode[0]}"] = ttft_ms(params)
+    log("host-clock legs by mode: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out.items()))
+    return out
 
 
 # the kernels each format's prefill (1975 tokens, last-row lm_head at M=1)
@@ -1306,11 +1772,30 @@ FORMAT_PATHS = {
 }
 
 
+# the formats whose sym codes at rest take K1's other fused entry points
+# (int6 g128 a8: int8 code planes everywhere; mix_i2_ffn: int2 gate/up
+# beside its q4_j rest): the plain entries their unfused generate must
+# launch, and the fused ones of a short paged bf16 server run (the fused
+# path is the card's default)
+UNFUSED_FORMAT_PATHS = {"int6_g128_a8": ("qmm8_native",),
+                        "mix_i2_ffn": ("qmm2_npack", "qmm4_npack")}
+FUSED_SERVER_PATHS = {
+    "int6_g128_a8": ("qmm8_native_fused", "qmm8_native_fused+rms",
+                     "qmm8_native_fused+res", "paged_decode"),
+    "mix_i2_ffn": ("qmm2_npack_fused", "qmm2_npack_fused+rms",
+                   "qmm4_npack_fused", "qmm4_npack_fused+res",
+                   "paged_decode"),
+}
+
+
 def phase_formats(fmts=("nf4", "q4_0", "q4_j_i8_g128")):
     """The same 7B shape in each format of ``fmts``, one model at a time:
     ``Model.generate`` (300-token prompt, 16 new tokens, greedy, bf16 KV),
     the 1975-token TTFT and decode ms/token at fill 128, each a path of its
-    own with the launch counts set to 0 just before it."""
+    own with the launch counts set to 0 just before it; a format of
+    UNFUSED_FORMAT_PATHS also generates with the fused path off, and serves
+    two short queries through the batch-8 paged bf16 server with it on,
+    each a path of its own."""
     gen = torch.Generator().manual_seed(2)
     prompt = torch.randint(3, V, (300,), generator=gen).tolist()
     res = {}
@@ -1329,6 +1814,21 @@ def phase_formats(fmts=("nf4", "q4_0", "q4_j_i8_g128")):
                                               do_sample=False,
                                               stop_at_eos=False)[0])
         _check_ids(out[300:], 16, f"generate {fmt}")
+        if fmt in UNFUSED_FORMAT_PATHS:
+            with fusion(UNFUSED):
+                plain = run_path(f"generate_{fmt}_unfused",
+                                 UNFUSED_FORMAT_PATHS[fmt],
+                                 lambda: model.generate(
+                                     prompt, max_new_tokens=16,
+                                     do_sample=False, stop_at_eos=False)[0])
+            log(f"{fmt}: Model.generate unfused new ids {plain[300:]}")
+            _check_ids(plain[300:], 16, f"generate {fmt} unfused")
+            with fusion(FUSED):
+                _server_short(params, CFG, ((
+                    f"server_{fmt}_fused", dict(kv_mode="paged",
+                                                page_size=256),
+                    FUSED_SERVER_PATHS[fmt], [prompt[:90], prompt[:200]],
+                    8),))
         ttft = run_path(f"prefill_{fmt}", pre, lambda: ttft_ms(params))
         d128 = run_path(f"decode_{fmt}", dec, lambda: decode_ms(params, 128))
         log(f"{fmt}: Model.generate new ids {out[300:]}; TTFT 1975-token "
@@ -1460,23 +1960,14 @@ def phase_gemma2_card_vs_plain():
 # ---------------------------------------------------------------------------
 
 
-def _steps_card_vs_plain(card, host, cfg2, ids, feed, rel_tol):
-    """Logits of the prefill's last row and of one decode step per id of
-    ``feed``, on the card and on the CPU's plain path: within ``rel_tol``
-    of max|logit| at every step, and the argmax equal wherever the plain
-    top-2 margin exceeds twice that step's largest logit difference. Decode
-    steps take the prompt length, which a prefix-LM model reads. Returns
-    (worst relative difference, steps so proven, argmax equal at each
-    step)."""
-    caches = [init_cache(cfg2, 1, len(ids) + len(feed) + 1, device=d)
-              for d in (DEV, "cpu")]
-    logits = [prefill_step(m, torch.tensor([ids], device=c.k.device),
-                           torch.zeros(1, dtype=torch.long,
-                                       device=c.k.device), c)
-              for m, c in zip((card, host), caches)]
+def _compare_rows(card_rows, host_rows, rel_tol, what="card vs plain"):
+    """Logits rows of the card and of the CPU's plain path: within
+    ``rel_tol`` of max|logit| at every step, and the argmax equal wherever
+    the plain top-2 margin exceeds twice that step's largest logit
+    difference. Returns (worst relative difference, steps so proven,
+    argmax equal at each step)."""
     worst, provable, sames = 0.0, 0, []
-    for step in range(len(feed) + 1):
-        a, b = logits[0][0, -1].float().cpu(), logits[1][0, -1].float()
+    for step, (a, b) in enumerate(zip(card_rows, host_rows)):
         err = (a - b).abs().max().item()
         tol = rel_tol * b.abs().max().item()
         worst = max(worst, err / b.abs().max().item())
@@ -1488,60 +1979,177 @@ def _steps_card_vs_plain(card, host, cfg2, ids, feed, rel_tol):
             f"{b.abs().max().item():.4g}, plain top-2 margin {margin:.4g}, "
             f"argmax equal {same}")
         if not err <= tol:
-            raise AssertionError(f"card vs plain logits, step {step}: max "
-                                 f"err {err} > {tol}")
+            raise AssertionError(f"{what} logits, step {step}: max err "
+                                 f"{err} > {tol}")
         if margin > 2 * err:
             provable += 1
             if not same:
-                raise AssertionError(f"card vs plain argmax differs at step "
-                                     f"{step} despite margin {margin}")
-        if step == len(feed):
-            break
-        logits = [model_step(m, torch.tensor([[feed[step]]],
-                                             device=c.k.device),
-                             torch.tensor([len(ids) + step],
-                                          device=c.k.device), c,
-                             torch.tensor([len(ids)], device=c.k.device))
-                  for m, c in zip((card, host), caches)]
+                raise AssertionError(f"{what} argmax differs at step {step} "
+                                     f"despite margin {margin}")
     return worst, provable, sames
 
 
+def _steps_card_vs_plain(card, host, cfg2, ids, feed, rel_tol):
+    """Logits of the prefill's last row and of one decode step per id of
+    ``feed``, on the card and on the CPU's plain path, held to each other
+    by :func:`_compare_rows`."""
+    return _compare_rows(_step_rows(card, cfg2, ids, feed),
+                         _step_rows(host, cfg2, ids, feed), rel_tol)
+
+
 def phase_card_vs_plain():
-    cfg2 = dataclasses.replace(CFG, n_layers=2)
+    cfg2 = dataclasses.replace(CFG, n_layers=COPY_LAYERS)
     card = init_random(cfg2, seed=1, quant="q4_j", device=DEV)
     host = init_random(cfg2, seed=1, quant="q4_j", device=DEV).to("cpu")
     gen = torch.Generator().manual_seed(1)
     ids = torch.randint(3, V, (300,), generator=gen).tolist()
     n_new = 8
-    g_card = greedy_generate(card, cfg2, ids, max_new_tokens=n_new + 1,
-                             stop_at_eos=False)[len(ids):]
+    with fusion(UNFUSED):
+        g_card = greedy_generate(card, cfg2, ids, max_new_tokens=n_new + 1,
+                                 stop_at_eos=False)[len(ids):]
     g_host = greedy_generate(host, cfg2, ids, max_new_tokens=n_new + 1,
                              stop_at_eos=False)[len(ids):]
     # bf16 activations: last-bit differences (split-K order in K1 and K5,
     # where K3 rounds P, the card's rsqrt/exp) move int8 activation codes
-    # of the next K2 product by a step, and two layers amplify that; the
+    # of the next K2 product by a step, and layers amplify that; the
     # tiny model shows 1.8e-2 between the JAX package and the port on the
     # CPU
     rel_tol = 5e-2
-    worst, provable, sames = _steps_card_vs_plain(card, host, cfg2, ids,
-                                                  g_card[:n_new], rel_tol)
+    feed = g_card[:n_new]
+    host_cache = init_cache(cfg2, 1, len(ids) + N_STEPS, device="cpu")
+    host_rows = _step_rows(host, cfg2, ids, feed, cache=host_cache)
+    with fusion(UNFUSED):
+        card_rows = _step_rows(card, cfg2, ids, feed)
+    worst, provable, sames = _compare_rows(card_rows, host_rows, rel_tol)
     for step in range(n_new):
         if all(sames[:step + 1]) and g_host[step] != g_card[step]:
             raise AssertionError(f"free-running greedy ids differ at step "
                                  f"{step} while every argmax so far agreed")
-    log(f"card vs plain (2 layers, full width, 300-token prompt): logits "
-        f"max err {worst:.3g}·max|logit| (tol {rel_tol}); greedy card "
+    log(f"card unfused vs plain ({cfg2.n_layers} layer(s), full width, "
+        f"300-token prompt): "
+        f"logits max err {worst:.3g}·max|logit| (tol {rel_tol}); greedy card "
         f"{g_card}, plain {g_host}; argmax provably comparable at "
         f"{provable} of {n_new + 1} steps, equal at all of them")
     if provable < 3:
         raise AssertionError("too few steps with a margin wide enough to "
                              "compare the argmax")
+    fused_worst = _fused_card_vs_plain(card, cfg2, ids, feed, g_host,
+                                       host_rows, rel_tol)
+    fused_worst.update(_fused_steps_card_vs_plain(card, host, len(ids),
+                                                  host_cache))
     sched_worst = _sched_card_vs_plain(card, host, cfg2, rel_tol)
     del card, host
     # the formats' copies are cut to one layer, which runs every kernel of
     # each format, to keep the script inside its time limit
-    return worst, sched_worst, _formats_card_vs_plain(
-        dataclasses.replace(cfg2, n_layers=1))
+    return worst, sched_worst, fused_worst, _formats_card_vs_plain(cfg2)
+
+
+def _fused_card_vs_plain(card, cfg2, ids, feed, g_host, host_rows, rel_tol):
+    """Phase 5's copy on the card with the fused path on (and with GLU),
+    held against the unfused plain path's rows already computed on the
+    CPU: there the fused path without GLU is the unfused chain bit for
+    bit, so the CPU reference stands for it; with GLU the activation is
+    rounded once where the unfused graph rounds twice, one bf16 step of
+    h (2^-8 relative) at some elements, well inside the same 5e-2.
+    Greedy ids on the card equal the plain path's up to the first step
+    where an argmax is unproven or the runs part."""
+    res = {}
+    for mode in (FUSED, FUSED_GLU):
+        with fusion(mode):
+            rows = run_path(f"card_vs_plain_{mode[0]}",
+                            FUSED_DECODE[mode[0]],
+                            lambda: _step_rows(card, cfg2, ids, feed))
+            g_fused = greedy_generate(card, cfg2, ids,
+                                      max_new_tokens=len(feed) + 1,
+                                      stop_at_eos=False)[len(ids):]
+        worst, provable, sames = _compare_rows(
+            rows, host_rows, rel_tol, f"card {mode[0]} vs plain")
+        for step in range(len(feed)):
+            if all(sames[:step + 1]) and g_host[step] != g_fused[step]:
+                raise AssertionError(f"{mode[0]}: greedy ids differ at step "
+                                     f"{step} while every argmax so far "
+                                     "agreed")
+        log(f"card {mode[0]} vs plain ({cfg2.n_layers} layer(s)): logits "
+            f"max err "
+            f"{worst:.3g}·max|logit| (tol {rel_tol}); greedy card {g_fused}, "
+            f"plain {g_host}; argmax provably comparable at {provable} of "
+            f"{len(feed) + 1} steps, equal at all of them")
+        if provable < 3:
+            raise AssertionError(f"{mode[0]}: too few steps with a margin "
+                                 "wide enough to compare the argmax")
+        res[f"card_vs_plain_{mode[0]}_rel_err"] = worst
+    return res
+
+
+# phase 5's fused decode steps from one cache, card against the CPU's plain
+# path under the same switches. The card's steps part from the CPU's by
+# 8.5e-3 (fused) and 9.0e-3·max|logit| (fused + GLU) on this copy (H100,
+# first run), K4's and K1's last bits against the plain versions', with or
+# without GLU: 2e-2, under the 5e-2 of the teacher-forced run with its
+# prefill. GLU's single rounding of act(g)·u moves one layer's logits by
+# 4.6e-3·max|logit| on the CPU, under that noise, so the card's own GLU
+# shift (GLU on against off, on the card) is what is held to the CPU's:
+# within a factor of GLU_SHIFT of it. A wrong prologue moves the logits by
+# far more; a GLU switch that changed nothing would move them by 0.
+STEPS_TOL = 2e-2
+GLU_SHIFT = 2.0
+N_STEPS = 16
+# NTPU_FUSED_DECODE=interpret with GLU: the fused path's plain version on
+# the CPU
+INTERPRET_GLU = ("interpret_glu", "interpret", "1")
+
+
+def _rel(rows, refs):
+    """The largest difference of two lists of logits rows, relative to
+    each reference row's max|logit|."""
+    return max(((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(rows, refs))
+
+
+def _fused_steps_card_vs_plain(card, host, n, host_cache):
+    """N_STEPS teacher-forced decode steps (seeded ids) from one prompt
+    cache: the CPU's prefilled ``host_cache`` copied to the card, so the
+    steps' inputs agree and only the steps' own roundings part the two
+    sides. Fused without GLU on the card against the CPU's unfused steps
+    (on the CPU the fused path computes the same values), fused with GLU
+    against the CPU under ``NTPU_FUSED_DECODE=interpret`` and
+    ``NTPU_FUSE_GLU=1`` (the same single rounding), both within STEPS_TOL,
+    the argmax proven equal at 3 steps or more. Then the GLU shift, GLU on
+    against off, on the card against the CPU's."""
+    gen = torch.Generator().manual_seed(3)
+    feed = torch.randint(3, V, (N_STEPS,), generator=gen).tolist()
+    host_rows = {}
+    for mode in (UNFUSED, INTERPRET_GLU):
+        with fusion(mode):
+            host_rows[mode[0]] = _decode_rows(host, n, feed, host_cache)
+    card_rows, res = {}, {}
+    for mode, ref in ((FUSED, "unfused"), (FUSED_GLU, "interpret_glu")):
+        cache = type(host_cache)(*(None if t is None else t.to(DEV) for t in (
+            host_cache.k, host_cache.v, host_cache.k_scale,
+            host_cache.v_scale)))
+        with fusion(mode):
+            rows = card_rows[mode[0]] = run_path(
+                f"card_vs_plain_steps_{mode[0]}", FUSED_DECODE[mode[0]],
+                lambda: _decode_rows(card, n, feed, cache))
+        worst, provable, _ = _compare_rows(
+            rows, host_rows[ref], STEPS_TOL, f"card {mode[0]} steps vs plain")
+        log(f"card {mode[0]} decode steps vs plain {ref}, one prompt cache: "
+            f"logits max err {worst:.3g}·max|logit| (tol {STEPS_TOL}); "
+            f"argmax provably comparable at {provable} of {N_STEPS} steps, "
+            "equal at all of them")
+        if provable < 3:
+            raise AssertionError(f"{mode[0]} steps: too few steps with a "
+                                 "margin wide enough to compare the argmax")
+        res[f"card_vs_plain_steps_{mode[0]}_rel_err"] = worst
+    shift_card = _rel(card_rows["fused_glu"], card_rows["fused"])
+    shift_host = _rel(host_rows["interpret_glu"], host_rows["unfused"])
+    log(f"GLU on against off, decode steps: card {shift_card:.3g}, CPU "
+        f"{shift_host:.3g}·max|logit| (held within {GLU_SHIFT}x)")
+    if not shift_host / GLU_SHIFT <= shift_card <= shift_host * GLU_SHIFT:
+        raise AssertionError(f"the card's GLU shift {shift_card} is not "
+                             f"within {GLU_SHIFT}x of the CPU's {shift_host}")
+    res.update(glu_shift_card_rel=shift_card, glu_shift_plain_rel=shift_host)
+    return res
 
 
 # asymmetric int2 and int5 (uint8 zero-points, group 32), what
@@ -1642,7 +2250,7 @@ class _LogitsRecorder:
 
 
 def _sched_card_vs_plain(card, host, cfg2, rel_tol, kv_dtype=torch.int8):
-    """The 2-layer model through the Scheduler (paged KV, int8 unless
+    """The copy through the Scheduler (paged KV, int8 unless
     ``kv_dtype`` says otherwise, batch 4, 6 requests) on the card, decode
     step eager so each step's logits can be read, and on the CPU's plain
     path: per request, logits within the tolerance and greedy ids equal at
@@ -1689,7 +2297,8 @@ def _sched_card_vs_plain(card, host, cfg2, rel_tol, kv_dtype=torch.int8):
                                          f"{i} token {t} despite the margin")
             if ca != ho:
                 break
-    log(f"{cfg2.arch} scheduler card vs plain (2 layers, paged "
+    log(f"{cfg2.arch} scheduler card vs plain ({cfg2.n_layers} layer(s), "
+        f"paged "
         f"{'int8' if kv_dtype == torch.int8 else 'bf16'}, batch 4, "
         f"window {cfg2.sliding_window}, prompts "
         f"{lens}): logits max err {worst:.3g}·max|logit| (tol {rel_tol}); "
@@ -1736,10 +2345,12 @@ def _serve(srv, prompts, n_new, cfg=CFG, timeout=300.0):
     return done, t0, wall
 
 
-def _graph_vs_eager(params):
+def _graph_vs_eager(params, mode=None):
     """The same 8 requests through two paged int8 Schedulers, one replaying
     the decode-step CUDA graph, one running the step eagerly: equal ids and
-    equal pool bytes (the trash page aside)."""
+    equal pool bytes (the trash page aside). With ``mode`` (the fusion
+    switches both run under), the graph's K1 launches are that mode's: all
+    of the batch-8 step's 225 through the fused entry points."""
     gen = torch.Generator().manual_seed(7)
     lens = torch.randint(40, 400, (8,), generator=gen).tolist()
     prompts = [torch.randint(3, V, (n,), generator=gen).tolist()
@@ -1755,6 +2366,9 @@ def _graph_vs_eager(params):
             sched.add_request(i, p, max_new_tokens=10)
         runs.append(({q.request_id: q.output_ids
                       for q in sched.run_to_completion()}, sched.cache))
+        if graph and mode is not None:
+            for g in sched._graphs.values():
+                check_step_launches(g.launches, mode, "server decode step")
     (ids_g, pool_g), (ids_e, pool_e) = runs
     if ids_g != ids_e:
         raise AssertionError(f"graphed server steps {ids_g} != eager {ids_e}")
@@ -1763,8 +2377,9 @@ def _graph_vs_eager(params):
         if not torch.equal(a[:, :-1], b[:, :-1]):
             raise AssertionError(f"graphed server steps wrote another {name} "
                                  "pool than the eager steps")
-    log(f"server decode step (CUDA graph) = eager steps: ids and pool bytes "
-        f"equal over 8 requests (prompts {lens}), 10 new tokens each")
+    log(f"server decode step{'' if mode is None else ' ' + mode[0]} (CUDA "
+        f"graph) = eager steps: ids and pool bytes equal over 8 requests "
+        f"(prompts {lens}), 10 new tokens each")
     del runs, pool_g, pool_e
     torch.cuda.empty_cache()
 
@@ -1845,6 +2460,11 @@ def _server_prompts():
 
 def phase_server(params):
     _graph_vs_eager(params)
+    for mode in (FUSED, FUSED_GLU):
+        with fusion(mode):
+            run_path(f"server_{mode[0]}", FUSED_DECODE[mode[0]][:-1]
+                     + ("paged_decode_i8",),
+                     lambda: _graph_vs_eager(params, mode))
     prompts = _server_prompts()
     res = {f"server_{k}": v for k, v in _server_timed(
         params, CFG, "server_paged_int8", SERVE_PAGED_I8, prompts).items()}
@@ -2003,7 +2623,7 @@ ZOO_COPIES = (
 
 
 def phase_zoo_card_vs_plain(rel_tol=2e-2):
-    """2-layer full-width copies of Bloom-7B1, MPT-7B and ChatGLM-6B:
+    """One-layer full-width copies of Bloom-7B1, MPT-7B and ChatGLM-6B:
     ``Model.generate`` on the card (a path each: 100-token prompt, 4 new
     tokens), then its logits, fed the card's ids, against the plain path
     on the CPU, argmax equal wherever the margin proves it. Every product
@@ -2013,7 +2633,7 @@ def phase_zoo_card_vs_plain(rel_tol=2e-2):
     gen = torch.Generator().manual_seed(12)
     res = {}
     for i, (what, cfg, required) in enumerate(ZOO_COPIES):
-        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        cfg2 = dataclasses.replace(cfg, n_layers=COPY_LAYERS)
         card = init_random(cfg2, seed=20 + i, quant="q4_j", device=DEV)
         host = init_random(cfg2, seed=20 + i, quant="q4_j",
                            device=DEV).to("cpu")
@@ -2025,7 +2645,8 @@ def phase_zoo_card_vs_plain(rel_tol=2e-2):
         _check_ids(new, 4, f"card {what}", cfg2.vocab_size)
         worst, provable, _ = _steps_card_vs_plain(card, host, cfg2, ids,
                                                   new[:3], rel_tol)
-        log(f"{what} card vs plain (2 layers, full width, 100-token prompt, "
+        log(f"{what} card vs plain ({cfg2.n_layers} layer(s), full width, "
+            f"100-token prompt, "
             f"fed the card's ids {new}): logits max err {worst:.3g}·"
             f"max|logit| (tol {rel_tol}); argmax provably comparable at "
             f"{provable} of 4 steps, equal at all of them")
@@ -2313,7 +2934,7 @@ G48_CFG = dataclasses.replace(CFG, hidden_size=6144, n_heads=48,
 
 def _copy_card_vs_plain(what, card, host, cfg2, required, n_prompt=24,
                         rel_tol=2e-2, seed=15, n_new=3):
-    """``Model.generate`` of a 2-layer copy on the card (a path with launch
+    """``Model.generate`` of a copy on the card (a path with launch
     counts; ``n_prompt`` tokens, ``n_new`` new), then its logits, fed the
     card's ids, against the CPU plain path; returns (the prompt, the card's
     new ids, the worst relative difference, the steps whose margin proved
@@ -2328,7 +2949,8 @@ def _copy_card_vs_plain(what, card, host, cfg2, required, n_prompt=24,
     _check_ids(new, n_new, f"card {what}", cfg2.vocab_size)
     worst, provable, _ = _steps_card_vs_plain(card, host, cfg2, ids, new,
                                               rel_tol)
-    log(f"{what} card vs plain (2 layers, full width, {n_prompt}-token "
+    log(f"{what} card vs plain ({cfg2.n_layers} layer(s), full width, "
+        f"{n_prompt}-token "
         f"prompt, fed the card's ids {new}): logits max err {worst:.3g}·"
         f"max|logit| (tol {rel_tol}); argmax provably comparable at "
         f"{provable} of {n_new + 1} steps, equal at all of them")
@@ -2372,7 +2994,7 @@ def _random_pair(cfg2, seed, quant):
 
 
 def phase_copies_card_vs_plain():
-    """2-layer full-width copies, card against the CPU plain path (logits
+    """One-layer full-width copies, card against the CPU plain path (logits
     within 2e-2·max|logit| where every product has bf16 activations, 5e-2
     where a prefill takes the int8 path, as phase 5's q4_j copy; argmax
     equal where the margin proves it): the Mistral GPTQ copy through
@@ -2390,13 +3012,13 @@ def phase_copies_card_vs_plain():
     copy with StarCoder's heads (G = 48) also run K4's int8 and K6's bf16
     branches past 8 heads (``_g_many_card_paths``)."""
     res = {}
-    cfg2 = dataclasses.replace(MISTRAL_CFG, n_layers=2)
+    cfg2 = dataclasses.replace(MISTRAL_CFG, n_layers=COPY_LAYERS)
     sd = gptq_state_dict(cfg2, seed=30)
     card = params_from_gptq_state_dict(sd, cfg2, device=DEV)
     host = params_from_gptq_state_dict(sd, cfg2, device=DEV).to("cpu")
     gptq_req = ("act_order_gather", "qmm_general", "qmm4_npack_asym",
                 "flash_prefill", "flash_decode")
-    # random 2-layer copies give flat logits (top-2 margins of 0.01-0.8
+    # random copies give flat logits (top-2 margins of 0.01-0.8
     # against differences of 0.03-0.08): as phase 5's formats, the argmax
     # must be proven at as many steps as there are copies, over all of them
     ids, new, res["mistral_gptq"], proven = _copy_card_vs_plain(
@@ -2408,7 +3030,7 @@ def phase_copies_card_vs_plain():
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as d:
         with open(os.path.join(d, "config.json"), "w") as fh:
-            json.dump({**MISTRAL_HF, "num_hidden_layers": 2}, fh)
+            json.dump({**MISTRAL_HF, "num_hidden_layers": cfg2.n_layers}, fh)
         with open(os.path.join(d, "quantize_config.json"), "w") as fh:
             json.dump(GPTQ_QUANTIZE_CONFIG, fh)
         write_safetensors(os.path.join(d, "model.safetensors"), sd)
@@ -2441,7 +3063,7 @@ def phase_copies_card_vs_plain():
     if LAUNCHES["card_mistral_awq"]["act_order_gather"]:
         raise AssertionError("an AWQ checkpoint has no act-order gather")
     del sd, card, host
-    llama2 = dataclasses.replace(CFG, n_layers=2)
+    llama2 = dataclasses.replace(CFG, n_layers=COPY_LAYERS)
     # the K2 copy's prefill takes the int8 path, whose activation codes move
     # a step where the card's bf16 roundings differ from the CPU's (as in
     # phase 5's q4_j copy): 5e-2, over 8 steps
@@ -2457,9 +3079,11 @@ def phase_copies_card_vs_plain():
                                                        "factor": 4.0}),
              "q4_j", ("qmm_general", "qmm4_npack", "flash_prefill",
                       "flash_decode"), 24, 2e-2),
-            ("tinyllama", dataclasses.replace(TINY_CFG, n_layers=2), "q4_j",
+            ("tinyllama", dataclasses.replace(TINY_CFG,
+                                              n_layers=COPY_LAYERS), "q4_j",
              ("qmm_general", "qmm4_npack", "attend_xla"), 24, 2e-2),
-            ("heads_g16", dataclasses.replace(G16_CFG, n_layers=2), "q4_j",
+            ("heads_g16", dataclasses.replace(G16_CFG, n_layers=COPY_LAYERS),
+             "q4_j",
              ("qmm_general", "flash_prefill", "flash_decode+G>8"), 24,
              2e-2))):
         card, host = _random_pair(cfg2, 40 + i, quant)
@@ -2535,6 +3159,18 @@ KERNEL_META = {
     "K1_int8_asym": ("qmm8_native_asym",
                      "neural_tpu_torch/csrc/qmm4_npack.cu",
                      "neural_tpu/ops/qmatmul.py:619"),
+    # K1's fusion options (``fuse``, :633-701): the nibble entry's
+    # branches, and the int2 and int8-code fused entries
+    **{f"K1_{b}": (f"qmm4_npack_fused+{b}",
+                   "neural_tpu_torch/csrc/qmm4_npack.cu",
+                   "neural_tpu/ops/qmatmul.py:619")
+       for b in ("rms", "res", "glu")},
+    "K1_int2_fused": ("qmm2_npack_fused",
+                      "neural_tpu_torch/csrc/qmm4_npack.cu",
+                      "neural_tpu/ops/qmatmul.py:619"),
+    "K1_int8_fused": ("qmm8_native_fused",
+                      "neural_tpu_torch/csrc/qmm4_npack.cu",
+                      "neural_tpu/ops/qmatmul.py:619"),
     "K2_asym": ("qmm_a8_asym", "neural_tpu_torch/csrc/qmm_a8.cu",
                 "neural_tpu/ops/qmatmul.py:161"),
     "K2_act": ("quantize_act_i8", "neural_tpu_torch/csrc/qmm_a8.cu",
@@ -2625,6 +3261,10 @@ def main():
         sys.exit(2)
     if sys.argv[1:2] == ["--ab"]:
         return compare_legs(sys.argv[2])
+    # the slice's main path: every phase runs the fused decode path, which
+    # the library leaves off by default (``models.transformer.fuse_mode``);
+    # the A/B and the unfused references set the switches themselves
+    os.environ.setdefault("NTPU_FUSED_DECODE", "1")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(os.cpu_count() or 1)
@@ -2650,7 +3290,8 @@ def main():
     def kernels():
         for check in (check_k1, check_k2, check_k3, check_k4, check_k6,
                       check_k3_options, check_k4_alibi, check_k6_alibi,
-                      check_k5, check_k1_branches, check_k2_asym,
+                      check_k5, check_k1_branches, check_k1_fused,
+                      check_k2_asym,
                       check_k2_layouts, check_gptq_products,
                       check_many_heads):
             check(gen, results)
@@ -2676,8 +3317,8 @@ def main():
     e2e.update(phase("4g formats", phase_formats,
                      ("int6_g128_a8", "mix_i2_ffn")))
     e2e.update(phase("4h tinyllama", phase_tinyllama))
-    worst, sched_worst, formats_worst = phase("5 card vs plain",
-                                              phase_card_vs_plain)
+    worst, sched_worst, fused_worst, formats_worst = phase(
+        "5 card vs plain", phase_card_vs_plain)
     gemma2_worst = phase("5b gemma2 card vs plain",
                          phase_gemma2_card_vs_plain)
     zoo_worst = phase("5c zoo card vs plain", phase_zoo_card_vs_plain)
@@ -2700,11 +3341,13 @@ def main():
             "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "per": r["per"], "ok": True,
+            **({"chain_ms": r["chain_ms"]} if "chain_ms" in r else {}),
             **({"cases": r["cases"]} if "cases" in r else {})})
     log(json.dumps({"e2e": e2e, "copy_tb_s": bw / 1e12,
                     "card_vs_plain_rel_err": worst,
                     "sched_card_vs_plain_rel_err": sched_worst,
                     "formats_card_vs_plain_rel_err": formats_worst,
+                    **fused_worst,
                     **gemma2_worst, **zoo_worst, **copies_worst,
                     "window_over_no_window": window,
                     "option_on_over_off": branches,

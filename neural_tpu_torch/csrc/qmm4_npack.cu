@@ -28,6 +28,26 @@
 // block covers 512 K rows of 128 columns and writes f32 partials
 // [splits, M, N]; a second pass adds the splits in a fixed order. No
 // atomics, so reruns are bit-identical.
+//
+// The fused entry points (name + "_fused", symmetric only) are the TPU
+// kernel's ``fuse`` options (qmatmul_fused), which fold a decode step's
+// elementwise neighbours into the weight stream:
+//   rms  (norm_w non-null) x is the raw residual stream; each row becomes
+//        bf16(x * rsqrt(mean(x^2) + eps) * (w + offset)), f32 inside;
+//   glu  (u non-null)      x is the gate input g, u the up input; the
+//        product's input is bf16(act(g) * u), act in f32 (expf, erff,
+//        tanhf: the precise library functions, not the intrinsics);
+//   res  (res non-null)    the second pass adds a bf16 [M, N] residual to
+//        the output as the unfused graph adds it: bf16(bf16(sum) + res).
+// Each block stages the product's input for its own 512 K rows in shared
+// memory as f32 (already rounded to bf16), so the prologue runs once per
+// element and block, not once per thread that reads it. rms needs the
+// whole row's mean square, and a block sees 512 of its K values: each
+// block reads its rows in full (8 KB a row at K=4096, from L2, where the
+// first blocks leave them) and reduces them in a fixed order, so every
+// block of a launch computes the same scale. That costs M*K*2 bytes of L2
+// reads per block and no extra launch, where a separate norm kernel costs
+// a launch and an HBM round trip of its output.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -70,22 +90,179 @@ __device__ __forceinline__ float bf16_bits(uint32_t h) {
   return __uint_as_float(h << 16);
 }
 
-template <int MT, int CODE, bool ASYM>
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// the fused prologue: PRO is a set of these bits
+enum Pro { P_RMS = 1, P_GLU = 2 };
+// the activations of the glu prologue, in f32, as torch computes them
+enum Act { A_SILU = 0, A_GELU = 1, A_GELU_TANH = 2, A_RELU = 3 };
+
+__device__ __forceinline__ float act_f32(float g, int act) {
+  switch (act) {
+    case A_SILU:
+      return g / (1.f + expf(-g));
+    case A_GELU:
+      return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
+    case A_GELU_TANH: {
+      const float inner = 0.79788456080286536f * (g + 0.044715f * g * g * g);
+      return 0.5f * g * (1.f + tanhf(inner));
+    }
+    default:
+      return fmaxf(g, 0.f);
+  }
+}
+
+// eight elements at o of the product's input before the norm: x, or
+// bf16(act(g) * u), from one 16-byte load of each input
+template <int PRO>
+__device__ __forceinline__ void pro_in8(const __nv_bfloat16* __restrict__ x,
+                                        const __nv_bfloat16* __restrict__ u,
+                                        size_t o, int act, float v[8]) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(x + o));
+  const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+  uint32_t bv[4] = {0, 0, 0, 0};
+  if constexpr ((PRO & P_GLU) != 0) {
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(u + o));
+    bv[0] = b.x; bv[1] = b.y; bv[2] = b.z; bv[3] = b.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    v[i] = bf16_bits((av[i / 2] >> (16 * (i % 2))) & 0xFFFFu);
+    if constexpr ((PRO & P_GLU) != 0) {
+      const float uv = bf16_bits((bv[i / 2] >> (16 * (i % 2))) & 0xFFFFu);
+      v[i] = round_bf16(__fmul_rn(act_f32(v[i], act), uv));
+    }
+  }
+}
+
+struct Fuse {
+  const __nv_bfloat16* u;   // glu: the up input [M, K] (x is the gate)
+  const void* norm_w;       // rms: the norm weight [K], bf16 or f32
+  int norm_f32;
+  float eps, offset;
+  int act;
+  const __nv_bfloat16* res; // res: [M, N] bf16
+};
+
+constexpr int XS = TY * 33;          // staged K values a row, padded by one
+                                     // float a chunk against bank conflicts
+
+// The fused prologue of one block: rows m0.. m0+MT-1 of the product's
+// input, K values split*512 .. +511, into xsh[m * XS + kk + kk / 32]. Every
+// load is 16 bytes, and a thread issues all of its loads before it uses
+// one: the prologue is latency, paid before the block's weight stream
+// (which the caller has asked L2 to prefetch meanwhile).
+template <int MT, int PRO>
+__device__ void stage_input(const __nv_bfloat16* __restrict__ x,
+                            const Fuse& f, float* xsh, int M, int K,
+                            int m0, int split) {
+  constexpr int NT = TX * TY;
+  __shared__ float warp_ss[NT / 32][MT];
+  __shared__ float rrow[MT];
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  if constexpr ((PRO & P_RMS) != 0) {
+    // the whole row's sum of squares, in a fixed order
+    float ss[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) ss[m] = 0.f;
+#pragma unroll 4
+    for (int c = tid; c < K / 8; c += NT) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m0 + m >= M) continue;
+        float v[8];
+        pro_in8<PRO>(x, f.u, (size_t)(m0 + m) * K + (size_t)c * 8, f.act, v);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          ss[m] = __fadd_rn(ss[m], __fmul_rn(v[i], v[i]));
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float v = ss[m];
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+      if (tid % 32 == 0) warp_ss[tid / 32][m] = v;
+    }
+    __syncthreads();
+    if (tid < MT) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < NT / 32; ++w) t += warp_ss[w][tid];
+      rrow[tid] = rsqrtf(__fadd_rn(__fmul_rn(t, 1.f / (float)K), f.eps));
+    }
+    __syncthreads();
+  }
+  // the block's slice, eight elements a thread and pass
+  constexpr int ITEMS = MT * TY * 32 / 8;
+  const int kbase = split * (TY * 32);
+#pragma unroll
+  for (int it = 0; it < (ITEMS + NT - 1) / NT; ++it) {
+    const int i = it * NT + tid;
+    if (i >= ITEMS) break;
+    const int m = i / (TY * 4), kk = (i % (TY * 4)) * 8, k = kbase + kk;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (m0 + m < M && k < K) {
+      pro_in8<PRO>(x, f.u, (size_t)(m0 + m) * K + k, f.act, v);
+      if constexpr ((PRO & P_RMS) != 0) {
+        float w[8];
+        if (f.norm_f32) {
+          const float4* wp = reinterpret_cast<const float4*>(
+              reinterpret_cast<const float*>(f.norm_w) + k);
+          const float4 w0 = __ldg(wp), w1 = __ldg(wp + 1);
+          w[0] = w0.x; w[1] = w0.y; w[2] = w0.z; w[3] = w0.w;
+          w[4] = w1.x; w[5] = w1.y; w[6] = w1.z; w[7] = w1.w;
+        } else {
+          const uint4 wb = __ldg(reinterpret_cast<const uint4*>(
+              reinterpret_cast<const __nv_bfloat16*>(f.norm_w) + k));
+          const uint32_t wv[4] = {wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            w[j] = bf16_bits((wv[j / 2] >> (16 * (j % 2))) & 0xFFFFu);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = round_bf16(__fmul_rn(__fmul_rn(v[j], rrow[m]),
+                                      __fadd_rn(w[j], f.offset)));
+      }
+    }
+    float* dst = xsh + m * XS + kk + kk / 32;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[j] = v[j];
+  }
+  __syncthreads();
+}
+
+template <int MT, int CODE, bool ASYM, int PRO>
 __global__ void __launch_bounds__(TX * TY)
 qmm_native_partial(const __nv_bfloat16* __restrict__ x,
                    const uint8_t* __restrict__ planes,
                    const __nv_bfloat16* __restrict__ scales,
                    const __nv_bfloat16* __restrict__ zeros,
                    const float* __restrict__ xs, float* __restrict__ partial,
-                   int M, int K, int N, int group) {
+                   int M, int K, int N, int group, Fuse fuse) {
   constexpr int R = Fields<CODE>::R;
   constexpr int BR = 32 / R;             // byte rows per 32-row chunk
   __shared__ float red[TY][MT][BLOCK_COLS];
+  __shared__ float xsh[PRO ? MT * XS : 1];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int n0 = blockIdx.x * BLOCK_COLS + tx * COLS;
   const int split = blockIdx.y;
   const int m0 = blockIdx.z * MT;
   const int k0 = (split * TY + ty) * 32;    // first K row of the chunk
+  if constexpr (PRO != 0) {
+    // ask L2 for the block's weight rows, one 128-byte line a row, so the
+    // stream's first loads do not wait behind the prologue
+    if (n0 < N && k0 < K) {
+      const uint8_t* wl = planes + (size_t)(k0 / R) * N +
+                          blockIdx.x * BLOCK_COLS;
+      for (int r = tx; r < BR; r += TX)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(wl + (size_t)r * N));
+    }
+    stage_input<MT, PRO>(x, fuse, xsh, M, K, m0, split);
+  }
 
   float acc[MT][COLS];
 #pragma unroll
@@ -102,7 +279,11 @@ qmm_native_partial(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         const __nv_bfloat16* xp = x + (size_t)(m0 + m) * K + k0 + r * R;
-        if constexpr (R == 1) {
+        if constexpr (PRO != 0) {
+#pragma unroll
+          for (int f = 0; f < R; ++f)
+            xv[m][f] = xsh[m * XS + ty * 33 + r * R + f];
+        } else if constexpr (R == 1) {
           xv[m][0] = m0 + m < M ? __bfloat162float(*xp) : 0.f;
         } else {
 #pragma unroll
@@ -191,25 +372,56 @@ qmm_native_partial(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// the splits added in a fixed order; with res, the residual added as the
+// unfused graph adds it (a bf16 sum of two bf16 values)
 __global__ void qmm4_reduce(const float* __restrict__ partial, void* out,
+                            const __nv_bfloat16* __restrict__ res,
                             int splits, long long MN, int out_f32) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= MN) return;
   float s = 0.f;
   for (int p = 0; p < splits; ++p) s += partial[(size_t)p * MN + i];
-  if (out_f32)
+  if (out_f32) {
+    if (res != nullptr) s = __fadd_rn(s, __bfloat162float(res[i]));
     reinterpret_cast<float*>(out)[i] = s;
-  else
-    reinterpret_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(s);
+  } else {
+    __nv_bfloat16 o = __float2bfloat16(s);
+    if (res != nullptr)
+      o = __float2bfloat16(
+          __fadd_rn(__bfloat162float(o), __bfloat162float(res[i])));
+    reinterpret_cast<__nv_bfloat16*>(out)[i] = o;
+  }
+}
+
+template <int MT, int CODE, bool ASYM>
+void launch_partial(int pro, dim3 grid, cudaStream_t st,
+                    const __nv_bfloat16* xb, const uint8_t* pb,
+                    const __nv_bfloat16* sb, const __nv_bfloat16* zb,
+                    const float* xsf, float* part, int M, int K, int N,
+                    int group, const Fuse& f) {
+  const dim3 block(TX, TY);
+#define K1_PARTIAL(P)                                                      \
+  qmm_native_partial<MT, CODE, ASYM, P><<<grid, block, 0, st>>>(           \
+      xb, pb, sb, zb, xsf, part, M, K, N, group, f)
+  if constexpr (ASYM) {
+    K1_PARTIAL(0);
+  } else {
+    switch (pro) {
+      case P_RMS: K1_PARTIAL(P_RMS); break;
+      case P_GLU: K1_PARTIAL(P_GLU); break;
+      case P_RMS | P_GLU: K1_PARTIAL(P_RMS | P_GLU); break;
+      default: K1_PARTIAL(0);
+    }
+  }
+#undef K1_PARTIAL
 }
 
 template <int CODE, bool ASYM>
 int launch(const void* x, const void* planes, const void* scales,
            const void* zeros, const void* xs, void* partial, void* out,
            int M, int K, int N, int group, int out_f32, int splits,
-           void* stream) {
+           void* stream, const Fuse& f) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 block(TX, TY);
   const int ntiles = (N + BLOCK_COLS - 1) / BLOCK_COLS;
   const auto* xb = reinterpret_cast<const __nv_bfloat16*>(x);
   const auto* pb = reinterpret_cast<const uint8_t*>(planes);
@@ -217,20 +429,20 @@ int launch(const void* x, const void* planes, const void* scales,
   const auto* zb = reinterpret_cast<const __nv_bfloat16*>(zeros);
   const auto* xsf = reinterpret_cast<const float*>(xs);
   auto* part = reinterpret_cast<float*>(partial);
-  if (M == 1) {
-    qmm_native_partial<1, CODE, ASYM><<<dim3(ntiles, splits, 1), block, 0,
-                                        st>>>(xb, pb, sb, zb, xsf, part, M, K,
-                                              N, group);
-  } else {
-    qmm_native_partial<4, CODE, ASYM>
-        <<<dim3(ntiles, splits, (M + 3) / 4), block, 0, st>>>(
-            xb, pb, sb, zb, xsf, part, M, K, N, group);
-  }
+  const int pro = (f.norm_w != nullptr ? P_RMS : 0) |
+                  (f.u != nullptr ? P_GLU : 0);
+  if (M == 1)
+    launch_partial<1, CODE, ASYM>(pro, dim3(ntiles, splits, 1), st, xb, pb,
+                                  sb, zb, xsf, part, M, K, N, group, f);
+  else
+    launch_partial<4, CODE, ASYM>(pro, dim3(ntiles, splits, (M + 3) / 4), st,
+                                  xb, pb, sb, zb, xsf, part, M, K, N, group,
+                                  f);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long MN = (long long)M * N;
   qmm4_reduce<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
-      part, out, splits, MN, out_f32);
+      part, out, f.res, splits, MN, out_f32);
   return (int)cudaGetLastError();
 }
 
@@ -246,7 +458,7 @@ int launch(const void* x, const void* planes, const void* scales,
                       int splits, void* stream) {                            \
     return launch<CODE, ASYM>(x, planes, scales, ASYM ? zeros : nullptr,     \
                               ASYM ? xs : nullptr, partial, out, M, K, N,    \
-                              group, out_f32, splits, stream);               \
+                              group, out_f32, splits, stream, Fuse{});       \
   }
 
 K1_ENTRY(qmm4_npack, C_NIB, false)
@@ -255,3 +467,26 @@ K1_ENTRY(qmm2_npack, C_INT2, false)
 K1_ENTRY(qmm2_npack_asym, C_INT2, true)
 K1_ENTRY(qmm8_native, C_INT8, false)
 K1_ENTRY(qmm8_native_asym, C_INT8, true)
+
+// The fused entry points, symmetric only: x is the raw residual stream when
+// norm_w is set (bf16 [K], or f32 with norm_f32), the gate input when u is
+// set (act: 0 silu, 1 gelu, 2 tanh gelu, 3 relu); res is a bf16 [M, N]
+// residual added to the output, or null.
+#define K1_FUSED(NAME, CODE)                                                 \
+  extern "C" int NAME(const void* x, const void* u, const void* norm_w,      \
+                      int norm_f32, float eps, float offset, int act,        \
+                      const void* res, const void* planes,                   \
+                      const void* scales, void* partial, void* out, int M,   \
+                      int K, int N, int group, int out_f32, int splits,      \
+                      void* stream) {                                        \
+    const Fuse f{reinterpret_cast<const __nv_bfloat16*>(u), norm_w,          \
+                 norm_f32, eps, offset, act,                                 \
+                 reinterpret_cast<const __nv_bfloat16*>(res)};               \
+    return launch<CODE, false>(x, planes, scales, nullptr, nullptr, partial, \
+                               out, M, K, N, group, out_f32, splits, stream, \
+                               f);                                           \
+  }
+
+K1_FUSED(qmm4_npack_fused, C_NIB)
+K1_FUSED(qmm2_npack_fused, C_INT2)
+K1_FUSED(qmm8_native_fused, C_INT8)

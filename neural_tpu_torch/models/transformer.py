@@ -26,21 +26,33 @@ through ``paged_update_kv``, attention through ``attend_paged``), as in
 Every projection is a :class:`QLinear`: a quantized weight at rest
 (``core.qtensor.to_native``) or a bf16 one. A tied lm_head is a torch
 product with the embedding, as the JAX package leaves it to XLA.
+
+The fused decode path (``NTPU_FUSED_DECODE``, :func:`fuse_mode`, off by
+default; the JAX ``_block`` fast path) folds a decode step's elementwise
+ops into K1 where :func:`can_fuse_block` allows: the pre-norms into the
+q/k/v and gate/up products' prologue, the residual adds into the wo and
+w_down products' second pass, the final norm into a quantized lm_head's
+prologue, and with ``NTPU_FUSE_GLU=1`` the gated activation into w_down's
+prologue (``ops.qmatmul.qmatmul_fused``). Each block reads at load which
+of its weights the fused kernel takes (``ops.qmatmul.fusable``): a
+pre-norm rides the kernels only when it takes every product behind that
+norm (q/k/v, gate/up); otherwise the block computes the norm once and runs
+the unfused chain there, as it does for a wo or w_down the kernel does not
+take.
 """
 from __future__ import annotations
 
-from functools import partial
-from typing import Dict, Optional
+import os
+from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..core.qtensor import QTensor
 from ..ops.attention import attend, quantize_kv
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.paged_attention import attend_paged, paged_update_kv
-from ..ops.qmatmul import qmatmul
+from ..ops.qmatmul import ACTS, fusable, qmatmul, qmatmul_fused
 from ..ops.rope import apply_glm1, apply_rope, glm1_cos_sin, rope_cos_sin
 from .config import ModelConfig
 
@@ -51,9 +63,63 @@ BIASES = ("bq", "bk", "bv", "bo", "b_gate", "b_up", "b_down")
 FUSED = ("wqkv", "w_gateup")
 FUSED_BIASES = ("bqkv", "b_gateup")
 NORMS = ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
-ACTS = {"silu": F.silu, "gelu": F.gelu,
-        "gelu_tanh": partial(F.gelu, approximate="tanh")}
 ARCHS = ("llama", "mistral", "gemma", "gemma2", "bloom", "mpt", "chatglm1")
+
+
+def fuse_mode() -> str:
+    """``NTPU_FUSED_DECODE``: "0" (off, the default), "1" (on the card) or
+    "interpret" (on the CPU too, where the fused products run K1's plain
+    version), read at every forward call, so one loaded model can be
+    captured and timed both ways in one process.
+
+    Off unset, as in the JAX package (on the TPU the fused kernels
+    measured slower). The default changes only where ``chip_smoke.py``
+    phase 4's A/B finds fused faster at fill 128 with bf16 KV and at batch
+    8 beyond the spread of the device-timed replays (its 75th percentile
+    under unfused's 25th), and slower at no leg, steadily. On an NVIDIA
+    H100 80GB HBM3 at a 700 W power limit, a Llama-2-7B q4_j decode step's
+    CUDA graph (30 replays a mode, in turns; two runs) took 6.836 and
+    6.840 ms fused against 7.773 and 7.775 ms unfused at fill 128
+    (medians), beyond the spread; at batch 8 with int8 KV 13.925 against
+    14.388 ms, beyond it, in one run, and 13.232 against 13.438 ms in the
+    other, where a third of every mode's replays ran 1 ms slower and the
+    quartiles overlapped (fused q75 13.952, unfused q25 13.428)."""
+    return os.environ.get("NTPU_FUSED_DECODE", "0")
+
+
+def fuse_glu() -> bool:
+    """``NTPU_FUSE_GLU=1``: with the fused path on, the gated activation
+    ``act(g) · u`` rides the w_down kernel's prologue too. Off unset, as in
+    the JAX package; on the H100 of :func:`fuse_mode` it was 0.02 ms a step
+    faster than fused without it at fill 128 but 0.24 ms slower at batch 8
+    (14.164 against 13.925 ms: the gate and up rows staged per block cost
+    more than the launch they save)."""
+    return os.environ.get("NTPU_FUSE_GLU") == "1"
+
+
+def fuse_switches() -> Tuple[str, bool]:
+    """The two switches as a forward call reads them: what a captured
+    decode step records, so that a step captured under other switches is
+    captured again, never replayed."""
+    return fuse_mode(), fuse_glu()
+
+
+def can_fuse_block(x: torch.Tensor, cfg: ModelConfig, mode: str) -> bool:
+    """The JAX package's ``_can_fuse_block``: the fused path is on (``mode``
+    not "0"), x lies on the card or the mode is "interpret", B·T <= 16, and
+    the block is the plain serial-residual RMS-norm shape (no parallel
+    residual, residual alpha 1, no post norms). The port has no tensor
+    parallelism, the rule's last exclusion."""
+    if mode == "0":
+        return False
+    if not (x.device.type == "cuda" or mode == "interpret"):
+        return False
+    B, T = x.shape[:2]
+    if B * T > 16:
+        return False
+    return (cfg.norm_type == "rmsnorm" and not cfg.parallel_residual
+            and cfg.residual_alpha == 1.0 and not cfg.post_attn_norm
+            and not cfg.post_ffn_norm)
 
 
 def bf16_scalar(v: float) -> float:
@@ -123,6 +189,12 @@ class Block(nn.Module):
                 setattr(self, name, QLinear(weights[name]))
         self.fused_qkv = "wqkv" in weights
         self.fused_gateup = "w_gateup" in weights
+        # the products the fused K1 takes, read once here: the fused route
+        # is chosen from them before anything is computed
+        self.fusable = {n for n in LINEARS + FUSED if n in weights
+                        and not isinstance(weights[n], torch.Tensor)
+                        and weights.get("b" + n[1:]) is None
+                        and fusable(weights[n])}
         norms = ["attn_norm", "ffn_norm"]
         norms += ["post_attn_norm"] if cfg.post_attn_norm else []
         norms += ["post_ffn_norm"] if cfg.post_ffn_norm else []
@@ -155,23 +227,86 @@ class Block(nn.Module):
         b = getattr(self, "b" + name[1:])
         return y if b is None else y + b.to(y.dtype)
 
-    def forward(self, x, kv, positions, rope, slopes=None, prompt_len=None):
+    def _fused(self, name, x, **fuse):
+        """The projection ``name`` (one of ``self.fusable``) through
+        :func:`qmatmul_fused`: x [B, T, K], or a pair of them for glu, with
+        B·T <= 16 (:func:`can_fuse_block`) → [B, T, N]."""
+        x0 = x[0] if isinstance(x, tuple) else x
+        B, T, K = x0.shape
+        x2 = tuple(t.reshape(B * T, K) for t in x) if isinstance(x, tuple) \
+            else x.reshape(B * T, K)
+        res = fuse.pop("res", None)
+        y = qmatmul_fused(x2, getattr(self, name).qt, x0.dtype,
+                          res=None if res is None
+                          else res.reshape(B * T, -1), **fuse)
+        return y.reshape(B, T, -1)
+
+    def _projections(self, x, norm, names):
+        """A function from each name of ``names``, the projections that
+        read ``norm(x)`` (x the raw residual stream), to its output: the
+        JAX ``_lin_norm``, the norm in each kernel's prologue, where the
+        fused kernel takes every one of them; else the norm once and the
+        unfused products."""
+        if self.fusable.issuperset(names):
+            cfg = self.cfg
+            nw = (getattr(self, norm + "_w"), cfg.norm_eps, cfg.norm_offset)
+            return lambda n: self._fused(n, x, norm=nw)
+        h = self._norm(x, norm)
+        return lambda n: self._linear(n, h)
+
+    def forward(self, x, kv, positions, rope, slopes=None, prompt_len=None,
+                fuse=False, fuse_glu=False):
         """x [B, T, D]; ``kv`` this layer's
         :class:`~neural_tpu_torch.runtime.kvcache.LayerKV`, written in place
         at ``positions`` [B, T]; ``rope`` the RoPE tables of the config's
         style (None for "none"); the model's ALiBi ``slopes`` and the
         prompt lengths ``prompt_len`` [B], which the attention reads for a
-        prefix-LM config's prefill."""
+        prefix-LM config's prefill. ``fuse`` (:func:`can_fuse_block`) takes
+        the decode fast path of the JAX ``_block``: the pre-norms ride the
+        q/k/v and gate/up kernels, the residual adds the wo and w_down
+        kernels, and with ``fuse_glu`` the gated activation the w_down
+        kernel's prologue."""
+        cfg = self.cfg
+        if fuse:
+            x = self._attention(x, kv, positions, rope, slopes, prompt_len,
+                                res=x)
+            return self._mlp(x, res=x, fuse_glu=fuse_glu)
+        h = self._norm(x, "attn_norm")
+        out = self._attention(h, kv, positions, rope, slopes, prompt_len)
+        if cfg.post_attn_norm:
+            out = self._norm(out, "post_attn_norm")
+        if cfg.residual_alpha != 1.0:
+            # ChatGLM-1's DeepNorm residuals: the normed branch input,
+            # times alpha as a bf16 scalar, is the residual base
+            x = h * self.alpha + out
+            h2 = self._norm(x, "ffn_norm")
+            return h2 * self.alpha + self._mlp(h2)
+        x = x + out
+        mlp = self._mlp(self._norm(x, "ffn_norm"))
+        if cfg.post_ffn_norm:
+            mlp = self._norm(mlp, "post_ffn_norm")
+        return x + mlp
+
+    def _attention(self, x, kv, positions, rope, slopes, prompt_len,
+                   res=None):
+        """q/k/v, RoPE, the cache append and the attention, then the output
+        projection. With ``res``, x is the raw residual stream (the
+        attention norm rides the q/k/v kernels) and the result includes
+        the residual, added in the wo kernel's second pass."""
         cfg = self.cfg
         B, T, _ = x.shape
         Dh = cfg.head_dim
-        h = self._norm(x, "attn_norm")
+        names = ("wqkv",) if self.fused_qkv else ("wq", "wk", "wv")
+        if res is None:
+            proj = lambda n: self._linear(n, x)
+        else:
+            proj = self._projections(x, "attn_norm", names)
         if self.fused_qkv:
-            qkv = self._linear("wqkv", h)
+            qkv = proj("wqkv")
             nq, nkv = cfg.n_heads * Dh, cfg.n_kv_heads * Dh
             q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
         else:
-            q, k, v = (self._linear(n, h) for n in ("wq", "wk", "wv"))
+            q, k, v = (proj(n) for n in ("wq", "wk", "wv"))
         q, k, v = (t.reshape(B, T, -1, Dh) for t in (q, k, v))
         if cfg.rope_style == "glm1":
             q, k = apply_glm1(q, rope), apply_glm1(k, rope)
@@ -197,31 +332,46 @@ class Block(nn.Module):
             kv.v[rows, :, positions] = v.to(kv.v.dtype)
             out = attend(q, kv.k, kv.v, positions, cfg, kv.k_scale,
                          kv.v_scale, **opts)
-        out = self._linear("wo", out.to(x.dtype))
-        if cfg.post_attn_norm:
-            out = self._norm(out, "post_attn_norm")
-        if cfg.residual_alpha != 1.0:
-            # ChatGLM-1's DeepNorm residuals: the normed branch input,
-            # times alpha as a bf16 scalar, is the residual base
-            x = h * self.alpha + out
-            h2 = self._norm(x, "ffn_norm")
-            return h2 * self.alpha + self._mlp(h2)
-        x = x + out
-        mlp = self._mlp(self._norm(x, "ffn_norm"))
-        if cfg.post_ffn_norm:
-            mlp = self._norm(mlp, "post_ffn_norm")
-        return x + mlp
+        out = out.to(x.dtype)
+        if res is None:
+            return self._linear("wo", out)
+        if "wo" in self.fusable:
+            return self._fused("wo", out, res=res)
+        return res + self._linear("wo", out)
 
-    def _mlp(self, h):
-        if self.fused_gateup:
-            gu = self._linear("w_gateup", h)
-            ng = gu.shape[-1] // 2
-            h = self.act(gu[..., :ng]) * gu[..., ng:]
-        elif self.cfg.mlp_gated:
-            h = self.act(self._linear("w_gate", h)) * self._linear("w_up", h)
+    def _mlp(self, x, res=None, fuse_glu=False):
+        """The MLP. With ``res`` (the JAX ``_mlp`` in decode-fusion mode), x
+        is the raw residual stream (the FFN norm rides the gate/up kernels)
+        and the result includes the residual, added in the w_down kernel's
+        second pass; with ``fuse_glu`` the gated activation rides its
+        prologue too."""
+        cfg = self.cfg
+        names = ("w_gateup",) if self.fused_gateup else \
+            ("w_gate", "w_up") if cfg.mlp_gated else ("w_up",)
+        if res is None:
+            lin = lambda n: self._linear(n, x)
         else:
-            h = self.act(self._linear("w_up", h))
-        return self._linear("w_down", h)
+            lin = self._projections(x, "ffn_norm", names)
+        gu = None
+        if self.fused_gateup:
+            y = lin("w_gateup")
+            ng = y.shape[-1] // 2
+            gu = (y[..., :ng], y[..., ng:])
+        elif cfg.mlp_gated:
+            gu = (lin("w_gate"), lin("w_up"))
+        else:
+            h = self.act(lin("w_up"))
+        fuse_ok = res is not None and "w_down" in self.fusable \
+            and cfg.act in ("silu", "gelu_tanh", "relu")
+        if gu is not None:
+            g, u = gu
+            if fuse_ok and fuse_glu:
+                return self._fused("w_down", (g, u), glu=cfg.act, res=res)
+            h = self.act(g) * u
+        if fuse_ok:
+            return self._fused("w_down", h, res=res)
+        down = self._linear("w_down", h)
+        return down if res is None else res + down
 
 
 class Transformer(nn.Module):
@@ -260,6 +410,10 @@ class Transformer(nn.Module):
             raise ValueError("an ALiBi config needs params['alibi_slopes']")
         lm_head = params.get("lm_head")
         self.lm_head = None if lm_head is None else QLinear(lm_head)
+        # the final norm can ride a quantized, bias-free lm_head's kernel
+        self.fuse_head = self.lm_head is not None \
+            and self.lm_head.cfg is not None \
+            and self.final_norm_b is None and fusable(lm_head)
 
     @property
     def device(self) -> torch.device:
@@ -297,21 +451,33 @@ class Transformer(nn.Module):
             rope = None
         else:
             rope = rope_cos_sin(positions, self.rope_inv_freqs)
+        mode, glu = fuse_switches()
+        fuse = can_fuse_block(x, cfg, mode)
         for l, blk in enumerate(self.layers):
             x = blk(x, cache.layer(l), positions, rope, self.alibi_slopes,
-                    prompt_len)
+                    prompt_len, fuse, glu)
         if logit_positions is not None:
             rows = torch.arange(B, device=x.device)[:, None]
             x = x[rows, logit_positions.long()[:, None]]
-        if cfg.norm_type == "rmsnorm":
-            x = rms_norm(x, self.final_norm_w, cfg.norm_eps, cfg.norm_offset)
+        if self.fuse_head and can_fuse_block(x, cfg, mode):
+            # the final norm rides the lm_head kernel's prologue; after
+            # logit_positions a prefill's one row qualifies too
+            Bx, Tx, Dx = x.shape
+            logits = qmatmul_fused(
+                x.reshape(-1, Dx), self.lm_head.qt, torch.float32,
+                norm=(self.final_norm_w, cfg.norm_eps, cfg.norm_offset)
+            ).reshape(Bx, Tx, -1)
         else:
-            x = layer_norm(x, self.final_norm_w, self.final_norm_b,
-                           cfg.norm_eps)
-        if self.lm_head is None:          # tied embeddings
-            logits = self._tied_logits(x)
-        else:
-            logits = self.lm_head(x, torch.float32)
+            if cfg.norm_type == "rmsnorm":
+                x = rms_norm(x, self.final_norm_w, cfg.norm_eps,
+                             cfg.norm_offset)
+            else:
+                x = layer_norm(x, self.final_norm_w, self.final_norm_b,
+                               cfg.norm_eps)
+            if self.lm_head is None:          # tied embeddings
+                logits = self._tied_logits(x)
+            else:
+                logits = self.lm_head(x, torch.float32)
         logits = logits.to(torch.float32)
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)

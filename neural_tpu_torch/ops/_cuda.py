@@ -19,8 +19,9 @@ each launch under the C function's name (``Kernel.launches``), so a run
 can tell which entry points — the bf16 and the int8 variant of an
 attention kernel apart — its path went through. A launch that takes one
 of an entry point's option branches (an attention kernel's ALiBi slopes or
-prefix mask) also counts under ``name+branch`` (``flash_prefill+alibi``),
-so a run can tell that its path went through the branch too.
+prefix mask, a fused K1's prologue or epilogue) also counts under
+``name+branch`` (``flash_prefill+alibi``, ``qmm4_npack_fused+rms``), so a
+run can tell that its path went through the branch too.
 """
 from __future__ import annotations
 
@@ -150,9 +151,17 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None):
 # x, planes, scales, zeros, xs, partial, out, M, K, N, group, out_f32,
 # splits, stream
 _K1_ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+F = ctypes.c_float
+# the fused entries: x, u, norm_w, norm_f32, eps, offset, act, res, planes,
+# scales, partial, out, M, K, N, group, out_f32, splits, stream
+_K1_FUSED_ARGS = [P, P, P, I, F, F, I, P, P, P, P, P, I, I, I, I, I, I, P]
 K1_ENTRIES = ("qmm4_npack", "qmm2_npack", "qmm8_native")
+# each fused launch also counts under the options it takes:
+# ``qmm4_npack_fused+rms``, ``+glu``, ``+res``
 QMM4 = Kernel("qmm4_npack.cu", {
-    fn + asym: _K1_ARGS for fn in K1_ENTRIES for asym in ("", "_asym")})
+    **{fn + asym: _K1_ARGS for fn in K1_ENTRIES for asym in ("", "_asym")},
+    **{fn + "_fused": _K1_FUSED_ARGS for fn in K1_ENTRIES}},
+    branches=("rms", "glu", "res"))
 # K2's entry points per weight layout: native-pack nibbles (int4, and int3
 # under the branch "int3"), native-pack int2 fields, int8 code planes
 K2_ENTRIES = ("qmm_a8", "qmm_a8_int2", "qmm_a8_int8")
@@ -166,7 +175,6 @@ QMM_A8 = Kernel("qmm_a8.cu", {
     **{fn + "_asym": [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
        for fn in K2_ENTRIES},
 }, branches=("int3",))
-F = ctypes.c_float
 QMM_GENERAL = Kernel("qmm_general.cu", {
     # x, plane0, plane1, plane2, scales, zeros, lut, partial, out, M, K, N,
     # group, chunk, fmt, bits, vmode, scale_f32, zkind, zconst, fp8_e5m2,

@@ -8,7 +8,10 @@ stored (bit planes, nf4/fp4 indices, fp8; f32 or bf16 scales).
 - **K1** :func:`qmm_native` (``csrc/qmm4_npack.cu``) replaces the TPU's
   ``_qmm4_kernel``: ``out = x @ (codes · s)`` for at-rest codes at M <= 16,
   f32 dequant and f32 accumulation, the group scale applied to each group's
-  partial sum, zero-points as a rank-G correction.
+  partial sum, zero-points as a rank-G correction. Its fusion options
+  (the TPU kernel's ``fuse``: an RMS-norm or ``act(g) · u`` prologue, a
+  residual epilogue) are :func:`qmm_native_fused`, driven by
+  :func:`qmatmul_fused` on the fused decode path.
 - **K2** :func:`qmm_a8` (``csrc/qmm_a8.cu``) replaces ``_qmm_a8_kernel``:
   x is quantized per row and per ``gd`` K-group to sym int8, each group is
   an int8·int8→int32 dot, folded as ``acc += d · (sa_g ⊗ sw_g)`` in f32;
@@ -34,13 +37,16 @@ stored ones.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..core.qtensor import (QTensor, dequantize, is_native, lut_on,
                            native_fields, pack_chunk)
 from . import _cuda
+from .norms import rms_norm
 
 # ---------------------------------------------------------------------------
 # activation quantization (K2's first pass)
@@ -190,6 +196,182 @@ def qmm_native(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
                     int(out_dtype == torch.float32), splits,
                     _cuda.stream_ptr())
     return out
+
+
+# ---------------------------------------------------------------------------
+# K1's fusion options (the TPU kernel's ``fuse``)
+# ---------------------------------------------------------------------------
+
+# the activations of the graph (``models/transformer.py``) and of the glu
+# prologue, by the config's name, and their codes in csrc/qmm4_npack.cu (Act)
+ACTS = {"silu": F.silu, "gelu": F.gelu,
+        "gelu_tanh": partial(F.gelu, approximate="tanh"), "relu": F.relu}
+_ACT_CODE = {"silu": 0, "gelu": 1, "gelu_tanh": 2, "relu": 3}
+
+
+def fused_input_plain(x: torch.Tensor, norm=None, u=None,
+                      act: Optional[str] = None) -> torch.Tensor:
+    """The fused prologue's output, bf16 [M, K]: ``bf16(act(x) · u)`` in
+    f32 with one rounding (glu: x is the gate input), then the port's
+    ``rms_norm`` with ``norm = (weight, eps, offset)`` (rms: x is the raw
+    residual stream)."""
+    if u is not None:
+        x = (ACTS[act](x.to(torch.float32))
+             * u.to(torch.float32)).to(torch.bfloat16)
+    if norm is not None:
+        w, eps, offset = norm
+        x = rms_norm(x.to(torch.bfloat16), w, eps, offset)
+    return x.to(torch.bfloat16)
+
+
+def qmm_native_fused_plain(x: torch.Tensor, planes: torch.Tensor,
+                           scales: torch.Tensor, group: int, bits: int,
+                           out_dtype: torch.dtype, norm=None, u=None,
+                           act: Optional[str] = None,
+                           res: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Plain version of K1 with its fusion options, composed of the port's
+    own ops: :func:`fused_input_plain`, :func:`qmm_native_plain`, then
+    ``out + res`` in ``out_dtype``. Without glu it is the unfused chain
+    (``rms_norm``, the product, the residual add) bit for bit; with glu the
+    activation is rounded once, where the unfused ``act(g) * u`` in bf16
+    rounds twice."""
+    h = fused_input_plain(x, norm, u, act)
+    out = qmm_native_plain(h, planes, scales, None, group, bits, out_dtype)
+    if res is not None:
+        out = out + res.to(out_dtype)
+    return out
+
+
+def qmm_native_fused(x: torch.Tensor, planes: torch.Tensor,
+                     scales: torch.Tensor, group: int, bits: int,
+                     out_dtype: torch.dtype, norm=None, u=None,
+                     act: Optional[str] = None,
+                     res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1 with the TPU kernel's fusion options, for symmetric codes at rest:
+    ``norm = (weight [K], eps, offset)`` RMS-normalises the raw residual
+    stream x in the prologue; ``u`` (with ``act``) makes x the gate input
+    and the product's input ``act(x) · u``; ``res`` [M, N] is added to the
+    output in the second pass. One C entry point per code layout
+    (``qmm4_npack_fused``, ``qmm2_npack_fused``, ``qmm8_native_fused``),
+    each launch also counted under its options (``+rms``, ``+glu``,
+    ``+res``)."""
+    if x.device.type == "cpu":
+        return qmm_native_fused_plain(x, planes, scales, group, bits,
+                                      out_dtype, norm, u, act, res)
+    x = x.contiguous()
+    M, K = x.shape
+    N = planes.shape[1]
+    _cuda.check(x, "x", torch.bfloat16)
+    if planes.dtype == torch.int8:
+        fn, rows = "qmm8_native_fused", K
+    elif bits == 2:
+        fn, rows = "qmm2_npack_fused", K // 4
+    else:
+        fn, rows = "qmm4_npack_fused", K // 2
+    _cuda.check(planes, "planes", planes.dtype, (rows, N))
+    _cuda.check(scales, "scales", torch.bfloat16, (K // group, N))
+    if not 1 <= M <= 16:
+        raise ValueError(f"K1 takes 1 <= M <= 16, got M={M}")
+    if K % 32 or group % 32 or K % group or N % 16:
+        raise ValueError(f"K1 needs K, group % 32 == 0 and N % 16 == 0 "
+                         f"(K={K}, group={group}, N={N})")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
+    branches = []
+    nw, eps, offset, norm_f32 = None, 0.0, 0.0, 0
+    if norm is not None:
+        nw, eps, offset = norm
+        if nw.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"the norm weight must be bf16 or f32, got "
+                             f"{nw.dtype}")
+        _cuda.check(nw, "norm weight", nw.dtype, (K,))
+        norm_f32 = int(nw.dtype == torch.float32)
+        branches.append("rms")
+    if u is not None:
+        if act not in _ACT_CODE:
+            raise ValueError(f"glu takes {sorted(_ACT_CODE)}, got {act!r}")
+        u = u.contiguous()
+        _cuda.check(u, "u", torch.bfloat16, (M, K))
+        branches.append("glu")
+    if res is not None:
+        res = res.contiguous()
+        _cuda.check(res, "res", torch.bfloat16, (M, N))
+        branches.append("res")
+    if any(t.data_ptr() % 16 for t in (x, planes, scales)
+           + tuple(t for t in (u, nw) if t is not None)):
+        raise ValueError("x, u, the norm weight, planes and scales must be "
+                         "16-byte aligned")
+    splits = -(-K // QMM4_CTA_K)
+    partial_ = torch.empty((splits, M, N), dtype=torch.float32,
+                           device=x.device)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    opt = lambda t: None if t is None else _cuda.ptr(t)
+    _cuda.QMM4.call(fn, _cuda.ptr(x), opt(u), opt(nw), norm_f32, float(eps),
+                    float(offset), _ACT_CODE.get(act, 0), opt(res),
+                    _cuda.ptr(planes), _cuda.ptr(scales), _cuda.ptr(partial_),
+                    _cuda.ptr(out), M, K, N, group,
+                    int(out_dtype == torch.float32), splits,
+                    _cuda.stream_ptr(), branches=branches)
+    return out
+
+
+def has_decode_tile(M: int, K: int, N: int, group: int,
+                    code_bits: int) -> bool:
+    """The JAX package's ``_pick_decode_tiles`` rule, which decides whether
+    a product can take the fused kernel: M <= 16, K a multiple of 32 and of
+    the group, and a tile width of 128-2048 under the 6 MB code-block cap
+    that divides N. The port's K1 takes no tiles; only the rule matters."""
+    if M > 16 or K % 32 or K % group:
+        return False
+    cap = (6 << 20) * 8 // (K * code_bits)
+    return any(tn <= cap and N % tn == 0
+               for tn in (2048, 1024, 640, 512, 384, 256, 128))
+
+
+def fusable(qt: QTensor) -> bool:
+    """Whether the fused K1 takes the weight ``qt`` at all: the weight's
+    half of :func:`qmatmul_fused`'s rule, which a decoder block reads once
+    at load to choose its route before computing anything."""
+    if qt.zeros is not None or qt.perm is not None or not is_native(qt) \
+            or qt.group_size % 32:
+        return False
+    code_bits = 8 if qt.planes[0].dtype == torch.int8 else \
+        2 if qt.cfg.bits == 2 else 4
+    return has_decode_tile(1, qt.K, qt.N, qt.group_size, code_bits)
+
+
+def qmatmul_fused(x, qt: QTensor, out_dtype: Optional[torch.dtype] = None,
+                  norm=None, glu: Optional[str] = None,
+                  res: Optional[torch.Tensor] = None
+                  ) -> Optional[torch.Tensor]:
+    """A decode step's product with its elementwise neighbours folded into
+    K1 (the JAX package's ``qmatmul_fused``). x: [M, K], the raw residual
+    stream when ``norm = (weight, eps, offset)`` is set, or a pair (gate,
+    up) when ``glu`` names the activation; ``res`` [M, N] is added to the
+    output in ``out_dtype``.
+
+    Returns the [M, N] result, or None exactly where the JAX function does:
+    zero-points, an act-order ``perm``, codes not at rest, M > 16, K not a
+    multiple of 32 or of the group, no tile for N (N not a multiple of
+    128); and, where the port's K1 differs, a group that is not a multiple
+    of 32 (which :func:`route` sends to K5). The caller then takes the
+    unfused ops. The decision rests on the shapes and the weight alone
+    (:func:`fusable`); a kernel that fails raises."""
+    u = None
+    if glu is not None:
+        x, u = x
+    if x.ndim != 2 or x.shape[0] > 16 or not fusable(qt):
+        return None
+    M = x.shape[0]
+    out_dtype = out_dtype or x.dtype
+    if u is not None:
+        u = u.to(torch.bfloat16)
+    if res is not None:
+        res = res.reshape(M, qt.N)
+    return qmm_native_fused(x.to(torch.bfloat16), qt.planes[0], qt.scales,
+                            qt.group_size, qt.cfg.bits, out_dtype, norm, u,
+                            glu, res)
 
 
 # ---------------------------------------------------------------------------

@@ -200,7 +200,10 @@ class _StepGraph:
     loop on the device with ``lax.scan`` for the same reason). Capture runs
     the step once for real first, on a side stream, as CUDA graphs
     require; that step writes the same cache slots the first replay writes
-    again, with the same values."""
+    again, with the same values. The capture takes the path of the fusion
+    switches (``models.transformer.fuse_switches``) as they stand; a graph
+    lives for one :func:`decode_loop` call, so a switch flipped between
+    calls is captured anew, never replayed stale."""
 
     def __init__(self, model, token, pos, cache, prompt_len=None):
         self.token, self.pos = token.clone(), pos.clone()

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
+from ..models.transformer import fuse_switches
 from ..ops import _cuda
 from ..runtime.kvcache import init_cache
 from ..runtime.paged import PageAllocator, init_paged_cache, pages_needed
@@ -119,7 +120,11 @@ class _DecodeGraph:
     real inputs: the capture protocol runs the step once eagerly on a side
     stream, and the replay that follows writes the same KV slots with the
     same values, so the step is not taken twice. Any failure to capture
-    raises; there is no eager fallback."""
+    raises; there is no eager fallback. The capture takes the path of the
+    fusion switches (``models.transformer.fuse_switches``) as they stand:
+    the Scheduler keeps one graph per penalty width and switches, so a
+    switch flipped between steps captures a new graph and never replays
+    one of the other path."""
 
     def __init__(self, model, cache, B: int, RL: int, eos_ids: tuple,
                  prefix_lm: bool = False):
@@ -270,9 +275,9 @@ class Scheduler:
         self.free_slots = list(range(max_batch))[::-1]
         self._next_tokens = np.zeros(max_batch, np.int64)
         self.steps_decoding_for_next_prefill = 0  # reference scheduler.cpp:355
-        # decode-step graphs by penalty width; None runs the step eagerly,
-        # as on the CPU
-        self._graphs: Optional[Dict[int, _DecodeGraph]] = \
+        # decode-step graphs by penalty width and fusion switches; None runs
+        # the step eagerly, as on the CPU
+        self._graphs: Optional[Dict[tuple, _DecodeGraph]] = \
             {} if dev.type == "cuda" else None
 
     # -- client API ---------------------------------------------------------
@@ -524,11 +529,12 @@ class Scheduler:
         bp = batch_params(sps, mask_eos)
         eos = tuple(self.cfg.eos_token_ids)
         if self._graphs is not None:
-            g = self._graphs.get(RL)
+            key = (RL, fuse_switches())
+            g = self._graphs.get(key)
             if g is None:
-                g = self._graphs[RL] = _DecodeGraph(self.params, self.cache,
-                                                    B, RL, eos,
-                                                    self.prefix_lm)
+                g = self._graphs[key] = _DecodeGraph(self.params, self.cache,
+                                                     B, RL, eos,
+                                                     self.prefix_lm)
             return g.run(tokens, lengths, bp, hist, valid, plens)
         dev = self.params.device
         opt = lambda t: None if t is None else t.to(dev)

@@ -16,9 +16,13 @@ int8 activation codes of the a8 prefill.
 
 Greedy ids are compared at every step whose argmax the margin proves:
 JAX's penalized top-1/top-2 margin above twice that step's largest logit
-difference (teacher-forced on JAX's ids) times the repetition penalty, up
-to the first step where the ids part; at least MIN_PROVEN steps must be
-proven.
+difference (teacher-forced on JAX's ids) times the repetition penalty.
+Two sets of ids are held to JAX's: ``Model.generate``'s, up to the first
+step where the two runs part (after a parting the prefixes differ); and
+the port's penalized argmax of each teacher-forced step, on JAX's prefix,
+at every step. At least MIN_PROVEN teacher-forced steps must be proven,
+so a near-tie at an early step (a legitimate parting of the free runs)
+does not leave too few steps to count.
 """
 import numpy as np
 import pytest
@@ -39,6 +43,7 @@ from neural_tpu_torch.convert.from_jax import params_from_numpy
 from neural_tpu_torch.ops.qmatmul import route
 from neural_tpu_torch.runtime.generate import model_step, prefill_step
 from neural_tpu_torch.runtime.kvcache import init_cache
+from neural_tpu_torch.runtime.sampling import SamplingParams, sample
 from test_torch_bridge import jax_tree_to_numpy
 from test_torch_model import REL_TOL, VOCAB, _jax_margins
 
@@ -109,11 +114,20 @@ def _close(out, ref):
     return float(np.abs(out - ref).max())
 
 
+def _penalized_argmax(logits, history):
+    """The port's greedy id from one step's logits [1, 1, V] after the
+    repetition penalty over ``history`` (``generate``'s sampling)."""
+    sp = SamplingParams(greedy=True)
+    hist = torch.tensor([history[-sp.repeat_last_n:]], dtype=torch.long)
+    return int(sample(logits[:, -1], sp, prev_tokens=hist)[0])
+
+
 @pytest.mark.parametrize("T", [12, 300])
 def test_logits_and_greedy_ids_match_jax(pair, T):
     """Prefill logits and N_NEW decode steps fed JAX's ids within the
-    tolerance; ``Model.generate``'s greedy ids equal JAX's up to the first
-    step whose margin does not prove them."""
+    tolerance; at every step the margin proves, the port's penalized argmax
+    of the teacher-forced step equals JAX's id, and ``Model.generate``'s
+    greedy ids equal JAX's up to the first step where the two runs part."""
     fmt, jm, pm = pair
     if fmt is None:
         assert pm.params.layers[0].wq.weight.dtype == torch.bfloat16
@@ -136,23 +150,29 @@ def test_logits_and_greedy_ids_match_jax(pair, T):
     pl = prefill_step(pm.params, torch.tensor([ids]),
                       torch.zeros(1, dtype=torch.long), pc)
     errs = [_close(pl.numpy(), jl)]
+    forced = [_penalized_argmax(pl, ids)]
     for s, tok in enumerate(jnew[:-1]):
         jl, jc = jmodel_step(jm.params, jnp.asarray([[tok]], jnp.int32),
                              jnp.asarray([T + s], jnp.int32), jc, jm.cfg)
         pl = model_step(pm.params, torch.tensor([[tok]]),
                         torch.tensor([T + s]), pc)
         errs.append(_close(pl.numpy(), jl))
+        forced.append(_penalized_argmax(pl, ids + jnew[:s + 1]))
 
     # step i's argmax is proven when JAX's penalized margin exceeds twice
     # the step's largest logit difference times the repetition penalty
-    # (1.1, which scales a difference by at most that much); ids are
-    # compared at every proven step up to the first step where they part
+    # (1.1, which scales a difference by at most that much)
     margins = _jax_margins(jm, ids, jnew)
-    proven = 0
-    for i, ((m, _), e) in enumerate(zip(margins, errs)):
-        if m > 2 * 1.1 * e:
-            assert pnew[i] == jnew[i], (fmt, i, pnew, jnew, margins, errs)
-            proven += 1
+    proven = [m > 2 * 1.1 * e for (m, _), e in zip(margins, errs)]
+    info = (fmt, forced, pnew, jnew, margins, errs)
+    # the teacher-forced steps share JAX's prefix: every proven one counts
+    for i, ok in enumerate(proven):
+        if ok:
+            assert forced[i] == jnew[i], (i,) + info
+    # the free-running ids, up to the first step where the runs part
+    for i, ok in enumerate(proven):
+        if ok:
+            assert pnew[i] == jnew[i], (i,) + info
         if pnew[i] != jnew[i]:
             break
-    assert proven >= MIN_PROVEN, (fmt, pnew, jnew, margins, errs)
+    assert sum(proven) >= MIN_PROVEN, info

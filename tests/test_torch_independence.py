@@ -27,7 +27,9 @@ print(",".join(hit))
 @pytest.mark.parametrize("module", [
     "neural_tpu_torch", "chip_smoke", "neural_tpu_torch.convert.gptq",
     "neural_tpu_torch.convert.files", "neural_tpu_torch.convert.lora",
-    "neural_tpu_torch.convert.quant_registry", "neural_tpu_torch.api"])
+    "neural_tpu_torch.convert.quant_registry", "neural_tpu_torch.api",
+    "neural_tpu_torch.ops.qmatmul", "neural_tpu_torch.models.transformer",
+    "neural_tpu_torch.serving.scheduler"])
 def test_import_pulls_in_nothing_banned(module):
     out = subprocess.run(
         [sys.executable, "-c", PROBE.format(root=str(ROOT), module=module,
