@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card (H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab PARENT_DIR   # phase 4's legs, parent vs this
+    python3 chip_smoke.py --ab PARENT_DIR   # phase 4/4b legs, parent vs this
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -26,10 +26,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    branch (ChatGLM-6B's 1975-token prefill, all of it the prefix), bf16
    and int8, each also timed with its option off and held against a
    compiled ``flex_attention`` with the same score_mod / mask_mod; then
-   K5 (nf4 at M=1 and 1975, q4_0 at 1975, q4_j at 128, 64, 32 and 24,
-   fp4, fp8 e4m3/e5m2, int1 and bit-plane int3 asym at 1), K1's other
+   K5 on both of its routes, each launch counted under its route
+   (``qmm_general+gemv`` at M <= 16, ``qmm_general+tc`` above): nf4 at
+   M=1, 8 and 1975, q4_0 at 1975, q4_j at 128, 64, 32 and 24, fp4, fp8
+   e4m3/e5m2, int1 and bit-plane int3 asym at 1, and every layout (with
+   native-pack nibbles and int2, and int8 codes) again at M=1 and 128,
+   each case printed beside the PR 1-7 time it replaces; K1's other
    entry points (asym nibbles, int2 and int8 codes, sym and asym) at M=1
-   and 8, and K2-asym at 1975, the same way; K1's fusion options (the
+   and 8, and K2-asym at 1975, the same way, and every K2 entry point's
+   largest difference from its plain version on one 7B product beside the
+   parent tree's (``k2_errors``, ``PARENT_K2_ERR``); K1's fusion options (the
    RMS-norm and glu prologues, the residual epilogue) at M=1 and 8 over
    the three sym layouts, at the 7B's widths and at Gemma-2-9B's with the
    (1 + w) norm and tanh GELU, each also timed against the unfused chain
@@ -432,11 +438,39 @@ def _case(gen, label, cfg, M, shapes, fn, plain, entry, peak, at_rest=True):
     return agg
 
 
+# The times the redesigned K2 and K5 replace: each case's kernel time per
+# step or prefill in ms, from PERF.md section 6 (chip_smoke.py runs on an
+# H100 80GB HBM3 at 700 W, PRs 1-7), by (results key, case label), or by
+# results key for a K2 layout's one case, or by case label for K5
+PR17_MS = {
+    ("K2", "1975-token prefill"): 184.5,
+    ("K2", "gemma2 1975-token prefill"): 235.6,
+    ("K2_act", "1975-token prefill"): 6.053,
+    ("K2_asym", "q4_j_i8_g128 1975-token prefill"): 217.8,
+    "K2_int8": 183.0, "K2_int8_asym": 219.7, "K2_int2": 155.4,
+    "K2_int2_asym": 189.6, "K2_int3": 180.3, "K2_int3_asym": 216.2,
+    "nf4 decode step": 29.40, "nf4 1975-token prefill": 619.8,
+    "q4_0 1975-token prefill": 335.3, "mistral gptq 1975-token prefill":
+    351.5, "fp4 decode step": 29.42, "fp8_e4m3 decode step": 10.49,
+    "int1 decode step": 27.28, "q4_j server chunk": 29.96,
+}
+
+
 def _record(results, key, cases, window_ms=None):
     """The first case is the kernel's line; every case is kept beside it,
-    and an attention kernel's per-launch times at fill 6000 by window."""
+    and an attention kernel's per-launch times at fill 6000 by window. A
+    case of K2 or K5 is printed beside the PR 1-7 time it replaces."""
     first = next(iter(cases.values()))
     results[key] = dict(first, cases=cases, window_ms=window_ms)
+    if key.startswith(("K2", "K5")):
+        for label, c in cases.items():
+            before = PR17_MS.get((key, label), PR17_MS.get(
+                label if key.startswith("K5") else key))
+            log(f"{key} {label}: kernel {c['ms']:.4f} ms, bound "
+                f"{c['bound_ms']:.4f} ms ({c['bound_by']}), library "
+                f"{c['library_ms'] if c.get('library_ms') is None else round(c['library_ms'], 4)} ms, "
+                f"PR 1-7 {before if before is not None else 'not measured'}"
+                " ms")
 
 
 def check_k1(gen, results):
@@ -476,6 +510,62 @@ def check_k2(gen, results):
             f"ms ({act['bound_by']})")
     _record(results, "K2", cases)
     _record(results, "K2_act", acts)
+    check_k2_errors()
+
+
+def k2_errors(M=1975, K=4096, N=4096, seed=5):
+    """The largest |kernel - plain| of one bf16 [M, K] @ [K, N] product
+    through each K2 entry point (group 128, act_bits 8), inputs drawn with
+    numpy from ``seed``: the same inputs on any tree of the port, so that
+    ``--ab`` can hold this tree's K2 against the parent's. Self-contained
+    (``--ab`` runs its source in each tree)."""
+    import numpy as np
+    import torch
+    from neural_tpu_torch.core.dtypes import QuantConfig
+    from neural_tpu_torch.core.qtensor import quantize, to_native
+    from neural_tpu_torch.ops import qmatmul as Q
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32))
+    x = x.to("cuda").bfloat16()
+    out = {}
+    for entry, bits, sym in (("qmm_a8", 4, True), ("qmm_a8_asym", 4, False),
+                             ("qmm_a8_int2", 2, True),
+                             ("qmm_a8_int2_asym", 2, False),
+                             ("qmm_a8_int8", 6, True),
+                             ("qmm_a8_int8_asym", 6, False),
+                             ("qmm_a8+int3", 3, True),
+                             ("qmm_a8_asym+int3", 3, False)):
+        w = rng.standard_normal((K, N), dtype=np.float32) * 0.02
+        qt = to_native(quantize(torch.from_numpy(w).to("cuda"),
+                                QuantConfig(bits=bits, group_size=128,
+                                            sym=sym, act_bits=8)))
+        args = (qt.planes[0], qt.scales, 128, 128, torch.bfloat16, qt.zeros,
+                bits)
+        a, b = Q.qmm_a8(x, *args), Q.qmm_a8_plain(x, *args)
+        out[entry] = (a.float() - b.float()).abs().max().item()
+    return out
+
+
+# k2_errors on the parent tree (PR 7, 37e0fb3), measured by
+# ``chip_smoke.py --ab`` on an H100 80GB HBM3 at 700 W: every entry point
+# equal to its plain version
+PARENT_K2_ERR = {"qmm_a8": 0.0, "qmm_a8_asym": 0.0, "qmm_a8_int2": 0.0,
+                 "qmm_a8_int2_asym": 0.0, "qmm_a8_int8": 0.0,
+                 "qmm_a8_int8_asym": 0.0, "qmm_a8+int3": 0.0,
+                 "qmm_a8_asym+int3": 0.0}
+
+
+def check_k2_errors():
+    """K2 keeps the parent's fold order, so its largest difference from
+    the plain version is no larger than the parent's at each entry point."""
+    errs = k2_errors()
+    log(f"K2 max |kernel - plain| per entry point: {errs}; the parent's "
+        f"(PR 7 tree, --ab): {PARENT_K2_ERR}")
+    worse = {k: (v, PARENT_K2_ERR[k]) for k, v in errs.items()
+             if v > PARENT_K2_ERR[k]}
+    if worse:
+        raise AssertionError(f"K2 differs from its plain version more than "
+                             f"the parent's: {worse}")
 
 
 def _k2_shapes(gen, shapes):
@@ -524,41 +614,63 @@ def _k2_shapes(gen, shapes):
     return agg, act
 
 
+# K5's cases: (label, config, M, shapes, at rest). M <= 16 takes the gemv
+# route, M > 16 the tensor-core tiles; every layout runs on both routes
+# (the formats with no full-width path at one product of 4096 x 4096)
+ONE = [(D, D, 1)]
+K5_CASES = (
+    ("nf4 decode step", "nf4", 1, PROJ + LM_HEAD, True),
+    ("nf4 batch-8 step", "nf4", 8, PROJ + LM_HEAD, True),
+    ("fp4 decode step", "fp4", 1, PROJ + LM_HEAD, True),
+    ("fp8_e4m3 decode step", "fp8", 1, PROJ + LM_HEAD, True),
+    ("fp8_e5m2 decode step", "fp8_e5m2", 1, PROJ + LM_HEAD, True),
+    ("int1 decode step", "int1", 1, PROJ + LM_HEAD, True),
+    ("int3 asym bit planes decode step", "int3_asym_planes", 1,
+     PROJ + LM_HEAD, False),
+    ("q4_j native-pack nibbles, one product at M=1", "q4_j", 1, ONE, True),
+    ("int2 g16 asym native-pack, one product at M=1", "int2_g16_asym", 1,
+     ONE, True),
+    ("int5 int8 codes, one product at M=1", "int5", 1, ONE, True),
+    ("nf4 1975-token prefill", "nf4", T_PREFILL, PROJ, True),
+    ("q4_0 1975-token prefill", "q4_0", T_PREFILL, PROJ, True),
+    ("q4_j server chunk", "q4_j", 128, PROJ, True),
+    ("q4_j 64-token prompt", "q4_j", 64, PROJ, True),
+    ("q4_j server chunk, 32 bucket", "q4_j", 32, PROJ, True),
+    ("q4_j 24-token prompt", "q4_j", 24, PROJ, True),
+    *((f"{fmt}, one product at M=128", fmt, 128, ONE, at_rest)
+      for fmt, at_rest in (("fp4", True), ("fp8", True), ("fp8_e5m2", True),
+                           ("int1", True), ("int3_asym_planes", False),
+                           ("int2_g16_asym", True), ("int5", True))),
+)
+K5_CFGS = {"int3_asym_planes": QuantConfig(bits=3, group_size=32, sym=False),
+           "int2_g16_asym": QuantConfig(bits=2, group_size=16, sym=False)}
+
+
 def check_k5(gen, results):
-    """K5 in every format of the main paths, and at M=1 in the formats that
-    run only in phase 5: nf4 decode (every product and the lm_head, M=1)
-    and prefill (M=1975); the q4_0 prefill; the q4_j model's products at
-    M=128, 64 and 32 (server chunks in those buckets, and the 64-token
-    prompt of phase 4; each M picks its own tile height: 16, 64 or 128
-    rows) and at M=24 (the 24-token prompt of phase 5, a partial tile);
-    and fp4, fp8 e4m3/e5m2, int1 and bit-plane int3 asym (uint8
-    zero-points, not at rest) at M=1."""
+    """K5 in every format of the main paths and every layout it reads, on
+    both routes: nf4 decode (every product and the lm_head, M=1, and the
+    batch-8 step) and prefill (M=1975); the q4_0 prefill; the q4_j model's
+    products at M=128, 64 and 32 (server chunks in those buckets, and the
+    64-token prompt of phase 4) and at M=24 (the 24-token prompt of phase
+    5); fp4, fp8 e4m3/e5m2, int1 and bit-plane int3 asym (uint8
+    zero-points, not at rest) at M=1; native-pack nibbles and int2 (group
+    16, bf16 zero-points) and int8 codes at M=1; and each layout again at
+    M=128, one product. Recorded per route (``K5_gemv``, ``K5_tc``) and
+    together (``K5``)."""
     k5 = lambda x, qt, odt: Q.qmm_general(x, qt, odt)
     pl = lambda x, qt, odt: Q.qmm_general_plain(x, qt, odt)
-    cases = {}
-    for label, cfg, M, shapes, at_rest in (
-            ("nf4 decode step", PRESETS["nf4"], 1, PROJ + LM_HEAD, True),
-            ("nf4 1975-token prefill", PRESETS["nf4"], T_PREFILL, PROJ,
-             True),
-            ("q4_0 1975-token prefill", PRESETS["q4_0"], T_PREFILL, PROJ,
-             True),
-            ("q4_j server chunk", PRESETS["q4_j"], 128, PROJ, True),
-            ("q4_j 64-token prompt", PRESETS["q4_j"], 64, PROJ, True),
-            ("q4_j server chunk, 32 bucket", PRESETS["q4_j"], 32, PROJ,
-             True),
-            ("q4_j 24-token prompt", PRESETS["q4_j"], 24, PROJ, True),
-            ("fp4 decode step", PRESETS["fp4"], 1, PROJ + LM_HEAD, True),
-            ("fp8_e4m3 decode step", PRESETS["fp8"], 1, PROJ + LM_HEAD, True),
-            ("fp8_e5m2 decode step", PRESETS["fp8_e5m2"], 1, PROJ + LM_HEAD,
-             True),
-            ("int1 decode step", PRESETS["int1"], 1, PROJ + LM_HEAD, True),
-            ("int3 asym bit planes decode step",
-             QuantConfig(bits=3, group_size=32, sym=False), 1,
-             PROJ + LM_HEAD, False)):
-        cases[label] = _case(gen, label, cfg, M, shapes, k5, pl,
-                             "qmm_general", BF16_FLOPS, at_rest)
+    routes = {"gemv": {}, "tc": {}}
+    for label, fmt, M, shapes, at_rest in K5_CASES:
+        cfg = K5_CFGS.get(fmt) or PRESETS[fmt]
+        route = Q.k5_route(M)
+        routes[route][label] = _case(gen, label, cfg, M, shapes, k5, pl,
+                                     f"qmm_general+{route}", BF16_FLOPS,
+                                     at_rest)
         torch.cuda.empty_cache()
-    _record(results, "K5", cases)
+    _record(results, "K5_gemv", routes["gemv"])
+    _record(results, "K5_tc", routes["tc"])
+    results["K5"] = dict(results["K5_gemv"],
+                         cases={**routes["gemv"], **routes["tc"]})
 
 
 def check_k1_branches(gen, results):
@@ -801,11 +913,16 @@ def check_gptq_products(gen, results):
         gen, label, GPTQ_QCFG, 1, MISTRAL_PROJ, k1, p1, "qmm4_npack_asym",
         BF16_FLOPS)
     label = "mistral gptq 1975-token prefill"
-    results["K5"]["cases"][label] = _case(
+    case = _case(
         gen, label, GPTQ_QCFG, T_PREFILL, MISTRAL_PROJ,
         lambda x, qt, odt: Q.qmm_general(x, qt, odt),
-        lambda x, qt, odt: Q.qmm_general_plain(x, qt, odt), "qmm_general",
-        BF16_FLOPS)
+        lambda x, qt, odt: Q.qmm_general_plain(x, qt, odt),
+        "qmm_general+tc", BF16_FLOPS)
+    results["K5"]["cases"][label] = case
+    results["K5_tc"]["cases"][label] = case
+    log(f"K5_tc {label}: kernel {case['ms']:.4f} ms, bound "
+        f"{case['bound_ms']:.4f} ms, library {case['library_ms']:.4f} ms, "
+        f"PR 1-7 {PR17_MS[label]} ms")
     torch.cuda.empty_cache()
 
 
@@ -1759,14 +1876,15 @@ def ab_host_legs(params):
 # int8 activations), mix_i2_ffn the JAX package's decode-bytes recipe
 # (gate/up native int2 g32 sym with bf16 activations, the rest q4_j)
 FORMAT_PATHS = {
-    "nf4": (("qmm_general", "flash_prefill"), ("qmm_general", "flash_decode")),
-    "q4_0": (("qmm_general", "qmm4_npack", "flash_prefill"),
+    "nf4": (("qmm_general+tc", "flash_prefill"),
+            ("qmm_general+gemv", "flash_decode")),
+    "q4_0": (("qmm_general+tc", "qmm4_npack", "flash_prefill"),
              ("qmm4_npack", "flash_decode")),
     "q4_j_i8_g128": (("quantize_act_i8", "qmm_a8_asym", "qmm4_npack_asym",
                       "flash_prefill"), ("qmm4_npack_asym", "flash_decode")),
     "int6_g128_a8": (("quantize_act_i8", "qmm_a8_int8", "qmm8_native",
                       "flash_prefill"), ("qmm8_native", "flash_decode")),
-    "mix_i2_ffn": (("quantize_act_i8", "qmm_a8", "qmm_general", "qmm4_npack",
+    "mix_i2_ffn": (("quantize_act_i8", "qmm_a8", "qmm_general+tc", "qmm4_npack",
                     "flash_prefill"),
                    ("qmm4_npack", "qmm2_npack", "flash_decode")),
 }
@@ -2162,19 +2280,19 @@ QUANTS = {
 }
 
 # the formats with no full-width path, and the kernels a card run of each
-# must launch: a 24-token prompt prefills through K5 (M=24 > 16), its
-# one-row lm_head and the decode steps through K1's branch for codes at
-# rest, through K5 for the stored layouts
+# must launch: a 24-token prompt prefills through K5's tiles (M=24 > 16),
+# its one-row lm_head and the decode steps through K1's branch for codes
+# at rest, through K5's gemv for the stored layouts
+_K5_BOTH = ("qmm_general+tc", "qmm_general+gemv")
 PLAIN_FORMATS = {
-    "fp4": ("qmm_general",), "fp8": ("qmm_general",),
-    "fp8_e5m2": ("qmm_general",), "int1": ("qmm_general",),
-    "int2": ("qmm_general", "qmm2_npack"),
-    "int2_asym": ("qmm_general", "qmm2_npack_asym"),
-    "int3": ("qmm_general", "qmm4_npack"),
-    "int5": ("qmm_general", "qmm8_native"),
-    "int5_asym": ("qmm_general", "qmm8_native_asym"),
-    "q8_0": ("qmm_general", "qmm8_native"),
-    "int8": ("qmm_general", "qmm8_native"),
+    "fp4": _K5_BOTH, "fp8": _K5_BOTH, "fp8_e5m2": _K5_BOTH, "int1": _K5_BOTH,
+    "int2": ("qmm_general+tc", "qmm2_npack"),
+    "int2_asym": ("qmm_general+tc", "qmm2_npack_asym"),
+    "int3": ("qmm_general+tc", "qmm4_npack"),
+    "int5": ("qmm_general+tc", "qmm8_native"),
+    "int5_asym": ("qmm_general+tc", "qmm8_native_asym"),
+    "q8_0": ("qmm_general+tc", "qmm8_native"),
+    "int8": ("qmm_general+tc", "qmm8_native"),
 }
 
 
@@ -3148,6 +3266,11 @@ KERNEL_META = {
               "neural_tpu/ops/paged_attention.py:31"),
     "K5": ("qmm_general", "neural_tpu_torch/csrc/qmm_general.cu",
            "neural_tpu/ops/qmatmul.py:485"),
+    # K5's two routes, counted apart (``qmm_general+gemv`` / ``+tc``)
+    "K5_gemv": ("qmm_general+gemv", "neural_tpu_torch/csrc/qmm_general.cu",
+                "neural_tpu/ops/qmatmul.py:485"),
+    "K5_tc": ("qmm_general+tc", "neural_tpu_torch/csrc/qmm_general.cu",
+              "neural_tpu/ops/qmatmul.py:485"),
     "K1_asym": ("qmm4_npack_asym", "neural_tpu_torch/csrc/qmm4_npack.cu",
                 "neural_tpu/ops/qmatmul.py:619"),
     "K1_int2": ("qmm2_npack", "neural_tpu_torch/csrc/qmm4_npack.cu",
@@ -3224,35 +3347,54 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_num_threads(os.cpu_count() or 1)
 _cuda.build_all(_cuda.KERNELS)
 params = c.init_random(c.CFG, seed=0, quant="q4_j", device="cuda")
-print("AB " + json.dumps(c.phase_generation(params)), flush=True)
+legs = c.phase_generation(params)
+del params
+torch.cuda.empty_cache()
+legs.update(c.phase_formats(("nf4", "q4_0")))
+print("AB " + json.dumps(legs), flush=True)
+{k2_errors}
+print("ERR " + json.dumps(k2_errors()), flush=True)
 """
 
 
 def compare_legs(parent):
     """``python3 chip_smoke.py --ab PARENT``: phase 4's Llama-2-7B legs
-    (decode at fills 128 and 1975, decode_i8kv, batch8, TTFT) of the
-    checkout at PARENT (an unpacked tree of an earlier commit) and of this
-    one, each run in a process of its own, in the order parent, change,
-    change, parent, on the same card; prints each run and, per leg, the
-    change's mean over the parent's."""
+    (decode at fills 128 and 1975, decode_i8kv, batch8, TTFT) and phase
+    4b's nf4 and q4_0 legs (TTFT, decode at fill 128) of the checkout at
+    PARENT (an unpacked tree of an earlier commit) and of this one, each
+    run in a process of its own, in the order parent, change, change,
+    parent, on the same card; prints each run and, per leg, the change's
+    mean over the parent's; then K2's largest difference from its plain
+    version per entry point (``k2_errors``, this file's source run in each
+    tree) on both."""
+    import inspect
     log(f"nvidia-smi: {smi_line()}")
     here = os.path.dirname(os.path.abspath(__file__))
     runs = {"parent": [], "change": []}
+    errs = {}
+    child = AB_CHILD.replace("{k2_errors}", inspect.getsource(k2_errors))
     for side in ("parent", "change", "change", "parent"):
         root = os.path.abspath(parent) if side == "parent" else here
-        p = subprocess.run([sys.executable, "-c", AB_CHILD.format(root=root)],
+        p = subprocess.run([sys.executable, "-c",
+                            child.replace("{root!r}", repr(root))],
                            cwd=root, capture_output=True, text=True,
-                           timeout=900)
+                           timeout=1200)
         if p.returncode:
             raise AssertionError(f"{side} ({root}) legs failed:\n"
                                  f"{p.stderr[-4000:]}")
-        legs = json.loads(next(line for line in p.stdout.splitlines()
+        lines = p.stdout.splitlines()
+        legs = json.loads(next(line for line in lines
                                if line.startswith("AB "))[3:])
+        errs[side] = json.loads(next(line for line in lines
+                                     if line.startswith("ERR "))[4:])
         log(f"{side}: {json.dumps(legs)}")
         runs[side].append(legs)
+    log(f"K2 max |kernel - plain| per entry point, change: "
+        f"{json.dumps(errs['change'])}; parent: {json.dumps(errs['parent'])}")
     mean = lambda side, k: statistics.mean(r[k] for r in runs[side])
     print(json.dumps({"change_over_parent": {
-        k: mean("change", k) / mean("parent", k) for k in runs["parent"][0]}}))
+        k: mean("change", k) / mean("parent", k) for k in runs["parent"][0]
+        if mean("parent", k)}}))
 
 
 def main():

@@ -11,9 +11,10 @@
 //      kernel's in-kernel quantization, so one port kernel serves both of
 //      the TPU's act-quant modes.
 //   2. qmm_a8: per gd-group an int8 x int8 -> int32 dot on the tensor cores
-//      (mma.sync m16n8k32 s8), then acc += d * (sa[m, g] * sw[g, n]) in f32,
+//      (wgmma m64n128k32 s8), then acc += d * (sa[m, g] * sw[g, n]) in f32,
 //      rounded op by op (__fmul_rn/__fadd_rn, no contraction) in group
-//      order, exactly as the plain version computes it.
+//      order, exactly as the plain version computes it: the same bits as
+//      the plain version, and as the mma.sync kernel this one replaced.
 //      qmm_a8_asym: asymmetric weights (centered nibbles, bf16 zero-points
 //      shifted like them). The dots run over the centered codes and the
 //      zero-points fold into the accumulator's start, as in the TPU kernel:
@@ -28,19 +29,28 @@
 //   qmm_a8_int2  native-pack 2-bit fields, four a byte, LSB first:
 //                planes [K/4, N];
 //   qmm_a8_int8  centered int8 code planes of 5-8 bit weights: [K, N].
-// Only the load of the weight tile differs: each widens its codes to int8
-// in shared memory, [n][k], and the rest of the kernel is one body.
+// Only the widening of the weight tile differs; the rest is one body.
 //
 // What bounds it on the H100: the operations. At the 7B prefill shapes
 // (M=1975) each weight byte is reused by ~2000 rows, far above the card's
 // ops-per-byte balance, so the least time is 2*M*N*K int8 operations over
-// the int8 tensor-core rate. This first kernel is the simple form: a 64x128
-// block tile, 8 warps of 32x32, the int4 tile widened to int8 in shared
-// memory one 128-deep K step at a time, no cp.async pipeline and no wgmma
-// (those are later work). Ragged M is masked at the load and the store.
+// the int8 tensor-core rate. The design: a 128 x 128 block tile, two
+// warpgroups of 64 rows, 128-deep K tiles. One thread stages each tile by
+// TMA into a ring of 4 stages (x codes with the 128-byte swizzle, the
+// weight tile's raw bytes as they lie at rest, its scale row), completing
+// on an mbarrier, two tiles ahead. All threads widen each weight tile once
+// to int8 [n][k] in the wgmma layout (three buffers: one barrier a tile),
+// and the warpgroups run wgmma on it. A dot group's int32 sums live in one
+// of two register sets, so a group's fold reads a finished set. The fold
+// (5 f32 operations an output and group, kept for exactness) is the
+// largest cost left beside the tensor cores, and the x tile's L2 reads the
+// next (it is re-read by every 128-column block). Ragged M is zero-filled
+// by TMA and masked at the store.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "qmm_tc.cuh"
 
 namespace {
 
@@ -77,233 +87,281 @@ __global__ void act_quant_kernel(const void* __restrict__ x, int x_f32,
 }
 
 // ---------------------------------------------------------------- GEMM
-constexpr int BM = 64, BN = 128, BK = 128;
-constexpr int LDS = BK + 16;     // shared row stride in bytes
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t nib8(uint32_t byte, int hi) {
-  // centered nibble -> int8 bit pattern
-  const uint32_t n = hi ? (byte >> 4) & 0xFu : byte & 0xFu;
-  return (uint32_t)(uint8_t)(int8_t)((int)(n ^ 8u) - 8);
-}
-
-__device__ __forceinline__ uint32_t f2x4(uint32_t byte) {
-  // four centered 2-bit fields (LSB first) -> four int8 bit patterns
-  uint32_t w = 0u;
-#pragma unroll
-  for (int f = 0; f < 4; ++f)
-    w |= (uint32_t)(uint8_t)(int8_t)((int)(((byte >> (2 * f)) & 3u) ^ 2u) - 2)
-         << (8 * f);
-  return w;
-}
-
 enum Layout { NIBBLES = 0, INT2 = 1, INT8 = 2 };
 
-// The weight tile of K rows k0 .. k0 + BK - 1 and columns n_base .. n_base +
-// BN - 1, widened to int8 into Bs [n][k]. Each of the 256 threads reads 4
-// neighbouring columns of a few byte rows as 32-bit words and writes each
-// column's run of k as one 8- or 16-byte store.
+constexpr int BM = 128, BN = 128, BK = 128, THREADS = 256, STAGES = 4;
+constexpr int SBO = qmm_tc::cm_sbo(BK);     // the weight tile: 128 int8 of K
+constexpr int OP_BYTES = (BN / 8) * SBO;    // one widened weight tile
+
+// One stage of the ring, filled by TMA: the x codes of the block's 128
+// rows (the wgmma layout with the 128-byte swizzle), the weight tile's raw
+// bytes as they lie at rest [rows][BN] and the tile's bf16 weight-scale
+// row. TX: the bytes its copies bring.
 template <int LAYOUT>
-__device__ __forceinline__ void load_b(const uint8_t* __restrict__ planes,
-                                       int8_t* Bs, int k0, int N,
-                                       int n_base, int tid) {
-  const int c4 = (tid % 32) * 4;
-  if constexpr (LAYOUT == NIBBLES) {
-    // 64 byte rows x 128 columns of nibbles; 4 byte rows = 8 k a thread
+struct Stage {
+  static constexpr int RAW_ROWS =
+      LAYOUT == NIBBLES ? BK / 2 : LAYOUT == INT2 ? BK / 4 : BK;
+  static constexpr int RAW = BM * BK;
+  static constexpr int SW = RAW + RAW_ROWS * BN;
+  static constexpr int BYTES = (SW + BN * 2 + 1023) / 1024 * 1024;
+  static constexpr int TX = BM * BK + RAW_ROWS * BN + BN * 2;
+};
+
+// the ring, three widened weight tiles, and room to align the ring to
+// 1024 bytes (the swizzle's)
+template <int LAYOUT>
+constexpr int smem_bytes() {
+  return STAGES * Stage<LAYOUT>::BYTES + 3 * OP_BYTES + 1024;
+}
+
+struct A8Params {
+  const int8_t* xq;
+  const float* sa;
+  const uint8_t* planes;
+  const __nv_bfloat16* scales;
+  const float* zwp;
+  const float* xsa;
+  void* out;
+  int M, K, N, gd, group, out_f32;
+  // the tensor maps of the x codes (128-byte swizzle), the weight bytes
+  // and the weight scales
+  CUtensorMap mx, mw, msw;
+};
+
+// Stage tile kt (one thread): x codes, weight bytes and scale row by TMA,
+// completing on the stage's barrier.
+template <int LAYOUT>
+__device__ __forceinline__ void issue_stage(const A8Params& p, uint8_t* st,
+                                            uint64_t* bar, int kt,
+                                            int m_base, int n_base) {
+  using S = Stage<LAYOUT>;
+  const int k0 = kt * BK;
+  qmm_tc::mbar_expect(bar, S::TX);
+  qmm_tc::tma_load(st, &p.mx, k0, m_base, bar);
+  qmm_tc::tma_load(st + S::RAW, &p.mw, n_base,
+                   LAYOUT == NIBBLES ? k0 / 2 : LAYOUT == INT2 ? k0 / 4 : k0,
+                   bar);
+  qmm_tc::tma_load(st + S::SW, &p.msw, n_base, k0 / p.group, bar);
+}
+
+// four centered 4- or 2-bit fields, one a byte, sign-extended to int8
+__device__ __forceinline__ uint32_t sext4(uint32_t v) {
+  return v | ((v & 0x08080808u) * 0x1Eu);
+}
+__device__ __forceinline__ uint32_t sext2(uint32_t v) {
+  return v | ((v & 0x02020202u) * 0x7Fu);
+}
+
+// the 4 x 4 byte transpose: out[j] = (a.j, b.j, c.j, d.j), byte 0 first
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b,
+                                           uint32_t c, uint32_t d,
+                                           uint32_t* out) {
+  const uint32_t t0 = __byte_perm(a, b, 0x5140), t1 = __byte_perm(a, b, 0x7362);
+  const uint32_t t2 = __byte_perm(c, d, 0x5140), t3 = __byte_perm(c, d, 0x7362);
+  out[0] = __byte_perm(t0, t2, 0x5410);
+  out[1] = __byte_perm(t0, t2, 0x7632);
+  out[2] = __byte_perm(t1, t3, 0x5410);
+  out[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// Widen the stage's raw weight bytes to int8 in the wgmma layout [n][k].
+// Warp w takes K rows 16 w .. 16 w + 15 of the tile, lane q columns 4 q ..
+// 4 q + 3: it reads one 32-bit word (4 columns) of each byte row, forms
+// for each run of 4 K rows four words of 4 columns, transposes them into
+// 4 K values of each column, and stores each column's 16 K values as one
+// 16-byte run.
+template <int LAYOUT>
+__device__ __forceinline__ void widen(const uint8_t* st, uint8_t* op,
+                                      int tid) {
+  const int w = tid / 32, q = tid % 32;
+  const uint8_t* raw = st + Stage<LAYOUT>::RAW + 4 * q;
+  auto word = [&](int row) {
+    return *reinterpret_cast<const uint32_t*>(raw + row * BN);
+  };
+  uint32_t o[4][4];                         // o[b][j]: column j, K 4b .. 4b+3
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int r0 = p * 32 + (tid / 32) * 4;      // byte row in the tile
-      uint32_t wrow[4];
+  for (int b = 0; b < 4; ++b) {
+    uint32_t v[4];
+    if constexpr (LAYOUT == NIBBLES) {      // byte row r: K 2r low, 2r+1 high
+      const uint32_t r0 = word(8 * w + 2 * b), r1 = word(8 * w + 2 * b + 1);
+      v[0] = sext4(r0 & 0x0F0F0F0Fu);
+      v[1] = sext4((r0 >> 4) & 0x0F0F0F0Fu);
+      v[2] = sext4(r1 & 0x0F0F0F0Fu);
+      v[3] = sext4((r1 >> 4) & 0x0F0F0F0Fu);
+    } else if constexpr (LAYOUT == INT2) {  // byte row r: K 4r + f at bits 2f
+      const uint32_t r0 = word(4 * w + b);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wrow[i] = *reinterpret_cast<const uint32_t*>(
-            planes + (size_t)(k0 / 2 + r0 + i) * N + n_base + c4);
+      for (int f = 0; f < 4; ++f) v[f] = sext2((r0 >> (2 * f)) & 0x03030303u);
+    } else {                                // byte row r: K r
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t lo = 0u, hi = 0u;                  // k = 2*r0 .. 2*r0+7
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const uint32_t b0 = (wrow[i] >> (8 * j)) & 0xFFu;
-          const uint32_t b1 = (wrow[i + 2] >> (8 * j)) & 0xFFu;
-          lo |= nib8(b0, 0) << (16 * i) | nib8(b0, 1) << (16 * i + 8);
-          hi |= nib8(b1, 0) << (16 * i) | nib8(b1, 1) << (16 * i + 8);
-        }
-        *reinterpret_cast<uint2*>(Bs + (c4 + j) * LDS + 2 * r0) =
-            make_uint2(lo, hi);
-      }
+      for (int i = 0; i < 4; ++i) v[i] = word(16 * w + 4 * b + i);
     }
-  } else if constexpr (LAYOUT == INT2) {
-    // 32 byte rows x 128 columns of 2-bit fields; 4 byte rows = 16 k
-    const int r0 = (tid / 32) * 4;
-    uint32_t wrow[4];
+    transpose4(v[0], v[1], v[2], v[3], o[b]);
+  }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      wrow[i] = *reinterpret_cast<const uint32_t*>(
-          planes + (size_t)(k0 / 4 + r0 + i) * N + n_base + c4);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<uint4*>(Bs + (c4 + j) * LDS + 4 * r0) = make_uint4(
-          f2x4((wrow[0] >> (8 * j)) & 0xFFu), f2x4((wrow[1] >> (8 * j)) & 0xFFu),
-          f2x4((wrow[2] >> (8 * j)) & 0xFFu), f2x4((wrow[3] >> (8 * j)) & 0xFFu));
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<uint4*>(op + qmm_tc::cm_off(4 * q + j, 16 * w, SBO)) =
+        make_uint4(o[0][j], o[1][j], o[2][j], o[3][j]);
+}
+
+// an integer dot of one group as f32, exactly: |d| < 2^22 for the nibble
+// and int2 layouts (gd <= 512), so the float with d added to 1.5 * 2^23
+// in its mantissa, less 1.5 * 2^23; int8 codes at gd = 512 can pass 2^22
+template <int LAYOUT>
+__device__ __forceinline__ float dot_f32(int d) {
+  if constexpr (LAYOUT == INT8) {
+    return __int2float_rn(d);
   } else {
-    // 128 rows x 128 columns of int8 codes; 16 rows = 16 k a thread
-    const int r0 = (tid / 32) * 16;
-    uint32_t wrow[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      wrow[i] = *reinterpret_cast<const uint32_t*>(
-          planes + (size_t)(k0 + r0 + i) * N + n_base + c4);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t w[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {   // byte j of rows 4q .. 4q+3
-        w[q] = 0u;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          w[q] |= ((wrow[4 * q + i] >> (8 * j)) & 0xFFu) << (8 * i);
-      }
-      *reinterpret_cast<uint4*>(Bs + (c4 + j) * LDS + r0) =
-          make_uint4(w[0], w[1], w[2], w[3]);
-    }
+    return __fsub_rn(__int_as_float(d + 0x4B400000), 12582912.0f);
   }
 }
 
 template <bool ASYM, int LAYOUT>
-__global__ void __launch_bounds__(256)
-qmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sa,
-              const uint8_t* __restrict__ planes,
-              const __nv_bfloat16* __restrict__ scales,
-              const float* __restrict__ zwp, const float* __restrict__ xsa,
-              void* out, int M, int K, int N, int gd, int group,
-              int out_f32) {
-  __shared__ __align__(16) int8_t As[BM * LDS];   // [m][k]
-  __shared__ __align__(16) int8_t Bs[BN * LDS];   // [n][k]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;          // warp tile 32 x 32
-  const int g = lane >> 2, t = lane & 3;
+__global__ void __launch_bounds__(THREADS, 1)
+qmm_a8_kernel(const __grid_constant__ A8Params p) {
+  using S = Stage<LAYOUT>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ float fold[3][BN];            // a dot group's weight scales
+  uint8_t* smem = smem_raw + ((1024 - (qmm_tc::smem_u32(smem_raw) & 1023)) &
+                              1023);
+  uint8_t* ops = smem + STAGES * S::BYTES;
+  const int tid = threadIdx.x, wg = tid / 128, wi = (tid / 32) % 4;
+  const int lane = tid % 32;
   const int m_base = blockIdx.y * BM, n_base = blockIdx.x * BN;
-  const int Ga = K / gd;
+  const int Ga = p.K / p.gd, KT = p.K / BK, tpg = p.gd / BK;
+  // this thread's accumulator rows ra, ra + 8 of the tile and columns
+  // 8 j + cq, 8 j + cq + 1 (j = 0 .. 15)
+  const int ra = wg * 64 + wi * 16 + lane / 4, cq = 2 * (lane % 4);
+  const int rA = m_base + ra, rB = rA + 8;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) qmm_tc::mbar_init(&full[s], 1);
+    qmm_tc::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int t = 0; t < STAGES - 2 && t < KT; ++t)
+      issue_stage<LAYOUT>(p, smem + t * S::BYTES, &full[t], t, m_base,
+                          n_base);
 
-  float accf[2][4][4];
-  int acci[2][4][4];
+  float accf[64];
+  int acc0[64], acc1[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        accf[i][j][r] = 0.f;
-        acci[i][j][r] = 0;
-      }
-  if constexpr (ASYM) {   // acc = -(xsa @ zwp) for this thread's elements
+  for (int i = 0; i < 64; ++i) {
+    accf[i] = 0.f;
+    acc0[i] = 0;
+    acc1[i] = 0;
+  }
+  if constexpr (ASYM) {   // acc = -(xsa @ zwp), in group order
+#pragma unroll 4
     for (int ga = 0; ga < Ga; ++ga) {
+      const float xa = rA < p.M ? p.xsa[(size_t)rA * Ga + ga] : 0.f;
+      const float xb = rB < p.M ? p.xsa[(size_t)rB * Ga + ga] : 0.f;
+      const float* zr = p.zwp + (size_t)ga * p.N + n_base + cq;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int ra = m_base + wm * 32 + mt * 16 + g, rb = ra + 8;
-        const float xa = ra < M ? xsa[(size_t)ra * Ga + ga] : 0.f;
-        const float xb = rb < M ? xsa[(size_t)rb * Ga + ga] : 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int c0 = n_base + wn * 32 + nt * 8 + t * 2;
-          const float z0 = zwp[(size_t)ga * N + c0];
-          const float z1 = zwp[(size_t)ga * N + c0 + 1];
-          accf[mt][nt][0] -= xa * z0;
-          accf[mt][nt][1] -= xa * z1;
-          accf[mt][nt][2] -= xb * z0;
-          accf[mt][nt][3] -= xb * z1;
-        }
+      for (int j = 0; j < 16; ++j) {
+        const float2 z = *reinterpret_cast<const float2*>(zr + 8 * j);
+        accf[4 * j] -= xa * z.x;
+        accf[4 * j + 1] -= xa * z.y;
+        accf[4 * j + 2] -= xb * z.x;
+        accf[4 * j + 3] -= xb * z.y;
       }
     }
   }
+  const uint32_t sbase = qmm_tc::smem_u32(smem), obase = qmm_tc::smem_u32(ops);
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A: 64 rows x 128 int8, 16-byte loads, rows past M are zero
-    for (int i = tid; i < BM * BK / 16; i += 256) {
-      const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-      const int m = m_base + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M) v = *reinterpret_cast<const uint4*>(xq + (size_t)m * K + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * LDS + c) = v;
+  // acc += d * (sa * sw) for the group whose dots d holds, rounded op by op
+  auto fold_group = [&](int (&d)[64], const float (&sa)[2], const float* sw) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 w = *reinterpret_cast<const float2*>(sw + 8 * j + cq);
+      const float f[4] = {__fmul_rn(sa[0], w.x), __fmul_rn(sa[0], w.y),
+                          __fmul_rn(sa[1], w.x), __fmul_rn(sa[1], w.y)};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        accf[4 * j + r] = __fadd_rn(
+            accf[4 * j + r], __fmul_rn(dot_f32<LAYOUT>(d[4 * j + r]), f[r]));
     }
-    load_b<LAYOUT>(planes, Bs, k0, N, n_base, tid);
+  };
+
+  // Tile kt, the t-th of dot group G: widen its weights; one barrier;
+  // stage tile kt + STAGES - 2 into the slot of tile kt - 2; issue kt's
+  // wgmmas into the group's integer accumulator `cur` and wait for them;
+  // on a group's first tile, fold the previous group's accumulator `prev`.
+  // The act scales of a group are read on its first tile, into registers,
+  // and used at its fold one group later; the widened tiles and the
+  // weight scales kept for the fold rotate over three buffers, free once
+  // every thread is two tiles further.
+  auto tile = [&](int kt, int t, int G, int (&cur)[64], int (&prev)[64],
+                  float (&sa_cur)[2], const float (&sa_prev)[2]) {
+    const int slot = kt % STAGES;
+    const uint8_t* st = smem + slot * S::BYTES;
+    if (t == 0) {
+      sa_cur[0] = rA < p.M ? p.sa[(size_t)rA * Ga + G] : 0.f;
+      sa_cur[1] = rB < p.M ? p.sa[(size_t)rB * Ga + G] : 0.f;
+    }
+    qmm_tc::mbar_wait(&full[slot], (kt / STAGES) & 1);
+    widen<LAYOUT>(st, ops + (kt % 3) * OP_BYTES, tid);
+    if (t == tpg - 1 && tid < BN)
+      fold[G % 3][tid] = __bfloat162float(
+          reinterpret_cast<const __nv_bfloat16*>(st + S::SW)[tid]);
+    qmm_tc::fence_proxy_async();
     __syncthreads();
-
+    if (tid == 0 && kt + STAGES - 2 < KT)
+      issue_stage<LAYOUT>(p, smem + ((kt + STAGES - 2) % STAGES) * S::BYTES,
+                          &full[(kt + STAGES - 2) % STAGES], kt + STAGES - 2,
+                          m_base, n_base);
+    qmm_tc::fence_acc(cur);
+    qmm_tc::wgmma_fence();
+    const uint32_t a0 = sbase + slot * S::BYTES + wg * 64 * BK;
+    const uint32_t b0 = obase + (kt % 3) * OP_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int row = wm * 32 + mt * 16 + g;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(As + row * LDS + kk + t * 4);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(As + (row + 8) * LDS + kk + t * 4);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(As + row * LDS + kk + 16 + t * 4);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(As + (row + 8) * LDS + kk + 16 + t * 4);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = wn * 32 + nt * 8 + g;
-        b[nt][0] = *reinterpret_cast<const uint32_t*>(Bs + col * LDS + kk + t * 4);
-        b[nt][1] = *reinterpret_cast<const uint32_t*>(Bs + col * LDS + kk + 16 + t * 4);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8(acci[mt][nt], a[mt], b[nt]);
+    for (int s = 0; s < BK / 32; ++s)
+      qmm_tc::wgmma_s8_n128(cur, qmm_tc::desc_sw128(a0 + 32 * s),
+                            qmm_tc::desc(b0 + 256 * s, 128, SBO),
+                            (t > 0 || s > 0) ? 1 : 0);
+    qmm_tc::wgmma_commit();
+    qmm_tc::wgmma_wait<0>();
+    qmm_tc::fence_acc(cur);
+    if (t == 0 && G > 0) {
+      qmm_tc::fence_acc(prev);
+      fold_group(prev, sa_prev, fold[(G - 1) % 3]);
     }
+  };
 
-    if ((k0 + BK) % gd == 0) {       // end of a dot group: fold into f32
-      const int ga = k0 / gd;
-      const int gw = (ga * gd) / group;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int ra = m_base + wm * 32 + mt * 16 + g, rb = ra + 8;
-        const float saa = ra < M ? sa[(size_t)ra * Ga + ga] : 0.f;
-        const float sab = rb < M ? sa[(size_t)rb * Ga + ga] : 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int c0 = n_base + wn * 32 + nt * 8 + t * 2;
-          const float sw0 = __bfloat162float(scales[(size_t)gw * N + c0]);
-          const float sw1 = __bfloat162float(scales[(size_t)gw * N + c0 + 1]);
-          const float f[4] = {__fmul_rn(saa, sw0), __fmul_rn(saa, sw1),
-                              __fmul_rn(sab, sw0), __fmul_rn(sab, sw1)};
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            accf[mt][nt][r] = __fadd_rn(
-                accf[mt][nt][r], __fmul_rn((float)acci[mt][nt][r], f[r]));
-            acci[mt][nt][r] = 0;
-          }
-        }
-      }
-    }
-    __syncthreads();
+  float sa0[2] = {0.f, 0.f}, sa1[2] = {0.f, 0.f};
+  const int NG = Ga;
+  for (int G = 0; G < NG; G += 2) {
+    for (int t = 0; t < tpg; ++t) tile(G * tpg + t, t, G, acc0, acc1, sa0,
+                                       sa1);
+    if (G + 1 < NG)
+      for (int t = 0; t < tpg; ++t) tile((G + 1) * tpg + t, t, G + 1, acc1,
+                                         acc0, sa1, sa0);
   }
+  qmm_tc::wgmma_wait<0>();
+  qmm_tc::fence_acc(acc0);
+  qmm_tc::fence_acc(acc1);
+  if ((NG - 1) & 1)
+    fold_group(acc1, sa1, fold[(NG - 1) % 3]);
+  else
+    fold_group(acc0, sa0, fold[(NG - 1) % 3]);
 
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int ra = m_base + wm * 32 + mt * 16 + g;
+  for (int j = 0; j < 16; ++j) {
+    const int col = n_base + 8 * j + cq;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int c0 = n_base + wn * 32 + nt * 8 + t * 2;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = ra + (r >= 2 ? 8 : 0), col = c0 + (r & 1);
-        if (row >= M) continue;
-        const size_t o = (size_t)row * N + col;
-        if (out_f32)
-          reinterpret_cast<float*>(out)[o] = accf[mt][nt][r];
-        else
-          reinterpret_cast<__nv_bfloat16*>(out)[o] =
-              __float2bfloat16(accf[mt][nt][r]);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int row = m_base + ra + 8 * h;
+      if (row >= p.M) continue;
+      const size_t o = (size_t)row * p.N + col;
+      const float v0 = accf[4 * j + 2 * h], v1 = accf[4 * j + 2 * h + 1];
+      if (p.out_f32)
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.out) + o) =
+            make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(
+            reinterpret_cast<__nv_bfloat16*>(p.out) + o) =
+            __floats2bfloat162_rn(v0, v1);
     }
   }
 }
@@ -313,14 +371,42 @@ int launch(const void* xq, const void* sa, const void* planes,
            const void* scales, const void* zwp, const void* xsa, void* out,
            int M, int K, int N, int gd, int group, int out_f32,
            void* stream) {
+  using S = Stage<LAYOUT>;
+  static bool attr_set = false;
+  constexpr int smem = smem_bytes<LAYOUT>();
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmm_a8_kernel<ASYM, LAYOUT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  A8Params p;
+  p.xq = reinterpret_cast<const int8_t*>(xq);
+  p.sa = reinterpret_cast<const float*>(sa);
+  p.planes = reinterpret_cast<const uint8_t*>(planes);
+  p.scales = reinterpret_cast<const __nv_bfloat16*>(scales);
+  p.zwp = reinterpret_cast<const float*>(zwp);
+  p.xsa = reinterpret_cast<const float*>(xsa);
+  p.out = out;
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.gd = gd;
+  p.group = group;
+  p.out_f32 = out_f32;
+  const int prow = LAYOUT == NIBBLES ? K / 2 : LAYOUT == INT2 ? K / 4 : K;
+  using qmm_tc::make_map;
+  if (!make_map(&p.mx, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, M, K, BK, BM,
+                true) ||
+      !make_map(&p.mw, planes, CU_TENSOR_MAP_DATA_TYPE_UINT8, N, prow, N, BN,
+                S::RAW_ROWS, false) ||
+      !make_map(&p.msw, scales, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N,
+                K / group, (long long)N * 2, BN, 1, false))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(N / BN, (M + BM - 1) / BM);
-  qmm_a8_kernel<ASYM, LAYOUT><<<grid, 256, 0,
-                        reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const int8_t*>(xq), reinterpret_cast<const float*>(sa),
-      reinterpret_cast<const uint8_t*>(planes),
-      reinterpret_cast<const __nv_bfloat16*>(scales),
-      reinterpret_cast<const float*>(zwp), reinterpret_cast<const float*>(xsa),
-      out, M, K, N, gd, group, out_f32);
+  qmm_a8_kernel<ASYM, LAYOUT><<<grid, THREADS, smem,
+                                reinterpret_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

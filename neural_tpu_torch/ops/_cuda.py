@@ -19,9 +19,10 @@ each launch under the C function's name (``Kernel.launches``), so a run
 can tell which entry points — the bf16 and the int8 variant of an
 attention kernel apart — its path went through. A launch that takes one
 of an entry point's option branches (an attention kernel's ALiBi slopes or
-prefix mask, a fused K1's prologue or epilogue) also counts under
-``name+branch`` (``flash_prefill+alibi``, ``qmm4_npack_fused+rms``), so a
-run can tell that its path went through the branch too.
+prefix mask, a fused K1's prologue or epilogue, K5's route) also counts
+under ``name+branch`` (``flash_prefill+alibi``, ``qmm4_npack_fused+rms``,
+``qmm_general+gemv``), so a run can tell that its path went through the
+branch too.
 """
 from __future__ import annotations
 
@@ -174,14 +175,16 @@ QMM_A8 = Kernel("qmm_a8.cu", {
     # stream
     **{fn + "_asym": [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
        for fn in K2_ENTRIES},
-}, branches=("int3",))
+}, headers=("qmm_tc.cuh",), branches=("int3",))
+# K5's two routes, each launch also counted under its route: ``gemv`` at
+# M <= 16, ``tc`` (the tensor-core tiles) above
 QMM_GENERAL = Kernel("qmm_general.cu", {
     # x, plane0, plane1, plane2, scales, zeros, lut, partial, out, M, K, N,
     # group, chunk, fmt, bits, vmode, scale_f32, zkind, zconst, fp8_e5m2,
     # out_f32, splits, kps, stream
     "qmm_general": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
                     F, I, I, I, I, P],
-})
+}, headers=("qmm_tc.cuh",), branches=("gemv", "tc"))
 FLASH_PREFILL = Kernel("flash_prefill.cu", {
     # q, k, v, starts, slopes, prefix_len, out, B, T, Hq, Hkv, S, head dim,
     # scale, softcap, window, stream

@@ -19,10 +19,11 @@ stored (bit planes, nf4/fp4 indices, fp8; f32 or bf16 scales).
   weights are at rest: native-pack int4/int3 nibbles, int2 fields or int8
   code planes (5-8 bit). The TPU kernel quantizes x inside the kernel or
   in ``quantize_act_i8`` depending on N; the two are bit-identical, so one
-  port kernel serves both.
+  port kernel serves both. TMA-staged wgmma tiles (:func:`k2_schedule`).
 - **K5** :func:`qmm_general` (``csrc/qmm_general.cu``) replaces
-  ``_qmm_kernel``: every weight tile dequantized in f32 and rounded once to
-  bf16, a bf16 × bf16 product with f32 accumulation, any M, every layout.
+  ``_qmm_kernel``: every weight dequantized in f32 and rounded once to
+  bf16, a bf16 × bf16 product with f32 accumulation, any M, every layout;
+  a GEMV body at M <= 16, pipelined wgmma tiles above (:func:`k5_schedule`).
 
 :func:`qmatmul` routes as the JAX package does (:func:`route`). Each
 wrapper takes its plain PyTorch version only for CPU tensors; on a CUDA
@@ -421,6 +422,20 @@ def qmm_a8_plain(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
     return acc.to(out_dtype)
 
 
+# K2's tiles (``csrc/qmm_a8.cu``): 128 rows of x by 128 output columns a
+# block over the whole K in 128-deep tiles (a dot group is one or more
+# whole tiles), no split
+K2_BM, K2_BN, K2_BK = 128, 128, 128
+
+
+def k2_schedule(M: int, K: int, N: int) -> dict:
+    """K2's launch for an [M, K] @ [K, N] product, as the C entry point
+    computes it: the rows and columns of a block, the K step and the grid
+    (N blocks, M blocks)."""
+    return dict(rows=K2_BM, cols=K2_BN, k_step=K2_BK,
+                grid=(N // K2_BN, -(-M // K2_BM)))
+
+
 def qmm_a8(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
            group: int, gd: int, out_dtype: torch.dtype,
            zeros: Optional[torch.Tensor] = None,
@@ -502,8 +517,16 @@ def qmm_general_plain(x: torch.Tensor, qt: QTensor,
 K5_PLANES, K5_NPACK4, K5_NPACK2, K5_INT8, K5_FP8 = range(5)
 V_INT, V_ONEBIT, V_LUT = range(3)
 _ZKIND = {None: 0, torch.uint8: 1, torch.bfloat16: 2, torch.float32: 3}
-K5_BK, K5_BN = 32, 128
-K5_TARGET_BLOCKS = 264          # two blocks for each of the H100's 132 SMs
+# K5's tiles (``csrc/qmm_general.cu``). Both routes cover K5_BN = 128
+# output columns a block. The gemv route (M <= K5_GEMV_M) takes K5_GEMV_K =
+# 512 K rows and up to 8 rows of x a block. The tc route takes BM = 128
+# rows of x a block (M <= 128) or 256 over K tiles of K5_BK = 64 rows, one
+# block on each SM at a time (its ring fills most of the shared memory),
+# so its K is split only while the output tiles fill less than one wave of
+# K5_TARGET_BLOCKS, each split keeping at least 4 K tiles.
+K5_BN, K5_BK, K5_GEMV_K, K5_GEMV_M = 128, 64, 512, 16
+K5_TARGET_BLOCKS = 132          # the H100's SMs: one tc block each
+K5_MAX_SPLITS = 8               # tc: the second pass reads M·N·4 a split
 
 
 def _k5_layout(qt: QTensor):
@@ -524,22 +547,57 @@ def _k5_layout(qt: QTensor):
         else float(1 << (cfg.bits - 1))
 
 
+def k5_route(M: int) -> str:
+    """K5's body for M rows of x: "gemv" at M <= 16, else "tc"."""
+    return "gemv" if M <= K5_GEMV_M else "tc"
+
+
+def k5_rows(M: int) -> int:
+    """Rows of x a K5 block takes: 1, 2, 4 or 8 on the gemv route, 128 or
+    256 on the tc route."""
+    if k5_route(M) == "gemv":
+        return 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
+    return 128 if M <= 128 else 256
+
+
 def k5_splits(M: int, K: int, N: int):
-    """(splits, K rows per split) of K5's grid: K is split until the grid
-    has about two blocks per SM, each split keeping >= 4 K tiles."""
-    bm = 16 if M <= 16 else 64 if M <= 64 else 128
-    tiles = -(-N // K5_BN) * -(-M // bm)
-    ktiles = K // K5_BK
-    splits = max(1, min(ktiles // 4, -(-K5_TARGET_BLOCKS // tiles)))
+    """(splits, K rows per split) of K5's grid. gemv: one split per 512 K
+    rows. tc: no split once the output tiles fill a wave of the card;
+    below that the split count up to K5_MAX_SPLITS that wastes the least
+    of its waves (the fewest waves per split), each split keeping >= 4 K
+    tiles."""
+    if k5_route(M) == "gemv":
+        return -(-K // K5_GEMV_K), K5_GEMV_K
+    tiles = -(-N // K5_BN) * -(-M // k5_rows(M))
+    ktiles = -(-K // K5_BK)
+    splits = 1
+    if tiles < K5_TARGET_BLOCKS:
+        splits = min(range(1, max(1, min(K5_MAX_SPLITS, ktiles // 4)) + 1),
+                     key=lambda s: (-(-tiles * s // K5_TARGET_BLOCKS) / s, s))
     kps = -(-ktiles // splits) * K5_BK
     return -(-K // kps), kps
+
+
+def k5_schedule(M: int, K: int, N: int) -> dict:
+    """K5's launch for an [M, K] @ [K, N] product, as the C entry point
+    computes it from M and the wrapper's splits: the route, the rows of x a
+    block, the splits and K rows per split, the K step a split is cut in
+    and the grid (N blocks, splits, M blocks)."""
+    splits, kps = k5_splits(M, K, N)
+    rows = k5_rows(M)
+    return dict(route=k5_route(M), rows=rows, splits=splits, kps=kps,
+                k_step=K5_GEMV_K if k5_route(M) == "gemv" else K5_BK,
+                grid=(-(-N // K5_BN), splits, -(-M // rows)))
 
 
 def qmm_general(x: torch.Tensor, qt: QTensor,
                 out_dtype: torch.dtype) -> torch.Tensor:
     """K5: ``x [M, K] @ W`` for any M and every weight layout of the port
     (bit-plane 1-8 bit int, nf4/fp4, fp8, native-pack int2-4, int8 codes;
-    f32 or bf16 scales; uint8, bf16 or f32 zero-points)."""
+    f32 or bf16 scales; uint8, bf16 or f32 zero-points). The C entry point
+    takes the gemv body at M <= 16 and the tensor-core tiles above
+    (:func:`k5_schedule`); each launch also counts under its route,
+    ``qmm_general+gemv`` or ``qmm_general+tc``."""
     if x.device.type == "cpu":
         return qmm_general_plain(x, qt, out_dtype)
     _check_no_perm(qt)
@@ -551,9 +609,10 @@ def qmm_general(x: torch.Tensor, qt: QTensor,
     fmt, vmode, zconst = _k5_layout(qt)
     for i, p in enumerate(qt.planes):
         _cuda.check(p, f"plane {i}", p.dtype)
-    if qt.K != K or K % K5_BK or N % 16 or K % g:
-        raise ValueError(f"K5 needs K % 32 == 0, N % 16 == 0 and K % group "
-                         f"== 0 (x K={K}, weight {qt.shape}, group {g})")
+    if qt.K != K or K % 32 or N % 16 or K % g or g % 8:
+        raise ValueError(f"K5 needs K % 32 == 0, N % 16 == 0, K % group "
+                         f"== 0 and group % 8 == 0 (x K={K}, weight "
+                         f"{qt.shape}, group {g})")
     if len(qt.planes) > 3 or qt.scales.dtype not in (torch.float32,
                                                      torch.bfloat16):
         raise ValueError("K5 takes at most 3 planes and f32/bf16 scales")
@@ -566,9 +625,11 @@ def qmm_general(x: torch.Tensor, qt: QTensor,
         _cuda.check(zeros, "zeros", zeros.dtype, (K // g, N))
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
-    tensors = (*qt.planes, qt.scales) + (() if zeros is None else (zeros,))
+    tensors = (x, *qt.planes, qt.scales) + (() if zeros is None
+                                            else (zeros,))
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("planes, scales and zeros must be 16-byte aligned")
+        raise ValueError("x, planes, scales and zeros must be 16-byte "
+                         "aligned")
     lut = lut_on(cfg, x.device) if vmode == V_LUT else None
     splits, kps = k5_splits(M, K, N)
     partial = torch.empty((splits, M, N) if splits > 1 else (1,),
@@ -583,7 +644,7 @@ def qmm_general(x: torch.Tensor, qt: QTensor,
         int(qt.scales.dtype == torch.float32),
         _ZKIND[None if zeros is None else zeros.dtype], zconst,
         int(cfg.kind == "fp8_e5m2"), int(out_dtype == torch.float32), splits,
-        kps, _cuda.stream_ptr())
+        kps, _cuda.stream_ptr(), branches=(k5_route(M),))
     return out
 
 
