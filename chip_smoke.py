@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card (H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab PARENT_DIR   # phase 4/4b legs, parent vs this
+    python3 chip_smoke.py --ab PARENT_DIR   # K3/K4 and phase 4/4b legs,
+                                            # parent vs this
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -25,7 +26,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    K4 (fills 1975 and 128) and K6 (B=8, mixed fills) and K3's GLM prefix
    branch (ChatGLM-6B's 1975-token prefill, all of it the prefix), bf16
    and int8, each also timed with its option off and held against a
-   compiled ``flex_attention`` with the same score_mod / mask_mod; then
+   compiled ``flex_attention`` with the same score_mod / mask_mod; K3 also
+   at the server's 512-token chunk at position 1024 of 2048; every K3/K4
+   case printed beside the time of the kernel it replaces, and K6's
+   (unchanged, the control) beside its own earlier time; then
    K5 on both of its routes, each launch counted under its route
    (``qmm_general+gemv`` at M <= 16, ``qmm_general+tc`` above): nf4 at
    M=1, 8 and 1975, q4_0 at 1975, q4_j at 128, 64, 32 and 24, fp4, fp8
@@ -456,12 +460,101 @@ PR17_MS = {
 }
 
 
+# The times of the K3 and K4 kernels the redesigned ones replace, and K6's
+# (unchanged: the control), per token, step or prefill in ms, from PERF.md
+# section 6 (chip_smoke.py runs on an H100 80GB HBM3 at 700 W, before the
+# redesign), by (results key, case label); None: that case was not timed
+_FILLS8 = "[1, 2048, 1975, 128, 700, 1300, 33, 1024]"
+_G2_FILLS8 = "[1, 8192, 6000, 128, 4500, 3000, 33, 4097]"
+ATTN_BEFORE_MS = {
+    ("K3", "llama 1975-token prefill, window 0, softcap 0"): 10.30,
+    ("K3", "gemma2 6000-token prefill, window 4096, softcap 50"): 53.77,
+    ("K3", "gemma2 6000-token prefill, window 0, softcap 50"): 62.84,
+    ("K3", "gemma2 1975-token prefill, window 4096, softcap 50"): 22.33,
+    ("K3", "head dim 128 1975-token prefill, window 1024, softcap 50"): 0.405,
+    ("K3", "llama 512-token chunk at 1024, window 0, softcap 0"): None,
+    ("K3_i8", "llama 1975-token prefill, window 0, softcap 0"): 11.40,
+    ("K3_i8", "gemma2 6000-token prefill, window 4096, softcap 50"): 64.09,
+    ("K3_i8", "gemma2 6000-token prefill, window 0, softcap 50"): 75.65,
+    ("K3_i8", "gemma2 1975-token prefill, window 4096, softcap 50"): 25.78,
+    ("K3_i8", "head dim 128 1975-token prefill, window 1024, softcap 50"):
+    0.455,
+    ("K3_i8", "llama 512-token chunk at 1024, window 0, softcap 0"): None,
+    ("K3_alibi", "bloom 1975-token prefill, alibi"): 10.25,
+    ("K3_prefix", "chatglm 1975-token prefill, prefix"): 13.94,
+    ("K3_i8_alibi", "bloom 1975-token prefill, alibi"): 11.13,
+    ("K3_i8_prefix", "chatglm 1975-token prefill, prefix"): 15.23,
+    ("K4", "llama decode fill 1975, window 0, softcap 0"): 1.395,
+    ("K4", "llama decode fill 128, window 0, softcap 0"): None,
+    ("K4", "gemma2 decode fill 6000, window 4096, softcap 50"): 1.799,
+    ("K4", "gemma2 decode fill 6000, window 0, softcap 50"): 1.942,
+    ("K4", "head dim 128 decode fill 1975, window 1024, softcap 50"): 0.0371,
+    ("K4_i8", "llama decode fill 1975, window 0, softcap 0"): 1.190,
+    ("K4_i8", "llama decode fill 128, window 0, softcap 0"): None,
+    ("K4_i8", "gemma2 decode fill 6000, window 4096, softcap 50"): 1.444,
+    ("K4_i8", "gemma2 decode fill 6000, window 0, softcap 50"): 1.609,
+    ("K4_i8", "head dim 128 decode fill 1975, window 1024, softcap 50"):
+    0.0345,
+    ("K4_alibi", "bloom decode fill 1975, alibi"): 1.291,
+    ("K4_alibi", "bloom decode fill 128, alibi"): 0.910,
+    ("K4_i8_alibi", "bloom decode fill 1975, alibi"): 1.175,
+    ("K4_i8_alibi", "bloom decode fill 128, alibi"): 0.910,
+    ("K4_G>8", "chatglm2 heads (32 over 2) decode fill 1975"): 1.298,
+    ("K4_G>8", "starcoder heads (48 over 1) decode fill 1975"): 1.732,
+    ("K4_i8_G>8", "chatglm2 heads (32 over 2) decode fill 1975"): 1.511,
+    ("K4_i8_G>8", "starcoder heads (48 over 1) decode fill 1975"): 2.085,
+    ("K6", f"llama B=8 decode fills {_FILLS8}, window 0, softcap 0"): 3.438,
+    ("K6", "gemma2 B=1 decode fills [6000], window 4096, softcap 50"): 1.891,
+    ("K6", "gemma2 B=1 decode fills [6000], window 0, softcap 50"): 1.937,
+    ("K6", f"gemma2 B=8 decode fills {_G2_FILLS8}, window 4096, softcap 50"):
+    3.819,
+    ("K6", f"head dim 128 B=8 decode fills {_FILLS8}, window 512, softcap "
+     "50"): 0.0606,
+    ("K6_i8", f"llama B=8 decode fills {_FILLS8}, window 0, softcap 0"):
+    2.795,
+    ("K6_i8", "gemma2 B=1 decode fills [6000], window 4096, softcap 50"):
+    1.256,
+    ("K6_i8", "gemma2 B=1 decode fills [6000], window 0, softcap 50"): 1.476,
+    ("K6_i8", f"gemma2 B=8 decode fills {_G2_FILLS8}, window 4096, softcap "
+     "50"): 2.971,
+    ("K6_i8", f"head dim 128 B=8 decode fills {_FILLS8}, window 512, "
+     "softcap 50"): 0.0471,
+    ("K6_alibi", f"bloom B=8 decode fills {_FILLS8}, alibi"): 3.296,
+    ("K6_i8_alibi", f"bloom B=8 decode fills {_FILLS8}, alibi"): 2.791,
+    ("K6_G>8", f"chatglm2 heads (32 over 2) B=8 decode fills {_FILLS8}"):
+    1.374,
+    ("K6_G>8", f"starcoder heads (48 over 1) B=8 decode fills {_FILLS8}"):
+    2.233,
+    ("K6_i8_G>8", f"chatglm2 heads (32 over 2) B=8 decode fills {_FILLS8}"):
+    1.425,
+    ("K6_i8_G>8", f"starcoder heads (48 over 1) B=8 decode fills "
+     f"{_FILLS8}"): 2.378,
+}
+ATTN_SLOWER = []    # (key, label, ms, earlier ms) of K3/K4 cases now slower
+
+
 def _record(results, key, cases, window_ms=None):
     """The first case is the kernel's line; every case is kept beside it,
     and an attention kernel's per-launch times at fill 6000 by window. A
-    case of K2 or K5 is printed beside the PR 1-7 time it replaces."""
+    case of K2, K5, K3 or K4 is printed beside the time of the kernel it
+    replaces, and K6 (unchanged, the control) beside its own earlier
+    time."""
     first = next(iter(cases.values()))
     results[key] = dict(first, cases=cases, window_ms=window_ms)
+    if key.startswith(("K3", "K4", "K6")):
+        for label, c in cases.items():
+            if (key, label) not in ATTN_BEFORE_MS:
+                raise AssertionError(f"{key} {label}: no earlier time")
+            before = ATTN_BEFORE_MS[(key, label)]
+            ratio = "" if before is None else \
+                f", {c['ms'] / before:.3f}x of it"
+            log(f"{key} {label}: kernel {c['ms']:.4f} ms, bound "
+                f"{c['bound_ms']:.4f} ms ({c['bound_by']}), library "
+                f"{c['library_ms']:.4f} ms, before "
+                f"{'not measured' if before is None else before} ms{ratio}")
+            if before is not None and c["ms"] > before and \
+                    key.startswith(("K3", "K4")):
+                ATTN_SLOWER.append((key, label, c["ms"], before))
     if key.startswith(("K2", "K5")):
         for label, c in cases.items():
             before = PR17_MS.get((key, label), PR17_MS.get(
@@ -1109,50 +1202,59 @@ def _attn_ops(int8, Dh, Hq, pairs, alibi, decode):
     return op_s + (2 * Hq * pairs / F32_FLOPS if alibi else 0.0)
 
 
+# the server's prefill chunk: 512 tokens at position 1024 (S = 2048)
+CHUNK_T, CHUNK_START = 512, 1024
+
+
 def check_k3(gen, results):
-    """K3 from position 0, bf16 and int8: Llama-2-7B's 1975-token prefill;
+    """K3, bf16 and int8: Llama-2-7B's 1975-token prefill from position 0;
     Gemma-2-9B's 6000-token prompt (S = 8192) with window 4096 and 0, and
     its 1975-token prompt (S = 2048) under the window, which it never
     reaches; head dim 128 at 1975 tokens with the softcap and a window of
-    1024."""
-    starts = torch.zeros(1, dtype=torch.int32, device=DEV)
+    1024; the server's 512-token chunk at position 1024 of 2048 (its
+    yardstick a compiled ``flex_attention`` with the offset)."""
     g2_short = (*G2_HEADS[:4], S_CACHE, G2_SOFTCAP)
-    shapes = [(LLAMA_HEADS, T_PREFILL, 0, L),
-              (G2_HEADS, G2_FILL, G2_W, 21), (G2_HEADS, G2_FILL, 0, 21),
-              (g2_short, T_PREFILL, G2_W, 42),
-              (HD128_HEADS, T_PREFILL, 1024, 1)]
+    shapes = [(LLAMA_HEADS, T_PREFILL, 0, 0, L),
+              (G2_HEADS, G2_FILL, 0, G2_W, 21), (G2_HEADS, G2_FILL, 0, 0, 21),
+              (g2_short, T_PREFILL, 0, G2_W, 42),
+              (HD128_HEADS, T_PREFILL, 0, 1024, 1),
+              (LLAMA_HEADS, CHUNK_T, CHUNK_START, 0, L)]
     for int8, key in ((False, "K3"), (True, "K3_i8")):
         entry = "flash_prefill_i8" if int8 else "flash_prefill"
         fn = A.flash_prefill_i8 if int8 else A.flash_prefill
         plain = A.flash_prefill_i8_plain if int8 else A.flash_prefill_plain
         cases, window_ms = {}, {}
-        for (what, Hq, Hkv, Dh, S, cap), T, W, count in shapes:
+        for (what, Hq, Hkv, Dh, S, cap), T, start, W, count in shapes:
+            starts = torch.full((1,), start, dtype=torch.int32, device=DEV)
             q = (torch.randn((1, T, Hq, Dh), generator=gen, device=DEV)
                  * Q_SPREAD).bfloat16()
             c = _attn_cache(gen, (1, Hkv, S, Dh), int8)[0]
             args = (q, c[0], c[1], *(c[2:] if int8 else ()), starts,
                     Dh ** -0.5, cap, W)
-            kd, vd = (x[:, :, :T] for x in _bf16_kv(c))
+            kd, vd = (x[:, :, :start + T] for x in _bf16_kv(c))
             qh = q.transpose(1, 2)
-            if cap or W:
-                library = _flex(qh, [(kd, vd)], [0], W, Dh ** -0.5, cap,
+            if cap or W or start:
+                library = _flex(qh, [(kd, vd)], [start], W, Dh ** -0.5, cap,
                                 lambda: A.flash_prefill_plain(
                                     q, kd, vd, starts, Dh ** -0.5, cap,
                                     W).transpose(1, 2))
             else:
                 library = [lambda: _sdpa(qh, kd, vd, is_causal=True)]
-            pairs = _pairs(T, W)
+            pairs = _pairs(start + T, W) - _pairs(start, W)
             row = Dh + 2 if int8 else 2 * Dh    # bytes of a K or V row
             op_s = _attn_ops(int8, Dh, Hq, pairs, False, False)
-            label = f"{what} {T}-token prefill, window {W}, softcap {cap:g}"
+            label = (f"{what} {T}-token chunk at {start}" if start else
+                     f"{what} {T}-token prefill") + \
+                f", window {W}, softcap {cap:g}"
             cases[label] = _attn_case(
                 label, entry, lambda: fn(*args), lambda: plain(*args),
-                T * Hq * Dh * 2 + 2 * T * Hkv * row + T * Hq * Dh * 4, op_s,
+                T * Hq * Dh * 2 + 2 * (start + T) * Hkv * row
+                + T * Hq * Dh * 4, op_s,
                 I8_PREFILL_TOL if int8 else BF16_TOL, count,
                 library=library)
             if what == "gemma2" and T == G2_FILL:
                 window_ms[W] = cases[label]["ms_per_launch"]
-            del q, qh, c, kd, vd, library
+            del q, qh, c, kd, vd, library, starts
             torch.cuda.empty_cache()
         _record(results, key, cases, window_ms)
 
@@ -3336,6 +3438,68 @@ KERNEL_META = {
 }
 
 
+def attn_times(reps=30, seed=7):
+    """Device ms of one K3 launch at the Llama-2-7B 1975-token prefill and
+    one K4 launch at fill 1975 of 2048 (32 heads of 128, batch 1), bf16
+    and int8 KV, inputs drawn from ``seed``; each the median of ``reps``
+    CUDA-graph replays of 8 launches (K4 over 8 copies of its cache, so
+    that the 50 MB L2 holds none). Self-contained: ``--ab`` runs this
+    source in each tree, so the per-kernel gain is read on one card."""
+    import statistics
+    import torch
+    from neural_tpu_torch.ops import attention as A
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    H, Dh, S, T = 32, 128, 2048, 1975
+
+    def cache(int8):
+        k = torch.randn((1, H, S, Dh), generator=gen, device="cuda")
+        v = torch.rand((1, H, S, Dh), generator=gen, device="cuda") * 2 - 1
+        if int8:
+            (k, ks), (v, vs) = A.quantize_kv(k), A.quantize_kv(v)
+            return k, v, ks, vs
+        return k.bfloat16(), v.bfloat16()
+
+    def device_ms(fns):
+        for f in fns:
+            f()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for f in fns:
+                f()
+        ts = []
+        for _ in range(reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            g.replay()
+            e1.record()
+            e1.synchronize()
+            ts.append(e0.elapsed_time(e1) / len(fns))
+        return statistics.median(ts)
+
+    out = {}
+    starts = torch.zeros(1, dtype=torch.int32, device="cuda")
+    lengths = torch.full((1,), T, dtype=torch.int32, device="cuda")
+    for int8 in (False, True):
+        sfx = "_int8" if int8 else "_bf16"
+        c0 = cache(int8)
+        q = (torch.randn((1, T, H, Dh), generator=gen, device="cuda")
+             * 4).bfloat16()
+        k3 = A.flash_prefill_i8 if int8 else A.flash_prefill
+        out["k3_1975" + sfx + "_ms"] = device_ms(
+            [lambda: k3(q, *c0, starts, Dh ** -0.5)] * 8)
+        caches = [c0] + [cache(int8) for _ in range(7)]
+        q1 = (torch.randn((1, H, Dh), generator=gen, device="cuda")
+              * 4).bfloat16()
+        k4 = A.flash_decode_i8 if int8 else A.flash_decode
+        out["k4_fill1975" + sfx + "_ms"] = device_ms(
+            [lambda c=c: k4(q1, *c, lengths, Dh ** -0.5) for c in caches])
+        del caches, c0, q, q1
+        torch.cuda.empty_cache()
+    return out
+
+
 AB_CHILD = """\
 import json, os, sys
 sys.path.insert(0, {root!r})
@@ -3346,6 +3510,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_num_threads(os.cpu_count() or 1)
 _cuda.build_all(_cuda.KERNELS)
+{attn_times}
+print("ATT " + json.dumps(attn_times()), flush=True)
 params = c.init_random(c.CFG, seed=0, quant="q4_j", device="cuda")
 legs = c.phase_generation(params)
 del params
@@ -3358,21 +3524,24 @@ print("ERR " + json.dumps(k2_errors()), flush=True)
 
 
 def compare_legs(parent):
-    """``python3 chip_smoke.py --ab PARENT``: phase 4's Llama-2-7B legs
-    (decode at fills 128 and 1975, decode_i8kv, batch8, TTFT) and phase
-    4b's nf4 and q4_0 legs (TTFT, decode at fill 128) of the checkout at
-    PARENT (an unpacked tree of an earlier commit) and of this one, each
-    run in a process of its own, in the order parent, change, change,
-    parent, on the same card; prints each run and, per leg, the change's
-    mean over the parent's; then K2's largest difference from its plain
-    version per entry point (``k2_errors``, this file's source run in each
-    tree) on both."""
+    """``python3 chip_smoke.py --ab PARENT``: K3 at the Llama-2-7B 1975-token
+    prefill and K4 at fill 1975, bf16 and int8 KV (``attn_times``, this
+    file's source run in each tree), phase 4's Llama-2-7B legs (decode at
+    fills 128 and 1975, decode_i8kv, batch8, TTFT) and phase 4b's nf4 and
+    q4_0 legs (TTFT, decode at fill 128) of the checkout at PARENT (an
+    unpacked tree of an earlier commit) and of this one, each run in a
+    process of its own, in the order parent, change, change, parent, on
+    the same card; prints each run and, per leg, the change's mean over
+    the parent's; then K2's largest difference from its plain version per
+    entry point (``k2_errors``, this file's source run in each tree) on
+    both."""
     import inspect
     log(f"nvidia-smi: {smi_line()}")
     here = os.path.dirname(os.path.abspath(__file__))
     runs = {"parent": [], "change": []}
     errs = {}
-    child = AB_CHILD.replace("{k2_errors}", inspect.getsource(k2_errors))
+    child = AB_CHILD.replace("{k2_errors}", inspect.getsource(k2_errors)) \
+        .replace("{attn_times}", inspect.getsource(attn_times))
     for side in ("parent", "change", "change", "parent"):
         root = os.path.abspath(parent) if side == "parent" else here
         p = subprocess.run([sys.executable, "-c",
@@ -3385,6 +3554,8 @@ def compare_legs(parent):
         lines = p.stdout.splitlines()
         legs = json.loads(next(line for line in lines
                                if line.startswith("AB "))[3:])
+        legs.update(json.loads(next(line for line in lines
+                                    if line.startswith("ATT "))[4:]))
         errs[side] = json.loads(next(line for line in lines
                                      if line.startswith("ERR "))[4:])
         log(f"{side}: {json.dumps(legs)}")
@@ -3439,6 +3610,9 @@ def main():
             check(gen, results)
             torch.cuda.empty_cache()
     phase("3 kernels", kernels)
+    log("K3/K4 cases slower than the kernel they replace: "
+        + ("; ".join(f"{k} {lab}: {ms:.4f} ms against {old} ms"
+                     for k, lab, ms, old in ATTN_SLOWER) or "none"))
     window = window_speedups(results)
     branches = branch_costs(results)
     t = time.time()

@@ -1,6 +1,7 @@
-// Split-S decode attention (T = 1): the device body shared by K4
-// (flash_decode.cu, a contiguous cache) and K6 (paged_decode.cu, a page
-// pool read through a page table).
+// Split-S decode attention (T = 1): the device body of K6
+// (paged_decode.cu, a page pool read through a page table). Its
+// contiguous-cache form (PAGED = false) has no entry point: K4
+// (flash_decode.cu) has a body of its own.
 //
 // q [B, Hq, D] bf16 with D = 128 or 256 (a template parameter); keys at
 // positions >= lengths[b] masked, and with a sliding window (window > 0)

@@ -21,57 +21,155 @@
 //   accumulation; P is rounded to bf16 for the PV product.
 // - int8 cache with bf16 scales [B, Hkv, S] (flash_prefill_i8): each q row
 //   is quantized, q8 = rint(q * (127 / qa)) with qa = max|q| + 1e-9 (a true
-//   division); QK^T is an exact int8 product (mma.sync m16n8k32 s8, int32
-//   accumulation) and s = d * (qa * scale / 127) * k_scale; the v scale
-//   multiplies P, which is rounded to bf16 for a bf16 PV product against the
-//   int8 v codes widened to bf16 (exact).
+//   division); QK^T is an exact int8 product (int32 accumulation) and
+//   s = d * (qa * scale / 127) * k_scale; the v scale multiplies P, which
+//   is rounded to bf16 for a bf16 PV product against the int8 v codes
+//   widened to bf16 (exact).
+// The softmax runs on scores times log2(e), through exp2f.
 //
 // What bounds it on the H100: the operations (4 * T * S_visible * D per
 // head: about half of T x S under the causal mask, T x window under a
-// window). The design is FlashAttention-2 style: one block per
-// (b * Hq + h, 64 query rows), 4 warps of 16 rows each; K and V tiles of 64
-// keys go through dynamic shared memory (the int8 tiles at half the bytes,
-// with their scales as f32 rows); QK^T and PV run on the tensor cores with
-// mma.sync; the score fragment is reused in registers as PV's A operand.
-// Key tiles above the causal diagonal of the block are never loaded, and
-// under a window neither are the tiles wholly below the window floor of the
-// block's first row, as the TPU kernel clamps its S blocks; the tile that
-// holds a row's floor masks per element. Under the prefix mask the key loop
-// runs up to the prefix's last visible key, prefix_len[b] - 2, where that
-// lies past the causal diagonal (the TPU kernel's clamp_s). Each option is
-// a uniform test per element, so a launch with both off does what it did
-// before they existed. At D = 256 the output fragment is
-// 128 registers a thread, so bf16 q is read from a shared tile at each k
-// step instead of being held in 64 more registers (int8 q codes stay in
-// registers). Any T and S: ragged edges are masked. The TPU's sequential S
-// grid becomes the in-block loop over key tiles. wgmma and TMA are later
-// work.
+// window). The design is FlashAttention-3's: blocks of three warpgroups,
+// each query block 128 rows of one (b * Hq + h). Warpgroup 2 is the
+// producer (setmaxnreg gives its registers to the other two): one thread
+// copies the block's q tile by TMA once and then keeps a ring of NST K/V
+// stages in flight, each completing on a `full` mbarrier and handed back
+// on an `empty` one. Warpgroups 0 and 1 each take 64 query rows: QK^T is
+// a wgmma with q and K both K-major under the 128-byte swizzle; the f32
+// scores stay in registers, are rounded to bf16 as P, and PV is a wgmma
+// with P from registers and V [key][dim] from shared memory as an
+// MN-major operand (the transpose bit). int8: QK^T is an s8 wgmma, exact;
+// each consumer warpgroup quantizes its q rows into a swizzled int8 tile
+// in its prologue, and the producer warpgroup widens each stage's V codes
+// to bf16 in the MN-major layout and stages the k and v scales as f32.
+// The tensor maps read q as [B * T, Hq, D] and the caches as
+// [B * Hkv, S, D], so a tile past S reads zeros and never the next head's
+// rows. A block's key tiles run from the window floor of its first row (or
+// key 0 under the prefix mask) to its causal diagonal (or the prefix's
+// last visible key, prefix_len[b] - 2, the TPU kernel's clamp_s); a
+// warpgroup skips the tiles its own 64 rows cannot see. The per-element
+// mask runs only on the tiles that can hold a hidden key for some row of
+// the warpgroup (the diagonal, the window floor, the prefix edge, past S);
+// the softcap and ALiBi, which change scores, run on every tile when on,
+// behind one uniform test a tile; a tile that only the causal diagonal
+// masks compares each column with one bound a row. The grid runs the
+// query blocks heaviest first (from the diagonal's end), so the light
+// ones fill the tail; a persistent grid of one block an SM walking them
+// measured slower on the H100 (PERF.md). At D = 128 the QK^T of tile i is
+// issued together with the
+// P V of tile i - 1, and tile i's softmax runs while that product is in
+// flight (at D = 256 the second P spills, so there the tiles run one after
+// another). The rule is ops/attention.py k3_schedule; the TPU's sequential
+// S grid becomes the in-block loop over key tiles.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "qmm_tc.cuh"
+
 namespace {
 
-constexpr int BQ = 64;      // query rows per block
-constexpr int BKV = 64;     // keys per tile
+constexpr int BQ = 128;          // query rows a block
+constexpr int WROWS = 64;        // query rows a consumer warpgroup
+constexpr int THREADS = 384;     // consumer warpgroups 0, 1; producer 2
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float NEG = -1e30f;
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+constexpr float LOG2E = 1.4426950408889634f;
+// the softmax of tile i runs while P V of tile i - 1 is in flight; at
+// D = 256 the second P and the in-flight products spill, so there the
+// tiles run one after another
+template <int D>
+__host__ __device__ constexpr bool overlap() {
+  return D == 128;
 }
 
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// keys a tile: at D = 256 the f32 output is 128 registers a thread, so the
+// scores take 64 keys (32 more) instead of 128 (64 more)
+template <int D>
+__host__ __device__ constexpr int bkv() {
+  return D == 128 ? 128 : 64;
+}
+
+// stages of the K/V ring: as many as the 227 KB of shared memory hold
+template <int D>
+__host__ __device__ constexpr int nst() {
+  return D == 128 ? 3 : 2;
+}
+
+// Shared memory of one block, in bytes. bf16: the q tile [BQ][D] as D / 64
+// swizzled blocks of BQ rows x 128 bytes; a stage: K, then V, each
+// [BKV][D] the same way. int8: the q codes [BQ][D] in D / 128 swizzled
+// blocks; a stage: the K codes (D / 128 blocks), V widened to bf16 (D / 64
+// blocks, the MN-major operand), the raw V codes [BKV][D] unswizzled, and
+// the tile's k and v scales as f32.
+template <int D, bool I8>
+struct Smem {
+  static constexpr int BKV = bkv<D>(), NST = nst<D>();
+  static constexpr int Q = I8 ? BQ * D : BQ * D * 2;
+  static constexpr int K = I8 ? BKV * D : BKV * D * 2;
+  static constexpr int V = BKV * D * 2;
+  static constexpr int VRAW = I8 ? BKV * D : 0;
+  static constexpr int SC = I8 ? 2 * BKV * 4 : 0;
+  static constexpr int STAGE = (K + V + VRAW + SC + 1023) / 1024 * 1024;
+  static constexpr int BYTES = Q + NST * STAGE + 1024;   // + alignment
+  static_assert(BYTES <= 232448 - 1024, "over the H100's shared memory");
+};
+
+struct Params {
+  CUtensorMap mq, mk, mv;        // bf16 q; K (codes); V (raw codes)
+  const __nv_bfloat16* q;        // int8: read by the consumers
+  const __nv_bfloat16* ks;       // int8 scales [B, Hkv, S]
+  const __nv_bfloat16* vs;
+  const int* starts;
+  const float* slopes;
+  const int* prefix_len;
+  float* out;
+  int T, Hq, Hkv, S, n_tb;
+  int BH;                        // B * Hq
+  float scale;                   // bf16: the softmax scale; int8: / 127
+  float softcap;
+  int window;
+};
+
+// The keys one consumer warpgroup can see ([lo, hi); lo >= hi: its rows
+// lie past T) and the positions of its first and last valid rows.
+struct WgRange {
+  int lo, hi, qlo, qhi;
+};
+
+__device__ __forceinline__ WgRange wg_range(const Params& p, int t0, int w,
+                                            int start, int pm1) {
+  WgRange r{0, 0, 0, 0};
+  const int r0 = t0 + w * WROWS;
+  if (r0 >= p.T) return r;
+  r.qlo = start + r0;
+  r.qhi = start + min(r0 + WROWS, p.T) - 1;
+  const int end = min(max(r.qhi + 1, pm1), p.S);
+  const int beg = p.window > 0 && pm1 <= 0 ? max(r.qlo - p.window + 1, 0) : 0;
+  r.lo = beg;
+  r.hi = end;
+  return r;
+}
+
+// Every (row, key) of the warpgroup's rows and the tile's keys [k0, k1) is
+// visible and the tile lies inside S: no per-element mask.
+__device__ __forceinline__ bool interior(const Params& p, const WgRange& r,
+                                         int k0, int k1, int pm1) {
+  return k1 <= p.S &&
+         (k1 <= pm1 ||
+          (k1 - 1 <= r.qlo && (p.window <= 0 || k0 > r.qhi - p.window)));
+}
+
+// keeps registers an in-flight wgmma reads from being reused before its
+// wait (the compiler sees their last use at the issue)
+template <int N>
+__device__ __forceinline__ void keep_live(const uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" ::"r"(a[i][0]), "r"(a[i][1]), "r"(a[i][2]), "r"(a[i][3])
+                 : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -79,352 +177,515 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <typename T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <int D>
+__device__ __forceinline__ void wgmma_qk(float* s, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (bkv<D>() == 128)
+    qmm_tc::wgmma_bf16_n128(s, da, db, scale_d);
+  else
+    qmm_tc::wgmma_bf16_n64(s, da, db, scale_d);
 }
 
-// four bf16 q values → floats
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, bool ok,
-                                      float* x) {
-  if (!ok) {
-    x[0] = x[1] = x[2] = x[3] = 0.f;
-    return;
+template <int D>
+__device__ __forceinline__ void wgmma_qk8(int* s, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  if constexpr (bkv<D>() == 128)
+    qmm_tc::wgmma_s8_n128(s, da, db, scale_d);
+  else
+    qmm_tc::wgmma_s8_n64(s, da, db, scale_d);
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 128)
+    qmm_tc::wgmma_bf16_rs_n128(o, a, db, 1);
+  else
+    qmm_tc::wgmma_bf16_rs_n256(o, a, db, 1);
+}
+
+// int8: the producer warpgroup widens a stage's raw V codes [BKV][D] to
+// bf16 in the MN-major swizzled layout, 8 codes (16 bytes out) a step
+template <int D>
+__device__ __forceinline__ void widen_v(const uint8_t* raw, uint8_t* vb,
+                                       int pt) {
+  constexpr int BKV = bkv<D>();
+#pragma unroll 4
+  for (int it = pt; it < BKV * D / 8; it += 128) {
+    const int r = it / (D / 8), c8 = it % (D / 8);
+    const uint2 w = *reinterpret_cast<const uint2*>(raw + r * D + 8 * c8);
+    float f[2][4];
+    qmm_tc::codes_f32(w.x, f[0]);
+    qmm_tc::codes_f32(w.y, f[1]);
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] = qmm_tc::bf16_pair_exact(f[i / 2][2 * (i % 2)],
+                                     f[i / 2][2 * (i % 2) + 1]);
+    *reinterpret_cast<uint4*>(vb + qmm_tc::sw128_off(r, 16 * c8, BKV)) =
+        make_uint4(o[0], o[1], o[2], o[3]);
   }
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  x[0] = __low2float(a);
-  x[1] = __high2float(a);
-  x[2] = __low2float(b);
-  x[3] = __high2float(b);
 }
 
-// rint(x * r) of four values as int8 codes, the first in the low byte
-__device__ __forceinline__ uint32_t pack_codes(const float* x, float r) {
-  uint32_t w = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    w |= (uint32_t)(uint8_t)(int8_t)(int)rintf(x[i] * r) << (8 * i);
-  return w;
+// One query block of 128 rows: its (b, h), rows, the keys each consumer
+// warpgroup can see and the key tiles [lo, lo + n) the block streams.
+// Block w (heaviest first: the grid walks the query blocks from the
+// diagonal's end) takes query block n_tb - 1 - w / (B * Hq) of
+// b * Hq + h = w % (B * Hq).
+struct Item {
+  int b, h, bk, t0, start, pm1, lo, n;
+  WgRange r[2];
+};
+
+template <int D>
+__device__ __forceinline__ Item item_of(const Params& p, int w) {
+  constexpr int BKV = bkv<D>();
+  Item it;
+  const int bh = w % p.BH;
+  it.b = bh / p.Hq;
+  it.h = bh % p.Hq;
+  it.bk = it.b * p.Hkv + it.h / (p.Hq / p.Hkv);
+  it.t0 = (p.n_tb - 1 - w / p.BH) * BQ;
+  it.start = p.starts[it.b];
+  const int pref = p.prefix_len != nullptr ? p.prefix_len[it.b] : 0;
+  it.pm1 = pref > 0 ? pref - 1 : -(1 << 30);   // keys below: visible
+  it.r[0] = wg_range(p, it.t0, 0, it.start, it.pm1);
+  it.r[1] = wg_range(p, it.t0, 1, it.start, it.pm1);
+  const bool two = it.r[1].lo < it.r[1].hi;
+  it.lo = (two ? min(it.r[0].lo, it.r[1].lo) : it.r[0].lo) / BKV;
+  it.n = ((two ? max(it.r[0].hi, it.r[1].hi) : it.r[0].hi) + BKV - 1) / BKV -
+         it.lo;
+  return it;
 }
 
-// bf16 q in a shared tile instead of registers (see the note above)
 template <int D, bool I8>
-__host__ __device__ constexpr bool q_in_smem() {
-  return !I8 && D > 128;
-}
+__global__ void __launch_bounds__(THREADS, 1)
+flash_prefill_kernel(const __grid_constant__ Params p) {
+  using SM = Smem<D, I8>;
+  constexpr int BKV = SM::BKV, NST = SM::NST;
+  constexpr int NS = BKV / 2;    // score registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t qbar, full[NST], vraw[NST], vfull[NST],
+      empty[NST];
+  __shared__ float qsc[BQ];      // int8: qa * scale of each row
+  uint8_t* smem = smem_raw + ((1024 - (qmm_tc::smem_u32(smem_raw) & 1023)) &
+                              1023);
+  uint8_t* sq = smem;
+  auto stage = [&](int s) { return smem + SM::Q + s * SM::STAGE; };
+  const int tid = threadIdx.x, wg = tid / 128;
+  const Item it = item_of<D>(p, blockIdx.x);
+  const int b = it.b, h = it.h, t0 = it.t0, n = it.n, lo = it.lo;
 
-// dynamic shared memory of one block, in bytes: bf16 K and V tiles
-// [BKV][D + 8] (and the q tile [BQ][D + 8]), or int8 K and V tiles
-// [BKV][D + 16] and the tile's k and v scales as f32
-template <int D, bool I8>
-__host__ __device__ constexpr int smem_bytes() {
-  return I8 ? 2 * BKV * (D + 16) + 2 * BKV * 4
-            : (2 * BKV + (q_in_smem<D, I8>() ? BQ : 0)) * (D + 8) * 2;
-}
-
-template <int D, bool I8>
-__global__ void __launch_bounds__(128)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
-                     const void* __restrict__ k_, const void* __restrict__ v_,
-                     const __nv_bfloat16* __restrict__ ks,
-                     const __nv_bfloat16* __restrict__ vs,
-                     const int* __restrict__ starts,
-                     const float* __restrict__ slopes,
-                     const int* __restrict__ prefix_len,
-                     float* __restrict__ out, int T, int Hq, int Hkv, int S,
-                     float scale, float softcap, int window) {
-  constexpr int LD = D + 8;      // shared row stride in bf16
-  constexpr int LD8 = D + 16;    // shared row stride in int8 (16-byte rows)
-  constexpr int NK = D / 16;     // k16 steps of the bf16 QK^T
-  constexpr int NK8 = D / 32;    // k32 steps of the int8 QK^T
-  constexpr int NO = D / 8;      // n8 tiles of the output
-  constexpr bool QSMEM = q_in_smem<D, I8>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + BKV * LD;
-  __nv_bfloat16* Qs = Vs + BKV * LD;
-  int8_t* Ks8 = reinterpret_cast<int8_t*>(smem);
-  int8_t* Vs8 = Ks8 + BKV * LD8;
-  float* kss = reinterpret_cast<float*>(smem + 2 * BKV * LD8);
-  float* vss = kss + BKV;
-
-  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
-  const int hk = h / (Hq / Hkv);
-  const int t0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int start = starts[b];
-  const int ra = t0 + warp * 16 + g, rb = ra + 8;   // this thread's rows
-  const int posa = start + ra, posb = start + rb;
-  const bool alibi = slopes != nullptr;
-  const float slope = alibi ? slopes[h] : 0.f;
-  // keys below pref_m1 are visible to every row (-2^30: none)
-  const int pref = prefix_len != nullptr ? prefix_len[b] : 0;
-  const int pref_m1 = pref > 0 ? pref - 1 : -(1 << 30);
-
-  // Q fragments (A operand, row-major [query][dim]): the k16 steps of
-  // bf16, or the k32 steps of int8 codes
-  uint32_t qf[QSMEM ? 1 : (I8 ? NK8 : NK)][4];
-  float qsa = 0.f, qsb = 0.f;   // int8: qa * scale / 127 of rows ra, rb
-  const __nv_bfloat16* qa = q + ((size_t)(b * T + ra) * Hq + h) * D;
-  const __nv_bfloat16* qb = q + ((size_t)(b * T + rb) * Hq + h) * D;
-  if constexpr (I8) {
-    // the quad of a row holds it: group i of 4 dims of this thread sits at
-    // k32 step i / 2, half i % 2
-    float mxa = 0.f, mxb = 0.f;
-#pragma unroll
-    for (int i = 0; i < 2 * NK8; ++i) {
-      const int c = (i / 2) * 32 + (i % 2) * 16 + tq * 4;
-      float xa[4], xb[4];
-      load4(qa + c, ra < T, xa);
-      load4(qb + c, rb < T, xb);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        mxa = fmaxf(mxa, fabsf(xa[j]));
-        mxb = fmaxf(mxb, fabsf(xb[j]));
-      }
+  if (tid == 0) {
+    qmm_tc::mbar_init(&qbar, 1);
+    for (int s = 0; s < NST; ++s) {
+      qmm_tc::mbar_init(&full[s], I8 ? 33 : 1);
+      qmm_tc::mbar_init(&vraw[s], 1);
+      qmm_tc::mbar_init(&vfull[s], 128);
+      qmm_tc::mbar_init(&empty[s], 8);
     }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, off));
-      mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
-    }
-    const float qaa = mxa + 1e-9f, qab = mxb + 1e-9f;
-    const float rA = 127.f / qaa, rB = 127.f / qab;
-#pragma unroll
-    for (int kk = 0; kk < NK8; ++kk) {
-      const int c = kk * 32 + tq * 4;
-      float x[4][4];
-      load4(qa + c, ra < T, x[0]);
-      load4(qb + c, rb < T, x[1]);
-      load4(qa + c + 16, ra < T, x[2]);
-      load4(qb + c + 16, rb < T, x[3]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qf[kk][i] = pack_codes(x[i], i % 2 ? rB : rA);
-    }
-    qsa = qaa * scale;
-    qsb = qab * scale;
-  } else if constexpr (QSMEM) {
-    // made visible by the __syncthreads() that opens the key loop
-    for (int i = threadIdx.x; i < BQ * D / 8; i += 128) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (t0 + r < T)
-        x = *reinterpret_cast<const uint4*>(
-            q + ((size_t)(b * T + t0 + r) * Hq + h) * D + c);
-      *reinterpret_cast<uint4*>(Qs + r * LD + c) = x;
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      const int c = kk * 16 + tq * 2;
-      qf[kk][0] = ra < T ? ld32(qa + c) : 0u;
-      qf[kk][1] = rb < T ? ld32(qb + c) : 0u;
-      qf[kk][2] = ra < T ? ld32(qa + c + 8) : 0u;
-      qf[kk][3] = rb < T ? ld32(qb + c + 8) : 0u;
-    }
+    qmm_tc::mbar_init_fence();
   }
+  __syncthreads();
 
-  float o[NO][4];
-#pragma unroll
-  for (int i = 0; i < NO; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-  float ma = NEG, mb = NEG, la = 0.f, lb = 0.f;
-
-  const int last_q = start + min(t0 + BQ, T) - 1;   // causal diagonal
-  const int kv_end = min(max(last_q + 1, pref_m1), S);
-  // window floor of the block's first row, down to a tile edge
-  const int kv_begin =
-      window > 0 ? max(start + t0 - window + 1, 0) / BKV * BKV : 0;
-  const size_t head = (size_t)(b * Hkv + hk) * S;   // first key row
-  const unsigned short* Vu = reinterpret_cast<const unsigned short*>(Vs);
-  const __nv_bfloat16* qrow = Qs + (warp * 16 + g) * LD;   // QSMEM: row ra
-
-  for (int s0 = kv_begin; s0 < kv_end; s0 += BKV) {
-    __syncthreads();                  // the previous tile is consumed
-    if constexpr (I8) {
-      const int8_t* kbase = reinterpret_cast<const int8_t*>(k_) + head * D;
-      const int8_t* vbase = reinterpret_cast<const int8_t*>(v_) + head * D;
-      for (int i = threadIdx.x; i < BKV * D / 16; i += 128) {
-        const int r = i / (D / 16), c = (i % (D / 16)) * 16;
-        uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-        if (s0 + r < S) {
-          kv = *reinterpret_cast<const uint4*>(kbase + (size_t)(s0 + r) * D + c);
-          vv = *reinterpret_cast<const uint4*>(vbase + (size_t)(s0 + r) * D + c);
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    qmm_tc::setmaxnreg_dec<PRODUCER_REGS>();
+    const int pt = tid - 256, pw = pt / 32, lane = tid % 32;
+    if constexpr (!I8) {
+      if (pt == 0) {
+        qmm_tc::mbar_expect(&qbar, BQ * D * 2);
+        for (int c = 0; c < D / 64; ++c)
+          qmm_tc::tma_load_3d(sq + c * BQ * 128, &p.mq, c * 64, h,
+                              b * p.T + t0, &qbar);
+        for (int i = 0; i < n; ++i) {
+          const int s = i % NST;
+          if (i >= NST) qmm_tc::mbar_wait(&empty[s], (i / NST - 1) & 1);
+          uint8_t* st = stage(s);
+          const int k0 = (lo + i) * BKV;
+          qmm_tc::mbar_expect(&full[s], 2 * BKV * D * 2);
+          for (int c = 0; c < D / 64; ++c) {
+            qmm_tc::tma_load_3d(st + c * BKV * 128, &p.mk, c * 64, k0, it.bk,
+                                &full[s]);
+            qmm_tc::tma_load_3d(st + SM::K + c * BKV * 128, &p.mv, c * 64, k0,
+                                it.bk, &full[s]);
+          }
         }
-        *reinterpret_cast<uint4*>(Ks8 + r * LD8 + c) = kv;
-        *reinterpret_cast<uint4*>(Vs8 + r * LD8 + c) = vv;
-      }
-      if (threadIdx.x < BKV) {
-        const int s = s0 + threadIdx.x;
-        kss[threadIdx.x] = s < S ? __bfloat162float(ks[head + s]) : 0.f;
-        vss[threadIdx.x] = s < S ? __bfloat162float(vs[head + s]) : 0.f;
       }
     } else {
-      const __nv_bfloat16* kbase =
-          reinterpret_cast<const __nv_bfloat16*>(k_) + head * D;
-      const __nv_bfloat16* vbase =
-          reinterpret_cast<const __nv_bfloat16*>(v_) + head * D;
-      for (int i = threadIdx.x; i < BKV * D / 8; i += 128) {
-        const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-        uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-        if (s0 + r < S) {
-          kv = *reinterpret_cast<const uint4*>(kbase + (size_t)(s0 + r) * D + c);
-          vv = *reinterpret_cast<const uint4*>(vbase + (size_t)(s0 + r) * D + c);
+      // thread 0 copies the K codes (onto full) and the raw V codes (onto
+      // vraw); warp 1 stages the scales (32 arrivals on full); all four
+      // warps widen V once its codes are in (128 arrivals on vfull)
+      auto issue = [&](int i) {
+        const int s = i % NST;
+        uint8_t* st = stage(s);
+        const int k0 = (lo + i) * BKV;
+        if (pt == 0) {
+          qmm_tc::mbar_expect(&full[s], BKV * D);
+          for (int c = 0; c < D / 128; ++c)
+            qmm_tc::tma_load_3d(st + c * BKV * 128, &p.mk, c * 128, k0, it.bk,
+                                &full[s]);
+          qmm_tc::mbar_expect(&vraw[s], BKV * D);
+          qmm_tc::tma_load_3d(st + SM::K + SM::V, &p.mv, 0, k0, it.bk,
+                              &vraw[s]);
         }
-        *reinterpret_cast<uint4*>(Ks + r * LD + c) = kv;
-        *reinterpret_cast<uint4*>(Vs + r * LD + c) = vv;
+        if (pw == 1) {
+          float* sc = reinterpret_cast<float*>(st + SM::K + SM::V + SM::VRAW);
+          const size_t row = (size_t)it.bk * p.S;
+          for (int j = lane; j < BKV; j += 32) {
+            const bool ok = k0 + j < p.S;
+            sc[j] = ok ? __bfloat162float(p.ks[row + k0 + j]) : 0.f;
+            sc[BKV + j] = ok ? __bfloat162float(p.vs[row + k0 + j]) : 0.f;
+          }
+          qmm_tc::mbar_arrive(&full[s]);
+        }
+      };
+      // widen tile i as soon as its codes are in, then refill the stage
+      // of tile i - 1 once the consumers hand it back
+      for (int i = 0; i < NST && i < n; ++i) issue(i);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % NST;
+        uint8_t* st = stage(s);
+        qmm_tc::mbar_wait(&vraw[s], (i / NST) & 1);
+        widen_v<D>(st + SM::K + SM::V, st + SM::K, pt);
+        qmm_tc::fence_proxy_async();
+        qmm_tc::mbar_arrive(&vfull[s]);
+        const int j = i - 1;
+        if (j >= 0 && j + NST < n) {
+          qmm_tc::mbar_wait(&empty[j % NST], (j / NST) & 1);
+          issue(j + NST);
+        }
       }
     }
-    __syncthreads();
+  } else {
+    // ----------------------------------------------------------- consumers
+    qmm_tc::setmaxnreg_inc<CONSUMER_REGS>();
+    const int tw = tid % 128, wi = tw / 32, lane = tid % 32;
+    const int g = lane >> 2, tq = lane & 3;
+    const int ra = wg * WROWS + wi * 16 + g, rb = ra + 8;   // block rows
+    const bool cap = p.softcap > 0.f, alibi = p.slopes != nullptr;
+    const float qk_scale = I8 ? LOG2E : p.scale * LOG2E;   // options off
+    const uint32_t qbase = qmm_tc::smem_u32(sq) + wg * WROWS * 128;
+    constexpr int QBLK = BQ * 128;       // bytes of a q column block
+    using SAcc = typename std::conditional<I8, int, float>::type;
+    const int pm1 = it.pm1;
+    const WgRange rg = wg == 0 ? it.r[0] : it.r[1];
+    const int posa = it.start + t0 + ra, posb = it.start + t0 + rb;
+    const float slope = alibi ? p.slopes[h] : 0.f;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;   // m: log2 domain
+    float qs_a = 0.f, qs_b = 0.f;
 
-    // scores: 16 rows x 64 keys per warp, 8 n8 tiles
-    float sc[8][4];
+    // S = q K^T over 64 rows x BKV keys of stage s, issued (one commit
+    // group) and left in flight
+    auto issue_qk = [&](SAcc (&sa)[NS], int s) {
+      const uint32_t kbase = qmm_tc::smem_u32(stage(s));
+      qmm_tc::fence_acc(sa);
+      qmm_tc::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+      for (int kk = 0; kk < (I8 ? D / 32 : D / 16); ++kk) {
+        const int blk = kk / 4, off = (kk % 4) * 32;
+        const uint64_t da = qmm_tc::desc_sw128(qbase + blk * QBLK + off);
+        const uint64_t db =
+            qmm_tc::desc_sw128(kbase + blk * BKV * 128 + off);
+        if constexpr (I8)
+          wgmma_qk8<D>(sa, da, db, kk > 0 ? 1 : 0);
+        else
+          wgmma_qk<D>(sa, da, db, kk > 0 ? 1 : 0);
+      }
+      qmm_tc::wgmma_commit();
+    };
+    // O += P V over stage s (V [key][dim] at its offset K), issued
+    auto issue_pv = [&](const uint32_t (&pa)[BKV / 16][4], int s) {
+      const uint32_t vbase = qmm_tc::smem_u32(stage(s) + SM::K);
+      qmm_tc::fence_acc(o);
+      qmm_tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        wgmma_pv<D>(o, pa[kk],
+                    qmm_tc::desc_sw128_mn(vbase + kk * 16 * 128, BKV * 128));
+      qmm_tc::wgmma_commit();
+    };
+    // The scores of tile i (stage s) to P: the softcap and ALiBi (when
+    // on) on the scaled score, the mask on the tiles that need it, then
+    // the online softmax in the log2 domain; alpha rescales O before
+    // P V is added. A row whose keys in this tile are all masked sums
+    // garbage at max -1e30 here; its first visible key raises the max and
+    // exp2(-1e30 - max) = 0 then clears it.
+    auto softmax = [&](const SAcc (&sa)[NS], int i, int s,
+                       uint32_t (&pa)[BKV / 16][4], float& alpha_a,
+                       float& alpha_b) {
+      const uint8_t* st = stage(s);
+      const int k0 = (lo + i) * BKV;
+      float x[NS];
       if constexpr (I8) {
-        int si[4] = {0, 0, 0, 0};
-        const int8_t* krow = Ks8 + (nt * 8 + g) * LD8;
+        const float2* kss = reinterpret_cast<const float2*>(
+                                st + SM::K + SM::V + SM::VRAW) + tq;
 #pragma unroll
-        for (int kk = 0; kk < NK8; ++kk) {
-          const uint32_t bf[2] = {ld32(krow + kk * 32 + tq * 4),
-                                  ld32(krow + kk * 32 + 16 + tq * 4)};
-          mma_s8(si, qf[kk], bf);
+        for (int c = 0; c < NS / 4; ++c) {
+          const float2 k2 = kss[4 * c];      // keys 8 c + 2 tq, + 1
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[4 * c + e] = qmm_tc::dot_f32(sa[4 * c + e]) *
+                           ((e & 2) ? qs_b : qs_a) * ((e & 1) ? k2.y : k2.x);
         }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          sc[nt][j] = (float)si[j] * (j < 2 ? qsa : qsb) *
-                      kss[nt * 8 + tq * 2 + (j & 1)];
       } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
-        const __nv_bfloat16* krow = Ks + (nt * 8 + g) * LD;
+        for (int j = 0; j < NS; ++j) x[j] = sa[j];
+      }
+      if (cap || alibi) {    // each option a whole-tile loop of its own
+        if constexpr (!I8) {
 #pragma unroll
-        for (int kk = 0; kk < NK; ++kk) {
-          const uint32_t bf[2] = {ld32(krow + kk * 16 + tq * 2),
-                                  ld32(krow + kk * 16 + 8 + tq * 2)};
-          if constexpr (QSMEM) {
-            const __nv_bfloat16* qc = qrow + kk * 16 + tq * 2;
-            const uint32_t af[4] = {ld32(qc), ld32(qc + 8 * LD),
-                                    ld32(qc + 8), ld32(qc + 8 * LD + 8)};
-            mma_bf16(sc[nt], af, bf);
-          } else {
-            mma_bf16(sc[nt], qf[kk], bf);
+          for (int j = 0; j < NS; ++j) x[j] *= p.scale;
+        }
+        if (cap) {
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+            x[j] = p.softcap * tanhf(x[j] / p.softcap);
+        }
+        if (alibi) {
+          // kpos - qpos as a float: one conversion a row and tile, plus
+          // the column, exactly (both are integers below 2^24)
+          const float da = (float)(k0 + 2 * tq - posa);
+          const float db = (float)(k0 + 2 * tq - posb);
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            const float dist = __fadd_rn((j & 2) ? db : da,
+                                         (float)(8 * (j / 4) + (j & 1)));
+            x[j] = __fadd_rn(x[j], __fmul_rn(slope, dist));
           }
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[nt][j] *= scale;
+        for (int j = 0; j < NS; ++j) x[j] *= LOG2E;
+      } else {
+#pragma unroll
+        for (int j = 0; j < NS; ++j) x[j] *= qk_scale;
       }
-    }
-    // softcap, mask, running max
-    float mxa = ma, mxb = mb;
+      if (!interior(p, rg, k0, k0 + BKV, pm1)) {
+        // column c = 8 (j / 4) + (j & 1) of this thread is key k0 + 2 tq + c
+        const int kt = k0 + 2 * tq;
+        if (p.window <= 0 && pm1 <= 0) {   // causal alone: c <= last key
+          const int la = min(posa, p.S - 1) - kt, lb = min(posb, p.S - 1) - kt;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = s0 + nt * 8 + tq * 2 + (j & 1);
-        const int qpos = j < 2 ? posa : posb;
-        if (softcap > 0.f) sc[nt][j] = softcap * tanhf(sc[nt][j] / softcap);
-        if (alibi)
-          sc[nt][j] = __fadd_rn(sc[nt][j],
-                                __fmul_rn(slope, (float)(key - qpos)));
-        const bool hidden =
-            (key > qpos || (window > 0 && key <= qpos - window)) &&
-            key >= pref_m1;
-        if (hidden || key >= S) sc[nt][j] = NEG;
-      }
-      mxa = fmaxf(mxa, fmaxf(sc[nt][0], sc[nt][1]));
-      mxb = fmaxf(mxb, fmaxf(sc[nt][2], sc[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, off));
-      mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
-    }
-    // A row whose keys in this tile are all masked (the tile below its own
-    // window floor) sums garbage at max -1e30 here; its first visible key
-    // raises the max and exp(-1e30 - max) = 0 then clears it.
-    const float alpha_a = expf(ma - mxa), alpha_b = expf(mb - mxb);
-    float suma = 0.f, sumb = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      sc[nt][0] = expf(sc[nt][0] - mxa);
-      sc[nt][1] = expf(sc[nt][1] - mxa);
-      sc[nt][2] = expf(sc[nt][2] - mxb);
-      sc[nt][3] = expf(sc[nt][3] - mxb);
-      suma += sc[nt][0] + sc[nt][1];
-      sumb += sc[nt][2] + sc[nt][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      suma += __shfl_xor_sync(0xffffffffu, suma, off);
-      sumb += __shfl_xor_sync(0xffffffffu, sumb, off);
-    }
-    la = la * alpha_a + suma;
-    lb = lb * alpha_b + sumb;
-    ma = mxa;
-    mb = mxb;
-#pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
-      o[nt][0] *= alpha_a;
-      o[nt][1] *= alpha_a;
-      o[nt][2] *= alpha_b;
-      o[nt][3] *= alpha_b;
-    }
-    if constexpr (I8) {   // fold the v scale into P's columns
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float v0 = vss[nt * 8 + tq * 2], v1 = vss[nt * 8 + tq * 2 + 1];
-        sc[nt][0] *= v0;
-        sc[nt][1] *= v1;
-        sc[nt][2] *= v0;
-        sc[nt][3] *= v1;
-      }
-    }
-    // O += P V: P (bf16) from the score fragments, V as B operand [key][dim]
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const int key0 = kk * 16 + tq * 2;
-#pragma unroll
-      for (int nt = 0; nt < NO; ++nt) {
-        const int dcol = nt * 8 + g;
-        uint32_t bf[2];
-        if constexpr (I8) {
-          const int8_t* vc = Vs8 + dcol;
-          bf[0] = pack_bf16((float)vc[key0 * LD8], (float)vc[(key0 + 1) * LD8]);
-          bf[1] = pack_bf16((float)vc[(key0 + 8) * LD8],
-                            (float)vc[(key0 + 9) * LD8]);
+          for (int j = 0; j < NS; ++j)
+            if (8 * (j / 4) + (j & 1) > ((j & 2) ? lb : la)) x[j] = NEG;
         } else {
-          bf[0] = (uint32_t)Vu[key0 * LD + dcol] |
-                  ((uint32_t)Vu[(key0 + 1) * LD + dcol] << 16);
-          bf[1] = (uint32_t)Vu[(key0 + 8) * LD + dcol] |
-                  ((uint32_t)Vu[(key0 + 9) * LD + dcol] << 16);
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            const int key = kt + 8 * (j / 4) + (j & 1);
+            const int qpos = (j & 2) ? posb : posa;
+            const bool hidden =
+                (key > qpos || (p.window > 0 && key <= qpos - p.window)) &&
+                key >= pm1;
+            if (hidden || key >= p.S) x[j] = NEG;
+          }
         }
-        mma_bf16(o[nt], pa, bf);
+      }
+      float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        if (j & 2)
+          mx_b = fmaxf(mx_b, x[j]);
+        else
+          mx_a = fmaxf(mx_a, x[j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      alpha_a = exp2f(m_a - mx_a);
+      alpha_b = exp2f(m_b - mx_b);
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        if (j & 2) {
+          x[j] = exp2f(x[j] - mx_b);
+          sum_b += x[j];
+        } else {
+          x[j] = exp2f(x[j] - mx_a);
+          sum_a += x[j];
+        }
+      }
+      l_a = l_a * alpha_a + sum_a;   // this thread's columns; summed at the end
+      l_b = l_b * alpha_b + sum_b;
+      m_a = mx_a;
+      m_b = mx_b;
+      if constexpr (I8) {   // the v scale multiplies P before its rounding
+        const float2* vss = reinterpret_cast<const float2*>(
+                                st + SM::K + SM::V + SM::VRAW + BKV * 4) + tq;
+#pragma unroll
+        for (int c = 0; c < NS / 4; ++c) {
+          const float2 v2 = vss[4 * c];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[4 * c + e] *= (e & 1) ? v2.y : v2.x;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+    };
+    auto rescale = [&](float alpha_a, float alpha_b) {
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        o[4 * c] *= alpha_a;
+        o[4 * c + 1] *= alpha_a;
+        o[4 * c + 2] *= alpha_b;
+        o[4 * c + 3] *= alpha_b;
+      }
+    };
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) qmm_tc::mbar_arrive(&empty[s]);
+    };
+    // tile i: its stage and the parity of its use
+    auto st_of = [&](int i) { return i % NST; };
+    auto ph_of = [&](int i) { return (uint32_t)((i / NST) & 1); };
+    auto pass = [&](int i) {     // a tile none of this warpgroup's rows sees
+      qmm_tc::mbar_wait(&full[st_of(i)], ph_of(i));
+      if constexpr (I8) qmm_tc::mbar_wait(&vfull[st_of(i)], ph_of(i));
+      release(st_of(i));
+    };
+
+    if constexpr (I8) {
+      // quantize this warpgroup's 64 q rows: a warp takes 16, a lane D / 32
+      // values of a row
+      constexpr int VPL = D / 32;
+      for (int rr = 0; rr < 16; ++rr) {
+        const int row = wg * WROWS + wi * 16 + rr, t = t0 + row;
+        float x[VPL], mx = 0.f;
+        if (t < p.T) {
+          const __nv_bfloat16* src =
+              p.q + ((size_t)(b * p.T + t) * p.Hq + h) * D + lane * VPL;
+#pragma unroll
+          for (int i = 0; i < VPL; i += 2) {
+            const __nv_bfloat162 v =
+                *reinterpret_cast<const __nv_bfloat162*>(src + i);
+            x[i] = __low2float(v);
+            x[i + 1] = __high2float(v);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < VPL; ++i) x[i] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) mx = fmaxf(mx, fabsf(x[i]));
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float qa = mx + 1e-9f;
+        const float rq = 127.f / qa;
+        uint32_t cw[VPL / 4];
+#pragma unroll
+        for (int c = 0; c < VPL / 4; ++c) {
+          cw[c] = 0;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            cw[c] |= (uint32_t)(uint8_t)(int8_t)(int)rintf(x[4 * c + i] * rq)
+                     << (8 * i);
+        }
+        uint8_t* dst = sq + qmm_tc::sw128_off(row, lane * VPL, BQ);
+        if constexpr (VPL == 4)
+          *reinterpret_cast<uint32_t*>(dst) = cw[0];
+        else
+          *reinterpret_cast<uint2*>(dst) = make_uint2(cw[0], cw[1]);
+        if (lane == 0) qsc[row] = qa * p.scale;
+      }
+      qmm_tc::fence_proxy_async();
+      qmm_tc::bar_sync(1 + wg, 128);
+      qs_a = qsc[ra];
+      qs_b = qsc[rb];
+    } else {
+      qmm_tc::mbar_wait(&qbar, 0);
+    }
+
+    // this warpgroup's tiles [first, last) of the block's n: at D = 128
+    // QK^T of tile i is issued with P V of tile i - 1, and tile i's
+    // softmax runs while that product is in flight
+    int first = n, last = n;
+    if (rg.lo < rg.hi) {
+      first = rg.lo / BKV - lo;
+      last = (rg.hi + BKV - 1) / BKV - lo;
+    }
+    for (int i = 0; i < first; ++i) pass(i);
+    if (first < last && overlap<D>()) {
+      SAcc sa[NS];
+      uint32_t pa[BKV / 16][4], pn[BKV / 16][4];
+      float al_a, al_b;
+      qmm_tc::mbar_wait(&full[st_of(first)], ph_of(first));
+      issue_qk(sa, st_of(first));
+      qmm_tc::wgmma_wait<0>();
+      qmm_tc::fence_acc(sa);
+      softmax(sa, first, st_of(first), pa, al_a, al_b);
+      for (int i = first + 1; i < last; ++i) {
+        const int s = st_of(i), sp = st_of(i - 1);
+        qmm_tc::mbar_wait(&full[s], ph_of(i));
+        issue_qk(sa, s);
+        rescale(al_a, al_b);
+        if constexpr (I8) qmm_tc::mbar_wait(&vfull[sp], ph_of(i - 1));
+        issue_pv(pa, sp);
+        qmm_tc::wgmma_wait<1>();
+        qmm_tc::fence_acc(sa);
+        softmax(sa, i, s, pn, al_a, al_b);
+        qmm_tc::wgmma_wait<0>();
+        qmm_tc::fence_acc(o);
+        keep_live(pa);           // P of tile i - 1 was read until here
+        release(sp);
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pa[kk][e] = pn[kk][e];
+      }
+      const int sl = st_of(last - 1);
+      rescale(al_a, al_b);
+      if constexpr (I8) qmm_tc::mbar_wait(&vfull[sl], ph_of(last - 1));
+      issue_pv(pa, sl);
+      qmm_tc::wgmma_wait<0>();
+      qmm_tc::fence_acc(o);
+      release(sl);
+    } else if (first < last) {
+      for (int i = first; i < last; ++i) {
+        const int s = st_of(i);
+        SAcc sa[NS];
+        uint32_t pa[BKV / 16][4];
+        float al_a, al_b;
+        qmm_tc::mbar_wait(&full[s], ph_of(i));
+        issue_qk(sa, s);
+        qmm_tc::wgmma_wait<0>();
+        qmm_tc::fence_acc(sa);
+        softmax(sa, i, s, pa, al_a, al_b);
+        rescale(al_a, al_b);
+        if constexpr (I8) qmm_tc::mbar_wait(&vfull[s], ph_of(i));
+        issue_pv(pa, s);
+        qmm_tc::wgmma_wait<0>();
+        qmm_tc::fence_acc(o);
+        release(s);
       }
     }
-  }
+    for (int i = last; i < n; ++i) pass(i);
 
-  const float inva = 1.f / fmaxf(la, 1e-30f), invb = 1.f / fmaxf(lb, 1e-30f);
-  float* oa = out + ((size_t)(b * T + ra) * Hq + h) * D;
-  float* ob = out + ((size_t)(b * T + rb) * Hq + h) * D;
 #pragma unroll
-  for (int nt = 0; nt < NO; ++nt) {
-    const int c = nt * 8 + tq * 2;
-    if (ra < T) {
-      oa[c] = o[nt][0] * inva;
-      oa[c + 1] = o[nt][1] * inva;
+    for (int off = 1; off < 4; off <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
     }
-    if (rb < T) {
-      ob[c] = o[nt][2] * invb;
-      ob[c + 1] = o[nt][3] * invb;
+    const float inva = 1.f / fmaxf(l_a, 1e-30f);
+    const float invb = 1.f / fmaxf(l_b, 1e-30f);
+    const int ta = t0 + ra, tb = t0 + rb;
+    float* oa = p.out + ((size_t)(b * p.T + ta) * p.Hq + h) * D + 2 * tq;
+    float* ob = p.out + ((size_t)(b * p.T + tb) * p.Hq + h) * D + 2 * tq;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      if (ta < p.T)
+        *reinterpret_cast<float2*>(oa + 8 * c) =
+            make_float2(o[4 * c] * inva, o[4 * c + 1] * inva);
+      if (tb < p.T)
+        *reinterpret_cast<float2*>(ob + 8 * c) =
+            make_float2(o[4 * c + 2] * invb, o[4 * c + 3] * invb);
     }
   }
 }
@@ -434,7 +695,8 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* starts, const void* slopes,
              const void* prefix_len, void* out, int B, int T, int Hq, int Hkv,
              int S, float scale, float softcap, int window, void* stream) {
-  constexpr int smem = smem_bytes<D, I8>();
+  using SM = Smem<D, I8>;
+  constexpr int BKV = SM::BKV;
   // above 48 KB a block's dynamic shared memory must be allowed first;
   // once per kernel, on its first launch (never inside a graph capture:
   // every caller launches eagerly before it captures)
@@ -442,20 +704,48 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_prefill_kernel<D, I8>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SM::BYTES);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const dim3 grid((T + BQ - 1) / BQ, B * Hq);
-  flash_prefill_kernel<D, I8><<<grid, 128, smem,
-                                reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q), k, v,
-      reinterpret_cast<const __nv_bfloat16*>(ks),
-      reinterpret_cast<const __nv_bfloat16*>(vs),
-      reinterpret_cast<const int*>(starts),
-      reinterpret_cast<const float*>(slopes),
-      reinterpret_cast<const int*>(prefix_len), reinterpret_cast<float*>(out),
-      T, Hq, Hkv, S, scale, softcap, window);
+  Params p{};
+  p.q = reinterpret_cast<const __nv_bfloat16*>(q);
+  p.ks = reinterpret_cast<const __nv_bfloat16*>(ks);
+  p.vs = reinterpret_cast<const __nv_bfloat16*>(vs);
+  p.starts = reinterpret_cast<const int*>(starts);
+  p.slopes = reinterpret_cast<const float*>(slopes);
+  p.prefix_len = reinterpret_cast<const int*>(prefix_len);
+  p.out = reinterpret_cast<float*>(out);
+  p.T = T;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.S = S;
+  p.n_tb = (T + BQ - 1) / BQ;
+  p.BH = B * Hq;
+  p.scale = scale;
+  p.softcap = softcap;
+  p.window = window;
+  using qmm_tc::make_map_3d;
+  bool ok;
+  if constexpr (I8) {
+    ok = make_map_3d(&p.mk, k, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, S,
+                     (long long)B * Hkv, 128, BKV, true) &&
+         make_map_3d(&p.mv, v, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, S,
+                     (long long)B * Hkv, D, BKV, false);
+  } else {
+    const long long qd[3] = {D, Hq, (long long)B * T};
+    const long long qs[2] = {(long long)D * 2, (long long)Hq * D * 2};
+    const int qb[3] = {64, 1, BQ};
+    ok = qmm_tc::make_map_nd(&p.mq, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                             qd, qs, qb, true) &&
+         make_map_3d(&p.mk, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, S,
+                     (long long)B * Hkv, 64, BKV, true) &&
+         make_map_3d(&p.mv, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, S,
+                     (long long)B * Hkv, 64, BKV, true);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  flash_prefill_kernel<D, I8><<<B * Hq * p.n_tb, THREADS, SM::BYTES,
+                                reinterpret_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -193,7 +193,7 @@ FLASH_PREFILL = Kernel("flash_prefill.cu", {
     # Hq, Hkv, S, head dim, scale / 127, softcap, window, stream
     "flash_prefill_i8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F,
                          I, P],
-}, branches=("alibi", "prefix"))
+}, headers=("qmm_tc.cuh",), branches=("alibi", "prefix"))
 _DECODE_ARGS = [
     # q, k, v, k_scale, v_scale, table, lengths, slopes, part_o, part_ml,
     # out, B, Hq, Hkv, S (contiguous) or MAXP * ps (paged), ps, maxp,
@@ -201,10 +201,15 @@ _DECODE_ARGS = [
     # window, stream
     P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P]
 # decode's branches: ALiBi slopes, and more than 8 query heads per KV head
-# (the grid's groups of 8)
 FLASH_DECODE = Kernel("flash_decode.cu", {
-    "flash_decode": _DECODE_ARGS, "flash_decode_i8": _DECODE_ARGS},
-    headers=("decode_attn.cuh",), branches=("alibi", "G>8"))
+    # q, k, v, lengths, slopes, part_o, part_ml, tickets, out, B, Hq, Hkv,
+    # S, n_split, chunk, head dim, scale, softcap, window, stream
+    "flash_decode": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F,
+                     I, P],
+    # q, k8, v8, k_scale, v_scale, then as flash_decode (scale / 127)
+    "flash_decode_i8": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                        F, F, I, P],
+}, headers=("qmm_tc.cuh",), branches=("alibi", "G>8"))
 PAGED_DECODE = Kernel("paged_decode.cu", {
     "paged_decode": _DECODE_ARGS, "paged_decode_i8": _DECODE_ARGS},
     headers=("decode_attn.cuh",), branches=("alibi", "G>8"))

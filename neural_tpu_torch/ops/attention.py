@@ -8,10 +8,11 @@ bf16 per-(token, head) scales ``[B, Hkv, S]``.
 
 - **K4** :func:`flash_decode` / :func:`flash_decode_i8`
   (``csrc/flash_decode.cu``) replace the TPU's ``_decode_kernel``: T = 1,
-  split over S with a combine pass.
+  split over S (:func:`k4_schedule`) with a combine pass.
 - **K3** :func:`flash_prefill` / :func:`flash_prefill_i8`
   (``csrc/flash_prefill.cu``) replace ``_prefill_kernel``: causal flash
-  attention for T > 1 queries against a cache that already holds them.
+  attention for T > 1 queries against a cache that already holds them
+  (:func:`k3_schedule`).
 
 The bf16 variants follow the TPU kernels' rounding: bf16 QK^T and PV
 operands, f32 softmax statistics, P rounded to bf16 before PV, masked
@@ -199,7 +200,78 @@ def flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
     return (pv / l.clamp_min(1e-30)).reshape(B, Hq, Dh)
 
 
-DECODE_CHUNK = 64     # keys per block of the decode kernels' first pass
+DECODE_CHUNK = 64     # keys per block of K6's first pass (decode_attn.cuh)
+
+# K4's schedule: keys a tile (32 KB of bf16 K and V at either head dim),
+# the stages of its ring, heads a block (padded), and the waves of blocks
+# over the card's SMs that a split count aims for
+K4_TILE = {128: 64, 256: 32}
+K4_STAGES = 2
+K4_HEADS = (16, 64)
+# blocks resident at once an SM: a bf16 block holds ~73 KB of shared memory,
+# an int8 one ~42 KB and ~120 registers a thread
+K4_BLOCKS_PER_SM = {False: 3, True: 4}
+H100_SMS = 132
+K4_TICKETS = 1 << 16      # ticket counters kept per device (see _tickets)
+
+
+def k4_schedule(B: int, Hq: int, Hkv: int, S: int, D: int,
+                n_sm: int = H100_SMS, int8: bool = False) -> dict:
+    """K4's launch: the tile, the split of S into ``n_split`` chunks of
+    ``chunk`` keys (a whole number of tiles), the heads a block serves
+    (padded to 16, or 64 past 16 a KV head) and the grid (splits, B·Hkv,
+    head groups). The split comes from B·Hkv, the capacity S and the SM
+    count alone, never from the fill or the window (the host never reads
+    them, so the launch can sit in a CUDA graph): the fewest tiles a
+    chunk that let every block be resident at once (K4_BLOCKS_PER_SM an
+    SM, by the cache's type), so that batch 1 fills the card 2-4 times
+    over in one wave and each block streams a few tiles through its
+    ring."""
+    tk = K4_TILE[D]
+    G = Hq // Hkv
+    mp = K4_HEADS[0] if G <= K4_HEADS[0] else K4_HEADS[1]
+    groups = -(-G // mp)
+    tiles = -(-S // tk)
+    per_chunk = min(tiles, -(-B * Hkv * groups * tiles
+                             // (K4_BLOCKS_PER_SM[int8] * n_sm)))
+    chunk = per_chunk * tk
+    n_split = -(-S // chunk)
+    return dict(tile=tk, stages=K4_STAGES, tiles_per_chunk=per_chunk,
+                chunk=chunk, n_split=n_split, heads=mp,
+                grid=(n_split, B * Hkv, groups))
+
+
+_SMS, _TICKETS = {}, {}
+
+
+def _device_index(device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def _sm_count(device) -> int:
+    idx = _device_index(device)
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    """K4's ticket counters: int32 zeros made once per device (outside
+    any graph capture: every caller launches eagerly first) and kept, so
+    that a captured graph's pointer stays valid; the kernel puts each
+    counter back to 0 when its row is merged."""
+    if n > K4_TICKETS:
+        raise ValueError(f"K4 takes at most {K4_TICKETS} (row, KV head) "
+                         f"pairs a launch, got {n}")
+    idx = _device_index(device)
+    if idx not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K4's first launch on a device must run "
+                               "eagerly, before any graph capture")
+        _TICKETS[idx] = torch.zeros(K4_TICKETS, dtype=torch.int32,
+                                    device=device)
+    return _TICKETS[idx]
 
 
 def _check_slopes(slopes, Hq: int):
@@ -208,17 +280,22 @@ def _check_slopes(slopes, Hq: int):
         _cuda.check(slopes, "slopes", torch.float32, (Hq,))
 
 
+def _branches(slopes, Hq: int, Hkv: int):
+    """A decode launch with ALiBi counts under ``fn+alibi`` as well, one with
+    more than 8 query heads per KV head under ``fn+G>8``."""
+    return (() if slopes is None else ("alibi",)) + \
+        (("G>8",) if Hq // Hkv > 8 else ())
+
+
 def decode_launch(kernel, fn, q, k, v, k_scale, v_scale, table, lengths,
                   B, Hkv, S, ps, maxp, qk_scale, softcap, window, slopes):
-    """Launch one of the split-S decode entry points (K4's, or K6's over a
-    page table) and return [B, Hq, Dh] f32. The number of splits comes from
-    the key capacity S, never from the fill or the window: the kernel reads
-    the lengths on the device, and chunks past a row's fill or wholly below
-    its window return at once, so the launch needs no host sync and can be
+    """Launch one of K6's split-S entry points (over a page table) and
+    return [B, Hq, Dh] f32. The number of splits comes from the key
+    capacity S, never from the fill or the window: the kernel reads the
+    lengths on the device, and chunks past a row's fill or wholly below its
+    window return at once, so the launch needs no host sync and can be
     captured in a CUDA graph. Any number of query heads per KV head: the
-    kernel takes them 8 at a time. A launch with ALiBi counts under
-    ``fn+alibi`` as well, one with more than 8 query heads per KV head
-    under ``fn+G>8``."""
+    kernel takes them 8 at a time."""
     Hq, Dh = q.shape[1], q.shape[2]
     _check_slopes(slopes, Hq)
     n_split = -(-S // DECODE_CHUNK)
@@ -233,8 +310,37 @@ def decode_launch(kernel, fn, q, k, v, k_scale, v_scale, table, lengths,
                 _cuda.ptr(part_o), _cuda.ptr(part_ml), _cuda.ptr(out), B, Hq,
                 Hkv, S, ps, maxp, n_split, Dh, float(qk_scale),
                 float(softcap), int(window), _cuda.stream_ptr(),
-                branches=(() if slopes is None else ("alibi",))
-                + (("G>8",) if Hq // Hkv > 8 else ()))
+                branches=_branches(slopes, Hq, Hkv))
+    return out
+
+
+def _k4_launch(fn, q, k, v, k_scale, v_scale, lengths, qk_scale, softcap,
+               window, slopes):
+    """Launch K4 with :func:`k4_schedule`'s split; the scratch (part_o,
+    part_ml) is allocated here, inside a graph capture too; the last block
+    of each row merges the splits."""
+    B, Hq, Dh = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    _check_slopes(slopes, Hq)
+    sch = k4_schedule(B, Hq, Hkv, S, Dh, _sm_count(q.device),
+                      k_scale is not None)
+    n_split = sch["n_split"]
+    part_o = torch.empty((B * Hq, n_split, Dh), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((B * Hq, n_split, 2), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty((B, Hq, Dh), dtype=torch.float32, device=q.device)
+    tickets = _tickets(q.device, B * Hkv * sch["grid"][2])
+    opt = lambda t: 0 if t is None else _cuda.ptr(t)
+    scales = [] if k_scale is None else [_cuda.ptr(k_scale),
+                                         _cuda.ptr(v_scale)]
+    _cuda.FLASH_DECODE.call(
+        fn, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), *scales,
+        _cuda.ptr(lengths), opt(slopes), _cuda.ptr(part_o),
+        _cuda.ptr(part_ml), _cuda.ptr(tickets), _cuda.ptr(out), B, Hq, Hkv,
+        S, n_split,
+        sch["chunk"], Dh, float(qk_scale), float(softcap), int(window),
+        _cuda.stream_ptr(), branches=_branches(slopes, Hq, Hkv))
     return out
 
 
@@ -250,9 +356,8 @@ def flash_decode(q, k_cache, v_cache, lengths, scale: float,
     lengths = lengths.to(torch.int32).contiguous()
     _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B, torch.bfloat16)
     _cuda.check(lengths, "lengths", torch.int32, (B,))
-    return decode_launch(_cuda.FLASH_DECODE, "flash_decode", q, k_cache,
-                         v_cache, None, None, None, lengths, B, Hkv, S, 0, 0,
-                         scale, softcap, window, slopes)
+    return _k4_launch("flash_decode", q, k_cache, v_cache, None, None,
+                      lengths, scale, softcap, window, slopes)
 
 
 def flash_decode_i8(q, k_cache, v_cache, k_scale, v_scale, lengths,
@@ -269,9 +374,9 @@ def flash_decode_i8(q, k_cache, v_cache, k_scale, v_scale, lengths,
     _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B, torch.int8)
     _check_scales(k_scale, v_scale, (B, Hkv, S))
     _cuda.check(lengths, "lengths", torch.int32, (B,))
-    return decode_launch(_cuda.FLASH_DECODE, "flash_decode_i8", q, k_cache,
-                         v_cache, k_scale, v_scale, None, lengths, B, Hkv, S,
-                         0, 0, scale / 127.0, softcap, window, slopes)
+    return _k4_launch("flash_decode_i8", q, k_cache, v_cache, k_scale,
+                      v_scale, lengths, scale / 127.0, softcap, window,
+                      slopes)
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +444,68 @@ def flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale, starts,
                       v_cache.to(torch.float32))
     out = pv / l.clamp_min(1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, Dh)
+
+
+# K3's schedule: query rows a block (two consumer warpgroups of 64) and keys
+# a tile by head dim (at 256 the f32 output takes 128 registers a thread)
+K3_ROWS = 128
+K3_WG_ROWS = 64
+K3_TILE = {128: 128, 256: 64}
+K3_STAGES = {128: 3, 256: 2}
+
+
+def k3_schedule(B: int, T: int, Hq: int, Hkv: int, S: int, D: int,
+                starts, window: int = 0, prefix_len=None) -> dict:
+    """K3's launch, as the C entry point computes it on the device from
+    ``starts`` and ``prefix_len`` (host lists of B ints here; None: no
+    prefix): the grid, a block a work item (b·Hq + h, 128 query rows), the
+    work items in the order of the blocks (``order``: (b·Hq + h, query
+    block), the heaviest query blocks first, so the light ones fill the
+    tail), and for each batch row and query block the
+    key tiles the block streams (``tiles``: [lo, hi)) and, for each of its
+    two consumer warpgroups of 64 rows, the keys its rows can see
+    (``keys``: [lo, hi), None when its rows lie past T), the tiles it
+    computes and the subset of those that need the per-element mask
+    (``masked``); the others ("interior") hold no hidden, windowed or
+    past-S key for any of its rows."""
+    tk = K3_TILE[D]
+    n_tb = -(-T // K3_ROWS)
+    blocks = {}
+    for b in range(B):
+        start = int(starts[b])
+        pref = 0 if prefix_len is None else int(prefix_len[b])
+        pm1 = pref - 1 if pref > 0 else PREFIX_OFF
+        for tb in range(n_tb):
+            t0 = tb * K3_ROWS
+            wgs = []
+            for w in range(K3_ROWS // K3_WG_ROWS):
+                r0 = t0 + w * K3_WG_ROWS
+                if r0 >= T:
+                    wgs.append(dict(keys=None, tiles=[], masked=[]))
+                    continue
+                qlo, qhi = start + r0, start + min(r0 + K3_WG_ROWS, T) - 1
+                end = min(max(qhi + 1, pm1), S)
+                beg = max(qlo - window + 1, 0) if window > 0 and pm1 <= 0 \
+                    else 0
+                wgs.append(dict(keys=(beg, end), qpos=(qlo, qhi)))
+            valid = [w for w in wgs if w["keys"] is not None]
+            lo = min(w["keys"][0] for w in valid) // tk
+            hi = -(-max(w["keys"][1] for w in valid) // tk)
+            for w in valid:
+                (beg, end), (qlo, qhi) = w["keys"], w["qpos"]
+                w["tiles"] = [i for i in range(lo, hi)
+                              if i * tk + tk > beg and i * tk < end]
+                w["masked"] = [i for i in w["tiles"] if not (
+                    i * tk + tk <= S and (
+                        i * tk + tk <= pm1 or (
+                            i * tk + tk - 1 <= qlo and (
+                                window <= 0 or i * tk > qhi - window))))]
+            blocks[(b, tb)] = dict(tiles=(lo, hi), warpgroups=wgs)
+    items = B * Hq * n_tb
+    return dict(rows=K3_ROWS, tile=tk, stages=K3_STAGES[D], items=items,
+                grid=(items,),
+                order=[(w % (B * Hq), n_tb - 1 - w // (B * Hq))
+                       for w in range(items)], blocks=blocks)
 
 
 def _prefill_launch(fn, q, k_cache, v_cache, k_scale, v_scale, starts,
