@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card (H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab PARENT_DIR   # K3/K4 and phase 4/4b legs,
-                                            # parent vs this
+    python3 chip_smoke.py --ab PARENT_DIR   # K1/K3/K4/K6, phase 4/4b and
+                                            # server legs, parent vs this
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -27,9 +27,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    branch (ChatGLM-6B's 1975-token prefill, all of it the prefix), bf16
    and int8, each also timed with its option off and held against a
    compiled ``flex_attention`` with the same score_mod / mask_mod; K3 also
-   at the server's 512-token chunk at position 1024 of 2048; every K3/K4
-   case printed beside the time of the kernel it replaces, and K6's
-   (unchanged, the control) beside its own earlier time; then
+   at the server's 512-token chunk at position 1024 of 2048; K6 also over
+   pages of 16 and 32 keys, over a table whose entries past each fill
+   point at other rows' live pages (the rows past each fill holding large
+   finite K/V), and over an identity table on K4's own cache against K4
+   (the two times side by side); every K1/K3/K4/K6 case printed beside the
+   time of the kernel it replaces (``ATTN_BEFORE_MS``, ``K16_BEFORE_MS``)
+   and the slower ones listed; then
    K5 on both of its routes, each launch counted under its route
    (``qmm_general+gemv`` at M <= 16, ``qmm_general+tc`` above): nf4 at
    M=1, 8 and 1975, q4_0 at 1975, q4_j at 128, 64, 32 and 24, fp4, fp8
@@ -44,7 +48,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the three sym layouts, at the 7B's widths and at Gemma-2-9B's with the
    (1 + w) norm and tanh GELU, each also timed against the unfused chain
    it replaces (the port's ``rms_norm`` / ``act(g) * u`` / bf16 add and
-   K1);
+   K1); every K1 entry point launched twice on the same inputs, the two
+   outputs bit-identical, and the fused rms route against the unfused
+   chain (their largest difference logged);
 4. generation: a Llama-2-7B-shaped q4_j model (random weights from a seed,
    FFN 11008 padded to 11264) generates greedily through ``Model.generate``
    with bf16 and with int8 KV, every launch count set to 0 just before each
@@ -460,10 +466,10 @@ PR17_MS = {
 }
 
 
-# The times of the K3 and K4 kernels the redesigned ones replace, and K6's
-# (unchanged: the control), per token, step or prefill in ms, from PERF.md
-# section 6 (chip_smoke.py runs on an H100 80GB HBM3 at 700 W, before the
-# redesign), by (results key, case label); None: that case was not timed
+# The times of the K3 and K4 kernels the redesigned ones replace, per token,
+# step or prefill in ms, from PERF.md section 6 (chip_smoke.py runs on an
+# H100 80GB HBM3 at 700 W, before the redesign), by (results key, case
+# label); None: that case was not timed
 _FILLS8 = "[1, 2048, 1975, 128, 700, 1300, 33, 1024]"
 _G2_FILLS8 = "[1, 8192, 6000, 128, 4500, 3000, 33, 4097]"
 ATTN_BEFORE_MS = {
@@ -503,6 +509,48 @@ ATTN_BEFORE_MS = {
     ("K4_G>8", "starcoder heads (48 over 1) decode fill 1975"): 1.732,
     ("K4_i8_G>8", "chatglm2 heads (32 over 2) decode fill 1975"): 1.511,
     ("K4_i8_G>8", "starcoder heads (48 over 1) decode fill 1975"): 2.085,
+}
+ATTN_SLOWER = []    # (key, label, ms, earlier ms) of K3/K4 cases now slower
+
+# The times of the K1 and K6 kernels the redesigned ones replace, per token,
+# step or launch sum in ms, from PERF.md section 6 (chip_smoke.py runs on an
+# H100 80GB HBM3 at 700 W, before the redesign), by (results key, case
+# label); None: a case this script did not run before
+K16_BEFORE_MS = {
+    ("K1", "q4_j decode step"): 3.757,
+    ("K1", "q4_j batch-8 step"): 7.827,
+    ("K1", "gemma2 q4_j decode step"): 4.822,
+    ("K1", "gemma2 q4_j batch-8 step"): 10.08,
+    ("K1_asym", "q4_j_i8_g128 decode step"): 4.860,
+    ("K1_asym", "q4_j_i8_g128 batch-8 step"): 9.585,
+    ("K1_asym", "mistral gptq decode step"): 3.604,
+    ("K1_int2", "int2 decode step"): 3.142,
+    ("K1_int2", "int2 batch-8 step"): 7.907,
+    ("K1_int2_asym", "int2_asym decode step"): 4.335,
+    ("K1_int2_asym", "int2_asym batch-8 step"): 9.401,
+    ("K1_int8", "int5 decode step"): 5.977,
+    ("K1_int8", "int5 batch-8 step"): 10.83,
+    ("K1_int8_asym", "int5_asym decode step"): 5.732,
+    ("K1_int8_asym", "int5_asym batch-8 step"): 12.41,
+    ("K1_rms", "q4_j rms, decode step"): 3.053,
+    ("K1_rms", "q4_j rms, decode step (batch 8)"): 6.896,
+    ("K1_rms", "gemma2 q4_j rms (1 + w), decode step"): 3.877,
+    ("K1_rms", "gemma2 q4_j rms (1 + w), decode step (batch 8)"): 8.716,
+    ("K1_res", "q4_j res, decode step"): 1.098,
+    ("K1_res", "q4_j res, decode step (batch 8)"): 2.342,
+    ("K1_glu", "q4_j glu silu + res, decode step"): 0.712,
+    ("K1_glu", "q4_j glu silu + res, decode step (batch 8)"): 1.860,
+    ("K1_glu", "gemma2 q4_j glu gelu_tanh + res, decode step"): 0.990,
+    ("K1_glu", "gemma2 q4_j glu gelu_tanh + res, decode step (batch 8)"):
+    2.748,
+    ("K1_int2_fused", "int2 rms, gate/up"): 1.342,
+    ("K1_int2_fused", "int2 rms, gate/up (batch 8)"): 3.664,
+    ("K1_int2_fused", "int2 glu silu + res, down"): 0.657,
+    ("K1_int2_fused", "int2 glu silu + res, down (batch 8)"): 1.641,
+    ("K1_int8_fused", "int5 rms, gate/up"): 2.014,
+    ("K1_int8_fused", "int5 rms, gate/up (batch 8)"): 5.925,
+    ("K1_int8_fused", "int5 glu silu + res, down"): 0.974,
+    ("K1_int8_fused", "int5 glu silu + res, down (batch 8)"): 2.581,
     ("K6", f"llama B=8 decode fills {_FILLS8}, window 0, softcap 0"): 3.438,
     ("K6", "gemma2 B=1 decode fills [6000], window 4096, softcap 50"): 1.891,
     ("K6", "gemma2 B=1 decode fills [6000], window 0, softcap 50"): 1.937,
@@ -529,32 +577,54 @@ ATTN_BEFORE_MS = {
     1.425,
     ("K6_i8_G>8", f"starcoder heads (48 over 1) B=8 decode fills "
      f"{_FILLS8}"): 2.378,
+    ("K6", f"llama B=8 decode fills {_FILLS8}, page 16"): None,
+    ("K6", f"llama B=8 decode fills {_FILLS8}, page 32"): None,
+    ("K6", f"llama B=8 decode fills {_FILLS8}, table past the fill at live "
+     "pages"): None,
+    ("K6", "llama B=1 decode fill 1975, identity table (K4's cache)"): None,
+    ("K6_i8", f"llama B=8 decode fills {_FILLS8}, page 16"): None,
+    ("K6_i8", f"llama B=8 decode fills {_FILLS8}, page 32"): None,
+    ("K6_i8", f"llama B=8 decode fills {_FILLS8}, table past the fill at "
+     "live pages"): None,
+    ("K6_i8", "llama B=1 decode fill 1975, identity table (K4's cache)"):
+    None,
 }
-ATTN_SLOWER = []    # (key, label, ms, earlier ms) of K3/K4 cases now slower
+K16_SLOWER = []     # (key, label, ms, earlier ms) of K1/K6 cases now slower
 
 
 def _record(results, key, cases, window_ms=None):
     """The first case is the kernel's line; every case is kept beside it,
-    and an attention kernel's per-launch times at fill 6000 by window. A
-    case of K2, K5, K3 or K4 is printed beside the time of the kernel it
-    replaces, and K6 (unchanged, the control) beside its own earlier
-    time."""
+    and an attention kernel's per-launch times at fill 6000 by window.
+    Every case is printed beside the time of the kernel it replaces."""
     first = next(iter(cases.values()))
     results[key] = dict(first, cases=cases, window_ms=window_ms)
-    if key.startswith(("K3", "K4", "K6")):
-        for label, c in cases.items():
-            if (key, label) not in ATTN_BEFORE_MS:
-                raise AssertionError(f"{key} {label}: no earlier time")
-            before = ATTN_BEFORE_MS[(key, label)]
-            ratio = "" if before is None else \
-                f", {c['ms'] / before:.3f}x of it"
-            log(f"{key} {label}: kernel {c['ms']:.4f} ms, bound "
-                f"{c['bound_ms']:.4f} ms ({c['bound_by']}), library "
-                f"{c['library_ms']:.4f} ms, before "
-                f"{'not measured' if before is None else before} ms{ratio}")
-            if before is not None and c["ms"] > before and \
-                    key.startswith(("K3", "K4")):
-                ATTN_SLOWER.append((key, label, c["ms"], before))
+    for label, c in cases.items():
+        _beside_before(key, label, c)
+    _record_k2k5(key, cases)
+
+
+def _beside_before(key, label, c):
+    """A K1, K3, K4 or K6 case beside the time of the kernel it replaces;
+    a case now slower is listed."""
+    if not key.startswith(("K1", "K3", "K4", "K6")):
+        return
+    table, slower = (K16_BEFORE_MS, K16_SLOWER) if key.startswith(
+        ("K1", "K6")) else (ATTN_BEFORE_MS, ATTN_SLOWER)
+    if (key, label) not in table:
+        raise AssertionError(f"{key} {label}: no earlier time")
+    before = table[(key, label)]
+    ratio = "" if before is None else f", {c['ms'] / before:.3f}x of it"
+    lib = c.get("library_ms")
+    log(f"{key} {label}: kernel {c['ms']:.4f} ms, bound "
+        f"{c['bound_ms']:.4f} ms ({c['bound_by']}), library "
+        f"{'n/a' if lib is None else round(lib, 4)} ms, before "
+        f"{'not measured' if before is None else before} ms{ratio}")
+    if before is not None and c["ms"] > before:
+        slower.append((key, label, c["ms"], before))
+
+
+def _record_k2k5(key, cases):
+    """A K2/K5 case beside the time of the kernel it replaces."""
     if key.startswith(("K2", "K5")):
         for label, c in cases.items():
             before = PR17_MS.get((key, label), PR17_MS.get(
@@ -940,6 +1010,66 @@ def check_k1_fused(gen, results):
         torch.cuda.empty_cache()
 
 
+K1_RERUN = {}       # K1's rerun and fused-vs-unfused checks, for the log
+
+
+def check_k1_reruns(gen, results):
+    """Two launches of each K1 entry point on the same inputs give
+    bit-identical outputs (the splits are merged in a fixed order): every
+    layout, sym and asym, and the fused entries with rms + res and with
+    glu, at M = 1 and 8 over a 4096 x 4096 product (one split a 512-row
+    stretch of K) and the lm_head's 4096 x 32000 (no split at M = 1). And
+    the fused rms route (no GLU) against the unfused chain on the card
+    (``rms_norm``, then K1): their largest difference is recorded."""
+    checked = 0
+    for fmt in ("q4_j", "q4_j_i8_g128", "int2", "int2_asym", "int5",
+                "int5_asym"):
+        cfg = QUANTS.get(fmt) or PRESETS[fmt]
+        for K, N in ((D, D), (D, V)):
+            qt = to_native(quantize(torch.randn(
+                (K, N), generator=gen, device=DEV) * 0.02, cfg))
+            args = (qt.planes[0], qt.scales, qt.zeros, qt.group_size,
+                    qt.cfg.bits)
+            for M in (1, 8):
+                x = torch.randn((M, K), generator=gen, device=DEV).bfloat16()
+                odt = torch.float32 if N == V else torch.bfloat16
+                runs = [Q.qmm_native(x, *args, odt) for _ in range(2)]
+                if qt.zeros is None:
+                    nw = (1 + 0.3 * torch.randn(K, generator=gen,
+                                                device=DEV)).bfloat16()
+                    r = torch.randn((M, N), generator=gen,
+                                    device=DEV).bfloat16()
+                    u = torch.randn((M, K), generator=gen,
+                                    device=DEV).bfloat16()
+                    fa = (qt.planes[0], qt.scales, qt.group_size,
+                          qt.cfg.bits, odt)
+                    for opts in (dict(norm=(nw, 1e-5, 0.0), res=r),
+                                 dict(u=u, act="silu")):
+                        runs += [Q.qmm_native_fused(x, *fa, **opts)
+                                 for _ in range(2)]
+                    if fmt == "q4_j":
+                        fused = Q.qmm_native_fused(x, *fa,
+                                                   norm=(nw, 1e-5, 0.0))
+                        chain = Q.qmm_native(rms_norm(x, nw, 1e-5, 0.0),
+                                             *args, odt)
+                        d = (fused.float() - chain.float()).abs().max()
+                        K1_RERUN[f"fused_rms_vs_chain_M{M}_{N}"] = dict(
+                            max_abs=d.item(), equal=torch.equal(fused,
+                                                                chain))
+                torch.cuda.synchronize()
+                for a, b in zip(runs[::2], runs[1::2]):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"K1 {fmt} M={M} {K}x{N}: a "
+                                             "rerun gave other bits")
+                    checked += 1
+            del qt
+    K1_RERUN["reruns_bit_identical"] = checked
+    log(f"K1 reruns bit-identical: {checked} pairs (every layout sym and "
+        f"asym, fused rms + res and glu, M = 1 and 8); fused rms against "
+        f"the unfused chain: {json.dumps(K1_RERUN)}")
+    torch.cuda.empty_cache()
+
+
 def check_k2_asym(gen, results):
     """K2 over asymmetric int4 (q4_j_i8_g128) at the 1975-token prefill.
     Equal int8 codes, exact integer dots and the fold in the same order;
@@ -1005,6 +1135,7 @@ def check_gptq_products(gen, results):
     results["K1_asym"]["cases"][label] = _case(
         gen, label, GPTQ_QCFG, 1, MISTRAL_PROJ, k1, p1, "qmm4_npack_asym",
         BF16_FLOPS)
+    _beside_before("K1_asym", label, results["K1_asym"]["cases"][label])
     label = "mistral gptq 1975-token prefill"
     case = _case(
         gen, label, GPTQ_QCFG, T_PREFILL, MISTRAL_PROJ,
@@ -1366,6 +1497,119 @@ def check_k6(gen, results):
             del q, c, args, kd, vd, library
             torch.cuda.empty_cache()
         _record(results, key, cases, window_ms)
+
+
+def _server_table(cpu, B, maxp, P):
+    """A shuffled page table: B rows of maxp distinct pages of P."""
+    return torch.randperm(P, generator=cpu)[:B * maxp].reshape(B, maxp) \
+        .to(torch.int32).to(DEV)
+
+
+def check_k6_paging(gen, results):
+    """K6's paging beside check_k6's cases, bf16 and int8 pools, against
+    paged_decode_plain: the Llama server's step (B=8, mixed fills) over
+    pages of 16 and 32 keys (a tile takes several boxes); the same over
+    pages of 256 with every table entry past a row's fill pointing at
+    another row's live page, and the rows past each fill in its last page
+    holding large finite K and V (read, since the box is whole, and
+    masked); and K6 at batch 1, fill 1975, over an identity table on K4's
+    own cache (its pages the cache's rows) against K4 on that cache, the
+    two times side by side."""
+    cpu = torch.Generator().manual_seed(17)
+    fills = SERVER_FILLS
+    B = len(fills)
+    lengths = torch.tensor(fills, dtype=torch.int32, device=DEV)
+    opts = (DH ** -0.5, 0.0, 0)
+    for int8, key in ((False, "K6"), (True, "K6_i8")):
+        entry = "paged_decode_i8" if int8 else "paged_decode"
+        fn = PA.paged_decode_i8 if int8 else PA.paged_decode
+        tol = I8_DECODE_TOL if int8 else BF16_TOL
+        row = DH + 2 if int8 else 2 * DH
+        n = sum(fills)
+        cases = results[key]["cases"]
+        for ps, what in ((16, "page 16"), (32, "page 32"),
+                         (256, "table past the fill at live pages")):
+            maxp = S_CACHE // ps
+            P = B * maxp + 1
+            table = _server_table(cpu, B, maxp, P - 1)
+            k, v = (torch.randn((P, H, ps, DH), generator=gen, device=DEV),
+                    torch.rand((P, H, ps, DH), generator=gen,
+                               device=DEV) * 2 - 1)
+            if ps == 256:
+                # entries past the fill: other rows' visible pages; rows
+                # past the fill in the last page: large, finite
+                live = [int(table[b, i]) for b in range(B)
+                        for i in range(-(-fills[b] // ps))]
+                for b, f in enumerate(fills):
+                    used = -(-f // ps)
+                    for i in range(used, maxp):
+                        table[b, i] = live[(7 * b + i) % len(live)]
+                    page, r0 = int(table[b, used - 1]), f - (used - 1) * ps
+                    k[page, :, r0:] = 3e4
+                    v[page, :, r0:] = -3e4
+            if int8:
+                (kc, ks), (vc, vs) = A.quantize_kv(k), A.quantize_kv(v)
+                c = (kc, vc, ks, vs)
+            else:
+                c = (k.bfloat16(), v.bfloat16(), None, None)
+            del k, v
+            q = (torch.randn((B, H, DH), generator=gen, device=DEV)
+                 * Q_SPREAD).bfloat16()
+            args = (q, c[0], c[1], *(c[2:] if int8 else ()), table,
+                    lengths, *opts)
+            kd, vd = (PA.gather_pages(x, table) for x in _bf16_kv(c))
+            mask = (torch.arange(maxp * ps, device=DEV)[None, :]
+                    < lengths[:, None].long())[:, None, None, :]
+            label = f"llama B={B} decode fills {fills}, {what}"
+            cases[label] = _attn_case(
+                label, entry, lambda: fn(*args),
+                lambda: PA.paged_decode_plain(q, *c, table, lengths, *opts),
+                2 * n * H * row + B * maxp * 4 + B * 4 + B * H * DH * 6,
+                _attn_ops(int8, DH, H, n, False, True), tol, L,
+                library=[lambda: _sdpa(q[:, :, None], kd, vd,
+                                       attn_mask=mask)])
+            _beside_before(key, label, cases[label])
+            del q, c, args, kd, vd, mask
+            torch.cuda.empty_cache()
+        # K6 over an identity table on K4's cache [1, H, S, D]: page i of
+        # the pool is keys i*ps .. of the row (pool [maxp, H, ps, D])
+        ps, fill = 256, T_PREFILL
+        maxp = S_CACHE // ps
+        cache = _attn_cache(gen, (1, H, S_CACHE, DH), int8)[0]
+        pool = [None if t is None else
+                t.reshape(H, maxp, ps, *t.shape[3:]).transpose(0, 1)
+                .contiguous() for t in cache]
+        table = torch.arange(maxp, dtype=torch.int32, device=DEV)[None]
+        ln = torch.tensor([fill], dtype=torch.int32, device=DEV)
+        q = (torch.randn((1, H, DH), generator=gen, device=DEV)
+             * Q_SPREAD).bfloat16()
+        k4 = A.flash_decode_i8 if int8 else A.flash_decode
+        a4 = (q, cache[0], cache[1], *(cache[2:] if int8 else ()), ln,
+              *opts)
+        a6 = (q, pool[0], pool[1], *(pool[2:] if int8 else ()), table, ln,
+              *opts)
+        out4, out6 = k4(*a4), fn(*a6)
+        torch.cuda.synchronize()
+        err46 = (out6 - out4).abs().max().item()
+        if not err46 <= tol:
+            raise AssertionError(f"K6 over an identity table against K4: "
+                                 f"max err {err46} > {tol}")
+        kd, vd = (x[:, :, :fill] for x in _bf16_kv(cache))
+        label = f"llama B=1 decode fill {fill}, identity table (K4's cache)"
+        cases[label] = _attn_case(
+            label, entry, lambda: fn(*a6),
+            lambda: PA.paged_decode_plain(q, *pool, table, ln, *opts),
+            2 * fill * H * row + maxp * 4 + 4 + H * DH * 6,
+            _attn_ops(int8, DH, H, fill, False, True), tol, L,
+            library=[lambda: _sdpa(q[:, :, None], kd, vd)])
+        k4_ms = time_ms([lambda: k4(*a4)])
+        cases[label].update(k4_ms_per_launch=k4_ms, k6_vs_k4_err=err46)
+        log(f"{key} {label}: K6 {cases[label]['ms_per_launch']:.4f} ms a "
+            f"launch, K4 on the same cache {k4_ms:.4f} ms; |K6 - K4| "
+            f"{err46:.3g} (tol {tol})")
+        _beside_before(key, label, cases[label])
+        del cache, pool, q, a4, a6, out4, out6, kd, vd
+        torch.cuda.empty_cache()
 
 
 def window_speedups(results):
@@ -3500,6 +3744,96 @@ def attn_times(reps=30, seed=7):
     return out
 
 
+def k16_times(reps=30, seed=9):
+    """Device ms of one K1 and one K6 launch at the Llama-2-7B decode
+    shapes, inputs drawn from ``seed``, each the median of ``reps``
+    CUDA-graph replays over copies of the weights or pool that the 50 MB
+    L2 cannot hold: K1 over q4_j nibbles at M = 1 and 8 (a 4096 x 4096
+    product; gate/up's 4096 x 11264 with the RMS-norm prologue; down's
+    11264 x 4096 with the residual); K6 at the server's step (B = 8, fills
+    1-2048, page 256, 32 heads over 32), bf16 and int8 pools, and at 48
+    heads over 1. Self-contained: ``--ab`` runs this source in each tree,
+    so the per-kernel gain is read on one card."""
+    import math
+    import statistics
+    import torch
+    from neural_tpu_torch.core.dtypes import PRESETS
+    from neural_tpu_torch.core.qtensor import quantize, to_native
+    from neural_tpu_torch.ops import attention as A
+    from neural_tpu_torch.ops import paged_attention as PA
+    from neural_tpu_torch.ops import qmatmul as Q
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    copies = lambda nbytes: max(1, math.ceil(2 * (50 << 20) / nbytes))
+
+    def device_ms(fns):
+        for f in fns:
+            f()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for f in fns:
+                f()
+        ts = []
+        for _ in range(reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            g.replay()
+            e1.record()
+            e1.synchronize()
+            ts.append(e0.elapsed_time(e1) / len(fns))
+        return statistics.median(ts)
+
+    out = {}
+    for K, N, opt in ((4096, 4096, None), (4096, 11264, "rms"),
+                      (11264, 4096, "res")):
+        qt = to_native(quantize(torch.randn((K, N), generator=gen,
+                                            device="cuda") * 0.02,
+                                PRESETS["q4_j"]))
+        ws = [(qt.planes[0].clone(), qt.scales.clone())
+              for _ in range(copies(qt.planes[0].numel()))]
+        for M in (1, 8):
+            x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+            if opt is None:
+                fns = [lambda w=w: Q.qmm_native(x, w[0], w[1], None, 128, 4,
+                                                torch.bfloat16) for w in ws]
+            else:
+                kw = dict(res=torch.randn((M, N), generator=gen,
+                                          device="cuda").bfloat16()) \
+                    if opt == "res" else dict(norm=((1 + 0.3 * torch.randn(
+                        K, generator=gen, device="cuda")).bfloat16(), 1e-5,
+                        0.0))
+                fns = [lambda w=w: Q.qmm_native_fused(
+                    x, w[0], w[1], 128, 4, torch.bfloat16, **kw) for w in ws]
+            name = f"k1_{K}x{N}" + ("" if opt is None else "_" + opt)
+            out[f"{name}_m{M}_ms"] = device_ms(fns)
+        del ws, qt
+    cpu = torch.Generator().manual_seed(seed)
+    fills, ps, D = [1, 2048, 1975, 128, 700, 1300, 33, 1024], 256, 128
+    B, maxp = len(fills), 2048 // ps
+    P = B * maxp + 1
+    table = torch.randperm(P - 1, generator=cpu)[:B * maxp] \
+        .reshape(B, maxp).to(torch.int32).to("cuda")
+    lengths = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    for Hq, Hkv, int8 in ((32, 32, False), (32, 32, True), (48, 1, False)):
+        q = (torch.randn((B, Hq, D), generator=gen, device="cuda")
+             * 4).bfloat16()
+        k = torch.randn((P, Hkv, ps, D), generator=gen, device="cuda")
+        v = torch.rand((P, Hkv, ps, D), generator=gen, device="cuda") * 2 - 1
+        if int8:
+            (k, ks), (v, vs) = A.quantize_kv(k), A.quantize_kv(v)
+            fn = lambda: PA.paged_decode_i8(q, k, v, ks, vs, table, lengths,
+                                            D ** -0.5)
+        else:
+            k, v = k.bfloat16(), v.bfloat16()
+            fn = lambda: PA.paged_decode(q, k, v, table, lengths, D ** -0.5)
+        out[f"k6_server_{Hq}over{Hkv}{'_int8' if int8 else ''}_ms"] = \
+            device_ms([fn] * 4)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 AB_CHILD = """\
 import json, os, sys
 sys.path.insert(0, {root!r})
@@ -3512,8 +3846,13 @@ torch.set_num_threads(os.cpu_count() or 1)
 _cuda.build_all(_cuda.KERNELS)
 {attn_times}
 print("ATT " + json.dumps(attn_times()), flush=True)
+{k16_times}
+print("K16 " + json.dumps(k16_times()), flush=True)
 params = c.init_random(c.CFG, seed=0, quant="q4_j", device="cuda")
 legs = c.phase_generation(params)
+legs.update({"server_" + k: v for k, v in c._server_timed(
+    params, c.CFG, "server_paged_int8", c.SERVE_PAGED_I8,
+    c._server_prompts()).items()})
 del params
 torch.cuda.empty_cache()
 legs.update(c.phase_formats(("nf4", "q4_0")))
@@ -3526,8 +3865,12 @@ print("ERR " + json.dumps(k2_errors()), flush=True)
 def compare_legs(parent):
     """``python3 chip_smoke.py --ab PARENT``: K3 at the Llama-2-7B 1975-token
     prefill and K4 at fill 1975, bf16 and int8 KV (``attn_times``, this
-    file's source run in each tree), phase 4's Llama-2-7B legs (decode at
-    fills 128 and 1975, decode_i8kv, batch8, TTFT) and phase 4b's nf4 and
+    file's source run in each tree), K1 at M = 1 and 8 (plain, +rms, +res)
+    and K6 at the server's step (bf16, int8, 48 heads over 1;
+    ``k16_times``, the same way), phase 4's Llama-2-7B legs (decode at
+    fills 128 and 1975, decode_i8kv, batch8, TTFT; the decode step's
+    device time by fusion mode), the batch-8 paged int8 server (tok/s, the
+    decode iteration at 8 slots, TTFT) and phase 4b's nf4 and
     q4_0 legs (TTFT, decode at fill 128) of the checkout at PARENT (an
     unpacked tree of an earlier commit) and of this one, each run in a
     process of its own, in the order parent, change, change, parent, on
@@ -3541,7 +3884,8 @@ def compare_legs(parent):
     runs = {"parent": [], "change": []}
     errs = {}
     child = AB_CHILD.replace("{k2_errors}", inspect.getsource(k2_errors)) \
-        .replace("{attn_times}", inspect.getsource(attn_times))
+        .replace("{attn_times}", inspect.getsource(attn_times)) \
+        .replace("{k16_times}", inspect.getsource(k16_times))
     for side in ("parent", "change", "change", "parent"):
         root = os.path.abspath(parent) if side == "parent" else here
         p = subprocess.run([sys.executable, "-c",
@@ -3556,6 +3900,8 @@ def compare_legs(parent):
                                if line.startswith("AB "))[3:])
         legs.update(json.loads(next(line for line in lines
                                     if line.startswith("ATT "))[4:]))
+        legs.update(json.loads(next(line for line in lines
+                                    if line.startswith("K16 "))[4:]))
         errs[side] = json.loads(next(line for line in lines
                                      if line.startswith("ERR "))[4:])
         log(f"{side}: {json.dumps(legs)}")
@@ -3602,9 +3948,9 @@ def main():
 
     def kernels():
         for check in (check_k1, check_k2, check_k3, check_k4, check_k6,
-                      check_k3_options, check_k4_alibi, check_k6_alibi,
+                      check_k6_paging, check_k3_options, check_k4_alibi, check_k6_alibi,
                       check_k5, check_k1_branches, check_k1_fused,
-                      check_k2_asym,
+                      check_k1_reruns, check_k2_asym,
                       check_k2_layouts, check_gptq_products,
                       check_many_heads):
             check(gen, results)
@@ -3613,6 +3959,9 @@ def main():
     log("K3/K4 cases slower than the kernel they replace: "
         + ("; ".join(f"{k} {lab}: {ms:.4f} ms against {old} ms"
                      for k, lab, ms, old in ATTN_SLOWER) or "none"))
+    log("K1/K6 cases slower than before the redesign: "
+        + ("; ".join(f"{k} {lab}: {ms:.4f} ms against {old} ms"
+                     for k, lab, ms, old in K16_SLOWER) or "none"))
     window = window_speedups(results)
     branches = branch_costs(results)
     t = time.time()
@@ -3666,6 +4015,8 @@ def main():
                     **fused_worst,
                     **gemma2_worst, **zoo_worst, **copies_worst,
                     "window_over_no_window": window,
+                    "k1_reruns": K1_RERUN,
+                    "k16_slower": K16_SLOWER,
                     "option_on_over_off": branches,
                     "phase_seconds": seconds,
                     "seconds": time.time() - t_start}))

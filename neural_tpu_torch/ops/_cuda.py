@@ -135,6 +135,44 @@ def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+_TICKETS: Dict[tuple, torch.Tensor] = {}
+_SMS: Dict[int, int] = {}
+
+
+def _index(device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def sm_count(device) -> int:
+    """The card's SM count (the schedules' wave size), read once."""
+    idx = _index(device)
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def tickets(owner: str, device, n: int, cap: int) -> torch.Tensor:
+    """``cap`` int32 ticket counters of one kernel family (``owner``) on
+    ``device``, of which a launch uses the first ``n``: zeros made once per
+    device, outside any graph capture (every caller launches eagerly
+    first), and kept, so that a captured graph's pointer stays valid. A
+    kernel that merges its splits in the last block to finish counts the
+    blocks done on them and puts each counter back to 0 when its merge is
+    done, so they are zeros between launches."""
+    if n > cap:
+        raise ValueError(f"{owner} takes at most {cap} ticket counters a "
+                         f"launch, got {n}")
+    idx = _index(device)
+    if (owner, idx) not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{owner}'s first launch on a device must "
+                               "run eagerly, before any graph capture")
+        _TICKETS[(owner, idx)] = torch.zeros(cap, dtype=torch.int32,
+                                             device=device)
+    return _TICKETS[(owner, idx)]
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None):
     """Device, dtype, contiguity and (optionally) shape checks a wrapper
     makes before it hands a pointer to a kernel."""
@@ -149,20 +187,21 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None):
                          f"{tuple(shape)}")
 
 
-# x, planes, scales, zeros, xs, partial, out, M, K, N, group, out_f32,
-# splits, stream
-_K1_ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+# x, planes, scales, zeros, xs, partial, tickets, out, M, K, N, group,
+# out_f32, splits, stream
+_K1_ARGS = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
 F = ctypes.c_float
 # the fused entries: x, u, norm_w, norm_f32, eps, offset, act, res, planes,
-# scales, partial, out, M, K, N, group, out_f32, splits, stream
-_K1_FUSED_ARGS = [P, P, P, I, F, F, I, P, P, P, P, P, I, I, I, I, I, I, P]
+# scales, partial, tickets, out, M, K, N, group, out_f32, splits, stream
+_K1_FUSED_ARGS = [P, P, P, I, F, F, I, P, P, P, P, P, P, I, I, I, I, I, I,
+                  P]
 K1_ENTRIES = ("qmm4_npack", "qmm2_npack", "qmm8_native")
 # each fused launch also counts under the options it takes:
 # ``qmm4_npack_fused+rms``, ``+glu``, ``+res``
 QMM4 = Kernel("qmm4_npack.cu", {
     **{fn + asym: _K1_ARGS for fn in K1_ENTRIES for asym in ("", "_asym")},
     **{fn + "_fused": _K1_FUSED_ARGS for fn in K1_ENTRIES}},
-    branches=("rms", "glu", "res"))
+    headers=("qmm_tc.cuh",), branches=("rms", "glu", "res"))
 # K2's entry points per weight layout: native-pack nibbles (int4, and int3
 # under the branch "int3"), native-pack int2 fields, int8 code planes
 K2_ENTRIES = ("qmm_a8", "qmm_a8_int2", "qmm_a8_int8")
@@ -194,13 +233,8 @@ FLASH_PREFILL = Kernel("flash_prefill.cu", {
     "flash_prefill_i8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F,
                          I, P],
 }, headers=("qmm_tc.cuh",), branches=("alibi", "prefix"))
-_DECODE_ARGS = [
-    # q, k, v, k_scale, v_scale, table, lengths, slopes, part_o, part_ml,
-    # out, B, Hq, Hkv, S (contiguous) or MAXP * ps (paged), ps, maxp,
-    # n_split, head dim, scale (bf16) or scale / 127 (int8), softcap,
-    # window, stream
-    P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P]
-# decode's branches: ALiBi slopes, and more than 8 query heads per KV head
+# decode's branches: ALiBi slopes, and more than 8 query heads per KV head;
+# K4 and K6 share one body (decode_body.cuh)
 FLASH_DECODE = Kernel("flash_decode.cu", {
     # q, k, v, lengths, slopes, part_o, part_ml, tickets, out, B, Hq, Hkv,
     # S, n_split, chunk, head dim, scale, softcap, window, stream
@@ -209,10 +243,17 @@ FLASH_DECODE = Kernel("flash_decode.cu", {
     # q, k8, v8, k_scale, v_scale, then as flash_decode (scale / 127)
     "flash_decode_i8": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                         F, F, I, P],
-}, headers=("qmm_tc.cuh",), branches=("alibi", "G>8"))
+}, headers=("decode_body.cuh", "qmm_tc.cuh"), branches=("alibi", "G>8"))
 PAGED_DECODE = Kernel("paged_decode.cu", {
-    "paged_decode": _DECODE_ARGS, "paged_decode_i8": _DECODE_ARGS},
-    headers=("decode_attn.cuh",), branches=("alibi", "G>8"))
+    # q, k, v, table, lengths, slopes, part_o, part_ml, tickets, out, B, Hq,
+    # Hkv, pages, page size, maxp, n_split, chunk, head dim, scale, softcap,
+    # window, stream
+    "paged_decode": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                     F, F, I, P],
+    # q, k8, v8, k_scale, v_scale, then as paged_decode (scale / 127)
+    "paged_decode_i8": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                        I, I, I, F, F, I, P],
+}, headers=("decode_body.cuh", "qmm_tc.cuh"), branches=("alibi", "G>8"))
 
 KERNELS = (QMM4, QMM_A8, QMM_GENERAL, FLASH_PREFILL, FLASH_DECODE,
            PAGED_DECODE)

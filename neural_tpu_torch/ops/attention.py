@@ -200,11 +200,10 @@ def flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
     return (pv / l.clamp_min(1e-30)).reshape(B, Hq, Dh)
 
 
-DECODE_CHUNK = 64     # keys per block of K6's first pass (decode_attn.cuh)
-
-# K4's schedule: keys a tile (32 KB of bf16 K and V at either head dim),
-# the stages of its ring, heads a block (padded), and the waves of blocks
-# over the card's SMs that a split count aims for
+# K4's schedule (and K6's: the same body, decode_body.cuh): keys a tile (32
+# KB of bf16 K and V at either head dim), the stages of its ring, heads a
+# block (padded), and the waves of blocks over the card's SMs that a split
+# count aims for
 K4_TILE = {128: 64, 256: 32}
 K4_STAGES = 2
 K4_HEADS = (16, 64)
@@ -212,21 +211,21 @@ K4_HEADS = (16, 64)
 # an int8 one ~42 KB and ~120 registers a thread
 K4_BLOCKS_PER_SM = {False: 3, True: 4}
 H100_SMS = 132
-K4_TICKETS = 1 << 16      # ticket counters kept per device (see _tickets)
+K4_TICKETS = 1 << 16      # ticket counters kept per device (_cuda.tickets)
 
 
 def k4_schedule(B: int, Hq: int, Hkv: int, S: int, D: int,
                 n_sm: int = H100_SMS, int8: bool = False) -> dict:
-    """K4's launch: the tile, the split of S into ``n_split`` chunks of
-    ``chunk`` keys (a whole number of tiles), the heads a block serves
-    (padded to 16, or 64 past 16 a KV head) and the grid (splits, B·Hkv,
-    head groups). The split comes from B·Hkv, the capacity S and the SM
-    count alone, never from the fill or the window (the host never reads
-    them, so the launch can sit in a CUDA graph): the fewest tiles a
-    chunk that let every block be resident at once (K4_BLOCKS_PER_SM an
-    SM, by the cache's type), so that batch 1 fills the card 2-4 times
-    over in one wave and each block streams a few tiles through its
-    ring."""
+    """K4's launch, and K6's with the pool's capacity MAXP·ps as S: the
+    tile, the split of S into ``n_split`` chunks of ``chunk`` keys (a whole
+    number of tiles), the heads a block serves (padded to 16, or 64 past 16
+    a KV head) and the grid (splits, B·Hkv, head groups). The split comes
+    from B·Hkv, the capacity S and the SM count alone, never from the fill
+    or the window (the host never reads them, so the launch can sit in a
+    CUDA graph): the fewest tiles a chunk that let every block be resident
+    at once (K4_BLOCKS_PER_SM an SM, by the cache's type), so that batch 1
+    fills the card 2-4 times over in one wave and each block streams a few
+    tiles through its ring."""
     tk = K4_TILE[D]
     G = Hq // Hkv
     mp = K4_HEADS[0] if G <= K4_HEADS[0] else K4_HEADS[1]
@@ -241,37 +240,39 @@ def k4_schedule(B: int, Hq: int, Hkv: int, S: int, D: int,
                 grid=(n_split, B * Hkv, groups))
 
 
-_SMS, _TICKETS = {}, {}
+def k6_boxes(ps: int, D: int) -> tuple:
+    """K6's TMA boxes: (key rows a box, boxes a tile). A box stays inside
+    one page: its rows are the largest power of two dividing the page size
+    (a multiple of 16), up to K4's tile, so the server's 256-key pages take
+    one box a tile and 16- or 32-key pages several on the stage's
+    barrier."""
+    if ps <= 0 or ps % 16:
+        raise ValueError(f"K6 takes page sizes that are multiples of 16, "
+                         f"got {ps}")
+    br = min(K4_TILE[D], ps & -ps)
+    return br, K4_TILE[D] // br
 
 
-def _device_index(device) -> int:
-    return device.index if device.index is not None else \
-        torch.cuda.current_device()
-
-
-def _sm_count(device) -> int:
-    idx = _device_index(device)
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
-
-
-def _tickets(device, n: int) -> torch.Tensor:
-    """K4's ticket counters: int32 zeros made once per device (outside
-    any graph capture: every caller launches eagerly first) and kept, so
-    that a captured graph's pointer stays valid; the kernel puts each
-    counter back to 0 when its row is merged."""
-    if n > K4_TICKETS:
-        raise ValueError(f"K4 takes at most {K4_TICKETS} (row, KV head) "
-                         f"pairs a launch, got {n}")
-    idx = _device_index(device)
-    if idx not in _TICKETS:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("K4's first launch on a device must run "
-                               "eagerly, before any graph capture")
-        _TICKETS[idx] = torch.zeros(K4_TICKETS, dtype=torch.int32,
-                                    device=device)
-    return _TICKETS[idx]
+def k6_tile_pages(fill: int, window: int, ps: int, D: int, chunk: int,
+                  split: int) -> list:
+    """The table entries (page ordinals of the row) that one K6 block reads
+    for split ``split`` of a row of fill ``fill``: the kernel's producer
+    rule, box by box, in the order it issues them. A box wholly past the
+    fill or below the window's floor reads the page of the nearest visible
+    key, so no entry outside [floor // ps, (fill - 1) // ps] is read; a
+    split with no visible key reads none."""
+    tk = K4_TILE[D]
+    br, _ = k6_boxes(ps, D)
+    lo = max(fill - window, 0) if window else 0
+    kb, ke = max(split * chunk, lo), min(split * chunk + chunk, fill)
+    if kb >= ke:
+        return []
+    out = []
+    for t in range(kb // tk, -(-ke // tk)):
+        for r0 in range(0, tk, br):
+            k = min(max(t * tk + r0, lo), fill - 1)
+            out.append((t * tk + r0, k // ps))
+    return out
 
 
 def _check_slopes(slopes, Hq: int):
@@ -287,42 +288,24 @@ def _branches(slopes, Hq: int, Hkv: int):
         (("G>8",) if Hq // Hkv > 8 else ())
 
 
-def decode_launch(kernel, fn, q, k, v, k_scale, v_scale, table, lengths,
-                  B, Hkv, S, ps, maxp, qk_scale, softcap, window, slopes):
-    """Launch one of K6's split-S entry points (over a page table) and
-    return [B, Hq, Dh] f32. The number of splits comes from the key
-    capacity S, never from the fill or the window: the kernel reads the
-    lengths on the device, and chunks past a row's fill or wholly below its
-    window return at once, so the launch needs no host sync and can be
-    captured in a CUDA graph. Any number of query heads per KV head: the
-    kernel takes them 8 at a time."""
-    Hq, Dh = q.shape[1], q.shape[2]
-    _check_slopes(slopes, Hq)
-    n_split = -(-S // DECODE_CHUNK)
-    part_o = torch.empty((B * Hq, n_split, Dh), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((B * Hq, n_split, 2), dtype=torch.float32,
-                          device=q.device)
-    out = torch.empty((B, Hq, Dh), dtype=torch.float32, device=q.device)
-    opt = lambda t: 0 if t is None else _cuda.ptr(t)
-    kernel.call(fn, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), opt(k_scale),
-                opt(v_scale), opt(table), _cuda.ptr(lengths), opt(slopes),
-                _cuda.ptr(part_o), _cuda.ptr(part_ml), _cuda.ptr(out), B, Hq,
-                Hkv, S, ps, maxp, n_split, Dh, float(qk_scale),
-                float(softcap), int(window), _cuda.stream_ptr(),
-                branches=_branches(slopes, Hq, Hkv))
-    return out
-
-
 def _k4_launch(fn, q, k, v, k_scale, v_scale, lengths, qk_scale, softcap,
-               window, slopes):
-    """Launch K4 with :func:`k4_schedule`'s split; the scratch (part_o,
-    part_ml) is allocated here, inside a graph capture too; the last block
-    of each row merges the splits."""
+               window, slopes, table=None):
+    """Launch K4 (``flash_decode``, ``flash_decode_i8``) over caches [B, Hkv,
+    S, D], or K6 (``paged_decode``, ``paged_decode_i8``) over pools [P,
+    Hkv, ps, D] through ``table`` [B, MAXP] at S = MAXP·ps, with
+    :func:`k4_schedule`'s split; the scratch (part_o, part_ml) is allocated
+    here, inside a graph capture too; the last block of each row merges the
+    splits."""
     B, Hq, Dh = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
+    Hkv = k.shape[1]
+    if table is None:
+        kernel, S, geometry = _cuda.FLASH_DECODE, k.shape[2], []
+    else:
+        ps, maxp = k.shape[2], table.shape[1]
+        kernel, S = _cuda.PAGED_DECODE, maxp * ps
+        geometry = [k.shape[0], ps, maxp]
     _check_slopes(slopes, Hq)
-    sch = k4_schedule(B, Hq, Hkv, S, Dh, _sm_count(q.device),
+    sch = k4_schedule(B, Hq, Hkv, S, Dh, _cuda.sm_count(q.device),
                       k_scale is not None)
     n_split = sch["n_split"]
     part_o = torch.empty((B * Hq, n_split, Dh), dtype=torch.float32,
@@ -330,17 +313,20 @@ def _k4_launch(fn, q, k, v, k_scale, v_scale, lengths, qk_scale, softcap,
     part_ml = torch.empty((B * Hq, n_split, 2), dtype=torch.float32,
                           device=q.device)
     out = torch.empty((B, Hq, Dh), dtype=torch.float32, device=q.device)
-    tickets = _tickets(q.device, B * Hkv * sch["grid"][2])
+    # the last block of each (row, KV head) puts its counter back to 0
+    tickets = _cuda.tickets("decode", q.device, B * Hkv * sch["grid"][2],
+                            K4_TICKETS)
     opt = lambda t: 0 if t is None else _cuda.ptr(t)
     scales = [] if k_scale is None else [_cuda.ptr(k_scale),
                                          _cuda.ptr(v_scale)]
-    _cuda.FLASH_DECODE.call(
-        fn, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), *scales,
+    paged = [] if table is None else [_cuda.ptr(table)]
+    kernel.call(
+        fn, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), *scales, *paged,
         _cuda.ptr(lengths), opt(slopes), _cuda.ptr(part_o),
         _cuda.ptr(part_ml), _cuda.ptr(tickets), _cuda.ptr(out), B, Hq, Hkv,
-        S, n_split,
-        sch["chunk"], Dh, float(qk_scale), float(softcap), int(window),
-        _cuda.stream_ptr(), branches=_branches(slopes, Hq, Hkv))
+        *(geometry or [S]), n_split, sch["chunk"], Dh, float(qk_scale),
+        float(softcap), int(window), _cuda.stream_ptr(),
+        branches=_branches(slopes, Hq, Hkv))
     return out
 
 

@@ -4,11 +4,15 @@ dispatch and the page-pool writes (port of
 
 - **K6** :func:`paged_decode` / :func:`paged_decode_i8`
   (``csrc/paged_decode.cu``) replace the TPU's ``_paged_decode_kernel``:
-  K4's split-S body (``csrc/decode_attn.cuh``, shared with
-  ``flash_decode.cu``) with each key's row found through ``table[b, s //
-  ps]``. Keys past a row's fill, and chunks wholly below its sliding
-  window, are never read, so table entries past the fill may point
-  anywhere in the pool. The softcap, ALiBi and the window are K4's.
+  K4's body (``csrc/decode_body.cuh``, a TMA ring of K/V tiles, mma.sync
+  with all G heads of a KV head as rows), its producer looking each tile's
+  page up in ``table[b, s // ps]`` (:func:`~.attention.k6_boxes`,
+  :func:`~.attention.k6_tile_pages`), launched as K4 with the pool's
+  capacity MAXP·ps as S. Tiles past a row's fill, and wholly below its
+  sliding window, are never read, so table entries past the fill may point
+  anywhere in the pool; every row of a page the table names must hold
+  finite K/V (a whole box is read and masked). The softcap, ALiBi and the
+  window are K4's.
 - :func:`attend_paged`: T == 1 goes to K6; T > 1 gathers the slot's pages
   into a contiguous ``[B, Hkv, MAXP·ps, Dh]`` view and runs K3 over it, the
   JAX package's own route for paged prefill; a head dim that is not a
@@ -24,10 +28,10 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .attention import (attend_xla, attn_options, attn_scale,
-                        check_head_dim, decode_launch, flash_decode_i8_plain,
+from .attention import (_k4_launch, attend_xla, attn_options, attn_scale,
+                        check_head_dim, flash_decode_i8_plain,
                         flash_decode_plain, flash_prefill, flash_prefill_i8,
-                        quantize_kv)
+                        k6_boxes, quantize_kv)
 
 
 def gather_pages(pool, table):
@@ -66,9 +70,7 @@ def _paged_args(q, k_pool, v_pool, table, lengths, kv_dtype):
     check_head_dim(Dh)
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if ps % 16:
-        raise ValueError(f"paged_decode takes page sizes that are multiples "
-                         f"of 16, got {ps}")
+    k6_boxes(ps, Dh)
     q = q.to(torch.bfloat16).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     for name, c in (("k_pool", k_pool), ("v_pool", v_pool)):
@@ -77,7 +79,7 @@ def _paged_args(q, k_pool, v_pool, table, lengths, kv_dtype):
     if table.shape[0] != B:
         raise ValueError(f"table has {table.shape[0]} rows for B={B}")
     _cuda.check(lengths, "lengths", torch.int32, (B,))
-    return q, lengths, B, Hkv, ps, table.shape[1]
+    return q, lengths
 
 
 def paged_decode(q, k_pool, v_pool, table, lengths, scale: float,
@@ -86,11 +88,10 @@ def paged_decode(q, k_pool, v_pool, table, lengths, scale: float,
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, None, None, table,
                                   lengths, scale, softcap, window, slopes)
-    q, lengths, B, Hkv, ps, maxp = _paged_args(q, k_pool, v_pool, table,
-                                               lengths, torch.bfloat16)
-    return decode_launch(_cuda.PAGED_DECODE, "paged_decode", q, k_pool,
-                         v_pool, None, None, table, lengths, B, Hkv,
-                         maxp * ps, ps, maxp, scale, softcap, window, slopes)
+    q, lengths = _paged_args(q, k_pool, v_pool, table, lengths,
+                             torch.bfloat16)
+    return _k4_launch("paged_decode", q, k_pool, v_pool, None, None, lengths,
+                      scale, softcap, window, slopes, table)
 
 
 def paged_decode_i8(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
@@ -100,14 +101,12 @@ def paged_decode_i8(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, k_scale, v_scale, table,
                                   lengths, scale, softcap, window, slopes)
-    q, lengths, B, Hkv, ps, maxp = _paged_args(q, k_pool, v_pool, table,
-                                               lengths, torch.int8)
+    q, lengths = _paged_args(q, k_pool, v_pool, table, lengths, torch.int8)
     for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
         _cuda.check(s, name, torch.bfloat16, k_pool.shape[:3])
-    return decode_launch(_cuda.PAGED_DECODE, "paged_decode_i8", q, k_pool,
-                         v_pool, k_scale, v_scale, table, lengths, B, Hkv,
-                         maxp * ps, ps, maxp, scale / 127.0, softcap, window,
-                         slopes)
+    return _k4_launch("paged_decode_i8", q, k_pool, v_pool, k_scale,
+                      v_scale, lengths, scale / 127.0, softcap, window,
+                      slopes, table)
 
 
 def attend_paged(q, k_pool, v_pool, k_scale, v_scale, table, positions, cfg,

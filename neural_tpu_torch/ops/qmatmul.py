@@ -38,7 +38,7 @@ stored ones.
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
+from functools import lru_cache, partial
 from typing import Optional
 
 import torch
@@ -142,7 +142,95 @@ def qmm_native_plain(x: torch.Tensor, planes: torch.Tensor,
     return out.to(out_dtype)
 
 
-QMM4_CTA_K = 512      # K values per CTA of the first pass (16 chunks of 32)
+# K1's schedule (``csrc/qmm4_npack.cu``): 128 output columns a block, K
+# streamed in stages of 128 values through a 32 KB TMA ring, four consumer
+# warps and a producer warp a block, about one block an SM and at most two
+# (the shared memory each may take for the ring, the staged slice of x, the
+# warps' sums and the scale rows), one wave: a block is one (column tile, K
+# split) item
+K1_TILE_N, K1_STAGE_K, K1_RING_BYTES, K1_XPAD = 128, 128, 32768, 8
+K1_CONSUMERS = 4
+K1_BLOCKS_PER_SM = 2
+K1_SMEM_CAP = 112 * 1024    # a block's share of an SM's 228 KB, less 2 KB
+K1_TICKETS = 1 << 16      # ticket counters kept per device, a column tile each
+H100_SMS = 132
+
+
+def k1_smem(M: int, spk: int, group: int = 128, asym: bool = False) -> int:
+    """Dynamic shared memory of a K1 block with ``spk`` stages a split: the
+    ring (1024-aligned), the staged x slice (bf16, padded rows), the
+    consumer warps' sums and the bf16 scale rows of the groups a split
+    touches (with zero-points also their rows and x's f32 group sums); the
+    C source's ``smem_bytes``."""
+    g_rows = spk * K1_STAGE_K // group + 2
+    return 1024 + K1_RING_BYTES + M * (spk * K1_STAGE_K + K1_XPAD) * 2 \
+        + K1_CONSUMERS * M * K1_TILE_N * 4 \
+        + (g_rows * (K1_TILE_N * 4 + M * 4) if asym
+           else g_rows * K1_TILE_N * 2)
+
+
+@lru_cache(maxsize=None)
+def k1_schedule(M: int, K: int, N: int, group: int = 128, asym: bool = False,
+                n_sm: int = H100_SMS) -> dict:
+    """K1's launch for ``[M, K] @ [K, N]`` with scale groups of ``group``
+    rows (and zero-points when ``asym``): the column tiles, the K stages,
+    the split of the stages into ``splits`` items a column tile of
+    ``stages_per_split`` stages (the C source derives it from the splits),
+    and the grid (splits, column tiles). The splits fill the card's
+    K1_BLOCKS_PER_SM·SMs block slots at most once (no split where the
+    column tiles alone fill them, as the gate/up products and the lm_head
+    do), then grow until K1_BLOCKS_PER_SM blocks fit an SM's shared
+    memory. The
+    decision rests on the shapes and the SM count alone."""
+    tiles = -(-N // K1_TILE_N)
+    kst = -(-K // K1_STAGE_K)
+    splits = max(1, min(kst, round(n_sm / tiles)))
+    spk = -(-kst // splits)
+    while k1_smem(M, spk, group, asym) > K1_SMEM_CAP and spk > 1:
+        splits += 1
+        spk = -(-kst // splits)
+    splits = -(-kst // spk)
+    return dict(tiles=tiles, stages=kst, splits=splits,
+                stages_per_split=spk, grid=(splits, tiles),
+                smem=k1_smem(M, spk, group, asym))
+
+
+def k1_items(M: int, K: int, N: int, group: int = 128, asym: bool = False,
+             n_sm: int = H100_SMS) -> dict:
+    """The work of :func:`k1_schedule`'s grid, as the C source walks it:
+    ``items`` maps each block (split, column tile) to its output columns
+    and its K range (a split's ``stages_per_split`` stages of K1_STAGE_K,
+    the last one cut at K); ``merge`` each column tile's splits in the
+    order its last block adds their partials."""
+    sch = k1_schedule(M, K, N, group, asym, n_sm)
+    spk = sch["stages_per_split"] * K1_STAGE_K
+    items = {(sp, t): (range(t * K1_TILE_N, min(N, (t + 1) * K1_TILE_N)),
+                       range(sp * spk, min(K, (sp + 1) * spk)))
+             for sp in range(sch["splits"]) for t in range(sch["tiles"])}
+    return dict(items=items,
+                merge={t: list(range(sch["splits"]))
+                       for t in range(sch["tiles"])})
+
+
+def _k1_launch(fn, x, N, group, out_dtype, head, branches=()):
+    """Launch one K1 entry point: ``head`` are its pointer and option
+    arguments up to the planes and scales (sym and asym: x, planes,
+    scales, zeros, xs; fused: x and its options, planes, scales), then the
+    f32 scratch of :func:`k1_schedule`'s splits, the per-device ticket
+    counters (``_cuda.tickets``) and the output."""
+    M, K = x.shape
+    sch = k1_schedule(M, K, N, group, fn.endswith("_asym"),
+                      _cuda.sm_count(x.device))
+    splits = sch["splits"]
+    partial = torch.empty((splits, M, N) if splits > 1 else (1,),
+                          dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    tickets = _cuda.tickets("K1", x.device, sch["tiles"], K1_TICKETS)
+    _cuda.QMM4.call(fn, *head, _cuda.ptr(partial), _cuda.ptr(tickets),
+                    _cuda.ptr(out), M, K, N, group,
+                    int(out_dtype == torch.float32), splits,
+                    _cuda.stream_ptr(), branches=branches)
+    return out
 
 
 def qmm_native(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
@@ -150,9 +238,10 @@ def qmm_native(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
                out_dtype: torch.dtype) -> torch.Tensor:
     """K1: ``x [M, K] @ W`` for at-rest native codes, M <= 16: native-pack
     nibbles (int3/int4), native-pack int2, or int8 code planes (5-8 bit),
-    with optional bf16 zero-points. Split over K into ``ceil(K/512)`` f32
-    partials that a second pass adds in a fixed order: no atomics, so
-    reruns give identical outputs. The C entry point names the branch: the
+    with optional bf16 zero-points. One launch (:func:`k1_schedule`): the
+    K splits' f32 partials are added in split order by the last block of
+    each column tile, so reruns give identical outputs. The C entry point
+    names the branch: the
     layout (``qmm4_npack`` nibbles, ``qmm2_npack``, ``qmm8_native``), with
     ``_asym`` when there are zero-points."""
     if x.device.type == "cpu":
@@ -182,21 +271,14 @@ def qmm_native(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (planes, scales)
            + (() if zeros is None else (zeros,))):
         raise ValueError("planes, scales and zeros must be 16-byte aligned")
-    splits = -(-K // QMM4_CTA_K)
-    partial = torch.empty((splits, M, N), dtype=torch.float32,
-                          device=x.device)
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     xs = None
     if zeros is not None:   # per-group sums of x, outside the kernel
         fn += "_asym"
         xs = x.to(torch.float32).reshape(M, K // group, group).sum(dim=2)
-    _cuda.QMM4.call(fn, _cuda.ptr(x), _cuda.ptr(planes), _cuda.ptr(scales),
-                    None if zeros is None else _cuda.ptr(zeros),
-                    None if xs is None else _cuda.ptr(xs), _cuda.ptr(partial),
-                    _cuda.ptr(out), M, K, N, group,
-                    int(out_dtype == torch.float32), splits,
-                    _cuda.stream_ptr())
-    return out
+    return _k1_launch(fn, x, N, group, out_dtype, (
+        _cuda.ptr(x), _cuda.ptr(planes), _cuda.ptr(scales),
+        None if zeros is None else _cuda.ptr(zeros),
+        None if xs is None else _cuda.ptr(xs)))
 
 
 # ---------------------------------------------------------------------------
@@ -303,18 +385,11 @@ def qmm_native_fused(x: torch.Tensor, planes: torch.Tensor,
            + tuple(t for t in (u, nw) if t is not None)):
         raise ValueError("x, u, the norm weight, planes and scales must be "
                          "16-byte aligned")
-    splits = -(-K // QMM4_CTA_K)
-    partial_ = torch.empty((splits, M, N), dtype=torch.float32,
-                           device=x.device)
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     opt = lambda t: None if t is None else _cuda.ptr(t)
-    _cuda.QMM4.call(fn, _cuda.ptr(x), opt(u), opt(nw), norm_f32, float(eps),
-                    float(offset), _ACT_CODE.get(act, 0), opt(res),
-                    _cuda.ptr(planes), _cuda.ptr(scales), _cuda.ptr(partial_),
-                    _cuda.ptr(out), M, K, N, group,
-                    int(out_dtype == torch.float32), splits,
-                    _cuda.stream_ptr(), branches=branches)
-    return out
+    return _k1_launch(fn, x, N, group, out_dtype, (
+        _cuda.ptr(x), opt(u), opt(nw), norm_f32, float(eps), float(offset),
+        _ACT_CODE.get(act, 0), opt(res), _cuda.ptr(planes),
+        _cuda.ptr(scales)), branches=branches)
 
 
 def has_decode_tile(M: int, K: int, N: int, group: int,

@@ -254,7 +254,7 @@ def test_schedule_constants_match_the_sources():
     """The tiles, rows and ring depths the schedules assume are the ones
     the C sources are built with."""
     k3 = (_cuda.CSRC / "flash_prefill.cu").read_text()
-    k4 = (_cuda.CSRC / "flash_decode.cu").read_text()
+    k4 = (_cuda.CSRC / "decode_body.cuh").read_text()
     assert re.search(r"constexpr int BQ = (\d+);", k3).group(1) == \
         str(A.K3_ROWS)
     assert re.search(r"constexpr int WROWS = (\d+);", k3).group(1) == \
@@ -274,10 +274,19 @@ def test_schedule_constants_match_the_sources():
 
 
 def test_k4_has_its_own_body():
-    """K4 reads its tiles through the shared TMA header; K6 keeps the split
-    body it had (decode_attn.cuh)."""
-    assert _cuda.FLASH_DECODE.headers == ("qmm_tc.cuh",)
-    assert _cuda.PAGED_DECODE.headers == ("decode_attn.cuh",)
+    """K4 and K6 share one body: both sources instantiate the templated
+    split-S body of decode_body.cuh (TMA ring, mma.sync, the last block's
+    merge), each through its own entry points; the earlier split body
+    (decode_attn.cuh) is gone."""
+    assert _cuda.FLASH_DECODE.headers == ("decode_body.cuh", "qmm_tc.cuh")
+    assert _cuda.PAGED_DECODE.headers == _cuda.FLASH_DECODE.headers
     assert "qmm_tc.cuh" in _cuda.FLASH_PREFILL.headers
-    src = (_cuda.CSRC / "flash_decode.cu").read_text()
-    assert "decode_attn.cuh" not in src.split("#include", 1)[1]
+    assert not (_cuda.CSRC / "decode_attn.cuh").exists()
+    body = (_cuda.CSRC / "decode_body.cuh").read_text()
+    assert "template <int D, bool I8, int MT, bool PAGED>" in body
+    for src, paged in (("flash_decode.cu", "false"),
+                       ("paged_decode.cu", "true")):
+        text = (_cuda.CSRC / src).read_text()
+        assert '#include "decode_body.cuh"' in text
+        assert f"decode_body::launch<{paged}, " in text
+        assert "__global__" not in text
