@@ -50,7 +50,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    it replaces (the port's ``rms_norm`` / ``act(g) * u`` / bf16 add and
    K1); every K1 entry point launched twice on the same inputs, the two
    outputs bit-identical, and the fused rms route against the unfused
-   chain (their largest difference logged);
+   chain (their largest difference logged); the row-norm kernel
+   (``rms_norm.cu``, the unfused graph's RMS norm on K1's row-scale
+   routine) against the torch chain at a decode step's rows and a
+   prefill's, beside ``torch.nn.functional.rms_norm``;
 4. generation: a Llama-2-7B-shaped q4_j model (random weights from a seed,
    FFN 11008 padded to 11264) generates greedily through ``Model.generate``
    with bf16 and with int8 KV, every launch count set to 0 just before each
@@ -79,6 +82,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    6's 12 queries, and a short paged bf16 run; (4e) ChatGLM-6B at full
    depth (``THUDM/chatglm-6b``'s config): ``Model.generate`` with bf16 and
    int8 KV, decode at fill 128, TTFT at 1975 tokens, all of it the prefix;
+   and (4i, right after phase 4, on its 7B) the sampling slice:
+   ``Model.generate(do_sample=True, top_k=40, top_p=0.95, temperature=0.8)``
+   on a 512-token prompt with one seed twice (ids equal) and another (ids
+   differ); ``sample_loop``'s graphed step (replays from one pinned state
+   draw different ids, a seed fixes the ids) and its device ms a step at
+   fill 128, batch 1 and 4, replayed in turns with ``decode_loop``'s
+   greedy graph; four ragged prompts (128, 512, 1024, 1975
+   tokens, 32 new each) through one padded prefill and a batched decode,
+   their ids against the row-wise ones where the margins prove them;
+   ``num_beams=4`` on a 128-token prompt, one beam step's device-clock
+   time and ``reorder_batch``'s;
+   ``streaming=True`` over a 512-position cache (bf16 and int8 KV, 600 new
+   tokens, two shifts) and the shift's time; ``sample_batched``'s and
+   ``sample``'s draws over one 32000-wide row in 4096 rows against the
+   filtered softmax (chi-square) and the sampler's device times. Phase 4 also holds C5:
+   the fused decode path's logits equal the unfused ones exactly, and the
+   fused rms prologue equals the norm kernel then K1 over the 7B's own
+   residual rows;
 5. card vs plain: a one-layer copy at the same width runs its prefill logits
    and greedy steps through the kernels on the card and through the plain
    path on the CPU, and the card's fused path (with and without GLU)
@@ -94,7 +115,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain path, and the paged int8 Scheduler check; (5c) one-layer full-width
    copies of Bloom-7B1, MPT-7B and ChatGLM-6B (100-token prompts, bf16
    activations, tolerance 2e-2·max|logit|) the same way, and the paged
-   int8 Scheduler check on the Bloom copy;
+   int8 Scheduler check on the Bloom copy; on phase 5's copy also beam
+   search (4 beams) and the first StreamingLLM shift (bf16 and int8, from
+   the CPU's cache) against the CPU, and a copy with a 32001-wide
+   quantized lm_head through the counted ``qmm_plain`` route (K1 and K5
+   refuse it) against the CPU;
    Then (4f) Mistral-7B as a GPTQ int4 act-order checkpoint (its state
    dict synthesized on the host, converted on the card by
    ``params_from_gptq_state_dict``): ``Model.generate`` with bf16 and
@@ -160,15 +185,21 @@ from neural_tpu_torch.ops import _cuda  # noqa: E402
 from neural_tpu_torch.ops import attention as A  # noqa: E402
 from neural_tpu_torch.ops import paged_attention as PA  # noqa: E402
 from neural_tpu_torch.ops import qmatmul as Q  # noqa: E402
-from neural_tpu_torch.ops.norms import rms_norm  # noqa: E402
+from neural_tpu_torch.ops.norms import rms_norm, rms_norm_plain  # noqa: E402
 from neural_tpu_torch.ops.rope import alibi_slopes, rope_freqs  # noqa: E402
-from neural_tpu_torch.runtime.generate import (_StepGraph,  # noqa: E402
+from neural_tpu_torch.runtime import streaming as ST  # noqa: E402
+from neural_tpu_torch.runtime.beam import _beam_step, beam_search  # noqa: E402
+from neural_tpu_torch.runtime.generate import (_SampledStep,  # noqa: E402
+                                               _StepGraph, _prefill_ragged,
+                                               sample_loop,
                                                decode_loop,
                                                greedy_generate, model_step,
                                                prefill_step)
-from neural_tpu_torch.runtime.kvcache import init_cache  # noqa: E402
+from neural_tpu_torch.runtime.kvcache import (init_cache,  # noqa: E402
+                                              reorder_batch)
 from neural_tpu_torch.runtime.sampling import (  # noqa: E402
-    SamplingParams, apply_penalties, token_counts)
+    SamplingParams, apply_penalties, batch_params, draw_noise, sample,
+    sample_batched, token_counts, top_k_filter, top_p_filter)
 from neural_tpu_torch.serving import (ModelServer, Query,  # noqa: E402
                                       Scheduler)
 
@@ -1070,6 +1101,54 @@ def check_k1_reruns(gen, results):
     torch.cuda.empty_cache()
 
 
+# the norms of one 7B decode step (two a layer and the final one) and of a
+# 1975-token prefill, each [M, 4096] bf16 rows with a bf16 weight
+RMS_CASES = ((1, "decode step"), (T_PREFILL, "1975-token prefill"))
+
+
+def check_rms_norm(gen, results):
+    """The row-norm kernel (``csrc/rms_norm.cu``: the unfused graph's RMS
+    norm on the card, on K1's row-scale routine ``rms_row.cuh``) against
+    the torch chain ``rms_norm_plain`` on the same rows: each output within
+    one bf16 step of the chain's (at most 2^-7 relative; the two sum the
+    squares in other orders and take other reciprocal square roots), at a
+    decode step's rows and a prefill's; its time beside the chain's and
+    ``torch.nn.functional.rms_norm``'s (a yardstick the port never calls),
+    each times the 2L + 1 norms of a step or prefill."""
+    lib_fn = getattr(torch.nn.functional, "rms_norm", None)
+    n = 2 * L + 1
+    cases = {}
+    for M, label in RMS_CASES:
+        x = (torch.randn((M, D), generator=gen, device=DEV) * 3).bfloat16()
+        w = (1 + 0.3 * torch.randn(D, generator=gen, device=DEV)).bfloat16()
+        before = _cuda.launch_counts()["rms_norm_bf16"]
+        out = rms_norm(x, w, 1e-5, 0.0)
+        if _cuda.launch_counts()["rms_norm_bf16"] != before + 1:
+            raise AssertionError("rms_norm_bf16 was not launched")
+        ref = rms_norm_plain(x, w, 1e-5, 0.0)
+        err = (out.float() - ref.float()).abs()
+        if not bool((err <= 2 ** -7 * ref.float().abs() + 1e-6).all()):
+            raise AssertionError(f"rms_norm {label}: more than one bf16 step "
+                                 f"from the chain (max {err.max().item()})")
+        xs = [x] + [x.clone() for _ in range(_copies(M * D * 2) - 1)]
+        ms = time_ms([lambda x=x: rms_norm(x, w, 1e-5, 0.0) for x in xs])
+        pms = time_ms([lambda: rms_norm_plain(x, w, 1e-5, 0.0)])
+        lms = None if lib_fn is None else time_ms(
+            [lambda: lib_fn(x, (D,), w, 1e-5)])
+        bnd, by = bound_ms(2 * M * D * 2 + D * 2, 5 * M * D, F32_FLOPS)
+        log(f"rms_norm {label} (M={M}): max err {err.max().item():.3g}, "
+            f"{int((out != ref).sum())} of {M * D} elements a bf16 step "
+            f"apart | kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"F.rms_norm {'n/a' if lms is None else round(lms, 4)} ms, bound "
+            f"{bnd:.4f} ms ({by}), per launch")
+        cases[label] = dict(ms=n * ms, plain_ms=n * pms,
+                            library_ms=None if lms is None else n * lms,
+                            bound_ms=n * bnd, bound_by=by,
+                            err=err.max().item(),
+                            per=f"{label}, {n} norms of [{M}, {D}]")
+    _record(results, "RMS", cases)
+
+
 def check_k2_asym(gen, results):
     """K2 over asymmetric int4 (q4_j_i8_g128) at the 1975-token prefill.
     Equal int8 codes, exact integer dots and the fold in the same order;
@@ -1944,6 +2023,8 @@ def phase_generation(params):
 
     _decode_loop_vs_eager(params, prompts[0], outs[0][64])
     res = generate_fused(model, params, prompts[1])
+    res["c5_residual_products_equal"] = check_c5_residual_rows(params,
+                                                               prompts[1])
     for mode in (FUSED, FUSED_GLU):
         with fusion(mode):
             run_path(f"decode_loop_{mode[0]}", FUSED_DECODE[mode[0]],
@@ -2109,8 +2190,71 @@ def generate_fused(model, params, prompt, n_new=16):
         if proven < (3 if name == "fused" else 1):
             raise AssertionError(f"generate {name}: too few steps with a "
                                  "margin wide enough to compare the ids")
+        # C5: the fused rms prologue and the unfused graph's norm kernel
+        # share one row-scale routine, so without GLU every logit is equal
+        if name == "fused" and (worst != 0.0 or new[name] != feed):
+            raise AssertionError(f"C5: fused logits part from unfused by "
+                                 f"{worst}·max|logit| (ids {new[name]}, "
+                                 f"unfused {feed})")
         res[f"generate_{name}_rel_err"] = worst
     return res
+
+
+def check_c5_residual_rows(params, prompt, rows=16):
+    """C5 over the 7B's own residual stream: the input of every block's
+    attention norm and of the final norm, captured from an unfused prefill
+    of ``prompt``, ``rows`` positions at a time (K1's widest M), through
+    the fused rms prologue (q/k/v, and the lm_head for the final norm)
+    against the unfused chain on the card (the norm kernel, then K1): every
+    output bit for bit. Returns the number of products compared."""
+    seen = {}
+
+    def keep(l):
+        return lambda mod, args: seen.__setitem__(l, args[0][0])
+
+    hooks = [blk.register_forward_pre_hook(keep(l))
+             for l, blk in enumerate(params.layers)]
+    hooks.append(params.layers[-1].register_forward_hook(
+        lambda mod, args, out: seen.__setitem__("final", out[0])))
+    try:
+        with fusion(UNFUSED), torch.inference_mode():
+            prefill_step(params, torch.tensor([prompt], device=DEV),
+                         torch.zeros(1, dtype=torch.long, device=DEV),
+                         init_cache(CFG, 1, len(prompt), device=DEV))
+    finally:
+        for h in hooks:
+            h.remove()
+    gen = torch.Generator().manual_seed(13)
+    sel = torch.randperm(len(prompt), generator=gen)[:rows].to(DEV)
+    checked = 0
+    for key, x in seen.items():
+        with torch.inference_mode():
+            checked += _c5_rows(params, key, x[sel].contiguous())
+    log(f"C5 over the model's own residual rows ({rows} positions of a "
+        f"{len(prompt)}-token prefill, every attention norm and the final "
+        f"norm): {checked} fused products bit-identical to the unfused chain")
+    return checked
+
+
+def _c5_rows(params, key, xr):
+    """Block ``key``'s q/k/v (or, for "final", the lm_head) on rows ``xr``
+    of its norm's input: the fused rms prologue against the unfused chain,
+    bit for bit. Returns the number of products compared."""
+    if key == "final":
+        pairs = [(params.final_norm_w, params.lm_head.qt, torch.float32)]
+    else:
+        blk = params.layers[key]
+        pairs = [(blk.attn_norm_w, getattr(blk, n).qt, torch.bfloat16)
+                 for n in ("wq", "wk", "wv")]
+    for nw, qt, odt in pairs:
+        norm = (nw, CFG.norm_eps, CFG.norm_offset)
+        fused = Q.qmatmul_fused(xr, qt, odt, norm=norm)
+        chain = Q.qmatmul(rms_norm(xr, *norm), qt, odt)
+        if not torch.equal(fused, chain):
+            d = (fused.float() - chain.float()).abs().max().item()
+            raise AssertionError(f"C5: the fused rms route parts from the "
+                                 f"unfused chain at {key}: {d}")
+    return len(pairs)
 
 
 # phase 4's device-timed legs: (name, fill, batch, KV dtype)
@@ -2250,6 +2394,405 @@ FUSED_SERVER_PATHS = {
                    "qmm4_npack_fused", "qmm4_npack_fused+res",
                    "paged_decode"),
 }
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: sampling, beams, batches of prompts and StreamingLLM on the 7B
+# ---------------------------------------------------------------------------
+
+# the kernels each path of phase 4i must launch: a prefill of 256 tokens or
+# more (K2, K3) and decode steps (K1, K4)
+GEN_PREFILL = ("qmm4_npack", "qmm_a8", "flash_prefill", "flash_decode")
+GEN_STEPS = ("qmm4_npack", "flash_decode")
+SAMPLED = SamplingParams(temperature=0.8, top_k=40, top_p=0.95)
+N_SAMPLED = 32
+
+
+def _host_ms(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def step_graphs_ms(params, fill, batch, reps=AB_REPS):
+    """The device time of one decode step at ``fill``, batch ``batch``, for
+    the sampled step (one captured ``_SampledStep``, ``sample_loop``'s
+    graph: top-k 40, top-p 0.95, temperature 0.8, the penalty over a 64-id
+    history; the noise refill and one replay) and the greedy one
+    (``_StepGraph``, ``decode_loop``'s graph), each on a cache of its own,
+    replayed in turns with CUDA events around each; each state is put back
+    to ``fill`` before its replay. Returns the quartiles of each."""
+    g = torch.Generator().manual_seed(17)
+    token = torch.full((batch, 1), 17, dtype=torch.long, device=DEV)
+    pos = torch.full((batch,), fill, dtype=torch.long, device=DEV)
+    hist = torch.randint(3, V, (batch, 64), generator=g).to(DEV)
+    with torch.inference_mode():
+        st = _SampledStep(params, init_cache(CFG, batch, S_CACHE, device=DEV),
+                          SAMPLED, token, pos, hist, generator=torch.Generator(
+                              device=DEV).manual_seed(1))
+        st.capture()
+        greedy = _StepGraph(params, token, pos,
+                            init_cache(CFG, batch, S_CACHE, device=DEV))
+        steps = {"sampled": (st.step, st.pos),
+                 "greedy": (greedy.replay, greedy.pos)}
+        ts = {n: [] for n in steps}
+        for r in range(reps + 1):
+            for n, (fn, p) in steps.items():
+                p.fill_(fill)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn()
+                e1.record()
+                e1.synchronize()
+                if r:                         # the first round warms up
+                    ts[n].append(e0.elapsed_time(e1))
+    del st, greedy
+    return {n: _quartiles(t) for n, t in ts.items()}
+
+
+def _sampled_step_draws(params):
+    """``sample_loop``'s graphed step draws anew at each replay: 16 replays
+    from one pinned state (token, position and cache slot put back each
+    time) give more than one id, where a draw baked into the graph would
+    give one; and a seed fixes the ids: two runs from one seed give the
+    same ids, another seed other ids."""
+    token = torch.full((1, 1), 17, dtype=torch.long, device=DEV)
+    pos = torch.full((1,), 128, dtype=torch.long, device=DEV)
+    with torch.inference_mode():
+        st = _SampledStep(params, init_cache(CFG, 1, 256, device=DEV),
+                          SAMPLED, token, pos, generator=torch.Generator(
+                              device=DEV).manual_seed(3))
+        st.capture()
+        pinned = []
+        for _ in range(16):
+            st.token.fill_(17)
+            st.pos.fill_(128)
+            pinned.append(int(st.step()[0]))
+    if len(set(pinned)) < 2:
+        raise AssertionError(f"16 replays of the sampled step from one "
+                             f"state drew one id: {pinned}")
+    del st
+
+    def ids(seed):
+        cache = init_cache(CFG, 1, 256, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        return sample_loop(params, token, pos, cache, 16, SAMPLED,
+                           gen)[:, 0].tolist()
+
+    a, b, c = ids(7), ids(7), ids(8)
+    if a != b or a == c:
+        raise AssertionError(f"sample_loop seeds: {a} / {b} / {c}")
+    log(f"sample_loop's graph: 16 replays from one pinned state drew "
+        f"{len(set(pinned))} distinct ids {pinned}; seed 7 gave {a} twice, "
+        f"seed 8 {c}")
+
+
+def _batched_rows(model, prompts, feed):
+    """The logits rows of a padded batch, teacher-forced: the ragged
+    prefill's last real rows, then one batched step per id of ``feed`` (a
+    list per row); a list over steps of [B, V] f32 on the CPU."""
+    B, n = len(prompts), len(feed[0])
+    lens = torch.tensor([len(p) for p in prompts], device=DEV)
+    toks = torch.zeros((B, int(lens.max())), dtype=torch.long)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = torch.tensor(p)
+    cache = init_cache(CFG, B, int(lens.max()) + n + 1, device=DEV)
+    rows = [_prefill_ragged(model, toks.to(DEV), lens, cache).float().cpu()]
+    for t in range(n - 1):
+        tok = torch.tensor([[f[t]] for f in feed], device=DEV)
+        rows.append(model_step(model, tok, lens + t, cache)[:, -1]
+                    .float().cpu())
+    return rows
+
+
+def _proven_equal(got, want, refs, others, histories, what):
+    """Ids ``got`` against ``want`` step by step: each step's logits row of
+    the reference (``refs``) against the other computation's (``others``);
+    where the reference's penalized top-2 margin exceeds twice the largest
+    difference times the penalty 1.1 the argmax is proven the same, and the
+    ids may part only at a step not proven. Returns the steps proven."""
+    proven = 0
+    for t, (a, b) in enumerate(zip(others, refs)):
+        err = (a - b).abs().max().item()
+        pen = _penalized(b, histories + want[:t]).topk(2).values
+        sure = (pen[0] - pen[1]).item() > 2 * 1.1 * err
+        if got[t] != want[t]:
+            if sure:
+                raise AssertionError(f"{what}: id {got[t]} != {want[t]} at "
+                                     f"step {t} despite the margin")
+            break
+        proven += sure
+    return proven
+
+
+def _batch_of_prompts(model, params):
+    """``Model.generate`` over four ragged prompts (128, 512, 1024 and 1975
+    tokens, 32 new each, greedy): the padded prefill's time, the batched
+    step's, and the ids against the row-wise ``Model.generate``'s where the
+    margins prove them (the batch prefills the 128-token row through K2 at
+    M = 7900 where the row alone takes K5, and decodes at M = 4)."""
+    g = torch.Generator().manual_seed(19)
+    prompts = [torch.randint(3, V, (n,), generator=g).tolist()
+               for n in (128, 512, 1024, T_PREFILL)]
+    kw = dict(max_new_tokens=N_SAMPLED, stop_at_eos=False, ignore_prompt=True)
+    out, total = _host_ms(lambda: run_path(
+        "generate_batch4", GEN_PREFILL, lambda: model.generate(prompts,
+                                                               **kw)))
+    for o in out:
+        _check_ids(o, N_SAMPLED, "generate batch of 4")
+    lens = torch.tensor([len(p) for p in prompts], device=DEV)
+    toks = torch.zeros((4, T_PREFILL), dtype=torch.long)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = torch.tensor(p)
+    toks = toks.to(DEV)
+
+    def prefill():
+        cache = init_cache(CFG, 4, T_PREFILL + N_SAMPLED, device=DEV)
+        return _host_ms(lambda: _prefill_ragged(params, toks, lens,
+                                                cache))[1]
+
+    prefill()
+    pre = min(prefill() for _ in range(3))
+    step = (total - pre) / (N_SAMPLED - 1)
+    rowwise = [model.generate(p, **kw)[0] for p in prompts]
+    with torch.inference_mode():
+        refs = [_step_rows(params, CFG, p, f[:-1])
+                for p, f in zip(prompts, rowwise)]
+        batch = _batched_rows(params, prompts, rowwise)
+    proven = sum(_proven_equal(out[b], rowwise[b], refs[b],
+                               [r[b] for r in batch], prompts[b],
+                               f"batch row {b} vs row-wise")
+                 for b in range(4))
+    log(f"Model.generate, 4 prompts of 128/512/1024/1975 tokens, "
+        f"{N_SAMPLED} new each: {total:.1f} ms; the padded prefill "
+        f"(M = 4 x 1975) {pre:.2f} ms, then {step:.3f} ms a batched step "
+        f"(host clock); ids equal the row-wise ones at {proven} steps the "
+        f"margins prove, up to each row's first unproven parting")
+    if proven < 4:
+        raise AssertionError("batch of prompts: too few proven steps")
+    return dict(batch4_prefill_ms=pre, batch4_step_ms=step,
+                batch4_proven_steps=proven)
+
+
+def _beams(model, params):
+    """``Model.generate(num_beams=4)`` on a 128-token prompt, 32 new
+    tokens: the beam step's host time (the run less the W-row prefill, over
+    its steps); one beam step (``_beam_step``: the eager forward of the 4
+    rows, ``log_softmax`` and the joint top-4) on the device's clock, CUDA
+    events around each of 10 calls after a warm-up, the median; and
+    ``reorder_batch``'s device time at this run's cache (S = 160) and at S
+    = 2048, bf16, against the bytes it moves."""
+    g = torch.Generator().manual_seed(23)
+    prompt = torch.randint(3, V, (128,), generator=g).tolist()
+    out, total = _host_ms(lambda: run_path(
+        "generate_beams4", GEN_PREFILL, lambda: model.generate(
+            prompt, max_new_tokens=N_SAMPLED, num_beams=4)[0]))
+    new = out[len(prompt):]
+    _check_ids(new, len(new), "beam search")
+    tiled = torch.tensor([prompt] * 4, device=DEV)
+
+    def prefill():
+        cache = init_cache(CFG, 4, len(prompt) + N_SAMPLED, device=DEV)
+        return _host_ms(lambda: prefill_step(
+            params, tiled, torch.zeros(4, dtype=torch.long, device=DEV),
+            cache))[1]
+
+    prefill()
+    pre = min(prefill() for _ in range(3))
+    step = (total - pre) / max(1, len(new) - 1)
+    ts = []
+    with torch.inference_mode():
+        cache = init_cache(CFG, 4, len(prompt) + N_SAMPLED, device=DEV)
+        prefill_step(params, tiled, torch.zeros(4, dtype=torch.long,
+                                                device=DEV), cache)
+        args = (torch.full((4, 1), 17, dtype=torch.long, device=DEV),
+                torch.full((4,), len(prompt), dtype=torch.long, device=DEV),
+                torch.zeros(4, device=DEV), cache,
+                torch.ones(4, dtype=torch.bool, device=DEV),
+                torch.zeros(V, device=DEV), 4)
+        for r in range(11):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            _beam_step(params, *args)
+            e1.record()
+            e1.synchronize()
+            if r:
+                ts.append(e0.elapsed_time(e1))
+        del cache
+    dev_step = statistics.median(ts)
+    res = dict(beams4_step_ms=step, beams4_step_device_ms=dev_step,
+               beams4_prefill_ms=pre)
+    perm = torch.tensor([1, 0, 3, 2], device=DEV)
+    for S in (len(prompt) + N_SAMPLED, S_CACHE):
+        cache, spare = (init_cache(CFG, 4, S, device=DEV) for _ in range(2))
+        ms = time_ms([lambda: reorder_batch(cache, perm, spare)], reps=10)
+        nbytes = 2 * 2 * cache.k.numel() * cache.k.element_size()
+        bnd = nbytes / HBM_BPS * 1e3
+        log(f"reorder_batch, 4 beams, S={S}: {ms:.4f} ms for "
+            f"{nbytes / 1e9:.3f} GB read and written "
+            f"({nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; bound {bnd:.4f} ms)")
+        res[f"reorder_ms_S{S}"] = ms
+        del cache, spare
+    log(f"Model.generate num_beams=4, 128-token prompt: {total:.1f} ms, "
+        f"{len(new)} new ids; W-row prefill {pre:.2f} ms, then {step:.3f} "
+        f"ms a beam step (host clock, the reorder and the host's bookkeeping "
+        f"included); one _beam_step {dev_step:.3f} ms on the device's clock "
+        f"(median of 10, min {min(ts):.3f}, max {max(ts):.3f}); ids {new}")
+    return res
+
+
+def _streaming(model, params):
+    """``Model.generate(streaming=True)`` with a 512-position cache, 4
+    sinks, a 256-token prompt and 600 new tokens, bf16 and int8 KV: the
+    shifts counted (two: at 256 and 510 new tokens), each timed on the host
+    clock in the run, and one shift's device time at the 7B's width."""
+    g = torch.Generator().manual_seed(29)
+    prompt = torch.randint(3, V, (256,), generator=g).tolist()
+    res = {}
+    for kv, kvdt, attn in (("bf16", torch.bfloat16, ("flash_prefill",
+                                                      "flash_decode")),
+                           ("int8", torch.int8, ("flash_prefill_i8",
+                                                 "flash_decode_i8"))):
+        shifts, orig = [], ST.shift_cache_impl
+
+        def counted(*a, **k):
+            _, ms = _host_ms(lambda: orig(*a, **k))
+            shifts.append(ms)
+
+        ST.shift_cache_impl = counted
+        try:
+            out, total = _host_ms(lambda: run_path(
+                f"generate_streaming_{kv}", ("qmm4_npack", "qmm_a8") + attn,
+                lambda: model.generate(prompt, max_new_tokens=600,
+                                       streaming=True, max_len=512, n_keep=4,
+                                       kv_dtype=kv, stop_at_eos=False,
+                                       ignore_prompt=True)[0]))
+        finally:
+            ST.shift_cache_impl = orig
+        _check_ids(out, 600, f"streaming {kv}")
+        if len(shifts) < 2:
+            raise AssertionError(f"streaming {kv}: {len(shifts)} shifts")
+        cache = init_cache(CFG, 1, 512, kvdt, device=DEV)
+        dev_ms = time_ms([lambda: ST.shift_cache_impl(
+            cache, params.rope_inv_freqs, CFG, 4, 254)], reps=10)
+        nbytes = 2 * sum(t.numel() * t.element_size() for t in (
+            cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None)
+        log(f"streaming {kv} KV, 512 positions, 600 new tokens: {total:.1f} "
+            f"ms ({total / 600:.3f} ms a token, host clock); {len(shifts)} "
+            f"shifts, host ms {[round(x, 3) for x in shifts]}; one shift's "
+            f"device time {dev_ms:.4f} ms for {nbytes / 1e9:.3f} GB read and "
+            f"written at most (bound {nbytes / HBM_BPS * 1e3:.4f} ms)")
+        res.update({f"stream_{kv}_ms_token": total / 600,
+                    f"stream_{kv}_shifts": len(shifts),
+                    f"stream_{kv}_shift_ms": dev_ms})
+        del cache
+    return res
+
+
+def _chi_square_p(draws, probs):
+    """The chi-square p-value of ``draws`` [N] against ``probs`` [V] (bins
+    expecting fewer than 5 draws pooled); raises on a draw outside the
+    support."""
+    from scipy.stats import chisquare
+    counts = np.bincount(draws, minlength=len(probs))
+    if counts[probs == 0].sum():
+        raise AssertionError("a draw outside the kept set")
+    exp = probs * len(draws)
+    big = exp >= 5
+    obs = np.append(counts[big], counts[~big].sum())
+    exp = np.append(exp[big], exp[~big].sum())
+    if exp[-1] == 0:
+        obs, exp = obs[:-1], exp[:-1]
+    return chisquare(obs, exp * obs.sum() / exp.sum()).pvalue
+
+
+def _sampler(params):
+    """``sample_batched`` and ``sample`` with the filters (temperature 0.8,
+    top-k 40, top-p 0.95) on one logits row over the 7B's vocab, replicated
+    in 4096 rows: each one's draws against the filtered softmax that the port's plain
+    filters give on the CPU (chi-square, p > 1e-4). Then the sampler's
+    device times at B = 1 and 4: ``sample`` with the filters and the
+    penalty, and ``sample_batched`` with filters and mirostat."""
+    g = torch.Generator(device=DEV).manual_seed(31)
+    row = torch.randn((1, V), generator=g, device=DEV) * 3
+    bp = batch_params([SAMPLED] * 4096).to(DEV)
+    tok, _ = sample_batched(row.expand(4096, V).contiguous(), bp,
+                            enable=("filters",), generator=g)
+    host = row.cpu() / torch.full_like(row.cpu(), SAMPLED.temperature)
+    kept = top_p_filter(top_k_filter(host, SAMPLED.top_k), SAMPLED.top_p)
+    kept = kept[0].double()
+    probs = torch.softmax(kept, -1).numpy() * (kept.numpy() > -1e29)
+    probs /= probs.sum()
+    p = _chi_square_p(tok.cpu().numpy(), probs)
+    tok1, _ = sample(row.expand(4096, V).contiguous(), SAMPLED, generator=g)
+    p1 = _chi_square_p(tok1.cpu().numpy(), probs)
+    if not (p > 1e-4 and p1 > 1e-4):
+        raise AssertionError(f"draws against the filtered softmax: "
+                             f"chi-square p {p} (sample_batched), {p1} "
+                             "(sample)")
+    res = dict(sampler_chi_square_p=p, sample_chi_square_p=p1)
+    hist = torch.randint(3, V, (4, 64), device=DEV)
+    for B in (1, 4):
+        logits = torch.randn((B, V), generator=g, device=DEV) * 3
+        noise = draw_noise((B, V), DEV, g)
+        bpb = batch_params([SAMPLED] * B).to(DEV)
+        mu = torch.full((B,), 10.0, device=DEV)
+        ms = time_ms([lambda: sample(logits, SAMPLED, prev_tokens=hist[:B],
+                                     noise=noise)], reps=10)
+        msb = time_ms([lambda: sample_batched(logits, bpb, mu,
+                                              prev_tokens=hist[:B],
+                                              noise=noise)], reps=10)
+        log(f"sampler at B={B}, vocab {V}: sample (penalty, temperature, "
+            f"top-k, top-p, draw) {ms:.4f} ms; sample_batched (filters and "
+            f"mirostat) {msb:.4f} ms (device)")
+        res.update({f"sample_ms_B{B}": ms, f"sample_batched_ms_B{B}": msb})
+    log(f"4096 draws from one 32000-wide row (top-k 40, top-p 0.95, "
+        f"temperature 0.8) against the filtered softmax: chi-square p = "
+        f"{p:.4g} (sample_batched), {p1:.4g} (sample)")
+    return res
+
+
+def phase_sampling(params):
+    """Phase 4i on phase 4's 7B: ``Model.generate`` sampled (one seed twice,
+    then another), ``sample_loop``'s graphed step against ``decode_loop``'s
+    at fill 128 (batch 1 and 4), a batch of four ragged prompts, beam search
+    (4 beams), StreamingLLM with bf16 and int8 KV, and the sampler's draws
+    and device times; each ``Model.generate`` a path with its own launch
+    counts."""
+    model = Model().init_params(params, CFG)
+    g = torch.Generator().manual_seed(37)
+    prompt = torch.randint(3, V, (512,), generator=g).tolist()
+    kw = dict(max_new_tokens=N_SAMPLED, do_sample=True, top_k=40, top_p=0.95,
+              temperature=0.8, stop_at_eos=False, ignore_prompt=True)
+    runs = [run_path(f"generate_sampled_{i}", GEN_PREFILL,
+                     lambda: model.generate(prompt, seed=seed, **kw)[0])
+            for i, seed in enumerate((5, 5, 6))]
+    for r in runs:
+        _check_ids(r, N_SAMPLED, "sampled generate")
+    if runs[0] != runs[1] or runs[0] == runs[2]:
+        raise AssertionError(f"sampled generate, seeds 5, 5, 6: {runs}")
+    log(f"Model.generate sampled (512-token prompt, top-k 40, top-p 0.95, "
+        f"temperature 0.8): seed 5 twice {runs[0]}, seed 6 {runs[2]}")
+    run_path("sample_loop_seeds", GEN_STEPS,
+             lambda: _sampled_step_draws(params))
+    res = {}
+    for B in (1, 4):
+        q = run_path(f"sample_loop_B{B}", GEN_STEPS,
+                     lambda: step_graphs_ms(params, 128, B))
+        log(f"decode step at fill 128, batch {B} (device time of one graph "
+            f"replay, {AB_REPS} each, in turns): " + "; ".join(
+                f"{n} median {v['median']:.4f} ms (q25 {v['q25']:.4f}, q75 "
+                f"{v['q75']:.4f})" for n, v in q.items()))
+        res.update({f"{n}_step_ms_B{B}": v["median"] for n, v in q.items()})
+    res.update(_batch_of_prompts(model, params))
+    res.update(_beams(model, params))
+    res.update(_streaming(model, params))
+    res.update(_sampler(params))
+    return res
 
 
 def phase_formats(fmts=("nf4", "q4_0", "q4_j_i8_g128")):
@@ -2502,10 +3045,135 @@ def phase_card_vs_plain():
     fused_worst.update(_fused_steps_card_vs_plain(card, host, len(ids),
                                                   host_cache))
     sched_worst = _sched_card_vs_plain(card, host, cfg2, rel_tol)
+    fused_worst.update(_sampling_card_vs_plain(card, host, cfg2, ids,
+                                               rel_tol))
     del card, host
     # the formats' copies are cut to one layer, which runs every kernel of
     # each format, to keep the script inside its time limit
     return worst, sched_worst, fused_worst, _formats_card_vs_plain(cfg2)
+
+
+def _beams_card_vs_plain(card, host, cfg2, ids, rel_tol):
+    """Beam search (4 beams, 8 new tokens, a 24-token prompt) on the card
+    against the CPU's plain path: rank by rank, equal ids and scores within
+    2·rel_tol·max|logit| (a score is a mean of log-probs, each within twice
+    a logit's difference), except at a near tie of the plain run's scores
+    (within the same bound), which a rounding may order either way."""
+    prompt = ids[:24]
+    hyps = run_path("card_vs_plain_beams", ("qmm4_npack", "qmm_general",
+                                            "flash_prefill", "flash_decode"),
+                    lambda: beam_search(card, cfg2, prompt, beam_size=4,
+                                        max_new_tokens=8))
+    ref = beam_search(host, cfg2, prompt, beam_size=4, max_new_tokens=8)
+    scale = _step_rows(host, cfg2, prompt, [])[0].abs().max().item()
+    tol = 2 * rel_tol * scale
+    equal, worst = 0, 0.0
+    for i, (a, b) in enumerate(zip(hyps, ref)):
+        if a.ids != b.ids:
+            gaps = [abs(b.score - r.score) for r in ref if r is not b]
+            if not gaps or min(gaps) >= tol:
+                raise AssertionError(f"beam {i}: card {a.ids} != plain "
+                                     f"{b.ids} with no near tie")
+            continue
+        worst = max(worst, abs(a.score - b.score))
+        if abs(a.score - b.score) > tol:
+            raise AssertionError(f"beam {i}: score {a.score} against "
+                                 f"{b.score} (tol {tol})")
+        equal += 1
+    log(f"beam search card vs plain ({cfg2.n_layers} layer(s)): {equal} of "
+        f"{len(ref)} hypotheses equal, scores within {worst:.3g} (tol "
+        f"{tol:.3g}); card {[h.ids[len(prompt):] for h in hyps]}, plain "
+        f"{[h.ids[len(prompt):] for h in ref]}")
+    if equal < 1:
+        raise AssertionError("beam search: no hypothesis held equal")
+    return worst
+
+
+def _shift_card_vs_plain(host, cfg2, ids):
+    """The first StreamingLLM shift of a full 64-position cache (4 sinks, 30
+    dropped), the CPU's prefilled cache copied to the card: shifted on both
+    sides, the values and their scales equal, bf16 keys within one bf16
+    step (at most 2^-7 relative: the rotation's f32 cos/sin may round an
+    ulp apart), int8 key codes within one step and their scales within one
+    bf16 step."""
+    worst = {}
+    for kvdt in (torch.bfloat16, torch.int8):
+        hc = init_cache(cfg2, 1, 64, kvdt, device="cpu")
+        prefill_step(host, torch.tensor([ids[:64]]),
+                     torch.zeros(1, dtype=torch.long), hc)
+        cc = type(hc)(*(None if t is None else t.to(DEV)
+                        for t in (hc.k, hc.v, hc.k_scale, hc.v_scale)))
+        inv = host.rope_inv_freqs
+        ST.shift_cache_impl(hc, inv, cfg2, 4, 30)
+        ST.shift_cache_impl(cc, inv.to(DEV), cfg2, 4, 30)
+        for name in ("v", "v_scale"):
+            a, b = getattr(cc, name), getattr(hc, name)
+            if b is not None and not torch.equal(a.cpu(), b):
+                raise AssertionError(f"shift {kvdt}: {name} differs")
+        k, rk = cc.k.cpu().float(), hc.k.float()
+        if kvdt == torch.int8:
+            ks, rks = cc.k_scale.cpu().float(), hc.k_scale.float()
+            ok = (k - rk).abs().max() <= 1 and bool(
+                ((ks - rks).abs() <= 2 ** -7 * rks.abs()).all())
+        else:
+            ok = bool(((k - rk).abs() <= 2 ** -7 * rk.abs() + 1e-6).all())
+        worst[str(kvdt)] = (k - rk).abs().max().item()
+        if not ok:
+            raise AssertionError(f"shift {kvdt}: keys part by "
+                                 f"{worst[str(kvdt)]}")
+    log(f"StreamingLLM shift card vs plain (64 positions, 4 sinks, 30 "
+        f"dropped): values equal, keys within {worst}")
+    return worst
+
+
+def _lm_head_32001_card_vs_plain(rel_tol):
+    """C7: a one-layer copy with a quantized lm_head over a vocab of 32001
+    (an untied fine-tune's), which neither K1 nor K5 takes (both refuse it
+    on the card, checked): its products take the counted ``qmm_plain``
+    route, the prefill's last row and every decode step, held against the
+    CPU's plain path as phase 5's copy is."""
+    cfg3 = dataclasses.replace(CFG, n_layers=COPY_LAYERS, vocab_size=32001)
+    card = init_random(cfg3, seed=4, quant="q4_j", device=DEV)
+    host = init_random(cfg3, seed=4, quant="q4_j", device=DEV).to("cpu")
+    qt = card.lm_head.qt
+    if Q.route(1, D, 32001, qt) != "plain":
+        raise AssertionError("the 32001-wide lm_head does not route plain")
+    x = torch.randn((1, D), device=DEV).bfloat16()
+    for what, fn in (("K1", lambda: Q.qmm_native(
+            x, qt.planes[0], qt.scales, None, qt.group_size, 4,
+            torch.float32)), ("K5", lambda: Q.qmm_general(
+                x, qt, torch.float32))):
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise AssertionError(f"{what} took N = 32001")
+    g = torch.Generator().manual_seed(41)
+    ids = torch.randint(3, 32001, (24,), generator=g).tolist()
+    feed = torch.randint(3, 32001, (4,), generator=g).tolist()
+    rows = run_path("card_lm_head_32001", ("qmm_plain", "qmm4_npack",
+                                           "flash_prefill", "flash_decode"),
+                    lambda: _step_rows(card, cfg3, ids, feed))
+    plain = LAUNCHES["card_lm_head_32001"]["qmm_plain"]
+    worst, provable, _ = _compare_rows(rows, _step_rows(host, cfg3, ids,
+                                                        feed),
+                                       rel_tol, "lm_head 32001 card vs plain")
+    log(f"C7: lm_head over 32001 through qmm_plain ({plain} products; K1 and "
+        f"K5 refuse it): logits max err {worst:.3g}·max|logit| (tol "
+        f"{rel_tol}), argmax provably comparable at {provable} of "
+        f"{len(feed) + 1} steps, equal at all of them")
+    del card, host
+    return worst
+
+
+def _sampling_card_vs_plain(card, host, cfg2, ids, rel_tol):
+    """Phase 5's checks of the sampling slice on its one-layer copy."""
+    return {"beams_card_vs_plain_score_err": _beams_card_vs_plain(
+                card, host, cfg2, ids, rel_tol),
+            "shift_card_vs_plain_k_err": _shift_card_vs_plain(host, cfg2,
+                                                              ids),
+            "lm_head_32001_card_vs_plain_rel_err":
+                _lm_head_32001_card_vs_plain(rel_tol)}
 
 
 def _fused_card_vs_plain(card, cfg2, ids, feed, g_host, host_rows, rel_tol):
@@ -3644,6 +4312,10 @@ KERNEL_META = {
                 "neural_tpu/ops/qmatmul.py:161"),
     "K2_act": ("quantize_act_i8", "neural_tpu_torch/csrc/qmm_a8.cu",
                "neural_tpu/ops/qmatmul.py:161"),
+    # the unfused graph's RMS norm on K1's row-scale routine: no Pallas
+    # kernel; it replaces the XLA-fused norm of the JAX package
+    "RMS": ("rms_norm_bf16", "neural_tpu_torch/csrc/rms_norm.cu",
+            "neural_tpu/ops/norms.py:15 (XLA-fused, no pl.pallas_call)"),
     # the option branches, counted apart (``entry+branch`` launches)
     "K3_alibi": ("flash_prefill+alibi",
                  "neural_tpu_torch/csrc/flash_prefill.cu",
@@ -3950,7 +4622,7 @@ def main():
         for check in (check_k1, check_k2, check_k3, check_k4, check_k6,
                       check_k6_paging, check_k3_options, check_k4_alibi, check_k6_alibi,
                       check_k5, check_k1_branches, check_k1_fused,
-                      check_k1_reruns, check_k2_asym,
+                      check_k1_reruns, check_rms_norm, check_k2_asym,
                       check_k2_layouts, check_gptq_products,
                       check_many_heads):
             check(gen, results)
@@ -3970,6 +4642,7 @@ def main():
     log(f"init_random Llama-2-7B q4_j on the card: {time.time() - t:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     e2e = phase("4 generation", phase_generation, params)
+    e2e.update(phase("4i sampling", phase_sampling, params))
     e2e.update(phase("4b formats", phase_formats))
     e2e.update(phase("4c gemma2", phase_gemma2))
     bloom_e2e, bloom_params = phase("4d bloom", phase_bloom)

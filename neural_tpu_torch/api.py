@@ -1,5 +1,6 @@
-"""Top-level Model API (port of the single-row, greedy part of
-``neural_tpu/api.py`` and of its GPTQ/AWQ ``Model.init``; its
+"""Top-level Model API (port of ``neural_tpu/api.py``: ``Model.generate``
+with sampling, beam search, batches of prompts, StreamingLLM and the
+host-stepped hooks, and the GPTQ/AWQ ``Model.init``; its
 ``quant_config_from_args`` lives in :mod:`neural_tpu_torch.core.dtypes`)."""
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ class Model:
         self.params: Optional[Transformer] = None
         self.cfg: Optional[ModelConfig] = None
         self.tokenizer = None     # no tokenizer is ported yet
+        self._session = None      # interactive: (cache, position, max_len)
+        self._token_end = True
 
     def init(self, model_name_or_path: str,
              weight_dtype: Union[str, QuantConfig, None] = "q4_0",
@@ -118,43 +121,162 @@ class Model:
                  top_k: int = 40, top_p: float = 0.95,
                  repetition_penalty: float = 1.1, num_beams: int = 1,
                  seed: int = 0, stop_at_eos: bool = True,
-                 max_len: Optional[int] = None, ignore_prompt: bool = False,
-                 kv_dtype: str = "bf16", **unported) -> List[List[int]]:
-        """Greedy generation of one prompt: full id lists (prompt + new
-        tokens), or new tokens only with ``ignore_prompt``. The repetition
-        penalty applies before the argmax, as in the reference.
-        ``kv_dtype``: "bf16" or "int8" KV cache (reference memory_dtype).
+                 streaming: bool = False, max_len: Optional[int] = None,
+                 streamer=None, interactive: bool = False,
+                 ignore_prompt: bool = False, stopping_criteria=None,
+                 session_file: Optional[str] = None, kv_dtype="bf16",
+                 n_keep: int = 4, n_discard: Optional[int] = None,
+                 mesh=None, **kw) -> List[List[int]]:
+        """Generate from one prompt or a batch of prompts, as the JAX
+        ``Model.generate``: full id lists (prompt + new tokens), one per row,
+        or new tokens only with ``ignore_prompt`` (and on interactive
+        continuation rounds).
 
-        Sampling, beam search, batches of prompts, streaming, sessions and
-        meshes are later slices and raise."""
+        - ``do_sample``: temperature, top-k and top-p sampling from a
+          generator seeded with ``seed``; otherwise greedy. Both apply the
+          repetition penalty over the last 64 ids first.
+        - A batch of prompts (without hooks, beams or streaming) goes
+          through one padded prefill and one decode loop
+          (``runtime.generate.batched_generate``).
+        - ``num_beams > 1`` (greedy): beam search, the best hypothesis.
+        - ``streaming``: StreamingLLM within a ``max_len`` cache (the
+          config's context by default), ``n_keep`` sinks, ``n_discard``
+          dropped at each shift.
+        - ``streamer`` (``.put(ids)`` / ``.end()``, batch 1),
+          ``stopping_criteria`` (``callable(ids_2d, scores) -> bool``, each
+          token) and ``interactive`` (the KV cache kept across calls) take
+          the host-stepped loop.
+        - ``kv_dtype``: "bf16" or "int8" KV cache.
+
+        ``session_file`` (KV snapshots on disk) waits for the checkpoint
+        converters (ROADMAP A10) and ``mesh`` for parallelism (A12); both
+        raise."""
         if self.params is None:
             raise RuntimeError("call init_from_hf_model or init_params first")
-        rows = _to_id_list(input_ids)
-        asked = [k for k, v in unported.items() if v]
-        if do_sample:
-            asked.append("do_sample")
-        if num_beams != 1:
-            asked.append("num_beams")
-        if len(rows) != 1:
-            asked.append("a batch of prompts")
+        if session_file is not None:
+            raise NotImplementedError(
+                "generate(session_file=...) needs convert/checkpoint.py, "
+                "a later slice (ROADMAP A10)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "generate(mesh=...) is tensor/data parallelism, a later "
+                "slice (ROADMAP A12)")
         if kv_dtype not in ("bf16", "int8", torch.bfloat16, torch.int8):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
                              f"{kv_dtype!r}")
-        if asked:
-            raise NotImplementedError(
-                f"generate({', '.join(asked)}) is not ported yet: this slice "
-                "runs single-prompt greedy generation")
+        kvdt = torch.int8 if kv_dtype in ("int8", torch.int8) else \
+            torch.bfloat16
+        rows = _to_id_list(input_ids)
         if self.cfg.arch in ("llama", "mistral", "mixtral") \
                 and self.cfg.vocab_size == 128256:
             # Llama-3: make the prompt start with <|begin_of_text|>
             bos = self.cfg.bos_token_id
             rows = [r if (r and r[0] == bos) else [bos] + list(r)
                     for r in rows]
+        hooked = (streamer is not None or stopping_criteria is not None
+                  or interactive)
+        if not interactive:
+            self._session = None
+        if streamer is not None:
+            if len(rows) != 1:
+                raise ValueError("a streamer takes batch size 1")
+            if num_beams != 1:
+                raise ValueError("a streamer cannot be used with beam search")
+        if stopping_criteria is not None and num_beams > 1 and not do_sample:
+            raise ValueError(
+                "stopping_criteria is not applied inside beam search; "
+                "use num_beams=1 or post-filter the returned hypotheses")
+        sp = SamplingParams(greedy=not do_sample, temperature=temperature,
+                            top_k=top_k, top_p=top_p,
+                            repeat_penalty=repetition_penalty)
+        if len(rows) > 1 and num_beams == 1 and not hooked \
+                and not streaming:
+            from .runtime.generate import batched_generate
+            outs = batched_generate(self.params, self.cfg, rows, sp,
+                                    max_new_tokens, max_len, seed,
+                                    stop_at_eos, kv_dtype=kvdt)
+            return [o[len(r):] for o, r in zip(outs, rows)] \
+                if ignore_prompt else outs
+        outs = []
+        for ids in rows:
+            if num_beams > 1 and not do_sample:
+                from .runtime.beam import beam_search
+                hyp = beam_search(self.params, self.cfg, ids,
+                                  beam_size=num_beams,
+                                  max_new_tokens=max_new_tokens)[0]
+                outs.append(hyp.ids[len(ids):] if ignore_prompt else hyp.ids)
+                continue
+            if hooked:
+                outs.append(self._generate_hooked(
+                    ids, sp, max_new_tokens, max_len, seed, stop_at_eos,
+                    streamer, stopping_criteria, interactive, ignore_prompt,
+                    kvdt))
+                continue
+            if streaming:
+                from .runtime.streaming import stream_generate
+                out = stream_generate(
+                    self.params, self.cfg, ids, max_new_tokens,
+                    max_len or self.cfg.max_seq_len, n_keep=n_keep,
+                    n_discard=n_discard, sampling=sp, seed=seed,
+                    stop_at_eos=stop_at_eos, kv_dtype=kvdt)
+            else:
+                from .runtime.generate import generate
+                out = generate(self.params, self.cfg, ids, sp,
+                               max_new_tokens, max_len, seed, stop_at_eos,
+                               kv_dtype=kvdt)
+            outs.append(out[len(ids):] if ignore_prompt else out)
+        return outs
+
+    def _generate_hooked(self, ids, sp, max_new_tokens, max_len, seed,
+                         stop_at_eos, streamer, stopping_criteria,
+                         interactive, ignore_prompt, kv_dtype):
+        """``runtime.generate.generate`` with per-token hooks, and with
+        ``interactive`` a KV session kept across calls (the reference's
+        multi-round chat)."""
         from .runtime.generate import generate
-        sp = SamplingParams(greedy=True, temperature=temperature, top_k=top_k,
-                            top_p=top_p, repeat_penalty=repetition_penalty)
-        kvdt = torch.int8 if kv_dtype in ("int8", torch.int8) else \
-            torch.bfloat16
-        out = generate(self.params, self.cfg, rows[0], sp, max_new_tokens,
-                       max_len, stop_at_eos, kvdt)
-        return [out[len(rows[0]):] if ignore_prompt else out]
+        from .runtime.kvcache import init_cache
+        first_round = self._session is None or not interactive
+        cache, pos = None, 0
+        if interactive:
+            if first_round:
+                S = max_len or self.cfg.max_seq_len
+                cache = init_cache(self.cfg, 1, S, kv_dtype,
+                                   device=self.params.device)
+            else:
+                cache, pos, S = self._session
+            if pos + len(ids) + max_new_tokens > S:
+                raise ValueError(
+                    f"context overflow: {pos}+{len(ids)}+{max_new_tokens} > "
+                    f"{S}; raise max_len or use streaming=True "
+                    "(StreamingLLM)")
+        if streamer is not None and first_round and not ignore_prompt:
+            streamer.put(np.asarray([ids]))
+        self._token_end = False
+
+        def on_token(full, logits):
+            if streamer is not None:
+                streamer.put(np.asarray([[full[-1]]]))
+            return stopping_criteria is not None and bool(stopping_criteria(
+                np.asarray([full]), logits.cpu().numpy()))
+
+        full = generate(self.params, self.cfg, ids, sp, max_new_tokens,
+                        max_len, seed, stop_at_eos, kv_dtype,
+                        on_token=on_token, cache=cache, start=pos)
+        self._token_end = True
+        if streamer is not None:
+            streamer.end()
+        if interactive:     # the last new id is not in the cache yet
+            n_new = len(full) - len(ids)
+            self._session = (cache, pos + len(ids) + max(n_new - 1, 0), S)
+        return full if first_round and not ignore_prompt \
+            else full[len(ids):]
+
+    def is_token_end(self) -> bool:
+        """Whether the last generation reached its end (a stop id, the
+        token budget or a stopping criterion)."""
+        return self._token_end
+
+    def reset_kv_cache(self):
+        """Drop the interactive session."""
+        self._session = None
+        self._token_end = True

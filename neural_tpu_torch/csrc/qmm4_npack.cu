@@ -72,6 +72,7 @@
 #include <stdint.h>
 
 #include "qmm_tc.cuh"
+#include "rms_row.cuh"
 
 namespace {
 
@@ -282,11 +283,14 @@ struct Args {
 // The consumers' prologue: rows 0 .. M - 1 of the product's input, K
 // values k0 .. k0 + KI - 1 (zeros past K), into xsh[m * XLD + k - k0] as
 // bf16. With rms, each row's sum of squares over the whole K first, in a
-// fixed order (each thread a strided share, then the warps in order).
+// fixed order (each thread a strided share, then the warps in order:
+// rms_row.cuh), the order the row-norm kernel of the unfused graph takes.
 // Every load is 16 bytes.
 template <int PRO>
 __device__ void stage_x(const Args& p, __nv_bfloat16* xsh, int XLD, int k0,
                         int KI) {
+  static_assert(32 * CONSUMERS == rms_row::THREADS,
+                "the rms sums run on the consumer warps alone");
   constexpr int NT = 32 * CONSUMERS;
   __shared__ float warp_ss[CONSUMERS][16];
   __shared__ float rrow[16];
@@ -306,26 +310,19 @@ __device__ void stage_x(const Args& p, __nv_bfloat16* xsh, int XLD, int k0,
         if (m >= p.M) break;
         float v[8];
         pro_in8<PRO>(p.x, f.u, (size_t)m * p.K + (size_t)c * 8, f.act, v);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          ss[m] = __fadd_rn(ss[m], __fmul_rn(v[i], v[i]));
+        ss[m] = rms_row::add_squares8(ss[m], v);
       }
     }
 #pragma unroll
     for (int m = 0; m < 16; ++m) {
       if (m >= p.M) break;
-      float v = ss[m];
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+      const float v = rms_row::warp_sum(ss[m]);
       if (tid % 32 == 0) warp_ss[tid / 32][m] = v;
     }
     qmm_tc::bar_sync(1, NT);
-    if (tid < p.M) {
-      float t = 0.f;
-#pragma unroll
-      for (int w = 0; w < CONSUMERS; ++w) t += warp_ss[w][tid];
-      rrow[tid] = rsqrtf(__fadd_rn(__fmul_rn(t, 1.f / (float)p.K), f.eps));
-    }
+    if (tid < p.M)
+      rrow[tid] = rms_row::scale(rms_row::total(&warp_ss[0][tid], 16), p.K,
+                                 f.eps);
     qmm_tc::bar_sync(1, NT);
   }
 #pragma unroll 4
@@ -352,8 +349,7 @@ __device__ void stage_x(const Args& p, __nv_bfloat16* xsh, int XLD, int k0,
         }
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          v[j] = round_bf16(__fmul_rn(__fmul_rn(v[j], rrow[m]),
-                                      __fadd_rn(w[j], f.offset)));
+          v[j] = round_bf16(rms_row::apply(v[j], rrow[m], w[j], f.offset));
       }
     }
     uint32_t packed[4];

@@ -201,7 +201,7 @@ K1_ENTRIES = ("qmm4_npack", "qmm2_npack", "qmm8_native")
 QMM4 = Kernel("qmm4_npack.cu", {
     **{fn + asym: _K1_ARGS for fn in K1_ENTRIES for asym in ("", "_asym")},
     **{fn + "_fused": _K1_FUSED_ARGS for fn in K1_ENTRIES}},
-    headers=("qmm_tc.cuh",), branches=("rms", "glu", "res"))
+    headers=("qmm_tc.cuh", "rms_row.cuh"), branches=("rms", "glu", "res"))
 # K2's entry points per weight layout: native-pack nibbles (int4, and int3
 # under the branch "int3"), native-pack int2 fields, int8 code planes
 K2_ENTRIES = ("qmm_a8", "qmm_a8_int2", "qmm_a8_int8")
@@ -255,8 +255,15 @@ PAGED_DECODE = Kernel("paged_decode.cu", {
                         I, I, I, F, F, I, P],
 }, headers=("decode_body.cuh", "qmm_tc.cuh"), branches=("alibi", "G>8"))
 
+# the unfused graph's RMS norm, on the row-scale routine of K1's fused rms
+# prologue (``rms_row.cuh``), so that the two round alike
+RMS_NORM = Kernel("rms_norm.cu", {
+    # x, w, w_f32, eps, offset, out, M, K, stream
+    "rms_norm_bf16": [P, P, I, F, F, P, I, I, P]},
+    headers=("rms_row.cuh",))
+
 KERNELS = (QMM4, QMM_A8, QMM_GENERAL, FLASH_PREFILL, FLASH_DECODE,
-           PAGED_DECODE)
+           PAGED_DECODE, RMS_NORM)
 
 
 class Routes:
@@ -265,8 +272,10 @@ class Routes:
     which of its products and attention calls took them: ``attend_xla``
     (attention at a head dim that is not a multiple of 128, in
     ``attend``), ``attend_xla_paged`` (the same in ``attend_paged``, after
-    the page gather) and ``act_order_gather`` (the gather of x by a GPTQ
-    act-order ``perm`` before a quantized product)."""
+    the page gather), ``act_order_gather`` (the gather of x by a GPTQ
+    act-order ``perm`` before a quantized product) and ``qmm_plain`` (a
+    quantized product whose shape neither K1 nor K5 takes, dequantized
+    and multiplied by one ``torch.mm``)."""
 
     def __init__(self, names: Sequence[str]):
         self.launches = {n: 0 for n in names}
@@ -275,7 +284,8 @@ class Routes:
         self.launches[name] += 1
 
 
-ROUTES = Routes(("attend_xla", "attend_xla_paged", "act_order_gather"))
+ROUTES = Routes(("attend_xla", "attend_xla_paged", "act_order_gather",
+                 "qmm_plain"))
 COUNTED = KERNELS + (ROUTES,)
 
 

@@ -25,9 +25,10 @@ stored (bit planes, nf4/fp4 indices, fp8; f32 or bf16 scales).
   bf16, a bf16 × bf16 product with f32 accumulation, any M, every layout;
   a GEMV body at M <= 16, pipelined wgmma tiles above (:func:`k5_schedule`).
 
-:func:`qmatmul` routes as the JAX package does (:func:`route`). Each
-wrapper takes its plain PyTorch version only for CPU tensors; on a CUDA
-tensor it launches the kernel or raises.
+:func:`qmatmul` routes as the JAX package does (:func:`route`), a shape
+that no kernel takes to :func:`qmm_plain`, the JAX package's own
+fallback. Each wrapper takes its plain PyTorch version only for CPU
+tensors; on a CUDA tensor it launches the kernel or raises.
 
 Act-order weights (GPTQ ``perm``: stored row r is W's row perm[r]) take x
 gathered by the permutation, ``x[:, perm]``, before any of the kernels, as
@@ -47,7 +48,7 @@ import torch.nn.functional as F
 from ..core.qtensor import (QTensor, dequantize, is_native, lut_on,
                            native_fields, pack_chunk)
 from . import _cuda
-from .norms import rms_norm
+from .norms import rms_norm_plain
 
 # ---------------------------------------------------------------------------
 # activation quantization (K2's first pass)
@@ -261,11 +262,7 @@ def qmm_native(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
     _cuda.check(scales, "scales", torch.bfloat16, (K // group, N))
     if zeros is not None:
         _cuda.check(zeros, "zeros", torch.bfloat16, (K // group, N))
-    if not 1 <= M <= 16:
-        raise ValueError(f"K1 takes 1 <= M <= 16, got M={M}")
-    if K % 32 or group % 32 or K % group or N % 16:
-        raise ValueError(f"K1 needs K, group % 32 == 0 and N % 16 == 0 "
-                         f"(K={K}, group={group}, N={N})")
+    _check_k1(M, K, N, group)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
     if any(t.data_ptr() % 16 for t in (planes, scales)
@@ -279,6 +276,20 @@ def qmm_native(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
         _cuda.ptr(x), _cuda.ptr(planes), _cuda.ptr(scales),
         None if zeros is None else _cuda.ptr(zeros),
         None if xs is None else _cuda.ptr(xs)))
+
+
+def k1_takes(M: int, K: int, N: int, group: int) -> bool:
+    """The shapes K1 takes: 1 <= M <= 16, K and the group multiples of 32,
+    K a multiple of the group, N a multiple of 16."""
+    return 1 <= M <= 16 and K % 32 == 0 and group % 32 == 0 \
+        and K % group == 0 and N % 16 == 0
+
+
+def _check_k1(M: int, K: int, N: int, group: int):
+    if not k1_takes(M, K, N, group):
+        raise ValueError(f"K1 takes 1 <= M <= 16, K and the group multiples "
+                         f"of 32 and N of 16 (M={M}, K={K}, group={group}, "
+                         f"N={N})")
 
 
 # ---------------------------------------------------------------------------
@@ -295,15 +306,16 @@ _ACT_CODE = {"silu": 0, "gelu": 1, "gelu_tanh": 2, "relu": 3}
 def fused_input_plain(x: torch.Tensor, norm=None, u=None,
                       act: Optional[str] = None) -> torch.Tensor:
     """The fused prologue's output, bf16 [M, K]: ``bf16(act(x) · u)`` in
-    f32 with one rounding (glu: x is the gate input), then the port's
-    ``rms_norm`` with ``norm = (weight, eps, offset)`` (rms: x is the raw
-    residual stream)."""
+    f32 with one rounding (glu: x is the gate input), then the torch chain
+    ``rms_norm_plain`` with ``norm = (weight, eps, offset)`` (rms: x is the
+    raw residual stream). On the card this stays torch ops, so K1's rms
+    prologue is held against a norm that does not share its routine."""
     if u is not None:
         x = (ACTS[act](x.to(torch.float32))
              * u.to(torch.float32)).to(torch.bfloat16)
     if norm is not None:
         w, eps, offset = norm
-        x = rms_norm(x.to(torch.bfloat16), w, eps, offset)
+        x = rms_norm_plain(x.to(torch.bfloat16), w, eps, offset)
     return x.to(torch.bfloat16)
 
 
@@ -316,9 +328,9 @@ def qmm_native_fused_plain(x: torch.Tensor, planes: torch.Tensor,
     """Plain version of K1 with its fusion options, composed of the port's
     own ops: :func:`fused_input_plain`, :func:`qmm_native_plain`, then
     ``out + res`` in ``out_dtype``. Without glu it is the unfused chain
-    (``rms_norm``, the product, the residual add) bit for bit; with glu the
-    activation is rounded once, where the unfused ``act(g) * u`` in bf16
-    rounds twice."""
+    (``rms_norm``, the product, the residual add) bit for bit on the CPU,
+    where ``rms_norm`` is ``rms_norm_plain``; with glu the activation is
+    rounded once, where the unfused ``act(g) * u`` in bf16 rounds twice."""
     h = fused_input_plain(x, norm, u, act)
     out = qmm_native_plain(h, planes, scales, None, group, bits, out_dtype)
     if res is not None:
@@ -354,11 +366,7 @@ def qmm_native_fused(x: torch.Tensor, planes: torch.Tensor,
         fn, rows = "qmm4_npack_fused", K // 2
     _cuda.check(planes, "planes", planes.dtype, (rows, N))
     _cuda.check(scales, "scales", torch.bfloat16, (K // group, N))
-    if not 1 <= M <= 16:
-        raise ValueError(f"K1 takes 1 <= M <= 16, got M={M}")
-    if K % 32 or group % 32 or K % group or N % 16:
-        raise ValueError(f"K1 needs K, group % 32 == 0 and N % 16 == 0 "
-                         f"(K={K}, group={group}, N={N})")
+    _check_k1(M, K, N, group)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
     branches = []
@@ -665,6 +673,12 @@ def k5_schedule(M: int, K: int, N: int) -> dict:
                 grid=(-(-N // K5_BN), splits, -(-M // rows)))
 
 
+def k5_takes(K: int, N: int, group: int) -> bool:
+    """The shapes K5 takes: K a multiple of 32 and of the group, N of 16,
+    the group of 8."""
+    return K % 32 == 0 and N % 16 == 0 and K % group == 0 and group % 8 == 0
+
+
 def qmm_general(x: torch.Tensor, qt: QTensor,
                 out_dtype: torch.dtype) -> torch.Tensor:
     """K5: ``x [M, K] @ W`` for any M and every weight layout of the port
@@ -684,7 +698,7 @@ def qmm_general(x: torch.Tensor, qt: QTensor,
     fmt, vmode, zconst = _k5_layout(qt)
     for i, p in enumerate(qt.planes):
         _cuda.check(p, f"plane {i}", p.dtype)
-    if qt.K != K or K % 32 or N % 16 or K % g or g % 8:
+    if qt.K != K or not k5_takes(K, N, g):
         raise ValueError(f"K5 needs K % 32 == 0, N % 16 == 0, K % group "
                          f"== 0 and group % 8 == 0 (x K={K}, weight "
                          f"{qt.shape}, group {g})")
@@ -747,12 +761,36 @@ def route(M: int, K: int, N: int, qt: QTensor) -> str:
     """The kernel that takes ``[M, K] @ qt``, by the JAX package's rule
     (``ops/qmatmul.py qmatmul``): "K2" when the int8-activation rule picks
     it, "K1" for at-rest native codes (native-pack or int8 planes) at
-    M <= 16, "K5" for everything else."""
+    M <= 16, "K5" for everything else; and "plain" (:func:`qmm_plain`) for
+    a shape that neither K1 nor K5 takes (N not a multiple of 16, as a
+    vocab of 32001; K not a multiple of 32), where the JAX package falls
+    back to ``qmatmul_native`` / ``qmatmul_xla``. The answer rests on the
+    shapes and the weight alone, before any launch."""
+    g = qt.group_size
     if _pick_a8(M, K, N, qt) is not None:
         return "K2"
-    if is_native(qt) and M <= 16 and K % 32 == 0 and qt.group_size % 32 == 0:
+    if is_native(qt) and k1_takes(M, K, N, g):
         return "K1"
-    return "K5"
+    if k5_takes(K, N, g):
+        return "K5"
+    return "plain"
+
+
+def qmm_plain(x: torch.Tensor, qt: QTensor,
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """The route for shapes the kernels decline: the weight dequantized to
+    bf16 (:func:`dequant_bf16`, K5's rounding), then one product with f32
+    sums; the JAX package's ``qmatmul_native`` / ``qmatmul_xla`` fallback.
+    On the card one ``torch.mm`` of the bf16 operands with ``out_dtype``
+    f32 (aten::mm.dtype); on the CPU K5's plain version. Counted as the
+    route ``qmm_plain``."""
+    _cuda.ROUTES.count("qmm_plain")
+    if x.device.type == "cpu":
+        return qmm_general_plain(x, qt, out_dtype)
+    _check_no_perm(qt)
+    x2 = x.to(torch.bfloat16)
+    return torch.mm(x2, dequant_bf16(qt),
+                    out_dtype=torch.float32).to(out_dtype)
 
 
 def gather_act_order(x2: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -800,6 +838,8 @@ def qmatmul(x: torch.Tensor, qt: QTensor,
     elif kernel == "K1":
         out = qmm_native(x2, qt.planes[0], qt.scales, qt.zeros,
                          qt.group_size, cfg.bits, out_dtype)
-    else:
+    elif kernel == "K5":
         out = qmm_general(x2, qt, out_dtype)
+    else:
+        out = qmm_plain(x2, qt, out_dtype)
     return out.reshape(*lead, qt.N)

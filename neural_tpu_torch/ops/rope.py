@@ -1,7 +1,7 @@
 """Position encodings (port of ``neural_tpu/ops/rope.py``: the frequency
 table, unscaled or with any of the JAX package's scalings; the NeoX-style
-rotation Llama uses; ChatGLM-1's 2-D GLM rotation; the ALiBi slopes of
-Bloom and MPT).
+rotation Llama uses and the GPT-J one, which the StreamingLLM shift
+takes; ChatGLM-1's 2-D GLM rotation; the ALiBi slopes of Bloom and MPT).
 
 Conventions: q/k are [..., T, H, Dh]; ``positions`` is [..., T] int.
 """
@@ -76,15 +76,28 @@ def rope_cos_sin(positions: torch.Tensor, inv_freqs: torch.Tensor):
     return torch.cos(ang), torch.sin(ang)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """Rotate [..., T, H, Dh] halves — pair (i, i + Dh/2), the NeoX style —
-    in f32, then cast back to x's dtype."""
-    d = x.shape[-1]
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               style: str = "neox",
+               rope_dim: Optional[int] = None) -> torch.Tensor:
+    """Rotate the first ``rope_dim`` (all, by default) of [..., T, H, Dh]
+    in f32, then cast back to x's dtype. ``style`` "neox" pairs (i, i +
+    d/2), the halves Llama uses; "gptj" pairs (2i, 2i + 1)."""
+    Dh = x.shape[-1]
+    d = rope_dim or Dh
+    xr = x[..., :d]
     c = cos[..., None, :]
     s = sin[..., None, :]
-    x1, x2 = x[..., : d // 2], x[..., d // 2:]
-    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    if style == "neox":
+        x1, x2 = xr[..., : d // 2], xr[..., d // 2:]
+        out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    elif style == "gptj":
+        x1, x2 = xr[..., 0::2], xr[..., 1::2]
+        out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s],
+                          dim=-1).reshape(xr.shape)
+    else:
+        raise ValueError(f"rope style {style!r}")
+    if d != Dh:
+        out = torch.cat([out, x[..., d:].to(out.dtype)], dim=-1)
     return out.to(x.dtype)
 
 

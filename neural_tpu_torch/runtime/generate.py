@@ -1,13 +1,20 @@
-"""Generation loops: prefill + greedy decode (port of the greedy part of
-``neural_tpu/runtime/generate.py``).
+"""Generation loops: prefill, greedy and sampled decode, ragged batches
+(port of ``neural_tpu/runtime/generate.py``).
 
 ``prefill_step`` computes only the last row's logits; ``model_step`` is one
 eval of T tokens; ``greedy_generate``/``generate`` drive them from Python
 with one host read of the next id per token (as the JAX loops do);
 ``decode_loop`` is the benchmark unit: a Python loop whose argmax stays on
-the device, with one host sync at the end. A prefix-LM model (ChatGLM-1)
-takes its prompt length on every decode step (``prompt_len``, a [B] tensor
-on the model's device), as the JAX loops pass ``_plen``.
+the device, with one host sync at the end; ``sample_loop`` is its sampled
+twin, the whole pipeline of ``runtime.sampling`` inside the step;
+``batched_generate`` prefills ragged prompts in one padded call and decodes
+them together through ``sample_loop``. A prefix-LM model (ChatGLM-1) takes
+its prompt length on every decode step (``prompt_len``, a [B] tensor on the
+model's device), as the JAX loops pass ``_plen``.
+
+Random draws come from a ``torch.Generator`` on the model's device, seeded
+from ``seed``; the JAX package's key streams are not reproduced (sampled
+ids agree in distribution, see ``runtime.sampling``).
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from ..models.config import ModelConfig
 from ..models.transformer import Transformer
 from ..ops import _cuda
 from .kvcache import KVCache, init_cache
-from .sampling import SamplingParams, sample
+from .sampling import SamplerState, SamplingParams, sample
 
 
 def params_to_native(params):
@@ -148,32 +155,64 @@ def greedy_generate(model: Transformer, cfg: ModelConfig,
     return out
 
 
+def truncate_at_eos(ids, cfg: ModelConfig):
+    """Cut a generated-id list after its first stop token (any of
+    ``cfg.eos_token_ids``)."""
+    for i, t in enumerate(ids):
+        if t in cfg.eos_token_ids:
+            return ids[:i + 1]
+    return ids
+
+
+def _generator(device, seed: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 def generate(model: Transformer, cfg: ModelConfig, prompt_ids: Sequence[int],
              sampling: Optional[SamplingParams] = None,
              max_new_tokens: int = 128, max_len: Optional[int] = None,
-             stop_at_eos: bool = True, kv_dtype=torch.bfloat16) -> list:
+             seed: int = 0, stop_at_eos: bool = True,
+             kv_dtype=torch.bfloat16, on_token=None,
+             cache: Optional[KVCache] = None, start: int = 0) -> list:
     """Single-sequence generation through the sampling pipeline (penalties
-    over the last ``repeat_last_n`` ids, then greedy) over a bf16 or int8
-    KV cache. Returns the full id list."""
+    over the last ``repeat_last_n`` ids, then greedy, mirostat or the
+    filters and a draw from a generator seeded with ``seed``) over a bf16
+    or int8 KV cache. Returns the full id list.
+
+    ``on_token(ids, logits)``, if given, is called after each new id with
+    the prompt and the ids so far and the f32 logits row [V] that id was
+    drawn from; a true return stops there (a streamer, a stopping
+    criterion). ``cache`` continues a cache filled to ``start`` (an
+    interactive round): the prompt is prefilled at ``start`` and the run
+    ends at the cache's length. The cache then holds every returned id but
+    the last, which the next round's first position overwrites."""
     sampling = sampling or SamplingParams()
     dev = model.device
     T = len(prompt_ids)
-    S = max_len or min(cfg.max_seq_len, T + max_new_tokens)
-    cache = init_cache(cfg, 1, S, kv_dtype, device=dev)
-    plen = prompt_lens(cfg, [T], dev)
+    if cache is None:
+        S = max_len or min(cfg.max_seq_len, T + max_new_tokens)
+        cache = init_cache(cfg, 1, S, kv_dtype, device=dev)
+    S = cache.k.shape[3]
+    plen = prompt_lens(cfg, [start + T], dev)
+    gen = _generator(dev, seed)
+    state = SamplerState.init(1, sampling, dev)
     logits = prefill_step(model, _prompt(prompt_ids, dev),
-                          torch.zeros(1, dtype=torch.long, device=dev), cache)
+                          torch.full((1,), start, dtype=torch.long,
+                                     device=dev), cache)
     out = list(prompt_ids)
-    pos = T
+    pos = start + T
     for i in range(max_new_tokens):
-        if sampling.repeat_last_n <= 0:   # 0 disables penalties
-            tok = sample(logits[:, -1], sampling)
-        else:
+        hist = None
+        if sampling.repeat_last_n > 0:   # 0 disables penalties
             hist = torch.tensor([out[-sampling.repeat_last_n:]],
                                 dtype=torch.long, device=dev)
-            tok = sample(logits[:, -1], sampling, prev_tokens=hist)
+        tok, state = sample(logits[:, -1], sampling, state, prev_tokens=hist,
+                            generator=gen)
         next_id = int(tok[0])
         out.append(next_id)
+        if on_token is not None and on_token(
+                out, logits[0, -1].to(torch.float32)):
+            break
         if stop_at_eos and next_id in cfg.eos_token_ids:
             break
         if i == max_new_tokens - 1 or pos + 1 >= S:
@@ -191,32 +230,49 @@ def _greedy_step(model: Transformer, token: torch.Tensor, pos: torch.Tensor,
     return torch.argmax(logits[:, -1], dim=-1)
 
 
-class _StepGraph:
-    """One greedy decode step captured in a CUDA graph: ``token``/``pos``
-    (and a prefix-LM model's ``prompt_len``) are its static inputs, device
+class _Graph:
+    """A decode step ``body`` (a function of no arguments over static
+    tensors) captured in a CUDA graph. CUDA graphs ask for one real run
+    first, on a side stream; the ``state`` tensors that run advances are
+    put back, and the cache slot it writes is the one the first replay
+    writes again, with the same values. :meth:`replay` runs the graph,
+    counts its kernels' launches and returns the body's output, a static
+    tensor that the next replay overwrites. Replaying costs one launch
+    from the host instead of the step's ~30 per layer (the JAX package runs
+    its loops on the device with ``lax.scan`` for the same reason)."""
+
+    def __init__(self, body, state=()):
+        saved = [t.clone() for t in state]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream().wait_stream(side)
+        for t, v in zip(state, saved):
+            t.copy_(v)
+        self.graph = torch.cuda.CUDAGraph()
+        self.out, self.launches = _cuda.capture(self.graph, body)
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        _cuda.add_launches(self.launches)
+        return self.out
+
+
+class _StepGraph(_Graph):
+    """One greedy decode step as a :class:`_Graph`: ``token``/``pos`` (and
+    a prefix-LM model's ``prompt_len``) are its static inputs, device
     tensors the graph reads at each replay, so no host value is baked into
-    it; ``next`` is its static output. Replaying it costs one launch from
-    the host instead of the step's ~30 per layer (the JAX package runs the
-    loop on the device with ``lax.scan`` for the same reason). Capture runs
-    the step once for real first, on a side stream, as CUDA graphs
-    require; that step writes the same cache slots the first replay writes
-    again, with the same values. The capture takes the path of the fusion
-    switches (``models.transformer.fuse_switches``) as they stand; a graph
-    lives for one :func:`decode_loop` call, so a switch flipped between
-    calls is captured anew, never replayed stale."""
+    it; ``out`` is the next ids [B]. The capture takes the path of the
+    fusion switches (``models.transformer.fuse_switches``) as they stand; a
+    graph lives for one :func:`decode_loop` call, so a switch flipped
+    between calls is captured anew, never replayed stale."""
 
     def __init__(self, model, token, pos, cache, prompt_len=None):
         self.token, self.pos = token.clone(), pos.clone()
         self.prompt_len = None if prompt_len is None else prompt_len.clone()
-        step = lambda: _greedy_step(model, self.token, self.pos, cache,
-                                    self.prompt_len)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            step()
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        self.next, self.launches = _cuda.capture(self.graph, step)
+        super().__init__(lambda: _greedy_step(model, self.token, self.pos,
+                                              cache, self.prompt_len))
 
 
 @torch.inference_mode()
@@ -238,9 +294,199 @@ def decode_loop(model: Transformer, token: torch.Tensor, pos: torch.Tensor,
         return torch.stack(toks).cpu()
     g = _StepGraph(model, token, pos, cache, prompt_len)
     for _ in range(n_steps):
-        g.graph.replay()
-        _cuda.add_launches(g.launches)
-        toks.append(g.next.clone())
-        g.token.copy_(g.next[:, None])
+        nxt = g.replay()
+        toks.append(nxt.clone())
+        g.token.copy_(nxt[:, None])
         g.pos.add_(1)
     return torch.stack(toks).cpu()
+
+
+class _SampledStep:
+    """One sampled decode step over static state tensors, so that a CUDA
+    graph can capture it: ``token`` [B, 1] and ``pos`` [B] (and a prefix-LM
+    model's ``prompt_len``), the penalty ring ``history`` [B, R] with its
+    validity mask, mirostat's ``mu`` [B] (2·tau unless given) and, unless
+    the sampling is greedy, the draw's ``noise`` [B, V]. The step runs the
+    forward, the whole sampling pipeline and the state updates (the ring
+    shifted by the new id, mu, token, pos + 1) on the device, with no host
+    read and no host-to-device copy. :meth:`step` refills ``noise`` from
+    the generator (outside any graph, so each replay draws anew) and runs
+    the step: on the card as one CUDA graph replay (:meth:`capture`
+    first), on the CPU eagerly. The cache is written in place, so a graph
+    stays valid across the in-place StreamingLLM shift."""
+
+    def __init__(self, model: Transformer, cache: KVCache,
+                 sampling: SamplingParams, token: torch.Tensor,
+                 pos: torch.Tensor, history: Optional[torch.Tensor] = None,
+                 history_valid: Optional[torch.Tensor] = None,
+                 prompt_len: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 mu: Optional[torch.Tensor] = None):
+        dev = token.device
+        B = token.shape[0]
+        self.model, self.cache, self.sampling = model, cache, sampling
+        self.token, self.pos = token.long().clone(), pos.long().clone()
+        self.prompt_len = None if prompt_len is None else prompt_len.clone()
+        self.penalties = sampling.repeat_last_n > 0 and history is not None
+        if self.penalties:
+            self.history = history.long().clone()
+            self.history_valid = torch.ones(history.shape, dtype=torch.bool,
+                                            device=dev) \
+                if history_valid is None else history_valid.clone()
+        self.mu = SamplerState.init(B, sampling, dev).mu if mu is None \
+            else mu.to(torch.float32).clone()
+        greedy = sampling.greedy or sampling.temperature <= 0
+        self.noise = None if greedy else torch.zeros(
+            (B, model.cfg.vocab_size), dtype=torch.float32, device=dev)
+        self.generator = generator
+        self.graph = None
+
+    def _state(self):
+        return [t for t in (self.token, self.pos, self.mu) + (
+            (self.history, self.history_valid) if self.penalties else ())]
+
+    def _body(self) -> torch.Tensor:
+        logits = self.model(self.token, self.pos, self.cache,
+                            logits_dtype=torch.float32,
+                            prompt_len=self.prompt_len)
+        hist = self.history if self.penalties else None
+        valid = self.history_valid if self.penalties else None
+        tok, st = sample(logits[:, -1], self.sampling, SamplerState(self.mu),
+                         prev_tokens=hist, prev_valid=valid, noise=self.noise)
+        if self.penalties:
+            self.history.copy_(torch.cat(
+                [self.history[:, 1:], tok[:, None].long()], dim=1))
+            self.history_valid.copy_(torch.cat(
+                [self.history_valid[:, 1:],
+                 torch.ones_like(self.history_valid[:, :1])], dim=1))
+        self.mu.copy_(st.mu)
+        self.token.copy_(tok[:, None])
+        self.pos.add_(1)
+        return tok
+
+    def capture(self):
+        """Capture the step in a CUDA graph (:class:`_Graph`)."""
+        if self.noise is not None:
+            self.noise.uniform_(0.0, 1.0, generator=self.generator)
+        self.graph = _Graph(self._body, self._state())
+
+    def step(self) -> torch.Tensor:
+        """One step → the ids [B] (a tensor of its own, on the device)."""
+        if self.noise is not None:
+            self.noise.uniform_(0.0, 1.0, generator=self.generator)
+        if self.graph is None:
+            return self._body()
+        return self.graph.replay().clone()
+
+
+@torch.inference_mode()
+def sample_loop(model: Transformer, token: torch.Tensor, pos: torch.Tensor,
+                cache: KVCache, n_steps: int, sampling: SamplingParams,
+                generator: Optional[torch.Generator] = None,
+                history: Optional[torch.Tensor] = None,
+                history_valid: Optional[torch.Tensor] = None,
+                prompt_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sampled decode of ``n_steps`` tokens from ``token`` [B, 1] at ``pos``
+    [B]: :func:`decode_loop` with the full sampling pipeline in each step.
+    ``history`` [B, repeat_last_n] holds the recent ids for the penalties
+    (a ring updated on the device), ``history_valid`` marks its real
+    entries (False at the pads of a short prompt). Mirostat's mu starts at
+    2·tau. The ids [n_steps, B] come back to the host once, at the end. On
+    the card the step is one CUDA graph replayed per token."""
+    st = _SampledStep(model, cache, sampling, token, pos, history,
+                      history_valid, prompt_len, generator)
+    if token.device.type == "cuda":
+        st.capture()
+    toks = [st.step() for _ in range(n_steps)]
+    return torch.stack(toks).cpu()
+
+
+@torch.inference_mode()
+def _prefill_ragged(model: Transformer, tokens: torch.Tensor,
+                    lens: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    """Right-padded batched prefill: tokens [B, Tmax] with real lengths
+    ``lens`` [B] → each row's last real token's logits [B, V]. Pad positions
+    write junk keys at offsets >= lens[b]; decode never attends them (each
+    row's length bounds its attention) and overwrites them one a step.
+    ``lens`` is also the prompt length a prefix-LM model reads."""
+    start = torch.zeros(tokens.shape[:1], dtype=torch.long,
+                        device=tokens.device)
+    return model(tokens, start, cache, prompt_len=lens,
+                 logit_positions=lens - 1)[:, 0]
+
+
+def _history(rows, rl: int, device):
+    """Each row's last ``rl`` ids, right-aligned, with the validity mask;
+    (None, None) when ``rl`` <= 0 turns the penalties off."""
+    if rl <= 0:
+        return None, None
+    hist = torch.zeros((len(rows), rl), dtype=torch.long)
+    valid = torch.zeros((len(rows), rl), dtype=torch.bool)
+    for b, r in enumerate(rows):
+        tail = list(r)[-rl:]
+        if tail:
+            hist[b, -len(tail):] = torch.tensor(tail)
+            valid[b, -len(tail):] = True
+    return hist.to(device), valid.to(device)
+
+
+@torch.inference_mode()
+def batched_generate(model: Transformer, cfg: ModelConfig, rows,
+                     sampling: Optional[SamplingParams] = None,
+                     max_new_tokens: int = 128, max_len: Optional[int] = None,
+                     seed: int = 0, stop_at_eos: bool = True,
+                     kv_dtype=torch.bfloat16) -> list:
+    """Ragged multi-prompt generation: one padded prefill and one decode
+    loop (:func:`sample_loop`) for all rows. Returns full id lists, each cut
+    at the cache end and, with ``stop_at_eos``, after its first stop
+    token."""
+    sampling = sampling or SamplingParams()
+    dev = model.device
+    B = len(rows)
+    lens = [len(r) for r in rows]
+    Tmax = max(lens)
+    S = max_len or min(cfg.max_seq_len, Tmax + max_new_tokens)
+    if Tmax >= S:
+        raise ValueError(f"prompt ({Tmax}) does not fit max_len {S}")
+    # the longest row bounds the whole batch, as in the row-wise loop
+    max_new_tokens = min(max_new_tokens, S - Tmax)
+    toks = torch.zeros((B, Tmax), dtype=torch.long)
+    for b, r in enumerate(rows):
+        toks[b, :len(r)] = torch.tensor(list(r), dtype=torch.long)
+    cache = init_cache(cfg, B, S, kv_dtype, device=dev)
+    tlens = torch.tensor(lens, dtype=torch.long, device=dev)
+    logits = _prefill_ragged(model, toks.to(dev), tlens, cache)
+    gen = _generator(dev, seed)
+    hist, valid = _history(rows, sampling.repeat_last_n, dev)
+    tok0, _ = sample(logits, sampling, SamplerState.init(B, sampling, dev),
+                     prev_tokens=hist, prev_valid=valid, generator=gen)
+    new = tok0[:, None].cpu()
+    if max_new_tokens > 1:
+        if hist is not None:
+            hist = torch.cat([hist[:, 1:], tok0[:, None].long()], dim=1)
+            valid = torch.cat([valid[:, 1:], torch.ones_like(valid[:, :1])],
+                              dim=1)
+        rest = sample_loop(model, tok0[:, None], tlens, cache,
+                           max_new_tokens - 1, sampling, gen, hist, valid,
+                           prompt_lens(cfg, lens, dev))
+        new = torch.cat([new, rest.T], dim=1)
+    outs = []
+    for b, r in enumerate(rows):
+        ids = new[b, :min(max_new_tokens, S - len(r))].tolist()
+        if stop_at_eos:
+            ids = truncate_at_eos(ids, cfg)
+        outs.append(list(r) + ids)
+    return outs
+
+
+@torch.inference_mode()
+def batch_logits(model: Transformer, cfg: ModelConfig, input_ids,
+                 max_len: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence logits [B, T, V] f32 of a [B, T] batch (teacher-forced
+    evaluation)."""
+    dev = model.device
+    ids = torch.as_tensor(input_ids, dtype=torch.long).to(dev)
+    B, T = ids.shape
+    cache = init_cache(cfg, B, max_len or T, device=dev)
+    return model_step(model, ids, torch.zeros(B, dtype=torch.long,
+                                              device=dev), cache)

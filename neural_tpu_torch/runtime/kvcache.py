@@ -5,7 +5,8 @@ Dh]`` slice is one contiguous block the attention kernels read directly.
 int8 KV keeps flat bf16 per-(token, head) scales ``[L, B, Hkv, S]`` beside
 the codes. Unlike the JAX cache, the port's cache is updated in place: the
 forward pass writes only the new tokens' slots, so no step copies the
-cache.
+cache. Beam search reorders its rows (:func:`reorder_batch`) into a second
+cache and swaps the two.
 """
 from __future__ import annotations
 
@@ -67,3 +68,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             f"KV cache dtype {dtype}: the port keeps bf16 or int8 KV")
     return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                    torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def reorder_batch(cache: KVCache, idx: torch.Tensor,
+                  out: Optional[KVCache] = None) -> KVCache:
+    """Reorder the batch rows (beam search's parents): row b of the result
+    is row ``idx[b]`` of ``cache``, int8 scales included. The rows are
+    gathered on the device into ``out``, a cache of the same shapes that
+    the caller swaps with ``cache`` (``cache, spare = reorder_batch(cache,
+    parents, spare), cache``), or into new tensors when ``out`` is None;
+    never in place, never through the host."""
+    idx = idx.to(device=cache.k.device, dtype=torch.long)
+    if out is None:
+        return KVCache(*(None if c is None else c.index_select(1, idx)
+                         for c in (cache.k, cache.v, cache.k_scale,
+                                   cache.v_scale)))
+    for src, dst in zip((cache.k, cache.v, cache.k_scale, cache.v_scale),
+                        (out.k, out.v, out.k_scale, out.v_scale)):
+        if src is not None:
+            torch.index_select(src, 1, idx, out=dst)
+    return out

@@ -20,9 +20,9 @@ buffer, rewritten in place. Prefill chunks run eagerly. A prefix-LM model
 needs the whole prompt); in paged mode its prefix mask reaches K3 too,
 where the JAX Scheduler's paged prefill is causal.
 
-Not ported here (they raise): beam search in the scheduler, StreamingLLM
-slots, ``decode_block > 1`` and stochastic sampling. The TPU's decode
-block-size hint (``pick_decode_blk``) and the weight-residency policy
+Not ported here (they raise; ROADMAP A9): beam search in the scheduler,
+StreamingLLM slots, ``decode_block > 1`` and stochastic sampling. The TPU's
+decode block-size hint (``pick_decode_blk``) and the weight-residency policy
 (``ensure_decode_residency``) have no counterpart: the port's kernels take
 no block size, and its weights are native-packed once at load.
 """
@@ -108,8 +108,8 @@ def _decode_sample_all(model, tokens, lengths, cache, bp, hist, valid,
     Inactive slots still compute (static shapes): their ids are ignored and
     their cache rows overwritten on the next prefill."""
     logits = model(tokens, lengths, cache, prompt_len=prompt_len)
-    return sample_batched(logits[:, -1], bp, eos_ids, prev_tokens=hist,
-                          prev_valid=valid)
+    return sample_batched(logits[:, -1], bp, eos_ids=eos_ids,
+                          prev_tokens=hist, prev_valid=valid, enable=())[0]
 
 
 class _DecodeGraph:
@@ -214,7 +214,7 @@ class Scheduler:
         StreamingLLM slots and multi-token decode blocks; they raise here."""
         if streaming:
             raise NotImplementedError("StreamingLLM serving slots are a "
-                                      "later slice (ROADMAP A8/A9)")
+                                      "later slice (ROADMAP A9)")
         if decode_block > 1:
             raise NotImplementedError("decode_block > 1 is a later slice "
                                       "(ROADMAP A9)")
@@ -286,7 +286,7 @@ class Scheduler:
         if not _is_greedy(sp) or sp.mirostat:
             raise NotImplementedError(
                 "stochastic sampling in the scheduler is a later slice "
-                "(ROADMAP A8); use SamplingParams(greedy=True)")
+                "(ROADMAP A9); use SamplingParams(greedy=True)")
 
     def validate(self, prompt_ids: Seq[int], max_new_tokens: int = 128,
                  sampling: Optional[SamplingParams] = None,
@@ -424,7 +424,7 @@ class Scheduler:
             hist = torch.tensor(
                 [(seq.prompt_ids + seq.output_ids)[-sp.repeat_last_n:]],
                 dtype=torch.long, device=logits_row.device)
-        return int(sample(logits_row[None], sp, prev_tokens=hist)[0])
+        return int(sample(logits_row[None], sp, prev_tokens=hist)[0][0])
 
     def _begin_prefill(self, seq: Sequence):
         slot = self.free_slots.pop()

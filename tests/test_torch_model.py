@@ -176,12 +176,11 @@ def test_greedy_generate_and_decode_loop_agree(pair):
 
 
 def test_generate_rejects_unported_options(pair):
+    """What Model.generate still refuses: session files (the checkpoint
+    converters, ROADMAP A10) and a mesh (parallelism, A12). Sampling, beams,
+    batches of prompts and streaming run since the sampling slice."""
     _, _, pm, _ = pair
-    with pytest.raises(NotImplementedError):
-        pm.generate([1, 2, 3], do_sample=True)
-    with pytest.raises(NotImplementedError):
-        pm.generate([[1, 2, 3], [4, 5, 6]])
-    with pytest.raises(NotImplementedError):
-        pm.generate([1, 2, 3], num_beams=2)
-    with pytest.raises(NotImplementedError):
-        pm.generate([1, 2, 3], streaming=True)
+    with pytest.raises(NotImplementedError, match="A10"):
+        pm.generate([1, 2, 3], session_file="session.bin")
+    with pytest.raises(NotImplementedError, match="A12"):
+        pm.generate([1, 2, 3], mesh=object())
