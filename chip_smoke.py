@@ -119,7 +119,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    search (4 beams) and the first StreamingLLM shift (bf16 and int8, from
    the CPU's cache) against the CPU, and a copy with a 32001-wide
    quantized lm_head through the counted ``qmm_plain`` route (K1 and K5
-   refuse it) against the CPU;
+   refuse it) against the CPU; and through the Scheduler a beam group
+   (slots bf16, paged int8; the CPU run forced to the card's beams, every
+   expansion's logits rows held to the card's and its choices proven
+   where the margins allow), graphed StreamingLLM slots through their
+   first shift (ids by the margins, each card shift against the plain
+   shift of the same row) and decode blocks (equal to the card's single
+   steps);
    Then (4f) Mistral-7B as a GPTQ int4 act-order checkpoint (its state
    dict synthesized on the host, converted on the card by
    ``params_from_gptq_state_dict``): ``Model.generate`` with bf16 and
@@ -145,7 +151,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    eagerly (ids and pool bytes), also with the fused path on (with and
    without GLU, the graph's K1 launches all fused); short slots-mode bf16
    and paged bf16 runs;
-   aggregate tok/s, decode-iteration ms at 8 running slots, TTFT.
+   aggregate tok/s, decode-iteration ms at 8 running slots, TTFT; then
+   (6c) serving beyond greedy on the same model: the paged int8 server
+   answers 12 mixed queries (greedy, sampled, mirostat v2, a 4-beam query
+   on a 128-token prompt): greedy ids equal a greedy-only run's; the
+   beam query teacher-forced: its logits rows at every expansion equal to
+   the bit to an eager Scheduler's with a plain host-staged KV copy, and
+   within 0.1·max|logit| of ``beam_search``'s, a run with its reorders
+   skipped failing that hold; the mix through the Scheduler with one seed
+   twice and another; StreamingLLM slots (512 positions, bf16 and int8
+   KV, 8 queries × 600 new tokens, two shifts a slot): query 0's rows
+   within 0.1·max|logit| of a batch-1 stream fed its ids, equal to the
+   bit to an eager Scheduler's through the first shift, its ids against
+   ``stream_generate`` by the margins; decode
+   blocks of 8 against single steps; tok/s, the decode iteration with and
+   without a beam group, and the page reorder, slot reorder and per-slot
+   shift timed alone.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -188,20 +209,24 @@ from neural_tpu_torch.ops import qmatmul as Q  # noqa: E402
 from neural_tpu_torch.ops.norms import rms_norm, rms_norm_plain  # noqa: E402
 from neural_tpu_torch.ops.rope import alibi_slopes, rope_freqs  # noqa: E402
 from neural_tpu_torch.runtime import streaming as ST  # noqa: E402
+from neural_tpu_torch.runtime import beam as BEAM  # noqa: E402
 from neural_tpu_torch.runtime.beam import _beam_step, beam_search  # noqa: E402
-from neural_tpu_torch.runtime.generate import (_SampledStep,  # noqa: E402
+from neural_tpu_torch.runtime.generate import (_Graph,  # noqa: E402
+                                               _SampledStep,
                                                _StepGraph, _prefill_ragged,
                                                sample_loop,
                                                decode_loop,
                                                greedy_generate, model_step,
                                                prefill_step)
-from neural_tpu_torch.runtime.kvcache import (init_cache,  # noqa: E402
-                                              reorder_batch)
+from neural_tpu_torch.runtime.kvcache import (copy_kv,  # noqa: E402
+                                              init_cache, reorder_batch)
+from neural_tpu_torch.runtime.paged import init_paged_cache  # noqa: E402
 from neural_tpu_torch.runtime.sampling import (  # noqa: E402
     SamplingParams, apply_penalties, batch_params, draw_noise, sample,
     sample_batched, token_counts, top_k_filter, top_p_filter)
 from neural_tpu_torch.serving import (ModelServer, Query,  # noqa: E402
                                       Scheduler)
+from neural_tpu_torch.serving import scheduler as SCHED  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BPS = 3.35e12
@@ -2513,12 +2538,16 @@ def _proven_equal(got, want, refs, others, histories, what):
     the reference (``refs``) against the other computation's (``others``);
     where the reference's penalized top-2 margin exceeds twice the largest
     difference times the penalty 1.1 the argmax is proven the same, and the
-    ids may part only at a step not proven. Returns the steps proven."""
+    ids may part only at a step not proven. ``histories`` None: no penalty
+    (margin over twice the difference). Returns the steps proven."""
     proven = 0
     for t, (a, b) in enumerate(zip(others, refs)):
         err = (a - b).abs().max().item()
-        pen = _penalized(b, histories + want[:t]).topk(2).values
-        sure = (pen[0] - pen[1]).item() > 2 * 1.1 * err
+        if histories is None:
+            pen, rp = b.topk(2).values, 1.0
+        else:
+            pen, rp = _penalized(b, histories + want[:t]).topk(2).values, 1.1
+        sure = (pen[0] - pen[1]).item() > 2 * rp * err
         if got[t] != want[t]:
             if sure:
                 raise AssertionError(f"{what}: id {got[t]} != {want[t]} at "
@@ -2579,35 +2608,39 @@ def _batch_of_prompts(model, params):
 
 def _beams(model, params):
     """``Model.generate(num_beams=4)`` on a 128-token prompt, 32 new
-    tokens: the beam step's host time (the run less the W-row prefill, over
-    its steps); one beam step (``_beam_step``: the eager forward of the 4
-    rows, ``log_softmax`` and the joint top-4) on the device's clock, CUDA
-    events around each of 10 calls after a warm-up, the median; and
+    tokens: the beam step's host time (the run less the prompt's one-row
+    prefill and its copy to the other rows, over its steps); one beam step
+    (``_beam_step``: the eager forward of the 4 rows, ``log_softmax`` and
+    the joint top-4) on the device's clock, CUDA events around each of 10
+    calls after a warm-up, the median; and
     ``reorder_batch``'s device time at this run's cache (S = 160) and at S
     = 2048, bf16, against the bytes it moves."""
     g = torch.Generator().manual_seed(23)
     prompt = torch.randint(3, V, (128,), generator=g).tolist()
     out, total = _host_ms(lambda: run_path(
-        "generate_beams4", GEN_PREFILL, lambda: model.generate(
+        "generate_beams4", ("qmm4_npack", "qmm_general", "flash_prefill",
+                            "flash_decode"), lambda: model.generate(
             prompt, max_new_tokens=N_SAMPLED, num_beams=4)[0]))
     new = out[len(prompt):]
     _check_ids(new, len(new), "beam search")
-    tiled = torch.tensor([prompt] * 4, device=DEV)
+    one = torch.tensor([prompt], device=DEV)
 
-    def prefill():
+    def prefill(cache):
+        prefill_step(params, one, torch.zeros(1, dtype=torch.long,
+                                              device=DEV), cache.rows(0, 1))
+        copy_kv(cache, [0] * 3, range(1, 4), len(prompt))
+
+    def timed_prefill():
         cache = init_cache(CFG, 4, len(prompt) + N_SAMPLED, device=DEV)
-        return _host_ms(lambda: prefill_step(
-            params, tiled, torch.zeros(4, dtype=torch.long, device=DEV),
-            cache))[1]
+        return _host_ms(lambda: prefill(cache))[1]
 
-    prefill()
-    pre = min(prefill() for _ in range(3))
+    timed_prefill()
+    pre = min(timed_prefill() for _ in range(3))
     step = (total - pre) / max(1, len(new) - 1)
     ts = []
     with torch.inference_mode():
         cache = init_cache(CFG, 4, len(prompt) + N_SAMPLED, device=DEV)
-        prefill_step(params, tiled, torch.zeros(4, dtype=torch.long,
-                                                device=DEV), cache)
+        prefill(cache)
         args = (torch.full((4, 1), 17, dtype=torch.long, device=DEV),
                 torch.full((4,), len(prompt), dtype=torch.long, device=DEV),
                 torch.zeros(4, device=DEV), cache,
@@ -2638,7 +2671,8 @@ def _beams(model, params):
         res[f"reorder_ms_S{S}"] = ms
         del cache, spare
     log(f"Model.generate num_beams=4, 128-token prompt: {total:.1f} ms, "
-        f"{len(new)} new ids; W-row prefill {pre:.2f} ms, then {step:.3f} "
+        f"{len(new)} new ids; one-row prefill and copy {pre:.2f} ms, then "
+        f"{step:.3f} "
         f"ms a beam step (host clock, the reorder and the host's bookkeeping "
         f"included); one _beam_step {dev_step:.3f} ms on the device's clock "
         f"(median of 10, min {min(ts):.3f}, max {max(ts):.3f}); ids {new}")
@@ -3045,12 +3079,108 @@ def phase_card_vs_plain():
     fused_worst.update(_fused_steps_card_vs_plain(card, host, len(ids),
                                                   host_cache))
     sched_worst = _sched_card_vs_plain(card, host, cfg2, rel_tol)
+    fused_worst.update(_sched_beyond_greedy_card_vs_plain(card, host, cfg2,
+                                                          ids, rel_tol))
     fused_worst.update(_sampling_card_vs_plain(card, host, cfg2, ids,
                                                rel_tol))
     del card, host
     # the formats' copies are cut to one layer, which runs every kernel of
     # each format, to keep the script inside its time limit
     return worst, sched_worst, fused_worst, _formats_card_vs_plain(cfg2)
+
+
+@contextlib.contextmanager
+def _ranked(module, calls, forced=None):
+    """Record each ``rank_beams`` call made through ``module`` (the
+    Scheduler's or ``runtime.beam``'s): its logits rows, scores, alive and
+    stop masks and the parents, ids and scores it chose, on the CPU. With
+    ``forced`` (another run's records), call k returns that run's k-th
+    choice in place of its own, so this run follows the other's beams
+    (teacher forcing) while its own choice is recorded beside them."""
+    orig = module.rank_beams
+
+    def rec(logits, scores, alive, eos_mask, W):
+        out = orig(logits, scores, alive, eos_mask, W)
+        calls.append(dict(logits=logits.double().cpu(),
+                          scores=scores.double().cpu(), alive=alive.cpu(),
+                          eos=eos_mask.double().cpu(), parents=out[0].cpu(),
+                          ids=out[1].cpu(), new=out[2].cpu()))
+        if forced is None:
+            return out
+        if len(calls) > len(forced):
+            raise AssertionError(f"the forced run ranked {len(calls)} "
+                                 f"expansions, the run it follows "
+                                 f"{len(forced)}")
+        c, dev = forced[len(calls) - 1], logits.device
+        return c["parents"].to(dev), c["ids"].to(dev), c["new"].to(dev)
+
+    module.rank_beams = rec
+    try:
+        yield
+    finally:
+        module.rank_beams = orig
+
+
+def _totals(c):
+    logp = torch.log_softmax(c["logits"], -1) + c["eos"][None]
+    logp = torch.where(c["alive"][:, None], logp, torch.full_like(logp,
+                                                                  -1e30))
+    return (c["scores"][:, None] + logp).reshape(-1)
+
+
+def _rows_apart(got, ref):
+    """Per expansion of two runs of one beam group (``_ranked`` records),
+    the largest difference of their live rows' logits over the
+    reference's largest |logit|."""
+    out = []
+    for a, b in zip(got, ref):
+        live = a["alive"] & b["alive"]
+        la, lb = a["logits"][live], b["logits"][live]
+        out.append((la - lb).abs().max().item() / lb.abs().max().item())
+    return out
+
+
+def _beams_held(got, ref, W, rel_tol, what):
+    """A beam group's expansions (``got``) against a reference run forced
+    to follow its beams (``ref``, :func:`_ranked` with ``forced=got``): at
+    every expansion the live rows' logits within rel_tol·max|logit| of
+    the reference's (a row reordered wrong, or logits left from another
+    step, sees another history), and the run's choice the joint top W of
+    its own rows' totals (score plus log-prob, f64, up to a 1e-4 tie). An
+    expansion is proven where the reference's top W+1 totals lie each
+    more than twice the largest total difference apart: there the
+    reference's own choice must be the run's. Returns (worst relative
+    difference, expansions proven)."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{what}: {len(got)} expansions, the forced "
+                             f"reference {len(ref)}")
+    apart = _rows_apart(got, ref)
+    proven = 0
+    for k, (a, b) in enumerate(zip(got, ref)):
+        if not apart[k] <= rel_tol:
+            raise AssertionError(f"{what}: expansion {k}: logits apart by "
+                                 f"{apart[k]:.4g}·max|logit| (tol "
+                                 f"{rel_tol})")
+        ta, tb = _totals(a), _totals(b)
+        chosen = a["parents"].long() * a["logits"].shape[-1] + a["ids"].long()
+        rest = torch.ones_like(ta, dtype=torch.bool)
+        rest[chosen] = False
+        tie = 1e-4 * max(1.0, ta.max().abs().item())
+        if ta[chosen].min() < ta[rest].max() - tie:
+            raise AssertionError(f"{what}: expansion {k} chose beyond the "
+                                 f"top {W} of its own rows")
+        live = (ta > -1e29) & (tb > -1e29)
+        delta = (ta - tb)[live].abs().max().item()
+        top = tb.topk(W + 1).values
+        top = top[top > -1e29]
+        sure = bool(((top[:-1] - top[1:]) > 2 * delta).all())
+        if sure and not (torch.equal(a["parents"], b["parents"])
+                         and torch.equal(a["ids"], b["ids"])):
+            raise AssertionError(f"{what}: expansion {k}: the reference "
+                                 f"chose otherwise despite the margins "
+                                 f"(delta {delta})")
+        proven += sure
+    return max(apart), proven
 
 
 def _beams_card_vs_plain(card, host, cfg2, ids, rel_tol):
@@ -3443,6 +3573,181 @@ def _sched_card_vs_plain(card, host, cfg2, rel_tol, kv_dtype=torch.int8):
     return worst
 
 
+GREEDY_NP = SamplingParams(greedy=True, repeat_penalty=1.0)
+
+
+def _sched_beams_card_vs_plain(card, host, cfg2, ids, rel_tol):
+    """A beam group (3 beams, 8 new tokens, a 24-token prompt) beside a
+    greedy request through the Scheduler, slots bf16 and then paged int8:
+    on the card (its decode steps graphed, a path each), then on the CPU's
+    plain path forced to follow the card's beams. Every expansion's logits
+    rows are held to the plain ones and the choices proven where the
+    margins allow (:func:`_beams_held`); the hypotheses equal."""
+    prompt = ids[:24]
+    res, proven = {}, 0
+    for mode, kv, attn in (("slots", torch.bfloat16, ("flash_prefill",
+                                                       "flash_decode")),
+                           ("paged", torch.int8, ("flash_prefill_i8",
+                                                  "paged_decode_i8"))):
+        calls, hyps = [], []
+        for model in (card, host):
+            def run():
+                sched = Scheduler(model, cfg2, max_batch=4, max_len=64,
+                                  kv_mode=mode, page_size=16, kv_dtype=kv,
+                                  sampling=GREEDY_NP)
+                sched.add_request("beam", prompt, max_new_tokens=8,
+                                  num_beams=3)
+                sched.add_request("greedy", ids[30:50], max_new_tokens=8)
+                return {q.request_id: q for q in sched.run_to_completion()}
+            calls.append([])
+            forced = None if model is card else calls[0]
+            with _ranked(SCHED, calls[-1], forced):
+                done = run() if model is host else run_path(
+                    f"card_vs_plain_sched_beams_{mode}",
+                    ("qmm4_npack", "qmm_general") + attn, run)
+            _check_served(done["greedy"].output_ids, 8, "greedy beside "
+                          "a beam group", cfg2)
+            hyps.append(done["beam"].hypotheses)
+        worst, n = _beams_held(*calls, 3, rel_tol,
+                               f"scheduler beams {mode} card vs plain")
+        if [h for h, _ in hyps[0]] != [h for h, _ in hyps[1]]:
+            raise AssertionError(f"scheduler beams {mode}: card hypotheses "
+                                 f"{hyps[0]} != forced plain {hyps[1]}")
+        log(f"scheduler beam group card vs plain ({mode}, {kv}): the plain "
+            f"run forced to the card's beams; logits within {worst:.3g}·"
+            f"max|logit| (tol {rel_tol}) at all {len(calls[0])} expansions, "
+            f"{n} proven by the margins; hypotheses {hyps[0]}")
+        res[f"sched_beams_{mode}_rel_err"] = worst
+        res[f"sched_beams_{mode}_proven"] = n
+        proven += n
+    if proven < 2:
+        raise AssertionError(f"scheduler beams card vs plain: {proven} "
+                             "expansions proven by the margins")
+    return res
+
+
+def _held_shift(worst):
+    """``shift_cache_impl`` wrapped for the Scheduler: the slot row as it
+    was copied to the CPU before the card shifts it, then the card's
+    shifted row held to the plain shift of that copy (values and scales
+    equal, bf16 keys within one bf16 step); ``worst`` collects the keys'
+    largest difference."""
+    orig = SCHED.shift_cache_impl
+
+    def shift(rows, inv, cfg, n_keep, n_discard):
+        before = type(rows)(*(None if t is None else t.cpu()
+                              for t in (rows.k, rows.v, rows.k_scale,
+                                        rows.v_scale)))
+        orig(rows, inv, cfg, n_keep, n_discard)
+        orig(before, None if inv is None else inv.cpu(), cfg, n_keep,
+             n_discard)
+        if not torch.equal(rows.v.cpu(), before.v):
+            raise AssertionError("scheduler shift: values differ")
+        k, rk = rows.k.cpu().float(), before.k.float()
+        worst.append((k - rk).abs().max().item())
+        if not bool(((k - rk).abs() <= 2 ** -7 * rk.abs() + 1e-6).all()):
+            raise AssertionError(f"scheduler shift: keys part by "
+                                 f"{worst[-1]}")
+        return rows
+    return shift
+
+
+def _sched_stream_card_vs_plain(card, host, cfg2, ids, rel_tol):
+    """StreamingLLM slots through the Scheduler (bf16 KV, 64 positions, 4
+    sinks, 30 dropped, prompts of 60 and 61 tokens, 6 new each: each slot
+    shifts once) on the card, its decode steps graphed, and on the CPU's
+    plain path, each step's logits rows read from the step's output
+    (:class:`_SlotRows`): logits within rel_tol, ids equal where the plain
+    margin proves them, up to the first parting; each card shift against
+    the plain shift of the same row."""
+    prompts = [ids[100:160], ids[160:221]]
+    worst_k, recs, done = [], [], []
+    for model in (card, host):
+        sched = Scheduler(model, cfg2, max_batch=2, max_len=64,
+                          streaming=True, n_keep=4, n_discard=30,
+                          sampling=GREEDY_NP)
+        rec = _SlotRows(sched, {0, 1})
+        for i, p in enumerate(prompts):
+            sched.add_request(i, p, max_new_tokens=6)
+        orig = SCHED.shift_cache_impl
+        if model is card:
+            SCHED.shift_cache_impl = _held_shift(worst_k)
+        try:
+            run = lambda: {q.request_id: q.output_ids
+                           for q in sched.run_to_completion()}
+            done.append(run() if model is host else run_path(
+                "card_vs_plain_sched_stream", ("qmm4_npack", "qmm_general",
+                                               "flash_prefill",
+                                               "flash_decode"), run))
+        finally:
+            SCHED.shift_cache_impl = orig
+        recs.append(rec.rows)
+    if len(worst_k) < 2:
+        raise AssertionError(f"scheduler streaming: {len(worst_k)} shifts "
+                             "on the card")
+    proven, worst = 0, 0.0
+    for i in range(len(prompts)):
+        for t in range(6):
+            a, b = recs[0][(i, t)], recs[1][(i, t)]
+            err = (a - b).abs().max().item()
+            worst = max(worst, err / b.abs().max().item())
+            if not err <= rel_tol * b.abs().max().item():
+                raise AssertionError(f"scheduler streaming logits, request "
+                                     f"{i} token {t}: max err {err}")
+            top2 = b.topk(2).values
+            sure = (top2[0] - top2[1]).item() > 2 * err
+            if done[0][i][t] != done[1][i][t]:
+                if sure:
+                    raise AssertionError(f"scheduler streaming ids differ "
+                                         f"at request {i} token {t} despite "
+                                         "the margin")
+                break
+            proven += sure
+    log(f"scheduler streaming card vs plain (64 positions, 2 slots, one "
+        f"shift each): logits max err {worst:.3g}·max|logit| (tol "
+        f"{rel_tol}); card shifts' keys within {max(worst_k):.3g} of the "
+        f"plain shift; ids card {done[0]}, plain {done[1]}; proven at "
+        f"{proven} tokens")
+    if proven < 3:
+        raise AssertionError("scheduler streaming: too few proven tokens")
+    return {"sched_stream_card_vs_plain_rel_err": worst,
+            "sched_stream_shift_k_err": max(worst_k)}
+
+
+def _sched_block_card(card, cfg2, ids):
+    """Decode blocks of 4 on the card (paged int8, batch 4, 6 requests of
+    20-60 tokens, 12 new each, the default repetition penalty): ids equal
+    the single steps' exactly; the single steps are held to the CPU by
+    :func:`_sched_card_vs_plain`."""
+    prompts = [ids[10 * n:10 * n + 20 + 8 * n] for n in range(6)]
+    out = []
+    for block in (1, 4):
+        sched = Scheduler(card, cfg2, max_batch=4, max_len=256,
+                          kv_mode="paged", page_size=64, kv_dtype=torch.int8,
+                          decode_block=block)
+        for i, p in enumerate(prompts):
+            sched.add_request(i, p, max_new_tokens=12)
+        out.append(run_path(f"card_sched_block{block}",
+                            ("qmm4_npack", "paged_decode_i8"),
+                            lambda: {q.request_id: q.output_ids
+                                     for q in sched.run_to_completion()}))
+        if block > 1 and not sched._blocks:
+            raise AssertionError("no decode block ran")
+    if out[0] != out[1]:
+        raise AssertionError(f"decode blocks {out[1]} != single steps "
+                             f"{out[0]}")
+    log(f"scheduler decode blocks of 4 on the card = single steps: ids "
+        f"equal over 6 requests, 12 new each")
+
+
+def _sched_beyond_greedy_card_vs_plain(card, host, cfg2, ids, rel_tol):
+    """Phase 5's checks of serving beyond greedy on its one-layer copy."""
+    res = _sched_beams_card_vs_plain(card, host, cfg2, ids, rel_tol)
+    res.update(_sched_stream_card_vs_plain(card, host, cfg2, ids, rel_tol))
+    _sched_block_card(card, cfg2, ids)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the server at full width
 # ---------------------------------------------------------------------------
@@ -3452,22 +3757,24 @@ SERVE_PAGED_I8 = ("qmm4_npack", "qmm_a8", "qmm_general", "flash_prefill_i8",
                   "paged_decode_i8")
 
 
-def _serve(srv, prompts, n_new, cfg=CFG, timeout=300.0):
-    """Issue every prompt at once, wait for Empty() under a timeout that
-    raises; return (finished sequences by id, issue time, wall seconds)."""
+def _serve(srv, prompts, n_new, cfg=CFG, timeout=300.0, queries=None):
+    """Issue every prompt at once (or ``queries``, ids 0..n-1, as they
+    are), wait for Empty() under a timeout that raises; return (finished
+    sequences by id, issue time, wall seconds)."""
+    queries = queries or [Query(i, p, n_new) for i, p in enumerate(prompts)]
     t0 = time.time()
-    srv.issueQuery([Query(i, p, n_new) for i, p in enumerate(prompts)])
+    srv.issueQuery(queries)
     while not srv.Empty():
         if time.time() - t0 > timeout:
-            raise TimeoutError(f"server did not answer {len(prompts)} "
+            raise TimeoutError(f"server did not answer {len(queries)} "
                                f"queries in {timeout} s")
         time.sleep(0.002)
     wall = time.time() - t0
     with srv._lock:
         done, srv.finished = {q.request_id: q for q in srv.finished}, []
-    if sorted(done) != list(range(len(prompts))):
+    if sorted(done) != list(range(len(queries))):
         raise AssertionError(f"answered {sorted(done)} of "
-                             f"{len(prompts)} queries")
+                             f"{len(queries)} queries")
     for i, q in done.items():
         out = q.output_ids
         stopped = out and out[-1] in cfg.eos_token_ids and len(out) < n_new
@@ -3608,6 +3915,557 @@ def phase_server(params):
          ("qmm4_npack", "flash_prefill", "paged_decode"),
          [p[:n] for p, n in zip(prompts, (90, 200))], 8)))
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: serving beyond greedy on the 7B
+# ---------------------------------------------------------------------------
+
+MIROSTAT = SamplingParams(mirostat=2)
+MIX_KINDS = ["greedy"] * 6 + ["sampled"] * 2 + ["mirostat", "beam"] \
+    + ["greedy"] * 2
+STREAM_LEN, STREAM_NEW = 512, 600
+# the server's logits rows against a batch-1 or beam_search computation of
+# the same tokens on the card: other kernels (K4 against K6, K1 at another
+# M), whose last-bit differences 32 layers of random weights amplify to
+# 4-7% of max|logit| in one step, steady over 600 tokens and both shifts
+SERVE_TOL = 1e-1
+# the same rows through the same kernels at the same shapes, eager against
+# graphed: equal to the bit
+SAME_ROUTE_TOL = 0.0
+
+
+def _mix_queries():
+    """Phase 6c's 12 queries in issue order, 32 new tokens each: 6 greedy,
+    2 sampled (top-k 40, top-p 0.95, temperature 0.8), 1 mirostat v2, a
+    4-beam query on a 128-token prompt, 2 more greedy; the other prompts
+    are phase 6's (32-1500 tokens)."""
+    prompts = _server_prompts()
+    g = torch.Generator().manual_seed(43)
+    beam_prompt = torch.randint(3, V, (128,), generator=g).tolist()
+    sp = {"sampled": SAMPLED, "mirostat": MIROSTAT}
+    return [Query(i, beam_prompt if k == "beam" else prompts[i], 32,
+                  sampling=sp.get(k), num_beams=4 if k == "beam" else None)
+            for i, k in enumerate(MIX_KINDS)]
+
+
+def _event_ms(fn, reps=10):
+    """The median over ``reps`` calls of the device time between CUDA
+    events around one call of ``fn`` (its launches from the host and any
+    small host-to-card copy included), after a warm-up call."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        ts.append(e0.elapsed_time(e1))
+    return statistics.median(ts)
+
+
+def _timed_steps(sched):
+    """Wrap a Scheduler's decode step: each call's (running slots, a beam
+    group running, host ms) is appended to the returned list."""
+    steps, decode_step = [], sched._decode_step
+
+    def timed():
+        n = len(sched.running)
+        beam = any(q.beam is not None for q in sched.running.values())
+        t = time.perf_counter()
+        decode_step()
+        steps.append((n, beam, (time.perf_counter() - t) * 1e3))
+
+    sched._decode_step = timed
+    return steps
+
+
+@contextlib.contextmanager
+def _timed_copies(calls):
+    """Time each ``copy_kv`` of the Scheduler (a beam prompt's share,
+    then its reorders) on the host's clock around a synchronize; append
+    (pages or rows, ms) to ``calls``."""
+    orig = SCHED.copy_kv
+
+    def timed(cache, src, dst, n=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        orig(cache, src, dst, n)
+        torch.cuda.synchronize()
+        calls.append((len(src), (time.perf_counter() - t) * 1e3))
+
+    SCHED.copy_kv = timed
+    try:
+        yield
+    finally:
+        SCHED.copy_kv = orig
+
+
+def _plain_copy(cache, src, dst, n=None):
+    """``copy_kv``'s plain version: every source row or page staged to the
+    host first, then each destination written from its copy, one at a
+    time."""
+    for c in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if c is None:
+            continue
+        if n is not None:
+            c = c[:, :, :, :n]
+        held = [c[:, i].to("cpu", copy=True) for i in src]
+        for i, h in zip(dst, held):
+            c[:, i].copy_(h)
+
+
+def _beam_run(params, beam_q, copy, graphed, forced=None):
+    """The beam query alone through a paged int8 Scheduler of the server's
+    shape (batch 8, max_len 2048, page 256), its KV copies made by
+    ``copy``, its decode steps graphed or eager, following ``forced``'s
+    choices if given: (its ``_ranked`` records, its sequence)."""
+    sched = Scheduler(params, CFG, max_batch=8, max_len=S_CACHE,
+                      kv_mode="paged", page_size=256, kv_dtype=torch.int8)
+    if not graphed:
+        sched._graphs = None
+    orig, calls = SCHED.copy_kv, []
+    SCHED.copy_kv = copy
+    try:
+        with _ranked(SCHED, calls, forced):
+            sched.add_request(0, beam_q.token_ids, beam_q.max_new_tokens,
+                              num_beams=4)
+            done = sched.run_to_completion()
+    finally:
+        SCHED.copy_kv = orig
+    del sched
+    torch.cuda.empty_cache()
+    return calls, done[0]
+
+
+def _beam_without_reorders(params, beam_q):
+    """The same-route hold against a broken run: the beam query through a
+    graphed Scheduler whose reorders are skipped (its prompt's share still
+    copied), then the eager plain-copy reference forced to its choices.
+    Its rows must part from the reference's. Returns (the largest
+    relative difference, reorders skipped)."""
+    copies = []
+
+    def share_only(cache, src, dst, n=None):
+        if not copies:
+            copy_kv(cache, src, dst, n)
+        copies.append(len(src))
+
+    calls, _ = _beam_run(params, beam_q, share_only, graphed=True)
+    ref, _ = _beam_run(params, beam_q, _plain_copy, graphed=False,
+                       forced=calls)
+    apart = max(_rows_apart(calls, ref))
+    if len(copies) < 2 or not apart > SAME_ROUTE_TOL:
+        raise AssertionError(f"a beam run with its {len(copies) - 1} "
+                             f"reorders skipped stays within {apart:.4g}·"
+                             f"max|logit| of its reference: the hold "
+                             "cannot see a wrong reorder")
+    return apart, len(copies) - 1
+
+
+def _mixed_traffic(params):
+    """Item 1: phase 6's paged int8 ``ModelServer`` (batch 8, max_len 2048,
+    page 256) answers the mix (a path with launch counts); the same 8
+    greedy prompts alone through the same server. Greedy ids equal the
+    greedy-only run's (a row's numbers do not depend on the other rows).
+    The beam query is held, teacher-forced (:func:`_beams_held`), to two
+    references that follow its beams: the same Scheduler route with eager
+    steps and the plain host-staged copy (:func:`_beam_run`), whose rows
+    must equal the server's (SAME_ROUTE_TOL) with 4 expansions or more
+    proven by the margins; and ``beam_search`` (a contiguous cache, K4,
+    its rows reordered by ``reorder_batch``) within SERVE_TOL, its
+    hypotheses equal. :func:`_beam_without_reorders` shows that the first
+    hold rejects a run whose reorders are skipped."""
+    queries = _mix_queries()
+    greedy = [q.id for q, k in zip(queries, MIX_KINDS) if k == "greedy"]
+    srv = ModelServer(params, CFG, max_batch=8, max_len=S_CACHE,
+                      kv_mode="paged", page_size=256, memory_dtype="int8")
+    copies, calls = [], []
+    try:
+        sched = srv.scheduler
+        # warm-up: the mix cut short captures the step graphs it needs
+        _serve(srv, None, 8, queries=[
+            Query(q.id, q.token_ids[:64], 8, sampling=q.sampling,
+                  num_beams=q.num_beams) for q in queries])
+        steps = _timed_steps(sched)
+        with _timed_copies(copies), _ranked(SCHED, calls):
+            done, _, wall = run_path(
+                "server_mixed", SERVE_PAGED_I8,
+                lambda: _serve(srv, None, 32, queries=queries))
+        alone, _, _ = _serve(srv, None, 32, queries=[
+            Query(j, queries[i].token_ids, 32) for j, i in enumerate(greedy)])
+    finally:
+        srv.stop()
+    for j, i in enumerate(greedy):
+        if done[i].output_ids != alone[j].output_ids:
+            raise AssertionError(f"greedy query {i} in the mixed batch "
+                                 f"{done[i].output_ids} != alone "
+                                 f"{alone[j].output_ids}")
+    beam_q = queries[MIX_KINDS.index("beam")]
+    T = len(beam_q.token_ids)
+    got = done[beam_q.id].hypotheses
+    same, seq = _beam_run(params, beam_q, _plain_copy, graphed=False,
+                          forced=calls)
+    exact, proven = _beams_held(calls, same, 4, SAME_ROUTE_TOL,
+                                "server beam query vs its eager plain-copy "
+                                "reference")
+    if seq.hypotheses != got:
+        raise AssertionError(f"server beams {got} != the reference's "
+                             f"{seq.hypotheses}")
+    if proven < 4:
+        raise AssertionError(f"server beam query: {proven} expansions "
+                             "proven by the margins")
+    ref_calls = []
+    with _ranked(BEAM, ref_calls, forced=calls):
+        ref = beam_search(params, CFG, beam_q.token_ids, beam_size=4,
+                          max_new_tokens=32, kv_dtype=torch.int8)
+    worst, _ = _beams_held(calls, ref_calls, 4, SERVE_TOL,
+                           "server beam query vs beam_search")
+    if [ids for ids, _ in got] != [h.ids[T:] for h in ref]:
+        raise AssertionError(f"server beams {got} != beam_search's "
+                             f"{[h.ids[T:] for h in ref]} on the same "
+                             "choices")
+    apart, skipped = _beam_without_reorders(params, beam_q)
+    n_tok = sum(len(q.output_ids) for q in done.values())
+    with_b = [ms for _, b, ms in steps if b]
+    without = [ms for n, b, ms in steps if not b and n == 8]
+    if not with_b or not without:
+        raise AssertionError("the mix ran no decode iteration with a beam "
+                             "group, or none with 8 plain rows")
+    share, reorders = copies[0], copies[1:]
+    res = dict(mixed_tok_s=n_tok / wall,
+               mixed_iter_ms_beam=statistics.median(with_b),
+               mixed_iter_ms_8plain=statistics.median(without),
+               page_reorder_ms=statistics.median(ms for _, ms in reorders)
+               if reorders else None,
+               beam_prompt_share_ms=share[1], beam_same_route_rel_err=exact,
+               beam_proven=proven, beam_search_rel_err=worst,
+               beam_no_reorder_rel_err=apart)
+    log(f"server mixed traffic (6+2 greedy, 2 sampled, 1 mirostat v2, 4 "
+        f"beams on 128 tokens; 32 new each): {n_tok} tokens in {wall:.2f} s "
+        f"= {res['mixed_tok_s']:.1f} tok/s; decode iteration median "
+        f"{res['mixed_iter_ms_beam']:.3f} ms with the beam group running "
+        f"({len(with_b)}), {res['mixed_iter_ms_8plain']:.3f} ms at 8 plain "
+        f"rows ({len(without)}) (host clock); the prompt's pages shared in "
+        f"{share[1]:.3f} ms ({share[0]} pages), {len(reorders)} page "
+        f"reorders, median {res['page_reorder_ms']} ms, pages "
+        f"{sorted({n for n, _ in reorders})} (host clock around a "
+        f"synchronize); greedy ids equal the greedy-only run's at all 8 "
+        f"queries; the beam query teacher-forced: its logits rows within "
+        f"{exact:.3g}·max|logit| of the eager plain-copy Scheduler's (tol "
+        f"{SAME_ROUTE_TOL}) at all {len(calls)} expansions, {proven} "
+        f"proven by the margins, and within {worst:.3g} of beam_search's "
+        f"(tol {SERVE_TOL}), hypotheses equal to both; with its {skipped} "
+        f"reorders skipped a run parts from its reference by {apart:.3g}·"
+        f"max|logit|; best {got[0][0]}")
+    for i in (6, 7, 8):
+        log(f"  query {i} ({MIX_KINDS[i]}): {done[i].output_ids}")
+    return res, queries
+
+
+def _mix_seeds(params, queries):
+    """Item 2: the mix through the Scheduler itself (no thread), seed 5
+    twice and seed 6: one seed gives the same ids, the other seed other
+    sampled ids, and the greedy and beam ids do not move."""
+    def run(seed):
+        sched = Scheduler(params, CFG, max_batch=8, max_len=S_CACHE,
+                          kv_mode="paged", page_size=256,
+                          kv_dtype=torch.int8, seed=seed)
+        for q in queries:
+            sched.add_request(q.id, q.token_ids, q.max_new_tokens,
+                              sampling=q.sampling,
+                              num_beams=q.num_beams or 1)
+        out = {q.request_id: q.output_ids for q in sched.run_to_completion()}
+        del sched
+        torch.cuda.empty_cache()
+        return out
+
+    a = run_path("scheduler_mixed_seed5", SERVE_PAGED_I8, lambda: run(5))
+    b, c = run(5), run(6)
+    drawn = [i for i, k in enumerate(MIX_KINDS) if k in ("sampled",
+                                                         "mirostat")]
+    fixed = [i for i in range(len(MIX_KINDS)) if i not in drawn]
+    if a != b:
+        raise AssertionError("the mix with seed 5 twice gave other ids")
+    if all(a[i] == c[i] for i in drawn) or any(a[i] != c[i] for i in fixed):
+        raise AssertionError(f"seed 6 against 5: drawn ids {[c[i] for i in drawn]}"
+                             f" / {[a[i] for i in drawn]}")
+    log(f"scheduler mix, seed 5 twice: equal ids; seed 6: other ids at "
+        f"{sum(a[i] != c[i] for i in drawn)} of {len(drawn)} sampled "
+        "queries, the greedy and beam ids unchanged")
+
+
+class _RowStep:
+    """A batch-1 decode step returning its f32 logits row, captured in a
+    CUDA graph (``runtime.generate._Graph``), for teacher-forced runs at
+    the 7B's width: ``row(token, pos)`` sets the static token and position
+    and replays."""
+
+    def __init__(self, model, cache, token, pos):
+        self.token = torch.full((1, 1), token, dtype=torch.long, device=DEV)
+        self.pos = torch.full((1,), pos, dtype=torch.long, device=DEV)
+        self.g = _Graph(lambda: model(self.token, self.pos, cache)[:, -1])
+
+    def row(self, token, pos):
+        self.token.fill_(token)
+        self.pos.fill_(pos)
+        return self.g.replay()[0].float().cpu()
+
+
+def _stream_ref_rows(params, prompt, ids, kv, until):
+    """Teacher-forced batch-1 logits rows of a stream (``stream_generate``'s
+    computation) fed ``ids`` after ``prompt``: the prefill's last row, then
+    one step per id, the row shifted before the write that would overflow
+    it; ``until`` rows."""
+    cache = init_cache(CFG, 1, STREAM_LEN, kv, device=DEV)
+    n_discard = (STREAM_LEN - 4) // 2
+    with torch.inference_mode():
+        rows = [prefill_step(params, torch.tensor([prompt], device=DEV),
+                             torch.zeros(1, dtype=torch.long, device=DEV),
+                             cache)[0, -1].float().cpu()]
+        pos, step = len(prompt), None
+        for tok in ids[:until - 1]:
+            if pos >= STREAM_LEN:
+                ST.shift_cache_impl(cache, params.rope_inv_freqs, CFG, 4,
+                                    n_discard)
+                pos -= n_discard
+            if step is None:
+                step = _RowStep(params, cache, tok, pos)
+            rows.append(step.row(tok, pos))
+            pos += 1
+    return rows
+
+
+class _SlotRows:
+    """Records, on a Scheduler, the f32 logits row each token of the
+    requests ``rids`` was drawn from, keyed (request id, token index): the
+    prefill's last row, then its row of each decode step (the step's
+    logits output, graphed or eager)."""
+
+    def __init__(self, sched, rids):
+        self.rows = {}
+        one, step = sched._sample_one, sched._decode_sample_step
+
+        def sample_one(row, seq):
+            if seq.request_id in rids:
+                self.rows[(seq.request_id, 0)] = row.float().cpu()
+            return one(row, seq)
+
+        def decode_sample_step():
+            at = {s: (q.request_id, len(q.output_ids))
+                  for s, q in sched.running.items() if q.request_id in rids}
+            ids, logits = step()
+            for slot, key in at.items():
+                self.rows[key] = logits[slot].float().cpu()
+            return ids, logits
+
+        sched._sample_one = sample_one
+        sched._decode_sample_step = decode_sample_step
+
+
+def _stream_eager_equal(params, prompt, kv, rows, n_new):
+    """The server's streaming slot against the same Scheduler route run
+    eagerly: ``prompt`` alone through a streaming slots Scheduler of the
+    server's shape, decode steps eager, ``n_new`` tokens (past the first
+    shift); its logits rows must equal the server's first ``rows`` to the
+    bit, so the graphed steps read the shifted row. Returns n_new."""
+    sched = Scheduler(params, CFG, max_batch=8, max_len=STREAM_LEN,
+                      kv_dtype=kv, streaming=True, n_keep=4,
+                      sampling=GREEDY_NP)
+    sched._graphs = None
+    rec = _SlotRows(sched, {0})
+    sched.add_request(0, prompt, max_new_tokens=n_new)
+    sched.run_to_completion()
+    for t in range(n_new):
+        if not torch.equal(rec.rows[(0, t)], rows[t]):
+            raise AssertionError(f"streaming slot, token {t}: the graphed "
+                                 f"server's logits differ from the eager "
+                                 f"Scheduler's by "
+                                 f"{(rec.rows[(0, t)] - rows[t]).abs().max()}")
+    del sched
+    torch.cuda.empty_cache()
+    return n_new
+
+
+def _streaming_slots(params):
+    """Item 3: ``ModelServer(shift_roped_k=True, ctx_size=512, n_keep=4,
+    kv_mode="slots")``, bf16 and then int8 KV, greedy without penalty, 8
+    queries of 256 tokens with 600 new each (every slot shifts twice); a
+    path each. Query 0's logits rows, all of them, through both shifts of
+    its slot and the graphed steps after them, within SERVE_TOL of a
+    batch-1 stream fed the server's own ids (``stream_generate``'s
+    computation, teacher-forced), and to the bit equal to an eager
+    Scheduler's through the first shift (:func:`_stream_eager_equal`); its
+    ids against ``stream_generate``'s,
+    equal where the margins prove them, up to the first parting. The
+    shifts counted, and one slot's shift timed on the card at the 7B's
+    width."""
+    g = torch.Generator().manual_seed(47)
+    prompts = [torch.randint(3, V, (256,), generator=g).tolist()
+               for _ in range(8)]
+    res = {}
+    for kv, kvdt, md, attn in (
+            ("bf16", torch.bfloat16, "auto", ("flash_prefill",
+                                              "flash_decode")),
+            ("int8", torch.int8, "int8", ("flash_prefill_i8",
+                                          "flash_decode_i8"))):
+        srv = ModelServer(params, CFG, max_batch=8, ctx_size=STREAM_LEN,
+                          shift_roped_k=True, n_keep=4, kv_mode="slots",
+                          memory_dtype=md, sampling=GREEDY_NP)
+        shifts, orig = [], SCHED.shift_cache_impl
+
+        def counted(*a):
+            _, ms = _host_ms(lambda: orig(*a))
+            shifts.append(ms)
+
+        rec = _SlotRows(srv.scheduler, {0})
+        SCHED.shift_cache_impl = counted
+        try:
+            done, _, wall = run_path(
+                f"server_streaming_{kv}", ("qmm4_npack", "qmm_a8") + attn,
+                lambda: _serve(srv, prompts, STREAM_NEW, timeout=600.0))
+        finally:
+            SCHED.shift_cache_impl = orig
+            srv.stop()
+        if len(shifts) < 2 * len(prompts):
+            raise AssertionError(f"streaming {kv}: {len(shifts)} shifts")
+        want = ST.stream_generate(params, CFG, prompts[0], STREAM_NEW,
+                                  STREAM_LEN, n_keep=4,
+                                  kv_dtype=kvdt)[len(prompts[0]):]
+        got = done[0].output_ids      # shorter if it drew the stop id
+        until = next((t + 1 for t in range(len(got)) if got[t] != want[t]),
+                     len(got))
+        refs = _stream_ref_rows(params, prompts[0], got, kvdt, len(got))
+        rows = [rec.rows[(0, t)] for t in range(len(got))]
+        apart = [(a - b).abs().max().item() / b.abs().max().item()
+                 for a, b in zip(rows, refs)]
+        log(f"streaming {kv}: query 0's rows against the batch-1 stream, "
+            f"largest relative difference per 50 tokens: "
+            f"{[round(max(apart[i:i + 50]), 4) for i in range(0, len(apart), 50)]}")
+        if not max(apart) <= SERVE_TOL:
+            t = max(range(len(apart)), key=apart.__getitem__)
+            raise AssertionError(f"streaming {kv}: token {t}'s logits part "
+                                 f"from the batch-1 stream's by "
+                                 f"{apart[t]:.4g}·max|logit|")
+        # the first row computed after the slot's first shift
+        first = STREAM_LEN - len(prompts[0]) + 1
+        if len(got) <= first:
+            raise AssertionError(f"streaming {kv}: query 0 stopped at "
+                                 f"{len(got)} ids, before its first shift")
+        proven = _proven_equal(got, want, refs[:until], rows[:until], None,
+                               f"streaming {kv} slot vs stream_generate")
+        n_eager = _stream_eager_equal(params, prompts[0], kvdt, rows,
+                                      first + 16)
+        cache = init_cache(CFG, 8, STREAM_LEN, kvdt, device=DEV)
+        dev_ms = _event_ms(lambda: ST.shift_cache_impl(
+            cache.rows(3, 1), params.rope_inv_freqs, CFG, 4,
+            (STREAM_LEN - 4) // 2))
+        del cache
+        n_tok = sum(len(q.output_ids) for q in done.values())
+        log(f"server streaming {kv} (8 queries of 256 tokens, {STREAM_NEW} "
+            f"new each, 512 positions): {n_tok / wall:.1f} tok/s; "
+            f"{len(shifts)} shifts, host ms median "
+            f"{statistics.median(shifts):.3f}; one slot's shift "
+            f"{dev_ms:.4f} ms on the card (events around the call); query "
+            f"0's logits rows within {max(apart):.3g}·max|logit| of the "
+            f"batch-1 stream fed its ids over all {len(got)} tokens (tol "
+            f"{SERVE_TOL}; {max(apart[first:]):.3g} after its first shift), "
+            f"and equal to the bit to an eager Scheduler's over its first "
+            f"{n_eager} (through the first shift); "
+            f"it equals stream_generate over its first {until} ids (to the "
+            f"end or the first parting), {proven} proven by the margins")
+        if proven < 4:
+            raise AssertionError(f"streaming {kv}: too few proven steps")
+        res.update({f"stream_{kv}_server_tok_s": n_tok / wall,
+                    f"stream_{kv}_server_shifts": len(shifts),
+                    f"stream_{kv}_slot_shift_ms": dev_ms,
+                    f"stream_{kv}_proven": proven,
+                    f"stream_{kv}_rel_err": max(apart)})
+        del srv
+        torch.cuda.empty_cache()
+    return res
+
+
+def _decode_blocks(params):
+    """Item 4: 8 greedy queries (phase 6's first 8 prompts, 64 new each)
+    through the paged int8 server with ``decode_block`` 1 and 8, two
+    warm-up queries first (they capture the single step's graph and the
+    block's); equal ids, tok/s of both."""
+    prompts = _server_prompts()[:8]
+    out, res = [], {}
+    for k in (1, 8):
+        srv = ModelServer(params, CFG, max_batch=8, max_len=S_CACHE,
+                          kv_mode="paged", page_size=256, memory_dtype="int8",
+                          decode_block=k)
+        try:
+            _serve(srv, [prompts[0][:300], prompts[1][:300]], 16)
+            done, _, wall = run_path(
+                f"server_decode_block{k}", ("qmm4_npack", "qmm_a8",
+                                            "flash_prefill_i8",
+                                            "paged_decode_i8"),
+                lambda: _serve(srv, prompts, 64))
+            if k > 1 and not srv.scheduler._blocks:
+                raise AssertionError("no decode block ran")
+        finally:
+            srv.stop()
+        out.append({i: q.output_ids for i, q in done.items()})
+        res[f"block{k}_tok_s"] = sum(map(len, out[-1].values())) / wall
+        del srv
+        torch.cuda.empty_cache()
+    if out[0] != out[1]:
+        raise AssertionError("decode blocks of 8 gave other ids than "
+                             "single steps")
+    log(f"server decode blocks (8 greedy queries, 64 new each): "
+        f"decode_block 8 {res['block8_tok_s']:.1f} tok/s against "
+        f"{res['block1_tok_s']:.1f} at 1; ids equal")
+    return res
+
+
+def _torch_op_times(params):
+    """The torch ops of this slice timed alone at the 7B's width (events
+    around one call, its host launches included): the page reorder (3
+    beam rows' pages, int8 pool of page 256, 1 and 6 pages each), the slot
+    reorder (3 of 4 rows, bf16, over 160 and 2048 positions), against
+    the bytes each reads and writes."""
+    res = {}
+    pool = init_paged_cache(CFG, 8, S_CACHE, None, 256, torch.int8, DEV)
+    for per in (1, 6):
+        src = list(range(per * 3))
+        dst = list(range(32, 32 + per * 3))
+        ms = _event_ms(lambda: copy_kv(pool, src, dst))
+        nbytes = 2 * len(src) * sum(t[:, 0].numel() * t.element_size()
+                                    for t in (pool.k, pool.v, pool.k_scale,
+                                              pool.v_scale))
+        log(f"page reorder, 3 rows x {per} page(s) of 256, int8: {ms:.4f} "
+            f"ms for {nbytes / 1e6:.1f} MB read and written (bound "
+            f"{nbytes / HBM_BPS * 1e3:.4f} ms)")
+        res[f"page_reorder_ms_{per}p"] = ms
+    del pool
+    cache = init_cache(CFG, 8, S_CACHE, device=DEV)
+    for n in (160, S_CACHE):
+        ms = _event_ms(lambda: copy_kv(cache, [0, 0, 2], [1, 2, 3], n))
+        nbytes = 2 * 2 * 3 * L * H * n * DH * 2
+        log(f"slot reorder, 3 of 4 rows, bf16, {n} positions: {ms:.4f} ms "
+            f"for {nbytes / 1e6:.1f} MB read and written (bound "
+            f"{nbytes / HBM_BPS * 1e3:.4f} ms)")
+        res[f"slot_reorder_ms_{n}"] = ms
+    del cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serving_beyond_greedy(params):
+    """Phase 6c on phase 6's 7B: mixed traffic through the paged int8
+    server, the mix's seeds through the Scheduler, StreamingLLM slots (bf16
+    and int8), decode blocks, and the slice's torch ops timed alone."""
+    res, queries = _mixed_traffic(params)
+    _mix_seeds(params, queries)
+    res.update(_streaming_slots(params))
+    res.update(_decode_blocks(params))
+    res.update(_torch_op_times(params))
+    return {f"6c_{k}": v for k, v in res.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -4663,6 +5521,8 @@ def main():
     copies_worst = phase("5d copies card vs plain",
                          phase_copies_card_vs_plain)
     e2e.update(phase("6 server", phase_server, params))
+    e2e.update(phase("6c serving beyond greedy", phase_serving_beyond_greedy,
+                     params))
     del params
     torch.cuda.empty_cache()
 

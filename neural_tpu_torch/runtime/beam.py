@@ -10,9 +10,11 @@ the gather. Semantics are HF's: early stop once the worst kept hypothesis
 can no longer be beaten, a length penalty over the new tokens,
 ``min_new_tokens`` by masking the stop ids.
 
-The prompt is prefilled on the W tiled rows with the lm_head on the last
-row only (``logit_positions``); the JAX package computes every row's logits
-and reads the last one, the same value.
+The prompt is prefilled once, on row 0 with the lm_head on its last
+position only (``logit_positions``), and its KV copied to the other W - 1
+rows (:func:`~neural_tpu_torch.runtime.kvcache.copy_kv`), as the
+Scheduler's beam groups do; the JAX package prefills the W tiled rows and
+reads the last position's logits of the first, the same values.
 """
 from __future__ import annotations
 
@@ -25,13 +27,43 @@ import torch
 from ..models.config import ModelConfig
 from ..models.transformer import Transformer
 from .generate import prefill_step, prompt_lens
-from .kvcache import init_cache, reorder_batch
+from .kvcache import copy_kv, init_cache, reorder_batch
 
 
 @dataclasses.dataclass
 class Hypothesis:
     ids: List[int]
     score: float            # length-penalized log-prob
+
+
+def stop_mask(eos_ids, V: int, masked: bool, device) -> torch.Tensor:
+    """The additive stop-id mask [V] f32 of :func:`rank_beams`: -1e30 at the
+    in-vocabulary stop ids while ``masked`` (before ``min_new_tokens``),
+    else 0."""
+    mask = torch.zeros(V, dtype=torch.float32)
+    if masked:
+        mask[[t for t in eos_ids if 0 <= t < V]] = -1e30
+    return mask.to(device)
+
+
+def rank_beams(logits: torch.Tensor, scores: torch.Tensor,
+               alive: torch.Tensor, eos_mask: torch.Tensor, W: int):
+    """The joint top-W expansion of a beam group from its rows' logits
+    [R, V] (any float dtype; R = W, or 1 for a prompt's first expansion
+    with a zero score): log-softmax in f32, the stop-id mask ``eos_mask``
+    [V] added, dead rows (``alive`` [R] False) spawning nothing, then the
+    top W of ``scores`` [R] (cumulative log-probs, f32) plus each row's
+    log-probs. Returns (parents [W], ids [W] int32, new scores [W] f32), on
+    the logits' device. :func:`beam_search` and the Scheduler's beam
+    groups both rank through here, so the same logits give the same
+    expansion."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    logp = logp + eos_mask[None, :]
+    V = logp.shape[-1]
+    logp = torch.where(alive[:, None], logp, torch.full_like(logp, -1e30))
+    total = scores[:, None] + logp
+    top_scores, top_idx = torch.topk(total.reshape(-1), W)
+    return top_idx // V, (top_idx % V).to(torch.int32), top_scores
 
 
 @torch.inference_mode()
@@ -45,14 +77,7 @@ def _beam_step(model: Transformer, tokens: torch.Tensor, pos: torch.Tensor,
     [W], new scores [W]), on the device; the cache holds the step's keys in
     the parents' rows, for the caller to reorder."""
     logits = model(tokens, pos, cache, prompt_len=prompt_len)
-    logp = torch.log_softmax(logits[:, -1].to(torch.float32), dim=-1)
-    logp = logp + eos_mask[None, :]
-    V = logp.shape[-1]
-    # dead beams must not spawn
-    logp = torch.where(alive[:, None], logp, torch.full_like(logp, -1e30))
-    total = scores[:, None] + logp
-    top_scores, top_idx = torch.topk(total.reshape(-1), W)
-    return top_idx // V, (top_idx % V).to(torch.int32), top_scores
+    return rank_beams(logits[:, -1], scores, alive, eos_mask, W)
 
 
 def beam_search(model: Transformer, cfg: ModelConfig,
@@ -72,15 +97,16 @@ def beam_search(model: Transformer, cfg: ModelConfig,
 
     cache = init_cache(cfg, W, S, kv_dtype, device=dev)
     spare = None
-    prompt = torch.tensor([list(prompt_ids)] * W, dtype=torch.long,
-                          device=dev)
+    prompt = torch.tensor([list(prompt_ids)], dtype=torch.long, device=dev)
     logits = prefill_step(model, prompt,
-                          torch.zeros(W, dtype=torch.long, device=dev), cache)
-    logp0 = torch.log_softmax(logits[0, -1].to(torch.float32), dim=-1)
-    if min_new_tokens > 0:
-        in_vocab = [t for t in eos if 0 <= t < logp0.shape[-1]]
-        logp0[in_vocab] += -1e30
-    top_scores, top_toks = torch.topk(logp0, W)
+                          torch.zeros(1, dtype=torch.long, device=dev),
+                          cache.rows(0, 1))
+    copy_kv(cache, [0] * (W - 1), range(1, W), T)
+    V = logits.shape[-1]
+    _, top_toks, top_scores = rank_beams(
+        logits[0], torch.zeros(1, device=dev),
+        torch.ones(1, dtype=torch.bool, device=dev),
+        stop_mask(eos, V, min_new_tokens > 0, dev), W)
 
     beams = [list(prompt_ids) + [int(t)] for t in top_toks.tolist()]
     scores = np.asarray(top_scores.cpu(), np.float64).copy()
@@ -98,14 +124,10 @@ def beam_search(model: Transformer, cfg: ModelConfig,
 
     plen = None if prompt_lens(cfg, [T], dev) is None else \
         torch.full((W,), T, dtype=torch.long, device=dev)
-    V = cfg.vocab_size
     pos = T
     for step in range(1, max_new_tokens):
         if not alive.any():
             break
-        eos_mask = np.zeros(V, np.float32)
-        if step + 1 <= min_new_tokens:
-            eos_mask[[t for t in eos if 0 <= t < V]] = -1e30
         tokens = torch.tensor([[b[-1]] for b in beams], dtype=torch.long,
                               device=dev)
         parents, toks, new_scores = _beam_step(
@@ -113,7 +135,8 @@ def beam_search(model: Transformer, cfg: ModelConfig,
                                       device=dev),
             torch.tensor(scores, dtype=torch.float32, device=dev), cache,
             torch.tensor(alive, device=dev),
-            torch.from_numpy(eos_mask).to(dev), W, prompt_len=plen)
+            stop_mask(eos, V, step + 1 <= min_new_tokens, dev), W,
+            prompt_len=plen)
         parents = parents.cpu().numpy()
         toks = toks.cpu().numpy()
         new_scores = np.asarray(new_scores.cpu(), np.float64)

@@ -364,6 +364,27 @@ class _SampledStep:
         self.pos.add_(1)
         return tok
 
+    def reset(self, token: torch.Tensor, pos: torch.Tensor,
+              history: Optional[torch.Tensor] = None,
+              history_valid: Optional[torch.Tensor] = None,
+              prompt_len: Optional[torch.Tensor] = None):
+        """Put a new starting state into the static tensors, in place, so a
+        captured graph replays from it (a scheduler's next decode block):
+        ``token``, ``pos``, the penalty ring and its mask (all valid when
+        ``history_valid`` is None) and a prefix-LM model's ``prompt_len``;
+        mu goes back to 2·tau."""
+        self.token.copy_(token)
+        self.pos.copy_(pos)
+        if self.penalties:
+            self.history.copy_(history)
+            if history_valid is None:
+                self.history_valid.fill_(True)
+            else:
+                self.history_valid.copy_(history_valid)
+        if self.prompt_len is not None:
+            self.prompt_len.copy_(prompt_len)
+        self.mu.fill_(2.0 * self.sampling.mirostat_tau)
+
     def capture(self):
         """Capture the step in a CUDA graph (:class:`_Graph`)."""
         if self.noise is not None:

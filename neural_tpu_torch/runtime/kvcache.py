@@ -6,12 +6,14 @@ int8 KV keeps flat bf16 per-(token, head) scales ``[L, B, Hkv, S]`` beside
 the codes. Unlike the JAX cache, the port's cache is updated in place: the
 forward pass writes only the new tokens' slots, so no step copies the
 cache. Beam search reorders its rows (:func:`reorder_batch`) into a second
-cache and swaps the two.
+cache and swaps the two; :func:`copy_kv` copies rows or pages in place,
+for a prompt's KV shared to the other rows of a beam group and for the
+Scheduler's beam reorders (its captured graphs hold the cache's storage).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -88,3 +90,34 @@ def reorder_batch(cache: KVCache, idx: torch.Tensor,
         if src is not None:
             torch.index_select(src, 1, idx, out=dst)
     return out
+
+
+#: the largest temporary a KV copy gathers at once, in bytes
+_COPY_BYTES = 256 << 20
+
+
+def copy_kv(cache, src: Sequence[int], dst: Sequence[int],
+            n: Optional[int] = None):
+    """Copy ``[:, src[i]]`` → ``[:, dst[i]]`` over the K and V tensors and
+    their int8 scales, in place: whole pages of a paged pool (``n`` None),
+    or batch rows of a contiguous cache over positions [0, n) (nothing at
+    or past a row's length is read, so the rest need not move). A beam
+    prompt's KV shared to the group's other rows or pages, or a beam
+    reorder. Each group of layers is gathered into a temporary of at most
+    ``_COPY_BYTES`` before it is written, so overlapping sets are safe,
+    and the tensors keep their storage (captured graphs read them)."""
+    if not src:
+        return
+    dev = cache.k.device
+    src = torch.tensor(list(src), dtype=torch.long, device=dev)
+    dst = torch.tensor(list(dst), dtype=torch.long, device=dev)
+    for c in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if c is None:
+            continue
+        if n is not None:
+            c = c[:, :, :, :n]
+        per_layer = len(src) * c[0, 0].numel() * c.element_size()
+        step = max(1, _COPY_BYTES // per_layer)
+        for l in range(0, c.shape[0], step):
+            block = c[l:l + step]
+            block.index_copy_(1, dst, block.index_select(1, src))

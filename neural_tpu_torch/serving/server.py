@@ -51,16 +51,21 @@ class ModelServer:
         reference server kwargs are accepted: ctx_size → max_len,
         max_request_num/batch_size → max_batch, memory_dtype ("auto"/"f16"
         → bf16, "int8"), max_new_tokens, kv_mode ("slots"/"paged"),
-        page_size, prefill_chunk; do_sample / temperature / top_k / top_p /
-        repetition_penalty → the default sampling (greedy only in this
-        slice); min_new_tokens → the default for queries that set none.
-        ``threads``, ``scratch_size_ratio``, ``continuous_batching``
-        (always on), ``print_log``, ``seed`` and ``return_prompt`` are
-        accepted and ignored, as the JAX package does.
+        page_size, prefill_chunk, decode_block, seed (the Scheduler's
+        draws); do_sample / temperature / top_k / top_p /
+        repetition_penalty → the default sampling; num_beams /
+        length_penalty / min_new_tokens → the defaults for queries that set
+        none (beam requests run inside the batched step, reference
+        scheduler.cpp:99-148); shift_roped_k → StreamingLLM slots, with
+        n_keep (a negative value means 4 sinks) and n_discard (a negative
+        value means the default, half the non-sink window). ``threads``,
+        ``scratch_size_ratio``, ``continuous_batching`` (always on),
+        ``print_log``, ``early_stopping`` (the HF can't-be-beaten stop is
+        always on) and ``return_prompt`` are accepted and ignored, as the
+        JAX package does.
 
-        Not ported yet, and raising: ``model_path`` (checkpoint loading,
-        ROADMAP A10), beam defaults, ``shift_roped_k`` and
-        ``decode_block > 1``."""
+        ``model_path`` (checkpoint loading) is not ported yet and raises
+        (ROADMAP A10)."""
         if model_path is not None:
             raise NotImplementedError("ModelServer(model_path=...) needs "
                                       "init_from_bin, a later slice "
@@ -83,21 +88,25 @@ class ModelServer:
                 temperature=kw.pop("temperature", 0.8),
                 top_k=kw.pop("top_k", 40), top_p=kw.pop("top_p", 0.95),
                 repeat_penalty=kw.pop("repetition_penalty", 1.1))
-        if kw.pop("num_beams", 1) > 1:
-            raise NotImplementedError("beam search in the server is a later "
-                                      "slice (ROADMAP A9)")
+        self.default_num_beams = kw.pop("num_beams", 1)
+        self.default_length_penalty = kw.pop("length_penalty", 1.0)
         self.default_min_new_tokens = kw.pop("min_new_tokens", 0)
-        for beam_kw in ("length_penalty", "early_stopping"):
-            kw.pop(beam_kw, None)
         sched_kw = {k: kw.pop(k) for k in ("kv_mode", "page_size",
-                                           "prefill_chunk", "decode_block")
-                    if k in kw}
+                                           "prefill_chunk", "decode_block",
+                                           "seed") if k in kw}
         sched_kw["streaming"] = bool(kw.pop("shift_roped_k", False))
+        n_keep = kw.pop("n_keep", 4)
+        n_discard = kw.pop("n_discard", None)
+        # reference: n_keep -1 keeps the whole prompt, which depends on the
+        # request; a server keeps 4 sinks instead
+        sched_kw["n_keep"] = 4 if n_keep < 0 else n_keep
+        sched_kw["n_discard"] = None if n_discard is not None \
+            and n_discard < 0 else n_discard
         for ignored in ("threads", "scratch_size_ratio",
-                        "continuous_batching", "print_log", "seed",
+                        "continuous_batching", "print_log", "early_stopping",
                         "do_sample", "temperature", "top_k", "top_p",
                         "repetition_penalty", "pad_token", "init_cb",
-                        "n_keep", "n_discard", "return_prompt"):
+                        "return_prompt"):
             kw.pop(ignored, None)
         if kw:
             raise TypeError(f"unknown server kwargs: {sorted(kw)}")
@@ -139,10 +148,13 @@ class ModelServer:
             queries = [queries]
         for q in queries:
             self.scheduler.validate(q.token_ids, q.max_new_tokens,
-                                    q.sampling, q.num_beams or 1)
+                                    self._num_beams(q))
         with self._lock:
             self._pending.extend(queries)
             self._outstanding += len(queries)
+
+    def _num_beams(self, q: Query) -> int:
+        return q.num_beams or self.default_num_beams
 
     def Empty(self) -> bool:
         """True iff every issued query has been DELIVERED (callback fired
@@ -183,6 +195,9 @@ class ModelServer:
         for q in pending:
             self.scheduler.add_request(
                 q.id, q.token_ids, q.max_new_tokens, sampling=q.sampling,
+                num_beams=self._num_beams(q),
+                length_penalty=q.length_penalty
+                or self.default_length_penalty,
                 min_new_tokens=q.min_new_tokens
                 or self.default_min_new_tokens)
         if pending:

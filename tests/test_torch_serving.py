@@ -154,11 +154,16 @@ def test_model_server_reference_kwargs(model):
     assert working and all(n >= 0 for n in working)
     with pytest.raises(TypeError):
         ModelServer(params, cfg, not_a_real_kwarg=1)
-    for kw in (dict(model_path="m.bin"), dict(num_beams=2),
-               dict(shift_roped_k=True), dict(decode_block=4),
-               dict(do_sample=True)):
-        with pytest.raises(NotImplementedError):
-            ModelServer(params, cfg, **kw).stop()
+    # the options beyond greedy reach the scheduler
+    for kw, ok in ((dict(num_beams=2), lambda s: s.default_num_beams == 2),
+                   (dict(shift_roped_k=True),
+                    lambda s: s.scheduler.streaming),
+                   (dict(decode_block=4),
+                    lambda s: s.scheduler.decode_block == 4),
+                   (dict(do_sample=True),
+                    lambda s: not s.scheduler.sampling.greedy)):
+        with ModelServer(params, cfg, max_batch=2, max_len=64, **kw) as srv:
+            assert ok(srv), kw
 
 
 def test_chunked_prefill_matches_and_interleaves(model):
@@ -292,21 +297,28 @@ def test_admission_reservation_formula_agrees_with_begin_prefill(model):
 
 
 def test_unported_requests_raise(model):
+    """What the port still refuses, each with its cause: a paged streaming
+    scheduler, more beams than slots, a streaming prompt that fills the
+    cache, a request past max_len, an empty prompt, and a server built
+    from a checkpoint path (ROADMAP A10)."""
     params, cfg = model
+    with pytest.raises(ValueError, match="kv_mode='slots'"):
+        Scheduler(params, cfg, max_batch=2, max_len=64, kv_mode="paged",
+                  page_size=16, streaming=True)
     sched = Scheduler(params, cfg, max_batch=2, max_len=64)
-    with pytest.raises(NotImplementedError):
-        sched.add_request("b", [1, 2], 4, num_beams=2)
-    with pytest.raises(NotImplementedError):
-        sched.add_request("s", [1, 2], 4,
-                          sampling=SamplingParams(temperature=0.7))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="num_beams 3 exceeds"):
+        sched.add_request("b", [1, 2], 4, num_beams=3)
+    with pytest.raises(ValueError, match="exceeds max_len"):
         sched.add_request("long", [1] * 60, max_new_tokens=8)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="at least one prompt token"):
         sched.add_request("empty", [], max_new_tokens=8)
-    for kw in (dict(streaming=True), dict(decode_block=2),
-               dict(sampling=SamplingParams())):
-        with pytest.raises(NotImplementedError):
-            Scheduler(params, cfg, max_batch=2, max_len=64, **kw)
+    stream = Scheduler(params, cfg, max_batch=2, max_len=64, streaming=True)
+    stream.add_request("past", [1] * 60, max_new_tokens=100)
+    with pytest.raises(ValueError, match="shorter than max_len"):
+        stream.add_request("full", [1] * 64, max_new_tokens=8)
+    assert not (sched.has_work or sched.waiting)
+    with pytest.raises(NotImplementedError, match="A10"):
+        ModelServer(params, cfg, model_path="m.bin")
 
 
 def _trace(sched, paged):
@@ -326,19 +338,27 @@ def _trace(sched, paged):
     return trace, {s.request_id: s.output_ids for s in sched.pop_finished()}
 
 
-@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("kv_mode", ["slots", "paged"])
-def test_port_scheduler_matches_jax_scheduler(both, kv_mode, kv_dtype):
+@pytest.mark.parametrize("kv_mode,kv_dtype,beams", [
+    ("slots", "bf16", False), ("slots", "int8", False),
+    ("paged", "bf16", False), ("paged", "int8", False),
+    ("slots", "bf16", True), ("paged", "int8", True)],
+    ids=["slots-bf16", "slots-int8", "paged-bf16", "paged-int8",
+         "slots-bf16-beams", "paged-int8-beams"])
+def test_port_scheduler_matches_jax_scheduler(both, kv_mode, kv_dtype, beams):
     """Same weights, same 12 requests (prompts 3-40 tokens, 6 new each, the
     default repetition penalty), 4 slots, chunked prefill, an undersized
     page pool: equal decisions at every step, and equal greedy ids for at
-    least 10 of 12 requests."""
+    least 10 of 12 requests. With ``beams``, requests 3 and 8 are beam
+    groups (3 and 2 beams), which wait for contiguous slots and take a
+    page reservation per beam: the decisions and page tables still equal
+    JAX's at every step."""
     jp, jcfg, params, cfg = both
     prompts = _prompts(7, 12, 3, 40)
     kw = dict(max_batch=4, max_len=64, prefill_buckets=(8, 16, 32),
               prefill_chunk=16, kv_mode=kv_mode, page_size=16)
     if kv_mode == "paged":
-        kw["n_pages"] = 10
+        kw["n_pages"] = 10 + 4 * beams
+    widths = {3: 3, 8: 2} if beams else {}
     jsched = JScheduler(jp, jcfg, sampling=JSP(greedy=True),
                         kv_dtype="int8" if kv_dtype == "int8"
                         else jnp.bfloat16, **kw)
@@ -347,10 +367,16 @@ def test_port_scheduler_matches_jax_scheduler(both, kv_mode, kv_dtype):
                       else torch.bfloat16, **kw)
     for s in (jsched, sched):
         for i, p in enumerate(prompts):
-            s.add_request(f"q{i}", p, max_new_tokens=6)
+            s.add_request(f"q{i}", p, max_new_tokens=6,
+                          num_beams=widths.get(i, 1))
     jtrace, jdone = _trace(jsched, kv_mode == "paged")
     trace, done = _trace(sched, kv_mode == "paged")
     assert trace == jtrace
+    if beams:   # each group held its W slots, and one beside others
+        batches = [[r for _, r in running] for _, running, _ in trace]
+        for i, w in widths.items():
+            assert any(b.count(f"q{i}") == w for b in batches)
+        assert any(len(b) > len(set(b)) > 1 for b in batches)
     exact = sum(done[f"q{i}"] == jdone[f"q{i}"] for i in range(12))
     assert exact >= 10, [(i, done[f"q{i}"], jdone[f"q{i}"])
                          for i in range(12) if done[f"q{i}"] != jdone[f"q{i}"]]
