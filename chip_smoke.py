@@ -3,6 +3,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab PARENT_DIR   # K1/K3/K4/K6, phase 4/4b and
                                             # server legs, parent vs this
+    python3 chip_smoke.py --phase7          # phases 1, 2 and 7 alone (no
+                                            # result line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -168,6 +170,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    without a beam group, and the page reorder, slot reorder and per-slot
    shift timed alone.
 
+7. model files (under ``.chip_scratch/phase7``, each file removed after
+   its leg; the free disk space printed first, the phase failing when it
+   is short): (7a) Llama-2-7B as a llama.cpp Q4_0 GGUF file at full depth
+   (random block bytes with finite fp16 scales, a Q6_K lm_head, a
+   32000-piece SPM vocabulary) through ``Model().init_from_bin``: load
+   seconds, the route counts (every decode projection on K1 at the
+   unpadded 11008, the prefill on K5's tiles, the Q6_K lm_head on K5's
+   GEMV), TTFT at 1975 tokens, the decode step's graph replay at fills
+   128 and 1975 and the host slope at 128, K1, K5's GEMV and K5's tiles
+   on the file's own tensors against their plain versions,
+   ``generate_text``, ``generate(session_file=...)`` twice (the resumed
+   greedy ids equal) and on the prompt plus 64 tokens with and without the
+   saved prefix, ``ModelServer(model_path=...)`` (paged int8, batch 8, 8
+   queries, tok/s), and ``save()`` to NTPU and ``init_from_bin`` of it
+   (every tensor byte-equal, greedy ids over 32 tokens equal); (7b) each
+   of the ten ggml types as a 2-layer full-width file with a constant
+   group: ``Model.generate`` on the card, then the prefill's last logits
+   of a 32-token prompt and 8 teacher-forced steps against the plain path
+   on the card's own tensors (``plain_on_card``; 2e-2·max|logit|), each
+   type's routes and decode step, and K5's GEMV at group 16 on Q2_K/Q3_K/
+   Q6_K weights; (7c) a 4-layer Llama-2-7B-wide bf16 directory (two
+   shards and an index) converted at q4_j by ``Model.init`` in a child
+   process: seconds, the resident set's rise and the numpy host buffers'
+   peak against one layer's f32 bytes, a prefill on K2 and a decode on
+   K1, every tensor equal to the CPU's conversion of the same directory.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 no CUDA device is present.
@@ -177,6 +205,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import struct
 import subprocess
@@ -191,6 +220,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from neural_tpu_torch.api import Model  # noqa: E402
+from neural_tpu_torch.convert import checkpoint as PC  # noqa: E402
+from neural_tpu_torch.convert import gguf as GG  # noqa: E402
+from neural_tpu_torch.convert.gguf_models import \
+    random_block_bytes  # noqa: E402
 from neural_tpu_torch.convert.gptq import \
     params_from_gptq_state_dict  # noqa: E402
 from neural_tpu_torch.convert.hf import init_random  # noqa: E402
@@ -201,9 +234,11 @@ from neural_tpu_torch.core.dtypes import (PRESETS, QuantConfig,  # noqa: E402
 from neural_tpu_torch.core.qtensor import (dequantize, quantize,  # noqa: E402
                                            to_native, to_native_packed)
 from neural_tpu_torch.models import bloom, chatglm, llama, mpt  # noqa: E402
+from neural_tpu_torch.models import transformer as TRANSFORMER  # noqa: E402
 from neural_tpu_torch.models.config import ModelConfig  # noqa: E402
 from neural_tpu_torch.ops import _cuda  # noqa: E402
 from neural_tpu_torch.ops import attention as A  # noqa: E402
+from neural_tpu_torch.ops import norms as NORMS  # noqa: E402
 from neural_tpu_torch.ops import paged_attention as PA  # noqa: E402
 from neural_tpu_torch.ops import qmatmul as Q  # noqa: E402
 from neural_tpu_torch.ops.norms import rms_norm, rms_norm_plain  # noqa: E402
@@ -5116,6 +5151,676 @@ def phase_copies_card_vs_plain():
 
 
 # ---------------------------------------------------------------------------
+# phase 7: model files (GGUF of every ggml type, NTPU checkpoints and
+# session files, the streamed HF conversion, ModelServer(model_path=...))
+# ---------------------------------------------------------------------------
+
+# the phase's files: made here, removed after each leg
+SCRATCH7 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".chip_scratch", "phase7")
+# the disk the phase needs free: the 3.8 GB GGUF and its 1.1 GB session
+# file, or the 3.9 GB NTPU copy, at once, with room to spare
+FREE_GB_7 = 8.0
+GGML = {"Q4_0": GG.GGML_Q4_0, "Q4_1": GG.GGML_Q4_1, "Q5_0": GG.GGML_Q5_0,
+        "Q5_1": GG.GGML_Q5_1, "Q8_0": GG.GGML_Q8_0, "Q2_K": GG.GGML_Q2_K,
+        "Q3_K": GG.GGML_Q3_K, "Q4_K": GG.GGML_Q4_K, "Q5_K": GG.GGML_Q5_K,
+        "Q6_K": GG.GGML_Q6_K}
+# the byte offset of each type's fp16 scale d in its block (0 elsewhere)
+D_AT = {"Q2_K": 80, "Q3_K": 108, "Q6_K": 208}
+# Llama-2-7B's GGUF projections, [out, in] as ggml stores them: FFN 11008,
+# unpadded (GGUF files are not padded)
+GGUF_SHAPES = {"attn_q": (D, D), "attn_k": (D, D), "attn_v": (D, D),
+               "attn_output": (D, D), "ffn_gate": (11008, D),
+               "ffn_up": (11008, D), "ffn_down": (D, 11008)}
+# a llama.cpp Q4_0 file: Q4_0 everywhere but the lm_head, which is Q6_K
+Q4_0_FILE = {**dict.fromkeys(GGUF_SHAPES, "Q4_0"), "token_embd": "Q4_0",
+             "output": "Q6_K"}
+# the K1 entry point a type's at-rest layout takes at M <= 16 (group 32);
+# the group-16 types (Q2_K, Q3_K, Q6_K) take K5's GEMV instead
+K1_OF = {"Q4_0": "qmm4_npack", "Q4_1": "qmm4_npack_asym",
+         "Q5_0": "qmm8_native", "Q5_1": "qmm8_native_asym",
+         "Q8_0": "qmm8_native", "Q4_K": "qmm4_npack_asym",
+         "Q5_K": "qmm8_native_asym"}
+GGUF_TOL = 2e-2       # phase_zoo_card_vs_plain's, of max|logit|
+
+
+def _free_gb(path):
+    return shutil.disk_usage(path).free / 2 ** 30
+
+
+def spm_vocab(n=V):
+    """A synthetic SPM vocabulary of ``n`` pieces with scores: the specials,
+    the 256 byte pieces, then words of 1-3 lowercase letters with and
+    without the '▁' prefix, shorter words scoring higher."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    words = list(letters) + [a + b for a in letters for b in letters] + \
+        [a + b + c for a in letters for b in letters for c in letters]
+    special = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    pieces = [p for w in words for p in ("▁" + w, w)]
+    tokens = (special + pieces)[:n]
+    scores = np.concatenate([np.zeros(len(special), np.float32),
+                             -np.arange(n - len(special), dtype=np.float32)])
+    return tokens, scores
+
+
+def write_gguf(path, n_layers, types, seed, vocab=False, const=()):
+    """A Llama-2-7B-wide GGUF file of ``n_layers`` layers, every quantized
+    tensor random block bytes of its ``types`` entry (fp16 scales finite,
+    of order 0.02; ``gguf_models.random_block_bytes``, made on the card),
+    written with ``GGUFWriter.add_tensor_raw``; norms F32. The tensors in
+    ``const`` get one constant group: block 0's d set to 0 (its min, for
+    an asymmetric type, stays). Returns the file's bytes."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    w = GG.GGUFWriter(path)
+    for k, v in (("general.architecture", "llama"),
+                 ("llama.embedding_length", D),
+                 ("llama.block_count", n_layers),
+                 ("llama.attention.head_count", H),
+                 ("llama.attention.head_count_kv", H),
+                 ("llama.feed_forward_length", GGUF_SHAPES["ffn_gate"][0]),
+                 ("llama.context_length", 4096),
+                 ("llama.rope.freq_base", 10000.0),
+                 ("llama.attention.layer_norm_rms_epsilon", 1e-5),
+                 ("tokenizer.ggml.bos_token_id", 1),
+                 ("tokenizer.ggml.eos_token_id", 2)):
+        w.add_kv(k, v)
+    if vocab:
+        tokens, scores = spm_vocab()
+        w.add_kv("tokenizer.ggml.model", "llama")
+        w.add_kv("tokenizer.ggml.tokens", tokens)
+        w.add_kv("tokenizer.ggml.scores", scores)
+
+    def raw(name, shape, type_name):
+        blk = random_block_bytes(GGML[type_name], shape[0] * shape[1], gen,
+                                 DEV)
+        if name in const:
+            at = D_AT.get(type_name, 0)
+            blk[0, at:at + 2] = 0
+        w.add_tensor_raw(name, shape, GGML[type_name],
+                         blk.cpu().numpy().tobytes())
+
+    def norm(name):
+        v = 1 + 0.02 * torch.randn(D, generator=gen, device=DEV)
+        w.add_tensor(name, v.cpu().numpy(), GG.GGML_F32)
+
+    raw("token_embd.weight", (V, D), types["token_embd"])
+    norm("output_norm.weight")
+    raw("output.weight", (V, D), types["output"])
+    for i in range(n_layers):
+        norm(f"blk.{i}.attn_norm.weight")
+        norm(f"blk.{i}.ffn_norm.weight")
+        for name, shape in GGUF_SHAPES.items():
+            raw(f"blk.{i}.{name}.weight", shape, types[name])
+    w.write()
+    return os.path.getsize(path)
+
+
+# the kernel wrappers and the plain versions they call on the CPU: swapped
+# in for a run of the plain path on the card's own tensors
+PLAIN_TWINS = ((Q, "qmm_native", "qmm_native_plain"),
+               (Q, "qmm_native_fused", "qmm_native_fused_plain"),
+               (Q, "qmm_a8", "qmm_a8_plain"),
+               (Q, "qmm_general", "qmm_general_plain"),
+               (Q, "act_quant_i8", "quantize_act_i8"),
+               (A, "flash_prefill", "flash_prefill_plain"),
+               (A, "flash_prefill_i8", "flash_prefill_i8_plain"),
+               (A, "flash_decode", "flash_decode_plain"),
+               (A, "flash_decode_i8", "flash_decode_i8_plain"),
+               (NORMS, "rms_norm", "rms_norm_plain"),
+               (TRANSFORMER, "rms_norm", None))
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Every kernel wrapper of a contiguous-cache forward replaced by its
+    plain version, so the card's tensors go through the plain path on the
+    card: the CPU's plain path without a copy to the host (on the host's
+    CPU the plain path of the ten 2-layer full-width copies would take
+    minutes). Each pair's parameters are checked equal first; the run
+    launches no kernel."""
+    import inspect
+    saved = []
+    try:
+        for mod, name, plain in PLAIN_TWINS:
+            twin = getattr(mod if plain else NORMS, plain or "rms_norm_plain")
+            want = list(inspect.signature(getattr(mod, name)).parameters)
+            got = list(inspect.signature(twin).parameters)
+            if want != got:
+                raise AssertionError(f"{name}{want} and its plain version "
+                                     f"{got} differ")
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, twin)
+        _cuda.reset_launches()
+        yield
+        torch.cuda.synchronize()
+        launched = {fn: n for k in _cuda.KERNELS
+                    for fn, n in k.launches.items() if n}
+        if launched:
+            raise AssertionError(f"the plain run launched {launched}")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def graph_step_ms(params, cfg, fill, reps=20, S=S_CACHE):
+    """The device time of one greedy decode step at ``fill``, batch 1:
+    ``decode_loop``'s captured step replayed ``reps`` times with CUDA events
+    around each (the position put back to ``fill`` before each); the
+    median."""
+    token = torch.full((1, 1), 17, dtype=torch.long, device=DEV)
+    pos = torch.full((1,), fill, dtype=torch.long, device=DEV)
+    ts = []
+    with torch.inference_mode():
+        g = _StepGraph(params, token, pos, init_cache(cfg, 1, S, device=DEV))
+        for r in range(reps + 1):
+            g.pos.fill_(fill)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            g.replay()
+            e1.record()
+            e1.synchronize()
+            if r:
+                ts.append(e0.elapsed_time(e1))
+    del g
+    return statistics.median(ts)
+
+
+def tensor_case(results, key, label, qt, M, fn, plain, entry):
+    """One product of a loaded model's own weight ``qt`` at M rows: the
+    wrapper ``fn(x, qt, out_dtype)`` (which must launch ``entry``) against
+    ``plain`` on the same CUDA tensors (1e-2·max|ref| for a bf16 output,
+    1e-4 for the lm_head's f32), its time, the plain version's, one bf16
+    ``torch.matmul`` on the dequantized weight and the bound; recorded as
+    a case of ``results[key]``."""
+    gen = torch.Generator(device=DEV).manual_seed(M)
+    K, N = qt.shape
+    odt = torch.float32 if N == V else torch.bfloat16
+    x = torch.randn((M, K), generator=gen, device=DEV).bfloat16()
+    before = _cuda.launch_counts()[entry]
+    out = fn(x, qt, odt)
+    if _cuda.launch_counts()[entry] != before + 1:
+        raise AssertionError(f"{label}: {entry} was not launched")
+    ref = plain(x, qt, odt)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (1e-2 if odt == torch.bfloat16 else 1e-4) \
+        * ref.float().abs().max().item()
+    if not (err <= tol and torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: max err {err} > tol {tol}")
+    wbytes = _qt_bytes(qt)
+    qts = [qt] + [_qt_copy(qt) for _ in range(_copies(wbytes) - 1)]
+    ms = time_ms([lambda q=q: fn(x, q, odt) for q in qts])
+    pms = time_ms([lambda: plain(x, qt, odt)], reps=5)
+    wd = Q.dequant_bf16(qt)
+    wds = [wd] + [wd.clone() for _ in range(_copies(K * N * 2) - 1)]
+    lms = time_ms([lambda w=w: torch.matmul(x, w) for w in wds])
+    del wds, wd, qts
+    bnd, by = bound_ms(wbytes + M * K * 2 + M * N * odt.itemsize,
+                       2 * M * K * N, BF16_FLOPS)
+    case = dict(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bnd,
+                bound_by=by, err=err, per=f"{label} (one launch)")
+    r = results.setdefault(key, dict(case, cases={}))
+    r.setdefault("cases", {})[label] = case
+    log(f"{key} {label} {entry} M={M} {K}x{N}: err {err:.3g} (tol "
+        f"{tol:.3g}) | kernel {ms:.4f} ms, plain {pms:.3f} ms, "
+        f"torch.matmul bf16 {lms:.4f} ms, bound {bnd:.4f} ms ({by}); "
+        f"{wbytes / (ms * 1e-3) / 1e9:.0f} GB/s of weights")
+    return case
+
+
+K1_FN = lambda x, qt, odt: Q.qmm_native(x, qt.planes[0], qt.scales, qt.zeros,
+                                        qt.group_size, qt.cfg.bits, odt)
+K1_PLAIN = lambda x, qt, odt: Q.qmm_native_plain(
+    x, qt.planes[0], qt.scales, qt.zeros, qt.group_size, qt.cfg.bits, odt)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _same_model(a, b, what):
+    sa, sb = a.state_dict(), b.state_dict()
+    if sa.keys() != sb.keys():
+        raise AssertionError(f"{what}: tensors {sorted(sa.keys() ^ sb.keys())}")
+    for k in sa:
+        if sa[k].dtype != sb[k].dtype or not torch.equal(sa[k], sb[k]):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def gguf_7b(results):
+    """7a: Llama-2-7B as a llama.cpp Q4_0 GGUF file at full depth (Q6_K
+    lm_head, a 32000-piece SPM vocabulary), through the entry points a
+    user calls."""
+    res = {}
+    path = os.path.join(SCRATCH7, "llama-2-7b-q4_0.gguf")
+    (size, write_s) = _timed(lambda: write_gguf(path, L, Q4_0_FILE, seed=70,
+                                                vocab=True))
+    m, load_s = _timed(lambda: Model().init_from_bin(path))
+    params, cfg = m.params, m.cfg
+    lm = params.lm_head.qt
+    if params.layers[0].w_gate.qt.N != GGUF_SHAPES["ffn_gate"][0] \
+            or lm.cfg.bits != 6 \
+            or lm.cfg.group_size != 16 or lm.planes[0].dtype != torch.int8:
+        raise AssertionError("the GGUF 7B's FFN is not 11008 wide or its "
+                             "lm_head not 6-bit int8 codes at group 16")
+    log(f"7a GGUF Llama-2-7B Q4_0 (Q6_K lm_head): {size / 1e9:.3f} GB "
+        f"written in {write_s:.1f} s; init_from_bin {load_s:.2f} s "
+        f"({size / load_s / 1e9:.2f} GB/s), "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+        f"tokenizer {type(m.tokenizer).__name__}")
+    gen = torch.Generator().manual_seed(70)
+    prompt = torch.randint(3, V, (T_PREFILL,), generator=gen).tolist()
+    n_new = 16
+    new = run_path("gguf_7b_generate", (
+        "qmm_general+tc", "qmm_general+gemv", "qmm4_npack", "flash_prefill",
+        "flash_decode"), lambda: m.generate(
+            prompt, max_new_tokens=n_new, stop_at_eos=False)[0][T_PREFILL:])
+    _check_ids(new, n_new, "GGUF 7B generate")
+    c = LAUNCHES["gguf_7b_generate"]
+    k1 = c["qmm4_npack"] + c["qmm4_npack_fused"]
+    want = {"K1": 7 * L * (n_new - 1), "K5 tc": 7 * L, "K5 gemv": n_new}
+    got = {"K1": k1, "K5 tc": c["qmm_general+tc"],
+           "K5 gemv": c["qmm_general+gemv"]}
+    log(f"7a routes over a {T_PREFILL}-token prompt and {n_new} new tokens: "
+        f"{got} (expected {want}: every decode projection on K1, the "
+        "prefill's on K5's tensor-core tiles, the Q6_K lm_head on K5's "
+        "GEMV)")
+    if got != want:
+        raise AssertionError(f"GGUF 7B routes {got}, expected {want}")
+    res["gguf7b_load_s"] = load_s
+    res["gguf7b_ttft_ms"] = ttft_ms(params, cfg=cfg)
+    res["gguf7b_decode_ms_fill128"] = graph_step_ms(params, cfg, 128)
+    res["gguf7b_decode_ms_fill1975"] = graph_step_ms(params, cfg, T_PREFILL)
+    res["gguf7b_decode_slope_ms_fill128"] = decode_ms(params, 128, cfg=cfg)
+    log(f"7a TTFT {T_PREFILL} tokens (best of 3) {res['gguf7b_ttft_ms']:.2f}"
+        f" ms; decode step (graph replay, device time, median of 20) "
+        f"{res['gguf7b_decode_ms_fill128']:.3f} ms at fill 128, "
+        f"{res['gguf7b_decode_ms_fill1975']:.3f} ms at fill {T_PREFILL}; "
+        f"host slope of decode_loop at fill 128 (the q4_0 leg's metric) "
+        f"{res['gguf7b_decode_slope_ms_fill128']:.3f} ms")
+    res.update(_beside_q4_0_preset(params, cfg))
+    lw = params.layers[0]
+    tensor_case(results, "K1", "gguf q4_0 gate/up M=1 (N=11008)",
+                lw.w_gate.qt, 1, K1_FN, K1_PLAIN, "qmm4_npack")
+    tensor_case(results, "K1", "gguf q4_0 down M=1 (K=11008)",
+                lw.w_down.qt, 1, K1_FN, K1_PLAIN, "qmm4_npack")
+    tensor_case(results, "K5", "gguf q6_k lm_head gemv M=1 (group 16)", lm,
+                1, Q.qmm_general, Q.qmm_general_plain, "qmm_general+gemv")
+    tensor_case(results, "K5", "gguf q4_0 gate/up tc M=1975 (N=11008)",
+                lw.w_gate.qt, T_PREFILL, Q.qmm_general, Q.qmm_general_plain,
+                "qmm_general+tc")
+    tensor_case(results, "K5", "gguf q4_0 down tc M=1975 (K=11008)",
+                lw.w_down.qt, T_PREFILL, Q.qmm_general, Q.qmm_general_plain,
+                "qmm_general+tc")
+    text = m.generate_text("hello world", max_new_tokens=8,
+                           stop_at_eos=False)
+    log(f"7a generate_text('hello world'): {text!r}")
+    res.update(_session_legs(m, prompt))
+    res.update(_server_from_path(path, cfg))
+    os.remove(path)
+    res.update(_ntpu_round_trip(m, prompt[:128]))
+    del m, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _beside_q4_0_preset(params, cfg):
+    """The GGUF 7B's decode step beside the q4_0 preset's on the same card
+    (``init_random``: the same Q4_0 blocks' layout, but the FFN padded to
+    11264 and a Q4_0 lm_head on K1): graph replays at fill 128, GGUF,
+    preset, preset, GGUF; the medians of each."""
+    ref = init_random(CFG, seed=0, quant="q4_0", device=DEV)
+    ts = {"gguf": [], "preset": []}
+    for which in ("gguf", "preset", "preset", "gguf"):
+        ts[which].append(graph_step_ms(params if which == "gguf" else ref,
+                                       cfg if which == "gguf" else CFG, 128))
+    del ref
+    torch.cuda.empty_cache()
+    out = {k: statistics.median(v) for k, v in ts.items()}
+    log(f"7a decode step at fill 128, in turns on one card: GGUF Q4_0 "
+        f"(FFN 11008, Q6_K lm_head on K5) {ts['gguf']} ms, the q4_0 preset "
+        f"(FFN 11264, Q4_0 lm_head on K1) {ts['preset']} ms")
+    return {"gguf7b_turns_decode_ms": out["gguf"],
+            "q4_0_preset_turns_decode_ms": out["preset"]}
+
+
+def _session_legs(m, prompt, S=T_PREFILL + 64 + 73):
+    """Session files on the 7B: the prompt twice (the resumed run's greedy
+    ids equal the first's exactly, no evaluation), then the prompt and 64
+    more tokens with the prefix reused against without it."""
+    sess = os.path.join(SCRATCH7, "session.ntpus")
+    kw = dict(max_new_tokens=32, stop_at_eos=False, max_len=S)
+    first, first_s = _timed(lambda: m.generate(prompt, session_file=sess,
+                                               **kw)[0])
+    size = os.path.getsize(sess)
+    again, again_s = _timed(lambda: m.generate(prompt, session_file=sess,
+                                               **kw)[0])
+    if again != first:
+        raise AssertionError("the resumed session's greedy ids differ: "
+                             f"{again[-32:]} against {first[-32:]}")
+    more = torch.randint(3, V, (64,), generator=torch.Generator()
+                         .manual_seed(71)).tolist()
+    longer = prompt + more
+    one = dict(kw, max_new_tokens=1)
+    m.generate(longer, **one)           # warm the fresh path's shapes
+    (_, reuse_s) = _timed(lambda: m.generate(longer, session_file=sess,
+                                             **one))
+    (_, fresh_s) = _timed(lambda: m.generate(longer, **one))
+    (_, load_s) = _timed(lambda: PC.load_session(sess, DEV))
+    os.remove(sess)
+    log(f"7a session ({size / 1e9:.3f} GB, cache of {S} positions): "
+        f"{len(prompt)}-token prompt + 32 new {first_s:.2f} s with the save,"
+        f" resumed {again_s:.2f} s (ids equal); prompt + 64: first token "
+        f"{reuse_s * 1e3:.1f} ms reusing the saved prefix (load, 64-token "
+        f"prefill, save back) against {fresh_s * 1e3:.1f} ms without a file"
+        f"; the session file alone loads in {load_s * 1e3:.1f} ms")
+    return {"session_resumed_s": again_s, "session_reuse_ttft_ms":
+            reuse_s * 1e3, "session_fresh_ttft_ms": fresh_s * 1e3,
+            "session_load_ms": load_s * 1e3, "session_bytes": size}
+
+
+def _server_from_path(path, cfg):
+    """``ModelServer(model_path=path)``, paged int8 KV, batch 8, answers 8
+    queries after a warm-up query."""
+    srv, load_s = _timed(lambda: ModelServer(
+        model_path=path, max_batch=8, max_len=S_CACHE, kv_mode="paged",
+        page_size=256, memory_dtype="int8"))
+    try:
+        prompts = _server_prompts()[:8]
+        _serve(srv, [prompts[0][:600]], 4, cfg)
+        done, _, wall = run_path(
+            "gguf_7b_server", ("qmm_general+tc", "qmm4_npack",
+                               "paged_decode_i8"),
+            lambda: _serve(srv, prompts, 32, cfg))
+    finally:
+        srv.stop()
+    n_tok = sum(len(q.output_ids) for q in done.values())
+    log(f"7a ModelServer(model_path=GGUF) loaded in {load_s:.2f} s; 8 "
+        f"queries (prompts {[len(p) for p in prompts]}, 32 new each): "
+        f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s")
+    del srv
+    torch.cuda.empty_cache()
+    return {"gguf7b_server_tok_s": n_tok / wall,
+            "gguf7b_server_load_s": load_s}
+
+
+def _ntpu_round_trip(m, prompt):
+    """``save()`` to NTPU, ``init_from_bin`` of it: every tensor byte-equal,
+    and the same greedy ids over 32 tokens (the routes are the same)."""
+    path = os.path.join(SCRATCH7, "llama-2-7b-q4_0.ntpu")
+    (_, save_s) = _timed(lambda: m.save(path))
+    size = os.path.getsize(path)
+    m2, load_s = _timed(lambda: Model().init_from_bin(path))
+    os.remove(path)
+    _same_model(m2.params, m.params, "NTPU round trip")
+    a = m.generate(prompt, max_new_tokens=32, stop_at_eos=False)[0]
+    b = m2.generate(prompt, max_new_tokens=32, stop_at_eos=False)[0]
+    if a != b:
+        raise AssertionError(f"NTPU copy's greedy ids {b[-32:]} differ from "
+                             f"the GGUF model's {a[-32:]}")
+    log(f"7a NTPU: saved {size / 1e9:.3f} GB in {save_s:.2f} s, loaded in "
+        f"{load_s:.2f} s; every tensor byte-equal, greedy ids over 32 tokens "
+        "equal")
+    del m2
+    torch.cuda.empty_cache()
+    return {"ntpu7b_load_s": load_s, "ntpu7b_save_s": save_s}
+
+
+def gguf_types(results):
+    """7b: every ggml type as a 2-layer full-width file (the embedding and
+    lm_head of the same type, one constant group in layer 0's q and down
+    projections): ``Model.generate`` on the card, then the prefill's last
+    logits of a 32-token prompt and 8 teacher-forced decode steps against
+    the plain path on the card's own tensors (``plain_on_card``), each
+    type's routes and decode ms/token."""
+    res, worst = {}, 0.0
+    gen = torch.Generator().manual_seed(72)
+    for i, name in enumerate(GGML):
+        path = os.path.join(SCRATCH7, f"{name}.gguf")
+        types = {**dict.fromkeys(GGUF_SHAPES, name), "token_embd": name,
+                 "output": name}
+        write_gguf(path, 2, types, seed=80 + i,
+                   const=("blk.0.attn_q.weight", "blk.0.ffn_down.weight"))
+        m = Model().init_from_bin(path)
+        os.remove(path)
+        cfg2 = m.cfg
+        ids = torch.randint(3, V, (32,), generator=gen).tolist()
+        decode = K1_OF.get(name, "qmm_general+gemv")
+        new = run_path(f"gguf_{name}", ("qmm_general+tc", decode,
+                                        "flash_prefill", "flash_decode"),
+                       lambda: m.generate(ids, max_new_tokens=9,
+                                          stop_at_eos=False)[0][32:])
+        _check_ids(new, 9, f"GGUF {name}")
+        c = LAUNCHES[f"gguf_{name}"]
+        routes = {k: n for k, n in c.items() if n and k.startswith("qmm")}
+        card = _step_rows(m.params, cfg2, ids, new[:8])
+        with plain_on_card():
+            plain = _step_rows(m.params, cfg2, ids, new[:8])
+        err, provable, _ = _compare_rows(card, plain, GGUF_TOL,
+                                         f"GGUF {name} card vs plain")
+        ms = graph_step_ms(m.params, cfg2, 128)
+        worst = max(worst, err)
+        res[f"gguf_{name}_decode_ms_2layers"] = ms
+        log(f"7b {name}: 2 layers at full width, card vs plain on the card "
+            f"{err:.3g}·max|logit| (tol {GGUF_TOL}), argmax proven at "
+            f"{provable} of 9 rows; routes {routes}; decode step "
+            f"{ms:.3f} ms (2 layers, fill 128, graph replay)")
+        if name in ("Q2_K", "Q3_K", "Q6_K"):
+            tensor_case(results, "K5", f"gguf {name.lower()} gate/up gemv "
+                        "M=1 (group 16, N=11008)", m.params.layers[0]
+                        .w_gate.qt, 1, Q.qmm_general, Q.qmm_general_plain,
+                        "qmm_general+gemv")
+        del m
+        torch.cuda.empty_cache()
+    res["gguf_types_card_vs_plain_rel_err"] = worst
+    return res
+
+
+STREAM_LAYERS = 4
+
+
+def streamed_dir():
+    """7c: Llama-2-7B's width at 4 layers, bf16, as two safetensors shards
+    with ``model.safetensors.index.json``; converted at q4_j by
+    ``Model.init`` in a child process of its own (so its peak RSS is this
+    leg's), which also checks the routes and the CPU conversion."""
+    d = os.path.join(SCRATCH7, "llama-2-7b-4l")
+    os.makedirs(d, exist_ok=True)
+    gen = torch.Generator(device=DEV).manual_seed(73)
+    hf = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+          "hidden_size": D, "intermediate_size": 11008,
+          "num_hidden_layers": STREAM_LAYERS, "num_attention_heads": H,
+          "num_key_value_heads": H, "vocab_size": V, "rms_norm_eps": 1e-5,
+          "max_position_embeddings": 4096, "rope_theta": 10000.0,
+          "tie_word_embeddings": False, "bos_token_id": 1,
+          "eos_token_id": 2, "torch_dtype": "bfloat16"}
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf, f)
+    cfg4 = llama.config_from_hf(types.SimpleNamespace(**hf))
+    names = {"model.embed_tokens.weight": (V, D),
+             "model.norm.weight": (D,), "lm_head.weight": (V, D)}
+    for i in range(STREAM_LAYERS):
+        for ours, (hf_name, _) in llama.hf_layer_map(i, cfg4).items():
+            names[hf_name] = (D,) if ours.endswith("norm_w") else \
+                {"w_gate": (11008, D), "w_up": (11008, D),
+                 "w_down": (D, 11008)}.get(ours, (D, D))
+    shard_of = lambda n: 1 if ".layers.0." in n or ".layers.1." in n \
+        or "embed" in n else 2
+    weight_map, total = {}, 0
+    for s in (1, 2):
+        fn = f"model-{s:05d}-of-00002.safetensors"
+        part = {n: sh for n, sh in names.items() if shard_of(n) == s}
+        weight_map.update(dict.fromkeys(part, fn))
+        total += write_bf16_safetensors(os.path.join(d, fn), part, gen)
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    layer_f32 = 4 * sum(math.prod(names[hf_name]) for hf_name, _ in
+                        llama.hf_layer_map(0, cfg4).values())
+    t = time.time()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--convert-child", d], capture_output=True,
+                         text=True, timeout=900)
+    shutil.rmtree(d, ignore_errors=True)
+    if out.returncode != 0:
+        raise AssertionError(f"the conversion child failed:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    for line in out.stdout.splitlines()[:-1]:
+        log(f"  child: {line}")
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    LAUNCHES["streamed_7b_4l_generate"] = r["launches"]
+    missing = [k for k in ("qmm_a8", "qmm4_npack", "flash_prefill",
+                           "flash_decode")
+               if r["launches"].get(k, 0) == 0 and
+               r["launches"].get(FUSED_TWIN.get(k), 0) == 0]
+    if missing:
+        raise AssertionError(f"streamed model: {missing} not launched")
+    log(f"7c streamed bf16 directory ({total / 1e9:.3f} GB, 2 shards, "
+        f"{STREAM_LAYERS} layers at 7B width) → q4_j on the card: "
+        f"{r['convert_s']:.2f} s; the child's resident set rose by at most "
+        f"{r['rss_delta_gb']:.3f} GB over its {r['rss_base_gb']:.3f} GB "
+        f"(sampled every 2 ms; the card memory reserved meanwhile "
+        f"{r['card_reserved_gb']:.3f} GB), its numpy host buffers peaked at "
+        f"{r['host_peak_gb']:.3f} GB, against one layer's f32 bytes "
+        f"{layer_f32 / 1e9:.3f} GB; routes {r['routes']}; every tensor "
+        f"equal to the CPU's conversion; child {time.time() - t:.1f} s")
+    return {"stream_convert_s": r["convert_s"],
+            "stream_rss_delta_gb": r["rss_delta_gb"],
+            "stream_host_peak_gb": r["host_peak_gb"],
+            "stream_card_reserved_gb": r["card_reserved_gb"],
+            "stream_layer_f32_gb": layer_f32 / 1e9}
+
+
+def write_bf16_safetensors(path, shapes, gen):
+    """Random bf16 tensors (N(0, 0.02²), norms near 1), made on the card,
+    as one ``.safetensors`` file, a tensor at a time. Returns the data's
+    bytes."""
+    header, off = {}, 0
+    for k, shape in shapes.items():
+        n = 2 * math.prod(shape)
+        header[k] = {"dtype": "BF16", "shape": list(shape),
+                     "data_offsets": [off, off + n]}
+        off += n
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(h)) + h)
+        for k, shape in shapes.items():
+            t = torch.randn(shape, generator=gen, device=DEV) * 0.02
+            if len(shape) == 1:
+                t = t + 1
+            fh.write(t.bfloat16().view(torch.int16).cpu().numpy().tobytes())
+    return off
+
+
+def _rss_gb():
+    """The process's resident set now (``/proc/self/statm``, else
+    ``VmRSS``), in GB; NaN where the sandbox's /proc has neither."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") \
+                / 1e9
+    except (OSError, ValueError, IndexError):
+        pass
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+class _PeakRss:
+    """The largest resident set seen while the block runs, sampled every
+    2 ms by a thread (the sandbox's /proc has no VmHWM, and its
+    ``ru_maxrss`` counts the CUDA context's mappings)."""
+
+    def __enter__(self):
+        import threading
+        self.base = self.peak = _rss_gb()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.002):
+                self.peak = max(self.peak, _rss_gb())
+        self._t = threading.Thread(target=sample, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, _rss_gb())
+
+
+def convert_child(d):
+    """The child of :func:`streamed_dir`: ``Model.init(d, "q4_j")`` on the
+    card with the host's peak RSS before and after; a generate whose
+    prefill must take K2 and decode K1 (launch counts); the same directory
+    converted with ``device="cpu"`` equal, tensor for tensor. The last
+    line is a JSON object."""
+    import tracemalloc
+    _cuda.build_all(_cuda.KERNELS)
+    torch.zeros(1, device=DEV)
+    tracemalloc.start()
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+    with _PeakRss() as rss:
+        m, convert_s = _timed(lambda: Model().init(d, weight_dtype="q4_j"))
+    host_peak = tracemalloc.get_traced_memory()[1] / 1e9
+    tracemalloc.stop()
+    card_gb = (torch.cuda.max_memory_reserved() - reserved0) / 1e9
+    prompt = torch.randint(3, V, (512,), generator=torch.Generator()
+                           .manual_seed(74)).tolist()
+    _cuda.reset_launches()
+    out = m.generate(prompt, max_new_tokens=8, stop_at_eos=False)[0]
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    _check_ids(out[512:], 8, "streamed model")
+    cpu = Model().init(d, weight_dtype="q4_j", device="cpu")
+    sa = {k: v.cpu() for k, v in m.params.state_dict().items()}
+    sb = cpu.params.state_dict()
+    if sa.keys() != sb.keys() or not all(
+            sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k])
+            for k in sa):
+        raise AssertionError("the card's conversion differs from the CPU's")
+    routes = {k: n for k, n in launches.items()
+              if n and k.startswith(("qmm", "flash"))}
+    print(f"converted in {convert_s:.2f} s; RSS {rss.base:.3f} GB before, "
+          f"peak {rss.peak:.3f} GB during; numpy host buffers at most "
+          f"{host_peak:.3f} GB at once; card memory reserved during the "
+          f"conversion {card_gb:.3f} GB; {len(sa)} tensors equal to the "
+          "CPU conversion")
+    print(json.dumps({"convert_s": convert_s,
+                      "rss_delta_gb": rss.peak - rss.base,
+                      "rss_base_gb": rss.base, "host_peak_gb": host_peak,
+                      "card_reserved_gb": card_gb,
+                      "launches": launches, "routes": routes}))
+
+
+def phase_model_files(results):
+    """Phase 7: 7a, 7b and 7c, their files under ``.chip_scratch``."""
+    os.makedirs(SCRATCH7, exist_ok=True)
+    free = _free_gb(SCRATCH7)
+    log(f"phase 7: {free:.1f} GiB free on the disk of {SCRATCH7} (needs "
+        f"{FREE_GB_7})")
+    if free < FREE_GB_7:
+        raise AssertionError(f"phase 7 needs {FREE_GB_7} GiB of disk, "
+                             f"{free:.1f} are free")
+    try:
+        res = gguf_7b(results)
+        res.update(gguf_types(results))
+        res.update(streamed_dir())
+    finally:
+        shutil.rmtree(SCRATCH7, ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_META = {
@@ -5450,6 +6155,9 @@ def main():
         sys.exit(2)
     if sys.argv[1:2] == ["--ab"]:
         return compare_legs(sys.argv[2])
+    if sys.argv[1:2] == ["--convert-child"]:
+        return convert_child(sys.argv[2])
+    only7 = sys.argv[1:2] == ["--phase7"]
     # the slice's main path: every phase runs the fused decode path, which
     # the library leaves off by default (``models.transformer.fuse_mode``);
     # the A/B and the unfused references set the switches themselves
@@ -5474,6 +6182,11 @@ def main():
     log(f"built {[k.source for k in _cuda.KERNELS]} in {build_s:.1f} s")
 
     results = {}
+    if only7:
+        e2e = phase("7 model files", phase_model_files, results)
+        log(json.dumps({"e2e": e2e, "phase_seconds": seconds,
+                        "seconds": time.time() - t_start}))
+        return
     gen = torch.Generator(device=DEV).manual_seed(0)
 
     def kernels():
@@ -5525,6 +6238,7 @@ def main():
                      params))
     del params
     torch.cuda.empty_cache()
+    e2e.update(phase("7 model files", phase_model_files, results))
 
     kernels = []
     for kid, (kname, src, repl) in KERNEL_META.items():

@@ -1,9 +1,21 @@
-"""Top-level Model API (port of ``neural_tpu/api.py``: ``Model.generate``
-with sampling, beam search, batches of prompts, StreamingLLM and the
-host-stepped hooks, and the GPTQ/AWQ ``Model.init``; its
-``quant_config_from_args`` lives in :mod:`neural_tpu_torch.core.dtypes`)."""
+"""Top-level Model API (port of ``neural_tpu/api.py``): ``Model.init`` of a
+local HF directory (the streamed conversion of an fp checkpoint, or a
+GPTQ/AWQ one), ``init_from_bin`` (GGUF, with its embedded tokenizer, or
+the native ``.ntpu`` file), ``save``, ``quant_model``, ``generate`` with
+sampling, beam search, batches of prompts, StreamingLLM, the host-stepped
+hooks and session files, ``generate_text`` and ``__call__``. Its
+``quant_config_from_args`` lives in :mod:`neural_tpu_torch.core.dtypes`.
+
+Deliberate differences from the JAX package: an HF directory gets no
+tokenizer (the JAX package asks transformers for one), and a directory
+without ``*.safetensors`` files, or of a model type the port does not
+have, raises instead of falling back to transformers'
+``AutoModelForCausalLM``; a session file carries the port's
+``torch.Generator`` state, not the JAX key."""
 from __future__ import annotations
 
+import glob
+import os
 from typing import List, Optional, Union
 
 import numpy as np
@@ -34,7 +46,7 @@ class Model:
     def __init__(self):
         self.params: Optional[Transformer] = None
         self.cfg: Optional[ModelConfig] = None
-        self.tokenizer = None     # no tokenizer is ported yet
+        self.tokenizer = None     # a GGUF file's vocab brings one
         self._session = None      # interactive: (cache, position, max_len)
         self._token_end = True
 
@@ -48,29 +60,28 @@ class Model:
              dtype: str = "bfloat16", trust_remote_code: bool = False,
              device=None):
         """Load a local HF checkpoint directory, as the JAX ``Model.init``
-        does. The GPTQ/AWQ branch (``use_gptq``, ``use_awq``, and
-        ``use_autoround``, which exports the GPTQ format) reads
-        ``config.json``, the bits and group size of ``quantization_config``
-        or ``quantize_config.json``, and every ``*.safetensors`` file, with
-        the port's own readers (``convert.files``), and converts the
-        checkpoint on ``device`` (the card unless ``device="cpu"``). The
-        other branch, the streamed conversion of an fp checkpoint, is not
-        ported yet and raises. ``tokenizer`` stays None: no tokenizer is
-        ported yet."""
+        does, converting it on ``device`` (the card unless
+        ``device="cpu"``). ``config.json`` is read by the port itself
+        (``convert.files``). An fp checkpoint goes through the streamed
+        conversion (``convert.stream.params_from_hf_dir``: a layer at a
+        time, each tensor quantized on the device as it arrives) to
+        ``weight_dtype`` — a preset, a QuantConfig or registry, or a
+        reference-style name with ``alg``/``group_size``/``scale_dtype``/
+        ``compute_dtype``/``use_ggml`` (:func:`quant_config_from_args`);
+        ``use_quant=False`` keeps bf16 projections. The GPTQ/AWQ branch
+        (``use_gptq``, ``use_awq``, and ``use_autoround``, which exports
+        the GPTQ format) reads the bits and group size of
+        ``quantization_config`` or ``quantize_config.json`` and every
+        ``*.safetensors`` file. The directory needs ``*.safetensors`` files
+        and a model type the port has; otherwise this raises (the JAX
+        package falls back to transformers). ``tokenizer`` stays None."""
         if model_hub != "huggingface":
             raise ValueError(f"model_hub {model_hub!r} is not available "
                              "offline; use a local huggingface-format "
                              "directory")
         if dtype != "bfloat16":
             raise NotImplementedError("only bf16 activations are ported")
-        if not (use_gptq or use_awq or use_autoround):
-            raise NotImplementedError(
-                "Model.init of an fp checkpoint (the JAX package's streamed "
-                "conversion, convert/stream.py, or AutoModelForCausalLM) is "
-                "not ported yet; use init_from_hf_model with a model object, "
-                "or use_gptq / use_awq for a quantized checkpoint")
         from .convert import files
-        from .convert.gptq import params_from_gptq_state_dict
         from .convert.hf import ARCH_MODULES
         hf_cfg = files.read_config(model_name_or_path)
         mod = ARCH_MODULES.get(hf_cfg.model_type)
@@ -78,13 +89,29 @@ class Model:
             raise NotImplementedError(
                 f"model type {hf_cfg.model_type!r}: the port has "
                 f"{sorted(ARCH_MODULES)}")
+        if not glob.glob(os.path.join(model_name_or_path, "*.safetensors")):
+            raise NotImplementedError(
+                f"{model_name_or_path} holds no *.safetensors file; the port "
+                "reads safetensors checkpoints only (the JAX package's "
+                "AutoModelForCausalLM fallback needs transformers)")
         self.cfg = mod.config_from_hf(hf_cfg)
-        bits, gsize = files.quantize_config(model_name_or_path, hf_cfg)
-        sd = files.read_safetensors_dir(model_name_or_path)
-        self.params = params_from_gptq_state_dict(
-            sd, self.cfg, fmt="awq" if use_awq else "gptq", bits=bits,
-            dtype=torch.bfloat16, group_size=gsize, arch_mod=mod,
-            device=device)
+        self.tokenizer = None
+        if use_gptq or use_awq or use_autoround:
+            from .convert.gptq import params_from_gptq_state_dict
+            bits, gsize = files.quantize_config(model_name_or_path, hf_cfg)
+            sd = files.read_safetensors_dir(model_name_or_path)
+            self.params = params_from_gptq_state_dict(
+                sd, self.cfg, fmt="awq" if use_awq else "gptq", bits=bits,
+                dtype=torch.bfloat16, group_size=gsize, arch_mod=mod,
+                device=device)
+            return self
+        from .convert.stream import params_from_hf_dir
+        qcfg = quant_config_from_args(weight_dtype, alg, group_size,
+                                      scale_dtype, compute_dtype, use_ggml) \
+            if use_quant else None
+        self.params, self.cfg = params_from_hf_dir(
+            model_name_or_path, qcfg, torch.bfloat16, cfg=self.cfg,
+            arch_mod=mod, device=device)
         return self
 
     def init_from_hf_model(self, model,
@@ -115,6 +142,80 @@ class Model:
         ``convert.from_jax.params_from_numpy``)."""
         self.params, self.cfg = params, cfg
         return self
+
+    def init_from_bin(self, path: str, device=None):
+        """Load a GGUF file (its block bytes unpacked on ``device``,
+        ``convert.gguf_models.load_gguf``; the tokenizer its vocab
+        declares, when it has one) or a native ``.ntpu`` checkpoint, the
+        port's or the JAX package's (``convert.checkpoint``), onto
+        ``device`` (the card unless ``device="cpu"``)."""
+        with open(path, "rb") as f:
+            magic = f.read(4)
+        if magic == b"GGUF":
+            from .convert.gguf import GGUFReader
+            from .convert.gguf_models import load_gguf
+            from .tokenizer import tokenizer_from_gguf
+            self.params, self.cfg = load_gguf(path, device=device)
+            r = GGUFReader(path)
+            self.tokenizer = tokenizer_from_gguf(r) \
+                if "tokenizer.ggml.tokens" in r.kv else None
+            r.close()
+        elif magic == b"NTPU":
+            from .convert.checkpoint import load_checkpoint, params_from_tree
+            tree, cfg, _ = load_checkpoint(path, device)
+            if cfg is None:
+                raise ValueError(f"{path} holds no model config (a session "
+                                 "file?)")
+            self.params, self.cfg = params_from_tree(tree, cfg), cfg
+        else:
+            raise ValueError(f"unknown checkpoint magic {magic!r}")
+        return self
+
+    def save(self, path: str):
+        """Write the model, at rest as it is, to a native ``.ntpu`` file
+        that either package loads."""
+        from .convert.checkpoint import save_checkpoint
+        save_checkpoint(path, self.params.param_dict(), self.cfg)
+
+    @staticmethod
+    def quant_model(model_path: str, out_path: str,
+                    weight_dtype="int4", alg="sym", group_size=32,
+                    scale_dtype="fp32", compute_dtype="int8",
+                    use_ggml=False, device=None):
+        """File → file quantization (reference Model.quant_model →
+        quant_utils.cpp:269 bestla_quantize) on ``device`` (the card unless
+        ``device="cpu"``). Input: a GGUF file, an NTPU checkpoint, or an HF
+        directory (converted at ``weight_dtype``); a file's QTensors are
+        dequantized, as loaded, and quantized again
+        (``convert.hf.requantize``). Output: an NTPU checkpoint, at rest.
+        GGUF output raises: use ``convert.gguf_models.export_gguf``."""
+        from .convert.checkpoint import save_checkpoint
+        from .convert.hf import requantize
+        from .runtime.generate import params_to_native
+        if out_path.endswith(".gguf"):
+            raise ValueError("GGUF output: use convert.gguf_models."
+                             "export_gguf on the HF model instead")
+        qcfg = quant_config_from_args(weight_dtype, alg, group_size,
+                                      scale_dtype, compute_dtype, use_ggml)
+        if os.path.isdir(model_path):
+            m = Model().init(model_path, weight_dtype=qcfg, device=device)
+            save_checkpoint(out_path, m.params.param_dict(), m.cfg)
+            return out_path
+        with open(model_path, "rb") as f:
+            magic = f.read(4)
+        if magic == b"GGUF":
+            from .convert.gguf_models import load_gguf_params
+            params, cfg = load_gguf_params(model_path, device=device,
+                                           at_rest=False)
+        elif magic == b"NTPU":
+            from .convert.checkpoint import load_checkpoint, param_tree
+            tree, cfg, _ = load_checkpoint(model_path, device)
+            params = param_tree(tree)
+        else:
+            raise ValueError(f"unknown checkpoint magic {magic!r}")
+        save_checkpoint(out_path, params_to_native(requantize(params, qcfg)),
+                        cfg)
+        return out_path
 
     def generate(self, input_ids, max_new_tokens: int = 128,
                  do_sample: bool = False, temperature: float = 0.8,
@@ -147,16 +248,18 @@ class Model:
           token) and ``interactive`` (the KV cache kept across calls) take
           the host-stepped loop.
         - ``kv_dtype``: "bf16" or "int8" KV cache.
+        - ``session_file`` (one prompt, no beams): a prompt-keyed KV
+          snapshot on disk (reference CLI --session, main_run.cpp:614):
+          when the file's saved prompt is a prefix of this one and its
+          cache has this call's geometry, the matched prefix is not
+          evaluated again; an exact match restores the saved logits,
+          generator state and mirostat ``mu``, so the run is the first
+          one's, sampled or not, with no evaluation at all. After the
+          prefill the state is saved back.
 
-        ``session_file`` (KV snapshots on disk) waits for the checkpoint
-        converters (ROADMAP A10) and ``mesh`` for parallelism (A12); both
-        raise."""
+        ``mesh`` (parallelism, ROADMAP A12) raises."""
         if self.params is None:
             raise RuntimeError("call init_from_hf_model or init_params first")
-        if session_file is not None:
-            raise NotImplementedError(
-                "generate(session_file=...) needs convert/checkpoint.py, "
-                "a later slice (ROADMAP A10)")
         if mesh is not None:
             raise NotImplementedError(
                 "generate(mesh=...) is tensor/data parallelism, a later "
@@ -174,7 +277,10 @@ class Model:
             rows = [r if (r and r[0] == bos) else [bos] + list(r)
                     for r in rows]
         hooked = (streamer is not None or stopping_criteria is not None
-                  or interactive)
+                  or interactive or session_file is not None)
+        if session_file is not None and (len(rows) != 1 or num_beams != 1):
+            raise ValueError("session_file takes one prompt, without beam "
+                             "search")
         if not interactive:
             self._session = None
         if streamer is not None:
@@ -210,7 +316,7 @@ class Model:
                 outs.append(self._generate_hooked(
                     ids, sp, max_new_tokens, max_len, seed, stop_at_eos,
                     streamer, stopping_criteria, interactive, ignore_prompt,
-                    kvdt))
+                    kvdt, session_file))
                 continue
             if streaming:
                 from .runtime.streaming import stream_generate
@@ -229,26 +335,30 @@ class Model:
 
     def _generate_hooked(self, ids, sp, max_new_tokens, max_len, seed,
                          stop_at_eos, streamer, stopping_criteria,
-                         interactive, ignore_prompt, kv_dtype):
-        """``runtime.generate.generate`` with per-token hooks, and with
+                         interactive, ignore_prompt, kv_dtype,
+                         session_file=None):
+        """``runtime.generate.generate`` with per-token hooks; with
         ``interactive`` a KV session kept across calls (the reference's
-        multi-round chat)."""
+        multi-round chat), with ``session_file`` one kept on disk
+        (:meth:`_session_prefill`)."""
         from .runtime.generate import generate
         from .runtime.kvcache import init_cache
         first_round = self._session is None or not interactive
         cache, pos = None, 0
-        if interactive:
-            if first_round:
-                S = max_len or self.cfg.max_seq_len
-                cache = init_cache(self.cfg, 1, S, kv_dtype,
-                                   device=self.params.device)
-            else:
-                cache, pos, S = self._session
-            if pos + len(ids) + max_new_tokens > S:
-                raise ValueError(
-                    f"context overflow: {pos}+{len(ids)}+{max_new_tokens} > "
-                    f"{S}; raise max_len or use streaming=True "
-                    "(StreamingLLM)")
+        if interactive and not first_round:
+            cache, pos, S = self._session
+        elif interactive or session_file is not None:
+            S = max_len or self.cfg.max_seq_len
+            cache = init_cache(self.cfg, 1, S, kv_dtype,
+                               device=self.params.device)
+        resumed = {}
+        if session_file is not None and first_round:
+            pos, resumed = self._session_prefill(session_file, ids, sp, seed,
+                                                 cache, max_new_tokens)
+        elif cache is not None and pos + len(ids) + max_new_tokens > S:
+            raise ValueError(
+                f"context overflow: {pos}+{len(ids)}+{max_new_tokens} > "
+                f"{S}; raise max_len or use streaming=True (StreamingLLM)")
         if streamer is not None and first_round and not ignore_prompt:
             streamer.put(np.asarray([ids]))
         self._token_end = False
@@ -261,15 +371,82 @@ class Model:
 
         full = generate(self.params, self.cfg, ids, sp, max_new_tokens,
                         max_len, seed, stop_at_eos, kv_dtype,
-                        on_token=on_token, cache=cache, start=pos)
+                        on_token=on_token, cache=cache, start=pos, **resumed)
         self._token_end = True
         if streamer is not None:
             streamer.end()
         if interactive:     # the last new id is not in the cache yet
+            filled = pos if resumed else pos + len(ids)
             n_new = len(full) - len(ids)
-            self._session = (cache, pos + len(ids) + max(n_new - 1, 0), S)
+            self._session = (cache, filled + max(n_new - 1, 0), S)
         return full if first_round and not ignore_prompt \
             else full[len(ids):]
+
+    def _session_prefill(self, path, ids, sp, seed, cache, max_new_tokens):
+        """The session-file half of a hooked generation (the JAX
+        ``_generate_hooked``): reuse the file's cache when its saved prompt
+        is a prefix of ``ids`` (copied into ``cache`` in place: its storage
+        is what the caller holds), evaluate the rest at its offset, and
+        save the state back; on an exact match with saved logits restore
+        them, the generator state and ``mu`` instead, evaluating nothing.
+        Returns the cache's fill (the prompt's length) and the keyword
+        arguments that resume ``runtime.generate.generate`` there."""
+        from .convert.checkpoint import load_session, save_session
+        from .runtime.generate import _generator, prefill_step
+        from .runtime.sampling import SamplerState
+        dev = self.params.device
+        S = cache.k.shape[3]
+        pos, eval_ids = 0, list(ids)
+        if os.path.exists(path):
+            scache, slens, extra = load_session(path, dev)
+            saved = list(extra.get("prompt_ids", []))
+            n = int(slens[0])
+            # reuse iff the saved prompt is a prefix of ours and the cache
+            # geometry matches (reference: session token-prefix match,
+            # main_run.cpp "session file matches %d / %d tokens")
+            if (saved and saved == list(ids[:len(saved)]) and n == len(saved)
+                    and scache.k.shape == cache.k.shape
+                    and scache.k.dtype == cache.k.dtype):
+                for dst, src in zip((cache.k, cache.v, cache.k_scale,
+                                     cache.v_scale),
+                                    (scache.k, scache.v, scache.k_scale,
+                                     scache.v_scale)):
+                    if dst is not None:
+                        dst.copy_(src)
+                pos, eval_ids = n, list(ids[n:])
+                if not eval_ids and "logits" in extra:
+                    # full-state resume (reference model_set_state_data,
+                    # model_utils.cpp:1659): no evaluation at all
+                    resumed = {"logits": extra["logits"][:, None, :]}
+                    if "torch_generator" in extra:
+                        gen = torch.Generator(device=dev)
+                        try:
+                            gen.set_state(extra["torch_generator"])
+                            resumed["generator"] = gen
+                        except RuntimeError:
+                            pass    # another device's generator: reseed
+                    if "sampler_mu" in extra:
+                        resumed["state"] = SamplerState(
+                            mu=extra["sampler_mu"])
+                    return pos, resumed
+                if not eval_ids:    # a file without logits
+                    pos, eval_ids = pos - 1, [ids[-1]]
+            del scache
+        if pos + len(eval_ids) + max_new_tokens > S:
+            raise ValueError(
+                f"context overflow: {pos}+{len(eval_ids)}+{max_new_tokens}"
+                f" > {S}; raise max_len or use streaming=True (StreamingLLM)")
+        gen = _generator(dev, seed)
+        state = SamplerState.init(1, sp, dev)
+        logits = prefill_step(
+            self.params, torch.tensor([eval_ids], dtype=torch.long,
+                                      device=dev),
+            torch.tensor([pos], dtype=torch.long, device=dev), cache)
+        pos += len(eval_ids)
+        save_session(path, cache, [pos], {"prompt_ids": list(ids)},
+                     logits=logits[:, -1], generator_state=gen.get_state(),
+                     sampler_mu=state.mu)
+        return pos, {"logits": logits, "generator": gen, "state": state}
 
     def is_token_end(self) -> bool:
         """Whether the last generation reached its end (a stop id, the
@@ -280,3 +457,34 @@ class Model:
         """Drop the interactive session."""
         self._session = None
         self._token_end = True
+
+    def generate_text(self, prompt: str, **kw) -> str:
+        """Encode ``prompt`` with the model's tokenizer, generate, decode
+        the new ids."""
+        if self.tokenizer is None:
+            raise RuntimeError("no tokenizer loaded (a GGUF file with a "
+                               "vocab brings one)")
+        ids = self.tokenizer.encode(prompt)
+        out = self.generate(ids, **kw)[0]
+        return self.tokenizer.decode(out[len(ids):])
+
+    def __call__(self, input_ids, pad_token: int = 0) -> np.ndarray:
+        """Teacher-forced logits [B, T, V] f32 as numpy (reference
+        Model.__call__, __init__.py:439). Ragged rows are right-padded with
+        ``pad_token``; the logits at pad positions are computed on pad
+        inputs and are to be ignored."""
+        from .runtime.generate import batch_logits
+        rows = _to_id_list(input_ids)
+        T = max(len(r) for r in rows)
+        padded = np.full((len(rows), T), pad_token, np.int64)
+        for b, r in enumerate(rows):
+            padded[b, :len(r)] = r
+        return batch_logits(self.params, self.cfg, padded).cpu().numpy()
+
+    def init_whisper(self, *args, **kw):
+        """Whisper is not ported yet (ROADMAP A13)."""
+        raise NotImplementedError("Whisper is a later slice (ROADMAP A13)")
+
+    def transcribe_file(self, *args, **kw):
+        """Whisper is not ported yet (ROADMAP A13)."""
+        raise NotImplementedError("Whisper is a later slice (ROADMAP A13)")

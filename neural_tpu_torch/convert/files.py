@@ -27,11 +27,36 @@ _LLAMA = dict(vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
               num_attention_heads=32, hidden_act="silu", rms_norm_eps=1e-6,
               rope_theta=10000.0, rope_scaling=None,
               tie_word_embeddings=False, bos_token_id=1, eos_token_id=2)
+# transformers' GemmaConfig and Gemma2Config (4.57): the attributes
+# gemma.config_from_hf reads
+_GEMMA = dict(vocab_size=256000, head_dim=256,
+              max_position_embeddings=8192, rms_norm_eps=1e-6,
+              rope_theta=10000.0, bos_token_id=2, eos_token_id=1)
 HF_DEFAULTS = {
     "llama": dict(_LLAMA, intermediate_size=11008,
                   max_position_embeddings=2048),
     "mistral": dict(_LLAMA, intermediate_size=14336, num_key_value_heads=8,
                     max_position_embeddings=131072, sliding_window=4096),
+    "gemma": dict(_GEMMA, hidden_size=3072, intermediate_size=24576,
+                  num_hidden_layers=28, num_attention_heads=16,
+                  num_key_value_heads=16),
+    "gemma2": dict(_GEMMA, hidden_size=2304, intermediate_size=9216,
+                   num_hidden_layers=26, num_attention_heads=8,
+                   num_key_value_heads=4, attn_logit_softcapping=50.0,
+                   final_logit_softcapping=30.0, sliding_window=4096,
+                   query_pre_attn_scalar=256),
+    # transformers' BloomConfig (4.57)
+    "bloom": dict(vocab_size=250880, hidden_size=64, n_layer=2, n_head=8,
+                  layer_norm_epsilon=1e-5, bos_token_id=1, eos_token_id=2),
+    # transformers' MptConfig (4.57; its attn_config defaults to ALiBi on,
+    # which mpt.config_from_hf assumes when the key is absent)
+    "mpt": dict(d_model=2048, n_heads=16, n_layers=24, expansion_ratio=4,
+                max_seq_len=2048, vocab_size=50368),
+    # ChatGLM-1's config class is remote code (THUDM/chatglm-6b
+    # configuration_chatglm.py), not part of transformers:
+    # chatglm.config_from_hf's own defaults cover inner_hidden_size,
+    # max_sequence_length and the bos/eos ids, and the checkpoint's
+    # config.json has to carry the rest
 }
 
 
@@ -66,27 +91,41 @@ _DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
            "U8": np.uint8, "BOOL": np.bool_, "BF16": np.uint16}
 
 
-def read_safetensors(file: str) -> Dict[str, np.ndarray]:
-    """One ``.safetensors`` file → {name: numpy array}."""
-    out = {}
+def safetensors_header(file: str) -> Tuple[Dict[str, dict], int]:
+    """A ``.safetensors`` file's tensor table {name: {"dtype", "shape",
+    "data_offsets"}} (without ``__metadata__``) and the byte offset of its
+    data."""
     with open(file, "rb") as fh:
         (n,) = struct.unpack("<Q", fh.read(8))
         header = json.loads(fh.read(n))
-        base = 8 + n
+    header.pop("__metadata__", None)
+    return header, 8 + n
+
+
+def decode_tensor(buf, info: dict, file: str = "", name: str = ""
+                  ) -> np.ndarray:
+    """One table entry's bytes ``buf`` → a numpy array of its own (BF16
+    widened to f32)."""
+    dt = info["dtype"]
+    if dt not in _DTYPES:
+        raise ValueError(f"{file}: {name} has dtype {dt}, which this reader "
+                         "does not take")
+    a = np.frombuffer(buf, dtype=np.dtype(_DTYPES[dt]).newbyteorder("<")
+                      ).reshape(info["shape"])
+    if dt == "BF16":
+        a = (a.astype(np.uint32) << 16).view(np.float32)
+    return a.astype(a.dtype.newbyteorder("="))
+
+
+def read_safetensors(file: str) -> Dict[str, np.ndarray]:
+    """One ``.safetensors`` file → {name: numpy array}."""
+    header, base = safetensors_header(file)
+    out = {}
+    with open(file, "rb") as fh:
         for name, info in header.items():
-            if name == "__metadata__":
-                continue
-            dt = info["dtype"]
-            if dt not in _DTYPES:
-                raise ValueError(f"{file}: {name} has dtype {dt}, which "
-                                 "this reader does not take")
             b, e = info["data_offsets"]
             fh.seek(base + b)
-            a = np.frombuffer(fh.read(e - b), dtype=np.dtype(
-                _DTYPES[dt]).newbyteorder("<")).reshape(info["shape"])
-            if dt == "BF16":
-                a = (a.astype(np.uint32) << 16).view(np.float32)
-            out[name] = a.astype(a.dtype.newbyteorder("="))
+            out[name] = decode_tensor(fh.read(e - b), info, file, name)
     return out
 
 

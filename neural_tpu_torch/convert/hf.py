@@ -21,8 +21,9 @@ from typing import Any, Dict, Union
 import torch
 
 from ..core.device import resolve_device
-from ..core.dtypes import QuantConfig, quant_config_from_args
-from ..core.qtensor import QTensor, quantize
+from ..core.dtypes import PRESETS, QuantConfig, quant_config_from_args
+from ..core.qtensor import (QTensor, concat_n, dequantize, quantize,
+                           to_native)
 from ..models import bloom as bloom_mod
 from ..models import chatglm as chatglm_mod
 from ..models import gemma as gemma_mod
@@ -102,11 +103,134 @@ def _resolver(qcfg):
     return lambda name, layer=None: qcfg
 
 
+def resolve_quant(quant: Union[None, str, QuantConfig]):
+    """Preset name / QuantConfig / QuantRegistry / mixed-preset name →
+    QuantConfig or QuantRegistry (or None)."""
+    from .quant_registry import MIXED_PRESETS, QuantRegistry
+    if quant is None or isinstance(quant, (QuantConfig, QuantRegistry)):
+        return quant
+    if quant in MIXED_PRESETS:
+        return MIXED_PRESETS[quant]
+    return PRESETS[quant]
+
+
+def requantize(params: Dict[str, Any], qcfg) -> Dict[str, Any]:
+    """Re-quantize every QTensor of a param dict (``layers`` a list of
+    per-layer dicts) to ``qcfg``: dequantize to f32 on the tensor's device,
+    then RTN ``quantize`` there (the reference quant_model file→file path,
+    quant_utils.cpp:269). ``qcfg`` may be a QuantRegistry (per-tensor
+    configs; a rule of None dequantizes the tensor to bf16). The result is
+    not at rest. Raises for params without a QTensor: quantize those at
+    conversion (``Model.init(weight_dtype=...)``)."""
+    from .quant_registry import QuantRegistry
+    qcfg = resolve_quant(qcfg)
+    resolve = qcfg.resolve if isinstance(qcfg, QuantRegistry) else \
+        (lambda name, layer=None: qcfg)
+    found = [False]
+
+    def req(leaf, name, layer):
+        if not isinstance(leaf, QTensor):
+            return leaf
+        found[0] = True
+        w = dequantize(leaf)
+        qc = resolve(name, layer)
+        return w.to(torch.bfloat16) if qc is None else quantize(w, qc)
+
+    out = {k: req(v, k, None) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: req(v, k, i) for k, v in lp.items()}
+                     for i, lp in enumerate(params["layers"])]
+    if not found[0]:
+        raise ValueError("params hold no quantized tensors; quantize at "
+                         "conversion time via Model.init(weight_dtype=...)")
+    return out
+
+
 def qtensor_to(qt: QTensor, device) -> QTensor:
     """A QTensor with every tensor moved to ``device``."""
     mv = lambda t: None if t is None else t.to(device)
     return QTensor(tuple(mv(p) for p in qt.planes), mv(qt.scales),
                    mv(qt.zeros), mv(qt.perm), qt.cfg)
+
+
+# the elements of one slice of a weight quantized at a time
+_SLICE_ELEMS = 1 << 20
+
+
+class _Converter:
+    """The per-tensor pipeline of :func:`build_param_dict`, a layer or the
+    top-level tensors at a time (the streamed conversion,
+    ``convert.stream``, feeds it one layer's state dict after another):
+    f32 on ``device`` → transpose → FFN pad → quantize, or cast. With
+    ``at_rest``, each quantized slice is converted to the at-rest layout
+    as it is made (``core.qtensor.to_native``), so no whole tensor's
+    unpacked codes exist at once."""
+
+    def __init__(self, cfg: ModelConfig, mod, quant, dtype, device,
+                 at_rest: bool = False):
+        self.cfg, self.mod, self.dtype = cfg, mod, dtype
+        self.at_rest = at_rest
+        self.dev = resolve_device(device)
+        qcfg = quant_config_from_args(quant)
+        self.resolve = _resolver(qcfg)
+        self.qnames = set(mod.QUANT_TENSORS)
+        # as in the JAX package, only a quantized FFN is padded
+        self.Ip = cfg.intermediate_size if qcfg is None else \
+            ffn_padded_size(cfg.intermediate_size)
+
+    def get(self, sd, hf_name, transpose):
+        w = sd[hf_name]
+        if isinstance(w, QTensor):
+            return qtensor_to(w, self.dev)
+        w = torch.as_tensor(w).to(device=self.dev, dtype=torch.float32)
+        return w.T.contiguous() if transpose else w
+
+    def quantized(self, name, w, layer=None):
+        """``w`` [K, N] quantized to its config, in slices of N (columns
+        quantize independently, so the result is the whole tensor's) to
+        bound the temporaries, or cast when its config is None."""
+        qc = self.resolve(name, layer)
+        if qc is None:
+            return w.to(self.dtype)
+        one = (lambda x: to_native(quantize(x, qc))) if self.at_rest \
+            else (lambda x: quantize(x, qc))
+        step = max(128, _SLICE_ELEMS // w.shape[0])
+        if w.shape[1] <= step:
+            return one(w)
+        return concat_n([one(w[:, n0:n0 + step].contiguous())
+                         for n0 in range(0, w.shape[1], step)])
+
+    def layer(self, sd, i: int) -> Dict[str, Any]:
+        lp = {}
+        for name, (hf_name, tr) in self.mod.hf_layer_map(i, self.cfg).items():
+            w = self.get(sd, hf_name, tr)
+            if isinstance(w, QTensor):
+                lp[name] = w
+                continue
+            w = _pad_ffn(name, w, self.cfg, self.Ip)
+            if w.ndim == 2 and name in self.qnames:
+                lp[name] = self.quantized(name, w, i)
+            else:
+                lp[name] = w.to(self.dtype)
+        return lp
+
+    def top(self, sd) -> Dict[str, Any]:
+        params: Dict[str, Any] = {}
+        for name, (hf_name, tr) in self.mod.hf_top_map(self.cfg).items():
+            w = self.get(sd, hf_name, tr)
+            if isinstance(w, QTensor):
+                params[name] = w
+            elif name == "lm_head" and name in self.qnames:
+                params[name] = self.quantized(name, w)
+            elif name == "embed":
+                params[name] = w.to(self.dtype)
+            else:
+                params[name] = w.to(self.dtype if w.ndim > 1
+                                    else torch.float32)
+        _add_aux(params, self.cfg, self.dev)
+        return params
+
+    def flags(self, layers):
+        _add_flags(layers, self.cfg, self.mod, self.dev)
 
 
 def build_param_dict(sd: Dict[str, Any], cfg: ModelConfig, mod=llama_mod,
@@ -119,56 +243,12 @@ def build_param_dict(sd: Dict[str, Any], cfg: ModelConfig, mod=llama_mod,
     orientation whatever the map's transpose flag says). Weights are moved
     to ``device`` before they are quantized, one at a time; the result is
     not yet at rest."""
-    dev = resolve_device(device)
-    qcfg = quant_config_from_args(quant)
-    resolve = _resolver(qcfg)
-    qnames = set(mod.QUANT_TENSORS)
-    # as in the JAX package, only a quantized FFN is padded
-    Ip = cfg.intermediate_size if qcfg is None else \
-        ffn_padded_size(cfg.intermediate_size)
-
+    conv = _Converter(cfg, mod, quant, dtype, device)
     if hasattr(mod, "preprocess_state_dict"):
         sd = mod.preprocess_state_dict(dict(sd), cfg)
-
-    def get(hf_name, transpose):
-        w = sd[hf_name]
-        if isinstance(w, QTensor):
-            return qtensor_to(w, dev)
-        w = torch.as_tensor(w).to(device=dev, dtype=torch.float32)
-        return w.T.contiguous() if transpose else w
-
-    def quantized(name, w, layer=None):
-        qc = resolve(name, layer)
-        return w.to(dtype) if qc is None else quantize(w, qc)
-
-    layers = []
-    for i in range(cfg.n_layers):
-        lp = {}
-        for name, (hf_name, tr) in mod.hf_layer_map(i, cfg).items():
-            w = get(hf_name, tr)
-            if isinstance(w, QTensor):
-                lp[name] = w
-                continue
-            w = _pad_ffn(name, w, cfg, Ip)
-            if w.ndim == 2 and name in qnames:
-                lp[name] = quantized(name, w, i)
-            else:
-                lp[name] = w.to(dtype)
-        layers.append(lp)
-    _add_flags(layers, cfg, mod, dev)
-    params: Dict[str, Any] = {"layers": layers}
-    for name, (hf_name, tr) in mod.hf_top_map(cfg).items():
-        w = get(hf_name, tr)
-        if isinstance(w, QTensor):
-            params[name] = w
-        elif name == "lm_head" and name in qnames:
-            params[name] = quantized(name, w)
-        elif name == "embed":
-            params[name] = w.to(dtype)
-        else:
-            params[name] = w.to(dtype if w.ndim > 1 else torch.float32)
-    _add_aux(params, cfg, dev)
-    return params
+    layers = [conv.layer(sd, i) for i in range(cfg.n_layers)]
+    conv.flags(layers)
+    return {"layers": layers, **conv.top(sd)}
 
 
 def build_params(sd: Dict[str, Any], cfg: ModelConfig, mod=llama_mod,

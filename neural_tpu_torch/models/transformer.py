@@ -156,6 +156,11 @@ class QLinear(nn.Module):
                        for i in range(self.n_planes))
         return QTensor(planes, self.scales, self.zeros, self.perm, self.cfg)
 
+    @property
+    def param(self):
+        """What the layer was built from: the QTensor or the bf16 weight."""
+        return self.weight if self.cfg is None else self.qt
+
     def forward(self, x: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         out_dtype = out_dtype or x.dtype
@@ -214,6 +219,14 @@ class Block(nn.Module):
         # window holds for every layer, as in the JAX package.
         self.window = cfg.sliding_window \
             if flag is None or bool(flag) else 0
+
+    def weights(self) -> Dict[str, object]:
+        """The ``weights`` dict this block holds, as it was built from."""
+        out = {n: getattr(self, n).param for n in LINEARS + FUSED
+               if hasattr(self, n)}
+        for name, buf in self.named_buffers(recurse=False):
+            out[name] = buf
+        return out
 
     def _norm(self, x, name):
         cfg = self.cfg
@@ -418,6 +431,19 @@ class Transformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def param_dict(self) -> Dict[str, object]:
+        """The param dict this decoder holds (``layers`` a list of per-layer
+        dicts), tensors shared, not copied: ``Transformer(cfg,
+        model.param_dict())`` builds the same decoder, and
+        ``convert.checkpoint.save_checkpoint`` writes it."""
+        out: Dict[str, object] = {"layers": [b.weights()
+                                             for b in self.layers]}
+        for name, buf in self.named_buffers(recurse=False):
+            out[name] = buf
+        if self.lm_head is not None:
+            out["lm_head"] = self.lm_head.param
+        return out
 
     def forward(self, tokens: torch.Tensor, start: torch.Tensor, cache,
                 logits_dtype: torch.dtype = torch.float32,

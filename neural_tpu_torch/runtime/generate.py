@@ -173,7 +173,10 @@ def generate(model: Transformer, cfg: ModelConfig, prompt_ids: Sequence[int],
              max_new_tokens: int = 128, max_len: Optional[int] = None,
              seed: int = 0, stop_at_eos: bool = True,
              kv_dtype=torch.bfloat16, on_token=None,
-             cache: Optional[KVCache] = None, start: int = 0) -> list:
+             cache: Optional[KVCache] = None, start: int = 0,
+             logits: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None,
+             state: Optional[SamplerState] = None) -> list:
     """Single-sequence generation through the sampling pipeline (penalties
     over the last ``repeat_last_n`` ids, then greedy, mirostat or the
     filters and a draw from a generator seeded with ``seed``) over a bf16
@@ -185,7 +188,13 @@ def generate(model: Transformer, cfg: ModelConfig, prompt_ids: Sequence[int],
     criterion). ``cache`` continues a cache filled to ``start`` (an
     interactive round): the prompt is prefilled at ``start`` and the run
     ends at the cache's length. The cache then holds every returned id but
-    the last, which the next round's first position overwrites."""
+    the last, which the next round's first position overwrites.
+
+    ``logits`` [1, 1, V]: the cache already holds the whole prompt, up to
+    ``start``, and these are its last row's logits (a session resumed from
+    a file): nothing is prefilled. ``generator`` and ``state`` replace the
+    generator seeded with ``seed`` and the fresh sampler state (a resumed
+    session's random state and mirostat ``mu``)."""
     sampling = sampling or SamplingParams()
     dev = model.device
     T = len(prompt_ids)
@@ -193,14 +202,17 @@ def generate(model: Transformer, cfg: ModelConfig, prompt_ids: Sequence[int],
         S = max_len or min(cfg.max_seq_len, T + max_new_tokens)
         cache = init_cache(cfg, 1, S, kv_dtype, device=dev)
     S = cache.k.shape[3]
-    plen = prompt_lens(cfg, [start + T], dev)
-    gen = _generator(dev, seed)
-    state = SamplerState.init(1, sampling, dev)
-    logits = prefill_step(model, _prompt(prompt_ids, dev),
-                          torch.full((1,), start, dtype=torch.long,
-                                     device=dev), cache)
+    gen = generator or _generator(dev, seed)
+    state = state or SamplerState.init(1, sampling, dev)
+    if logits is None:
+        logits = prefill_step(model, _prompt(prompt_ids, dev),
+                              torch.full((1,), start, dtype=torch.long,
+                                         device=dev), cache)
+        pos = start + T
+    else:
+        pos = start
+    plen = prompt_lens(cfg, [pos], dev)
     out = list(prompt_ids)
-    pos = start + T
     for i in range(max_new_tokens):
         hist = None
         if sampling.repeat_last_n > 0:   # 0 disables penalties

@@ -45,9 +45,13 @@ class ModelServer:
                  max_batch: int = 8, max_len: int = 2048,
                  sampling: Optional[SamplingParams] = None,
                  kv_dtype="bfloat16", poll_interval: float = 0.001,
-                 model_path: Optional[str] = None, **server_kwargs):
+                 model_path: Optional[str] = None, device=None,
+                 **server_kwargs):
         """Pass the port's decoder and its config (``params`` is a
-        :class:`~neural_tpu_torch.models.transformer.Transformer`). The
+        :class:`~neural_tpu_torch.models.transformer.Transformer`), or
+        ``model_path``, a GGUF or NTPU file, which is loaded with
+        ``Model().init_from_bin`` onto ``device`` (the card unless
+        ``device="cpu"``; the reference ctor form, __init__.py:534-548). The
         reference server kwargs are accepted: ctx_size → max_len,
         max_request_num/batch_size → max_batch, memory_dtype ("auto"/"f16"
         → bf16, "int8"), max_new_tokens, kv_mode ("slots"/"paged"),
@@ -62,16 +66,14 @@ class ModelServer:
         ``scratch_size_ratio``, ``continuous_batching`` (always on),
         ``print_log``, ``early_stopping`` (the HF can't-be-beaten stop is
         always on) and ``return_prompt`` are accepted and ignored, as the
-        JAX package does.
-
-        ``model_path`` (checkpoint loading) is not ported yet and raises
-        (ROADMAP A10)."""
-        if model_path is not None:
-            raise NotImplementedError("ModelServer(model_path=...) needs "
-                                      "init_from_bin, a later slice "
-                                      "(ROADMAP A10); pass params and cfg")
+        JAX package does."""
+        if model_path is not None and params is None:
+            from ..api import Model
+            m = Model().init_from_bin(model_path, device=device)
+            params, cfg = m.params, m.cfg
         if params is None or cfg is None:
-            raise ValueError("pass params (the decoder) and cfg")
+            raise ValueError("pass params (the decoder) and cfg, or "
+                             "model_path")
         kw = dict(server_kwargs)
         max_len = kw.pop("ctx_size", max_len) or max_len
         max_batch = max(kw.pop("max_request_num", max_batch),

@@ -504,7 +504,9 @@ def dataclasses_replace_perm(qt, perm):
 def test_model_init_reads_the_directory(tmp_path):
     """``Model.init`` on a GPTQ directory: the safetensors reader gives the
     arrays that were written, the bits and group come from the quantize
-    config, and the fp branch raises, naming what is not ported."""
+    config, and a directory the port cannot read raises, naming why: one
+    without ``*.safetensors`` files (the fp branch streams those since the
+    model-files slice) and one of a model type the port does not have."""
     write_checkpoint(str(tmp_path), "gptq")
     sd = read_safetensors_dir(str(tmp_path))
     want = gptq_state_dict("gptq")
@@ -514,5 +516,12 @@ def test_model_init_reads_the_directory(tmp_path):
         np.testing.assert_array_equal(sd[k], want[k])
     cfg = read_config(str(tmp_path))
     assert cfg.model_type == "mistral" and cfg.num_key_value_heads == HKV
-    with pytest.raises(NotImplementedError, match="stream"):
-        Model().init(str(tmp_path), device="cpu")
+    bare = tmp_path / "bare"
+    bare.mkdir()
+    (bare / "config.json").write_text(
+        (tmp_path / "config.json").read_text())
+    with pytest.raises(NotImplementedError, match="safetensors"):
+        Model().init(str(bare), device="cpu")
+    (bare / "config.json").write_text('{"model_type": "opt"}')
+    with pytest.raises(NotImplementedError, match="model type"):
+        Model().init(str(bare), device="cpu")

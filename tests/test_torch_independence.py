@@ -1,7 +1,9 @@
 """The port stands alone: importing ``neural_tpu_torch`` and its modules
 (and the imports of ``chip_smoke.py``) pulls in no JAX, no ``neural_tpu``,
-no transformers and no safetensors — the machine with the card has none of
-them; the port reads checkpoint files itself (``convert/files.py``)."""
+no ml_dtypes, no transformers and no safetensors — the machine with the
+card has none of them; the port reads checkpoint files itself
+(``convert/files.py``, ``convert/stream.py``, ``convert/gguf.py``,
+``convert/checkpoint.py``)."""
 import ast
 import pathlib
 import subprocess
@@ -29,7 +31,10 @@ print(",".join(hit))
     "neural_tpu_torch.convert.files", "neural_tpu_torch.convert.lora",
     "neural_tpu_torch.convert.quant_registry", "neural_tpu_torch.api",
     "neural_tpu_torch.ops.qmatmul", "neural_tpu_torch.models.transformer",
-    "neural_tpu_torch.serving.scheduler"])
+    "neural_tpu_torch.serving.scheduler", "neural_tpu_torch.convert.gguf",
+    "neural_tpu_torch.convert.gguf_models",
+    "neural_tpu_torch.convert.checkpoint", "neural_tpu_torch.convert.stream",
+    "neural_tpu_torch.tokenizer", "neural_tpu_torch.native"])
 def test_import_pulls_in_nothing_banned(module):
     out = subprocess.run(
         [sys.executable, "-c", PROBE.format(root=str(ROOT), module=module,

@@ -176,11 +176,14 @@ def test_greedy_generate_and_decode_loop_agree(pair):
 
 
 def test_generate_rejects_unported_options(pair):
-    """What Model.generate still refuses: session files (the checkpoint
-    converters, ROADMAP A10) and a mesh (parallelism, A12). Sampling, beams,
-    batches of prompts and streaming run since the sampling slice."""
+    """What Model.generate still refuses: a session file with more than one
+    prompt or with beams (as the JAX package asserts; session files run
+    since the model-files slice) and a mesh (parallelism, A12). Sampling,
+    beams, batches of prompts and streaming run since the sampling slice."""
     _, _, pm, _ = pair
-    with pytest.raises(NotImplementedError, match="A10"):
-        pm.generate([1, 2, 3], session_file="session.bin")
+    with pytest.raises(ValueError, match="session_file"):
+        pm.generate([[1, 2, 3], [4, 5]], session_file="session.bin")
+    with pytest.raises(ValueError, match="session_file"):
+        pm.generate([1, 2, 3], session_file="session.bin", num_beams=2)
     with pytest.raises(NotImplementedError, match="A12"):
         pm.generate([1, 2, 3], mesh=object())

@@ -296,11 +296,12 @@ def test_admission_reservation_formula_agrees_with_begin_prefill(model):
     assert sched.allocator.n_free == sched.cache.n_pages - 1
 
 
-def test_unported_requests_raise(model):
+def test_unported_requests_raise(model, tmp_path):
     """What the port still refuses, each with its cause: a paged streaming
     scheduler, more beams than slots, a streaming prompt that fills the
     cache, a request past max_len, an empty prompt, and a server built
-    from a checkpoint path (ROADMAP A10)."""
+    from a path that is neither a GGUF nor an NTPU file (checkpoint paths
+    load since the model-files slice)."""
     params, cfg = model
     with pytest.raises(ValueError, match="kv_mode='slots'"):
         Scheduler(params, cfg, max_batch=2, max_len=64, kv_mode="paged",
@@ -317,8 +318,10 @@ def test_unported_requests_raise(model):
     with pytest.raises(ValueError, match="shorter than max_len"):
         stream.add_request("full", [1] * 64, max_new_tokens=8)
     assert not (sched.has_work or sched.waiting)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ModelServer(params, cfg, model_path="m.bin")
+    bad = tmp_path / "m.bin"
+    bad.write_bytes(b"NOPE" + bytes(60))
+    with pytest.raises(ValueError, match="magic"):
+        ModelServer(model_path=str(bad), device="cpu")
 
 
 def _trace(sched, paged):
