@@ -5,6 +5,8 @@
                                             # server legs, parent vs this
     python3 chip_smoke.py --phase7          # phases 1, 2 and 7 alone (no
                                             # result line)
+    python3 chip_smoke.py --phase8          # phases 1, 2 and 8 alone (no
+                                            # result line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -196,11 +198,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    peak against one layer's f32 bytes, a prefill on K2 and a decode on
    K1, every tensor equal to the CPU's conversion of the same directory.
 
+8. the dense model zoo (random weights from seeds, each config written as
+   literals naming the published config it copies): (8d) the kernels at
+   the shapes these families give them, each against its plain version
+   with its time, the plain version's, one library call's (``sdpa``,
+   ``torch.matmul``) and its bound: K4 at fill 1975 and K6 at B=8 with
+   mixed fills at G = 7 (Qwen2-7B's 28 heads over 4), K3 on a 1975-token
+   prompt and K4 at fill 1975 at head dim 256 with one KV head per query
+   head (GPT-J-6B), bf16 and int8 each; K3 and K4 with ALiBi at
+   Baichuan-13B's 40 heads; K1 on Qwen2-7B's 3584 × 152064 lm_head at
+   M=1; K5's tiles at M=1975 on Falcon-7B's 4544 × 4544 and 4544 × 18432
+   q4_0 products; (8a) Qwen2-7B at full depth, q4_j (FFN 18944 padded to
+   19456): ``Model.generate`` with bf16 and int8 KV, decode ms/token at
+   fills 128 and 1975 (bf16) and 1975 (int8), TTFT at 1975 tokens (bf16,
+   int8), the batch-8 paged int8 ``ModelServer`` over phase 6's 12
+   queries (tok/s, its K6 launches), peak memory; (8b) GPT-J-6B at full
+   depth, q4_j, the same legs but the server, the cache capped at its 2048
+   positions; (8c) one-layer full-width copies of SOLAR-10.7B, Qwen-7B
+   (v1), Baichuan2-7B, Baichuan-13B (ALiBi, 40 heads), StableLM-3B,
+   Pythia-6.9B, GPT-NeoX-20B, ChatGLM3-6B, Phi-2, Phi-3-mini-4k,
+   Falcon-7B (q4_0: its 4544 is no multiple of 128), Falcon-40B, OPT-6.7B,
+   StarCoder and GPT-J-6B: ``Model.generate`` on the card (a path each,
+   100-token prompt), then the prefill's last logits and 3 teacher-forced
+   steps against the CPU's plain path (2e-2·max|logit|), greedy ids held
+   where the margins prove them, the copies
+   at head dims 64-96 launching no K3/K4/K6; and phase 5's paged int8
+   Scheduler check on the GPT-J copy (parallel residual) and the OPT copy
+   (learned positions). 8d's cases join their kernels' cases in the
+   kernels line.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 no CUDA device is present.
 """
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -233,7 +265,9 @@ from neural_tpu_torch.core.dtypes import (PRESETS, QuantConfig,  # noqa: E402
                                           quant_config_from_args)
 from neural_tpu_torch.core.qtensor import (dequantize, quantize,  # noqa: E402
                                            to_native, to_native_packed)
-from neural_tpu_torch.models import bloom, chatglm, llama, mpt  # noqa: E402
+from neural_tpu_torch.models import (baichuan, bloom, chatglm,  # noqa: E402
+                                     falcon, gptj, gptneox, llama, mpt, opt,
+                                     phi, qwen, stablelm, starcoder)
 from neural_tpu_torch.models import transformer as TRANSFORMER  # noqa: E402
 from neural_tpu_torch.models.config import ModelConfig  # noqa: E402
 from neural_tpu_torch.ops import _cuda  # noqa: E402
@@ -481,19 +515,20 @@ def _qt_copy(qt):
                                scales=c(qt.scales), zeros=c(qt.zeros))
 
 
-def _case(gen, label, cfg, M, shapes, fn, plain, entry, peak, at_rest=True):
+def _case(gen, label, cfg, M, shapes, fn, plain, entry, peak, at_rest=True,
+          vocab=V):
     """One format at one M over ``shapes`` (K, N, products per step): the
     wrapper ``fn(x, qt, out_dtype)`` against ``plain`` on the same CUDA
     tensors, checking that ``entry`` is the C function it launched; its
     time, the plain version's, one bf16 ``torch.matmul`` on the
     pre-dequantized weight (a yardstick) and the bound, each summed over the
-    step. The lm_head (N = V) writes f32 logits, the rest bf16: a bf16
+    step. The lm_head (N = ``vocab``) writes f32 logits, the rest bf16: a bf16
     output is one rounding away, 1e-2·max|ref|; f32 only the order of the
     sums, 1e-4·max|ref|."""
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
     bound_by = {"bytes": 0.0, "operations": 0.0}
     for K, N, count in shapes:
-        odt = torch.float32 if N == V else torch.bfloat16
+        odt = torch.float32 if N == vocab else torch.bfloat16
         qt = quantize(torch.randn((K, N), generator=gen, device=DEV) * 0.02,
                       cfg)
         if at_rest:
@@ -5821,6 +5856,465 @@ def phase_model_files(results):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the dense model zoo (8a Qwen2-7B, 8b GPT-J-6B, 8c one-layer
+# full-width copies of the other families against the CPU's plain path, 8d
+# the kernels at the shapes these families give them)
+# ---------------------------------------------------------------------------
+
+NS = types.SimpleNamespace
+# Qwen/Qwen2-7B's config.json: 28 layers, hidden 3584, 28 heads over 4 KV
+# heads (head dim 128, G = 7), FFN 18944 (padded to 19456), vocab 152064
+# untied, rope_theta 1e6, rms_norm_eps 1e-6, bos and eos 151643; q/k/v
+# biases (neural_tpu_torch/models/qwen.py)
+QWEN2_CFG = qwen.config_from_hf(NS(
+    model_type="qwen2", vocab_size=152064, hidden_size=3584,
+    intermediate_size=18944, num_hidden_layers=28, num_attention_heads=28,
+    num_key_value_heads=4, max_position_embeddings=32768, rope_theta=1e6,
+    rms_norm_eps=1e-6, hidden_act="silu", tie_word_embeddings=False,
+    bos_token_id=151643, eos_token_id=151643))
+# EleutherAI/gpt-j-6b's config.json (transformers' GPTJConfig defaults): 28
+# layers, n_embd 4096, 16 heads of 256 each with its own KV, rotary_dim 64
+# (GPT-J pairs), FFN 16384, vocab 50400, n_positions 2048 (the cache's
+# cap), layer_norm_epsilon 1e-5, bos and eos 50256; parallel residual with
+# one shared LayerNorm, biased MLP and lm_head (models/gptj.py)
+GPTJ_CFG = gptj.config_from_hf(NS(
+    vocab_size=50400, n_embd=4096, n_layer=28, n_head=16, n_inner=None,
+    rotary_dim=64, n_positions=2048, layer_norm_epsilon=1e-5,
+    bos_token_id=50256, eos_token_id=50256))
+# the published configs of 8c's copies (each cut to COPY_LAYERS layers)
+ZOO8_CFGS = {
+    # upstage/SOLAR-10.7B-v1.0: Llama's graph, 48 layers, hidden 4096, 32
+    # heads over 8, FFN 14336, vocab 32000
+    "solar": llama.config_from_hf(NS(
+        model_type="solar", vocab_size=32000, hidden_size=4096,
+        intermediate_size=14336, num_hidden_layers=48,
+        num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0,
+        bos_token_id=1, eos_token_id=2)),
+    # Qwen/Qwen-7B (v1): hidden 4096, 32 heads, intermediate_size 22016
+    # (both MLP halves: 11008 each), vocab 151936, eps 1e-6, 8192 positions
+    "qwen1": qwen.config_from_hf(NS(
+        model_type="qwen", vocab_size=151936, hidden_size=4096,
+        intermediate_size=22016, num_hidden_layers=32,
+        num_attention_heads=32, layer_norm_epsilon=1e-6,
+        rotary_emb_base=10000.0, max_position_embeddings=8192)),
+    # baichuan-inc/Baichuan2-7B-Base: hidden 4096, 32 heads, FFN 11008,
+    # vocab 125696, RoPE
+    "baichuan2_7b": baichuan.config_from_hf(NS(
+        vocab_size=125696, hidden_size=4096, num_hidden_layers=32,
+        num_attention_heads=32, intermediate_size=11008, rms_norm_eps=1e-6,
+        model_max_length=4096, bos_token_id=1, eos_token_id=2)),
+    # baichuan-inc/Baichuan-13B-Base: hidden 5120, 40 heads, FFN 13696,
+    # vocab 64000; its modeling code takes ALiBi (its config.json names no
+    # position type, so the literal does)
+    "baichuan_13b": baichuan.config_from_hf(NS(
+        vocab_size=64000, hidden_size=5120, num_hidden_layers=40,
+        num_attention_heads=40, intermediate_size=13696, rms_norm_eps=1e-6,
+        position_embedding="alibi", model_max_length=4096, bos_token_id=1,
+        eos_token_id=2)),
+    # stabilityai/stablelm-3b-4e1t (transformers' StableLmConfig defaults):
+    # hidden 2560, 32 heads of 80, rotary 0.25, FFN 6912, vocab 50304
+    "stablelm_3b": stablelm.config_from_hf(NS(
+        vocab_size=50304, hidden_size=2560, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=32,
+        intermediate_size=6912, layer_norm_eps=1e-5, use_qkv_bias=False,
+        partial_rotary_factor=0.25, rope_theta=10000,
+        max_position_embeddings=4096)),
+    # EleutherAI/pythia-6.9b: hidden 4096, 32 heads of 128, rotary 0.25,
+    # FFN 16384, vocab 50432, parallel residual
+    "pythia_6.9b": gptneox.config_from_hf(NS(
+        vocab_size=50432, hidden_size=4096, num_hidden_layers=32,
+        num_attention_heads=32, intermediate_size=16384, layer_norm_eps=1e-5,
+        hidden_act="gelu", rotary_pct=0.25, rotary_emb_base=10000,
+        use_parallel_residual=True, max_position_embeddings=2048)),
+    # EleutherAI/gpt-neox-20b (transformers' GPTNeoXConfig defaults):
+    # hidden 6144, 64 heads of 96, FFN 24576, vocab 50432
+    "gpt_neox_20b": gptneox.config_from_hf(NS(
+        vocab_size=50432, hidden_size=6144, num_hidden_layers=44,
+        num_attention_heads=64, intermediate_size=24576, layer_norm_eps=1e-5,
+        hidden_act="gelu", rotary_pct=0.25, rotary_emb_base=10000,
+        use_parallel_residual=True, max_position_embeddings=2048)),
+    # THUDM/chatglm3-6b: hidden 4096, 32 heads over 2 groups, FFN 13696,
+    # padded vocab 65024, GPT-J RoPE on half the head, q/k/v biases
+    "chatglm3": chatglm.config_from_hf(NS(
+        padded_vocab_size=65024, hidden_size=4096, num_layers=28,
+        num_attention_heads=32, multi_query_attention=True,
+        multi_query_group_num=2, ffn_hidden_size=13696,
+        layernorm_epsilon=1e-5, add_qkv_bias=True, seq_length=8192)),
+    # microsoft/phi-2: hidden 2560, 32 heads of 80, rotary 0.4, FFN 10240,
+    # vocab 51200, one shared LayerNorm, lm_head bias
+    "phi2": phi.config_from_hf(NS(
+        model_type="phi", vocab_size=51200, hidden_size=2560,
+        num_hidden_layers=32, num_attention_heads=32,
+        intermediate_size=10240, layer_norm_eps=1e-5,
+        partial_rotary_factor=0.4, rope_theta=10000.0,
+        max_position_embeddings=2048, bos_token_id=50256,
+        eos_token_id=50256)),
+    # microsoft/Phi-3-mini-4k-instruct (transformers' Phi3Config
+    # defaults): hidden 3072, 32 heads of 96, FFN 8192, vocab 32064
+    "phi3_mini": phi.config_from_hf(NS(
+        model_type="phi3", vocab_size=32064, hidden_size=3072,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+        intermediate_size=8192, rms_norm_eps=1e-5, rope_theta=10000.0,
+        rope_scaling=None, max_position_embeddings=4096, bos_token_id=1,
+        eos_token_id=32000)),
+    # tiiuae/falcon-7b (transformers' FalconConfig defaults): hidden 4544,
+    # 71 heads of 64 over one KV head, FFN 18176, vocab 65024, no biases
+    "falcon_7b": falcon.config_from_hf(NS(
+        vocab_size=65024, hidden_size=4544, num_hidden_layers=32,
+        num_attention_heads=71, num_kv_heads=71,
+        new_decoder_architecture=False, multi_query=True,
+        layer_norm_epsilon=1e-5, bias=False, parallel_attn=True,
+        max_position_embeddings=2048)),
+    # tiiuae/falcon-40b: hidden 8192, 60 layers, 128 heads of 64 over 8
+    # KV heads, the new decoder architecture (ln_attn / ln_mlp), FFN 32768
+    "falcon_40b": falcon.config_from_hf(NS(
+        vocab_size=65024, hidden_size=8192, num_hidden_layers=60,
+        num_attention_heads=128, num_kv_heads=8,
+        new_decoder_architecture=True, multi_query=False,
+        layer_norm_epsilon=1e-5, bias=False, parallel_attn=True,
+        max_position_embeddings=2048)),
+    # facebook/opt-6.7b: hidden 4096, 32 heads, FFN 16384, vocab 50272
+    # tied, 2048 learned positions at offset 2, ReLU
+    "opt_6.7b": opt.config_from_hf(NS(
+        vocab_size=50272, hidden_size=4096, num_hidden_layers=32,
+        num_attention_heads=32, ffn_dim=16384, activation_function="relu",
+        word_embed_proj_dim=4096, tie_word_embeddings=True,
+        max_position_embeddings=2048)),
+    # bigcode/starcoder: n_embd 6144, 40 layers, 48 heads of 128 over one
+    # KV head, FFN 24576, vocab 49152 tied, 8192 learned positions
+    "starcoder": starcoder.config_from_hf(NS(
+        vocab_size=49152, n_embd=6144, n_layer=40, n_head=48, n_inner=24576,
+        multi_query=True, layer_norm_epsilon=1e-5, n_positions=8192)),
+    # 8b's GPT-J-6B, the copy the Scheduler check runs
+    "gptj_6b": GPTJ_CFG,
+}
+ZOO8_GEN = ("qmm4_npack", "qmm_a8", "flash_prefill", "flash_decode")
+ZOO8_GEN_INT8 = ("qmm4_npack", "qmm_a8", "flash_prefill_i8",
+                 "flash_decode_i8")
+# the Qwen2-7B server's prompt tails prefill through K5 (buckets 32-128)
+ZOO8_SERVE_I8 = ("qmm4_npack", "qmm_a8", "qmm_general", "flash_prefill_i8",
+                 "paged_decode_i8")
+# 8c: (copy, quant, kernels its path must launch); the copies whose heads
+# (64, 80, 96) ``attend_xla`` takes launch no K3/K4/K6
+_K = ("qmm_general+tc", "qmm4_npack", "flash_prefill", "flash_decode")
+_XLA = ("qmm_general+tc", "qmm4_npack", "attend_xla")
+ZOO8_COPIES = (
+    ("solar", "q4_j", _K),
+    ("qwen1", "q4_j", _K),
+    ("baichuan2_7b", "q4_j", _K),
+    ("baichuan_13b", "q4_j", ("qmm_general+tc", "qmm4_npack",
+                              "flash_prefill+alibi", "flash_decode+alibi")),
+    ("stablelm_3b", "q4_j", _XLA),
+    ("pythia_6.9b", "q4_j", _K),
+    ("gpt_neox_20b", "q4_j", _XLA),
+    ("chatglm3", "q4_j", _K),
+    ("phi2", "q4_j", _XLA),
+    ("phi3_mini", "q4_j", _XLA),
+    ("falcon_7b", "q4_0", _XLA),
+    ("falcon_40b", "q4_j", _XLA),
+    ("opt_6.7b", "q4_j", _K),
+    ("starcoder", "q4_j", _K),
+    ("gptj_6b", "q4_j", _K),
+)
+# teacher-forced steps after each copy's prefill, as phase 5c's: the plain
+# path dequantizes every weight at each call on the host's CPU, and with 8
+# steps a copy phase 8c took 352 s (one run, on an NVIDIA H100 80GB HBM3 at
+# 700 W and its host), which the script's time limit does not leave
+ZOO8_STEPS = 3
+
+
+def _zoo_full(cfg, what, paths, fills, sched_required=None):
+    """One family at full depth, q4_j, random weights from seed 0:
+    ``Model.generate`` per (KV dtype, kernels), decode ms/token at
+    ``fills`` (bf16 KV) and at 1975 (int8 KV), TTFT at 1975 tokens (bf16
+    and int8 KV), with ``sched_required`` the batch-8 paged int8
+    ``ModelServer`` over phase 6's 12 queries, and peak memory; each a path
+    with its launch counts. Caches hold 2048 positions."""
+    params = _init_full(cfg, what)
+    _generate_paths(params, cfg, what, paths)
+    res = {}
+    for fill, kv in [(f, torch.bfloat16) for f in fills] + [
+            (T_PREFILL, torch.int8)]:
+        i8 = kv == torch.int8
+        ms = run_path(f"{what}_decode_fill{fill}{'_i8kv' if i8 else ''}",
+                      ("qmm4_npack", "flash_decode_i8" if i8
+                       else "flash_decode"),
+                      lambda: decode_ms(params, fill, kv_dtype=kv, cfg=cfg))
+        log(f"{what} decode (slope n=4..36, batch 1, "
+            f"{'int8' if i8 else 'bf16'} KV): fill {fill} {ms:.3f} ms/token "
+            f"({1e3 / ms:.1f} tok/s)")
+        res[f"{what}_decode_ms_fill{fill}{'_i8kv' if i8 else ''}"] = ms
+    for kv in (torch.bfloat16, torch.int8):
+        i8 = kv == torch.int8
+        ms = run_path(f"{what}_prefill_1975{'_i8kv' if i8 else ''}",
+                      ("qmm_a8", "flash_prefill_i8" if i8
+                       else "flash_prefill"),
+                      lambda: ttft_ms(params, kv_dtype=kv, cfg=cfg))
+        log(f"{what} TTFT 1975-token prefill (last-row logits, "
+            f"{'int8' if i8 else 'bf16'} KV): {ms:.2f} ms")
+        res[f"{what}_ttft_1975_ms{'_i8kv' if i8 else ''}"] = ms
+    if sched_required:
+        res.update({f"{what}_server_{k}": v for k, v in _server_timed(
+            params, cfg, f"{what}_server_paged_int8", sched_required,
+            _server_prompts()).items()})
+        log(f"{what} server K6 launches: "
+            f"{LAUNCHES[f'{what}_server_paged_int8']['paged_decode_i8']}")
+    res[f"{what}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{what} peak device memory {res[f'{what}_peak_gib']:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_copies_card_vs_plain(rel_tol=2e-2):
+    """8c: one-layer full-width copies of each family: ``Model.generate``
+    on the card (a path each: 100-token prompt, greedy), then the
+    prefill's last logits and ``ZOO8_STEPS`` steps fed the card's ids
+    against the plain path on the CPU (bf16 activations: 100 rows take K5,
+    so phase 5c's tolerance, 2e-2·max|logit|), argmax equal wherever the
+    margin proves it; the copies at head dims 64-96 launch no K3/K4/K6;
+    then phase 5's paged int8 Scheduler check on the GPT-J and OPT
+    copies."""
+    gen = torch.Generator().manual_seed(18)
+    res = {}
+    steps = ZOO8_STEPS
+    for i, (what, quant, required) in enumerate(ZOO8_COPIES):
+        t = time.time()
+        cfg2 = dataclasses.replace(ZOO8_CFGS[what], n_layers=COPY_LAYERS)
+        card = init_random(cfg2, seed=40 + i, quant=quant, device=DEV)
+        host = copy.deepcopy(card).to("cpu")
+        ids = torch.randint(3, cfg2.vocab_size, (100,), generator=gen) \
+            .tolist()
+        model = Model().init_params(card, cfg2)
+        new = run_path(f"card_{what}", required, lambda: model.generate(
+            ids, max_new_tokens=steps + 1, do_sample=False,
+            stop_at_eos=False, repetition_penalty=1.0)[0])[len(ids):]
+        _check_ids(new, steps + 1, f"card {what}", cfg2.vocab_size)
+        if "attend_xla" in required:
+            _no_attention_kernels(f"card_{what}")
+        worst, provable, _ = _steps_card_vs_plain(card, host, cfg2, ids,
+                                                  new[:steps], rel_tol)
+        log(f"{what} card vs plain ({cfg2.n_layers} layer(s), full width, "
+            f"{quant}, head dim {cfg2.head_dim}, {cfg2.n_heads} heads over "
+            f"{cfg2.n_kv_heads}, 100-token prompt, fed the card's ids {new}): "
+            f"logits max err {worst:.3g}·max|logit| (tol {rel_tol}); argmax "
+            f"provably comparable at {provable} of {steps + 1} steps, equal "
+            f"at all of them; {time.time() - t:.1f} s")
+        if provable < 2:
+            raise AssertionError(f"too few {what} steps with a margin wide "
+                                 "enough to compare the argmax")
+        res[f"zoo8_{what}_card_vs_plain_rel_err"] = worst
+        if what in ("gptj_6b", "opt_6.7b"):
+            res[f"zoo8_{what}_sched_card_vs_plain_rel_err"] = \
+                _sched_card_vs_plain(card, host, cfg2, rel_tol)
+        del card, host, model
+        torch.cuda.empty_cache()
+    return res
+
+
+def _lib_alibi(q, kd, vd, sl, offset, scale):
+    """One ``scaled_dot_product_attention`` with the ALiBi bias and the
+    causal mask as its float mask (q [B, Hq, Tq, Dh] at rows offset..)."""
+    Tq, S = q.shape[2], kd.shape[2]
+    qp = torch.arange(Tq, device=DEV)[:, None] + offset
+    kp = torch.arange(S, device=DEV)[None, :]
+    bias = sl.float()[:, None, None] * (kp - qp).float()
+    bias = bias.masked_fill(kp > qp, float("-inf"))[None].bfloat16()
+    return lambda: _sdpa(q, kd, vd, attn_mask=bias, scale=scale)
+
+
+# 8d's heads: (what, Hq, Hkv, head dim, launches a token or prefill)
+QWEN2_HEADS = ("qwen2-7b", 28, 4, 128, 28)
+GPTJ_HEADS = ("gpt-j-6b", 16, 16, 256, 28)
+B13_HEADS = ("baichuan-13b", 40, 40, 128, 40)
+
+
+def check_zoo_kernels(gen, results):
+    """8d: K4 at fill 1975 and K6 at B=8 with the server's mixed fills at
+    G = 7 (Qwen2-7B: 28 heads over 4), bf16 and int8; K3 on a 1975-token
+    prompt and K4 at fill 1975 at head dim 256 with one KV head per query
+    head (GPT-J-6B: 16 over 16), bf16 and int8; K3 and K4 with ALiBi at
+    Baichuan-13B's 40 heads (slopes of a head count that is not a power of
+    two), bf16; K1 on Qwen2-7B's 3584 × 152064 lm_head at M=1; K5's tiles
+    at M=1975 on Falcon-7B's 4544 × 4544 and 4544 × 18432 q4_0 products.
+    Each against its plain version, with its time, the plain version's,
+    one library call's (``sdpa``; ``torch.matmul`` on the dequantized
+    weight) and its bound. Recorded under ``zoo_<kernel>`` and, where
+    phase 3 ran, among that kernel's cases."""
+    ps, cpu = 256, torch.Generator().manual_seed(19)
+    zoo = {}
+    for int8 in (False, True):
+        sfx = "_i8" if int8 else ""
+        row_b = lambda Dh: Dh + 2 if int8 else 2 * Dh
+        tol = I8_DECODE_TOL if int8 else BF16_TOL
+        k4 = A.flash_decode_i8 if int8 else A.flash_decode
+        p4 = A.flash_decode_i8_plain if int8 else A.flash_decode_plain
+        k6 = PA.paged_decode_i8 if int8 else PA.paged_decode
+        k3 = A.flash_prefill_i8 if int8 else A.flash_prefill
+        p3 = A.flash_prefill_i8_plain if int8 else A.flash_prefill_plain
+        for what, Hq, Hkv, Dh, count in (QWEN2_HEADS, GPTJ_HEADS):
+            row = row_b(Dh)
+            fill = T_PREFILL
+            q = (torch.randn((1, Hq, Dh), generator=gen, device=DEV)
+                 * Q_SPREAD).bfloat16()
+            caches = _attn_cache(gen, (1, Hkv, S_CACHE, Dh), int8,
+                                 _copies(2 * fill * Hkv * row))
+            lengths = torch.tensor([fill], dtype=torch.int32, device=DEV)
+            args = [(q, c[0], c[1], *(c[2:] if int8 else ()), lengths,
+                     Dh ** -0.5) for c in caches]
+            kvs = [_bf16_kv(c) for c in caches]
+            label = f"{what} heads ({Hq} over {Hkv}, head dim {Dh}) decode " \
+                f"fill {fill}"
+            zoo.setdefault(f"K4{sfx}", {})[label] = _attn_case(
+                label, f"flash_decode{sfx}", lambda: k4(*args[0]),
+                lambda: p4(*args[0]), 2 * fill * Hkv * row + Hq * Dh * 6,
+                _attn_ops(int8, Dh, Hq, fill, False, True), tol, count,
+                runs=[lambda a=a: k4(*a) for a in args],
+                library=[lambda kv=kv: _sdpa(
+                    q[:, :, None], kv[0][:, :, :fill], kv[1][:, :, :fill],
+                    enable_gqa=Hq != Hkv) for kv in kvs])
+            del q, caches, args, kvs
+            if what == QWEN2_HEADS[0]:
+                B, maxp = len(SERVER_FILLS), S_CACHE // ps
+                P = B * maxp + 1
+                table = torch.randperm(P - 1, generator=cpu)[:B * maxp] \
+                    .reshape(B, maxp).to(torch.int32).to(DEV)
+                lengths = torch.tensor(SERVER_FILLS, dtype=torch.int32,
+                                       device=DEV)
+                q = (torch.randn((B, Hq, Dh), generator=gen, device=DEV)
+                     * Q_SPREAD).bfloat16()
+                c = _attn_cache(gen, (P, Hkv, ps, Dh), int8)[0]
+                a6 = (q, c[0], c[1], *(c[2:] if int8 else ()), table,
+                      lengths, Dh ** -0.5)
+                kd, vd = (PA.gather_pages(x, table) for x in _bf16_kv(c))
+                mask = (torch.arange(maxp * ps, device=DEV)[None, :]
+                        < lengths[:, None].long())[:, None, None, :]
+                n = sum(SERVER_FILLS)
+                label = f"{what} heads ({Hq} over {Hkv}) B={B} decode " \
+                    f"fills {SERVER_FILLS}"
+                zoo.setdefault(f"K6{sfx}", {})[label] = _attn_case(
+                    label, f"paged_decode{sfx}", lambda: k6(*a6),
+                    lambda: PA.paged_decode_plain(q, *c, table, lengths,
+                                                  Dh ** -0.5),
+                    2 * n * Hkv * row + B * maxp * 4 + B * 4
+                    + B * Hq * Dh * 6,
+                    _attn_ops(int8, Dh, Hq, n, False, True), tol, count,
+                    library=[lambda: _sdpa(q[:, :, None], kd, vd,
+                                           attn_mask=mask, enable_gqa=True)])
+                del q, c, a6, kd, vd, mask
+            else:
+                T = T_PREFILL
+                starts = torch.zeros(1, dtype=torch.int32, device=DEV)
+                q = (torch.randn((1, T, Hq, Dh), generator=gen, device=DEV)
+                     * Q_SPREAD).bfloat16()
+                c = _attn_cache(gen, (1, Hkv, S_CACHE, Dh), int8)[0]
+                a3 = (q, c[0], c[1], *(c[2:] if int8 else ()), starts,
+                      Dh ** -0.5)
+                kd, vd = (x[:, :, :T] for x in _bf16_kv(c))
+                qh = q.transpose(1, 2)
+                label = f"{what} heads ({Hq} over {Hkv}, head dim {Dh}) " \
+                    f"{T}-token prefill"
+                zoo.setdefault(f"K3{sfx}", {})[label] = _attn_case(
+                    label, f"flash_prefill{sfx}", lambda: k3(*a3),
+                    lambda: p3(*a3),
+                    T * Hq * Dh * 2 + 2 * T * Hkv * row + T * Hq * Dh * 4,
+                    _attn_ops(int8, Dh, Hq, _pairs(T, 0), False, False),
+                    I8_PREFILL_TOL if int8 else BF16_TOL, count,
+                    library=[lambda: _sdpa(qh, kd, vd, is_causal=True)])
+                del q, c, a3, kd, vd, qh
+            torch.cuda.empty_cache()
+    # ALiBi at Baichuan-13B's 40 heads, bf16
+    what, Hq, Hkv, Dh, count = B13_HEADS
+    sl, T, row = _slopes(Hq), T_PREFILL, 2 * Dh
+    starts = torch.zeros(1, dtype=torch.int32, device=DEV)
+    q = (torch.randn((1, T, Hq, Dh), generator=gen, device=DEV)
+         * Q_SPREAD).bfloat16()
+    c = _attn_cache(gen, (1, Hkv, S_CACHE, Dh), False)[0]
+    a3 = (q, c[0], c[1], starts, Dh ** -0.5)
+    kd, vd = (x[:, :, :T] for x in _bf16_kv(c))
+    label = f"{what} {T}-token prefill, alibi ({Hq} heads)"
+    zoo["K3_alibi"] = {label: _attn_case(
+        label, "flash_prefill+alibi", lambda: A.flash_prefill(*a3, slopes=sl),
+        lambda: A.flash_prefill_plain(*a3, slopes=sl),
+        T * Hq * Dh * 2 + 2 * T * Hkv * row + T * Hq * Dh * 4,
+        _attn_ops(False, Dh, Hq, _pairs(T, 0), True, False), BF16_TOL, count,
+        library=[_lib_alibi(q.transpose(1, 2), kd, vd, sl, 0, Dh ** -0.5)],
+        off=[lambda: A.flash_prefill(*a3)])}
+    del q, c, a3, kd, vd
+    fill = T_PREFILL
+    q = (torch.randn((1, Hq, Dh), generator=gen, device=DEV)
+         * Q_SPREAD).bfloat16()
+    caches = _attn_cache(gen, (1, Hkv, S_CACHE, Dh), False,
+                         _copies(2 * fill * Hkv * row))
+    lengths = torch.tensor([fill], dtype=torch.int32, device=DEV)
+    args = [(q, c[0], c[1], lengths, Dh ** -0.5) for c in caches]
+    kd, vd = (x[:, :, :fill] for x in _bf16_kv(caches[0]))
+    label = f"{what} decode fill {fill}, alibi ({Hq} heads)"
+    zoo["K4_alibi"] = {label: _attn_case(
+        label, "flash_decode+alibi",
+        lambda: A.flash_decode(*args[0], slopes=sl),
+        lambda: A.flash_decode_plain(*args[0], slopes=sl),
+        2 * fill * Hkv * row + Hq * Dh * 6,
+        _attn_ops(False, Dh, Hq, fill, True, True), BF16_TOL, count,
+        runs=[lambda a=a: A.flash_decode(*a, slopes=sl) for a in args],
+        library=[_lib_alibi(q[:, :, None], kd, vd, sl, fill - 1,
+                            Dh ** -0.5)],
+        off=[lambda a=a: A.flash_decode(*a) for a in args])}
+    del q, caches, args, kd, vd
+    torch.cuda.empty_cache()
+    k1 = lambda x, qt, odt: Q.qmm_native(x, qt.planes[0], qt.scales, None,
+                                         qt.group_size, 4, odt)
+    p1 = lambda x, qt, odt: Q.qmm_native_plain(x, qt.planes[0], qt.scales,
+                                               None, qt.group_size, 4, odt)
+    zoo["K1"] = {"qwen2-7b lm_head 3584 x 152064, decode step": _case(
+        gen, "qwen2-7b lm_head 3584 x 152064, decode step", PRESETS["q4_j"],
+        1, [(3584, 152064, 1)], k1, p1, "qmm4_npack", BF16_FLOPS,
+        vocab=152064)}
+    torch.cuda.empty_cache()
+    k5 = lambda x, qt, odt: Q.qmm_general(x, qt, odt)
+    p5 = lambda x, qt, odt: Q.qmm_general_plain(x, qt, odt)
+    label = "falcon-7b q4_0 1975-token prefill, 4544 x 4544 and 4544 x 18432"
+    zoo["K5_tc"] = {label: _case(
+        gen, label, PRESETS["q4_0"], T_PREFILL,
+        [(4544, 4544, 64), (4544, 18432, 32)], k5, p5, "qmm_general+tc",
+        BF16_FLOPS)}
+    torch.cuda.empty_cache()
+    for key, cases in zoo.items():
+        results[f"zoo_{key}"] = dict(next(iter(cases.values())), cases=cases)
+        for main in (key, "K5") if key == "K5_tc" else (key,):
+            if main in results:
+                results[main]["cases"].update(cases)
+    return {f"8d {k} {label}": {m: c[m] for m in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "err")}
+        for k, cases in zoo.items() for label, c in cases.items()}
+
+
+def phase_zoo(results):
+    """Phase 8: 8a Qwen2-7B and 8b GPT-J-6B at full depth, 8c the one-layer
+    copies against the CPU's plain path, 8d the kernels at the zoo's
+    shapes."""
+    t = time.time()
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    res = {"8d": check_zoo_kernels(gen, results)}
+    log(f"phase 8d: {time.time() - t:.1f} s")
+    t = time.time()
+    res.update(_zoo_full(QWEN2_CFG, "qwen2", (("bf16", ZOO8_GEN),
+                                              ("int8", ZOO8_GEN_INT8)),
+                         (128, T_PREFILL), ZOO8_SERVE_I8))
+    log(f"phase 8a: {time.time() - t:.1f} s")
+    t = time.time()
+    res.update(_zoo_full(GPTJ_CFG, "gptj", (("bf16", ZOO8_GEN),
+                                            ("int8", ZOO8_GEN_INT8)),
+                         (128, T_PREFILL)))
+    log(f"phase 8b: {time.time() - t:.1f} s")
+    t = time.time()
+    res.update(zoo_copies_card_vs_plain())
+    log(f"phase 8c: {time.time() - t:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_META = {
@@ -6158,6 +6652,7 @@ def main():
     if sys.argv[1:2] == ["--convert-child"]:
         return convert_child(sys.argv[2])
     only7 = sys.argv[1:2] == ["--phase7"]
+    only8 = sys.argv[1:2] == ["--phase8"]
     # the slice's main path: every phase runs the fused decode path, which
     # the library leaves off by default (``models.transformer.fuse_mode``);
     # the A/B and the unfused references set the switches themselves
@@ -6182,8 +6677,9 @@ def main():
     log(f"built {[k.source for k in _cuda.KERNELS]} in {build_s:.1f} s")
 
     results = {}
-    if only7:
-        e2e = phase("7 model files", phase_model_files, results)
+    if only7 or only8:
+        e2e = phase("7 model files", phase_model_files, results) if only7 \
+            else phase("8 zoo", phase_zoo, results)
         log(json.dumps({"e2e": e2e, "phase_seconds": seconds,
                         "seconds": time.time() - t_start}))
         return
@@ -6239,6 +6735,7 @@ def main():
     del params
     torch.cuda.empty_cache()
     e2e.update(phase("7 model files", phase_model_files, results))
+    e2e.update(phase("8 zoo", phase_zoo, results))
 
     kernels = []
     for kid, (kname, src, repl) in KERNEL_META.items():

@@ -82,13 +82,9 @@ class Model:
         if dtype != "bfloat16":
             raise NotImplementedError("only bf16 activations are ported")
         from .convert import files
-        from .convert.hf import ARCH_MODULES
+        from .convert.hf import family
         hf_cfg = files.read_config(model_name_or_path)
-        mod = ARCH_MODULES.get(hf_cfg.model_type)
-        if mod is None:
-            raise NotImplementedError(
-                f"model type {hf_cfg.model_type!r}: the port has "
-                f"{sorted(ARCH_MODULES)}")
+        mod = family(hf_cfg.model_type)
         if not glob.glob(os.path.join(model_name_or_path, "*.safetensors")):
             raise NotImplementedError(
                 f"{model_name_or_path} holds no *.safetensors file; the port "
@@ -121,10 +117,11 @@ class Model:
                            scale_dtype: str = "fp32",
                            compute_dtype: str = "int8",
                            use_ggml: bool = False):
-        """In-memory HF torch model (Llama, Mistral, Gemma, Gemma-2, Bloom,
-        MPT; ChatGLM-1 through a model object with its config and state
-        dict) → ready Model. ``weight_dtype`` and the reference-style knobs are
-        those of the JAX ``Model.init`` (:func:`quant_config_from_args`);
+        """In-memory HF torch model (any family of
+        ``convert.hf.ARCH_MODULES``; the remote-code ones, Qwen v1,
+        Baichuan and ChatGLM, through a model object with their config and
+        state dict) → ready Model. ``weight_dtype`` and the reference-style
+        knobs are those of the JAX ``Model.init`` (:func:`quant_config_from_args`);
         None keeps bf16 projections.
         Weights are quantized on ``device`` (the card unless
         ``device="cpu"``)."""

@@ -52,20 +52,101 @@ HF_DEFAULTS = {
     # which mpt.config_from_hf assumes when the key is absent)
     "mpt": dict(d_model=2048, n_heads=16, n_layers=24, expansion_ratio=4,
                 max_seq_len=2048, vocab_size=50368),
-    # ChatGLM-1's config class is remote code (THUDM/chatglm-6b
-    # configuration_chatglm.py), not part of transformers:
-    # chatglm.config_from_hf's own defaults cover inner_hidden_size,
-    # max_sequence_length and the bos/eos ids, and the checkpoint's
-    # config.json has to carry the rest
+    # transformers' GPTJConfig (4.57; its defaults are EleutherAI/gpt-j-6b)
+    "gptj": dict(vocab_size=50400, n_embd=4096, n_layer=28, n_head=16,
+                 n_inner=None, layer_norm_epsilon=1e-5, rotary_dim=64,
+                 n_positions=2048, bos_token_id=50256, eos_token_id=50256),
+    # transformers' GPTNeoXConfig (4.57; EleutherAI/gpt-neox-20b)
+    "gpt_neox": dict(vocab_size=50432, hidden_size=6144,
+                     num_hidden_layers=44, num_attention_heads=64,
+                     intermediate_size=24576, layer_norm_eps=1e-5,
+                     hidden_act="gelu", rotary_pct=0.25,
+                     rotary_emb_base=10000, use_parallel_residual=True,
+                     max_position_embeddings=2048, bos_token_id=0,
+                     eos_token_id=2),
+    # transformers' OPTConfig (4.57; facebook/opt-125m)
+    "opt": dict(vocab_size=50272, hidden_size=768, num_hidden_layers=12,
+                num_attention_heads=12, ffn_dim=3072,
+                activation_function="relu", word_embed_proj_dim=768,
+                tie_word_embeddings=True, max_position_embeddings=2048,
+                bos_token_id=2, eos_token_id=2),
+    # transformers' FalconConfig (4.57; tiiuae/falcon-7b; num_kv_heads
+    # defaults to the head count there)
+    "falcon": dict(vocab_size=65024, hidden_size=4544, num_hidden_layers=32,
+                   num_attention_heads=71, num_kv_heads=71,
+                   new_decoder_architecture=False, multi_query=True,
+                   ffn_hidden_size=18176, layer_norm_epsilon=1e-5,
+                   bias=False, rope_theta=10000.0, parallel_attn=True,
+                   max_position_embeddings=2048, bos_token_id=11,
+                   eos_token_id=11),
+    # transformers' GPTBigCodeConfig (4.57)
+    "gpt_bigcode": dict(vocab_size=50257, n_embd=768, n_layer=12, n_head=12,
+                        multi_query=True, n_inner=None,
+                        layer_norm_epsilon=1e-5, n_positions=1024,
+                        bos_token_id=50256, eos_token_id=50256),
+    # transformers' Qwen2Config (4.57; its bos/eos default to None, which
+    # llama.config_from_hf reads as 1 and 2)
+    "qwen2": dict(vocab_size=151936, hidden_size=4096, num_hidden_layers=32,
+                  num_attention_heads=32, num_key_value_heads=32,
+                  intermediate_size=22016, rms_norm_eps=1e-6,
+                  hidden_act="silu", rope_theta=10000.0, rope_scaling=None,
+                  tie_word_embeddings=False, max_position_embeddings=32768,
+                  bos_token_id=None, eos_token_id=None),
+    # transformers' PhiConfig (4.57; microsoft/phi-1)
+    "phi": dict(vocab_size=51200, hidden_size=2048, num_hidden_layers=24,
+                num_attention_heads=32, num_key_value_heads=32,
+                intermediate_size=8192, layer_norm_eps=1e-5,
+                partial_rotary_factor=0.5, rope_theta=10000.0,
+                max_position_embeddings=2048, bos_token_id=1, eos_token_id=2),
+    # transformers' Phi3Config (4.57; microsoft/Phi-3-mini-4k-instruct)
+    "phi3": dict(vocab_size=32064, hidden_size=3072, num_hidden_layers=32,
+                 num_attention_heads=32, num_key_value_heads=32,
+                 intermediate_size=8192, rms_norm_eps=1e-5,
+                 rope_theta=10000.0, rope_scaling=None,
+                 tie_word_embeddings=False, max_position_embeddings=4096,
+                 bos_token_id=1, eos_token_id=32000),
+    # transformers' StableLmConfig (4.57; stabilityai/stablelm-3b-4e1t)
+    "stablelm": dict(vocab_size=50304, hidden_size=2560,
+                     num_hidden_layers=32, num_attention_heads=32,
+                     num_key_value_heads=32, intermediate_size=6912,
+                     layer_norm_eps=1e-5, use_qkv_bias=False,
+                     partial_rotary_factor=0.25, rope_theta=10000,
+                     max_position_embeddings=4096, bos_token_id=0,
+                     eos_token_id=0),
+    # ChatGLM-1/2/3, Qwen v1 and Baichuan have no config class in
+    # transformers (each checkpoint carries its own remote code): their
+    # config.json has to hold every key their config_from_hf reads, beyond
+    # the few that function defaults itself, and a missing one raises
+    # (RemoteConfig)
 }
+# model types whose config class is the checkpoint's own remote code
+REMOTE_CODE = ("chatglm", "chatglm1", "qwen", "baichuan")
+
+
+class RemoteConfig(types.SimpleNamespace):
+    """The keys of a remote-code model's config.json; reading a key it
+    lacks raises an AttributeError that names the key and the file
+    (``getattr`` with a default still works)."""
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        raise AttributeError(
+            f"{self.__dict__.get('_path', 'config.json')} has no {name!r}, "
+            f"which a {self.__dict__.get('model_type')!r} config needs "
+            "(the model type's config class is the checkpoint's own remote "
+            "code, which the port does not run)")
 
 
 def read_config(path: str) -> types.SimpleNamespace:
     """``<path>/config.json`` → a namespace of its keys (nested dicts stay
     dicts), with the transformers defaults of its ``model_type`` under the
-    keys it leaves out."""
-    with open(os.path.join(path, "config.json")) as fh:
+    keys it leaves out; a remote-code type's is a :class:`RemoteConfig`."""
+    file = os.path.join(path, "config.json")
+    with open(file) as fh:
         d = json.load(fh)
+    if d.get("model_type") in REMOTE_CODE:
+        return RemoteConfig(_path=file, **d)
     return types.SimpleNamespace(**{**HF_DEFAULTS.get(d.get("model_type"),
                                                       {}), **d})
 

@@ -16,8 +16,11 @@ numpy, so that no JAX import is needed here:
   (Gemma-2's ``use_sliding``) is a bool array, [L] when stacked, and
   becomes a 0-d bool tensor in each layer;
 - every other leaf crosses under its own name: the projection and
-  LayerNorm biases, Bloom's ``embed_norm_w``/``_b``, ``final_norm_b`` and
-  the ``alibi_slopes`` (a tree without RoPE has no ``rope_inv_freqs``).
+  LayerNorm biases, the qk-norm weights ``q_norm_w``/``k_norm_w``, Bloom's
+  ``embed_norm_w``/``_b``, ``final_norm_b``, the learned position table
+  ``pos_embed`` (OPT, StarCoder), the ``lm_head_b`` (GPT-J, Phi-2) and the
+  ``alibi_slopes`` (a tree without RoPE has no ``rope_inv_freqs``; a
+  parallel-residual layer with one shared norm has no ``ffn_norm_w``).
 
 QTensors not yet at rest are converted on the way in
 (``runtime.generate.params_to_native``).

@@ -1,5 +1,5 @@
-"""HF model / random weights → the port's decoder (port of the Llama,
-Gemma, Bloom, MPT and ChatGLM-1 part of ``neural_tpu/convert/hf.py``).
+"""HF model / random weights → the port's decoder (port of
+``neural_tpu/convert/hf.py`` for every dense family of its registry).
 
 Every quantized tensor is converted once, here, to the at-rest layout
 (``runtime.generate.params_to_native``) that the kernels read; the port
@@ -11,8 +11,9 @@ port's per-layer blocks hold such layers as they are. A QTensor already in
 the state dict (a GPTQ/AWQ import) passes through as it is. Dtypes follow
 the JAX package's ``build_params``: layer norms and biases in the model dtype,
 the top-level 1-D tensors (``final_norm_w``/``_b``, Bloom's
-``embed_norm_w``/``_b``) in f32, the embedding in the model dtype, the RoPE
-table (absent under ALiBi) and the ALiBi slopes in f32.
+``embed_norm_w``/``_b``, ``lm_head_b``) in f32, the embedding and the
+learned position table in the model dtype, the RoPE table (absent under
+ALiBi and learned positions) and the ALiBi slopes in f32.
 """
 from __future__ import annotations
 
@@ -24,20 +25,41 @@ from ..core.device import resolve_device
 from ..core.dtypes import PRESETS, QuantConfig, quant_config_from_args
 from ..core.qtensor import (QTensor, concat_n, dequantize, quantize,
                            to_native)
-from ..models import bloom as bloom_mod
-from ..models import chatglm as chatglm_mod
-from ..models import gemma as gemma_mod
-from ..models import llama as llama_mod
-from ..models import mpt as mpt_mod
+from ..models import (baichuan, bloom, chatglm, falcon, gemma, gptj,
+                      gptneox, llama, mpt, opt, phi, qwen, stablelm,
+                      starcoder)
 from ..models.config import ModelConfig
-from ..models.transformer import LINEARS, Transformer
+from ..models.transformer import LINEARS, MOE_SLICE, Transformer
 from ..ops.rope import alibi_slopes, rope_freqs
 from ..runtime.generate import params_to_native
 
-ARCH_MODULES = {"llama": llama_mod, "mistral": llama_mod,
-                "gemma": gemma_mod, "gemma2": gemma_mod, "bloom": bloom_mod,
-                "mpt": mpt_mod, "chatglm": chatglm_mod,
-                "chatglm1": chatglm_mod}
+
+# HF model_type → family module, the JAX registry's names
+# (neural_tpu/convert/hf.py:33-47) but for those of REFUSED
+ARCH_MODULES = {"llama": llama, "mistral": llama, "solar": llama,
+                "gptj": gptj, "gpt_neox": gptneox, "opt": opt,
+                "bloom": bloom, "mpt": mpt, "falcon": falcon,
+                "gpt_bigcode": starcoder, "qwen": qwen, "qwen2": qwen,
+                "phi": phi, "phi3": phi, "gemma": gemma, "gemma2": gemma,
+                "stablelm": stablelm, "baichuan": baichuan,
+                "chatglm": chatglm, "chatglm1": chatglm}
+# the JAX registry's other names (and Qwen2-MoE), each with why the port
+# refuses it
+REFUSED = {"mixtral": MOE_SLICE, "grok": MOE_SLICE, "grok-1": MOE_SLICE,
+           "qwen2_moe": MOE_SLICE, "qwen3": qwen.QWEN3_FAULT}
+
+
+def family(model_type: str):
+    """The family module of an HF ``model_type``; raises
+    ``NotImplementedError`` naming why for the refused ones and the
+    unknown ones."""
+    if model_type in REFUSED:
+        raise NotImplementedError(REFUSED[model_type])
+    mod = ARCH_MODULES.get(model_type)
+    if mod is None:
+        raise NotImplementedError(
+            f"model type {model_type!r}: the port has {sorted(ARCH_MODULES)}")
+    return mod
 
 
 def ffn_padded_size(I: int, tile: int = 1024, max_overhead: float = 0.05):
@@ -57,6 +79,7 @@ def _shape_for(name: str, cfg: ModelConfig, Ip: int):
         "w_gate": (D, Ip), "w_up": (D, Ip), "w_down": (Ip, D),
         "bq": (cfg.q_dim,), "bk": (cfg.kv_dim,), "bv": (cfg.kv_dim,),
         "bo": (D,), "b_gate": (Ip,), "b_up": (Ip,), "b_down": (D,),
+        "q_norm_w": (cfg.head_dim,), "k_norm_w": (cfg.head_dim,),
     }[name]
 
 
@@ -221,7 +244,7 @@ class _Converter:
                 params[name] = w
             elif name == "lm_head" and name in self.qnames:
                 params[name] = self.quantized(name, w)
-            elif name == "embed":
+            elif name in ("embed", "pos_embed"):
                 params[name] = w.to(self.dtype)
             else:
                 params[name] = w.to(self.dtype if w.ndim > 1
@@ -233,7 +256,7 @@ class _Converter:
         _add_flags(layers, self.cfg, self.mod, self.dev)
 
 
-def build_param_dict(sd: Dict[str, Any], cfg: ModelConfig, mod=llama_mod,
+def build_param_dict(sd: Dict[str, Any], cfg: ModelConfig, mod=llama,
                      quant: Union[str, QuantConfig, None] = "q4_j",
                      dtype: torch.dtype = torch.bfloat16,
                      device=None) -> Dict[str, Any]:
@@ -251,7 +274,7 @@ def build_param_dict(sd: Dict[str, Any], cfg: ModelConfig, mod=llama_mod,
     return {"layers": layers, **conv.top(sd)}
 
 
-def build_params(sd: Dict[str, Any], cfg: ModelConfig, mod=llama_mod,
+def build_params(sd: Dict[str, Any], cfg: ModelConfig, mod=llama,
                  quant: Union[str, QuantConfig, None] = "q4_j",
                  dtype: torch.dtype = torch.bfloat16,
                  device=None) -> Transformer:
@@ -266,11 +289,7 @@ def from_hf_model(model, quant: Union[str, QuantConfig] = "q4_j",
                   dtype: torch.dtype = torch.bfloat16, device=None):
     """A transformers ``*ForCausalLM`` (only its ``config`` attributes and
     ``state_dict()`` are read) → (Transformer, ModelConfig)."""
-    mod = ARCH_MODULES.get(model.config.model_type)
-    if mod is None:
-        raise NotImplementedError(
-            f"model type {model.config.model_type!r}: the port has "
-            f"{sorted(ARCH_MODULES)}")
+    mod = family(model.config.model_type)
     cfg = mod.config_from_hf(model.config)
     sd = {k: v.detach().to(torch.float32)
           for k, v in model.state_dict().items()}
@@ -293,11 +312,15 @@ def init_random(cfg: ModelConfig, seed: int = 0,
     like the weights, after each layer's projections, so a model without
     them draws what it drew before they existed; a tied lm_head is the
     embedding; Bloom's embedding LayerNorm has a unit weight and a zero
-    bias. (The JAX package's ``init_random`` builds the whole f32 state
-    dict on the host instead, with norm weights and biases of ones; the
-    two draw different numbers.)"""
+    bias; a parallel-residual family without ``ffn_norm_w`` (GPT-J, Phi-2,
+    Falcon-7B) shares its one norm; qk-norm weights are ones; the learned
+    position table (``max_seq_len + pos_offset`` rows) and the lm_head
+    bias are drawn like the weights, last, so the draws before them are
+    the same as before they existed. (The JAX package's ``init_random``
+    builds the whole f32 state dict on the host instead, with norm weights
+    and biases of ones; the two draw different numbers.)"""
     dev = resolve_device(device)
-    mod = ARCH_MODULES.get(cfg.arch, llama_mod)
+    mod = ARCH_MODULES.get(cfg.arch, llama)
     qcfg = quant_config_from_args(quant)
     resolve = _resolver(qcfg)
     gen = torch.Generator(device=dev)
@@ -328,6 +351,9 @@ def init_random(cfg: ModelConfig, seed: int = 0,
                 lp[n] = normal((cfg.hidden_size,)).to(dtype)
             elif n not in lp:
                 lp[n] = normal(_shape_for(n, cfg, Ip)).to(dtype)
+        if cfg.qk_norm:
+            for n in ("q_norm_w", "k_norm_w"):
+                lp[n] = torch.ones(cfg.head_dim, dtype=dtype, device=dev)
         layers.append(lp)
     _add_flags(layers, cfg, mod, dev)
     D = cfg.hidden_size
@@ -346,5 +372,10 @@ def init_random(cfg: ModelConfig, seed: int = 0,
     if "embed_norm_w" in top:
         params["embed_norm_w"] = torch.ones(D, device=dev)
         params["embed_norm_b"] = torch.zeros(D, device=dev)
+    if cfg.learned_pos_emb:
+        params["pos_embed"] = normal((cfg.max_seq_len + cfg.pos_offset,
+                                      D)).to(dtype)
+    if "lm_head_b" in top:
+        params["lm_head_b"] = normal((cfg.vocab_size,))
     _add_aux(params, cfg, dev)
     return Transformer(cfg, params)

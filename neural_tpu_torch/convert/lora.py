@@ -50,8 +50,8 @@ def from_hf_model_with_lora(model, lora_sd: Dict[str, np.ndarray],
     """A transformers ``*ForCausalLM`` (its ``config`` and ``state_dict()``)
     and a PEFT adapter state dict → the merged (Transformer, ModelConfig),
     quantized with ``quant`` on ``device``."""
-    from .hf import ARCH_MODULES, build_params
-    mod = ARCH_MODULES[model.config.model_type]
+    from .hf import build_params, family
+    mod = family(model.config.model_type)
     cfg = mod.config_from_hf(model.config)
     sd = {k: v.detach().float().numpy()
           for k, v in model.state_dict().items()}

@@ -133,10 +133,10 @@ def params_from_hf_dir(path: str,
     QuantRegistry, or None (bf16 projections). ``cfg``/``arch_mod`` come
     from the directory's ``config.json`` unless given."""
     from ..runtime.generate import params_to_native
-    from .hf import ARCH_MODULES, _Converter, resolve_quant
+    from .hf import _Converter, family, resolve_quant
     if cfg is None or arch_mod is None:
         hf_cfg = files.read_config(path)
-        arch_mod = arch_mod or ARCH_MODULES[hf_cfg.model_type]
+        arch_mod = arch_mod or family(hf_cfg.model_type)
         cfg = cfg or arch_mod.config_from_hf(hf_cfg)
     mod = arch_mod
     conv = _Converter(cfg, mod, resolve_quant(quant), dtype, device,

@@ -2,13 +2,13 @@
 
 The port's own copy of ``neural_tpu/models/config.py``, kept field for
 field so one configuration describes a model in both packages. The port's
-graph (models/transformer.py) implements the Llama, Gemma 1/2, Bloom, MPT
-and ChatGLM-1 subset of these knobs (Gemma's norm offset, GELU, post norms,
-embedding scale, softcaps and sliding window; LayerNorm with or without
-bias, projection biases, the non-gated MLP, exact GELU, ALiBi, no RoPE;
-ChatGLM-1's 2-D GLM RoPE on Dh/2, prefix-LM mask and DeepNorm
-``residual_alpha``) and raises ``NotImplementedError`` for the rest:
-learned positions, parallel residuals, qk-norm, MoE, other RoPE styles.
+graph (models/transformer.py) implements every knob of the dense families
+(norm offsets, GELU and ReLU, post norms, embedding scale, softcaps,
+sliding window, LayerNorm with or without bias, projection and lm_head
+biases, the non-gated MLP, ALiBi, learned positions, NeoX and GPT-J RoPE
+on all or part of the head, ChatGLM-1's 2-D GLM RoPE, prefix-LM mask and
+DeepNorm ``residual_alpha``, parallel residuals, qk-norm) and raises
+``NotImplementedError`` for MoE.
 """
 from __future__ import annotations
 

@@ -1,10 +1,12 @@
-"""LLaMA family: config and HF tensor maps (port of
-``neural_tpu/models/llama.py``; the MoE variants are not ported)."""
+"""LLaMA family: Llama 1/2/3, Mistral and SOLAR (``solar``, Llama's maps):
+config and HF tensor maps (port of ``neural_tpu/models/llama.py``; Mixtral,
+its MoE variant, raises until the MoE slice)."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from .config import ModelConfig
+from .transformer import MOE_SLICE
 
 
 def config_from_hf(c) -> ModelConfig:
@@ -46,7 +48,7 @@ def config_from_hf(c) -> ModelConfig:
 def hf_layer_map(i: int, cfg: ModelConfig) -> Dict[str, Any]:
     """Our layer-param name → (HF tensor name, transpose?)."""
     if cfg.is_moe:
-        raise NotImplementedError("MoE (Mixtral) layers are a later slice")
+        raise NotImplementedError(MOE_SLICE)
     p = f"model.layers.{i}."
     return {
         "attn_norm_w": (p + "input_layernorm.weight", False),

@@ -1,20 +1,26 @@
-"""The decoder graph, Llama, Gemma 1/2, Bloom, MPT and ChatGLM-1 subset
-(port of ``neural_tpu/models/transformer.py`` :41-225 and :359-714).
+"""The decoder graph of every dense family of the JAX package (port of
+``neural_tpu/models/transformer.py`` :41-225 and :359-714, without MoE).
 
-Embedding (times Gemma's bf16 embedding scale; then Bloom's embedding
-LayerNorm) → per layer [pre-norm → q/k/v (+ biases) → RoPE (NeoX, the 2-D
-GLM one of ChatGLM-1, or none under ALiBi) → cache append at each row's
-``start`` → GQA attention (f32, cast back to the activation dtype; the
-config's softcap, the layer's sliding window, the ALiBi slopes, the GLM
-prefix mask) → output projection (+ bias) → (post-attention norm) →
-residual → pre-norm → gated MLP (SiLU or tanh GELU) or ``w_down(act(w_up
-h))`` (+ biases; exact or tanh GELU) → (post-FFN norm) → residual] → final
-norm → lm_head (then Gemma-2's final softcap, in f32), optionally on one
-row per sequence (``logit_positions``). Norms are RMS (scaled by ``w +
-norm_offset``, Gemma: 1 + w) or LayerNorm with an optional bias. ChatGLM-1's
-DeepNorm residual takes the normed branch input times ``residual_alpha``
-as its base. Biases are added in the output's dtype after the product, as
-the JAX package's ``linear`` does. Parameter names are the JAX package's.
+Embedding (times Gemma's bf16 embedding scale; plus the learned position
+table at ``positions + pos_offset``, OPT and StarCoder; then Bloom's
+embedding LayerNorm) → per layer [pre-norm → q/k/v (+ biases) → (qk-norm:
+an RMS norm over each head's Dh) → RoPE (NeoX or GPT-J pairs, on all of
+the head or its first ``rope_dim``; the 2-D GLM one of ChatGLM-1; none under
+ALiBi or learned positions) → cache append at each row's ``start`` → GQA
+attention (f32, cast back to the activation dtype; the config's softcap,
+the layer's sliding window, the ALiBi slopes, the GLM prefix mask) →
+output projection (+ bias) → (post-attention norm) → residual → pre-norm →
+gated MLP (SiLU or tanh GELU) or ``w_down(act(w_up h))`` (+ biases; exact
+or tanh GELU, ReLU) → (post-FFN norm) → residual] → final norm → lm_head
+(+ its bias, in f32; then Gemma-2's final softcap, in f32), optionally on
+one row per sequence (``logit_positions``). A parallel-residual layer
+(GPT-J, GPT-NeoX, Phi-1.5/2, Falcon) adds ``attn(norm1(x)) + mlp(norm2(x))``
+to x, with ``norm2`` the attention's norm where the layer has no
+``ffn_norm_w``. Norms are RMS (scaled by ``w + norm_offset``, Gemma: 1 +
+w) or LayerNorm with an optional bias. ChatGLM-1's DeepNorm residual takes
+the normed branch input times ``residual_alpha`` as its base. Biases are
+added in the output's dtype after the product, as the JAX package's
+``linear`` does. Parameter names are the JAX package's.
 
 The cache is a contiguous :class:`~neural_tpu_torch.runtime.kvcache.KVCache`
 (bf16, or int8: the append quantizes with ``quantize_kv`` and writes the
@@ -63,7 +69,14 @@ BIASES = ("bq", "bk", "bv", "bo", "b_gate", "b_up", "b_down")
 FUSED = ("wqkv", "w_gateup")
 FUSED_BIASES = ("bqkv", "b_gateup")
 NORMS = ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
-ARCHS = ("llama", "mistral", "gemma", "gemma2", "bloom", "mpt", "chatglm1")
+ARCHS = ("llama", "mistral", "solar", "gemma", "gemma2", "bloom", "mpt",
+         "chatglm", "chatglm1", "qwen", "qwen2", "baichuan", "stablelm",
+         "gpt_neox", "gptj", "phi", "phi3", "falcon", "opt", "gpt_bigcode")
+# the message of every refusal of a mixture-of-experts config
+MOE_SLICE = ("mixture-of-experts layers (Mixtral, Grok, Qwen2-MoE) belong to "
+             "the MoE slice of the port: the routed expert MLP "
+             "(neural_tpu/models/transformer.py _moe_mlp, _moe_grouped) is "
+             "not ported yet")
 
 
 def fuse_mode() -> str:
@@ -133,8 +146,10 @@ class QLinear(nn.Module):
     """A ``[K, N]`` projection: a QTensor at rest (its planes, scales,
     zero-points and act-order ``perm`` as buffers, plus its QuantConfig)
     multiplied by :func:`~neural_tpu_torch.ops.qmatmul.qmatmul`, or an
-    unquantized bf16 weight (``weight_dtype=None``), a plain
-    ``torch.matmul`` as the JAX package leaves it to XLA."""
+    unquantized weight (``weight_dtype=None``), a plain ``torch.matmul``
+    as the JAX package leaves it to XLA: as its ``linear`` does, the
+    weight takes x's dtype (bf16) first, so an f32 weight is rounded to
+    bf16 at the product."""
 
     def __init__(self, w):
         super().__init__()
@@ -173,9 +188,10 @@ class QLinear(nn.Module):
             x2 = x.reshape(-1, x.shape[-1]).to(self.weight.dtype)
             return torch.mm(x2, self.weight, out_dtype=torch.float32) \
                 .reshape(*x.shape[:-1], -1)
+        w = self.weight.to(x.dtype)
         if out_dtype == torch.float32:
-            return x.to(torch.float32) @ self.weight.to(torch.float32)
-        return torch.matmul(x.to(self.weight.dtype), self.weight).to(out_dtype)
+            return x.to(torch.float32) @ w.to(torch.float32)
+        return torch.matmul(x, w).to(out_dtype)
 
 
 class Block(nn.Module):
@@ -203,8 +219,16 @@ class Block(nn.Module):
         norms = ["attn_norm", "ffn_norm"]
         norms += ["post_attn_norm"] if cfg.post_attn_norm else []
         norms += ["post_ffn_norm"] if cfg.post_ffn_norm else []
+        if cfg.parallel_residual and "ffn_norm_w" not in weights:
+            # GPT-J, Phi-1.5/2, Falcon-7B: the MLP reads the attention's
+            # norm (the JAX ``_block`` takes ``h`` when the layer has no
+            # ffn_norm_w)
+            norms.remove("ffn_norm")
+            self.register_buffer("ffn_norm_w", None)
         for name in norms:
             self.register_buffer(name + "_w", weights[name + "_w"])
+        for name in ("q_norm_w", "k_norm_w") if cfg.qk_norm else ():
+            self.register_buffer(name, weights[name])
         for name in [n + "_b" for n in NORMS] + list(BIASES + FUSED_BIASES):
             # a bias the family does not have is None: added nowhere
             self.register_buffer(name, weights.get(name))
@@ -294,6 +318,11 @@ class Block(nn.Module):
             x = h * self.alpha + out
             h2 = self._norm(x, "ffn_norm")
             return h2 * self.alpha + self._mlp(h2)
+        if cfg.parallel_residual:
+            # x + attn(norm1(x)) + mlp(norm2(x)), added in that order, as
+            # the JAX ``_block``; one shared norm where there is no second
+            h2 = h if self.ffn_norm_w is None else self._norm(x, "ffn_norm")
+            return x + out + self._mlp(h2)
         x = x + out
         mlp = self._mlp(self._norm(x, "ffn_norm"))
         if cfg.post_ffn_norm:
@@ -321,10 +350,16 @@ class Block(nn.Module):
         else:
             q, k, v = (proj(n) for n in ("wq", "wk", "wv"))
         q, k, v = (t.reshape(B, T, -1, Dh) for t in (q, k, v))
+        if cfg.qk_norm:
+            # an RMS norm over each head's Dh, before RoPE, offset 0 (the
+            # JAX ``_attention`` passes no offset)
+            q = rms_norm(q, self.q_norm_w, cfg.norm_eps)
+            k = rms_norm(k, self.k_norm_w, cfg.norm_eps)
         if cfg.rope_style == "glm1":
             q, k = apply_glm1(q, rope), apply_glm1(k, rope)
         elif rope is not None:
-            q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+            q = apply_rope(q, *rope, cfg.rope_style, cfg.rope_dim)
+            k = apply_rope(k, *rope, cfg.rope_style, cfg.rope_dim)
         opts = dict(window=self.window, slopes=slopes, prefix_len=prompt_len)
         # append only the new tokens, at each row's own offset (no host
         # sync: the positions stay on the device)
@@ -388,45 +423,50 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The decoder: ``embed``, (``embed_norm_w``/``_b``), ``layers``,
-    ``final_norm_w`` (``final_norm_b``), ``lm_head`` (absent when tied to
-    the embedding), the RoPE table (absent without RoPE) and the ALiBi
-    slopes (with ALiBi)."""
+    """The decoder: ``embed``, (``pos_embed``), (``embed_norm_w``/``_b``),
+    ``layers``, ``final_norm_w`` (``final_norm_b``), ``lm_head`` (absent
+    when tied to the embedding; ``lm_head_b``), the RoPE table (absent
+    without RoPE) and the ALiBi slopes (with ALiBi)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, object]):
         super().__init__()
+        if cfg.is_moe:
+            raise NotImplementedError(MOE_SLICE)
         glm1_dim = cfg.rope_style == "glm1" and \
             cfg.rope_dim == cfg.head_dim // 2
         unsupported = [n for n, on in (
             ("arch", cfg.arch not in ARCHS),
             ("norm_type", cfg.norm_type not in ("rmsnorm", "layernorm")),
             ("act", cfg.act not in ACTS),
-            ("qk_norm", cfg.qk_norm),
-            ("rope_style", cfg.rope_style not in ("neox", "none", "glm1")),
-            ("rope_dim", cfg.rope_dim is not None and not glm1_dim),
-            ("learned_pos_emb", cfg.learned_pos_emb),
-            ("parallel_residual", cfg.parallel_residual),
-            ("final_norm", not cfg.final_norm),
-            ("moe", cfg.is_moe)) if on]
+            ("rope_style", cfg.rope_style not in ("neox", "gptj", "none",
+                                                  "glm1")),
+            ("rope_dim", cfg.rope_style == "glm1" and not glm1_dim),
+            ("final_norm", not cfg.final_norm)) if on]
         if unsupported:
             raise NotImplementedError(
-                f"graph features {unsupported} belong to a later model-zoo "
-                "slice")
+                f"graph features {unsupported}: no family of the JAX "
+                "package the port runs has them")
         self.cfg = cfg
         self.layers = nn.ModuleList(Block(cfg, lp)
                                     for lp in params["layers"])
         self.embed_scale = bf16_scalar(cfg.embed_scale)
-        for name in ("embed", "embed_norm_w", "embed_norm_b", "final_norm_w",
-                     "final_norm_b", "rope_inv_freqs", "alibi_slopes"):
+        for name in ("embed", "pos_embed", "embed_norm_w", "embed_norm_b",
+                     "final_norm_w", "final_norm_b", "lm_head_b",
+                     "rope_inv_freqs", "alibi_slopes"):
             self.register_buffer(name, params.get(name))
         if cfg.use_alibi and self.alibi_slopes is None:
             raise ValueError("an ALiBi config needs params['alibi_slopes']")
+        if cfg.learned_pos_emb and self.pos_embed is None:
+            raise ValueError("a learned-position config needs "
+                             "params['pos_embed']")
         lm_head = params.get("lm_head")
         self.lm_head = None if lm_head is None else QLinear(lm_head)
         # the final norm can ride a quantized, bias-free lm_head's kernel
+        # (the JAX ``forward`` also requires no lm_head bias)
         self.fuse_head = self.lm_head is not None \
             and self.lm_head.cfg is not None \
-            and self.final_norm_b is None and fusable(lm_head)
+            and self.final_norm_b is None and self.lm_head_b is None \
+            and fusable(lm_head)
 
     @property
     def device(self) -> torch.device:
@@ -466,6 +506,11 @@ class Transformer(nn.Module):
         x = self.embed[tokens.long()].to(torch.bfloat16)
         if self.embed_scale != 1.0:
             x = x * self.embed_scale
+        if self.pos_embed is not None:
+            # learned positions (OPT, StarCoder), added in the activation
+            # dtype; every position a cache can hold has its row
+            self._check_positions(cache)
+            x = x + self.pos_embed[positions + cfg.pos_offset].to(x.dtype)
         if self.embed_norm_w is not None:     # Bloom's embedding LayerNorm
             x = layer_norm(x, self.embed_norm_w, self.embed_norm_b,
                            cfg.norm_eps)
@@ -504,10 +549,28 @@ class Transformer(nn.Module):
                 logits = self._tied_logits(x)
             else:
                 logits = self.lm_head(x, torch.float32)
+                if self.lm_head_b is not None:
+                    logits = logits + self.lm_head_b.to(torch.float32)
         logits = logits.to(torch.float32)
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         return logits.to(logits_dtype)
+
+    def _check_positions(self, cache):
+        """Raise unless every position ``cache`` can hold, offset by
+        ``pos_offset``, has a row of the learned table: read from the
+        shapes on the host, so that no position is read out of bounds on
+        the card and no step waits on the device."""
+        cap = cache.k.shape[3]
+        table = getattr(cache, "table", None)
+        if table is not None:               # pages of k.shape[3] keys
+            cap *= table.shape[1]
+        rows = self.pos_embed.shape[0]
+        if cap + self.cfg.pos_offset > rows:
+            raise ValueError(
+                f"a cache of {cap} positions needs {cap + self.cfg.pos_offset}"
+                f" rows of the learned position table, which has {rows}: cap "
+                f"the cache at {rows - self.cfg.pos_offset} positions")
 
     def _tied_logits(self, x: torch.Tensor) -> torch.Tensor:
         """x [..., D] @ embed.T with bf16 operands and f32 sums, as the JAX

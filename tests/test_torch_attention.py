@@ -22,6 +22,7 @@ from neural_tpu.ops.attention import (attend_xla as jattend_xla,
 from neural_tpu_torch.convert.hf import init_random
 from neural_tpu_torch.models import chatglm
 from neural_tpu_torch.models.config import ModelConfig
+from neural_tpu_torch.runtime.kvcache import init_cache
 from neural_tpu_torch.ops.attention import (
     attend, attend_xla, flash_decode, flash_decode_plain, flash_prefill,
     flash_prefill_plain)
@@ -126,20 +127,29 @@ UNPORTED = {"learned_pos_emb": dict(learned_pos_emb=True),
 
 @pytest.mark.parametrize("what", [*UNPORTED, "chatglm2"])
 def test_unported_options_raise(what):
-    """ALiBi and the GLM prefix mask are ported (``test_torch_alibi.py``);
-    what the port still refuses raises ``NotImplementedError``: learned
-    positions, parallel residuals, qk-norm and MoE in the graph, and
-    ChatGLM-2/3 (no ``position_encoding_2d``) at its config."""
+    """ALiBi and the GLM prefix mask are ported (``test_torch_alibi.py``),
+    and since the model-zoo slice learned positions, parallel residuals,
+    qk-norm and ChatGLM-2/3's config (no ``position_encoding_2d``) too:
+    each builds and runs (``test_torch_zoo*.py`` hold them against the JAX
+    package). What the port still refuses raises ``NotImplementedError``
+    naming why: MoE, in the graph."""
     if what == "chatglm2":
         hf_cfg = types.SimpleNamespace(
             hidden_size=64, num_attention_heads=4, num_layers=2,
             padded_vocab_size=128, ffn_hidden_size=128,
             layernorm_epsilon=1e-5)
-        with pytest.raises(NotImplementedError):
-            chatglm.config_from_hf(hf_cfg)
+        cfg = chatglm.config_from_hf(hf_cfg)
+        assert (cfg.arch, cfg.rope_style, cfg.rope_dim) == ("chatglm", "gptj",
+                                                            8)
         return
     cfg = ModelConfig(vocab_size=64, hidden_size=64, n_layers=1, n_heads=2,
                       n_kv_heads=2, head_dim=32, intermediate_size=64,
                       **UNPORTED[what])
-    with pytest.raises(NotImplementedError):
-        init_random(cfg, quant=None, device="cpu")
+    if what == "moe":
+        with pytest.raises(NotImplementedError, match="MoE slice"):
+            init_random(cfg, quant=None, device="cpu")
+        return
+    model = init_random(cfg, quant=None, device="cpu")
+    out = model(torch.tensor([[3, 4, 5]]), torch.zeros(1, dtype=torch.long),
+                init_cache(cfg, 1, 8, device="cpu"))
+    assert out.shape == (1, 3, 64) and torch.isfinite(out).all()

@@ -522,6 +522,6 @@ def test_model_init_reads_the_directory(tmp_path):
         (tmp_path / "config.json").read_text())
     with pytest.raises(NotImplementedError, match="safetensors"):
         Model().init(str(bare), device="cpu")
-    (bare / "config.json").write_text('{"model_type": "opt"}')
+    (bare / "config.json").write_text('{"model_type": "t5"}')
     with pytest.raises(NotImplementedError, match="model type"):
         Model().init(str(bare), device="cpu")
