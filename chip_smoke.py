@@ -7,6 +7,8 @@
                                             # result line)
     python3 chip_smoke.py --phase8          # phases 1, 2 and 8 alone (no
                                             # result line)
+    python3 chip_smoke.py --phase9          # phases 1, 2 and 9 alone (no
+                                            # result line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -220,19 +222,44 @@ Phases, in order; any failure raises and the script exits non-zero:
    Falcon-7B (q4_0: its 4544 is no multiple of 128), Falcon-40B, OPT-6.7B,
    StarCoder and GPT-J-6B: ``Model.generate`` on the card (a path each,
    100-token prompt), then the prefill's last logits and 3 teacher-forced
-   steps against the CPU's plain path (2e-2·max|logit|), greedy ids held
-   where the margins prove them, the copies
+   steps against the plain path on the card's own tensors
+   (``plain_on_card``, 2e-2·max|logit|), greedy ids held where the margins
+   prove them, the copies
    at head dims 64-96 launching no K3/K4/K6; and phase 5's paged int8
    Scheduler check on the GPT-J copy (parallel residual) and the OPT copy
-   (learned positions). 8d's cases join their kernels' cases in the
-   kernels line.
+   (learned positions), its plain side on the card too. 8d's cases join
+   their kernels' cases in the kernels line.
+
+9. mixture-of-experts (random weights from seeds, each config written as
+   literals naming the published config it copies; every expert's
+   products through K1/K2/K5, the router a bf16 product): (9d) the kernels
+   at the MoE's shapes, each against its plain version with its time, the
+   plain version's, one library call's and its bound: K1 at M=1 and 8 on
+   Mixtral-8x7B's expert products (4096 × 14336, 14336 × 4096) and on
+   Grok-1's (6144 × 32768, 32768 × 6144), K2 at M=1975 on Mixtral's, K4 at
+   fill 1975 and K6 int8 at B=8 at G = 4 (Mixtral) and G = 6 with softcap
+   30 (Grok-1), K3 on a 1975-token prompt at G = 6 with softcap 30; (9a)
+   Mixtral-8x7B at full width and depth, q4_j: ``Model.generate`` with
+   bf16 and int8 KV, the launches and routes of a captured decode step
+   (897 K1 launches: the dense mixture runs every expert) and of a
+   1975-token prefill (896 on K2), decode ms/token at fills 128 and 1975
+   on the device's clock (graph replay) beside the host slope, TTFT at
+   1975 tokens, the batch-8 paged int8 ``ModelServer`` over phase 6's 12
+   queries, peak memory; (9b) two-layer full-width copies of Mixtral-8x7B
+   and Grok-1: ``Model.generate`` on the card, then the prefill's last
+   logits and 3 teacher-forced steps against the plain path on the card's
+   own tensors (2e-2·max|logit|), greedy ids held where the margins prove
+   them; a bf16-expert Mixtral copy through the grouped path at a prefill
+   (against the plain path) and in the Scheduler's captured batch-8 step
+   (equal to the same step run eagerly); (9c) phase 5's paged int8
+   Scheduler check on the Mixtral copy, its plain side on the card. 9d's
+   cases join their kernels' cases in the kernels line.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 no CUDA device is present.
 """
 import contextlib
-import copy
 import dataclasses
 import json
 import math
@@ -266,8 +293,8 @@ from neural_tpu_torch.core.dtypes import (PRESETS, QuantConfig,  # noqa: E402
 from neural_tpu_torch.core.qtensor import (dequantize, quantize,  # noqa: E402
                                            to_native, to_native_packed)
 from neural_tpu_torch.models import (baichuan, bloom, chatglm,  # noqa: E402
-                                     falcon, gptj, gptneox, llama, mpt, opt,
-                                     phi, qwen, stablelm, starcoder)
+                                     falcon, gptj, gptneox, grok, llama, mpt,
+                                     opt, phi, qwen, stablelm, starcoder)
 from neural_tpu_torch.models import transformer as TRANSFORMER  # noqa: E402
 from neural_tpu_torch.models.config import ModelConfig  # noqa: E402
 from neural_tpu_torch.ops import _cuda  # noqa: E402
@@ -3585,17 +3612,20 @@ def _sched_card_vs_plain(card, host, cfg2, rel_tol, kv_dtype=torch.int8):
     """The copy through the Scheduler (paged KV, int8 unless
     ``kv_dtype`` says otherwise, batch 4, 6 requests) on the card, decode
     step eager so each step's logits can be read, and on the CPU's plain
-    path: per request, logits within the tolerance and greedy ids equal at
-    every token whose plain top-2 margin exceeds twice the logit
-    difference, up to the first token where the two sides' ids part (past
-    it their inputs differ)."""
+    path (``host``; None: the plain path on the card's own tensors,
+    ``plain_on_card``): per request, logits within the tolerance and
+    greedy ids equal at every token whose plain top-2 margin exceeds twice
+    the logit difference, up to the first token where the two sides' ids
+    part (past it their inputs differ)."""
     gen = torch.Generator().manual_seed(5)
     lens = torch.randint(20, 64, (6,), generator=gen).tolist()
     prompts = [torch.randint(3, V, (n,), generator=gen).tolist()
                for n in lens]
     n_new = 3           # the plain path's CPU time sets the size
     done, recs = [], []
-    for model in (card, host):
+    for model, ctx in ((card, contextlib.nullcontext()),
+                       (host, contextlib.nullcontext()) if host is not None
+                       else (card, plain_on_card())):
         rec = _LogitsRecorder(model)
         sched = Scheduler(model, cfg2, max_batch=4, max_len=256,
                           kv_mode="paged", page_size=64, kv_dtype=kv_dtype,
@@ -3605,8 +3635,9 @@ def _sched_card_vs_plain(card, host, cfg2, rel_tol, kv_dtype=torch.int8):
         rec.sched, sched.params = sched, rec
         for i, p in enumerate(prompts):
             sched.add_request(i, p, max_new_tokens=n_new)
-        done.append({q.request_id: q.output_ids
-                     for q in sched.run_to_completion()})
+        with ctx:
+            done.append({q.request_id: q.output_ids
+                         for q in sched.run_to_completion()})
         recs.append(rec.rows)
     worst, provable = 0.0, 0
     for i in range(len(prompts)):
@@ -5290,8 +5321,24 @@ def write_gguf(path, n_layers, types, seed, vocab=False, const=()):
     return os.path.getsize(path)
 
 
+def _paged_decode_plain(q, k_pool, v_pool, table, lengths, scale,
+                        softcap=0.0, window=0, slopes=None):
+    """K6's bf16 wrapper as it runs on the CPU: its plain version."""
+    return PA.paged_decode_plain(q, k_pool, v_pool, None, None, table,
+                                 lengths, scale, softcap, window, slopes)
+
+
+def _paged_decode_i8_plain(q, k_pool, v_pool, k_scale, v_scale, table,
+                           lengths, scale, softcap=0.0, window=0,
+                           slopes=None):
+    """K6's int8 wrapper as it runs on the CPU: its plain version."""
+    return PA.paged_decode_plain(q, k_pool, v_pool, k_scale, v_scale, table,
+                                 lengths, scale, softcap, window, slopes)
+
+
 # the kernel wrappers and the plain versions they call on the CPU: swapped
-# in for a run of the plain path on the card's own tensors
+# in for a run of the plain path on the card's own tensors (a name of the
+# same module, the norm's for None, or the function itself)
 PLAIN_TWINS = ((Q, "qmm_native", "qmm_native_plain"),
                (Q, "qmm_native_fused", "qmm_native_fused_plain"),
                (Q, "qmm_a8", "qmm_a8_plain"),
@@ -5302,22 +5349,31 @@ PLAIN_TWINS = ((Q, "qmm_native", "qmm_native_plain"),
                (A, "flash_decode", "flash_decode_plain"),
                (A, "flash_decode_i8", "flash_decode_i8_plain"),
                (NORMS, "rms_norm", "rms_norm_plain"),
-               (TRANSFORMER, "rms_norm", None))
+               (TRANSFORMER, "rms_norm", None),
+               # the paged forward's: its prefill's K3 and its steps' K6
+               (PA, "flash_prefill", A.flash_prefill_plain),
+               (PA, "flash_prefill_i8", A.flash_prefill_i8_plain),
+               (PA, "paged_decode", _paged_decode_plain),
+               (PA, "paged_decode_i8", _paged_decode_i8_plain))
 
 
 @contextlib.contextmanager
 def plain_on_card():
-    """Every kernel wrapper of a contiguous-cache forward replaced by its
-    plain version, so the card's tensors go through the plain path on the
-    card: the CPU's plain path without a copy to the host (on the host's
-    CPU the plain path of the ten 2-layer full-width copies would take
-    minutes). Each pair's parameters are checked equal first; the run
-    launches no kernel."""
+    """Every kernel wrapper of a forward (contiguous or paged cache)
+    replaced by its plain version, so the card's tensors go through the
+    plain path on the card: the CPU's plain path without a copy to the
+    host (on the host's CPU the plain path of the ten 2-layer full-width
+    copies would take minutes). Each pair's parameters are checked equal
+    first; the run launches no kernel."""
     import inspect
     saved = []
     try:
         for mod, name, plain in PLAIN_TWINS:
-            twin = getattr(mod if plain else NORMS, plain or "rms_norm_plain")
+            if callable(plain):
+                twin = plain
+            else:
+                twin = getattr(mod if plain else NORMS,
+                               plain or "rms_norm_plain")
             want = list(inspect.signature(getattr(mod, name)).parameters)
             got = list(inspect.signature(twin).parameters)
             if want != got:
@@ -6071,11 +6127,13 @@ def zoo_copies_card_vs_plain(rel_tol=2e-2):
     """8c: one-layer full-width copies of each family: ``Model.generate``
     on the card (a path each: 100-token prompt, greedy), then the
     prefill's last logits and ``ZOO8_STEPS`` steps fed the card's ids
-    against the plain path on the CPU (bf16 activations: 100 rows take K5,
-    so phase 5c's tolerance, 2e-2·max|logit|), argmax equal wherever the
-    margin proves it; the copies at head dims 64-96 launch no K3/K4/K6;
-    then phase 5's paged int8 Scheduler check on the GPT-J and OPT
-    copies."""
+    against the plain path on the card's own tensors (``plain_on_card``,
+    as 7b: on the host's CPU this phase took 161 s of the script's time
+    limit; bf16 activations: 100 rows take K5, so phase 5c's tolerance,
+    2e-2·max|logit|), argmax equal wherever the margin proves it; the
+    copies at head dims 64-96 launch no K3/K4/K6; then phase 5's paged
+    int8 Scheduler check on the GPT-J and OPT copies, its plain side on the
+    card too."""
     gen = torch.Generator().manual_seed(18)
     res = {}
     steps = ZOO8_STEPS
@@ -6083,7 +6141,6 @@ def zoo_copies_card_vs_plain(rel_tol=2e-2):
         t = time.time()
         cfg2 = dataclasses.replace(ZOO8_CFGS[what], n_layers=COPY_LAYERS)
         card = init_random(cfg2, seed=40 + i, quant=quant, device=DEV)
-        host = copy.deepcopy(card).to("cpu")
         ids = torch.randint(3, cfg2.vocab_size, (100,), generator=gen) \
             .tolist()
         model = Model().init_params(card, cfg2)
@@ -6093,9 +6150,12 @@ def zoo_copies_card_vs_plain(rel_tol=2e-2):
         _check_ids(new, steps + 1, f"card {what}", cfg2.vocab_size)
         if "attend_xla" in required:
             _no_attention_kernels(f"card_{what}")
-        worst, provable, _ = _steps_card_vs_plain(card, host, cfg2, ids,
-                                                  new[:steps], rel_tol)
-        log(f"{what} card vs plain ({cfg2.n_layers} layer(s), full width, "
+        rows = _step_rows(card, cfg2, ids, new[:steps])
+        with plain_on_card():
+            plain = _step_rows(card, cfg2, ids, new[:steps])
+        worst, provable, _ = _compare_rows(rows, plain, rel_tol)
+        log(f"{what} card vs plain on the card ({cfg2.n_layers} layer(s), "
+            f"full width, "
             f"{quant}, head dim {cfg2.head_dim}, {cfg2.n_heads} heads over "
             f"{cfg2.n_kv_heads}, 100-token prompt, fed the card's ids {new}): "
             f"logits max err {worst:.3g}·max|logit| (tol {rel_tol}); argmax "
@@ -6107,8 +6167,8 @@ def zoo_copies_card_vs_plain(rel_tol=2e-2):
         res[f"zoo8_{what}_card_vs_plain_rel_err"] = worst
         if what in ("gptj_6b", "opt_6.7b"):
             res[f"zoo8_{what}_sched_card_vs_plain_rel_err"] = \
-                _sched_card_vs_plain(card, host, cfg2, rel_tol)
-        del card, host, model
+                _sched_card_vs_plain(card, None, cfg2, rel_tol)
+        del card, model
         torch.cuda.empty_cache()
     return res
 
@@ -6311,6 +6371,400 @@ def phase_zoo(results):
     t = time.time()
     res.update(zoo_copies_card_vs_plain())
     log(f"phase 8c: {time.time() - t:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: mixture-of-experts (Mixtral-8x7B and Grok-1 through the routed
+# expert MLP: every expert's products on K1/K2/K5, the attention on
+# K3/K4/K6)
+# ---------------------------------------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1's config.json: 32 layers, hidden 4096, 32
+# heads over 8 KV heads (head dim 128, G = 4), FFN 14336 a expert, 8
+# experts top 2, vocab 32000, rope_theta 1e6, rms_norm_eps 1e-5, 32768
+# positions, no sliding window (models/llama.py)
+MIXTRAL_CFG = llama.config_from_hf(NS(
+    model_type="mixtral", vocab_size=32000, hidden_size=4096,
+    intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, max_position_embeddings=32768, rms_norm_eps=1e-5,
+    rope_theta=1e6, num_local_experts=8, num_experts_per_tok=2,
+    tie_word_embeddings=False, bos_token_id=1, eos_token_id=2))
+# keyfan/grok-1-hf's config.json: 64 layers, hidden 6144, 48 heads over 8
+# (head dim 128, G = 6), FFN 32768 a expert, 8 experts top 2, vocab 131072,
+# attn_output_multiplier 0.0884, embedding_multiplier_scale 78.38, 8192
+# positions; softcaps of 30, post norms, tanh GELU (models/grok.py)
+GROK_CFG = grok.config_from_hf(NS(
+    vocab_size=131072, hidden_size=6144, intermediate_size=32768,
+    num_hidden_layers=64, num_attention_heads=48, num_key_value_heads=8,
+    rms_norm_eps=1e-5, num_experts=8, num_experts_per_tok=2,
+    attn_output_multiplier=0.08838834764831845,
+    embedding_multiplier_scale=78.38367176906169,
+    max_position_embeddings=8192, rope_theta=10000))
+# the dense mixture runs every expert on every row: a token (or a prefill)
+# takes E·2 gate/up and E down products a layer
+MIX_EXPERT_PROJ = [(4096, 14336, 2 * 8 * 32), (14336, 4096, 8 * 32)]
+GROK_EXPERT_PROJ = [(6144, 32768, 2 * 8 * 64), (32768, 6144, 8 * 64)]
+# (what, Hq, Hkv, head dim, softcap, layers)
+MIX_HEADS = ("mixtral-8x7b", 32, 8, 128, 0.0, 32)
+GROK_HEADS = ("grok-1", 48, 8, 128, 30.0, 64)
+# a q4_j decode step of Mixtral-8x7B: q/k/v/o and 8 experts' 3 products a
+# layer, and the lm_head
+MIX_STEP_K1 = 32 * (4 + 8 * 3) + 1
+MIX_PREFILL_K2 = 32 * (4 + 8 * 3)
+MOE_GEN = ("qmm4_npack", "qmm_a8", "flash_prefill", "flash_decode")
+MOE_GEN_INT8 = ("qmm4_npack", "qmm_a8", "flash_prefill_i8", "flash_decode_i8")
+MOE_SERVE_I8 = ("qmm4_npack", "qmm_a8", "qmm_general", "flash_prefill_i8",
+                "paged_decode_i8")
+# 9b: (copy, published config, kernels its path must launch); a 100-token
+# prefill takes K5's tiles, the decode steps K1
+MOE_COPIES = (("mixtral", MIXTRAL_CFG, ("qmm_general+tc", "qmm4_npack",
+                                        "flash_prefill", "flash_decode")),
+              ("grok", GROK_CFG, ("qmm_general+tc", "qmm4_npack",
+                                  "flash_prefill", "flash_decode")))
+MOE_LAYERS = 2
+MOE_TOL = 2e-2      # phase 8c's, of max|logit| (bf16 activations)
+MOE_STEPS = 3
+
+
+def _moe_attention(gen, zoo):
+    """9d's attention cases: K4 at fill 1975 and K6 int8 at B=8 with the
+    server's mixed fills, at G = 4 (Mixtral) and G = 6 with softcap 30
+    (Grok-1); K3 on a 1975-token prompt at G = 6 with softcap 30. Library:
+    ``sdpa`` without the softcap, a compiled ``flex_attention`` with it."""
+    ps, cpu = 256, torch.Generator().manual_seed(91)
+    for what, Hq, Hkv, Dh, cap, count in (MIX_HEADS, GROK_HEADS):
+        fill = T_PREFILL
+        q = (torch.randn((1, Hq, Dh), generator=gen, device=DEV)
+             * Q_SPREAD).bfloat16()
+        caches = _attn_cache(gen, (1, Hkv, S_CACHE, Dh), False,
+                             _copies(2 * fill * Hkv * 2 * Dh))
+        lengths = torch.tensor([fill], dtype=torch.int32, device=DEV)
+        args = [(q, c[0], c[1], lengths, Dh ** -0.5, cap) for c in caches]
+        kvs = [_bf16_kv(c) for c in caches]
+        if cap:
+            library = _flex(q[:, :, None], kvs, [fill - 1], 0, Dh ** -0.5,
+                            cap, lambda: A.flash_decode_plain(
+                                q, *kvs[0], lengths, Dh ** -0.5,
+                                cap)[:, :, None])
+        else:
+            library = [lambda kv=kv: _sdpa(
+                q[:, :, None], kv[0][:, :, :fill], kv[1][:, :, :fill],
+                enable_gqa=True) for kv in kvs]
+        label = f"{what} heads ({Hq} over {Hkv}, softcap {cap:g}) decode " \
+            f"fill {fill}"
+        zoo.setdefault("K4", {})[label] = _attn_case(
+            label, "flash_decode", lambda: A.flash_decode(*args[0]),
+            lambda: A.flash_decode_plain(*args[0]),
+            2 * fill * Hkv * 2 * Dh + Hq * Dh * 6,
+            _attn_ops(False, Dh, Hq, fill, False, True), BF16_TOL, count,
+            runs=[lambda a=a: A.flash_decode(*a) for a in args],
+            library=library)
+        del q, caches, args, kvs, library
+        B, maxp = len(SERVER_FILLS), S_CACHE // ps
+        P = B * maxp + 1
+        table = torch.randperm(P - 1, generator=cpu)[:B * maxp] \
+            .reshape(B, maxp).to(torch.int32).to(DEV)
+        lengths = torch.tensor(SERVER_FILLS, dtype=torch.int32, device=DEV)
+        q = (torch.randn((B, Hq, Dh), generator=gen, device=DEV)
+             * Q_SPREAD).bfloat16()
+        c = _attn_cache(gen, (P, Hkv, ps, Dh), True)[0]
+        a6 = (q, *c, table, lengths, Dh ** -0.5, cap)
+        kd, vd = (PA.gather_pages(x, table) for x in _bf16_kv(c))
+        if cap:
+            library = _flex(q[:, :, None], [(kd, vd)],
+                            [f - 1 for f in SERVER_FILLS], 0, Dh ** -0.5, cap,
+                            lambda: A.flash_decode_plain(
+                                q, kd, vd, lengths, Dh ** -0.5,
+                                cap)[:, :, None])
+        else:
+            mask = (torch.arange(maxp * ps, device=DEV)[None, :]
+                    < lengths[:, None].long())[:, None, None, :]
+            library = [lambda: _sdpa(q[:, :, None], kd, vd, attn_mask=mask,
+                                     enable_gqa=True)]
+        n = sum(SERVER_FILLS)
+        label = f"{what} heads ({Hq} over {Hkv}, softcap {cap:g}) B={B} " \
+            f"decode fills {SERVER_FILLS}"
+        zoo.setdefault("K6_i8", {})[label] = _attn_case(
+            label, "paged_decode_i8", lambda: PA.paged_decode_i8(*a6),
+            lambda: PA.paged_decode_plain(q, *c, table, lengths, Dh ** -0.5,
+                                          cap),
+            2 * n * Hkv * (Dh + 2) + B * maxp * 4 + B * 4 + B * Hq * Dh * 6,
+            _attn_ops(True, Dh, Hq, n, False, True), I8_DECODE_TOL, count,
+            library=library)
+        del q, c, a6, kd, vd, library
+        torch.cuda.empty_cache()
+    what, Hq, Hkv, Dh, cap, count = GROK_HEADS
+    T = T_PREFILL
+    starts = torch.zeros(1, dtype=torch.int32, device=DEV)
+    q = (torch.randn((1, T, Hq, Dh), generator=gen, device=DEV)
+         * Q_SPREAD).bfloat16()
+    c = _attn_cache(gen, (1, Hkv, S_CACHE, Dh), False)[0]
+    a3 = (q, c[0], c[1], starts, Dh ** -0.5, cap)
+    kd, vd = (x[:, :, :T] for x in _bf16_kv(c))
+    library = _flex(q.transpose(1, 2), [(kd, vd)], [0], 0, Dh ** -0.5, cap,
+                    lambda: A.flash_prefill_plain(
+                        q, kd, vd, starts, Dh ** -0.5, cap).transpose(1, 2))
+    label = f"{what} heads ({Hq} over {Hkv}, softcap {cap:g}) {T}-token " \
+        "prefill"
+    zoo.setdefault("K3", {})[label] = _attn_case(
+        label, "flash_prefill", lambda: A.flash_prefill(*a3),
+        lambda: A.flash_prefill_plain(*a3),
+        T * Hq * Dh * 2 + 2 * T * Hkv * 2 * Dh + T * Hq * Dh * 4,
+        _attn_ops(False, Dh, Hq, _pairs(T, 0), False, False), BF16_TOL,
+        count, library=library)
+    del q, c, a3, kd, vd, library
+    torch.cuda.empty_cache()
+
+
+def check_moe_kernels(gen, results):
+    """9d: each kernel at the shapes the MoE path gives it, against its
+    plain version, with its time, the plain version's, one library call's
+    and its bound, summed over a decode step (or a prefill) of the dense
+    mixture, which runs every expert on every row: K1 at M = 1 and 8 on
+    Mixtral-8x7B's expert products (4096 × 14336 and 14336 × 4096, 512 and
+    256 launches a token) and on Grok-1's (6144 × 32768 and 32768 × 6144,
+    1024 and 512); K2 at M = 1975 on Mixtral's (a 1975-token prefill); the
+    attention cases of :func:`_moe_attention`. Recorded under
+    ``moe_<kernel>`` and, where phase 3 ran, among that kernel's cases."""
+    k1 = lambda x, qt, odt: Q.qmm_native(x, qt.planes[0], qt.scales, None,
+                                         qt.group_size, 4, odt)
+    p1 = lambda x, qt, odt: Q.qmm_native_plain(x, qt.planes[0], qt.scales,
+                                               None, qt.group_size, 4, odt)
+    zoo = {"K1": {}}
+    for what, shapes in (("mixtral-8x7b", MIX_EXPERT_PROJ),
+                         ("grok-1", GROK_EXPERT_PROJ)):
+        for M in (1, 8):
+            label = f"{what} experts, dense mixture, q4_j " + \
+                ("decode step" if M == 1 else "batch-8 step")
+            zoo["K1"][label] = _case(gen, label, PRESETS["q4_j"], M, shapes,
+                                     k1, p1, "qmm4_npack", BF16_FLOPS)
+            torch.cuda.empty_cache()
+    agg, _ = _k2_shapes(gen, MIX_EXPERT_PROJ)
+    n = sum(count for _, _, count in MIX_EXPERT_PROJ)
+    label = "mixtral-8x7b experts, dense mixture, 1975-token prefill"
+    zoo["K2"] = {label: dict(agg, bound_by="operations",
+                             per=f"{label} ({n} launches)")}
+    torch.cuda.empty_cache()
+    _moe_attention(gen, zoo)
+    for key, cases in zoo.items():
+        results[f"moe_{key}"] = dict(next(iter(cases.values())), cases=cases)
+        if key in results:
+            results[key]["cases"].update(cases)
+    return {f"9d {k} {label}": {m: c[m] for m in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "err")}
+        for k, cases in zoo.items() for label, c in cases.items()}
+
+
+def _moe_step_launches(params, cfg):
+    """The launches and routes one captured decode step of the full model
+    records (batch 1, fill 128): every product of the dense mixture on K1
+    (``MIX_STEP_K1`` launches, the attention's fused q/k/v and wo among
+    them) and ``moe_mixture`` once a layer; and those of one 1975-token
+    prefill: the experts' and the attention's products on K2, the
+    lm_head's one row on K1."""
+    token = torch.full((1, 1), 17, dtype=torch.long, device=DEV)
+    pos = torch.full((1,), 128, dtype=torch.long, device=DEV)
+    with torch.inference_mode():
+        g = _StepGraph(params, token, pos, init_cache(cfg, 1, S_CACHE,
+                                                      device=DEV))
+    step = dict(g.launches)
+    del g
+    k1 = step.get("qmm4_npack", 0) + step.get("qmm4_npack_fused", 0)
+    if k1 != MIX_STEP_K1 or step.get("moe_mixture") != cfg.n_layers:
+        raise AssertionError(f"mixtral decode step launches {step}: K1 "
+                             f"{k1}, expected {MIX_STEP_K1}")
+    tokens = torch.randint(3, V, (1, T_PREFILL), device=DEV)
+    run_path("mixtral_prefill_launches", ("qmm_a8", "flash_prefill"),
+             lambda: prefill_step(params, tokens,
+                                  torch.zeros(1, dtype=torch.long,
+                                              device=DEV),
+                                  init_cache(cfg, 1, S_CACHE, device=DEV)))
+    pre = {k: n for k, n in LAUNCHES["mixtral_prefill_launches"].items()
+           if n}
+    if pre.get("qmm_a8") != MIX_PREFILL_K2 or \
+            pre.get("qmm4_npack", 0) + pre.get("qmm4_npack_fused", 0) != 1:
+        raise AssertionError(f"mixtral prefill launches {pre}")
+    log(f"mixtral decode step (captured, fill 128) launches "
+        f"{ {k: n for k, n in step.items() if n} }; 1975-token prefill "
+        f"launches {pre}")
+    return step, pre
+
+
+def moe_full():
+    """9a: Mixtral-8x7B at full width and depth, q4_j, random weights from
+    seed 0: ``Model.generate`` with bf16 and int8 KV, the launches and
+    routes of a decode step and a prefill, decode ms/token at fills 128
+    and 1975 on the device's clock (the captured step replayed) beside the
+    host slope, TTFT at 1975 tokens, the batch-8 paged int8
+    ``ModelServer`` over phase 6's 12 queries, peak memory."""
+    cfg = MIXTRAL_CFG
+    params = _init_full(cfg, "mixtral")
+    _generate_paths(params, cfg, "mixtral", (("bf16", MOE_GEN),
+                                             ("int8", MOE_GEN_INT8)))
+    res = {}
+    step, pre = _moe_step_launches(params, cfg)
+    res["mixtral_step_k1_launches"] = step.get("qmm4_npack", 0) + \
+        step.get("qmm4_npack_fused", 0)
+    res["mixtral_prefill_k2_launches"] = pre["qmm_a8"]
+    for fill in (128, T_PREFILL):
+        dev_ms = run_path(f"mixtral_step_graph_fill{fill}",
+                          ("qmm4_npack", "flash_decode"),
+                          lambda: graph_step_ms(params, cfg, fill))
+        host_ms = decode_ms(params, fill, cfg=cfg)
+        res[f"mixtral_decode_device_ms_fill{fill}"] = dev_ms
+        res[f"mixtral_decode_ms_fill{fill}"] = host_ms
+        log(f"mixtral decode at fill {fill}, batch 1, bf16 KV: "
+            f"{dev_ms:.3f} ms/token on the device's clock (step graph "
+            f"replay, median of 20), {host_ms:.3f} ms/token host slope "
+            f"(n=4..36)")
+    ms = run_path("mixtral_prefill_1975", ("qmm_a8", "flash_prefill"),
+                  lambda: ttft_ms(params, cfg=cfg))
+    res["mixtral_ttft_1975_ms"] = ms
+    log(f"mixtral TTFT 1975-token prefill (last-row logits, bf16 KV): "
+        f"{ms:.2f} ms")
+    res.update({f"mixtral_server_{k}": v for k, v in _server_timed(
+        params, cfg, "mixtral_server_paged_int8", MOE_SERVE_I8,
+        _server_prompts()).items()})
+    res["mixtral_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"mixtral peak device memory {res['mixtral_peak_gib']:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _grouped_sched(card, cfg2):
+    """The same 8 requests (prompts of 40-120 tokens, 6 new each) through
+    a paged bf16 Scheduler on a copy with bf16 experts: its batch-8 decode
+    step captured in a CUDA graph (the grouped path's static form,
+    counted as ``moe_grouped_static``), and the same step run eagerly with
+    the static form forced (the prefill chunks eager in both): equal ids
+    and pool bytes."""
+    gen = torch.Generator().manual_seed(93)
+    lens = torch.randint(40, 120, (8,), generator=gen).tolist()
+    prompts = [torch.randint(3, V, (n,), generator=gen).tolist()
+               for n in lens]
+    runs = []
+    grouped = TRANSFORMER.moe_grouped
+    for graph in (True, False):
+        sched = Scheduler(card, cfg2, max_batch=8, max_len=256,
+                          kv_mode="paged", page_size=64,
+                          kv_dtype=torch.bfloat16,
+                          sampling=SamplingParams(greedy=True,
+                                                  repeat_penalty=1.0))
+        for i, p in enumerate(prompts):
+            sched.add_request(i, p, max_new_tokens=6)
+        if graph:
+            done = run_path("mixtral_bf16_experts_sched_graph",
+                            ("moe_grouped_static", "moe_grouped",
+                             "paged_decode"), sched.run_to_completion)
+        else:
+            # the decode steps in the static form, the prefill chunks in
+            # the eager form, as the graphed run computes them
+            sched._graphs = None
+            TRANSFORMER.moe_grouped = lambda x, *a, **kw: grouped(
+                x, *a, **{**kw, "static": x.shape[1] == 1})
+            try:
+                done = sched.run_to_completion()
+            finally:
+                TRANSFORMER.moe_grouped = grouped
+        runs.append(({q.request_id: q.output_ids for q in done},
+                     sched.cache))
+    (ids_g, pool_g), (ids_e, pool_e) = runs
+    if ids_g != ids_e:
+        raise AssertionError(f"graphed grouped steps {ids_g} != eager "
+                             f"{ids_e}")
+    for name in ("k", "v"):
+        if not torch.equal(getattr(pool_g, name)[:, :-1],
+                           getattr(pool_e, name)[:, :-1]):
+            raise AssertionError(f"graphed grouped steps wrote another "
+                                 f"{name} pool")
+    log(f"mixtral bf16 experts: the Scheduler's batch-8 decode step (CUDA "
+        f"graph, grouped path's static form "
+        f"{LAUNCHES['mixtral_bf16_experts_sched_graph']['moe_grouped_static']}"
+        f" layer calls) = eager static steps: ids and pool bytes equal over "
+        f"8 requests (prompts {lens})")
+
+
+def moe_copies():
+    """9b: two-layer full-width copies of Mixtral-8x7B and Grok-1 at q4_j
+    (Grok-1 at full depth is over 150 GB at int4): ``Model.generate`` on
+    the card (a path each, 100-token prompt), then the prefill's last
+    logits and ``MOE_STEPS`` steps fed the card's ids against the plain
+    path on the card's own tensors (``plain_on_card``; on the host's CPU
+    one Grok-1 layer dequantized to f32 is ~19 GB), greedy ids held where
+    the margins prove them; (9c) on the Mixtral copy, phase 5's paged int8
+    Scheduler check, its plain side on the card too; then a bf16-expert
+    Mixtral copy through the grouped path: a prefill against the plain
+    path the same way, and the Scheduler's captured batch-8 step."""
+    gen = torch.Generator().manual_seed(90)
+    res = {}
+    for i, (what, cfg_full, required) in enumerate(MOE_COPIES):
+        t = time.time()
+        cfg2 = dataclasses.replace(cfg_full, n_layers=MOE_LAYERS)
+        card = init_random(cfg2, seed=91 + i, quant="q4_j", device=DEV)
+        ids = torch.randint(3, V, (100,), generator=gen).tolist()
+        model = Model().init_params(card, cfg2)
+        new = run_path(f"card_{what}", required, lambda: model.generate(
+            ids, max_new_tokens=MOE_STEPS + 1, do_sample=False,
+            stop_at_eos=False, repetition_penalty=1.0)[0])[len(ids):]
+        _check_ids(new, MOE_STEPS + 1, f"card {what}", cfg2.vocab_size)
+        if LAUNCHES[f"card_{what}"]["moe_mixture"] == 0:
+            raise AssertionError(f"{what}: no layer took the dense mixture")
+        rows = _step_rows(card, cfg2, ids, new[:MOE_STEPS])
+        with plain_on_card():
+            plain = _step_rows(card, cfg2, ids, new[:MOE_STEPS])
+        worst, provable, _ = _compare_rows(rows, plain, MOE_TOL,
+                                           f"{what} card vs plain")
+        log(f"9b {what} card vs plain on the card ({MOE_LAYERS} layers, full "
+            f"width, q4_j, {cfg2.n_heads} heads over {cfg2.n_kv_heads}, "
+            f"softcap {cfg2.attn_softcap:g}, 100-token prompt, fed the "
+            f"card's ids {new}): logits max err {worst:.3g}·max|logit| (tol "
+            f"{MOE_TOL}); argmax provably comparable at {provable} of "
+            f"{MOE_STEPS + 1} steps, equal at all of them; "
+            f"{time.time() - t:.1f} s")
+        if provable < 2:
+            raise AssertionError(f"too few {what} steps with a margin wide "
+                                 "enough to compare the argmax")
+        res[f"moe_{what}_card_vs_plain_rel_err"] = worst
+        if what == "mixtral":
+            res["moe_mixtral_sched_card_vs_plain_rel_err"] = \
+                _sched_card_vs_plain(card, None, cfg2, MOE_TOL)
+        del card, model
+        torch.cuda.empty_cache()
+    t = time.time()
+    cfg2 = dataclasses.replace(MIXTRAL_CFG, n_layers=MOE_LAYERS)
+    card = init_random(cfg2, seed=94, quant=None, device=DEV)
+    ids = torch.randint(3, V, (100,), generator=gen).tolist()
+    rows = run_path("mixtral_bf16_experts_prefill", ("moe_grouped",),
+                    lambda: _step_rows(card, cfg2, ids, [5, 6, 7]))
+    with plain_on_card():
+        plain = _step_rows(card, cfg2, ids, [5, 6, 7])
+    worst, _, _ = _compare_rows(rows, plain, MOE_TOL,
+                                "mixtral bf16 experts card vs plain")
+    res["moe_mixtral_bf16_experts_card_vs_plain_rel_err"] = worst
+    _grouped_sched(card, cfg2)
+    log(f"9b mixtral bf16 experts ({MOE_LAYERS} layers): the grouped path's "
+        f"prefill and decode steps against the plain path on the card "
+        f"{worst:.3g}·max|logit|; {time.time() - t:.1f} s")
+    del card
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe(results):
+    """Phase 9: 9d the kernels at the MoE's shapes, 9a Mixtral-8x7B at full
+    depth, 9b/9c the two-layer copies of Mixtral-8x7B and Grok-1."""
+    t = time.time()
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    res = {"9d": check_moe_kernels(gen, results)}
+    log(f"phase 9d: {time.time() - t:.1f} s")
+    t = time.time()
+    res.update(moe_full())
+    log(f"phase 9a: {time.time() - t:.1f} s")
+    t = time.time()
+    res.update(moe_copies())
+    log(f"phase 9b/9c: {time.time() - t:.1f} s")
     return res
 
 
@@ -6651,8 +7105,10 @@ def main():
         return compare_legs(sys.argv[2])
     if sys.argv[1:2] == ["--convert-child"]:
         return convert_child(sys.argv[2])
-    only7 = sys.argv[1:2] == ["--phase7"]
-    only8 = sys.argv[1:2] == ["--phase8"]
+    only = {"--phase7": ("7 model files", phase_model_files),
+            "--phase8": ("8 zoo", phase_zoo),
+            "--phase9": ("9 moe", phase_moe)}.get(sys.argv[1] if
+                                                  sys.argv[1:] else None)
     # the slice's main path: every phase runs the fused decode path, which
     # the library leaves off by default (``models.transformer.fuse_mode``);
     # the A/B and the unfused references set the switches themselves
@@ -6677,9 +7133,8 @@ def main():
     log(f"built {[k.source for k in _cuda.KERNELS]} in {build_s:.1f} s")
 
     results = {}
-    if only7 or only8:
-        e2e = phase("7 model files", phase_model_files, results) if only7 \
-            else phase("8 zoo", phase_zoo, results)
+    if only:
+        e2e = phase(*only, results)
         log(json.dumps({"e2e": e2e, "phase_seconds": seconds,
                         "seconds": time.time() - t_start}))
         return
@@ -6736,6 +7191,7 @@ def main():
     torch.cuda.empty_cache()
     e2e.update(phase("7 model files", phase_model_files, results))
     e2e.update(phase("8 zoo", phase_zoo, results))
+    e2e.update(phase("9 moe", phase_moe, results))
 
     kernels = []
     for kid, (kname, src, repl) in KERNEL_META.items():

@@ -202,25 +202,29 @@ def load_checkpoint(path: str, device=None
 
 
 def _int4_to_native(qt: QTensor) -> QTensor:
-    """A JAX ``jnp.int4`` (or ``uint4``) code plane [K, N], read as one byte
-    an element, → native-pack nibbles, the port's at-rest layout for the
-    same centered codes (two's-complement low nibble first)."""
+    """A JAX ``jnp.int4`` (or ``uint4``) code plane [..., K, N], read as one
+    byte an element, → native-pack nibbles, the port's at-rest layout for
+    the same centered codes (two's-complement low nibble first); leading
+    dims (an expert stack) stay."""
     codes = qt.planes[0].to(torch.int32)
     nib = codes & 0xF
-    plane = (nib[0::2] | (nib[1::2] << 4)).to(torch.uint8)
+    plane = (nib[..., 0::2, :] | (nib[..., 1::2, :] << 4)).to(torch.uint8)
     return QTensor((plane,), qt.scales, qt.zeros, qt.perm,
                    dataclasses.replace(qt.cfg, native_pack=True))
 
 
 def _unstack(layers: Dict[str, Any]):
-    """One dict of [L, ...] stacks (QTensors included) → L dicts."""
+    """One dict of [L, ...] stacks (QTensors and a MoE layer's ``experts``
+    dict of [L, E, ...] stacks included) → L dicts."""
     def take(v, i):
         if isinstance(v, QTensor):
             opt = lambda t: None if t is None else t[i]
             return QTensor(tuple(p[i] for p in v.planes), v.scales[i],
                            opt(v.zeros), opt(v.perm), v.cfg)
+        if isinstance(v, dict):
+            return {k: take(x, i) for k, x in v.items()}
         return v[i]
-    first = next(iter(layers.values()))
+    first = next(v for v in layers.values() if not isinstance(v, dict))
     L = (first.scales if isinstance(first, QTensor) else first).shape[0]
     return [{k: take(v, i) for k, v in layers.items()} for i in range(L)]
 
@@ -228,9 +232,12 @@ def _unstack(layers: Dict[str, Any]):
 def param_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
     """A loaded param tree (the port's, or the JAX package's: stacked
     ``layers``, bit-plane packed or ``int4`` planes) → the port's param
-    dict, ``layers`` a list of per-layer dicts, JAX ``int4`` planes as
-    native-pack; other QTensors as they were stored."""
+    dict, ``layers`` a list of per-layer dicts (a MoE layer's ``experts``
+    each an [E, ...] stack), JAX ``int4`` planes as native-pack; other
+    QTensors as they were stored."""
     def fix(v):
+        if isinstance(v, dict):                    # a layer's experts
+            return {k: fix(x) for k, x in v.items()}
         # a one-byte plane of a 2-4 bit weight that is not native-pack is
         # a JAX int4 plane (bit-plane packing stores uint8, never int8)
         if isinstance(v, QTensor) and v.cfg.kind == "int" \

@@ -37,6 +37,12 @@ HF_DEFAULTS = {
                   max_position_embeddings=2048),
     "mistral": dict(_LLAMA, intermediate_size=14336, num_key_value_heads=8,
                     max_position_embeddings=131072, sliding_window=4096),
+    # transformers' MixtralConfig (4.57; mistralai/Mixtral-8x7B-v0.1): 8
+    # experts a layer, top 2
+    "mixtral": dict(_LLAMA, intermediate_size=14336, num_key_value_heads=8,
+                    max_position_embeddings=131072, rms_norm_eps=1e-5,
+                    rope_theta=1e6, sliding_window=None,
+                    num_local_experts=8, num_experts_per_tok=2),
     "gemma": dict(_GEMMA, hidden_size=3072, intermediate_size=24576,
                   num_hidden_layers=28, num_attention_heads=16,
                   num_key_value_heads=16),
@@ -113,14 +119,14 @@ HF_DEFAULTS = {
                      partial_rotary_factor=0.25, rope_theta=10000,
                      max_position_embeddings=4096, bos_token_id=0,
                      eos_token_id=0),
-    # ChatGLM-1/2/3, Qwen v1 and Baichuan have no config class in
+    # ChatGLM-1/2/3, Qwen v1, Baichuan and Grok-1 have no config class in
     # transformers (each checkpoint carries its own remote code): their
     # config.json has to hold every key their config_from_hf reads, beyond
     # the few that function defaults itself, and a missing one raises
     # (RemoteConfig)
 }
 # model types whose config class is the checkpoint's own remote code
-REMOTE_CODE = ("chatglm", "chatglm1", "qwen", "baichuan")
+REMOTE_CODE = ("chatglm", "chatglm1", "qwen", "baichuan", "grok", "grok-1")
 
 
 class RemoteConfig(types.SimpleNamespace):

@@ -20,7 +20,10 @@ numpy, so that no JAX import is needed here:
   ``embed_norm_w``/``_b``, ``final_norm_b``, the learned position table
   ``pos_embed`` (OPT, StarCoder), the ``lm_head_b`` (GPT-J, Phi-2) and the
   ``alibi_slopes`` (a tree without RoPE has no ``rope_inv_freqs``; a
-  parallel-residual layer with one shared norm has no ``ffn_norm_w``).
+  parallel-residual layer with one shared norm has no ``ffn_norm_w``);
+- a mixture-of-experts layer has its ``router`` and an ``experts`` dict of
+  ``[E, ...]`` stacks (``[L, E, ...]`` in a stacked tree), QTensor dicts or
+  arrays.
 
 QTensors not yet at rest are converted on the way in
 (``runtime.generate.params_to_native``).
@@ -70,23 +73,33 @@ def qtensor_from_numpy(d: Dict[str, Any], device) -> QTensor:
                    opt(d["zeros"]), opt(d["perm"]), cfg)
 
 
+def _is_qtensor(a) -> bool:
+    return isinstance(a, dict) and "planes" in a
+
+
 def _leaf(a, device):
-    if isinstance(a, dict):
+    if _is_qtensor(a):
         return qtensor_from_numpy(a, device)
+    if isinstance(a, dict):                     # a layer's experts
+        return {k: _leaf(v, device) for k, v in a.items()}
     return tensor_from_numpy(a, device)
 
 
 def _unstack(layers: Dict[str, Any]):
-    """One dict of [L, ...] stacks (QTensor dicts included) → L dicts."""
+    """One dict of [L, ...] stacks (QTensor dicts and the experts' dict
+    included) → L dicts."""
     def take(a, i):
-        if isinstance(a, dict):
+        if _is_qtensor(a):
             return {**a, "planes": [p[i] for p in a["planes"]],
                     "scales": a["scales"][i],
                     "zeros": None if a["zeros"] is None else a["zeros"][i],
                     "perm": None if a["perm"] is None else a["perm"][i]}
+        if isinstance(a, dict):
+            return {k: take(v, i) for k, v in a.items()}
         return np.asarray(a[i])      # a 0-d array for a stacked flag
-    first = next(iter(layers.values()))
-    L = (first["scales"] if isinstance(first, dict) else first).shape[0]
+    first = next(v for v in layers.values()
+                 if _is_qtensor(v) or not isinstance(v, dict))
+    L = (first["scales"] if _is_qtensor(first) else first).shape[0]
     return [{k: take(v, i) for k, v in layers.items()} for i in range(L)]
 
 

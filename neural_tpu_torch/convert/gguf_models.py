@@ -62,6 +62,13 @@ _TOP_MAP = {
 }
 
 
+# GGUF files of either package hold no experts: the JAX tensor map
+# (neural_tpu/convert/gguf_models.py) has no ``*_exps`` tensors (ROADMAP §C)
+GGUF_NO_EXPERTS = ("GGUF export of a mixture-of-experts model: the GGUF "
+                   "tensor map of the JAX package, the port's reference, "
+                   "has no expert tensors (*_exps); use an NTPU checkpoint")
+
+
 def config_from_gguf(r: GGUFReader) -> ModelConfig:
     kv = r.kv
     arch = kv.get("general.architecture", "llama")
@@ -340,6 +347,8 @@ def export_gguf(hf_model, path: str, ggml_type: int = GGML_Q4_0,
     additional raw kvs. The file is byte for byte the JAX
     ``export_gguf``'s."""
     cfg = llama_mod.config_from_hf(hf_model.config)
+    if cfg.is_moe:
+        raise NotImplementedError(GGUF_NO_EXPERTS)
     sd = {k: v.detach().float().cpu().numpy()
           for k, v in hf_model.state_dict().items()}
 

@@ -246,24 +246,32 @@ def _fold_act_order_sd(qsd: Dict[str, Any], cfg, mod) -> None:
     """Per layer, fold w_down's stored-row permutation into the output
     columns of gate and up (and their biases), in place: exact, because the
     elementwise act(gate)·up between them commutes with any column
-    permutation; w_down then needs no gather."""
+    permutation; w_down then needs no gather. A mixture-of-experts layer
+    folds each expert's w_down into that expert's gate and up."""
     for i in range(cfg.n_layers):
         m = mod.hf_layer_map(i, cfg)
-        ed, eg, eu = m.get("w_down"), m.get("w_gate"), m.get("w_up")
-        if not (ed and eg and eu):
-            continue
-        wd, wg, wu = (qsd.get(e[0]) for e in (ed, eg, eu))
-        if not all(isinstance(w, QTensor) for w in (wd, wg, wu)) \
-                or wd.perm is None:
-            continue
-        p = wd.perm
-        qsd[eg[0]] = permute_cols(wg, p)
-        qsd[eu[0]] = permute_cols(wu, p)
-        qsd[ed[0]] = QTensor(wd.planes, wd.scales, wd.zeros, None, wd.cfg)
-        for nb in ("b_gate", "b_up"):
-            eb = m.get(nb)
-            if eb and eb[0] in qsd:
-                qsd[eb[0]] = _take(qsd[eb[0]], p)
+        groups = [("w_down", "w_gate", "w_up", "b_gate", "b_up")]
+        if cfg.is_moe:
+            groups = [(f"experts.{e}.w_down", f"experts.{e}.w_gate",
+                       f"experts.{e}.w_up", None, None)
+                      for e in range(cfg.n_experts)]
+        for nd, ng, nu, nbg, nbu in groups:
+            ed, eg, eu = m.get(nd), m.get(ng), m.get(nu)
+            if not (ed and eg and eu):
+                continue
+            wd, wg, wu = (qsd.get(e[0]) for e in (ed, eg, eu))
+            if not all(isinstance(w, QTensor) for w in (wd, wg, wu)) \
+                    or wd.perm is None:
+                continue
+            p = wd.perm
+            qsd[eg[0]] = permute_cols(wg, p)
+            qsd[eu[0]] = permute_cols(wu, p)
+            qsd[ed[0]] = QTensor(wd.planes, wd.scales, wd.zeros, None,
+                                 wd.cfg)
+            for nb in (nbg, nbu):
+                eb = m.get(nb) if nb else None
+                if eb and eb[0] in qsd:
+                    qsd[eb[0]] = _take(qsd[eb[0]], p)
 
 
 def params_from_gptq_state_dict(sd: Dict[str, Any], cfg, fmt: str = "gptq",

@@ -1,5 +1,5 @@
 """HF model / random weights → the port's decoder (port of
-``neural_tpu/convert/hf.py`` for every dense family of its registry).
+``neural_tpu/convert/hf.py`` for every family of its registry).
 
 Every quantized tensor is converted once, here, to the at-rest layout
 (``runtime.generate.params_to_native``) that the kernels read; the port
@@ -13,7 +13,12 @@ the JAX package's ``build_params``: layer norms and biases in the model dtype,
 the top-level 1-D tensors (``final_norm_w``/``_b``, Bloom's
 ``embed_norm_w``/``_b``, ``lm_head_b``) in f32, the embedding and the
 learned position table in the model dtype, the RoPE table (absent under
-ALiBi and learned positions) and the ALiBi slopes in f32.
+ALiBi and learned positions) and the ALiBi slopes in f32. A
+mixture-of-experts layer (Mixtral, Grok) keeps its router in the model
+dtype (it is no ``QUANT_TENSORS`` name) and stacks each expert projection
+into an ``[E, ...]`` layer stack, quantized one expert at a time by the
+config its name resolves to without a layer (``reg.resolve(sub)``, as the
+JAX ``build_params``), never FFN-padded.
 """
 from __future__ import annotations
 
@@ -24,29 +29,33 @@ import torch
 from ..core.device import resolve_device
 from ..core.dtypes import PRESETS, QuantConfig, quant_config_from_args
 from ..core.qtensor import (QTensor, concat_n, dequantize, quantize,
-                           to_native)
+                           stack_qtensors, to_native, unstack_qtensor)
 from ..models import (baichuan, bloom, chatglm, falcon, gemma, gptj,
-                      gptneox, llama, mpt, opt, phi, qwen, stablelm,
+                      gptneox, grok, llama, mpt, opt, phi, qwen, stablelm,
                       starcoder)
 from ..models.config import ModelConfig
-from ..models.transformer import LINEARS, MOE_SLICE, Transformer
+from ..models.transformer import LINEARS, Transformer
 from ..ops.rope import alibi_slopes, rope_freqs
 from ..runtime.generate import params_to_native
 
 
 # HF model_type → family module, the JAX registry's names
 # (neural_tpu/convert/hf.py:33-47) but for those of REFUSED
-ARCH_MODULES = {"llama": llama, "mistral": llama, "solar": llama,
+ARCH_MODULES = {"llama": llama, "mistral": llama, "mixtral": llama,
+                "solar": llama, "grok": grok, "grok-1": grok,
                 "gptj": gptj, "gpt_neox": gptneox, "opt": opt,
                 "bloom": bloom, "mpt": mpt, "falcon": falcon,
                 "gpt_bigcode": starcoder, "qwen": qwen, "qwen2": qwen,
                 "phi": phi, "phi3": phi, "gemma": gemma, "gemma2": gemma,
                 "stablelm": stablelm, "baichuan": baichuan,
                 "chatglm": chatglm, "chatglm1": chatglm}
-# the JAX registry's other names (and Qwen2-MoE), each with why the port
-# refuses it
-REFUSED = {"mixtral": MOE_SLICE, "grok": MOE_SLICE, "grok-1": MOE_SLICE,
-           "qwen2_moe": MOE_SLICE, "qwen3": qwen.QWEN3_FAULT}
+# the model types the JAX package, the port's reference, does not run, each
+# with why (ROADMAP §C)
+REFUSED = {"qwen2_moe": qwen.QWEN2_MOE_GAP, "qwen3": qwen.QWEN3_FAULT}
+# the refusals the port keeps from the JAX package's MoE import
+MOE_REQUANT = "registry requantization of MoE experts is unsupported"
+MOE_HETERO = ("layer-heterogeneous quant registries are not supported for "
+              "MoE experts; use layer-uniform rules")
 
 
 def family(model_type: str):
@@ -71,11 +80,12 @@ def ffn_padded_size(I: int, tile: int = 1024, max_overhead: float = 0.05):
 
 
 def _shape_for(name: str, cfg: ModelConfig, Ip: int):
-    """The shape of a projection (FFN padded to ``Ip``) or of a bias."""
+    """The shape of a projection (FFN padded to ``Ip``), of a bias or of the
+    router."""
     D = cfg.hidden_size
     return {
         "wq": (D, cfg.q_dim), "wk": (D, cfg.kv_dim), "wv": (D, cfg.kv_dim),
-        "wo": (cfg.q_dim, D),
+        "wo": (cfg.q_dim, D), "router": (D, cfg.n_experts),
         "w_gate": (D, Ip), "w_up": (D, Ip), "w_down": (Ip, D),
         "bq": (cfg.q_dim,), "bk": (cfg.kv_dim,), "bv": (cfg.kv_dim,),
         "bo": (D,), "b_gate": (Ip,), "b_up": (Ip,), "b_down": (D,),
@@ -117,6 +127,13 @@ def _pad_ffn(name: str, w: torch.Tensor, cfg: ModelConfig, Ip: int):
     return w
 
 
+def expert_subs(names) -> list:
+    """The expert projections (``experts.{e}.{sub}``) among a layer map's
+    names."""
+    return sorted({n.split(".", 2)[2] for n in names
+                   if n.startswith("experts.")})
+
+
 def _resolver(qcfg):
     """(name, layer) → the QuantConfig of that tensor (None: keep it in the
     model dtype), for one config or a QuantRegistry."""
@@ -144,17 +161,26 @@ def requantize(params: Dict[str, Any], qcfg) -> Dict[str, Any]:
     quant_utils.cpp:269). ``qcfg`` may be a QuantRegistry (per-tensor
     configs; a rule of None dequantizes the tensor to bf16). The result is
     not at rest. Raises for params without a QTensor: quantize those at
-    conversion (``Model.init(weight_dtype=...)``)."""
+    conversion (``Model.init(weight_dtype=...)``). A layer's expert stacks
+    requantize one expert at a time; a registry refuses them, as the JAX
+    package's does."""
     from .quant_registry import QuantRegistry
     qcfg = resolve_quant(qcfg)
-    resolve = qcfg.resolve if isinstance(qcfg, QuantRegistry) else \
-        (lambda name, layer=None: qcfg)
+    registry = isinstance(qcfg, QuantRegistry)
+    resolve = qcfg.resolve if registry else (lambda name, layer=None: qcfg)
+    if registry and any("experts" in lp for lp in params["layers"]):
+        raise NotImplementedError(MOE_REQUANT)
     found = [False]
 
     def req(leaf, name, layer):
+        if isinstance(leaf, dict):                 # a layer's experts
+            return {k: req(v, k, layer) for k, v in leaf.items()}
         if not isinstance(leaf, QTensor):
             return leaf
         found[0] = True
+        if leaf.planes[0].ndim > 2:
+            return stack_qtensors([req(q, name, layer)
+                                   for q in unstack_qtensor(leaf)])
         w = dequantize(leaf)
         qc = resolve(name, layer)
         return w.to(torch.bfloat16) if qc is None else quantize(w, qc)
@@ -196,6 +222,13 @@ class _Converter:
         qcfg = quant_config_from_args(quant)
         self.resolve = _resolver(qcfg)
         self.qnames = set(mod.QUANT_TENSORS)
+        if cfg.is_moe:
+            # the JAX ``build_params`` refuses a registry whose rules for a
+            # layer's plain quantized names differ by layer
+            plain = [n for n in mod.hf_layer_map(0, cfg)
+                     if n in self.qnames]
+            if not _uniform(qcfg, plain, cfg.n_layers):
+                raise NotImplementedError(MOE_HETERO)
         # as in the JAX package, only a quantized FFN is padded
         self.Ip = cfg.intermediate_size if qcfg is None else \
             ffn_padded_size(cfg.intermediate_size)
@@ -224,7 +257,10 @@ class _Converter:
 
     def layer(self, sd, i: int) -> Dict[str, Any]:
         lp = {}
-        for name, (hf_name, tr) in self.mod.hf_layer_map(i, self.cfg).items():
+        m = self.mod.hf_layer_map(i, self.cfg)
+        for name, (hf_name, tr) in m.items():
+            if name.startswith("experts."):
+                continue
             w = self.get(sd, hf_name, tr)
             if isinstance(w, QTensor):
                 lp[name] = w
@@ -234,7 +270,27 @@ class _Converter:
                 lp[name] = self.quantized(name, w, i)
             else:
                 lp[name] = w.to(self.dtype)
+        subs = expert_subs(m)
+        if subs:
+            lp["experts"] = {sub: self.expert_stack(sd, m, sub)
+                             for sub in subs}
         return lp
+
+    def expert_stack(self, sd, m, sub: str):
+        """One expert projection of a layer as its ``[E, ...]`` stack, read
+        and converted one expert at a time: a GPTQ/AWQ expert passes
+        through, a quantized name resolves without its layer, the rest is
+        cast; never padded."""
+        ws = []
+        for e in range(self.cfg.n_experts):
+            w = self.get(sd, *m[f"experts.{e}.{sub}"])
+            if not isinstance(w, QTensor):
+                w = self.quantized(sub, w) if sub in self.qnames \
+                    else w.to(self.dtype)
+            ws.append(w)
+        if isinstance(ws[0], QTensor):
+            return stack_qtensors(ws)
+        return torch.stack(ws)
 
     def top(self, sd) -> Dict[str, Any]:
         params: Dict[str, Any] = {}
@@ -254,6 +310,16 @@ class _Converter:
 
     def flags(self, layers):
         _add_flags(layers, self.cfg, self.mod, self.dev)
+
+
+def _uniform(qcfg, qnames, n_layers: int) -> bool:
+    """Whether every quantized name resolves to one config in every layer:
+    a QuantRegistry's rules may differ by layer, one config cannot."""
+    from .quant_registry import QuantRegistry
+    if not isinstance(qcfg, QuantRegistry):
+        return True
+    return all(len({qcfg.resolve(n, i) for i in range(n_layers)}) == 1
+               for n in qnames)
 
 
 def build_param_dict(sd: Dict[str, Any], cfg: ModelConfig, mod=llama,
@@ -316,7 +382,12 @@ def init_random(cfg: ModelConfig, seed: int = 0,
     Falcon-7B) shares its one norm; qk-norm weights are ones; the learned
     position table (``max_seq_len + pos_offset`` rows) and the lm_head
     bias are drawn like the weights, last, so the draws before them are
-    the same as before they existed. (The JAX package's ``init_random``
+    the same as before they existed. A mixture-of-experts layer draws its
+    router like a bias, then each expert's gate, up and down weights, one
+    ``[K, N]`` f32 weight at a time, quantized by the config its name
+    resolves to without a layer, after everything else of the layer: a
+    dense config draws what it drew before. (The JAX package's
+    ``init_random``
     builds the whole f32 state dict on the host instead, with norm weights
     and biases of ones; the two draw different numbers.)"""
     dev = resolve_device(device)
@@ -337,7 +408,12 @@ def init_random(cfg: ModelConfig, seed: int = 0,
             return w.to(dtype)
         return params_to_native(quantize(w, qc))
 
-    names = list(mod.hf_layer_map(0, cfg))
+    m0 = mod.hf_layer_map(0, cfg)
+    names = [n for n in m0 if not n.startswith("experts.")]
+    subs = expert_subs(m0)
+    if subs and not _uniform(qcfg, set(names) & set(mod.QUANT_TENSORS),
+                             cfg.n_layers):
+        raise NotImplementedError(MOE_HETERO)
     ones = lambda: torch.full((cfg.hidden_size,), 1.0 - cfg.norm_offset,
                               dtype=dtype, device=dev)
     layers = []
@@ -354,6 +430,14 @@ def init_random(cfg: ModelConfig, seed: int = 0,
         if cfg.qk_norm:
             for n in ("q_norm_w", "k_norm_w"):
                 lp[n] = torch.ones(cfg.head_dim, dtype=dtype, device=dev)
+        if subs:
+            I_ = cfg.intermediate_size
+            stack = lambda ws: stack_qtensors(ws) \
+                if isinstance(ws[0], QTensor) else torch.stack(ws)
+            lp["experts"] = {
+                sub: stack([weight(sub, *_shape_for(sub, cfg, I_))
+                            for _ in range(cfg.n_experts)])
+                for sub in subs}
         layers.append(lp)
     _add_flags(layers, cfg, mod, dev)
     D = cfg.hidden_size

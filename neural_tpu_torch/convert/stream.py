@@ -13,7 +13,10 @@ pad → RTN quantize or cast); the host holds one tensor's file bytes at a
 time (a BF16 tensor is widened on the device), and a shard is mapped only
 while one of its tensors is copied out. Families whose fused
 projections are split before conversion (Bloom, MPT, ChatGLM-1) read a
-layer's tensors together first. No transformers
+layer's tensors together first. A mixture-of-experts layer's experts are
+read, quantized and converted one expert weight at a time and stacked into
+the layer's ``[E, ...]`` layout (``_Converter.expert_stack``), so no
+layer's experts exist in f32 at once. No transformers
 and no safetensors package are needed: ``config.json`` is read by
 ``convert.files.read_config``.
 

@@ -428,3 +428,32 @@ def matmul_ref(x: torch.Tensor, qt: QTensor, dtype=None) -> torch.Tensor:
     """Oracle product ``x @ dequantize(qt)`` in f32. [*, K] @ [K, N]."""
     out = x.to(torch.float32) @ dequantize(qt, torch.float32)
     return out.to(dtype or x.dtype)
+
+
+def stack_qtensors(qts) -> QTensor:
+    """QTensors of one config and shape → one QTensor whose every tensor has
+    a leading axis: a layer's ``[E, ...]`` expert stack, the layout of the
+    JAX package's per-layer expert slice. Expert ``e`` is
+    :func:`qtensor_at` ``(stack, e)``, a contiguous view."""
+    first = qts[0]
+    if any(q.cfg != first.cfg for q in qts):
+        raise ValueError("stack_qtensors: mixed quant configs")
+    opt = lambda f: None if getattr(first, f) is None else \
+        torch.stack([getattr(q, f) for q in qts])
+    planes = tuple(torch.stack([q.planes[i] for q in qts])
+                   for i in range(len(first.planes)))
+    return QTensor(planes, torch.stack([q.scales for q in qts]),
+                   opt("zeros"), opt("perm"), first.cfg)
+
+
+def qtensor_at(qt: QTensor, e: int) -> QTensor:
+    """Entry ``e`` of a stacked QTensor (:func:`stack_qtensors`): views of
+    its tensors, each contiguous, so a kernel takes it as a dense weight."""
+    opt = lambda t: None if t is None else t[e]
+    return QTensor(tuple(p[e] for p in qt.planes), qt.scales[e],
+                   opt(qt.zeros), opt(qt.perm), qt.cfg)
+
+
+def unstack_qtensor(qt: QTensor):
+    """A stacked QTensor → the list of its entries."""
+    return [qtensor_at(qt, e) for e in range(qt.scales.shape[0])]

@@ -2,13 +2,13 @@
 
 The port's own copy of ``neural_tpu/models/config.py``, kept field for
 field so one configuration describes a model in both packages. The port's
-graph (models/transformer.py) implements every knob of the dense families
-(norm offsets, GELU and ReLU, post norms, embedding scale, softcaps,
-sliding window, LayerNorm with or without bias, projection and lm_head
-biases, the non-gated MLP, ALiBi, learned positions, NeoX and GPT-J RoPE
-on all or part of the head, ChatGLM-1's 2-D GLM RoPE, prefix-LM mask and
-DeepNorm ``residual_alpha``, parallel residuals, qk-norm) and raises
-``NotImplementedError`` for MoE.
+graph (models/transformer.py) implements every knob (norm offsets, GELU
+and ReLU, post norms, embedding scale, softcaps, sliding window, LayerNorm
+with or without bias, projection and lm_head biases, the non-gated MLP,
+ALiBi, learned positions, NeoX and GPT-J RoPE on all or part of the head,
+ChatGLM-1's 2-D GLM RoPE, prefix-LM mask and DeepNorm ``residual_alpha``,
+parallel residuals, qk-norm, and the routed experts of ``n_experts`` /
+``n_experts_active`` / ``moe_norm_topk``).
 """
 from __future__ import annotations
 

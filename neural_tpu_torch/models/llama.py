@@ -1,16 +1,17 @@
-"""LLaMA family: Llama 1/2/3, Mistral and SOLAR (``solar``, Llama's maps):
-config and HF tensor maps (port of ``neural_tpu/models/llama.py``; Mixtral,
-its MoE variant, raises until the MoE slice)."""
+"""LLaMA family: Llama 1/2/3, Mistral, Mixtral (its MoE variant: a router
+and ``num_local_experts`` SwiGLU experts a layer, top
+``num_experts_per_tok``) and SOLAR (``solar``, Llama's maps): config and HF
+tensor maps (port of ``neural_tpu/models/llama.py``)."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from .config import ModelConfig
-from .transformer import MOE_SLICE
 
 
 def config_from_hf(c) -> ModelConfig:
-    """Map a transformers LlamaConfig / MistralConfig (read as attributes,
+    """Map a transformers LlamaConfig / MistralConfig / MixtralConfig (read
+    as attributes,
     so no import of transformers is needed). Mistral's ``sliding_window``
     is not read, as the JAX package's ``config_from_hf`` does not read it:
     neither package applies Mistral's window."""
@@ -46,21 +47,29 @@ def config_from_hf(c) -> ModelConfig:
 
 
 def hf_layer_map(i: int, cfg: ModelConfig) -> Dict[str, Any]:
-    """Our layer-param name → (HF tensor name, transpose?)."""
-    if cfg.is_moe:
-        raise NotImplementedError(MOE_SLICE)
+    """Our layer-param name → (HF tensor name, transpose?); an expert's
+    name is ``experts.{e}.{w_gate|w_up|w_down}`` (Mixtral's w1, w3, w2)."""
     p = f"model.layers.{i}."
-    return {
+    m = {
         "attn_norm_w": (p + "input_layernorm.weight", False),
         "wq": (p + "self_attn.q_proj.weight", True),
         "wk": (p + "self_attn.k_proj.weight", True),
         "wv": (p + "self_attn.v_proj.weight", True),
         "wo": (p + "self_attn.o_proj.weight", True),
         "ffn_norm_w": (p + "post_attention_layernorm.weight", False),
-        "w_gate": (p + "mlp.gate_proj.weight", True),
-        "w_up": (p + "mlp.up_proj.weight", True),
-        "w_down": (p + "mlp.down_proj.weight", True),
     }
+    if cfg.is_moe:
+        m["router"] = (p + "block_sparse_moe.gate.weight", True)
+        for e in range(cfg.n_experts):
+            ep = p + f"block_sparse_moe.experts.{e}."
+            m[f"experts.{e}.w_gate"] = (ep + "w1.weight", True)
+            m[f"experts.{e}.w_down"] = (ep + "w2.weight", True)
+            m[f"experts.{e}.w_up"] = (ep + "w3.weight", True)
+    else:
+        m["w_gate"] = (p + "mlp.gate_proj.weight", True)
+        m["w_up"] = (p + "mlp.up_proj.weight", True)
+        m["w_down"] = (p + "mlp.down_proj.weight", True)
+    return m
 
 
 def hf_top_map(cfg: ModelConfig) -> Dict[str, Any]:

@@ -2,7 +2,8 @@
 ``neural_tpu/models/qwen.py``). Qwen2 is Llama's maps plus q/k/v biases;
 Qwen v1 (remote code) has the fused ``c_attn`` with its bias, split here,
 and an MLP whose ``w2`` is the gate and ``w1`` the up projection, with
-``intermediate_size`` counting both halves. Qwen3 and Qwen2-MoE raise."""
+``intermediate_size`` counting both halves. Qwen3 and Qwen2-MoE raise,
+each naming the gap of the JAX package, the port's reference."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,6 @@ import dataclasses
 from . import llama as llama_mod
 from ._defuse import split_concat
 from .config import ModelConfig
-from .transformer import MOE_SLICE
 
 # Why the port refuses Qwen3: the JAX package, its reference, cannot import
 # it either (ROADMAP §C)
@@ -23,6 +23,17 @@ QWEN3_FAULT = (
     "qk_norm")
 
 
+# Why the port refuses Qwen2-MoE: the JAX package does not run it either
+# (ROADMAP §C)
+QWEN2_MOE_GAP = (
+    "qwen2_moe: the JAX package, the port's reference, does not run "
+    "Qwen2-MoE: its registry (neural_tpu/convert/hf.py ARCH_MODULES) has no "
+    "'qwen2_moe', so its from_hf_model raises KeyError; its ModelConfig has "
+    "no shared-expert field (Qwen2-MoE adds a gated shared expert to every "
+    "layer); and the Llama config path reads num_local_experts, which "
+    "Qwen2-MoE's config names num_experts")
+
+
 def config_from_hf(c) -> ModelConfig:
     """Map a Qwen2Config, or a Qwen v1 config (read as attributes: v1's
     checkpoints carry their own remote code, and its config.json must have
@@ -31,7 +42,7 @@ def config_from_hf(c) -> ModelConfig:
     if mt == "qwen3":
         raise NotImplementedError(QWEN3_FAULT)
     if mt == "qwen2_moe":
-        raise NotImplementedError(MOE_SLICE)
+        raise NotImplementedError(QWEN2_MOE_GAP)
     if mt == "qwen":  # v1
         D = c.hidden_size
         return ModelConfig(

@@ -1,5 +1,5 @@
-"""The decoder graph of every dense family of the JAX package (port of
-``neural_tpu/models/transformer.py`` :41-225 and :359-714, without MoE).
+"""The decoder graph of every family of the JAX package (port of
+``neural_tpu/models/transformer.py`` :41-302 and :359-714).
 
 Embedding (times Gemma's bf16 embedding scale; plus the learned position
 table at ``positions + pos_offset``, OPT and StarCoder; then Bloom's
@@ -11,7 +11,8 @@ attention (f32, cast back to the activation dtype; the config's softcap,
 the layer's sliding window, the ALiBi slopes, the GLM prefix mask) →
 output projection (+ bias) → (post-attention norm) → residual → pre-norm →
 gated MLP (SiLU or tanh GELU) or ``w_down(act(w_up h))`` (+ biases; exact
-or tanh GELU, ReLU) → (post-FFN norm) → residual] → final norm → lm_head
+or tanh GELU, ReLU), or the routed expert MLP of Mixtral and Grok
+(:meth:`Block._moe`) → (post-FFN norm) → residual] → final norm → lm_head
 (+ its bias, in f32; then Gemma-2's final softcap, in f32), optionally on
 one row per sequence (``logit_positions``). A parallel-residual layer
 (GPT-J, GPT-NeoX, Phi-1.5/2, Falcon) adds ``attn(norm1(x)) + mlp(norm2(x))``
@@ -31,7 +32,11 @@ through ``paged_update_kv``, attention through ``attend_paged``), as in
 
 Every projection is a :class:`QLinear`: a quantized weight at rest
 (``core.qtensor.to_native``) or a bf16 one. A tied lm_head is a torch
-product with the embedding, as the JAX package leaves it to XLA.
+product with the embedding, as the JAX package leaves it to XLA. A
+mixture-of-experts layer holds its ``router`` ([D, E], unquantized, as in
+the JAX package) and its experts as the JAX per-layer stacks
+(:class:`Experts`): expert e's weight is a contiguous view of the stack,
+which K1, K2 and K5 take as they take a dense weight.
 
 The fused decode path (``NTPU_FUSED_DECODE``, :func:`fuse_mode`, off by
 default; the JAX ``_block`` fast path) folds a decode step's elementwise
@@ -54,7 +59,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..core.qtensor import QTensor
+from ..core.qtensor import QTensor, qtensor_at
+from ..ops import _cuda
 from ..ops.attention import attend, quantize_kv
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.paged_attention import attend_paged, paged_update_kv
@@ -69,14 +75,16 @@ BIASES = ("bq", "bk", "bv", "bo", "b_gate", "b_up", "b_down")
 FUSED = ("wqkv", "w_gateup")
 FUSED_BIASES = ("bqkv", "b_gateup")
 NORMS = ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
-ARCHS = ("llama", "mistral", "solar", "gemma", "gemma2", "bloom", "mpt",
-         "chatglm", "chatglm1", "qwen", "qwen2", "baichuan", "stablelm",
-         "gpt_neox", "gptj", "phi", "phi3", "falcon", "opt", "gpt_bigcode")
-# the message of every refusal of a mixture-of-experts config
-MOE_SLICE = ("mixture-of-experts layers (Mixtral, Grok, Qwen2-MoE) belong to "
-             "the MoE slice of the port: the routed expert MLP "
-             "(neural_tpu/models/transformer.py _moe_mlp, _moe_grouped) is "
-             "not ported yet")
+ARCHS = ("llama", "mistral", "mixtral", "solar", "gemma", "gemma2", "bloom",
+         "mpt", "chatglm", "chatglm1", "qwen", "qwen2", "baichuan",
+         "stablelm", "gpt_neox", "gptj", "phi", "phi3", "falcon", "opt",
+         "gpt_bigcode", "grok")
+# an expert layer's projections and biases, each an [E, ...] stack
+EXPERT_LINEARS = ("w_gate", "w_up", "w_down")
+EXPERT_BIASES = ("b_gate", "b_up", "b_down")
+# the grouped expert path's threshold: B·T at or above it, with unquantized,
+# bias-free experts (the JAX ``_moe_mlp``'s rule)
+GROUPED_MIN_ROWS = 8
 
 
 def fuse_mode() -> str:
@@ -178,20 +186,101 @@ class QLinear(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        out_dtype = out_dtype or x.dtype
-        if self.cfg is not None:
-            return qmatmul(x, self.qt, out_dtype)
-        if out_dtype == torch.float32 and x.device.type == "cuda" \
-                and self.weight.dtype == torch.bfloat16:
-            # bf16 operands, f32 sums, one product: no f32 copy of the
-            # weight per call (an untied 32000-row lm_head would be 0.5 GB)
-            x2 = x.reshape(-1, x.shape[-1]).to(self.weight.dtype)
-            return torch.mm(x2, self.weight, out_dtype=torch.float32) \
-                .reshape(*x.shape[:-1], -1)
-        w = self.weight.to(x.dtype)
-        if out_dtype == torch.float32:
-            return x.to(torch.float32) @ w.to(torch.float32)
-        return torch.matmul(x, w).to(out_dtype)
+        return linear(x, self.param, out_dtype)
+
+
+def linear(x: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None
+           ) -> torch.Tensor:
+    """``x @ w`` for a QTensor (:func:`qmatmul`, its kernels) or an
+    unquantized ``[K, N]`` weight (the JAX ``linear``: the weight takes x's
+    dtype first, one product)."""
+    out_dtype = out_dtype or x.dtype
+    if isinstance(w, QTensor):
+        return qmatmul(x, w, out_dtype)
+    if out_dtype == torch.float32 and x.device.type == "cuda" \
+            and w.dtype == torch.bfloat16:
+        # bf16 operands, f32 sums, one product: no f32 copy of the
+        # weight per call (an untied 32000-row lm_head would be 0.5 GB)
+        x2 = x.reshape(-1, x.shape[-1]).to(w.dtype)
+        return torch.mm(x2, w, out_dtype=torch.float32) \
+            .reshape(*x.shape[:-1], -1)
+    w = w.to(x.dtype)
+    if out_dtype == torch.float32:
+        return x.to(torch.float32) @ w.to(torch.float32)
+    return torch.matmul(x, w).to(out_dtype)
+
+
+def _rdot(lhs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One group's product of the grouped expert path: bf16 operands, f32
+    sums and result, as ``lax.ragged_dot(lhs.astype(bf16), w.astype(bf16),
+    ..., preferred_element_type=f32)`` computes it (the cast holds for f32
+    params too). ``ragged_dot`` is XLA, not a Pallas kernel: its port is
+    one ``torch.mm`` a group. The CPU has no bf16 ``mm`` with f32 output;
+    there the bf16 values are widened to f32 (exact) and multiplied."""
+    lhs, w = lhs.to(torch.bfloat16), w.to(torch.bfloat16)
+    if lhs.device.type == "cuda":
+        return torch.mm(lhs, w, out_dtype=torch.float32)
+    return lhs.to(torch.float32) @ w.to(torch.float32)
+
+
+def moe_route(logits: torch.Tensor, k: int, norm_topk: bool):
+    """The top-k experts of each row of the router's f32 ``logits`` [..., E]
+    and their weights, as the JAX ``_moe_mlp`` (``jax.lax.top_k``, then
+    a softmax over the k chosen logits with ``norm_topk``, else the full
+    softmax gathered at them). Router logits are bf16 before their f32
+    cast, so ties among the experts are common: ``top_k`` takes the lower
+    index first, and so does a stable descending sort, where ``torch.topk``
+    on the card promises no order. → (weights f32 [..., k], ids [..., k])."""
+    idx = torch.sort(logits, dim=-1, descending=True, stable=True) \
+        .indices[..., :k]
+    top = logits.gather(-1, idx)
+    if norm_topk:
+        return torch.softmax(top, dim=-1), idx
+    return torch.softmax(logits, dim=-1).gather(-1, idx), idx
+
+
+class Experts(nn.Module):
+    """One layer's experts: each of ``w_gate``/``w_up``/``w_down`` an
+    ``[E, ...]`` stack (a stacked QTensor's buffers, or one ``[E, K, N]``
+    unquantized tensor), as the JAX package's per-layer slice of
+    ``layers["experts"]``; biases ``[E, N]`` where a family has them. No FFN
+    padding: the JAX ``build_params`` pads plain names only."""
+
+    def __init__(self, weights: Dict[str, object]):
+        super().__init__()
+        self.names = tuple(n for n in EXPERT_LINEARS if n in weights)
+        for name in self.names:
+            setattr(self, name, QLinear(weights[name]))
+        for name in EXPERT_BIASES:
+            self.register_buffer(name, weights.get(name))
+        self.quantized = any(getattr(self, n).cfg is not None
+                             for n in self.names)
+        self.biased = any(weights.get(b) is not None for b in EXPERT_BIASES)
+
+    def weights(self) -> Dict[str, object]:
+        out = {n: getattr(self, n).param for n in self.names}
+        out.update({b: getattr(self, b) for b in EXPERT_BIASES
+                    if getattr(self, b) is not None})
+        return out
+
+    def weight(self, name: str, e: int):
+        """Expert ``e``'s ``name`` weight: views into the stack."""
+        lin = getattr(self, name)
+        return lin.weight[e] if lin.cfg is None else qtensor_at(lin.qt, e)
+
+    def mlp(self, e: int, x: torch.Tensor, cfg: ModelConfig, act):
+        """Expert ``e``'s MLP on every row of x, the JAX ``_mlp`` with
+        ``n_experts=0``: unfused products, ``act(g) · u``, then
+        ``w_down`` (plus the biases a family has, in the output's dtype)."""
+        def lin(name, h):
+            y = linear(h, self.weight(name, e))
+            b = getattr(self, "b" + name[1:])
+            return y if b is None else y + b[e].to(y.dtype)
+        if cfg.mlp_gated:
+            h = act(lin("w_gate", x)) * lin("w_up", x)
+        else:
+            h = act(lin("w_up", x))
+        return lin("w_down", h)
 
 
 class Block(nn.Module):
@@ -199,8 +288,10 @@ class Block(nn.Module):
     projections, or the fused ``wqkv`` / ``w_gateup`` of
     ``fuse_layer_weights``, whose outputs are split after the product, as
     in ``neural_tpu/models/transformer.py``), tensors (norm weights and
-    biases, projection biases) and, for Gemma-2, the 0-d bool
-    ``use_sliding`` flag."""
+    biases, projection biases), for Gemma-2, the 0-d bool
+    ``use_sliding`` flag, and for a mixture-of-experts layer the
+    ``router`` ([D, E], unquantized) and the ``experts`` dict of stacks
+    (:class:`Experts`) in place of the MLP's projections."""
 
     def __init__(self, cfg: ModelConfig, weights: Dict[str, object]):
         super().__init__()
@@ -208,6 +299,9 @@ class Block(nn.Module):
         for name in LINEARS + FUSED:
             if name in weights:
                 setattr(self, name, QLinear(weights[name]))
+        if cfg.is_moe:
+            self.router = QLinear(weights["router"])
+            self.experts = Experts(weights["experts"])
         self.fused_qkv = "wqkv" in weights
         self.fused_gateup = "w_gateup" in weights
         # the products the fused K1 takes, read once here: the fused route
@@ -248,6 +342,9 @@ class Block(nn.Module):
         """The ``weights`` dict this block holds, as it was built from."""
         out = {n: getattr(self, n).param for n in LINEARS + FUSED
                if hasattr(self, n)}
+        if self.cfg.is_moe:
+            out["router"] = self.router.param
+            out["experts"] = self.experts.weights()
         for name, buf in self.named_buffers(recurse=False):
             out[name] = buf
         return out
@@ -394,6 +491,12 @@ class Block(nn.Module):
         second pass; with ``fuse_glu`` the gated activation rides its
         prologue too."""
         cfg = self.cfg
+        if cfg.is_moe:
+            # the routing reads the normed stream: under the fused decode
+            # path the norm runs outside the kernels (the JAX ``_mlp``)
+            if res is None:
+                return self._moe(x)
+            return res + self._moe(self._norm(x, "ffn_norm"))
         names = ("w_gateup",) if self.fused_gateup else \
             ("w_gate", "w_up") if cfg.mlp_gated else ("w_up",)
         if res is None:
@@ -421,6 +524,99 @@ class Block(nn.Module):
         down = self._linear("w_down", h)
         return down if res is None else res + down
 
+    def _moe(self, x):
+        """The routed expert MLP, the JAX ``_moe_mlp``: the router's logits
+        (x's dtype, then f32), the top-k experts (:func:`moe_route`), then
+        the grouped path (:func:`moe_grouped`) for unquantized, bias-free
+        experts at B·T >= 8, else the dense mixture: every expert's MLP on
+        every row, cast to f32, weighted by the [B, T, E] mixture (zero off
+        the chosen experts) and summed over E in f32, then cast to x's
+        dtype. The zero terms change no sum; this computes what JAX
+        computes (a routed read of the chosen experts is a speed question
+        for later)."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        logits = self.router(x).to(torch.float32)         # [B, T, E]
+        top_w, top_idx = moe_route(logits, cfg.n_experts_active,
+                                   cfg.moe_norm_topk)
+        ex = self.experts
+        if not ex.quantized and not ex.biased and B * T >= GROUPED_MIN_ROWS:
+            return moe_grouped(x, ex, top_w, top_idx, cfg, self.act)
+        _cuda.ROUTES.count("moe_mixture")
+        mix = torch.zeros_like(logits).scatter_(-1, top_idx, top_w)
+        out = None
+        for e in range(cfg.n_experts):
+            y = ex.mlp(e, x, cfg, self.act).to(torch.float32) \
+                * mix[..., e:e + 1]
+            out = y if out is None else out + y
+        return out.to(x.dtype)
+
+
+def moe_grouped(x, ex: Experts, top_w, top_idx, cfg: ModelConfig, act,
+                static: Optional[bool] = None):
+    """The grouped expert MLP, the JAX ``_moe_grouped``: the B·T·k
+    (token, expert) assignments stably sorted by expert id form one row
+    group per expert; each projection is one product a group with bf16
+    operands and f32 results (:func:`_rdot`), ``act(g) · u`` in f32, the
+    down product's operands cast to bf16 again; each row weighted by its
+    router weight and added into its token's f32 row, then cast to x's
+    dtype.
+
+    Eager (``static`` False), the group sizes are read on the host once.
+    Inside a CUDA graph capture (``static`` None: the default there) no
+    shape may depend on the data, so each expert takes a fixed capacity of
+    S = B·T rows (top-k ids are distinct, so no expert gets more): the
+    assignment of rank r in expert e's group (the same stable order) sits
+    in row e·S + r of a zero-padded [E·S, D] buffer, every expert's
+    products run over its S rows, and each assignment's row is read back
+    from its slot. The padding rows' results are never read.
+
+    Summation order: the JAX ``.at[tok].add`` sums each token's k
+    contributions in f32, as ``index_add_`` does; on the card the latter is
+    atomic, so for k > 2 the sums could differ by their order. For k = 2
+    (Mixtral, Grok) the order changes no sum (0 + a + b = 0 + b + a)."""
+    B, T, D = x.shape
+    S, k, E = B * T, cfg.n_experts_active, cfg.n_experts
+    dev = x.device
+    if static is None:
+        static = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    _cuda.ROUTES.count("moe_grouped_static" if static else "moe_grouped")
+    xf = x.reshape(S, D)
+    eid = top_idx.reshape(S * k)
+    wts = top_w.reshape(S * k).to(torch.float32)
+    tok = torch.arange(S * k, device=dev) // k             # no host read
+    if static:
+        onehot = eid[:, None] == torch.arange(E, device=dev)[None, :]
+        rank = (torch.cumsum(onehot.to(torch.long), 0) - 1).gather(
+            1, eid[:, None])[:, 0]
+        slot = eid * S + rank                              # [S·k]
+        xs = torch.zeros((E * S, D), dtype=x.dtype, device=dev)
+        xs.index_copy_(0, slot, xf[tok])
+        groups = [(e * S, S) for e in range(E)]
+    else:
+        order = torch.sort(eid, stable=True).indices
+        tok, wts = tok[order], wts[order]
+        xs = xf[tok]                                       # [S·k, D]
+        sizes = torch.bincount(eid, minlength=E).tolist()
+        starts = [sum(sizes[:e]) for e in range(E)]
+        groups = list(zip(starts, sizes))
+
+    def per_group(lhs, name):
+        w = getattr(ex, name).weight                      # [E, K, N]
+        return torch.cat([_rdot(lhs[o:o + n], w[e])
+                          for e, (o, n) in enumerate(groups)])
+
+    if cfg.mlp_gated:
+        h = act(per_group(xs, "w_gate")) * per_group(xs, "w_up")
+    else:
+        h = act(per_group(xs, "w_up"))
+    d = per_group(h, "w_down")                             # f32
+    if static:
+        d = d[slot]
+    out = torch.zeros((S, D), dtype=torch.float32, device=dev)
+    out.index_add_(0, tok, d * wts[:, None])
+    return out.reshape(B, T, D).to(x.dtype)
+
 
 class Transformer(nn.Module):
     """The decoder: ``embed``, (``pos_embed``), (``embed_norm_w``/``_b``),
@@ -430,8 +626,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, object]):
         super().__init__()
-        if cfg.is_moe:
-            raise NotImplementedError(MOE_SLICE)
         glm1_dim = cfg.rope_style == "glm1" and \
             cfg.rope_dim == cfg.head_dim // 2
         unsupported = [n for n, on in (

@@ -273,9 +273,14 @@ class Routes:
     (attention at a head dim that is not a multiple of 128, in
     ``attend``), ``attend_xla_paged`` (the same in ``attend_paged``, after
     the page gather), ``act_order_gather`` (the gather of x by a GPTQ
-    act-order ``perm`` before a quantized product) and ``qmm_plain`` (a
+    act-order ``perm`` before a quantized product), ``qmm_plain`` (a
     quantized product whose shape neither K1 nor K5 takes, dequantized
-    and multiplied by one ``torch.mm``)."""
+    and multiplied by one ``torch.mm``) and a mixture-of-experts layer's
+    strategy, once a layer: ``moe_mixture`` (every expert on every row,
+    its products through the kernels), ``moe_grouped`` (the expert-sorted
+    row groups, one ``torch.mm`` a group, sizes read on the host) and
+    ``moe_grouped_static`` (the same at a fixed capacity a group, the form
+    a CUDA graph captures)."""
 
     def __init__(self, names: Sequence[str]):
         self.launches = {n: 0 for n in names}
@@ -285,7 +290,8 @@ class Routes:
 
 
 ROUTES = Routes(("attend_xla", "attend_xla_paged", "act_order_gather",
-                 "qmm_plain"))
+                 "qmm_plain", "moe_mixture", "moe_grouped",
+                 "moe_grouped_static"))
 COUNTED = KERNELS + (ROUTES,)
 
 

@@ -22,7 +22,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..core.qtensor import QTensor, to_native
+from ..core.qtensor import (QTensor, stack_qtensors, to_native,
+                           unstack_qtensor)
 from ..models.config import ModelConfig
 from ..models.transformer import Transformer
 from ..ops import _cuda
@@ -36,10 +37,19 @@ def params_to_native(params):
     QTensor in a param tree (dicts and lists) becomes native-pack, at every
     size (what ``params_to_native(..., force=True, min_elems=0)`` gives);
     5-8 bit int becomes int8 code planes; 1-bit, nf4/fp4 and fp8 stay in
-    their stored layout (``core.qtensor.to_native``). Every entry point
-    that builds params runs its weights through here before the decoder
-    is built."""
+    their stored layout (``core.qtensor.to_native``). A layer's stacked
+    experts (``[E, ...]``, :func:`~neural_tpu_torch.core.qtensor.
+    stack_qtensors`) convert one expert at a time, by the same rule on each
+    expert's K·N, as the JAX package maps its conversion over the leading
+    dims. Every entry point that builds params runs its weights through
+    here before the decoder is built."""
     if isinstance(params, QTensor):
+        if params.planes[0].ndim > 2:
+            qs = unstack_qtensor(params)
+            conv = [to_native(q) for q in qs]
+            if all(c is q for c, q in zip(conv, qs)):
+                return params           # already at rest: no second copy
+            return stack_qtensors(conv)
         return to_native(params)
     if isinstance(params, dict):
         return {k: params_to_native(v) for k, v in params.items()}

@@ -128,11 +128,11 @@ UNPORTED = {"learned_pos_emb": dict(learned_pos_emb=True),
 @pytest.mark.parametrize("what", [*UNPORTED, "chatglm2"])
 def test_unported_options_raise(what):
     """ALiBi and the GLM prefix mask are ported (``test_torch_alibi.py``),
-    and since the model-zoo slice learned positions, parallel residuals,
-    qk-norm and ChatGLM-2/3's config (no ``position_encoding_2d``) too:
-    each builds and runs (``test_torch_zoo*.py`` hold them against the JAX
-    package). What the port still refuses raises ``NotImplementedError``
-    naming why: MoE, in the graph."""
+    since the model-zoo slice learned positions, parallel residuals,
+    qk-norm and ChatGLM-2/3's config (no ``position_encoding_2d``) too, and
+    since the MoE slice the routed expert MLP: each builds and runs
+    (``test_torch_zoo*.py`` and ``test_torch_moe*.py`` hold them against
+    the JAX package)."""
     if what == "chatglm2":
         hf_cfg = types.SimpleNamespace(
             hidden_size=64, num_attention_heads=4, num_layers=2,
@@ -145,11 +145,9 @@ def test_unported_options_raise(what):
     cfg = ModelConfig(vocab_size=64, hidden_size=64, n_layers=1, n_heads=2,
                       n_kv_heads=2, head_dim=32, intermediate_size=64,
                       **UNPORTED[what])
-    if what == "moe":
-        with pytest.raises(NotImplementedError, match="MoE slice"):
-            init_random(cfg, quant=None, device="cpu")
-        return
     model = init_random(cfg, quant=None, device="cpu")
+    if what == "moe":
+        assert model.layers[0].experts.w_up.weight.shape == (4, 64, 64)
     out = model(torch.tensor([[3, 4, 5]]), torch.zeros(1, dtype=torch.long),
                 init_cache(cfg, 1, 8, device="cpu"))
     assert out.shape == (1, 3, 64) and torch.isfinite(out).all()

@@ -27,6 +27,15 @@ from neural_tpu_torch.convert.from_jax import (
 from neural_tpu_torch.core.qtensor import dequantize
 from neural_tpu_torch.models.config import ModelConfig
 
+# The port's CPU tests run tiny shapes, where torch's intra-op thread pool
+# costs more than it saves: tests/test_torch_formats.py alone on an 8-core
+# host took 165 s with torch's default of 8 threads, 87 s with 2 and 79 s
+# with 1, and under the Tier-1 command's six xdist workers every worker's
+# pool also contends with the others'. Nearly every ``test_torch_*`` file
+# imports this module, and every test module is imported at collection, so
+# this holds in each worker's process for its whole run.
+torch.set_num_threads(1)
+
 
 def jax_array_to_numpy(a):
     a = np.asarray(a)

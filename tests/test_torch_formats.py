@@ -151,9 +151,11 @@ def test_logits_and_greedy_ids_match_jax(pair, T):
                       torch.zeros(1, dtype=torch.long), pc)
     errs = [_close(pl.numpy(), jl)]
     forced = [_penalized_argmax(pl, ids)]
+    jrows = [jl]
     for s, tok in enumerate(jnew[:-1]):
         jl, jc = jmodel_step(jm.params, jnp.asarray([[tok]], jnp.int32),
                              jnp.asarray([T + s], jnp.int32), jc, jm.cfg)
+        jrows.append(jl)
         pl = model_step(pm.params, torch.tensor([[tok]]),
                         torch.tensor([T + s]), pc)
         errs.append(_close(pl.numpy(), jl))
@@ -162,7 +164,7 @@ def test_logits_and_greedy_ids_match_jax(pair, T):
     # step i's argmax is proven when JAX's penalized margin exceeds twice
     # the step's largest logit difference times the repetition penalty
     # (1.1, which scales a difference by at most that much)
-    margins = _jax_margins(jm, ids, jnew)
+    margins = _jax_margins(jm, ids, jnew, jrows)
     proven = [m > 2 * 1.1 * e for (m, _), e in zip(margins, errs)]
     info = (fmt, forced, pnew, jnew, margins, errs)
     # the teacher-forced steps share JAX's prefix: every proven one counts

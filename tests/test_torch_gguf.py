@@ -308,7 +308,7 @@ def test_greedy_ids_from_file_equal_jax(mixed):
     jnew, pnew = jout[T:], pout[T:]
     jrows = _rows(_jax_step(jm, T + N_NEW), PROMPT, jnew)
     prows = _rows(_port_step(pm, T + N_NEW), PROMPT, jnew)
-    margins = _jax_margins(jm, PROMPT, jnew)
+    margins = _jax_margins(jm, PROMPT, jnew, jrows)
     proven = 0
     for i, (a, b, (m, _)) in enumerate(zip(prows, jrows, margins)):
         err = np.abs(a - b).max()

@@ -444,9 +444,11 @@ def test_logits_and_greedy_ids_match_jax(loaded):
         return float(np.abs(a - b).max())
 
     errs = [close(plg.numpy(), jlg)]
+    jrows = [jlg]
     for s, tok in enumerate(jnew[:-1]):
         jlg, jc = jmodel_step(jm.params, jnp.asarray([[tok]], jnp.int32),
                               jnp.asarray([T + s], jnp.int32), jc, jm.cfg)
+        jrows.append(jlg)
         _cuda.reset_launches()
         plg = model_step(pm.params, torch.tensor([[tok]]),
                          torch.tensor([T + s]), pc)
@@ -454,7 +456,8 @@ def test_logits_and_greedy_ids_match_jax(loaded):
         assert gathers == (3 * NL if fmt == "gptq" else 0)
         errs.append(close(plg.numpy(), jlg))
     proven = 0
-    for i, ((m, _), e) in enumerate(zip(_jax_margins(jm, ids, jnew), errs)):
+    for i, ((m, _), e) in enumerate(zip(_jax_margins(jm, ids, jnew, jrows),
+                                        errs)):
         if m > 2 * 1.1 * e:
             assert pnew[i] == jnew[i], (i, pnew, jnew, errs)
             proven += 1

@@ -191,14 +191,17 @@ def check_against_jax(jm, pm, ids, n_new=N_NEW, min_proven=MIN_PROVEN):
         return float(np.abs(a - b).max())
 
     errs = [close(pl.numpy(), jl)]
+    jrows = [jl]
     for s, tok in enumerate(jnew[:-1]):
         jl, jc = jmodel_step(jm.params, jnp.asarray([[tok]], jnp.int32),
                              jnp.asarray([T + s], jnp.int32), jc, jm.cfg)
+        jrows.append(jl)
         pl = model_step(pm.params, torch.tensor([[tok]]),
                         torch.tensor([T + s]), pc)
         errs.append(close(pl.numpy(), jl))
     proven = 0
-    for i, ((m, _), e) in enumerate(zip(_jax_margins(jm, ids, jnew), errs)):
+    for i, ((m, _), e) in enumerate(zip(_jax_margins(jm, ids, jnew, jrows),
+                                        errs)):
         if m > 2 * 1.1 * e:
             assert pnew[i] == jnew[i], (i, pnew, jnew, errs)
             proven += 1

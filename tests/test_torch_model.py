@@ -118,24 +118,34 @@ def test_prefill_and_decode_logits(pair, T):
         tok = int(np.argmax(np.asarray(jl)[0, -1]))
 
 
-def _jax_margins(jm, ids, new):
+def _jax_margins(jm, ids, new, logits=None):
     """JAX's penalized top-1/top-2 margin at each generated step, replaying
-    ``runtime.generate.generate``'s penalties over the JAX ids."""
+    ``runtime.generate.generate``'s penalties over the JAX ids. ``logits``:
+    the JAX logits of those steps the caller has already computed (the
+    prompt's last row, then one step per id of ``new`` but the last, each
+    an array whose last axis is the vocabulary), so that JAX's prefill and
+    steps are not run twice; without them they are run here."""
     sp = JSP(greedy=True)
     T = len(ids)
-    jc = jinit_cache(jm.cfg, 1, T + len(new))
-    logits, jc = jprefill_step(jm.params, jnp.asarray([ids], jnp.int32),
-                               jnp.zeros((1,), jnp.int32), jc, jm.cfg)
+    if logits is None:
+        jc = jinit_cache(jm.cfg, 1, T + len(new))
+        row, jc = jprefill_step(jm.params, jnp.asarray([ids], jnp.int32),
+                                jnp.zeros((1,), jnp.int32), jc, jm.cfg)
+        logits = [row]
+        for i, tok in enumerate(new[:-1]):
+            row, jc = jmodel_step(jm.params, jnp.asarray([[tok]], jnp.int32),
+                                  jnp.asarray([T + i], jnp.int32), jc,
+                                  jm.cfg)
+            logits.append(row)
     out, margins = list(ids), []
-    for i, tok in enumerate(new):
+    for tok, row in zip(new, logits):
+        row = jnp.asarray(np.asarray(row, np.float32).reshape(
+            -1, VOCAB)[-1:])
         hist = jnp.asarray([out[-sp.repeat_last_n:]], jnp.int32)
         counts = jtoken_counts(hist, jnp.ones(hist.shape, bool), VOCAB)
-        pen = np.sort(np.asarray(japply_penalties(
-            logits[:, -1].astype(jnp.float32), counts, sp))[0])
+        pen = np.sort(np.asarray(japply_penalties(row, counts, sp))[0])
         margins.append((pen[-1] - pen[-2], np.abs(pen).max()))
         out.append(tok)
-        logits, jc = jmodel_step(jm.params, jnp.asarray([[tok]], jnp.int32),
-                                 jnp.asarray([T + i], jnp.int32), jc, jm.cfg)
     return margins
 
 

@@ -6,8 +6,9 @@ its own, what the port refuses, and the Scheduler on the zoo's graphs.
   ``model_step`` against the port's on the same params (bridged), within
   3e-2·max|ref| (``test_torch_bloom_mpt.py``'s tolerance).
 - Refusals: ``qwen3`` (the reference's fault: the JAX import of a tiny
-  Qwen3 raises ``KeyError``), and the MoE types (Mixtral, Grok, Qwen2-MoE),
-  each naming why; a Falcon-7B-wide weight (K = 4544) at group 128, as the
+  Qwen3 raises ``KeyError``) and ``qwen2_moe`` (the reference's gap), each
+  naming why, where Mixtral and Grok now resolve and build (the MoE slice);
+  a Falcon-7B-wide weight (K = 4544) at group 128, as the
   JAX ``quantize`` asserts; a cache longer than a learned position table.
 - ``init_random`` draws the new leaves (the lm_head bias, the position
   table, the qk-norm weights) and keeps GPT-J's one shared norm.
@@ -131,18 +132,32 @@ def test_qwen3_raises_naming_the_reference_fault():
 @pytest.mark.parametrize("model_type", ["mixtral", "grok", "grok-1",
                                         "qwen2_moe"])
 def test_moe_types_raise_naming_the_moe_slice(model_type):
-    assert model_type in REFUSED
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        family(model_type)
+    """Since the MoE slice Mixtral and Grok-1 resolve to their families;
+    Qwen2-MoE raises naming the reference's gap (the JAX package does not
+    run it either)."""
+    if model_type == "qwen2_moe":
+        assert model_type in REFUSED
+        with pytest.raises(NotImplementedError, match="shared-expert"):
+            family(model_type)
+        return
+    assert model_type not in REFUSED
+    assert family(model_type).__name__.rsplit(".", 1)[1] == \
+        ("llama" if model_type == "mixtral" else "grok")
 
 
 def test_moe_config_raises_in_the_graph():
+    """Since the MoE slice the graph takes a MoE config: ``init_random``
+    builds its router and expert stacks, and a forward gives finite
+    logits (``test_torch_moe.py`` holds them against the JAX package)."""
     cfg = ModelConfig(**{**QK_KW, "qk_norm": False, "arch": "mixtral",
                          "n_experts": 4, "n_experts_active": 2})
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        Transformer(cfg, {"layers": []})
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        init_random(cfg, quant=None, device="cpu")
+    model = init_random(cfg, quant=None, device="cpu")
+    assert isinstance(model, Transformer)
+    assert model.layers[0].router.weight.shape == (cfg.hidden_size, 4)
+    out = model_step(model, torch.tensor([[3, 4, 5]]),
+                     torch.zeros(1, dtype=torch.long),
+                     init_cache(cfg, 1, 8, device="cpu"))
+    assert torch.isfinite(out).all()
 
 
 def test_falcon7b_width_at_group_128_raises_as_jax_asserts():
