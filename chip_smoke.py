@@ -9,6 +9,8 @@
                                             # result line)
     python3 chip_smoke.py --phase9          # phases 1, 2 and 9 alone (no
                                             # result line)
+    python3 chip_smoke.py --phase10         # phases 1, 2 and 10 alone (no
+                                            # result line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -255,6 +257,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    Scheduler check on the Mixtral copy, its plain side on the card. 9d's
    cases join their kernels' cases in the kernels line.
 
+10. tensor and expert parallelism: (10d) in this process, the kernels at
+   one rank's shapes against their plain versions with their times, the
+   plain versions', one library call's and their bounds: K1 at M=1 and 8
+   and K2 at M=1975 on a Llama-2-7B tp=2 rank's products, K1 at M=1 and
+   K2 at M=1975 on a Llama-2-70B tp=8 rank's (what each rank of
+   BASELINE.md target 5 runs), K3 and K4 at 16 heads, bf16 and int8 KV;
+   then two ranks spawned on the one card (NCCL refuses two ranks on one
+   device, so gloo over 127.0.0.1),
+   each agreeing on a checksum of the full weights before keeping its
+   shards, each path's launches counted and printed per rank: (10a)
+   Llama-2-7B q4_j at full width and depth, tp=2, ``Model.generate(mesh=
+   ...)`` with bf16 and int8 KV, the prefill's last row and a step per
+   generated id held bit for bit to one device computing the pair's
+   products and sums; against the plain single device, the 7B's first 2,
+   4 and 8 layers at full width (the gap printed a depth, the 2-layer copy
+   within 2e-2·max|logit|, its argmax where the margins prove it) and at
+   full depth the ids where the margins prove them, K1 225 and K2 224 launches a step and a prefill, the eager step's
+   host time (two ranks sharing a card: no measure of TP across cards);
+   (10b) Llama-2-70B's widths, two layers, tp=2: each rank's shard shapes
+   pinned, the prefill's last row and one step within 2e-2·max|logit| of
+   one device, the argmax equal where the margins prove it; (10c) the
+   two-layer Mixtral-8x7B copy at tp=2 (the mixture's deferred sum) and
+   ep=2 (capacity factor 8, nothing dropped) within 2e-2·max|logit| of one
+   device, and the kernels the capacity buffers reach. 10d's cases join
+   their kernels' cases in the kernels line.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 no CUDA device is present.
@@ -285,7 +313,8 @@ from neural_tpu_torch.convert.gguf_models import \
     random_block_bytes  # noqa: E402
 from neural_tpu_torch.convert.gptq import \
     params_from_gptq_state_dict  # noqa: E402
-from neural_tpu_torch.convert.hf import init_random  # noqa: E402
+from neural_tpu_torch.convert.hf import (ffn_padded_size,  # noqa: E402
+                                         init_random)
 from neural_tpu_torch.convert.quant_registry import \
     QuantRegistry  # noqa: E402
 from neural_tpu_torch.core.dtypes import (PRESETS, QuantConfig,  # noqa: E402
@@ -6769,6 +6798,653 @@ def phase_moe(results):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: tensor and expert parallelism, two ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+
+# Llama-2-7B's products on one rank at tp = 2 (q/k/v and gate/up split by
+# columns, wo and w_down by rows; the FFN padded to 11264): per token
+TP2_PROJ = [(D, D // 2, 3 * L), (D // 2, D, L), (D, I_PAD // 2, 2 * L),
+            (I_PAD // 2, D, L)]
+TP2_LM_HEAD = [(D, V // 2, 1)]
+# Llama-2-70B (meta-llama/Llama-2-70b-hf config.json: hidden 8192, FFN
+# 28672, 80 layers, 64 q heads over 8 kv heads of 128, vocab 32000): the
+# products of one rank of BASELINE.md target 5 at tp = 8, per token
+L70 = 80
+TP8_70B_PROJ = [(8192, 1024, L70), (8192, 128, 2 * L70), (1024, 8192, L70),
+                (8192, 3584, 2 * L70), (3584, 8192, L70)]
+TP8_70B_LM_HEAD = [(8192, V // 8, 1)]
+LLAMA70_CFG = ModelConfig(arch="llama", vocab_size=V, hidden_size=8192,
+                          n_layers=2, n_heads=64, n_kv_heads=8, head_dim=128,
+                          intermediate_size=28672, norm_eps=1e-5,
+                          rope_theta=10000.0, max_seq_len=4096)
+PAR_TOL = 2e-2          # phase 8c's, of max|logit| (bf16 activations)
+PAR_TIMEOUT = 300.0     # s a rank's rendezvous or collective may wait
+PAR_DEADLINE = 900.0    # s for both ranks' whole run
+PAR_PROMPT_70B = 512    # tokens of 10b's prompt (K2's rows: M >= 256)
+PAR_NEW = 8             # new tokens of 10a's Model.generate
+# 10a's depth sweep: the 7B's first n layers at full width, tp = 2 against
+# the plain single device (3 steps a depth, teacher-forced on fixed ids)
+PAR_DEPTHS = (2, 4, 8)
+PAR_SWEEP_FEED = 3
+SHARED_CARD = ("two ranks sharing one H100 under gloo: not a measure of "
+               "tensor parallelism across cards")
+
+
+def _tp_attention(gen, cases):
+    """10d's attention cases at one rank's 16 of the 7B's 32 heads: K3 on
+    the 1975-token prompt and K4 at fill 1975, bf16 and int8 KV."""
+    Hq = Hkv = H // 2
+    starts = torch.zeros(1, dtype=torch.int32, device=DEV)
+    for int8 in (False, True):
+        s = "_i8" if int8 else ""
+        row = DH + 2 if int8 else 2 * DH
+        T = T_PREFILL
+        q = (torch.randn((1, T, Hq, DH), generator=gen, device=DEV)
+             * Q_SPREAD).bfloat16()
+        c = _attn_cache(gen, (1, Hkv, S_CACHE, DH), int8)[0]
+        a3 = (q, c[0], c[1], *(c[2:] if int8 else ()), starts, DH ** -0.5)
+        kd, vd = (x[:, :, :T] for x in _bf16_kv(c))
+        qh = q.transpose(1, 2)
+        label = f"llama-2-7b tp=2 rank heads ({Hq} over {Hkv}) {T}-token " \
+            "prefill"
+        cases.setdefault("K3" + s, {})[label] = _attn_case(
+            label, "flash_prefill" + s,
+            lambda: (A.flash_prefill_i8 if int8 else A.flash_prefill)(*a3),
+            lambda: (A.flash_prefill_i8_plain if int8
+                     else A.flash_prefill_plain)(*a3),
+            T * Hq * DH * 2 + 2 * T * Hkv * row + T * Hq * DH * 4,
+            _attn_ops(int8, DH, Hq, _pairs(T, 0), False, False),
+            I8_PREFILL_TOL if int8 else BF16_TOL, L,
+            library=[lambda: _sdpa(qh, kd, vd, is_causal=True)])
+        del q, qh, c, a3, kd, vd
+        fill = T_PREFILL
+        q = (torch.randn((1, Hq, DH), generator=gen, device=DEV)
+             * Q_SPREAD).bfloat16()
+        caches = _attn_cache(gen, (1, Hkv, S_CACHE, DH), int8,
+                             _copies(2 * fill * Hkv * row))
+        lengths = torch.tensor([fill], dtype=torch.int32, device=DEV)
+        args = [(q, c[0], c[1], *(c[2:] if int8 else ()), lengths,
+                 DH ** -0.5) for c in caches]
+        kvs = [_bf16_kv(c) for c in caches]
+        fn = A.flash_decode_i8 if int8 else A.flash_decode
+        label = f"llama-2-7b tp=2 rank heads ({Hq} over {Hkv}) decode fill " \
+            f"{fill}"
+        cases.setdefault("K4" + s, {})[label] = _attn_case(
+            label, "flash_decode" + s, lambda: fn(*args[0]),
+            lambda: (A.flash_decode_i8_plain if int8
+                     else A.flash_decode_plain)(*args[0]),
+            2 * fill * Hkv * row + Hq * DH * (2 + 4),
+            _attn_ops(int8, DH, Hq, fill, False, True),
+            I8_DECODE_TOL if int8 else BF16_TOL, L,
+            runs=[lambda a=a: fn(*a) for a in args],
+            library=[lambda kv=kv: _sdpa(q[:, :, None], kv[0][:, :, :fill],
+                                         kv[1][:, :, :fill]) for kv in kvs])
+        del q, caches, args, kvs
+        torch.cuda.empty_cache()
+
+
+def check_parallel_kernels(gen, results):
+    """10d: each kernel at the shapes one rank of a tensor-parallel model
+    gives it, against its plain version, with its time, the plain
+    version's, one library call's and its bound, summed over a decode step
+    or a prefill: K1 at M = 1 and 8 on the 7B's tp = 2 products (q/k/v
+    4096 × 2048, wo 2048 × 4096, gate/up 4096 × 5632, down 5632 × 4096,
+    the lm_head's 4096 × 16000 vocabulary slice), K2 at M = 1975 on them;
+    K1 at M = 1 and K2 at M = 1975 on Llama-2-70B's tp = 8 products (wq
+    8192 × 1024, wk/wv 8192 × 128, wo 1024 × 8192, gate/up 8192 × 3584,
+    down 3584 × 8192, the lm_head's 8192 × 4000): what each rank of
+    BASELINE.md target 5 runs on its own card; K3 and K4 at 16 heads, bf16
+    and int8 KV. Recorded under ``tp_<kernel>`` and among that kernel's
+    cases."""
+    k1 = lambda x, qt, odt: Q.qmm_native(x, qt.planes[0], qt.scales, None,
+                                         qt.group_size, 4, odt)
+    p1 = lambda x, qt, odt: Q.qmm_native_plain(x, qt.planes[0], qt.scales,
+                                               None, qt.group_size, 4, odt)
+    cases = {"K1": {}, "K2": {}}
+    for what, proj, head, ms in (
+            ("llama-2-7b tp=2", TP2_PROJ, TP2_LM_HEAD, (1, 8)),
+            ("llama-2-70b tp=8", TP8_70B_PROJ, TP8_70B_LM_HEAD, (1,))):
+        for M in ms:
+            label = f"{what} rank, q4_j " + \
+                ("decode step" if M == 1 else "batch-8 step")
+            cases["K1"][label] = _case(
+                gen, label, PRESETS["q4_j"], M, proj + head, k1, p1,
+                "qmm4_npack", BF16_FLOPS, vocab=head[0][1])
+            torch.cuda.empty_cache()
+        agg, _ = _k2_shapes(gen, proj)
+        n = sum(count for _, _, count in proj)
+        label = f"{what} rank, 1975-token prefill"
+        cases["K2"][label] = dict(agg, bound_by="operations",
+                                  per=f"{label} ({n} launches)")
+        torch.cuda.empty_cache()
+    _tp_attention(gen, cases)
+    for key, cs in cases.items():
+        results[f"tp_{key}"] = dict(next(iter(cs.values())), cases=cs)
+        if key in results:
+            results[key]["cases"].update(cs)
+    return {f"10d {k} {label}": {m: c[m] for m in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "err")}
+        for k, cs in cases.items() for label, c in cs.items()}
+
+
+def _par_rows(model, cache, prompt, feed, counts=None, what=""):
+    """The prefill's last logits row and one decode step's per id of
+    ``feed`` (f32, on the CPU), into ``cache``; with ``counts``, the
+    launches of the prefill and of the first step, each counted from 0
+    (``counts[what + " prefill"]``, ``counts[what + " step"]``)."""
+    zero = torch.zeros(1, dtype=torch.long, device=DEV)
+    T = prompt.shape[1]
+    if counts is not None:
+        _cuda.reset_launches()
+    rows = [prefill_step(model, prompt, zero, cache)[0, -1].float().cpu()]
+    if counts is not None:
+        counts[what + " prefill"] = _cuda.launch_counts()
+        _cuda.reset_launches()
+    for i, t in enumerate(feed):
+        logits = model_step(model, torch.tensor([[t]], device=DEV),
+                            torch.tensor([T + i], device=DEV), cache)
+        rows.append(logits[0, -1].float().cpu())
+        if counts is not None and i == 0:
+            counts[what + " step"] = _cuda.launch_counts()
+    return rows
+
+
+def _par_feed(rows, n):
+    """The argmax of each of the first ``n`` rows: the ids a greedy run of
+    the model that gave ``rows`` would feed."""
+    return [int(r.argmax()) for r in rows[:n]]
+
+
+class _TwoRanks(torch.nn.Module):
+    """A projection on one device as a tp = 2 pair computes it: the
+    weight's two shards (``parallel.sharding.shard_params``, split as
+    ``name`` is in the split table), each multiplied by the kernel a rank
+    runs at the rank's shape; a row split's two partials in f32, summed
+    and rounded once, a column split's halves side by side."""
+
+    def __init__(self, name, qt):
+        from neural_tpu_torch.parallel import Mesh, shard_params
+        super().__init__()
+        self.row = name in ("wo", "w_down")
+        one = {"layers": [{name: qt}]}
+        self.halves = [shard_params(one, CFG, Mesh(
+            {"dp": 1, "tp": 2}, r, {}, None, qt.planes[0].device))[
+            "layers"][0][name] for r in range(2)]
+
+    def forward(self, x, out_dtype=None):
+        out_dtype = out_dtype or x.dtype
+        if not self.row:
+            return torch.cat([TRANSFORMER.linear(x, h, out_dtype)
+                              for h in self.halves], dim=-1)
+        K = x.shape[-1] // 2
+        y = [TRANSFORMER.linear(x[..., r * K:(r + 1) * K].contiguous(), h,
+                                torch.float32)
+             for r, h in enumerate(self.halves)]
+        return (y[0] + y[1]).to(out_dtype)
+
+
+def _attend_two_ranks(attend):
+    """``attend`` over each half of the heads apart, as each rank of a
+    tp = 2 pair runs it on its own heads, the outputs side by side."""
+    def run(q, k, v, positions, cfg, k_scale=None, v_scale=None, **kw):
+        hq, hk = q.shape[2] // 2, k.shape[1] // 2
+        half = lambda t, r, h: None if t is None else \
+            t[:, r * h:(r + 1) * h].contiguous()
+        return torch.cat([attend(
+            q[:, :, r * hq:(r + 1) * hq].contiguous(), half(k, r, hk),
+            half(v, r, hk), positions, cfg, half(k_scale, r, hk),
+            half(v_scale, r, hk), **kw) for r in range(2)], dim=-1)
+    return run
+
+
+@contextlib.contextmanager
+def _as_two_ranks(model):
+    """The unsharded ``model`` computing what a tp = 2 pair computes, on
+    one device: every projection and the lm_head a :class:`_TwoRanks`, the
+    attention over each half of the heads apart (unfused: the fused
+    kernels read the whole weight)."""
+    saved = [(blk, n, getattr(blk, n)) for blk in model.layers
+             for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+    saved.append((model, "lm_head", model.lm_head))
+    attend = TRANSFORMER.attend
+    for mod, n, lin in saved:
+        setattr(mod, n, _TwoRanks(n if mod is not model else "wq", lin.qt))
+    TRANSFORMER.attend = _attend_two_ranks(attend)
+    try:
+        with fusion(UNFUSED):
+            yield model
+    finally:
+        TRANSFORMER.attend = attend
+        for mod, n, lin in saved:
+            setattr(mod, n, lin)
+
+
+def _apart(a, b):
+    """max|a - b| over max|b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _par_7b_refs(whole, m, ids, prompt, got, tp_rows, kv, kvdt):
+    """10a's references on rank 0, one device: the two ranks' rows (the
+    prefill's last and one a step, fed the TP ids) held bit for bit to the
+    unsharded model computing each product and attention as the pair does
+    (:func:`_as_two_ranks`), and within ``PAR_TOL`` of it; how far both
+    move from the plain single device (a random 7B magnifies any
+    reordered f32 sum with depth); the greedy ids against the single
+    device's ``Model.generate`` where the margins prove them."""
+    want = m.generate(ids, max_new_tokens=PAR_NEW, repetition_penalty=1.0,
+                      kv_dtype=kv)[0][T_PREFILL:]
+    cache = lambda: init_cache(CFG, 1, S_CACHE, kvdt, device=DEV)
+    plain = _par_rows(whole, cache(), prompt.to(DEV), got[:-1])
+    with _as_two_ranks(whole):
+        pair = _par_rows(whole, cache(), prompt.to(DEV), got[:-1])
+    log(f"10a tp=2 against one device computing the pair's products, {kv} "
+        "KV, the prefill's last row and a step per TP id:")
+    worst, provable, _ = _compare_rows(tp_rows, pair, PAR_TOL, f"10a {kv}")
+    apart = [i for i, (a, b) in enumerate(zip(tp_rows, pair))
+             if not torch.equal(a, b)]
+    if apart:
+        raise AssertionError(f"10a {kv} KV: the two ranks' rows {apart} "
+                             "differ from one device's computing the same "
+                             "products")
+    proven = _proven_equal(got, want, plain, tp_rows, None,
+                           f"10a Model.generate {kv} KV")
+    return {f"single_{kv}": want, f"worst_{kv}": worst,
+            f"provable_{kv}": provable, f"proven_{kv}": proven,
+            f"tp_from_plain_{kv}": max(_apart(a, b) for a, b in zip(
+                tp_rows, plain)),
+            f"pair_from_plain_{kv}": max(_apart(a, b) for a, b in zip(
+                pair, plain))}
+
+
+def _par_depths(rank, mesh, whole, prompt):
+    """10a's witness against the plain single device that does not lean on
+    the pair's own split (``_as_two_ranks``): the 7B's first n layers
+    (``PAR_DEPTHS``) at full width, tp = 2 against one device on the same
+    card, the prefill's last row and ``PAR_SWEEP_FEED`` steps teacher-forced
+    on fixed ids. Rank 0 records the gap max|tp - one|/max|one| a depth and
+    holds the shallowest to ``PAR_TOL``, its argmax equal where the margins
+    prove it."""
+    from neural_tpu_torch.models.transformer import Transformer
+    from neural_tpu_torch.parallel import shard_model
+    from neural_tpu_torch.parallel.sharding import init_cache as pinit
+    pd = whole.param_dict()
+    feed = torch.randint(3, V, (PAR_SWEEP_FEED,),
+                         generator=torch.Generator().manual_seed(13)).tolist()
+    out = {}
+    for n in PAR_DEPTHS:
+        cfg = dataclasses.replace(CFG, n_layers=n)
+        cut = dict(pd, layers=pd["layers"][:n])
+        sm = shard_model(cut, cfg, mesh)
+        tp_rows = _par_rows(sm, pinit(cfg, mesh, 1, S_CACHE), prompt, feed)
+        out[f"rows_{n}"] = torch.stack(tp_rows)
+        if rank == 0:
+            one = _par_rows(Transformer(cfg, cut), init_cache(
+                cfg, 1, S_CACHE, device=DEV), prompt, feed)
+            out[f"gap_{n}"] = max(_apart(a, b) for a, b in zip(tp_rows, one))
+            if n == PAR_DEPTHS[0]:
+                log(f"10a depth sweep, the 7B's first {n} layers tp=2 "
+                    "against the plain single device, the prefill's last "
+                    f"row and {PAR_SWEEP_FEED} steps:")
+                out["worst"], out["provable"], _ = _compare_rows(
+                    tp_rows, one, PAR_TOL, f"10a {n} layers")
+        del sm
+        torch.cuda.empty_cache()
+    return out
+
+
+def _par_7b(rank, mesh, counts):
+    """10a on one rank: Llama-2-7B q4_j at full width and depth, tp = 2."""
+    from neural_tpu_torch.parallel import agree, checksum, shard_model
+    from neural_tpu_torch.parallel.sharding import init_cache as pinit
+    out = {}
+    whole = init_random(CFG, seed=0, quant="q4_j", device=DEV)
+    out["checksum"] = checksum(whole.param_dict())
+    # both ranks hold the same full weights before either keeps its shard
+    agree(out["checksum"], "the 7B's weights")
+    m = Model().init_params(whole, CFG)
+    sm = shard_model(whole, CFG, mesh)
+    gen = torch.Generator().manual_seed(10)
+    prompt = torch.randint(3, V, (1, T_PREFILL), generator=gen)
+    ids = prompt[0].tolist()
+    for kv, kvdt in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        _cuda.reset_launches()
+        t = time.time()
+        got = m.generate(ids, max_new_tokens=PAR_NEW, repetition_penalty=1.0,
+                         kv_dtype=kv, mesh=mesh)[0][T_PREFILL:]
+        torch.cuda.synchronize()
+        counts[f"10a tp=2 Model.generate {kv} KV"] = _cuda.launch_counts()
+        out[f"generate_{kv}_s"] = time.time() - t
+        out[f"ids_{kv}"] = got
+        cache = pinit(CFG, mesh, 1, S_CACHE, kvdt)
+        # teacher-forced on the TP ids, so the rows of both runs read the
+        # same context up to the first parting
+        tp_rows = _par_rows(sm, cache, prompt.to(DEV), got[:-1],
+                            counts if kv == "bf16" else None, "10a tp=2")
+        out[f"tp_rows_{kv}"] = torch.stack(tp_rows)
+        if rank == 0:
+            out.update(_par_7b_refs(whole, m, ids, prompt, got, tp_rows, kv,
+                                    kvdt))
+    out["sweep"] = _par_depths(rank, mesh, whole, prompt.to(DEV))
+    # the eager TP decode step's time on the host clock (not a measure of
+    # tensor parallelism across cards: the two ranks share the card)
+    cache = pinit(CFG, mesh, 1, S_CACHE)
+    tok, fill = torch.tensor([[17]], device=DEV), S_CACHE // 16
+    model_step(sm, tok, torch.tensor([fill], device=DEV), cache)
+    torch.cuda.synchronize()
+    t = time.time()
+    for i in range(8):
+        model_step(sm, tok, torch.tensor([fill + 1 + i], device=DEV), cache)
+    torch.cuda.synchronize()
+    out["step_ms_shared_card"] = (time.time() - t) / 8 * 1e3
+    out["shapes"] = {n: tuple(getattr(sm.layers[0], n).qt.planes[0].shape)
+                     for n in ("wq", "wk", "wo", "w_up", "w_down")}
+    out["lm_head_shape"] = tuple(sm.lm_head.qt.planes[0].shape)
+    del m, whole, sm, cache
+    return out
+
+
+def _par_70b(rank, mesh, counts):
+    """10b on one rank: Llama-2-70B's widths, two layers, q4_j, tp = 2."""
+    from neural_tpu_torch.parallel import agree, checksum, shard_model
+    from neural_tpu_torch.parallel.sharding import init_cache as pinit
+    cfg = LLAMA70_CFG
+    out = {}
+    whole = init_random(cfg, seed=0, quant="q4_j", device=DEV)
+    ck = checksum(whole.param_dict())
+    agree(ck, "the 70B-width copy's weights")
+    sm = shard_model(whole, cfg, mesh)
+    out["shapes"] = {n: tuple(getattr(sm.layers[0], n).qt.planes[0].shape)
+                     for n in ("wq", "wk", "wv", "wo", "w_up", "w_down")}
+    out["scales"] = {n: tuple(getattr(sm.layers[0], n).qt.scales.shape)
+                     for n in ("wk", "w_down")}
+    out["lm_head_shape"] = tuple(sm.lm_head.qt.planes[0].shape)
+    gen = torch.Generator().manual_seed(11)
+    prompt = torch.randint(3, V, (1, PAR_PROMPT_70B), generator=gen).to(DEV)
+    feed = _par_feed(_par_rows(sm, pinit(cfg, mesh, 1, 1024), prompt, []),
+                     1)
+    tp_rows = _par_rows(sm, pinit(cfg, mesh, 1, 1024), prompt, feed, counts,
+                        "10b 70b-width tp=2")
+    out["tp_rows"] = torch.stack(tp_rows)
+    if rank == 0:
+        single = _par_rows(whole, init_cache(cfg, 1, 1024, device=DEV),
+                           prompt, feed)
+        log("10b 70B-width copy tp=2 against one device, the prefill's "
+            "last row and one step:")
+        out["worst"], out["provable"], out["argmax_equal"] = _compare_rows(
+            tp_rows, single, PAR_TOL, "10b")
+    del whole, sm
+    return out
+
+
+def _par_mixtral(rank, meshes, counts):
+    """10c on one rank: the two-layer full-width Mixtral-8x7B copy, q4_j
+    experts, at tp = 2 (the mixture's deferred sum) and at ep = 2 with
+    capacity factor E (nothing dropped)."""
+    from neural_tpu_torch.parallel import agree, checksum, shard_model
+    from neural_tpu_torch.parallel.sharding import init_cache as pinit
+    cfg = dataclasses.replace(MIXTRAL_CFG, n_layers=MOE_LAYERS)
+    out = {}
+    whole = init_random(cfg, seed=0, quant="q4_j", device=DEV)
+    agree(checksum(whole.param_dict()), "the Mixtral copy's weights")
+    gen = torch.Generator().manual_seed(12)
+    prompt = torch.randint(3, V, (1, T_PREFILL), generator=gen).to(DEV)
+    for what, mesh in meshes.items():
+        sm = shard_model(whole, cfg, mesh,
+                         capacity_factor=float(cfg.n_experts))
+        feed = _par_feed(_par_rows(sm, pinit(cfg, mesh, 1, S_CACHE), prompt,
+                                   []), 1)
+        tp_rows = _par_rows(sm, pinit(cfg, mesh, 1, S_CACHE), prompt, feed,
+                            counts, f"10c mixtral {what}")
+        out[f"rows_{what}"] = torch.stack(tp_rows)
+        if rank == 0:
+            single = _par_rows(whole, init_cache(cfg, 1, S_CACHE,
+                                                 device=DEV), prompt, feed)
+            log(f"10c Mixtral copy {what} against one device, the "
+                "1975-token prefill's last row and one step:")
+            out[f"worst_{what}"], out[f"provable_{what}"], _ = \
+                _compare_rows(tp_rows, single, PAR_TOL, f"10c {what}")
+        del sm
+        torch.cuda.empty_cache()
+    del whole
+    return out
+
+
+def _par_rank(rank, port, q):
+    """One rank of phase 10: the process group over 127.0.0.1 (gloo), both
+    ranks on cuda:0, the kernels the parent built, then 10a-10c; the
+    results (and each path's launch counts) back to the parent through
+    ``q``. A failure is put on ``q`` and re-raised."""
+    import traceback
+    try:
+        import torch.distributed as dist
+        from neural_tpu_torch.parallel import init_distributed, make_mesh
+        torch.cuda.set_device(0)
+        os.environ.setdefault("NTPU_FUSED_DECODE", "1")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for k in _cuda.KERNELS:
+            k.load()
+        init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                         timeout=PAR_TIMEOUT)
+        tp2 = make_mesh(dp=1, tp=2, device=DEV)
+        ep2 = make_mesh(dp=1, ep=2, device=DEV)
+        counts, out, secs = {}, {}, {}
+        for key, fn, arg in (("10a", _par_7b, tp2), ("10b", _par_70b, tp2),
+                             ("10c", _par_mixtral,
+                              {"tp=2": tp2, "ep=2": ep2})):
+            t = time.time()
+            out[key] = fn(rank, arg, counts)
+            secs[key] = time.time() - t
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        # numpy, pickled by value: a tensor on the queue is shared through
+        # this process, which may have exited when the parent reads it
+        q.put((rank, _to_numpy(dict(out, counts=counts, seconds=secs)),
+               None))
+    except BaseException:
+        q.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def _to_numpy(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree
+
+
+def _run_ranks():
+    """Spawn the two ranks and gather their results; a rank that fails or
+    outlives ``PAR_DEADLINE`` fails the phase (the ranks are killed)."""
+    import queue as _queue
+    import socket
+    import torch.multiprocessing as mp
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_par_rank, args=(r, port, q), daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    outs, errs, end = {}, [], time.time() + PAR_DEADLINE
+    try:
+        while len(outs) + len(errs) < 2 and time.time() < end:
+            try:
+                r, res, err = q.get(timeout=5)
+            except _queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+                continue
+            if err:
+                errs.append(f"rank {r}:\n{err}")
+            else:
+                outs[r] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errs or len(outs) < 2:
+        raise AssertionError("phase 10 ranks: " + ("\n".join(errs) or (
+            f"only ranks {sorted(outs)} reported within {PAR_DEADLINE} s; "
+            f"exit codes {[p.exitcode for p in procs]}")))
+    return outs
+
+
+# what each path must launch: (path suffix, required entry points)
+PAR_REQUIRED = (
+    ("10a tp=2 Model.generate bf16 KV",
+     ("qmm4_npack", "qmm_a8", "flash_prefill", "flash_decode")),
+    ("10a tp=2 Model.generate int8 KV",
+     ("qmm4_npack", "qmm_a8", "flash_prefill_i8", "flash_decode_i8")),
+    ("10a tp=2 prefill", ("qmm_a8", "qmm4_npack", "flash_prefill")),
+    ("10a tp=2 step", ("qmm4_npack", "flash_decode")),
+    ("10b 70b-width tp=2 prefill", ("qmm_a8", "qmm4_npack", "flash_prefill")),
+    ("10c mixtral tp=2 prefill", ("qmm_a8", "flash_prefill")),
+    ("10c mixtral tp=2 step", ("qmm4_npack", "flash_decode")),
+    ("10c mixtral ep=2 prefill", ("qmm_a8", "flash_prefill")),
+    ("10c mixtral ep=2 step", ("qmm4_npack", "flash_decode")))
+
+
+def _par_check_counts(rank, counts):
+    """Every path's required kernels launched; a 7B TP step's and
+    prefill's launches and collectives as the graph makes them."""
+    for path, required in PAR_REQUIRED:
+        c = counts[path]
+        missing = [k for k in required if not c.get(k)]
+        name = f"{path} rank {rank}"
+        LAUNCHES[name] = c
+        log(f"path {name}: launches "
+            f"{ {k: n for k, n in c.items() if n} }")
+        if missing:
+            raise AssertionError(f"kernels not launched on path {name}: "
+                                 f"{missing}")
+    LAUNCHES[f"10b 70b-width tp=2 step rank {rank}"] = \
+        counts["10b 70b-width tp=2 step"]
+    step, pre = counts["10a tp=2 step"], counts["10a tp=2 prefill"]
+    want_step = {"qmm4_npack": 7 * L + 1, "flash_decode": L,
+                 "tp_all_reduce": 2 * L, "tp_all_gather": 1,
+                 "qmm4_npack_fused": 0}
+    want_pre = {"qmm_a8": 7 * L, "qmm4_npack": 1, "flash_prefill": L,
+                "tp_all_reduce": 2 * L, "tp_all_gather": 1}
+    for got, want, what in ((step, want_step, "step"),
+                            (pre, want_pre, "prefill")):
+        if any(got.get(k, 0) != n for k, n in want.items()):
+            raise AssertionError(f"10a tp=2 {what} rank {rank}: launches "
+                                 f"{ {k: got.get(k, 0) for k in want} }, "
+                                 f"expected {want}")
+
+
+def phase_parallel(results):
+    """Phase 10: 10d the kernels at one rank's shapes in this process, then
+    two ranks spawned on the one card (gloo over 127.0.0.1) run 10a-10c."""
+    t = time.time()
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    res = {"10d": check_parallel_kernels(gen, results)}
+    log(f"phase 10d: {time.time() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.time()
+    outs = _run_ranks()
+    log(f"phase 10a-10c (both ranks): {time.time() - t:.1f} s; per rank "
+        f"{ {r: o['seconds'] for r, o in outs.items()} }")
+    for r, o in outs.items():
+        _par_check_counts(r, o["counts"])
+    r0, r1 = outs[0], outs[1]
+    # tp: every rank holds the same summed and gathered logits, bit for
+    # bit; ep: each rank's tokens come back from the experts' owners, which
+    # ran them among the other rank's rows (the same rows: the tokens are
+    # replicated), so the two agree within the tolerance
+    for key, fields in (("10a", ("checksum", "ids_bf16", "ids_int8",
+                                 "tp_rows_bf16", "tp_rows_int8")),
+                        ("10b", ("tp_rows",)), ("10c", ("rows_tp=2",))):
+        for f in fields:
+            x, y = r0[key][f], r1[key][f]
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                raise AssertionError(f"{key}: the ranks differ in {f}")
+    for n in PAR_DEPTHS:
+        if not np.array_equal(r0["10a"]["sweep"][f"rows_{n}"],
+                              r1["10a"]["sweep"][f"rows_{n}"]):
+            raise AssertionError(f"10a sweep: the ranks differ at {n} layers")
+    x, y = r0["10c"]["rows_ep=2"], r1["10c"]["rows_ep=2"]
+    ep_apart = float(np.abs(x - y).max() / np.abs(x).max())
+    if not ep_apart <= PAR_TOL:
+        raise AssertionError(f"10c ep=2: the ranks' logits part by "
+                             f"{ep_apart}·max|logit|")
+    a, b, c = r0["10a"], r0["10b"], r0["10c"]
+    # native-pack planes [K/2, N] of one rank's slices, and its scales
+    # [K/128, N]: q/k/v and gate/up by columns, wo and w_down by rows
+    for what, out, cfg in (("10a", a, CFG), ("10b", b, LLAMA70_CFG)):
+        hid, ff = cfg.hidden_size, ffn_padded_size(cfg.intermediate_size)
+        dq, dkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        want = {"wq": (hid // 2, dq // 2), "wk": (hid // 2, dkv // 2),
+                "wv": (hid // 2, dkv // 2), "wo": (dq // 4, hid),
+                "w_up": (hid // 2, ff // 2), "w_down": (ff // 4, hid)}
+        want = {n: want[n] for n in out["shapes"]}
+        lm = (hid // 2, cfg.vocab_size // 2)
+        log(f"{what} a rank's planes {out['shapes']}, lm_head "
+            f"{out['lm_head_shape']}")
+        if out["shapes"] != want or tuple(out["lm_head_shape"]) != lm:
+            raise AssertionError(f"{what} shard shapes {out['shapes']}, "
+                                 f"lm_head {out['lm_head_shape']}: expected "
+                                 f"{want}, {lm}")
+    hid, ff = LLAMA70_CFG.hidden_size, LLAMA70_CFG.intermediate_size
+    dkv = LLAMA70_CFG.n_kv_heads * LLAMA70_CFG.head_dim
+    if b["scales"] != {"wk": (hid // 128, dkv // 2),
+                       "w_down": (ff // 2 // 128, hid)}:
+        raise AssertionError(f"10b shard scales {b['scales']}")
+    for kv in ("bf16", "int8"):
+        log(f"10a Model.generate(mesh=tp2) {kv} KV: {a[f'ids_{kv}']}; one "
+            f"device {a[f'single_{kv}']}; ids proven equal at "
+            f"{a[f'proven_{kv}']} of {PAR_NEW} steps by the margins; "
+            f"every row bit-equal to one device computing the pair's "
+            f"products; from the plain single device the rows move up to "
+            f"{a[f'tp_from_plain_{kv}']:.4g}·max|logit|, the one-device "
+            f"pair's {a[f'pair_from_plain_{kv}']:.4g}; "
+            f"{a[f'generate_{kv}_s']:.2f} s")
+    sw = a["sweep"]
+    gaps = {n: sw[f"gap_{n}"] for n in PAR_DEPTHS}
+    gaps[L] = a["tp_from_plain_bf16"]
+    log(f"10a tp=2 against the plain single device by depth (max|tp - one|"
+        f" over max|one|; {L} layers: the full model's rows above): "
+        f"{ {n: round(g, 5) for n, g in gaps.items()} }; at {PAR_DEPTHS[0]} "
+        f"layers within {PAR_TOL}, the argmax proven at {sw['provable']} of "
+        f"{PAR_SWEEP_FEED + 1} rows")
+    log(f"10a eager tp=2 decode step, host clock: "
+        f"{a['step_ms_shared_card']:.2f} ms ({SHARED_CARD})")
+    log(f"10b 70B-width copy tp=2: logits within {b['worst']:.3g}·max|logit|"
+        f", argmax equal at {b['argmax_equal']}, proven by the margins at "
+        f"{b['provable']} of 2 rows")
+    routes = {f"{w} {p}": {k: n for k, n in outs[0]["counts"][
+        f"10c mixtral {w} {p}"].items() if n and k in (
+        "qmm4_npack", "qmm_a8", "qmm_general", "qmm_plain",
+        "ep_all_to_all", "tp_all_reduce", "moe_mixture")}
+        for w in ("tp=2", "ep=2") for p in ("prefill", "step")}
+    log(f"10c Mixtral copy: tp=2 within {c['worst_tp=2']:.3g}, ep=2 within "
+        f"{c['worst_ep=2']:.3g}·max|logit|; the capacity buffers' routes "
+        f"(ep=2, capacity factor 8: 16 rows a local expert at decode, 7904 "
+        f"at the 1975-token prefill): {routes}")
+    res.update({
+        "10a_proven_bf16": a["proven_bf16"], "10a_proven_int8":
+        a["proven_int8"], "10a_worst_bf16": a["worst_bf16"],
+        "10a_worst_int8": a["worst_int8"],
+        "10a_tp_from_plain_bf16": a["tp_from_plain_bf16"],
+        "10a_pair_from_plain_bf16": a["pair_from_plain_bf16"],
+        "10a_gap_by_depth": gaps, "10a_sweep_proven": sw["provable"],
+        "10a_step_ms_shared_card": a["step_ms_shared_card"],
+        "10b_worst": b["worst"], "10c_worst_tp2": c["worst_tp=2"],
+        "10c_worst_ep2": c["worst_ep=2"], "10c_ep_ranks_apart": ep_apart,
+        "10_rank_seconds": {r: o["seconds"] for r, o in outs.items()}})
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_META = {
@@ -7107,8 +7783,9 @@ def main():
         return convert_child(sys.argv[2])
     only = {"--phase7": ("7 model files", phase_model_files),
             "--phase8": ("8 zoo", phase_zoo),
-            "--phase9": ("9 moe", phase_moe)}.get(sys.argv[1] if
-                                                  sys.argv[1:] else None)
+            "--phase9": ("9 moe", phase_moe),
+            "--phase10": ("10 parallel", phase_parallel)}.get(
+                sys.argv[1] if sys.argv[1:] else None)
     # the slice's main path: every phase runs the fused decode path, which
     # the library leaves off by default (``models.transformer.fuse_mode``);
     # the A/B and the unfused references set the switches themselves
@@ -7192,6 +7869,7 @@ def main():
     e2e.update(phase("7 model files", phase_model_files, results))
     e2e.update(phase("8 zoo", phase_zoo, results))
     e2e.update(phase("9 moe", phase_moe, results))
+    e2e.update(phase("10 parallel", phase_parallel, results))
 
     kernels = []
     for kid, (kname, src, repl) in KERNEL_META.items():

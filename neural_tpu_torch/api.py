@@ -254,13 +254,16 @@ class Model:
           one's, sampled or not, with no evaluation at all. After the
           prefill the state is saved back.
 
-        ``mesh`` (parallelism, ROADMAP A12) raises."""
+        - ``mesh`` (``parallel.make_mesh`` / ``auto_mesh``; every rank of
+          the process group calls ``generate`` with the same prompts):
+          tensor/data-parallel generation, one sharded padded prefill and
+          one sharded decode loop (``parallel.tp.tp_generate``). The rank's
+          shards are made once and kept on the Model for repeat calls.
+          Beams, ``streamer``, ``stopping_criteria``, ``interactive``,
+          ``session_file`` and ``streaming`` are refused under a mesh, as in
+          the JAX package."""
         if self.params is None:
             raise RuntimeError("call init_from_hf_model or init_params first")
-        if mesh is not None:
-            raise NotImplementedError(
-                "generate(mesh=...) is tensor/data parallelism, a later "
-                "slice (ROADMAP A12)")
         if kv_dtype not in ("bf16", "int8", torch.bfloat16, torch.int8):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
                              f"{kv_dtype!r}")
@@ -273,6 +276,24 @@ class Model:
             bos = self.cfg.bos_token_id
             rows = [r if (r and r[0] == bos) else [bos] + list(r)
                     for r in rows]
+        if mesh is not None:
+            if num_beams != 1:
+                raise ValueError("beam search not supported under mesh")
+            unsupported = {
+                "streamer": streamer, "stopping_criteria": stopping_criteria,
+                "interactive": interactive or None,
+                "session_file": session_file,
+                "streaming": streaming or None,
+            }
+            bad = [k for k, v in unsupported.items() if v]
+            if bad:
+                raise ValueError(
+                    f"generate(mesh=...) does not support {bad}; run these "
+                    "on the single-device path (drop mesh=)")
+            return self._generate_mesh(
+                mesh, rows, do_sample, temperature, top_k, top_p,
+                repetition_penalty, max_new_tokens, max_len, seed,
+                stop_at_eos, kvdt, ignore_prompt)
         hooked = (streamer is not None or stopping_criteria is not None
                   or interactive or session_file is not None)
         if session_file is not None and (len(rows) != 1 or num_beams != 1):
@@ -328,6 +349,30 @@ class Model:
                                max_new_tokens, max_len, seed, stop_at_eos,
                                kv_dtype=kvdt)
             outs.append(out[len(ids):] if ignore_prompt else out)
+        return outs
+
+    def _generate_mesh(self, mesh, rows, do_sample, temperature, top_k,
+                       top_p, repetition_penalty, max_new_tokens, max_len,
+                       seed, stop_at_eos, kv_dtype, ignore_prompt):
+        """``generate(mesh=...)``: ``tp_generate`` over this rank's shards,
+        made on the first call with this mesh and these params and kept."""
+        from .parallel.sharding import shard_model
+        from .parallel.tp import tp_generate
+        sp = SamplingParams(greedy=not do_sample, temperature=temperature,
+                            top_k=top_k, top_p=top_p,
+                            repeat_penalty=repetition_penalty)
+        # the mesh and params themselves are kept with the shards (an id
+        # alone could be reused by new weights once the old are freed)
+        held = getattr(self, "_mesh_shards", None)
+        if held is None or held[0] is not mesh or held[1] is not self.params:
+            held = self._mesh_shards = None   # the old shards freed first
+            held = self._mesh_shards = (mesh, self.params, shard_model(
+                self.params, self.cfg, mesh))
+        outs = tp_generate(held[2], self.cfg, mesh, rows, sp,
+                           max_new_tokens, max_len, seed, stop_at_eos,
+                           kv_dtype=kv_dtype, sharded=True)
+        if ignore_prompt:
+            outs = [o[len(r):] for o, r in zip(outs, rows)]
         return outs
 
     def _generate_hooked(self, ids, sp, max_new_tokens, max_len, seed,

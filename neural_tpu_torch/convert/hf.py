@@ -323,7 +323,7 @@ def _uniform(qcfg, qnames, n_layers: int) -> bool:
 
 
 def build_param_dict(sd: Dict[str, Any], cfg: ModelConfig, mod=llama,
-                     quant: Union[str, QuantConfig, None] = "q4_j",
+                     quant: Union[str, QuantConfig, None] = None,
                      dtype: torch.dtype = torch.bfloat16,
                      device=None) -> Dict[str, Any]:
     """The param dict (``layers`` a list of per-layer dicts) of an HF-named
@@ -341,7 +341,7 @@ def build_param_dict(sd: Dict[str, Any], cfg: ModelConfig, mod=llama,
 
 
 def build_params(sd: Dict[str, Any], cfg: ModelConfig, mod=llama,
-                 quant: Union[str, QuantConfig, None] = "q4_j",
+                 quant: Union[str, QuantConfig, None] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  device=None) -> Transformer:
     """Assemble the decoder from an HF-named state dict
@@ -351,7 +351,7 @@ def build_params(sd: Dict[str, Any], cfg: ModelConfig, mod=llama,
         sd, cfg, mod, quant, dtype, device)))
 
 
-def from_hf_model(model, quant: Union[str, QuantConfig] = "q4_j",
+def from_hf_model(model, quant: Union[str, QuantConfig, None] = None,
                   dtype: torch.dtype = torch.bfloat16, device=None):
     """A transformers ``*ForCausalLM`` (only its ``config`` attributes and
     ``state_dict()`` are read) → (Transformer, ModelConfig)."""
@@ -364,7 +364,7 @@ def from_hf_model(model, quant: Union[str, QuantConfig] = "q4_j",
 
 @torch.inference_mode()
 def init_random(cfg: ModelConfig, seed: int = 0,
-                quant: Union[str, QuantConfig] = "q4_j",
+                quant: Union[str, QuantConfig, None] = None,
                 dtype: torch.dtype = torch.bfloat16,
                 device=None) -> Transformer:
     """Random weights for benchmarks and smoke runs without a checkpoint.

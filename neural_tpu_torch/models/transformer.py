@@ -125,13 +125,15 @@ def fuse_switches() -> Tuple[str, bool]:
     return fuse_mode(), fuse_glu()
 
 
-def can_fuse_block(x: torch.Tensor, cfg: ModelConfig, mode: str) -> bool:
+def can_fuse_block(x: torch.Tensor, cfg: ModelConfig, mode: str,
+                   tp: int = 1) -> bool:
     """The JAX package's ``_can_fuse_block``: the fused path is on (``mode``
-    not "0"), x lies on the card or the mode is "interpret", B·T <= 16, and
-    the block is the plain serial-residual RMS-norm shape (no parallel
-    residual, residual alpha 1, no post norms). The port has no tensor
-    parallelism, the rule's last exclusion."""
-    if mode == "0":
+    not "0"), x lies on the card or the mode is "interpret", B·T <= 16, the
+    block is the plain serial-residual RMS-norm shape (no parallel
+    residual, residual alpha 1, no post norms), and the model is not split
+    over ``tp`` > 1 ranks: a residual added inside a row-split kernel would
+    be summed tp times, as it must join after the sum."""
+    if mode == "0" or tp > 1:
         return False
     if not (x.device.type == "cuda" or mode == "interpret"):
         return False
@@ -268,19 +270,22 @@ class Experts(nn.Module):
         lin = getattr(self, name)
         return lin.weight[e] if lin.cfg is None else qtensor_at(lin.qt, e)
 
-    def mlp(self, e: int, x: torch.Tensor, cfg: ModelConfig, act):
+    def mlp(self, e: int, x: torch.Tensor, cfg: ModelConfig, act,
+            down_bias: bool = True):
         """Expert ``e``'s MLP on every row of x, the JAX ``_mlp`` with
         ``n_experts=0``: unfused products, ``act(g) · u``, then
-        ``w_down`` (plus the biases a family has, in the output's dtype)."""
-        def lin(name, h):
+        ``w_down`` (plus the biases a family has, in the output's dtype;
+        w_down's only with ``down_bias``, which an expert split over tp
+        leaves to after its sum)."""
+        def lin(name, h, bias=True):
             y = linear(h, self.weight(name, e))
             b = getattr(self, "b" + name[1:])
-            return y if b is None else y + b[e].to(y.dtype)
+            return y if b is None or not bias else y + b[e].to(y.dtype)
         if cfg.mlp_gated:
             h = act(lin("w_gate", x)) * lin("w_up", x)
         else:
             h = act(lin("w_up", x))
-        return lin("w_down", h)
+        return lin("w_down", h, down_bias)
 
 
 class Block(nn.Module):
@@ -293,9 +298,16 @@ class Block(nn.Module):
     ``router`` ([D, E], unquantized) and the ``experts`` dict of stacks
     (:class:`Experts`) in place of the MLP's projections."""
 
-    def __init__(self, cfg: ModelConfig, weights: Dict[str, object]):
+    def __init__(self, cfg: ModelConfig, weights: Dict[str, object],
+                 mesh=None, capacity_factor: float = 2.0):
         super().__init__()
         self.cfg = cfg
+        # a sharded block's mesh (``parallel.sharding.Mesh``): its weights
+        # are this rank's slices, and it sums over tp after wo, w_down and
+        # the experts' mixture, before their replicated biases
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.tp
+        self.capacity_factor = capacity_factor
         for name in LINEARS + FUSED:
             if name in weights:
                 setattr(self, name, QLinear(weights[name]))
@@ -356,8 +368,22 @@ class Block(nn.Module):
             return rms_norm(x, w, cfg.norm_eps, cfg.norm_offset)
         return layer_norm(x, w, getattr(self, name + "_b"), cfg.norm_eps)
 
-    def _linear(self, name, x):
-        y = getattr(self, name)(x)
+    def _psum(self, y):
+        """The sum over tp of a row-split product's partial ``y`` (the JAX
+        ``_psum``); y itself on one device."""
+        return y if self.tp == 1 else self.mesh.psum(y, "tp")
+
+    def _linear(self, name, x, psum=False):
+        """The projection ``name`` plus its bias; with ``psum`` (wo, w_down)
+        on a model split over tp, the rank's partial product comes out in
+        f32, is summed over tp in f32 and rounded to x's dtype once, as one
+        device's product rounds its whole sum once (the JAX package sums
+        the bf16 partials, rounding twice), and the bias, replicated, is
+        added once after the sum."""
+        if psum and self.tp > 1:
+            y = self._psum(getattr(self, name)(x, torch.float32)).to(x.dtype)
+        else:
+            y = getattr(self, name)(x)
         b = getattr(self, "b" + name[1:])
         return y if b is None else y + b.to(y.dtype)
 
@@ -479,10 +505,10 @@ class Block(nn.Module):
                          kv.v_scale, **opts)
         out = out.to(x.dtype)
         if res is None:
-            return self._linear("wo", out)
+            return self._linear("wo", out, psum=True)
         if "wo" in self.fusable:
             return self._fused("wo", out, res=res)
-        return res + self._linear("wo", out)
+        return res + self._linear("wo", out, psum=True)
 
     def _mlp(self, x, res=None, fuse_glu=False):
         """The MLP. With ``res`` (the JAX ``_mlp`` in decode-fusion mode), x
@@ -521,7 +547,7 @@ class Block(nn.Module):
             h = self.act(g) * u
         if fuse_ok:
             return self._fused("w_down", h, res=res)
-        down = self._linear("w_down", h)
+        down = self._linear("w_down", h, psum=True)
         return down if res is None else res + down
 
     def _moe(self, x):
@@ -533,15 +559,21 @@ class Block(nn.Module):
         the chosen experts) and summed over E in f32, then cast to x's
         dtype. The zero terms change no sum; this computes what JAX
         computes (a routed read of the chosen experts is a speed question
-        for later)."""
+        for later). Under tp the sum over tp is deferred until after the
+        mixture, in f32, as JAX defers its psum; a mesh with an ep axis
+        takes the expert-parallel dispatch (``parallel.ep.ep_moe``)."""
         cfg = self.cfg
+        if self.mesh is not None and self.mesh.ep > 1:
+            from ..parallel.ep import ep_moe
+            return ep_moe(x, self, cfg, self.mesh, self.capacity_factor)
         B, T, _ = x.shape
         logits = self.router(x).to(torch.float32)         # [B, T, E]
         top_w, top_idx = moe_route(logits, cfg.n_experts_active,
                                    cfg.moe_norm_topk)
         ex = self.experts
         if not ex.quantized and not ex.biased and B * T >= GROUPED_MIN_ROWS:
-            return moe_grouped(x, ex, top_w, top_idx, cfg, self.act)
+            return moe_grouped(x, ex, top_w, top_idx, cfg, self.act,
+                               psum=self._psum)
         _cuda.ROUTES.count("moe_mixture")
         mix = torch.zeros_like(logits).scatter_(-1, top_idx, top_w)
         out = None
@@ -549,11 +581,11 @@ class Block(nn.Module):
             y = ex.mlp(e, x, cfg, self.act).to(torch.float32) \
                 * mix[..., e:e + 1]
             out = y if out is None else out + y
-        return out.to(x.dtype)
+        return self._psum(out).to(x.dtype)
 
 
 def moe_grouped(x, ex: Experts, top_w, top_idx, cfg: ModelConfig, act,
-                static: Optional[bool] = None):
+                static: Optional[bool] = None, psum=None):
     """The grouped expert MLP, the JAX ``_moe_grouped``: the B·T·k
     (token, expert) assignments stably sorted by expert id form one row
     group per expert; each projection is one product a group with bf16
@@ -574,7 +606,10 @@ def moe_grouped(x, ex: Experts, top_w, top_idx, cfg: ModelConfig, act,
     Summation order: the JAX ``.at[tok].add`` sums each token's k
     contributions in f32, as ``index_add_`` does; on the card the latter is
     atomic, so for k > 2 the sums could differ by their order. For k = 2
-    (Mixtral, Grok) the order changes no sum (0 + a + b = 0 + b + a)."""
+    (Mixtral, Grok) the order changes no sum (0 + a + b = 0 + b + a).
+
+    ``psum``: a sharded block's sum over tp of the f32 result, before the
+    cast (the JAX ``_moe_grouped``'s)."""
     B, T, D = x.shape
     S, k, E = B * T, cfg.n_experts_active, cfg.n_experts
     dev = x.device
@@ -615,6 +650,8 @@ def moe_grouped(x, ex: Experts, top_w, top_idx, cfg: ModelConfig, act,
         d = d[slot]
     out = torch.zeros((S, D), dtype=torch.float32, device=dev)
     out.index_add_(0, tok, d * wts[:, None])
+    if psum is not None:
+        out = psum(out)
     return out.reshape(B, T, D).to(x.dtype)
 
 
@@ -622,9 +659,18 @@ class Transformer(nn.Module):
     """The decoder: ``embed``, (``pos_embed``), (``embed_norm_w``/``_b``),
     ``layers``, ``final_norm_w`` (``final_norm_b``), ``lm_head`` (absent
     when tied to the embedding; ``lm_head_b``), the RoPE table (absent
-    without RoPE) and the ALiBi slopes (with ALiBi)."""
+    without RoPE) and the ALiBi slopes (with ALiBi).
 
-    def __init__(self, cfg: ModelConfig, params: Dict[str, object]):
+    ``mesh`` (``parallel.sharding.Mesh``): ``params`` are this rank's shards
+    (``parallel.sharding.shard_params``), and the graph puts the JAX
+    ``forward(tp_axis=...)``'s collectives where it does: a sum over tp
+    after wo and after w_down (before their biases), the experts' mixture
+    summed once after it, the lm_head's vocabulary slices gathered in rank
+    order. With an ep axis the routed experts go through
+    ``parallel.ep.ep_moe`` with ``capacity_factor``."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, object],
+                 mesh=None, capacity_factor: float = 2.0):
         super().__init__()
         glm1_dim = cfg.rope_style == "glm1" and \
             cfg.rope_dim == cfg.head_dim // 2
@@ -641,7 +687,9 @@ class Transformer(nn.Module):
                 f"graph features {unsupported}: no family of the JAX "
                 "package the port runs has them")
         self.cfg = cfg
-        self.layers = nn.ModuleList(Block(cfg, lp)
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.tp
+        self.layers = nn.ModuleList(Block(cfg, lp, mesh, capacity_factor)
                                     for lp in params["layers"])
         self.embed_scale = bf16_scalar(cfg.embed_scale)
         for name in ("embed", "pos_embed", "embed_norm_w", "embed_norm_b",
@@ -665,6 +713,13 @@ class Transformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def capturable(self) -> bool:
+        """A decode step of this model can be captured in a CUDA graph: no
+        mesh, or one whose steps hold no collective (``Mesh.
+        collective_free_step``)."""
+        return self.mesh is None or self.mesh.collective_free_step
 
     def param_dict(self) -> Dict[str, object]:
         """The param dict this decoder holds (``layers`` a list of per-layer
@@ -717,14 +772,14 @@ class Transformer(nn.Module):
         else:
             rope = rope_cos_sin(positions, self.rope_inv_freqs)
         mode, glu = fuse_switches()
-        fuse = can_fuse_block(x, cfg, mode)
+        fuse = can_fuse_block(x, cfg, mode, self.tp)
         for l, blk in enumerate(self.layers):
             x = blk(x, cache.layer(l), positions, rope, self.alibi_slopes,
                     prompt_len, fuse, glu)
         if logit_positions is not None:
             rows = torch.arange(B, device=x.device)[:, None]
             x = x[rows, logit_positions.long()[:, None]]
-        if self.fuse_head and can_fuse_block(x, cfg, mode):
+        if self.fuse_head and can_fuse_block(x, cfg, mode, self.tp):
             # the final norm rides the lm_head kernel's prologue; after
             # logit_positions a prefill's one row qualifies too
             Bx, Tx, Dx = x.shape
@@ -743,6 +798,9 @@ class Transformer(nn.Module):
                 logits = self._tied_logits(x)
             else:
                 logits = self.lm_head(x, torch.float32)
+                if self.tp > 1:
+                    # the rank's vocabulary slice; the bias is whole
+                    logits = self.mesh.all_gather(logits, "tp", dim=-1)
                 if self.lm_head_b is not None:
                     logits = logits + self.lm_head_b.to(torch.float32)
         logits = logits.to(torch.float32)

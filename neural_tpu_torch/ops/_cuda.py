@@ -280,7 +280,11 @@ class Routes:
     its products through the kernels), ``moe_grouped`` (the expert-sorted
     row groups, one ``torch.mm`` a group, sizes read on the host) and
     ``moe_grouped_static`` (the same at a fixed capacity a group, the form
-    a CUDA graph captures)."""
+    a CUDA graph captures); and a sharded model's collectives, once a
+    call: ``tp_all_reduce`` (the sums after wo, w_down and the experts'
+    mixture), ``tp_all_gather`` (the lm_head's vocabulary slices),
+    ``dp_all_gather`` (each dp rank's ids) and ``ep_all_to_all`` (the
+    expert dispatch and combine)."""
 
     def __init__(self, names: Sequence[str]):
         self.launches = {n: 0 for n in names}
@@ -291,7 +295,8 @@ class Routes:
 
 ROUTES = Routes(("attend_xla", "attend_xla_paged", "act_order_gather",
                  "qmm_plain", "moe_mixture", "moe_grouped",
-                 "moe_grouped_static"))
+                 "moe_grouped_static", "tp_all_reduce", "tp_all_gather",
+                 "dp_all_gather", "ep_all_to_all"))
 COUNTED = KERNELS + (ROUTES,)
 
 

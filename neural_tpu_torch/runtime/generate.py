@@ -305,10 +305,11 @@ def decode_loop(model: Transformer, token: torch.Tensor, pos: torch.Tensor,
     [B] (and, for a prefix-LM model, its ``prompt_len`` [B]). The argmax
     feeds the next step on the device; the ids [n_steps, B] come back to
     the host once, at the end. On the card the step is one CUDA graph
-    replayed per token; on the CPU it runs eagerly."""
+    replayed per token; on the CPU, and for a sharded model whose step
+    holds collectives (``Transformer.capturable``), it runs eagerly."""
     token, pos = token.long(), pos.long()
     toks = []
-    if token.device.type != "cuda":
+    if token.device.type != "cuda" or not model.capturable:
         for _ in range(n_steps):
             nxt = _greedy_step(model, token, pos, cache, prompt_len)
             toks.append(nxt)
@@ -435,10 +436,11 @@ def sample_loop(model: Transformer, token: torch.Tensor, pos: torch.Tensor,
     (a ring updated on the device), ``history_valid`` marks its real
     entries (False at the pads of a short prompt). Mirostat's mu starts at
     2·tau. The ids [n_steps, B] come back to the host once, at the end. On
-    the card the step is one CUDA graph replayed per token."""
+    the card the step is one CUDA graph replayed per token (eager for a
+    model that is not ``capturable``, as :func:`decode_loop`)."""
     st = _SampledStep(model, cache, sampling, token, pos, history,
                       history_valid, prompt_len, generator)
-    if token.device.type == "cuda":
+    if token.device.type == "cuda" and model.capturable:
         st.capture()
     toks = [st.step() for _ in range(n_steps)]
     return torch.stack(toks).cpu()

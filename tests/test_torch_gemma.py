@@ -195,7 +195,7 @@ def test_init_random_gemma2():
     norms, the sliding flags, no lm_head; a prompt past the window runs to
     finite logits under the final softcap."""
     cfg = ModelConfig(**GEMMA2_KW)
-    model = init_random(cfg, seed=0, device="cpu")
+    model = init_random(cfg, seed=0, quant="q4_j", device="cpu")
     sd = model.state_dict()
     assert model.lm_head is None and "lm_head" not in "".join(sd)
     for name in ("attn_norm_w", "post_attn_norm_w", "ffn_norm_w",

@@ -34,7 +34,11 @@ print(",".join(hit))
     "neural_tpu_torch.serving.scheduler", "neural_tpu_torch.convert.gguf",
     "neural_tpu_torch.convert.gguf_models",
     "neural_tpu_torch.convert.checkpoint", "neural_tpu_torch.convert.stream",
-    "neural_tpu_torch.tokenizer", "neural_tpu_torch.native"])
+    "neural_tpu_torch.tokenizer", "neural_tpu_torch.native",
+    "neural_tpu_torch.parallel", "neural_tpu_torch.parallel.sharding",
+    "neural_tpu_torch.parallel.tp", "neural_tpu_torch.parallel.ep",
+    "neural_tpu_torch.parallel.multihost",
+    "neural_tpu_torch.parallel.run_tp"])
 def test_import_pulls_in_nothing_banned(module):
     out = subprocess.run(
         [sys.executable, "-c", PROBE.format(root=str(ROOT), module=module,

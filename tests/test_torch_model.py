@@ -188,12 +188,24 @@ def test_greedy_generate_and_decode_loop_agree(pair):
 def test_generate_rejects_unported_options(pair):
     """What Model.generate still refuses: a session file with more than one
     prompt or with beams (as the JAX package asserts; session files run
-    since the model-files slice) and a mesh (parallelism, A12). Sampling,
-    beams, batches of prompts and streaming run since the sampling slice."""
+    since the model-files slice), and under a mesh what the JAX package
+    refuses there, in its words: beams, and the hooks, session files and
+    streaming (``generate(mesh=...)`` runs since the parallelism slice).
+    Sampling, beams, batches of prompts and streaming run since the
+    sampling slice."""
+    from neural_tpu_torch.parallel import make_mesh
     _, _, pm, _ = pair
     with pytest.raises(ValueError, match="session_file"):
         pm.generate([[1, 2, 3], [4, 5]], session_file="session.bin")
     with pytest.raises(ValueError, match="session_file"):
         pm.generate([1, 2, 3], session_file="session.bin", num_beams=2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        pm.generate([1, 2, 3], mesh=object())
+    mesh = make_mesh(device="cpu")
+    with pytest.raises(ValueError, match="beam search not supported under "
+                       "mesh"):
+        pm.generate([1, 2, 3], mesh=mesh, num_beams=2)
+    for kw in (dict(streaming=True), dict(interactive=True),
+               dict(session_file="session.bin"),
+               dict(stopping_criteria=lambda ids, scores: False)):
+        with pytest.raises(ValueError, match=r"generate\(mesh=\.\.\.\) "
+                           "does not support"):
+            pm.generate([1, 2, 3], mesh=mesh, **kw)
