@@ -11,6 +11,8 @@
                                             # result line)
     python3 chip_smoke.py --phase10         # phases 1, 2 and 10 alone (no
                                             # result line)
+    python3 chip_smoke.py --phase11         # phases 1, 2 and 11 alone (no
+                                            # result line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -282,6 +284,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    ep=2 (capacity factor 8, nothing dropped) within 2e-2·max|logit| of one
    device, and the kernels the capacity buffers reach. 10d's cases join
    their kernels' cases in the kernels line.
+
+11. the cache-less forward, ring attention and the training steps (the
+   ranks of phase 10 go on to 11b-11d while 11a runs here; depth cut to 4
+   layers of Llama-2-7B and 1 of Mixtral-8x7B for the time limit): (11a)
+   in this process, the 4-layer Llama-2-7B q4_j's cache-less forward on a
+   1975-token prompt (K2 on every product, ``attend_nocache``, no K3)
+   within 2e-2·max|logit| of its cached prefill with the same f32
+   attention over the cache, and of the cached prefill through K3 (bf16
+   P) within 8e-2 (two routes), its argmax where the margins prove it; (11b) the
+   same model's ``sequence_sharded_forward`` at sp = 2 on 2048 tokens
+   (K2 at M = 1024 a rank, the ring's hops over gloo), held here against
+   one device's cache-less forward: ``ring_attend`` alone on random q/k/v
+   at the 7B's heads within 1e-5·max|out|; a one-layer copy, through K2
+   and with its weights dequantized to bf16 (no K2, so none of K2's int8
+   rounding of the activations), each within 2e-2·max|logit| and within
+   2× one device's own gap when its attention's f32 output moves by one
+   f32 step at half the elements (the least reordering); the 4 layers
+   within 8e-2 and their argmax where the margins prove it; (11c)
+   ``make_pp_train_step`` at pp = 2, Llama-2-7B widths, f32 params, B = 4,
+   T = 256, 2 microbatches, and (11d) the sp × ep MoE training step on a
+   one-layer Mixtral-8x7B, f32 params, at sp = 2 and at ep = 2 (capacity
+   factor 8), each held on rank 0 against one device's autograd: the loss
+   within 3e-2 relative, the updated ``embed``, a layer's ``wq`` and the
+   ``lm_head`` (11d: the router and the local experts' ``w_up`` too)
+   within atol 5e-3, rtol 5e-2, and the gradients they moved by within
+   5e-2·max|gradient|; no hand-written kernel launched in any training
+   leg (counted); whether ``aten::mm.dtype`` has a derivative; each rank's
+   peak memory; every time on the host clock beside the card's name and
+   power limit. 11a/11b's K2 launches join K2's paths in the kernels line.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -7211,12 +7242,15 @@ def _par_mixtral(rank, meshes, counts):
     return out
 
 
-def _par_rank(rank, port, q):
-    """One rank of phase 10: the process group over 127.0.0.1 (gloo), both
-    ranks on cuda:0, the kernels the parent built, then 10a-10c; the
-    results (and each path's launch counts) back to the parent through
-    ``q``. A failure is put on ``q`` and re-raised."""
+def _par_rank(rank, port, q, legs):
+    """One rank of phases 10 and 11: the process group over 127.0.0.1
+    (gloo), both ranks on cuda:0, the kernels the parent built, then each
+    phase of ``legs`` in order ("10": 10a-10c; "11": 11b-11d); each
+    phase's results (and each path's launch counts) go back to the parent
+    through ``q`` as soon as they are ready. A failure is put on ``q`` and
+    re-raised."""
     import traceback
+    leg = None
     try:
         import torch.distributed as dist
         from neural_tpu_torch.parallel import init_distributed, make_mesh
@@ -7227,24 +7261,36 @@ def _par_rank(rank, port, q):
             k.load()
         init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
                          timeout=PAR_TIMEOUT)
-        tp2 = make_mesh(dp=1, tp=2, device=DEV)
-        ep2 = make_mesh(dp=1, ep=2, device=DEV)
-        counts, out, secs = {}, {}, {}
-        for key, fn, arg in (("10a", _par_7b, tp2), ("10b", _par_70b, tp2),
-                             ("10c", _par_mixtral,
-                              {"tp=2": tp2, "ep=2": ep2})):
-            t = time.time()
-            out[key] = fn(rank, arg, counts)
-            secs[key] = time.time() - t
-            torch.cuda.empty_cache()
+        for leg in legs:
+            torch.cuda.reset_peak_memory_stats()
+            if leg == "10":
+                tp2 = make_mesh(dp=1, tp=2, device=DEV)
+                ep2 = make_mesh(dp=1, ep=2, device=DEV)
+                parts = (("10a", _par_7b, tp2), ("10b", _par_70b, tp2),
+                         ("10c", _par_mixtral, {"tp=2": tp2, "ep=2": ep2}))
+            else:
+                parts = (
+                    ("11b", _p11_sp, make_mesh(dp=1, sp=2, device=DEV)),
+                    ("11c", _p11_pp, make_mesh(dp=1, pp=2, device=DEV)),
+                    ("11d", _p11_moe, {
+                        "sp=2": make_mesh(dp=1, sp=2, ep=1, device=DEV),
+                        "ep=2": make_mesh(dp=1, sp=1, ep=2, device=DEV)}))
+            counts, out, secs = {}, {}, {}
+            for key, fn, arg in parts:
+                t = time.time()
+                out[key] = fn(rank, arg, counts)
+                secs[key] = time.time() - t
+                torch.cuda.empty_cache()
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            # numpy, pickled by value: a tensor on the queue is shared
+            # through this process, which may have exited when the parent
+            # reads it
+            q.put((rank, leg, _to_numpy(dict(out, counts=counts,
+                                             seconds=secs)), None))
         dist.barrier()
         dist.destroy_process_group()
-        # numpy, pickled by value: a tensor on the queue is shared through
-        # this process, which may have exited when the parent reads it
-        q.put((rank, _to_numpy(dict(out, counts=counts, seconds=secs)),
-               None))
     except BaseException:
-        q.put((rank, None, traceback.format_exc()))
+        q.put((rank, leg, None, traceback.format_exc()))
         raise
 
 
@@ -7256,46 +7302,76 @@ def _to_numpy(tree):
     return tree
 
 
-def _run_ranks():
-    """Spawn the two ranks and gather their results; a rank that fails or
-    outlives ``PAR_DEADLINE`` fails the phase (the ranks are killed)."""
-    import queue as _queue
-    import socket
-    import torch.multiprocessing as mp
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    procs = [ctx.Process(target=_par_rank, args=(r, port, q), daemon=True)
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    outs, errs, end = {}, [], time.time() + PAR_DEADLINE
-    try:
-        while len(outs) + len(errs) < 2 and time.time() < end:
+class _Ranks:
+    """The two spawned ranks of phases 10 and 11 (:func:`_par_rank`), run
+    once for both phases in the full run: each phase reads its results with
+    :meth:`gather` as the ranks deliver them; a rank that fails or outlives
+    the deadline fails the phase (the ranks are killed)."""
+
+    def __init__(self, legs):
+        import socket
+        import torch.multiprocessing as mp
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        ctx = mp.get_context("spawn")
+        self.q = ctx.Queue()
+        self.legs = tuple(legs)
+        self.procs = [ctx.Process(target=_par_rank,
+                                  args=(r, port, self.q, self.legs),
+                                  daemon=True) for r in range(2)]
+        for p in self.procs:
+            p.start()
+        self.got = {}
+        self.end = time.time() + PAR_DEADLINE * len(self.legs)
+
+    def gather(self, leg):
+        import queue as _queue
+        errs = []
+        while len(self.got.get(leg, {})) < 2 and time.time() < self.end:
             try:
-                r, res, err = q.get(timeout=5)
+                r, lg, res, err = self.q.get(timeout=5)
             except _queue.Empty:
-                if not any(p.is_alive() for p in procs):
+                if not any(p.is_alive() for p in self.procs):
                     break
                 continue
             if err:
-                errs.append(f"rank {r}:\n{err}")
-            else:
-                outs[r] = res
-    finally:
-        for p in procs:
+                errs.append(f"rank {r}, phase {lg}:\n{err}")
+                break
+            self.got.setdefault(lg, {})[r] = res
+        outs = self.got.get(leg, {})
+        if errs or len(outs) < 2:
+            self.close()
+            raise AssertionError(f"phase {leg} ranks: " + ("\n".join(errs) or (
+                f"only ranks {sorted(outs)} reported within the deadline; "
+                f"exit codes {[p.exitcode for p in self.procs]}")))
+        if leg == self.legs[-1]:
+            self.close()
+        return outs
+
+    def close(self):
+        for p in self.procs:
             p.join(timeout=30)
             if p.is_alive():
                 p.kill()
                 p.join()
-    if errs or len(outs) < 2:
-        raise AssertionError("phase 10 ranks: " + ("\n".join(errs) or (
-            f"only ranks {sorted(outs)} reported within {PAR_DEADLINE} s; "
-            f"exit codes {[p.exitcode for p in procs]}")))
-    return outs
+
+
+# the ranks of phases 10 and 11 in the full run, spawned by phase 10
+_RANKS = {}
+
+
+def _ranks(leg):
+    """The ranks that run ``leg``: the full run's (spawned in phase 10 for
+    phases 10 and 11), or a spawn of their own under ``--phase10`` /
+    ``--phase11``."""
+    if leg not in _RANKS:
+        only = "--phase10" in sys.argv or "--phase11" in sys.argv
+        r = _Ranks((leg,) if only else ("10", "11"))
+        for lg in r.legs:
+            _RANKS[lg] = r
+    return _RANKS[leg]
 
 
 # what each path must launch: (path suffix, required entry points)
@@ -7351,7 +7427,7 @@ def phase_parallel(results):
     log(f"phase 10d: {time.time() - t:.1f} s")
     torch.cuda.empty_cache()
     t = time.time()
-    outs = _run_ranks()
+    outs = _ranks("10").gather("10")
     log(f"phase 10a-10c (both ranks): {time.time() - t:.1f} s; per rank "
         f"{ {r: o['seconds'] for r, o in outs.items()} }")
     for r, o in outs.items():
@@ -7441,6 +7517,530 @@ def phase_parallel(results):
         "10b_worst": b["worst"], "10c_worst_tp2": c["worst_tp=2"],
         "10c_worst_ep2": c["worst_ep=2"], "10c_ep_ranks_apart": ep_apart,
         "10_rank_seconds": {r: o["seconds"] for r, o in outs.items()}})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the cache-less forward, ring attention and the training steps
+
+
+# Llama-2-7B's widths, depth cut to 4 layers (the time limit): 11a-11c
+NC_CFG = dataclasses.replace(CFG, n_layers=4)
+NC_TOL = 2e-2           # of max|logit|, test_parallel_axes.py:34's 2e-2
+# of max|logit|, the cache-less forward against the cached prefill through
+# K3 (bf16 P against an f32 softmax): two routes, whose logits a random
+# 7B parts by 4-7% of max|logit| in one step (PERF §6); held also
+# by the margins
+NC_ROUTE_TOL = 8e-2
+# of max|out|: the ring's attention against one device's on the same
+# q/k/v, both f32 softmaxes (only the order of f32 sums differs)
+RING_TOL = 1e-5
+# the one-layer copies' ring gap, at most this many times one device's own
+# gap at the least reordering of its attention's f32 sums
+# (``_nudged_attention``): the ring adds nothing beyond reordered sums
+NUDGE_RATIO = 2.0
+NC_T_SP = 2048          # 11b's tokens: 1024 a rank at sp = 2 (K2: M >= 256)
+TRAIN_LR = 1e-2         # test_parallel_axes.py:203's
+TRAIN_B, TRAIN_T, TRAIN_MICRO = 4, 256, 2   # 11c
+MOE_TRAIN_B, MOE_TRAIN_T = 2, 512           # 11d: 512 tokens a rank at sp=2
+# test_parallel_axes.py:203's bounds: the loss within 3e-2 relative, the
+# updated leaves within atol 5e-3, rtol 5e-2; and this script's own bound
+# on the gradients themselves ((old - new) / lr, which those bounds cannot
+# see at lr 1e-2): within 5e-2·max|one device's gradient|
+LOSS_RTOL, UPD_ATOL, UPD_RTOL, GRAD_TOL = 3e-2, 5e-3, 5e-2, 5e-2
+
+
+def _kernel_launches(counts):
+    """The hand-written kernels' launches among a path's counts (the routes
+    of torch ops and collectives left out)."""
+    return {k: n for k, n in counts.items()
+            if n and k not in _cuda.ROUTES.launches}
+
+
+def _mm_dtype_has_derivative():
+    """Whether this build's ``aten::mm.dtype`` (``torch.mm(...,
+    out_dtype=)``) has a derivative on the card: the training graph takes
+    the f32-widened product under autograd either way."""
+    a = torch.randn(4, 8, device=DEV, dtype=torch.bfloat16,
+                    requires_grad=True)
+    b = torch.randn(8, 4, device=DEV, dtype=torch.bfloat16)
+    try:
+        torch.mm(a, b, out_dtype=torch.float32).sum().backward()
+        return True
+    except (RuntimeError, NotImplementedError) as e:
+        return f"no: {str(e).splitlines()[0][:120]}"
+
+
+@contextlib.contextmanager
+def _f32_attention():
+    """The graph's cached attention through ``attend_xla`` (the JAX
+    package's f32 attention over the cache, counted as its route) instead
+    of K3/K4: the cache-less forward's numerics over a cache."""
+    real = TRANSFORMER.attend
+
+    def xla(q, k, v, positions, cfg, k_scale=None, v_scale=None, window=0,
+            slopes=None, prefix_len=None):
+        _cuda.ROUTES.count("attend_xla")
+        return A.attend_xla(q, k, v, positions, cfg, k_scale, v_scale,
+                            window, slopes, prefix_len)
+    TRANSFORMER.attend = xla
+    try:
+        yield
+    finally:
+        TRANSFORMER.attend = real
+
+
+def _margins_held(got, ref, what):
+    """Rows [N, V]: every row whose ``ref`` top-2 margin exceeds twice the
+    row's largest difference has the same argmax. → rows so proven."""
+    err = (got - ref).abs().amax(-1)
+    top2 = ref.topk(2, dim=-1).values
+    proven = (top2[:, 0] - top2[:, 1]) > 2 * err
+    same = got.argmax(-1) == ref.argmax(-1)
+    bad = int((proven & ~same).sum())
+    if bad:
+        raise AssertionError(f"{what}: argmax differs at {bad} rows the "
+                             "margins prove")
+    return int(proven.sum())
+
+
+def _trainable(params):
+    """``init_random``'s inference-mode tensors as ordinary ones that can
+    require grad, one leaf at a time (the old one freed as it goes)."""
+    if isinstance(params, dict):
+        for k in list(params):
+            params[k] = _trainable(params[k])
+        return params
+    if isinstance(params, list):
+        return [_trainable(v) for v in params]
+    if isinstance(params, torch.Tensor) and params.is_inference():
+        return params.clone()
+    return params
+
+
+def _one_device_sgd(params, cfg, toks, lr, names):
+    """One device's autograd on the cross-entropy of the cache-less forward
+    over ``toks`` [B, T+1] (``torch.autograd.grad`` of the plain graph, no
+    mesh): → (loss, {name: (old, gradient)}) for the leaves ``names``
+    picks, (key path) tuples into ``params``."""
+    from neural_tpu_torch.models.transformer import Transformer
+    from neural_tpu_torch.parallel.pp import cross_entropy
+    leaves = {}
+
+    def swap(tree, path, name):
+        """``tree`` copied along ``path``, its leaf there made a leaf that
+        requires grad (``params`` itself is left as it was)."""
+        if not path:
+            leaves[name] = tree.detach().requires_grad_(True)
+            return leaves[name]
+        t = list(tree) if isinstance(tree, list) else dict(tree)
+        t[path[0]] = swap(tree[path[0]], path[1:], name)
+        return t
+    pd = params
+    for name, path in names.items():
+        pd = swap(pd, path, name)
+    B = toks.shape[0]
+    with torch.enable_grad():
+        loss = cross_entropy(Transformer(cfg, pd)(
+            toks[:, :-1], torch.zeros(B, dtype=torch.long, device=DEV),
+            None), toks[:, 1:])
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), {n: (leaves[n].detach(), g)
+                                  for n, g in zip(leaves, grads)}
+
+
+def _held(new, old, grad, lr, what):
+    """An updated leaf against one device's update: the bounds of
+    test_parallel_axes.py:203 on the leaf, and ``GRAD_TOL`` on the
+    gradient it moved by. → (max |new - ref|, max|gradient error| over
+    max|gradient|)."""
+    ref = old - lr * grad
+    err = (new - ref).abs()
+    if not bool((err <= UPD_ATOL + UPD_RTOL * ref.abs()).all()):
+        raise AssertionError(f"{what}: update off by {err.max().item()}")
+    g = (old - new) / lr
+    gerr = ((g - grad).abs().max() / grad.abs().max()).item()
+    if not gerr <= GRAD_TOL:
+        raise AssertionError(f"{what}: gradient off by {gerr}·max|grad|")
+    return err.max().item(), gerr
+
+
+def _nc_models(model):
+    """``model`` (the 4-layer 7B), a one-layer copy sharing its first layer
+    and its embedding and head, and that copy with every q4_j weight
+    dequantized to bf16 (the same weights, its products without K2, so
+    without K2's int8 rounding of the activations): 11b's depth sweep."""
+    from torch.utils._pytree import tree_map
+    from neural_tpu_torch.core.qtensor import QTensor
+    from neural_tpu_torch.models.transformer import Transformer
+    pd = model.param_dict()
+    cfg1 = dataclasses.replace(NC_CFG, n_layers=1)
+    one = dict(pd, layers=pd["layers"][:1])
+    bf16 = tree_map(lambda t: dequantize(t, torch.bfloat16)
+                    if isinstance(t, QTensor) else t, one,
+                    is_leaf=lambda x: isinstance(x, QTensor))
+    return {4: (NC_CFG, model), 1: (cfg1, Transformer(cfg1, one)),
+            "1 bf16": (cfg1, Transformer(cfg1, bf16))}
+
+
+@contextlib.contextmanager
+def _nudged_attention(seed):
+    """The cache-less attention's f32 output moved by one f32 step (towards
+    +inf) at a seeded half of its elements: the least change that a
+    reordered f32 sum makes, to show how far one device's logits move for
+    it (11b's sensitivity reading)."""
+    real = TRANSFORMER.attend_nocache
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def nudged(*a, **k):
+        out = real(*a, **k)
+        half = torch.rand(out.shape, generator=gen, device=out.device) < 0.5
+        return torch.where(half, torch.nextafter(
+            out, torch.full_like(out, math.inf)), out)
+    TRANSFORMER.attend_nocache = nudged
+    try:
+        yield
+    finally:
+        TRANSFORMER.attend_nocache = real
+
+
+def _ring_inputs():
+    """11b's attention inputs at the 7B's heads: q [1, T, 32, 128], k/v
+    [1, 32, T, 128] bf16 over ``NC_T_SP`` tokens, from a seed."""
+    g = torch.Generator().manual_seed(17)
+    H_, D_ = NC_CFG.n_heads, NC_CFG.head_dim
+    q = torch.randn(1, NC_T_SP, H_, D_, generator=g).to(torch.bfloat16)
+    k = torch.randn(1, H_, NC_T_SP, D_, generator=g).to(torch.bfloat16)
+    v = torch.randn(1, H_, NC_T_SP, D_, generator=g).to(torch.bfloat16)
+    return q.to(DEV), k.to(DEV), v.to(DEV)
+
+
+def _p11_sp(rank, mesh, counts):
+    """11b on one rank: the 4-layer Llama-2-7B q4_j (and its one-layer
+    copies, q4_j and bf16), its 2048 tokens sharded over sp = 2,
+    ``sequence_sharded_forward`` (K2 at M = 1024, the ring over the two
+    ranks) → the rank's logits [1, 1024, V] of each; and ``ring_attend`` alone on random q/k/v at
+    the 7B's heads → the rank's [1, 1024, 4096]."""
+    from neural_tpu_torch.parallel import (agree, checksum, ring_attend,
+                                           sequence_sharded_forward,
+                                           shard_model)
+    whole = init_random(NC_CFG, seed=0, quant="q4_j", device=DEV)
+    agree(checksum(whole.param_dict()), "11b's weights")
+    toks = torch.randint(3, V, (1, NC_T_SP),
+                         generator=torch.Generator().manual_seed(14))
+    out = {}
+    with torch.inference_mode():
+        for n, (cfg, m) in _nc_models(whole).items():
+            sm = shard_model(m, cfg, mesh)
+            _cuda.reset_launches()
+            t = time.time()
+            got = sequence_sharded_forward(sm, toks)
+            torch.cuda.synchronize()
+            if n == NC_CFG.n_layers:
+                counts["11b sp=2 sequence-sharded forward"] = \
+                    _cuda.launch_counts()
+                out["s"] = time.time() - t
+            elif n == "1 bf16":
+                counts["11b sp=2 one bf16 layer"] = _cuda.launch_counts()
+            out[f"logits_{n}"] = got.float().cpu()
+            del sm
+        q, k, v = _ring_inputs()
+        Tl, r = NC_T_SP // 2, mesh.index("sp")
+        pos = torch.arange(r * Tl, (r + 1) * Tl, device=DEV)[None]
+        out["ring"] = ring_attend(q[:, r * Tl:(r + 1) * Tl],
+                                  k[:, :, r * Tl:(r + 1) * Tl],
+                                  v[:, :, r * Tl:(r + 1) * Tl], pos, NC_CFG,
+                                  mesh).cpu()
+    del whole
+    return out
+
+
+def _p11_pp(rank, mesh, counts):
+    """11c on one rank: ``make_pp_train_step`` at pp = 2 on the 4-layer
+    7B with f32 params, B = 4, T = 256, two microbatches; rank 0 then holds
+    the loss and the updated ``embed``, layer 0's ``wq`` and ``lm_head``
+    against one device's autograd on the same weights and tokens."""
+    from neural_tpu_torch.parallel import make_pp_train_step, pp_shard_params
+    params = _trainable(init_random(NC_CFG, seed=1, dtype=torch.float32,
+                                    device=DEV).param_dict())
+    step = make_pp_train_step(params, NC_CFG, mesh, TRAIN_MICRO, TRAIN_LR)
+    local = pp_shard_params(params, NC_CFG, mesh)
+    if rank:
+        del params
+    toks = torch.randint(3, V, (TRAIN_B, TRAIN_T + 1),
+                         generator=torch.Generator().manual_seed(15))
+    _cuda.reset_launches()
+    t = time.time()
+    loss, new = step(local, toks)
+    torch.cuda.synchronize()
+    out = {"s": time.time() - t, "loss": float(loss)}
+    counts["11c pp=2 train step"] = _cuda.launch_counts()
+    got = {"embed": new["embed"], "lm_head": new["lm_head"]}
+    if rank == 0:
+        got["wq0"] = new["layers"][0]["wq"]
+    del local, new
+    torch.cuda.empty_cache()
+    if rank == 0:
+        _cuda.reset_launches()
+        t = time.time()
+        ref_loss, ref = _one_device_sgd(
+            params, NC_CFG, toks.to(DEV), TRAIN_LR,
+            {"embed": ("embed",), "lm_head": ("lm_head",),
+             "wq0": ("layers", 0, "wq")})
+        out["ref_s"] = time.time() - t
+        counts["11c one-device autograd"] = _cuda.launch_counts()
+        out["ref_loss"] = ref_loss
+        if not abs(out["loss"] - ref_loss) <= LOSS_RTOL * abs(ref_loss):
+            raise AssertionError(f"11c loss {out['loss']} against one "
+                                 f"device's {ref_loss}")
+        out["held"] = {n: _held(got[n], *ref[n], TRAIN_LR, f"11c {n}")
+                       for n in ref}
+        del params, ref
+    return out
+
+
+def _p11_moe(rank, meshes, counts):
+    """11d on one rank: the MoE training step on a one-layer Mixtral-8x7B
+    at full width, f32 params, B = 2, T = 512, at sp = 2 (ep = 1) and at
+    ep = 2 (sp = 1, capacity factor 8: nothing dropped); rank 0 holds each
+    against one device's autograd on the same weights and tokens (computed
+    once)."""
+    from neural_tpu_torch.parallel import make_moe_train_step, shard_params
+    from neural_tpu_torch.parallel.ep import ep_param_specs
+    cfg = dataclasses.replace(MIXTRAL_CFG, n_layers=1)
+    toks = torch.randint(3, V, (MOE_TRAIN_B, MOE_TRAIN_T + 1),
+                         generator=torch.Generator().manual_seed(16))
+    names = {"embed": ("embed",), "lm_head": ("lm_head",),
+             "wq0": ("layers", 0, "wq"), "router0": ("layers", 0, "router"),
+             "experts_w_up0": ("layers", 0, "experts", "w_up")}
+    out, ref = {}, None
+    for what, mesh in meshes.items():
+        params = _trainable(init_random(cfg, seed=2, dtype=torch.float32,
+                                        device=DEV).param_dict())
+        step = make_moe_train_step(params, cfg, mesh, TRAIN_LR,
+                                   capacity_factor=float(cfg.n_experts))
+        local = params if mesh.ep == 1 else shard_params(
+            params, cfg, mesh, ep_param_specs(params, cfg, tp=False))
+        if rank and mesh.ep > 1:
+            del params
+        _cuda.reset_launches()
+        t = time.time()
+        loss, new = step(local, toks)
+        torch.cuda.synchronize()
+        o = {"s": time.time() - t, "loss": float(loss)}
+        counts[f"11d {what} train step"] = _cuda.launch_counts()
+        lp = new["layers"][0]
+        got = {"embed": new["embed"], "lm_head": new["lm_head"],
+               "wq0": lp["wq"], "router0": lp["router"],
+               "experts_w_up0": lp["experts"]["w_up"]}
+        del local, new, lp
+        torch.cuda.empty_cache()
+        if rank == 0:
+            if ref is None:
+                t = time.time()
+                _cuda.reset_launches()
+                ref = _one_device_sgd(params, cfg, toks.to(DEV), TRAIN_LR,
+                                      names)
+                o["ref_s"] = time.time() - t
+                counts["11d one-device autograd"] = _cuda.launch_counts()
+            ref_loss, grads = ref
+            o["ref_loss"] = ref_loss
+            if not abs(o["loss"] - ref_loss) <= LOSS_RTOL * abs(ref_loss):
+                raise AssertionError(f"11d {what} loss {o['loss']} against "
+                                     f"one device's {ref_loss}")
+            # ep = 2: rank 0 holds experts 0-3 of 8
+            E = got["experts_w_up0"].shape[0]
+            held = {}
+            for n, (old, g) in grads.items():
+                if n == "experts_w_up0":
+                    old, g = old[:E], g[:E]
+                held[n] = _held(got[n], old, g, TRAIN_LR, f"11d {what} {n}")
+            o["held"] = held
+        del got
+        if rank == 0 or mesh.ep == 1:
+            del params
+        torch.cuda.empty_cache()
+        out[what] = o
+    return out
+
+
+def phase_nocache(results):
+    """Phase 11: (11a) in this process, the 4-layer Llama-2-7B q4_j's
+    cache-less forward against its cached prefill on one 1975-token prompt;
+    then the ranks of phase 10 (spawned again under ``--phase11``): (11b)
+    the sequence-sharded forward at sp = 2, held here against this
+    process's one-device cache-less forward, (11c) the pipeline step and
+    (11d) the MoE step, each held on rank 0 against one device's
+    autograd."""
+    t0 = time.time()
+    smi = smi_line()
+    torch.cuda.reset_peak_memory_stats()
+    ranks = _ranks("11")         # running 11b-11d while 11a runs here
+    res = {"mm_dtype_derivative": _mm_dtype_has_derivative()}
+    log(f"11: aten::mm.dtype has a derivative on this build: "
+        f"{res['mm_dtype_derivative']} (the training graph takes the "
+        "f32-widened product under autograd)")
+    model = init_random(NC_CFG, seed=0, quant="q4_j", device=DEV)
+    prompt = torch.randint(3, V, (1, T_PREFILL),
+                           generator=torch.Generator().manual_seed(13)) \
+        .to(DEV)
+    zero = torch.zeros(1, dtype=torch.long, device=DEV)
+    with torch.inference_mode():
+        _cuda.reset_launches()
+        cached = model(prompt, zero, init_cache(NC_CFG, 1, S_CACHE,
+                                                device=DEV))
+        torch.cuda.synchronize()
+        LAUNCHES["11a cached prefill"] = _cuda.launch_counts()
+        with _f32_attention():
+            _cuda.reset_launches()
+            cached32 = model(prompt, zero, init_cache(NC_CFG, 1, S_CACHE,
+                                                      device=DEV))
+            x32 = _cuda.launch_counts()["attend_xla"]
+        _cuda.reset_launches()
+        t = time.time()
+        nocache = model(prompt, zero, None)
+        torch.cuda.synchronize()
+        res["11a_nocache_s"] = time.time() - t
+        LAUNCHES["11a cache-less forward"] = c = _cuda.launch_counts()
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    apart32, apart = rel(nocache, cached32), rel(nocache, cached)
+    rows, rows_k3 = nocache[0].float(), cached[0].float()
+    proven = _margins_held(rows, rows_k3, "11a against K3's prefill")
+    agree_top = (rows.argmax(-1) == rows_k3.argmax(-1)).float().mean()
+    res.update({"11a_apart_f32_cache": apart32, "11a_apart_k3": apart,
+                "11a_argmax_agree_k3": agree_top.item(),
+                "11a_proven_k3": proven})
+    n_k2 = 7 * NC_CFG.n_layers + 1
+    log(f"11a 4-layer 7B q4_j, {T_PREFILL} tokens: the cache-less forward "
+        f"{apart32:.4g}·max|logit| from the cached prefill with the same "
+        f"f32 attention over the cache ({x32} attend_xla calls; tolerance "
+        f"{NC_TOL}) and {apart:.4g} from the cached prefill through K3 "
+        f"(tolerance {NC_ROUTE_TOL}), argmax equal to K3's at "
+        f"{agree_top.item():.4f} of the rows, proven by the margins at "
+        f"{proven} of {T_PREFILL}; launches {_kernel_launches(c)}, routes "
+        f"attend_nocache {c['attend_nocache']}; "
+        f"{res['11a_nocache_s']:.3f} s host clock ({smi})")
+    if not apart32 <= NC_TOL:
+        raise AssertionError(f"11a: {apart32}·max|logit| > {NC_TOL}")
+    if not apart <= NC_ROUTE_TOL:
+        raise AssertionError(f"11a against K3: {apart}·max|logit| > "
+                             f"{NC_ROUTE_TOL}")
+    if c["qmm_a8"] != n_k2 or c["flash_prefill"] or \
+            c["attend_nocache"] != NC_CFG.n_layers:
+        raise AssertionError(f"11a cache-less launches {c}: expected "
+                             f"{n_k2} K2, no K3, {NC_CFG.n_layers} "
+                             "attend_nocache")
+    del cached, cached32, nocache, rows, rows_k3
+    # 11b's one-device references on this process's copy of the weights
+    from neural_tpu_torch.models.transformer import attend_nocache
+    toks = torch.randint(3, V, (1, NC_T_SP),
+                         generator=torch.Generator().manual_seed(14)).to(DEV)
+    ones, nudged = {}, {}
+    with torch.inference_mode():
+        for n, (cfg, m) in _nc_models(model).items():
+            ones[n] = m(toks, torch.zeros(1, dtype=torch.long, device=DEV),
+                        None).float().cpu()
+            if n != NC_CFG.n_layers:
+                with _nudged_attention(18):
+                    one = m(toks, torch.zeros(1, dtype=torch.long,
+                                              device=DEV), None).float().cpu()
+                nudged[n] = ((one - ones[n]).abs().max()
+                             / ones[n].abs().max()).item()
+        q, k, v = _ring_inputs()
+        pos = torch.arange(NC_T_SP, device=DEV)[None]
+        ring_one = attend_nocache(q, k, v, pos, NC_CFG).cpu()
+    del model, q, k, v
+    torch.cuda.empty_cache()
+    outs = ranks.gather("11")
+    Tl = NC_T_SP // 2
+    shard = lambda t, r: t[:, r * Tl:(r + 1) * Tl]
+    ring_apart = max(
+        ((torch.from_numpy(np.asarray(o["11b"]["ring"])) - shard(ring_one, r))
+         .abs().max() / ring_one.abs().max()).item() for r, o in outs.items())
+    gaps, proven = {}, 0
+    for n, one in ones.items():
+        got = torch.cat([torch.from_numpy(np.asarray(
+            outs[r]["11b"][f"logits_{n}"])) for r in range(2)], dim=1)
+        gaps[n] = ((got - one).abs().max() / one.abs().max()).item()
+        if n == NC_CFG.n_layers:
+            proven = _margins_held(got[0], one[0], "11b against one device")
+    res.update({"11b_ring_apart": ring_apart, "11b_gap_by_depth": gaps,
+                "11b_proven": proven, "11b_one_device_nudged": nudged})
+    for r, o in outs.items():
+        cnt = o["counts"]["11b sp=2 sequence-sharded forward"]
+        LAUNCHES[f"11b sp=2 rank {r}"] = cnt
+        for key in ("11c pp=2 train step", "11c one-device autograd",
+                    "11d sp=2 train step", "11d ep=2 train step",
+                    "11d one-device autograd"):
+            if key in o["counts"]:
+                LAUNCHES[f"{key} rank {r}"] = o["counts"][key]
+        log(f"11b rank {r}: launches {_kernel_launches(cnt)}, ring_attend "
+            f"{cnt['ring_attend']}, sp_ppermute {cnt['sp_ppermute']}, "
+            f"{o['11b']['s']:.2f} s host clock ({smi})")
+        if cnt["qmm_a8"] != n_k2 or cnt["ring_attend"] != NC_CFG.n_layers \
+                or cnt["flash_prefill"]:
+            raise AssertionError(f"11b rank {r} launches {cnt}")
+        c16 = o["counts"]["11b sp=2 one bf16 layer"]
+        if c16["qmm_a8"] or c16["ring_attend"] != 1:
+            raise AssertionError(f"11b rank {r} bf16 copy launches {c16}")
+    log(f"11b sp=2 ({NC_T_SP} tokens, M = {Tl} a rank): ring_attend at the "
+        f"7B's heads {ring_apart:.4g}·max|out| from one device's "
+        f"(tolerance {RING_TOL}); the ranks' logits from one device's "
+        f"cache-less forward by depth {gaps} (1 layer, q4_j through K2 or "
+        f"its weights in bf16 without K2: tolerance {NC_TOL}; "
+        f"{NC_CFG.n_layers}: {NC_ROUTE_TOL}, argmax proven by the margins "
+        f"at {proven} of {NC_T_SP} rows; {smi})")
+    log(f"11b one device against itself with its attention's f32 output "
+        f"one f32 step apart at half the elements (the least reordering): "
+        f"the one-layer logits apart by {nudged} of max|logit| ({smi})")
+    if not ring_apart <= RING_TOL:
+        raise AssertionError(f"11b ring: {ring_apart}·max|out| > {RING_TOL}")
+    if not gaps[1] <= NC_TOL or not gaps["1 bf16"] <= NC_TOL \
+            or not gaps[NC_CFG.n_layers] <= NC_ROUTE_TOL:
+        raise AssertionError(f"11b: gaps by depth {gaps}")
+    for n, floor in nudged.items():
+        if not gaps[n] <= NUDGE_RATIO * floor:
+            raise AssertionError(
+                f"11b {n}: the ring {gaps[n]}·max|logit| from one device, "
+                f"past {NUDGE_RATIO}× one device's own {floor} at the least "
+                "reordering")
+    train = {}
+    for r, o in outs.items():
+        for key in [k for k in o["counts"] if k.startswith(("11c", "11d"))]:
+            train[f"{key} rank {r}"] = _kernel_launches(o["counts"][key])
+    log(f"11c/11d hand-written kernel launches in the training legs: "
+        f"{train}")
+    if any(train.values()):
+        raise AssertionError(f"11 training legs launched kernels: {train}")
+    c0, c1 = outs[0]["11c"], outs[1]["11c"]
+    if c0["loss"] != c1["loss"]:
+        raise AssertionError(f"11c: the ranks' losses differ: {c0['loss']}, "
+                             f"{c1['loss']}")
+    log(f"11c pp=2 train step (7B widths, 4 layers, f32 params, B={TRAIN_B}"
+        f", T={TRAIN_T}, {TRAIN_MICRO} microbatches): loss {c0['loss']:.6f} "
+        f"against one device's {c0['ref_loss']:.6f}; (max|new - ref|, "
+        f"gradient error over max|grad|) {c0['held']}; step "
+        f"{c0['s']:.2f} / {c1['s']:.2f} s, one device {c0['ref_s']:.2f} s "
+        f"(host clock; {SHARED_CARD}; {smi})")
+    d0 = outs[0]["11d"]
+    for what, o in d0.items():
+        if o["loss"] != outs[1]["11d"][what]["loss"]:
+            raise AssertionError(f"11d {what}: the ranks' losses differ")
+        log(f"11d {what} MoE train step (Mixtral-8x7B widths, 1 layer, f32 "
+            f"params, B={MOE_TRAIN_B}, T={MOE_TRAIN_T}): loss "
+            f"{o['loss']:.6f} against one device's {o['ref_loss']:.6f}; "
+            f"{o['held']}; step {o['s']:.2f} s (host clock; {smi})")
+    peaks = {r: round(o["peak_gib"], 2) for r, o in outs.items()}
+    log(f"11 peak memory a rank (GiB allocated): {peaks}; this process "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    res.update({"11c": {k: c0[k] for k in (
+        "loss", "ref_loss", "held", "s", "ref_s")},
+        "11d": {w: {k: o[k] for k in ("loss", "ref_loss", "held", "s")}
+                for w, o in d0.items()},
+        "11_rank_peak_gib": peaks,
+        "11_rank_seconds": {r: o["seconds"] for r, o in outs.items()},
+        "11_seconds": time.time() - t0})
+    log(f"phase 11: {time.time() - t0:.1f} s ({smi})")
     return res
 
 
@@ -7784,7 +8384,8 @@ def main():
     only = {"--phase7": ("7 model files", phase_model_files),
             "--phase8": ("8 zoo", phase_zoo),
             "--phase9": ("9 moe", phase_moe),
-            "--phase10": ("10 parallel", phase_parallel)}.get(
+            "--phase10": ("10 parallel", phase_parallel),
+            "--phase11": ("11 nocache", phase_nocache)}.get(
                 sys.argv[1] if sys.argv[1:] else None)
     # the slice's main path: every phase runs the fused decode path, which
     # the library leaves off by default (``models.transformer.fuse_mode``);
@@ -7870,6 +8471,7 @@ def main():
     e2e.update(phase("8 zoo", phase_zoo, results))
     e2e.update(phase("9 moe", phase_moe, results))
     e2e.update(phase("10 parallel", phase_parallel, results))
+    e2e.update(phase("11 nocache", phase_nocache, results))
 
     kernels = []
     for kid, (kname, src, repl) in KERNEL_META.items():

@@ -28,7 +28,13 @@ The cache is a contiguous :class:`~neural_tpu_torch.runtime.kvcache.KVCache`
 scale rows too) or a paged
 :class:`~neural_tpu_torch.runtime.paged.PagedKVCache` (the append goes
 through ``paged_update_kv``, attention through ``attend_paged``), as in
-``neural_tpu/models/transformer.py:462-494``.
+``neural_tpu/models/transformer.py:462-494``. Without a cache (``forward(
+..., cache=None)``, the JAX ``forward(cache=None)``) each block attends
+within the call, causal over the global positions (:func:`attend_nocache`;
+on a mesh with an "sp" axis the ring of ``parallel.sp``): the training
+path. Under autograd (:func:`records_grad`) the graph keeps to plain torch
+ops, which autograd differentiates: the norms' torch chain, f32-widened
+products where the card's inference graph takes ``aten::mm.dtype``.
 
 Every projection is a :class:`QLinear`: a quantized weight at rest
 (``core.qtensor.to_native``) or a bf16 one. A tied lm_head is a torch
@@ -61,8 +67,8 @@ from torch import nn
 
 from ..core.qtensor import QTensor, qtensor_at
 from ..ops import _cuda
-from ..ops.attention import attend, quantize_kv
-from ..ops.norms import layer_norm, rms_norm
+from ..ops.attention import attend, attn_scale, quantize_kv
+from ..ops.norms import layer_norm, rms_norm, rms_norm_plain
 from ..ops.paged_attention import attend_paged, paged_update_kv
 from ..ops.qmatmul import ACTS, fusable, qmatmul, qmatmul_fused
 from ..ops.rope import apply_glm1, apply_rope, glm1_cos_sin, rope_cos_sin
@@ -152,6 +158,77 @@ def bf16_scalar(v: float) -> float:
     return float(torch.tensor(v, dtype=torch.bfloat16))
 
 
+def records_grad(*ts) -> bool:
+    """Autograd records an op on these tensors: the training graph of
+    ``parallel.pp`` and ``parallel.dryrun`` (params that require grad).
+    There the graph takes plain torch ops only: no kernel of the port has a
+    backward (nor has any Pallas kernel of the JAX package, which trains
+    through its XLA graph), and every kernel entry refuses a tensor that
+    requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def graph_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+                   offset: float = 0.0) -> torch.Tensor:
+    """The graph's RMS norm: the row-norm kernel (``ops.norms.rms_norm``)
+    for inference; under autograd (:func:`records_grad`) the torch chain
+    ``rms_norm_plain``, which autograd differentiates (the kernel writes
+    through raw pointers into a tensor with no ``grad_fn``)."""
+    if records_grad(x, w):
+        return rms_norm_plain(x, w, eps, offset)
+    return rms_norm(x, w, eps, offset)
+
+
+def masked_scores(qh: torch.Tensor, kb: torch.Tensor, q_pos: torch.Tensor,
+                  kv_pos: torch.Tensor, cfg: ModelConfig, slopes=None,
+                  window: int = 0):
+    """Masked attention scores of one key block (the JAX ``masked_scores``),
+    shared by :func:`attend_nocache` and the ring
+    (``parallel.sp.ring_attend``): one implementation, so that the ring
+    matches its one-device oracle exactly.
+
+    qh [B, Hkv, G, Tq, Dh] f32 queries, already scaled; kb [B, Hkv, Ts, Dh];
+    q_pos [B, Tq, 1] and kv_pos [B, 1, Ts] global positions; ``window`` the
+    layer's sliding window (0: none). → (scores [B, Hkv, G, Tq, Ts] f32:
+    the softcap, then the ALiBi bias, then -1e30 at masked slots; the mask
+    [B, Tq, Ts], causal over the positions)."""
+    Hkv, G = qh.shape[1], qh.shape[2]
+    s = torch.einsum("bhgtd,bhsd->bhgts", qh, kb.to(torch.float32))
+    if cfg.attn_softcap:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    mask = kv_pos <= q_pos
+    if window:
+        mask = mask & (kv_pos > q_pos - window)
+    if cfg.use_alibi and slopes is not None:
+        dist = (kv_pos - q_pos).to(torch.float32)
+        s = s + (slopes.to(torch.float32).reshape(Hkv, G)[None, :, :, None,
+                                                          None]
+                 * dist[:, None, None, :, :])
+    return s.masked_fill(~mask[:, None, None], -1e30), mask
+
+
+def attend_nocache(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                   positions: torch.Tensor, cfg: ModelConfig, slopes=None,
+                   window: int = 0) -> torch.Tensor:
+    """Causal attention within the current block, without a cache (the JAX
+    ``_attend_nocache``): the training path and the ring's one-device
+    oracle. q [B, T, Hq, Dh], kt/vt [B, Hkv, T, Dh], ``positions`` [B, T]
+    global; GQA by head groups, an f32 softmax (:func:`masked_scores`) →
+    [B, T, Hq·Dh] f32. Torch ops, as the JAX function is XLA: no Pallas
+    kernel reaches it."""
+    B, T, Hq, Dh = q.shape
+    Hkv = kt.shape[1]
+    G = Hq // Hkv
+    qh = q.reshape(B, T, Hkv, G, Dh).permute(0, 2, 3, 1, 4) \
+        .to(torch.float32) * attn_scale(cfg, Dh)
+    s, _ = masked_scores(qh, kt, positions[:, :, None], positions[:, None, :],
+                         cfg, slopes, window)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgts,bhsd->bhgtd", p, vt.to(torch.float32))
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, Hq * Dh)
+
+
 class QLinear(nn.Module):
     """A ``[K, N]`` projection: a QTensor at rest (its planes, scales,
     zero-points and act-order ``perm`` as buffers, plus its QuantConfig)
@@ -200,9 +277,11 @@ def linear(x: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None
     if isinstance(w, QTensor):
         return qmatmul(x, w, out_dtype)
     if out_dtype == torch.float32 and x.device.type == "cuda" \
-            and w.dtype == torch.bfloat16:
+            and w.dtype == torch.bfloat16 and not records_grad(x, w):
         # bf16 operands, f32 sums, one product: no f32 copy of the
-        # weight per call (an untied 32000-row lm_head would be 0.5 GB)
+        # weight per call (an untied 32000-row lm_head would be 0.5 GB).
+        # ``aten::mm.dtype`` has no derivative: under autograd the product
+        # takes the f32-widened operands below (exact for bf16 values)
         x2 = x.reshape(-1, x.shape[-1]).to(w.dtype)
         return torch.mm(x2, w, out_dtype=torch.float32) \
             .reshape(*x.shape[:-1], -1)
@@ -217,10 +296,11 @@ def _rdot(lhs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     sums and result, as ``lax.ragged_dot(lhs.astype(bf16), w.astype(bf16),
     ..., preferred_element_type=f32)`` computes it (the cast holds for f32
     params too). ``ragged_dot`` is XLA, not a Pallas kernel: its port is
-    one ``torch.mm`` a group. The CPU has no bf16 ``mm`` with f32 output;
-    there the bf16 values are widened to f32 (exact) and multiplied."""
+    one ``torch.mm`` a group. The CPU has no bf16 ``mm`` with f32 output,
+    and ``aten::mm.dtype`` has no derivative: there, and under autograd,
+    the bf16 values are widened to f32 (exact) and multiplied."""
     lhs, w = lhs.to(torch.bfloat16), w.to(torch.bfloat16)
-    if lhs.device.type == "cuda":
+    if lhs.device.type == "cuda" and not records_grad(lhs, w):
         return torch.mm(lhs, w, out_dtype=torch.float32)
     return lhs.to(torch.float32) @ w.to(torch.float32)
 
@@ -365,7 +445,7 @@ class Block(nn.Module):
         cfg = self.cfg
         w = getattr(self, name + "_w")
         if cfg.norm_type == "rmsnorm":
-            return rms_norm(x, w, cfg.norm_eps, cfg.norm_offset)
+            return graph_rms_norm(x, w, cfg.norm_eps, cfg.norm_offset)
         return layer_norm(x, w, getattr(self, name + "_b"), cfg.norm_eps)
 
     def _psum(self, y):
@@ -476,17 +556,32 @@ class Block(nn.Module):
         if cfg.qk_norm:
             # an RMS norm over each head's Dh, before RoPE, offset 0 (the
             # JAX ``_attention`` passes no offset)
-            q = rms_norm(q, self.q_norm_w, cfg.norm_eps)
-            k = rms_norm(k, self.k_norm_w, cfg.norm_eps)
+            q = graph_rms_norm(q, self.q_norm_w, cfg.norm_eps)
+            k = graph_rms_norm(k, self.k_norm_w, cfg.norm_eps)
         if cfg.rope_style == "glm1":
             q, k = apply_glm1(q, rope), apply_glm1(k, rope)
         elif rope is not None:
             q = apply_rope(q, *rope, cfg.rope_style, cfg.rope_dim)
             k = apply_rope(k, *rope, cfg.rope_style, cfg.rope_dim)
         opts = dict(window=self.window, slopes=slopes, prefix_len=prompt_len)
-        # append only the new tokens, at each row's own offset (no host
-        # sync: the positions stay on the device)
-        if kv.table is not None:
+        if kv is None:
+            # no cache (the training path, the ring's): attend within this
+            # block, causal over the global positions; on a mesh with an
+            # "sp" axis the K/V blocks ring over it (``parallel.sp``). As
+            # in the JAX package, this path has no prefix mask.
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            if self.mesh is not None and self.mesh.size("sp") > 1:
+                from ..parallel.sp import ring_attend
+                _cuda.ROUTES.count("ring_attend")
+                out = ring_attend(q, kt, vt, positions, cfg, self.mesh,
+                                  slopes, self.window)
+            else:
+                _cuda.ROUTES.count("attend_nocache")
+                out = attend_nocache(q, kt, vt, positions, cfg, slopes,
+                                     self.window)
+        elif kv.table is not None:
+            # a cache: append only the new tokens, at each row's own offset
+            # (no host sync: the positions stay on the device)
             paged_update_kv(kv.k, kv.v, kv.k_scale, kv.v_scale,
                             k.transpose(1, 2), v.transpose(1, 2), kv.table,
                             positions[:, 0])
@@ -741,7 +836,11 @@ class Transformer(nn.Module):
         """tokens [B, T]; start [B] (cache write offset per row); cache a
         :class:`~neural_tpu_torch.runtime.kvcache.KVCache` or
         :class:`~neural_tpu_torch.runtime.paged.PagedKVCache`, updated in
-        place.
+        place, or None: the cache-less forward of the JAX ``forward(cache=
+        None)`` (the training path; on a mesh with an "sp" axis the tokens
+        are the rank's sequence shard, ``start`` its global offset, and the
+        attention rings over sp), each block attending within the call,
+        causal over the global positions.
         ``logit_positions`` [B]: the one token per row whose logits are
         wanted — the lm_head then runs on [B, 1, D]. ``prompt_len`` [B]:
         each row's prompt size, which a prefix-LM config (ChatGLM-1) reads
@@ -752,30 +851,18 @@ class Transformer(nn.Module):
         B, T = tokens.shape
         positions = start[:, None].long() + torch.arange(
             T, device=tokens.device)[None, :]
-        x = self.embed[tokens.long()].to(torch.bfloat16)
-        if self.embed_scale != 1.0:
-            x = x * self.embed_scale
-        if self.pos_embed is not None:
-            # learned positions (OPT, StarCoder), added in the activation
-            # dtype; every position a cache can hold has its row
+        if self.pos_embed is not None and cache is not None:
+            # every position a cache can hold has its row
             self._check_positions(cache)
-            x = x + self.pos_embed[positions + cfg.pos_offset].to(x.dtype)
-        if self.embed_norm_w is not None:     # Bloom's embedding LayerNorm
-            x = layer_norm(x, self.embed_norm_w, self.embed_norm_b,
-                           cfg.norm_eps)
+        x = self.embed_tokens(tokens, positions)
         if (cfg.prefix_lm or cfg.rope_style == "glm1") and prompt_len is None:
             prompt_len = start.long() + T
-        if cfg.rope_style == "glm1":
-            rope = glm1_cos_sin(positions, prompt_len, self.rope_inv_freqs)
-        elif cfg.rope_style == "none":
-            rope = None
-        else:
-            rope = rope_cos_sin(positions, self.rope_inv_freqs)
+        rope = self.rope_tables(positions, prompt_len)
         mode, glu = fuse_switches()
         fuse = can_fuse_block(x, cfg, mode, self.tp)
         for l, blk in enumerate(self.layers):
-            x = blk(x, cache.layer(l), positions, rope, self.alibi_slopes,
-                    prompt_len, fuse, glu)
+            x = blk(x, None if cache is None else cache.layer(l), positions,
+                    rope, self.alibi_slopes, prompt_len, fuse, glu)
         if logit_positions is not None:
             rows = torch.arange(B, device=x.device)[:, None]
             x = x[rows, logit_positions.long()[:, None]]
@@ -787,26 +874,62 @@ class Transformer(nn.Module):
                 x.reshape(-1, Dx), self.lm_head.qt, torch.float32,
                 norm=(self.final_norm_w, cfg.norm_eps, cfg.norm_offset)
             ).reshape(Bx, Tx, -1)
+            return self._softcap(logits).to(logits_dtype)
+        return self.head(x).to(logits_dtype)
+
+    def embed_tokens(self, tokens: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        """The residual stream's start, [B, T, D] bf16: the embedding rows
+        (times Gemma's bf16 embedding scale), plus the learned positions
+        (OPT, StarCoder) in the activation dtype, then Bloom's embedding
+        LayerNorm."""
+        cfg = self.cfg
+        x = self.embed[tokens.long()].to(torch.bfloat16)
+        if self.embed_scale != 1.0:
+            x = x * self.embed_scale
+        if self.pos_embed is not None:
+            x = x + self.pos_embed[positions + cfg.pos_offset].to(x.dtype)
+        if self.embed_norm_w is not None:     # Bloom's embedding LayerNorm
+            x = layer_norm(x, self.embed_norm_w, self.embed_norm_b,
+                           cfg.norm_eps)
+        return x
+
+    def rope_tables(self, positions: torch.Tensor, prompt_len=None):
+        """The RoPE tables of the config's style at ``positions`` [B, T]
+        (ChatGLM-1's two read ``prompt_len``); None without RoPE."""
+        cfg = self.cfg
+        if cfg.rope_style == "glm1":
+            return glm1_cos_sin(positions, prompt_len, self.rope_inv_freqs)
+        if cfg.rope_style == "none":
+            return None
+        return rope_cos_sin(positions, self.rope_inv_freqs)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the lm_head on the residual stream x [B, T,
+        D] → f32 logits [B, T, V]: the tied embedding's product or the
+        lm_head (its vocabulary slices gathered over tp, then its bias),
+        then Gemma-2's final softcap."""
+        cfg = self.cfg
+        if cfg.norm_type == "rmsnorm":
+            x = graph_rms_norm(x, self.final_norm_w, cfg.norm_eps,
+                               cfg.norm_offset)
         else:
-            if cfg.norm_type == "rmsnorm":
-                x = rms_norm(x, self.final_norm_w, cfg.norm_eps,
-                             cfg.norm_offset)
-            else:
-                x = layer_norm(x, self.final_norm_w, self.final_norm_b,
-                               cfg.norm_eps)
-            if self.lm_head is None:          # tied embeddings
-                logits = self._tied_logits(x)
-            else:
-                logits = self.lm_head(x, torch.float32)
-                if self.tp > 1:
-                    # the rank's vocabulary slice; the bias is whole
-                    logits = self.mesh.all_gather(logits, "tp", dim=-1)
-                if self.lm_head_b is not None:
-                    logits = logits + self.lm_head_b.to(torch.float32)
-        logits = logits.to(torch.float32)
-        if cfg.logit_softcap:
-            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-        return logits.to(logits_dtype)
+            x = layer_norm(x, self.final_norm_w, self.final_norm_b,
+                           cfg.norm_eps)
+        if self.lm_head is None:              # tied embeddings
+            logits = self._tied_logits(x)
+        else:
+            logits = self.lm_head(x, torch.float32)
+            if self.tp > 1:
+                # the rank's vocabulary slice; the bias is whole
+                logits = self.mesh.all_gather(logits, "tp", dim=-1)
+            if self.lm_head_b is not None:
+                logits = logits + self.lm_head_b.to(torch.float32)
+        return self._softcap(logits.to(torch.float32))
+
+    def _softcap(self, logits: torch.Tensor) -> torch.Tensor:
+        cap = self.cfg.logit_softcap
+        return cap * torch.tanh(logits / cap) if cap else logits
 
     def _check_positions(self, cache):
         """Raise unless every position ``cache`` can hold, offset by
@@ -831,9 +954,10 @@ class Transformer(nn.Module):
         embedding in place; an f32 copy of it would be 3.67 GB per call at
         Gemma-2-9B's vocab, captured into the decode graph's pool. That
         overload does not exist for the CPU, where the product is taken in
-        f32 on f32 copies (exact for bf16 operands, as the card's f32 sums)."""
+        f32 on f32 copies (exact for bf16 operands, as the card's f32 sums),
+        and so it is under autograd: ``aten::mm.dtype`` has no derivative."""
         xb = x.to(torch.bfloat16)
-        if x.device.type == "cuda":
+        if x.device.type == "cuda" and not records_grad(x, self.embed):
             out = torch.mm(xb.reshape(-1, xb.shape[-1]), self.embed.T,
                            out_dtype=torch.float32)
             return out.reshape(*x.shape[:-1], -1)

@@ -173,6 +173,23 @@ def tickets(owner: str, device, n: int, cap: int) -> torch.Tensor:
     return _TICKETS[(owner, idx)]
 
 
+def refuse_grad(entry: str, *tensors):
+    """Raise, naming the kernel entry, when autograd would record an op on
+    any of ``tensors`` (grad mode on, a tensor that requires grad). No
+    kernel of the port has a backward: it writes through raw pointers into
+    a tensor without a ``grad_fn``, so a gradient upstream of it would
+    vanish without an error. Every entry checks first, on every device, so
+    that the training graph (``models.transformer.records_grad`` and its
+    plain torch ops) is seen to keep off them on the CPU too."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.requires_grad:
+            raise ValueError(
+                f"{entry}: given a tensor that requires grad; the kernel has "
+                "no backward (the training graph takes plain torch ops)")
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None):
     """Device, dtype, contiguity and (optionally) shape checks a wrapper
     makes before it hands a pointer to a kernel."""
@@ -284,7 +301,11 @@ class Routes:
     call: ``tp_all_reduce`` (the sums after wo, w_down and the experts'
     mixture), ``tp_all_gather`` (the lm_head's vocabulary slices),
     ``dp_all_gather`` (each dp rank's ids) and ``ep_all_to_all`` (the
-    expert dispatch and combine)."""
+    expert dispatch and combine), and every other ``<axis>_<collective>``
+    of the mesh (``sp_ppermute``: a ring hop's K, V or positions;
+    ``pp_ppermute``: a pipeline tick's activations; the gradient sums over
+    the axes a leaf is replicated on); and the cache-less attention, once a
+    layer: ``attend_nocache`` (one device) or ``ring_attend`` (over sp)."""
 
     def __init__(self, names: Sequence[str]):
         self.launches = {n: 0 for n in names}
@@ -293,10 +314,12 @@ class Routes:
         self.launches[name] += 1
 
 
+MESH_AXES = ("dp", "tp", "ep", "sp", "pp")
+COLLECTIVES = ("all_reduce", "all_gather", "all_to_all", "ppermute")
 ROUTES = Routes(("attend_xla", "attend_xla_paged", "act_order_gather",
                  "qmm_plain", "moe_mixture", "moe_grouped",
-                 "moe_grouped_static", "tp_all_reduce", "tp_all_gather",
-                 "dp_all_gather", "ep_all_to_all"))
+                 "moe_grouped_static", "attend_nocache", "ring_attend")
+                + tuple(f"{a}_{c}" for a in MESH_AXES for c in COLLECTIVES))
 COUNTED = KERNELS + (ROUTES,)
 
 

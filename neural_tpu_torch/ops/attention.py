@@ -333,6 +333,7 @@ def _k4_launch(fn, q, k, v, k_scale, v_scale, lengths, qk_scale, softcap,
 def flash_decode(q, k_cache, v_cache, lengths, scale: float,
                  softcap: float = 0.0, window: int = 0, slopes=None):
     """K4. Same contract as :func:`flash_decode_plain`."""
+    _cuda.refuse_grad("flash_decode (K4)", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, lengths, scale,
                                   softcap, window, slopes)
@@ -350,6 +351,8 @@ def flash_decode_i8(q, k_cache, v_cache, k_scale, v_scale, lengths,
                     scale: float, softcap: float = 0.0, window: int = 0,
                     slopes=None):
     """K4, int8 variant. Same contract as :func:`flash_decode_i8_plain`."""
+    _cuda.refuse_grad("flash_decode_i8 (K4)", q, k_cache, v_cache, k_scale,
+                      v_scale)
     if q.device.type == "cpu":
         return flash_decode_i8_plain(q, k_cache, v_cache, k_scale, v_scale,
                                      lengths, scale, softcap, window, slopes)
@@ -530,6 +533,7 @@ def flash_prefill(q, k_cache, v_cache, starts, scale: float,
                   softcap: float = 0.0, window: int = 0, slopes=None,
                   prefix_len=None):
     """K3. Same contract as :func:`flash_prefill_plain`."""
+    _cuda.refuse_grad("flash_prefill (K3)", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k_cache, v_cache, starts, scale,
                                    softcap, window, slopes, prefix_len)
@@ -542,6 +546,8 @@ def flash_prefill_i8(q, k_cache, v_cache, k_scale, v_scale, starts,
                      scale: float, softcap: float = 0.0, window: int = 0,
                      slopes=None, prefix_len=None):
     """K3, int8 variant. Same contract as :func:`flash_prefill_i8_plain`."""
+    _cuda.refuse_grad("flash_prefill_i8 (K3)", q, k_cache, v_cache, k_scale,
+                      v_scale)
     if q.device.type == "cpu":
         return flash_prefill_i8_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       starts, scale, softcap, window, slopes,

@@ -31,7 +31,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
              offset: float = 0.0) -> torch.Tensor:
     """offset=1.0 gives Gemma-style (1 + w) scaling. On the card x is
     [..., K] bf16 (the residual stream) with K a multiple of 8 and the
-    weight [K] bf16 or f32 (the final norm's)."""
+    weight [K] bf16 or f32 (the final norm's). The kernel has no backward:
+    a tensor that requires grad raises (``_cuda.refuse_grad``); the
+    training graph calls :func:`rms_norm_plain` by name."""
+    _cuda.refuse_grad("rms_norm_bf16", x, weight)
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, eps, offset)
     if x.dtype != torch.bfloat16 or \

@@ -85,6 +85,7 @@ def _paged_args(q, k_pool, v_pool, table, lengths, kv_dtype):
 def paged_decode(q, k_pool, v_pool, table, lengths, scale: float,
                  softcap: float = 0.0, window: int = 0, slopes=None):
     """K6 over a bf16 pool. Same contract as :func:`paged_decode_plain`."""
+    _cuda.refuse_grad("paged_decode (K6)", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, None, None, table,
                                   lengths, scale, softcap, window, slopes)
@@ -98,6 +99,8 @@ def paged_decode_i8(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
                     scale: float, softcap: float = 0.0, window: int = 0,
                     slopes=None):
     """K6 over an int8 pool. Same contract as :func:`paged_decode_plain`."""
+    _cuda.refuse_grad("paged_decode_i8 (K6)", q, k_pool, v_pool, k_scale,
+                      v_scale)
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, k_scale, v_scale, table,
                                   lengths, scale, softcap, window, slopes)

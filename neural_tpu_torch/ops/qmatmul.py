@@ -76,6 +76,7 @@ def act_quant_i8(x: torch.Tensor, gd: int):
     """:func:`quantize_act_i8` through K2's quantization kernel on the card
     (bit-identical by construction: same scale formula, IEEE division,
     ``rintf``)."""
+    _cuda.refuse_grad("quantize_act_i8", x)
     if x.device.type == "cpu":
         return quantize_act_i8(x, gd)
     x = x.contiguous()
@@ -245,6 +246,7 @@ def qmm_native(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
     names the branch: the
     layout (``qmm4_npack`` nibbles, ``qmm2_npack``, ``qmm8_native``), with
     ``_asym`` when there are zero-points."""
+    _cuda.refuse_grad("qmm_native (K1)", x, planes, scales, zeros)
     if x.device.type == "cpu":
         return qmm_native_plain(x, planes, scales, zeros, group, bits,
                                 out_dtype)
@@ -351,6 +353,8 @@ def qmm_native_fused(x: torch.Tensor, planes: torch.Tensor,
     (``qmm4_npack_fused``, ``qmm2_npack_fused``, ``qmm8_native_fused``),
     each launch also counted under its options (``+rms``, ``+glu``,
     ``+res``)."""
+    _cuda.refuse_grad("qmm_native_fused (K1)", x, planes, scales, u, res,
+                      None if norm is None else norm[0])
     if x.device.type == "cpu":
         return qmm_native_fused_plain(x, planes, scales, group, bits,
                                       out_dtype, norm, u, act, res)
@@ -530,6 +534,7 @@ def qmm_a8(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor,
     ``qmm_a8_int8`` int8 code planes. Two launches: the activation
     quantization, then the int8 tensor-core GEMM with the per-group f32
     fold."""
+    _cuda.refuse_grad("qmm_a8 (K2)", x, planes, scales, zeros)
     if x.device.type == "cpu":
         return qmm_a8_plain(x, planes, scales, group, gd, out_dtype, zeros,
                             bits)
@@ -687,6 +692,7 @@ def qmm_general(x: torch.Tensor, qt: QTensor,
     takes the gemv body at M <= 16 and the tensor-core tiles above
     (:func:`k5_schedule`); each launch also counts under its route,
     ``qmm_general+gemv`` or ``qmm_general+tc``."""
+    _cuda.refuse_grad("qmm_general (K5)", x, *qt.planes, qt.scales, qt.zeros)
     if x.device.type == "cpu":
         return qmm_general_plain(x, qt, out_dtype)
     _check_no_perm(qt)

@@ -17,7 +17,10 @@ By hand (rank i of N, any backend):
 
 ``--device cpu`` runs the plain PyTorch path on the CPU (gloo); by default
 every rank runs on the card (its own under NCCL; the one card, shared,
-under gloo).
+under gloo). ``--dryrun`` runs ``parallel.dryrun.dryrun_multichip`` over
+the ranks instead of a model: inference at dp × tp, the sampled TP decode
+loop, the pipeline and the sp × ep MoE training steps and quantized-MoE
+inference, on tiny random models.
 """
 from __future__ import annotations
 
@@ -28,8 +31,11 @@ import time
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", required=True,
-                    help="HF dir, .gguf, or .ntpu checkpoint")
+    ap.add_argument("--model", help="HF dir, .gguf, or .ntpu checkpoint "
+                    "(required unless --dryrun)")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="run the multi-rank dry run of every parallel axis "
+                    "(tiny random models) instead of a model")
     ap.add_argument("--weight-dtype", default="q4_0")
     ap.add_argument("--prompt", default="Once upon a time")
     ap.add_argument("--max-new-tokens", type=int, default=64)
@@ -69,11 +75,16 @@ def main(argv=None, out=print):
     from .tp import tp_generate
 
     args = parse_args(argv)
+    if not args.dryrun and not args.model:
+        raise SystemExit("run_tp: --model is required (or --dryrun)")
     if not dist.is_initialized() and (args.coordinator or args.num_processes
                                       or "WORLD_SIZE" in os.environ):
         init_distributed(args.coordinator, args.num_processes,
                          args.process_id, backend=args.backend,
                          timeout=args.timeout)
+    if args.dryrun:
+        from .dryrun import dryrun_multichip
+        return dryrun_multichip(device=args.device)
     mesh = auto_mesh(tp=args.tp, dp=args.dp, device=args.device)
     log = out if is_primary() else (lambda *a, **k: None)
     log(f"mesh: {mesh.shape} over {world()} ranks "

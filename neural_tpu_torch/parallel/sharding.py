@@ -38,12 +38,14 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._pytree import tree_map
 
 from ..core.device import resolve_device
 from ..core.qtensor import QTensor
 from ..models.config import ModelConfig
 from ..runtime.kvcache import KVCache
 from ..runtime.kvcache import init_cache as _init_cache
+from . import collectives as C
 from . import multihost
 
 class Mesh:
@@ -51,10 +53,17 @@ class Mesh:
     mesh-major, the last axis varying fastest), ``coords`` (axis → this
     rank's index), ``groups`` (axis → the subgroup of the ranks that differ
     from this one along that axis only; None where the axis has size 1),
-    the ``backend`` and the ``device`` the rank's tensors live on."""
+    the ``backend``, the ``device`` the rank's tensors live on, and
+    ``ranks``, the process group's ranks in mesh order (``rank`` is this
+    rank's place among them).
+
+    Its collectives are differentiable: given a tensor that requires grad
+    under autograd they run as the ``parallel.collectives`` Functions,
+    whose backward is the JAX transpose; otherwise in place, as
+    inference takes them."""
 
     def __init__(self, shape: Dict[str, int], rank: int, groups,
-                 backend: Optional[str], device: torch.device):
+                 backend: Optional[str], device: torch.device, ranks=None):
         self.shape = dict(shape)
         self.axis_names = tuple(shape)
         self.rank = rank
@@ -63,6 +72,8 @@ class Mesh:
         self.groups = groups
         self.backend = backend
         self.device = device
+        n = int(np.prod(list(shape.values()))) if shape else 1
+        self.ranks = tuple(range(n)) if ranks is None else tuple(ranks)
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank {self.rank} at {self.coords})"
@@ -93,28 +104,42 @@ class Mesh:
         NCCL capture path is written yet)."""
         return self.tp == 1 and self.ep == 1
 
-    def psum(self, x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
-        """The sum of ``x`` over ``axis``, in x's dtype, written into x (a
-        tensor of its own) and returned."""
-        g = self.groups.get(axis)
-        if g is None:
-            return x
-        _count(f"{axis}_all_reduce")
-        dist.all_reduce(x, group=g)
+    def world_rank(self, **coords) -> int:
+        """The process group's rank at this rank's coordinates with
+        ``coords`` (axis → index) changed."""
+        at = dict(self.coords, **coords)
+        i = np.ravel_multi_index(tuple(at[a] for a in self.axis_names),
+                                 tuple(self.shape.values())) \
+            if self.shape else 0
+        return self.ranks[int(i)]
+
+    def psum(self, x: torch.Tensor, axis="tp") -> torch.Tensor:
+        """The sum of ``x`` over ``axis`` (or over each of a tuple of axes,
+        one after the other), in x's dtype. In place, into x (a tensor of
+        its own), unless autograd records x: then a new tensor, and the
+        backward sums the cotangents over the same axes."""
+        for a in (axis,) if isinstance(axis, str) else axis:
+            g = self.groups.get(a)
+            if g is None:
+                continue
+            _count(f"{a}_all_reduce")
+            x = C.PSum.apply(x, g) if _grad(x) else C.psum_(x, g)
         return x
 
     def all_gather(self, x: torch.Tensor, axis: str = "tp",
                    dim: int = -1) -> torch.Tensor:
         """Every rank's ``x`` along ``axis``, concatenated along ``dim`` in
-        rank order (the JAX ``all_gather(..., tiled=True)``)."""
+        rank order (the JAX ``all_gather(..., tiled=True)``; its backward
+        sums the cotangent over the axis and keeps this rank's slice)."""
         g = self.groups.get(axis)
         if g is None:
             return x
         _count(f"{axis}_all_gather")
-        x = x.contiguous()
-        outs = [torch.empty_like(x) for _ in range(self.size(axis))]
-        dist.all_gather(outs, x, group=g)
-        return torch.cat(outs, dim=dim)
+        dim = dim % x.ndim
+        if _grad(x):
+            return C.AllGather.apply(x, g, self.size(axis), self.index(axis),
+                                     dim)
+        return C.all_gather_(x, g, self.size(axis), dim)
 
     def all_to_all(self, x: torch.Tensor, axis: str = "ep") -> torch.Tensor:
         """``x`` [n, ...] (n the axis size): chunk j goes to the axis's rank
@@ -123,10 +148,25 @@ class Mesh:
         if g is None:
             return x
         _count(f"{axis}_all_to_all")
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=g)
-        return out
+        return C.AllToAll.apply(x, g) if _grad(x) else C.all_to_all_(x, g)
+
+    def ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
+        """The JAX ``ppermute`` over ``axis``: ``perm`` lists (source,
+        destination) indices along the axis; a rank that is a destination
+        gets its source's ``x``, any other zeros. Over ``isend``/``irecv``
+        (every one posted before any is waited on); under gloo a card's
+        tensor goes through the host. Its backward sends the cotangents
+        the reverse way."""
+        if self.size(axis) == 1:
+            return x if any(s == d for s, d in perm) else torch.zeros_like(x)
+        _count(f"{axis}_ppermute")
+        pairs = tuple((self.world_rank(**{axis: s}),
+                       self.world_rank(**{axis: d})) for s, d in perm)
+        me = self.ranks[self.rank]
+        host = self.backend == "gloo"
+        if _grad(x):
+            return C.PPermute.apply(x, me, pairs, host)
+        return C.ppermute_(x, me, pairs, host)
 
 
 def _count(name: str):
@@ -134,7 +174,12 @@ def _count(name: str):
     _cuda.ROUTES.count(name)
 
 
-def make_mesh(dp: int = 1, tp: int = 1, device=None, **axes) -> Mesh:
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def make_mesh(dp: int = 1, tp: int = 1, device=None, ranks=None,
+              **axes) -> Optional[Mesh]:
     """The mesh over the process group's ranks (one process without a
     group: every axis of size 1). Axes ("dp", then ``axes`` by keyword in
     mesh-major order, "tp" last), as the JAX ``make_mesh``: rank r sits at
@@ -142,14 +187,19 @@ def make_mesh(dp: int = 1, tp: int = 1, device=None, **axes) -> Mesh:
     consecutive ranks. Every rank must call this with the same shape: each
     subgroup is made by all ranks in one order. ``device``: where this
     rank's tensors live (the card unless "cpu"; under NCCL the current
-    card)."""
+    card). ``ranks``: the process group's ranks the mesh is laid over, in
+    mesh order (the JAX ``make_mesh(devices=devices[:n])``), all of them
+    by default; every rank of the group calls this, and one outside
+    ``ranks`` gets None."""
     named = {"dp": dp, **axes}
     named["tp"] = tp
     n = int(np.prod(list(named.values())))
     world, rank = multihost.world(), multihost.rank()
-    if n != world:
-        raise ValueError(f"mesh {named} has {n} ranks, the process group "
-                         f"{world}")
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    if n != len(ranks) or not set(ranks) <= set(range(world)) \
+            or len(set(ranks)) != n:
+        raise ValueError(f"mesh {named} has {n} ranks, laid over {ranks} of "
+                         f"a process group of {world}")
     backend = dist.get_backend() if dist.is_initialized() else None
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -161,10 +211,13 @@ def make_mesh(dp: int = 1, tp: int = 1, device=None, **axes) -> Mesh:
             continue
         # every line of ranks along this axis, in one order on every rank
         for line in axis_lines:
-            g = dist.new_group(line)
-            if rank in line:
+            members = [ranks[i] for i in line]
+            g = dist.new_group(members)
+            if rank in members:
                 groups[name] = g
-    return Mesh(named, rank, groups, backend, dev)
+    if rank not in ranks:
+        return None
+    return Mesh(named, ranks.index(rank), groups, backend, dev, ranks)
 
 
 # Split type per layer-param name, the JAX table: "col" = shard the output
@@ -375,19 +428,15 @@ def shard_model(params, cfg: ModelConfig, mesh: Mesh, specs=None,
 
 
 def _to_device(tree, dev):
-    if isinstance(tree, QTensor):
-        return dataclasses.replace(
-            tree, planes=tuple(p.to(dev) for p in tree.planes),
-            scales=tree.scales.to(dev),
-            zeros=None if tree.zeros is None else tree.zeros.to(dev),
-            perm=None if tree.perm is None else tree.perm.to(dev))
-    if isinstance(tree, dict):
-        return {k: _to_device(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, dev) for v in tree]
-    if isinstance(tree, torch.Tensor):
-        return tree.to(dev)
-    return tree
+    def move(t):
+        if isinstance(t, QTensor):
+            return dataclasses.replace(
+                t, planes=tuple(p.to(dev) for p in t.planes),
+                scales=t.scales.to(dev),
+                zeros=None if t.zeros is None else t.zeros.to(dev),
+                perm=None if t.perm is None else t.perm.to(dev))
+        return t.to(dev) if isinstance(t, torch.Tensor) else t
+    return tree_map(move, tree, is_leaf=lambda x: isinstance(x, QTensor))
 
 
 def cache_specs() -> KVCache:

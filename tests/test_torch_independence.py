@@ -38,7 +38,9 @@ print(",".join(hit))
     "neural_tpu_torch.parallel", "neural_tpu_torch.parallel.sharding",
     "neural_tpu_torch.parallel.tp", "neural_tpu_torch.parallel.ep",
     "neural_tpu_torch.parallel.multihost",
-    "neural_tpu_torch.parallel.run_tp"])
+    "neural_tpu_torch.parallel.run_tp", "neural_tpu_torch.parallel.sp",
+    "neural_tpu_torch.parallel.pp", "neural_tpu_torch.parallel.dryrun",
+    "neural_tpu_torch.parallel.collectives"])
 def test_import_pulls_in_nothing_banned(module):
     out = subprocess.run(
         [sys.executable, "-c", PROBE.format(root=str(ROOT), module=module,

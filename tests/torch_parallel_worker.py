@@ -342,7 +342,151 @@ def suite_ep(inp, rank, world):
     return out
 
 
-SUITES = {"tp": suite_tp, "ep": suite_ep}
+def _dense(tree, cfg):
+    """The param dict of a JAX f32 tree, on the CPU (f32 leaves kept)."""
+    return _model(tree, cfg).param_dict()
+
+
+def suite_collectives(inp, rank, world):
+    """Each differentiable collective of the mesh, forward and backward, on
+    a (dp, sp, tp) = (2, 2, 2) mesh: x and the upstream cotangent c are
+    drawn from the rank's seed, the loss is sum(y · c); the parent holds the
+    gradients against the JAX transposes."""
+    import torch
+    from neural_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(dp=2, sp=2, tp=2, device="cpu")
+    gen = torch.Generator().manual_seed(100 + rank)
+    out = {"coords": mesh.coords}
+    cases = {
+        "psum_tp": lambda x: mesh.psum(x, "tp"),
+        "psum_sp_tp": lambda x: mesh.psum(x, ("sp", "tp")),
+        "all_gather_tp": lambda x: mesh.all_gather(x, "tp", dim=1),
+        "all_to_all_sp": lambda x: mesh.all_to_all(x, "sp"),
+        "ppermute_ring_sp": lambda x: mesh.ppermute(x, "sp", [(0, 1),
+                                                               (1, 0)]),
+        "ppermute_one_sp": lambda x: mesh.ppermute(x, "sp", [(0, 1)]),
+    }
+    for name, fn in cases.items():
+        x = torch.randn(2, 3, generator=gen, requires_grad=True)
+        y = fn(x)
+        c = torch.randn(y.shape, generator=gen)
+        (g,) = torch.autograd.grad((y * c).sum(), x)
+        with torch.no_grad():
+            y0 = fn(x.detach().clone())         # the in-place forms
+        out[name] = dict(x=_np(x), y=_np(y), c=_np(c), g=_np(g),
+                         y_nograd=_np(y0))
+    return out
+
+
+def suite_sp(inp, rank, world):
+    """Ring attention: (sp, tp) = (4, 1) on ranks 0-3 and (2, 2) on ranks
+    4-7, at once, plus GQA with a sliding window at sp = 4; each rank also
+    runs the one-device cache-less forward. Then the collectives' suite
+    over all 8 ranks."""
+    import torch
+    from neural_tpu_torch.parallel import (make_mesh,
+                                           sequence_sharded_forward,
+                                           shard_model)
+    from neural_tpu_torch.ops import _cuda
+    out = {}
+    m41 = make_mesh(dp=1, sp=4, tp=1, device="cpu", ranks=[0, 1, 2, 3])
+    m22 = make_mesh(dp=1, sp=2, tp=2, device="cpu", ranks=[4, 5, 6, 7])
+    mesh = m41 or m22
+    for key, case in inp["cases"].items():
+        if (case["mesh"] == "4,1") != (m41 is not None):
+            continue
+        cfg = _cfg(case["cfg"])
+        whole = _model(case["params"], cfg)
+        t = torch.tensor(case["tokens"])
+        _cuda.reset_launches()
+        with torch.no_grad():
+            got = sequence_sharded_forward(shard_model(whole, cfg, mesh), t,
+                                           gather=True)
+            one = whole(t, torch.zeros(t.shape[0], dtype=torch.long), None)
+        out[key] = dict(got=_np(got), one=_np(one), routes={
+            k: v for k, v in _cuda.launch_counts().items() if v})
+    out["coll"] = suite_collectives(inp, rank, world)
+    return out
+
+
+def suite_pp(inp, rank, world):
+    """``make_pp_train_step`` at (pp, tp, dp) = (2, 2, 2) and (4, 1, 2) over
+    the 8 ranks and (2, 1, 1) over ranks 0-1: each rank's loss, and its
+    shards of the updated ``embed``, ``layers[*].wq`` and ``lm_head``."""
+    import torch
+    from neural_tpu_torch.parallel import (make_mesh, make_pp_train_step,
+                                           pp_shard_params)
+    from neural_tpu_torch.ops import _cuda
+    out = {}
+    cfg = _cfg(inp["cfg"])
+    params = _dense(inp["params"], cfg)
+    for key, (pp, tp, dp) in inp["cases"].items():
+        mesh = make_mesh(dp=dp, pp=pp, tp=tp, device="cpu",
+                         ranks=list(range(pp * tp * dp)))
+        if mesh is None:
+            continue
+        step = make_pp_train_step(params, cfg, mesh, n_microbatches=2,
+                                  lr=inp["lr"])
+        local = pp_shard_params(params, cfg, mesh)
+        _cuda.reset_launches()
+        loss, new = step(local, torch.tensor(inp["tokens"][key]))
+        out[key] = dict(coords=mesh.coords, loss=float(loss),
+                        embed=_np(new["embed"]),
+                        wq=[_np(lp["wq"]) for lp in new["layers"]],
+                        lm_head=_np(new["lm_head"]),
+                        attn_norm=[_np(lp["attn_norm_w"])
+                                   for lp in new["layers"]],
+                        routes={k: v for k, v in
+                                _cuda.launch_counts().items() if v})
+    return out
+
+
+def suite_moe_train(inp, rank, world):
+    """``make_moe_train_step`` at each (sp, ep) of ``inp["cases"]``, over
+    the first sp · ep ranks, on the JAX tree's f32 Mixtral, with a capacity
+    factor of E (nothing dropped): each rank's loss, and its shards of the
+    updated ``embed``, every layer's ``wq``, ``router`` and experts'
+    ``w_up`` (this rank's experts)."""
+    import torch
+    from neural_tpu_torch.parallel import (make_mesh, make_moe_train_step,
+                                           shard_params)
+    from neural_tpu_torch.parallel.ep import ep_param_specs
+    out = {}
+    cfg = _cfg(inp["cfg"])
+    params = _dense(inp["params"], cfg)
+    for key, (sp, ep) in inp["cases"].items():
+        mesh = make_mesh(dp=1, sp=sp, ep=ep, tp=1, device="cpu",
+                         ranks=list(range(sp * ep)))
+        if mesh is None:
+            continue
+        local = shard_params(params, cfg, mesh,
+                             ep_param_specs(params, cfg, tp=False))
+        step = make_moe_train_step(params, cfg, mesh, lr=inp["lr"],
+                                   capacity_factor=float(cfg.n_experts))
+        loss, new = step(local, torch.tensor(inp["tokens"]))
+        out[key] = dict(coords=mesh.coords, loss=float(loss),
+                        embed=_np(new["embed"]),
+                        **{n: [_np(lp[n]) for lp in new["layers"]]
+                           for n in ("wq", "router")},
+                        w_up=[_np(lp["experts"]["w_up"])
+                              for lp in new["layers"]])
+    return out
+
+
+def suite_dryrun(inp, rank, world):
+    """The port's dry run over every rank, through the launcher; then the
+    MoE training step's twins (:func:`suite_moe_train`)."""
+    from neural_tpu_torch.ops import _cuda
+    from neural_tpu_torch.parallel import run_tp
+    _cuda.reset_launches()
+    out = run_tp.main(["--dryrun", "--device", "cpu"])
+    out["routes"] = {k: v for k, v in _cuda.launch_counts().items() if v}
+    out["moe_train"] = suite_moe_train(inp["moe_train"], rank, world)
+    return out
+
+
+SUITES = {"tp": suite_tp, "ep": suite_ep, "sp": suite_sp, "pp": suite_pp,
+          "dryrun": suite_dryrun}
 
 
 def main():
