@@ -13,6 +13,8 @@
                                             # result line)
     python3 chip_smoke.py --phase11         # phases 1, 2 and 11 alone (no
                                             # result line)
+    python3 chip_smoke.py --phase12         # phases 1, 2 and 12 alone (no
+                                            # result line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -117,7 +119,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    int8 KV, batch 4, 6 requests); then, for fp4, fp8, fp8_e5m2, int1,
    int2, int2 asym, int3, int5, int5 asym, q8_0 and int8 (per channel),
    ``Model.generate`` on the card (a
-   path each) and its logits against the plain path; logits within
+   path each) and its logits against the plain path on the card's own
+   tensors (``plain_on_card``); logits within
    tolerance, greedy ids equal where the margin proves it (the formats'
    copies have one layer); (5b) a 2-layer
    Gemma-2-9B copy with its window cut to 32 (so that it acts on every
@@ -314,6 +317,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    peak memory; every time on the host clock beside the card's name and
    power limit. 11a/11b's K2 launches join K2's paths in the kernels line.
 
+12. Whisper (random f32 weights from seeds at openai/whisper-large-v3's
+   published widths: d_model 1280, 20 heads, 32 + 32 layers, FFN 5120, 128
+   mels, vocab 51866; f32 activations): phase 3 also holds K2 with f32 x
+   (q4_j; its activation codes bit-equal to the plain version's) and K5's
+   tiles (q4_0) on the encoder's and the cross K/V's products at M = 1500,
+   and K1 on a decoder step's at M = 1 (q4_j, q4_0) and M = 5 (a beam-5
+   step), f32 out, each against its plain version with its times and bound
+   (12d runs them under ``--phase12``); (12a) large-v3 at full depth at q4_j
+   (K2 + K1) and q4_0 (K5 + K1): ``transcribe_file`` of a seeded 20 s
+   16 kHz WAV written with stdlib ``wave``, a path each with its launch
+   counts (256 window products, 256 K1 launches a token), its real-time
+   factor, the encoder's device ms a window beside the conv stem's and
+   ``_mha``'s, a greedy step's and a beam-5 step's device ms,
+   ``detect_language``, the timestamps path and a 5-beam transcription once
+   each; (12b) 2 + 2-layer copies at the same widths against the plain path
+   on the card's own tensors (encoder states and 8 teacher-forced rows
+   within 2e-2·max|·|, argmax where the margins prove it), and the card run
+   again with the TF32 switches at PyTorch's defaults and both on, bit-equal
+   to the run with them off; (12c) ``eval.perplexity`` over 1024 seeded
+   tokens (ctx 512, stride 256, batch 2) on a 2-layer Llama-2-7B-width q4_j
+   copy through ``batch_logits`` (K2, K3) within 1e-2 relative of the plain
+   route, ``score_choices`` the same on both, and one ``maybe_trace`` of a
+   ``Model.generate`` at ``NEURAL_TPU_VERBOSE=2`` with its top device ops.
+   12d's cases join their kernels' cases in the kernels line.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 no CUDA device is present.
@@ -334,6 +362,7 @@ import types
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -356,6 +385,7 @@ from neural_tpu_torch.models import (baichuan, bloom, chatglm,  # noqa: E402
                                      falcon, gptj, gptneox, grok, llama, mpt,
                                      opt, phi, qwen, stablelm, starcoder)
 from neural_tpu_torch.models import transformer as TRANSFORMER  # noqa: E402
+from neural_tpu_torch.models import whisper as WH  # noqa: E402
 from neural_tpu_torch.models.config import ModelConfig  # noqa: E402
 from neural_tpu_torch.ops import _cuda  # noqa: E402
 from neural_tpu_torch.ops import attention as A  # noqa: E402
@@ -383,6 +413,7 @@ from neural_tpu_torch.runtime.sampling import (  # noqa: E402
 from neural_tpu_torch.serving import (ModelServer, Query,  # noqa: E402
                                       Scheduler)
 from neural_tpu_torch.serving import scheduler as SCHED  # noqa: E402
+from neural_tpu_torch.utils.audio import load_audio_16k  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BPS = 3.35e12
@@ -603,26 +634,27 @@ def _qt_copy(qt):
 
 
 def _case(gen, label, cfg, M, shapes, fn, plain, entry, peak, at_rest=True,
-          vocab=V):
+          vocab=V, x_dtype=torch.bfloat16, out_dtype=None):
     """One format at one M over ``shapes`` (K, N, products per step): the
     wrapper ``fn(x, qt, out_dtype)`` against ``plain`` on the same CUDA
     tensors, checking that ``entry`` is the C function it launched; its
     time, the plain version's, one bf16 ``torch.matmul`` on the
     pre-dequantized weight (a yardstick) and the bound, each summed over the
-    step. The lm_head (N = ``vocab``) writes f32 logits, the rest bf16: a bf16
+    step. The lm_head (N = ``vocab``) writes f32 logits, the rest bf16
+    unless ``out_dtype`` says (Whisper's f32 x and f32 outputs): a bf16
     output is one rounding away, 1e-2·max|ref|; f32 only the order of the
     sums, 1e-4·max|ref|."""
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
     bound_by = {"bytes": 0.0, "operations": 0.0}
     for K, N, count in shapes:
-        odt = torch.float32 if N == vocab else torch.bfloat16
+        odt = out_dtype or (torch.float32 if N == vocab else torch.bfloat16)
         qt = quantize(torch.randn((K, N), generator=gen, device=DEV) * 0.02,
                       cfg)
         if at_rest:
             qt = to_native(qt)
         wbytes = _qt_bytes(qt)
         qts = [qt] + [_qt_copy(qt) for _ in range(_copies(wbytes) - 1)]
-        x = torch.randn((M, K), generator=gen, device=DEV).bfloat16()
+        x = torch.randn((M, K), generator=gen, device=DEV).to(x_dtype)
         before = _cuda.launch_counts()[entry]
         out = fn(x, qt, odt)
         if _cuda.launch_counts()[entry] != before + 1:
@@ -638,10 +670,11 @@ def _case(gen, label, cfg, M, shapes, fn, plain, entry, peak, at_rest=True,
         pms = time_ms([lambda: plain(x, qt, odt)], reps=5)
         wd = Q.dequant_bf16(qt)
         wds = [wd] + [wd.clone() for _ in range(_copies(K * N * 2) - 1)]
-        lms = time_ms([lambda w=w: torch.matmul(x, w) for w in wds])
+        xb = x.bfloat16()
+        lms = time_ms([lambda w=w: torch.matmul(xb, w) for w in wds])
         del wds, wd, qts
-        bnd, by = bound_ms(wbytes + M * K * 2 + M * N * odt.itemsize,
-                           2 * M * K * N, peak)
+        bnd, by = bound_ms(wbytes + M * K * x.element_size()
+                           + M * N * odt.itemsize, 2 * M * K * N, peak)
         bound_by[by] += count * bnd
         log(f"{label} {entry} M={M} {K}x{N} x{count}/step: err {err:.3g} "
             f"(tol {tol:.3g}) | kernel {ms:.4f} ms, plain {pms:.3f} ms, "
@@ -3602,11 +3635,13 @@ def _formats_card_vs_plain(cfg2, rel_tol=2e-2):
     layer since the script's time limit pressed, two before) runs
     ``Model.generate`` on the card (a path of its own, with launch counts;
     24-token prompt, 3 new tokens), then its logits, fed the card's ids,
-    are held against the plain path on the CPU. Every product here has
+    are held against the plain path on the card's own tensors
+    (``plain_on_card``: on the host's CPU this plain path took most of
+    phase 5's time, as it did 8c's). Every product here has
     bf16 activations (24 rows are too few for the int8 path), so no int8
     code moves; what differs is the order of f32 sums and the bf16
     roundings between layers, one bf16 step (2^-8 relative) at a time.
-    The H100 showed 7e-3 to 9e-3·max|logit|; the tolerance is 2e-2, not
+    The H100 showed 4e-3 to 9e-3·max|logit|; the tolerance is 2e-2, not
     the q4_j check's 5e-2. The worst relative difference is printed per
     format."""
     gen = torch.Generator().manual_seed(8)
@@ -3615,22 +3650,22 @@ def _formats_card_vs_plain(cfg2, rel_tol=2e-2):
     for i, (fmt, required) in enumerate(PLAIN_FORMATS.items()):
         quant = QUANTS.get(fmt, fmt)
         card = init_random(cfg2, seed=10 + i, quant=quant, device=DEV)
-        host = init_random(cfg2, seed=10 + i, quant=quant,
-                           device=DEV).to("cpu")
         model = Model().init_params(card, cfg2)
         new = run_path(f"card_{fmt}", required, lambda: model.generate(
             ids, max_new_tokens=3, do_sample=False,
             stop_at_eos=False)[0])[len(ids):]
         _check_ids(new, 3, f"card {fmt}")
-        log(f"{fmt}: card vs plain, fed the card's ids {new}")
-        worst, provable, _ = _steps_card_vs_plain(card, host, cfg2, ids, new,
-                                                  rel_tol)
+        log(f"{fmt}: card vs plain on the card, fed the card's ids {new}")
+        rows = _step_rows(card, cfg2, ids, new)
+        with plain_on_card():
+            plain = _step_rows(card, cfg2, ids, new)
+        worst, provable, _ = _compare_rows(rows, plain, rel_tol)
         log(f"{fmt}: logits max err {worst:.3g}·max|logit| (tol {rel_tol}); "
             f"argmax provably comparable at {provable} of 4 steps, equal at "
             "all of them")
         res[fmt] = worst
         total += provable
-        del card, host, model
+        del card, model
         torch.cuda.empty_cache()
     if total < len(PLAIN_FORMATS):
         raise AssertionError(f"only {total} steps over {len(PLAIN_FORMATS)} "
@@ -8045,6 +8080,411 @@ def phase_nocache(results):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: Whisper large-v3, card against plain, eval and the trace
+# ---------------------------------------------------------------------------
+
+
+# openai/whisper-large-v3's config.json: d_model 1280, 20 heads, 32 encoder
+# and 32 decoder layers, FFN 5120, 128 mels, vocab 51866, 1500 / 448
+# positions, eos 50257, decoder start 50258
+WH_V3 = WH.WhisperConfig(vocab_size=51866, d_model=1280, n_heads=20,
+                         enc_layers=32, dec_layers=32, n_mels=128,
+                         n_audio_ctx=1500, n_text_ctx=448, ffn_dim=5120,
+                         eos_token_id=50257, sot_token_id=50258)
+WH_M = 1500          # the encoder's rows a 30 s window: K2 / K5 at M = 1500
+# the encoder's products a window (q/k/v/o, fc1, fc2 of 32 layers) and the
+# decoder's cross K/V of the encoder states (2 a layer), all at M = 1500
+WH_ENC = [(1280, 1280, 4 * 32 + 2 * 32), (1280, 5120, 32), (5120, 1280, 32)]
+# a decoder step's (self q/k/v/o, cross q/o, fc1, fc2 of 32 layers)
+WH_DEC = [(1280, 1280, 6 * 32), (1280, 5120, 32), (5120, 1280, 32)]
+WH_K_WINDOW = sum(c for _, _, c in WH_ENC)     # 256 products a window
+WH_K_STEP = sum(c for _, _, c in WH_DEC)       # 256 products a token
+WH_TOL = 2e-2        # 12b card vs plain, of max|·| (f32 activations)
+WH_AUDIO_S = 20.0    # the seeded WAV's seconds (one 30 s window)
+WH_NEW = 24          # new tokens of each transcribe_file leg
+WH_STEPS = 8         # 12b's teacher-forced decoder steps
+EVAL_CFG = dataclasses.replace(CFG, n_layers=2)
+EVAL_TOL = 1e-2      # 12c perplexity, card against plain, relative
+
+
+def _k2_f32(gen, shapes, M=WH_M):
+    """K2 with f32 x (Whisper's encoder rows, x quantized from its own f32
+    values) and f32 out over ``shapes``: the activation codes and scales
+    equal to the plain version's bit for bit, the product within 1e-5 of
+    max|plain|; times summed over a window."""
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+    bound_by = {"bytes": 0.0, "operations": 0.0}
+    for K, N, count in shapes:
+        planes, scales, qt = _qweight(K, N, gen)[0]
+        x = torch.randn((M, K), generator=gen, device=DEV)
+        xq, sa = Q.act_quant_i8(x, 128)
+        rq, rsa = Q.quantize_act_i8(x, 128)
+        if not (torch.equal(xq, rq) and torch.equal(sa, rsa)):
+            raise AssertionError(f"K2 f32 x: act codes differ at {M}x{K}")
+        f32 = torch.float32
+        out = Q.qmm_a8(x, planes, scales, 128, 128, f32)
+        ref = Q.qmm_a8_plain(x, planes, scales, 128, 128, f32)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"K2 f32 x {M}x{K}x{N}: max err {err} > "
+                                 f"{tol}")
+        ms = time_ms([lambda: Q.qmm_a8(x, planes, scales, 128, 128, f32)])
+        pms = time_ms([lambda: Q.qmm_a8_plain(x, planes, scales, 128, 128,
+                                              f32)], reps=5)
+        wd, xb = dequantize(qt, torch.bfloat16), x.bfloat16()
+        lms = time_ms([lambda: torch.matmul(xb, wd)])
+        nbytes = M * K * 4 + K * N // 2 + K // 128 * N * 2 + M * N * 4
+        bnd, by = bound_ms(nbytes, 2 * M * N * K, INT8_OPS)
+        bound_by[by] += count * bnd
+        log(f"K2 qmm_a8 f32 x M={M} {K}x{N} x{count}/window: err {err:.3g} "
+            f"(tol {tol:.3g}), act codes equal | kernel {ms:.3f} ms, plain "
+            f"{pms:.3f} ms, torch.matmul bf16 {lms:.3f} ms, bound "
+            f"{bnd:.4f} ms ({by})")
+        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                     ("bound_ms", bnd)):
+            agg[k] += count * v
+        agg["err"] = max(agg["err"], err)
+        del wd, xb
+    agg["bound_by"] = max(bound_by, key=bound_by.get)
+    return agg
+
+
+def check_whisper_kernels(gen, results):
+    """Each kernel at Whisper large-v3's shapes with f32 x and f32 out,
+    against its plain version, with its time, the plain version's, one
+    library call's and its bound: K2 (q4_j) on the encoder's and the cross
+    K/V's products at M = 1500 (x quantized from f32: codes bit-equal), K5's
+    tiles (q4_0) on the same, K1 on a decoder step's products at M = 1
+    (greedy; q4_j and q4_0) and M = 5 (a beam-5 step). Recorded under
+    ``whisper_<kernel>`` and, where phase 3 ran, among that kernel's
+    cases."""
+    f32 = torch.float32
+    k1 = lambda x, qt, odt: Q.qmm_native(x, qt.planes[0], qt.scales, None,
+                                         qt.group_size, 4, odt)
+    p1 = lambda x, qt, odt: Q.qmm_native_plain(x, qt.planes[0], qt.scales,
+                                               None, qt.group_size, 4, odt)
+    k5 = lambda x, qt, odt: Q.qmm_general(x, qt, odt)
+    p5 = lambda x, qt, odt: Q.qmm_general_plain(x, qt, odt)
+    wh = {"K1": {}, "K5_tc": {}}
+    for fmt, M, what in (("q4_j", 1, "greedy decoder step"),
+                         ("q4_j", 5, "beam-5 decoder step"),
+                         ("q4_0", 1, "greedy decoder step")):
+        label = f"whisper large-v3 {fmt} {what}, f32 x"
+        wh["K1"][label] = _case(gen, label, PRESETS[fmt], M, WH_DEC, k1, p1,
+                                "qmm4_npack", BF16_FLOPS, x_dtype=f32,
+                                out_dtype=f32)
+        torch.cuda.empty_cache()
+    label = "whisper large-v3 q4_0 encoder window, f32 x"
+    wh["K5_tc"][label] = _case(gen, label, PRESETS["q4_0"], WH_M, WH_ENC, k5,
+                               p5, "qmm_general+tc", BF16_FLOPS, x_dtype=f32,
+                               out_dtype=f32)
+    torch.cuda.empty_cache()
+    label = "whisper large-v3 q4_j encoder window, f32 x"
+    wh["K2"] = {label: dict(_k2_f32(gen, WH_ENC),
+                            per=f"{label} ({WH_K_WINDOW} launches)")}
+    torch.cuda.empty_cache()
+    for key, cases in wh.items():
+        results[f"whisper_{key}"] = dict(next(iter(cases.values())),
+                                          cases=cases)
+        if key in results:
+            results[key]["cases"].update(cases)
+        if key == "K5_tc" and "K5" in results:
+            results["K5"]["cases"].update(cases)
+    return {f"12d {k} {label}": {m: c[m] for m in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "err")}
+        for k, cases in wh.items() for label, c in cases.items()}
+
+
+def _write_wav(path, seconds, seed, sr=16000):
+    """A seeded 16 kHz mono WAV through stdlib ``wave``: three tones under
+    noise, 16-bit."""
+    import wave
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    sig = sum(0.1 * np.sin(2 * np.pi * f * t) for f in (220.0, 440.0, 990.0))
+    sig = sig + 0.05 * rng.standard_normal(len(t))
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(sig, -1, 1) * 32767).astype("<i2").tobytes())
+    return path
+
+
+def _encoder_parts(params, cfg, mel):
+    """Where an encoder window's device time goes: the whole ``encode``,
+    the conv stem alone, ``_mha`` alone at one layer's shapes (times the
+    layers) and the products (from their own launches), each by CUDA
+    events around the call."""
+    x = torch.as_tensor(mel[None], device=DEV)
+
+    def stem():
+        with WH.f32_exact():
+            h = F.gelu(F.conv1d(x, params["conv1_w"], params["conv1_b"],
+                                padding=1))
+            return F.gelu(F.conv1d(h, params["conv2_w"], params["conv2_b"],
+                                   stride=2, padding=1))
+    q, k, v = (torch.randn((1, WH_M, cfg.d_model), device=DEV)
+               for _ in range(3))
+
+    def mha():
+        with WH.f32_exact():
+            return WH._mha(q, k, v, cfg.n_heads)
+    return {"encode_ms": _event_ms(lambda: WH.encode(params, mel[None], cfg),
+                                   reps=5),
+            "conv_stem_ms": _event_ms(stem, reps=5),
+            "mha_ms": cfg.enc_layers * _event_ms(mha, reps=5)}
+
+
+def _step_ms(params, cfg, enc, W=1):
+    """The device time of one decoder step at position 64 by CUDA events:
+    greedy (W = 1, ``decode_step``) or one beam expansion (``_beam_step``
+    over W rows reading one cross K/V row)."""
+    state = WH.init_decoder_state(params, enc, cfg)
+    WH.decode_step(params, [[cfg.sot_token_id] * 4], 0, state, cfg)
+    if W == 1:
+        return _event_ms(lambda: WH.decode_step(params, [[17]], 64, state,
+                                                cfg), reps=10)
+    for key in ("self_k", "self_v"):
+        state[key] = state[key].repeat(1, W, 1, 1)
+    toks = [[17 + w] for w in range(W)]
+    scores = torch.zeros(W, device=DEV)
+    alive = torch.ones(W, dtype=torch.bool, device=DEV)
+    return _event_ms(lambda: WH._beam_step(params, toks, 64, scores, state,
+                                           alive, cfg, W), reps=10)
+
+
+def whisper_full(wav, required):
+    """12a: Whisper large-v3 at its published widths, random f32 weights
+    from a seed built on the card, at q4_j (K2 + K1) and q4_0 (K5 + K1):
+    ``transcribe_file`` end to end on the seeded WAV as a path with its
+    launch counts (every product of a window and of each token counted),
+    its real-time factor, the encoder's device ms a window and where it
+    goes, the greedy decoder's ms a token and a beam-5 step's (CUDA
+    events), ``detect_language`` and the timestamps path once each."""
+    smi = smi_line()
+    res = {}
+    audio = load_audio_16k(wav)
+    mel = WH.log_mel_spectrogram(audio, WH_V3.n_mels)
+    for fmt, req in required.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        params = WH.init_random(WH_V3, seed=0, quant=fmt, device=DEV)
+        torch.cuda.synchronize()
+        build_s = time.time() - t
+        m = Model().init_whisper_params(params, WH_V3)
+        ids = m.transcribe_file(wav, max_new_tokens=4)     # warm
+        t = time.time()
+        ids = run_path(f"whisper_{fmt}", req, lambda: m.transcribe_file(
+            wav, max_new_tokens=WH_NEW))
+        e2e_s = time.time() - t
+        c = LAUNCHES[f"whisper_{fmt}"]
+        prompt = WH.build_forced_prompt(WH_V3)
+        n_new = len(ids) - len(prompt)
+        k1 = c["qmm4_npack"]
+        enc_k = c["qmm_a8"] if fmt == "q4_j" else c["qmm_general+tc"]
+        if k1 != WH_K_STEP * n_new or enc_k != WH_K_WINDOW:
+            raise AssertionError(
+                f"whisper {fmt}: {k1} K1 launches for {n_new} tokens "
+                f"(expected {WH_K_STEP * n_new}), {enc_k} window products "
+                f"(expected {WH_K_WINDOW}); counts {_kernel_launches(c)}")
+        if any(not 0 <= i < WH_V3.vocab_size for i in ids):
+            raise AssertionError(f"whisper {fmt}: ids out of range {ids}")
+        enc = WH.encode(params, mel[None], WH_V3)
+        if not (enc.shape == (1, WH_M, WH_V3.d_model)
+                and torch.isfinite(enc).all()):
+            raise AssertionError(f"whisper {fmt}: encoder states {enc.shape}")
+        parts = _encoder_parts(params, WH_V3, mel)
+        step = _step_ms(params, WH_V3, enc)
+        beam = _step_ms(params, WH_V3, enc, W=5)
+        t = time.time()
+        lang, probs = WH.detect_language(params, WH_V3, mel, enc=enc)
+        lang_s = time.time() - t
+        st = WH.special_tokens(WH_V3)
+        if not (st["lang_begin"] <= lang < st["lang_end"]
+                and abs(probs.sum() - 1) < 1e-4):
+            raise AssertionError(f"whisper {fmt}: language {lang}")
+        t = time.time()
+        segs = m.transcribe_file(wav, max_new_tokens=16, timestamps=True)
+        ts_s = time.time() - t
+        for s0, s1, seg in segs:
+            if not (0.0 <= s0 <= s1 <= 60.0
+                    and all(i < st["timestamp_begin"] for i in seg)):
+                raise AssertionError(f"whisper {fmt}: segment {s0, s1, seg}")
+        beams = m.transcribe_file(wav, max_new_tokens=8, num_beams=5)
+        r = {"build_s": build_s, "transcribe_s": e2e_s,
+             "rtf": e2e_s / WH_AUDIO_S, "new_tokens": n_new, **parts,
+             "decode_ms_token": step, "beam5_step_ms": beam,
+             "detect_language_s": lang_s, "timestamps_s": ts_s,
+             "segments": len(segs), "beam_ids": len(beams),
+             "window_products": enc_k, "k1_launches": k1,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        res[f"12a whisper large-v3 {fmt}"] = r
+        log(f"12a whisper large-v3 {fmt} (random weights, {build_s:.1f} s to "
+            f"build on the card): transcribe_file of {WH_AUDIO_S:.0f} s, "
+            f"{n_new} new tokens, {e2e_s:.3f} s host clock, real-time factor "
+            f"{r['rtf']:.4f}; encoder {parts['encode_ms']:.3f} ms a window "
+            f"(conv stem {parts['conv_stem_ms']:.3f}, _mha "
+            f"{parts['mha_ms']:.3f} over 32 layers); greedy step "
+            f"{step:.3f} ms, beam-5 step {beam:.3f} ms (CUDA events); "
+            f"detect_language {lang_s:.3f} s (token {lang}); timestamps "
+            f"path {ts_s:.3f} s, {len(segs)} segments; launches "
+            f"{_kernel_launches(c)}; peak {r['peak_gib']:.2f} GiB ({smi})")
+        del m, params, enc
+    return res
+
+
+def _whisper_card_vs_plain(fmt, mel):
+    """12b: the 2 + 2-layer copy at large-v3's widths, its kernels against
+    their plain versions on the card's own tensors: encoder states and the
+    logits of WH_STEPS teacher-forced steps within WH_TOL·max|·|, argmax
+    equal where the margins prove it; then the card run again with the
+    TF32 switches at PyTorch's defaults (cuDNN on) and both on: the same
+    bits, the precision being set inside Whisper's ops."""
+    cfg2 = dataclasses.replace(WH_V3, enc_layers=2, dec_layers=2)
+    params = WH.init_random(cfg2, seed=1, quant=fmt, device=DEV)
+
+    def run():
+        enc = WH.encode(params, mel[None], cfg2)
+        ids = WH.transcribe_ids(params, cfg2, mel, [cfg2.sot_token_id],
+                                max_new_tokens=WH_STEPS)
+        state = WH.init_decoder_state(params, enc, cfg2)
+        logits, _ = WH.decode_step(params, [ids[:-1]], 0, state, cfg2)
+        return enc, logits[0], ids
+    enc, rows, ids = run()
+    with plain_on_card():
+        penc, prows, _ = run()
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    e_rel, l_rel = rel(enc, penc), rel(rows, prows)
+    proven = _margins_held(rows, prows, f"12b whisper {fmt}")
+    if ids[1:] != rows.argmax(-1).tolist():
+        raise AssertionError(f"12b whisper {fmt}: greedy ids {ids} are not "
+                             "the argmax of their own teacher-forced rows")
+    same = {}
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        for what, conv, mm in (("pytorch defaults", True, False),
+                               ("tf32 on", True, True)):
+            torch.backends.cudnn.allow_tf32 = conv
+            torch.backends.cuda.matmul.allow_tf32 = mm
+            g_enc, g_rows, g_ids = run()
+            same[what] = bool(torch.equal(g_enc, enc)
+                              and torch.equal(g_rows, rows) and g_ids == ids)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    log(f"12b whisper {fmt}, 2 + 2 layers at large-v3's widths, card "
+        f"against plain: encoder {e_rel:.4g}·max|enc|, {WH_STEPS} "
+        f"teacher-forced rows {l_rel:.4g}·max|logit| (tolerance {WH_TOL}), "
+        f"argmax proven by the margins at {proven} of {len(ids) - 1} rows; "
+        f"the card run with the TF32 switches changed bit-equal: {same}")
+    if not (e_rel <= WH_TOL and l_rel <= WH_TOL):
+        raise AssertionError(f"12b whisper {fmt}: {e_rel}, {l_rel}")
+    if not all(same.values()):
+        raise AssertionError(f"12b whisper {fmt}: the TF32 switches moved "
+                             f"the result: {same}")
+    return {"enc_rel": e_rel, "logits_rel": l_rel, "proven": proven,
+            "tf32_switches_bit_equal": same}
+
+
+def _eval_card_vs_plain():
+    """12c: ``eval.perplexity`` over 1024 seeded tokens (ctx 512, stride
+    256, batch 2) on a 2-layer Llama-2-7B-width q4_j copy through
+    ``batch_logits`` (K2 and K3 on the card) against the plain route on
+    the card's tensors, within EVAL_TOL relative a window; ``score_choices``
+    the same answer on both routes; one ``maybe_trace`` of a
+    ``Model.generate`` at ``NEURAL_TPU_VERBOSE=2`` and its top device
+    ops."""
+    import io
+    from neural_tpu_torch.eval import perplexity, score_choices
+    smi = smi_line()
+    params = init_random(EVAL_CFG, seed=3, quant="q4_j", device=DEV)
+    toks = np.random.default_rng(12).integers(3, V, 1024).tolist()
+    kw = dict(ctx_size=512, stride=256, batch=2)
+    t = time.time()
+    got = run_path("eval_perplexity", ("qmm_a8", "flash_prefill"),
+                   lambda: perplexity(params, EVAL_CFG, toks, **kw))
+    ppl_s = time.time() - t
+    with plain_on_card():
+        ref = perplexity(params, EVAL_CFG, toks, **kw)
+    apart = max(abs(a / b - 1) for a, b in zip(got["per_window"],
+                                               ref["per_window"]))
+    ctx = toks[:64]
+    choices = [toks[64 + 5 * i:64 + 5 * i + 2 + i] for i in range(4)]
+    pick = score_choices(params, EVAL_CFG, ctx, choices)
+    with plain_on_card():
+        pick_ref = score_choices(params, EVAL_CFG, ctx, choices)
+    log(f"12c perplexity, 2-layer 7B q4_j, 1024 tokens (ctx 512, stride "
+        f"256, batch 2): card {got['ppl']:.6f} in {ppl_s:.3f} s host "
+        f"clock, plain {ref['ppl']:.6f}, windows apart by {apart:.3g} "
+        f"relative (tolerance {EVAL_TOL}); score_choices card {pick}, plain "
+        f"{pick_ref} ({smi})")
+    if not (apart <= EVAL_TOL and got["n_tokens"] == ref["n_tokens"]):
+        raise AssertionError(f"12c perplexity: {got} against {ref}")
+    if pick != pick_ref:
+        raise AssertionError(f"12c score_choices: {pick} against {pick_ref}")
+    m = Model().init_params(params, EVAL_CFG)
+    buf = io.StringIO()
+    old = os.environ.get("NEURAL_TPU_VERBOSE")
+    os.environ["NEURAL_TPU_VERBOSE"] = "2"
+    try:
+        with contextlib.redirect_stdout(buf):
+            m.generate(toks[:32], max_new_tokens=8)
+    finally:
+        if old is None:
+            os.environ.pop("NEURAL_TPU_VERBOSE")
+        else:
+            os.environ["NEURAL_TPU_VERBOSE"] = old
+    trace = buf.getvalue()
+    log(f"12c maybe_trace of Model.generate (32-token prompt, 8 new) at "
+        f"NEURAL_TPU_VERBOSE=2 ({smi}):\n{trace}")
+    if "neural-tpu timings:" not in trace or " ops (generate" not in trace:
+        raise AssertionError(f"12c: the trace printed {trace!r}")
+    return {"ppl": got["ppl"], "ppl_plain": ref["ppl"],
+            "windows_apart": apart, "ppl_s": ppl_s, "choice": pick,
+            "device_ops": "top device ops" in trace}
+
+
+def phase_whisper(results):
+    """Phase 12: (12d) the kernels at Whisper large-v3's shapes with f32 x
+    where phase 3 did not run them; (12a) large-v3 at full width and depth,
+    q4_j and q4_0; (12b) the 2 + 2-layer copies against the plain path on
+    the card; (12c) eval's perplexity and scoring against the plain route
+    and one trace."""
+    t0 = time.time()
+    res = {}
+    if "whisper_K2" not in results:
+        gen = torch.Generator(device=DEV).manual_seed(12)
+        res["12d"] = check_whisper_kernels(gen, results)
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     ".chip_scratch", "phase12")
+    os.makedirs(d, exist_ok=True)
+    wav = _write_wav(os.path.join(d, "seeded.wav"), WH_AUDIO_S, seed=12)
+    t = time.time()
+    res.update(whisper_full(wav, {
+        "q4_j": ("qmm_a8", "quantize_act_i8", "qmm4_npack"),
+        "q4_0": ("qmm_general+tc", "qmm4_npack")}))
+    log(f"phase 12a: {time.time() - t:.1f} s")
+    t = time.time()
+    mel = WH.log_mel_spectrogram(load_audio_16k(wav), WH_V3.n_mels)
+    for fmt in ("q4_j", "q4_0"):
+        res[f"12b whisper {fmt}"] = _whisper_card_vs_plain(fmt, mel)
+        torch.cuda.empty_cache()
+    log(f"phase 12b: {time.time() - t:.1f} s")
+    t = time.time()
+    res["12c eval"] = _eval_card_vs_plain()
+    log(f"phase 12c: {time.time() - t:.1f} s")
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 12: {time.time() - t0:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_META = {
@@ -8385,7 +8825,8 @@ def main():
             "--phase8": ("8 zoo", phase_zoo),
             "--phase9": ("9 moe", phase_moe),
             "--phase10": ("10 parallel", phase_parallel),
-            "--phase11": ("11 nocache", phase_nocache)}.get(
+            "--phase11": ("11 nocache", phase_nocache),
+            "--phase12": ("12 whisper", phase_whisper)}.get(
                 sys.argv[1] if sys.argv[1:] else None)
     # the slice's main path: every phase runs the fused decode path, which
     # the library leaves off by default (``models.transformer.fuse_mode``);
@@ -8424,7 +8865,7 @@ def main():
                       check_k5, check_k1_branches, check_k1_fused,
                       check_k1_reruns, check_rms_norm, check_k2_asym,
                       check_k2_layouts, check_gptq_products,
-                      check_many_heads):
+                      check_many_heads, check_whisper_kernels):
             check(gen, results)
             torch.cuda.empty_cache()
     phase("3 kernels", kernels)
@@ -8472,6 +8913,7 @@ def main():
     e2e.update(phase("9 moe", phase_moe, results))
     e2e.update(phase("10 parallel", phase_parallel, results))
     e2e.update(phase("11 nocache", phase_nocache, results))
+    e2e.update(phase("12 whisper", phase_whisper, results))
 
     kernels = []
     for kid, (kname, src, repl) in KERNEL_META.items():

@@ -3,7 +3,8 @@ local HF directory (the streamed conversion of an fp checkpoint, or a
 GPTQ/AWQ one), ``init_from_bin`` (GGUF, with its embedded tokenizer, or
 the native ``.ntpu`` file), ``save``, ``quant_model``, ``generate`` with
 sampling, beam search, batches of prompts, StreamingLLM, the host-stepped
-hooks and session files, ``generate_text`` and ``__call__``. Its
+hooks and session files, ``generate_text``, ``__call__``, and Whisper's
+``init_whisper`` and ``transcribe_file``. Its
 ``quant_config_from_args`` lives in :mod:`neural_tpu_torch.core.dtypes`.
 
 Deliberate differences from the JAX package: an HF directory gets no
@@ -49,6 +50,7 @@ class Model:
         self.tokenizer = None     # a GGUF file's vocab brings one
         self._session = None      # interactive: (cache, position, max_len)
         self._token_end = True
+        self._whisper = False     # params and cfg are Whisper's
 
     def init(self, model_name_or_path: str,
              weight_dtype: Union[str, QuantConfig, None] = "q4_0",
@@ -261,9 +263,15 @@ class Model:
           shards are made once and kept on the Model for repeat calls.
           Beams, ``streamer``, ``stopping_criteria``, ``interactive``,
           ``session_file`` and ``streaming`` are refused under a mesh, as in
-          the JAX package."""
+          the JAX package.
+
+        ``NEURAL_TPU_VERBOSE=1`` prints the decode phase's wall time, ``=2``
+        also traces the call and prints its top device ops
+        (``utils.profiling``), as the JAX package does."""
         if self.params is None:
             raise RuntimeError("call init_from_hf_model or init_params first")
+        from .utils.profiling import Timings, maybe_trace
+        timings = Timings()
         if kv_dtype not in ("bf16", "int8", torch.bfloat16, torch.int8):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
                              f"{kv_dtype!r}")
@@ -316,9 +324,12 @@ class Model:
         if len(rows) > 1 and num_beams == 1 and not hooked \
                 and not streaming:
             from .runtime.generate import batched_generate
-            outs = batched_generate(self.params, self.cfg, rows, sp,
-                                    max_new_tokens, max_len, seed,
-                                    stop_at_eos, kv_dtype=kvdt)
+            with maybe_trace("generate"), \
+                    timings.phase("decode", tokens=max_new_tokens * len(rows)):
+                outs = batched_generate(self.params, self.cfg, rows, sp,
+                                        max_new_tokens, max_len, seed,
+                                        stop_at_eos, kv_dtype=kvdt)
+            timings.print_if_verbose()
             return [o[len(r):] for o, r in zip(outs, rows)] \
                 if ignore_prompt else outs
         outs = []
@@ -345,10 +356,13 @@ class Model:
                     stop_at_eos=stop_at_eos, kv_dtype=kvdt)
             else:
                 from .runtime.generate import generate
-                out = generate(self.params, self.cfg, ids, sp,
-                               max_new_tokens, max_len, seed, stop_at_eos,
-                               kv_dtype=kvdt)
+                with maybe_trace("generate"), \
+                        timings.phase("decode", tokens=max_new_tokens):
+                    out = generate(self.params, self.cfg, ids, sp,
+                                   max_new_tokens, max_len, seed,
+                                   stop_at_eos, kv_dtype=kvdt)
             outs.append(out[len(ids):] if ignore_prompt else out)
+        timings.print_if_verbose()
         return outs
 
     def _generate_mesh(self, mesh, rows, do_sample, temperature, top_k,
@@ -523,10 +537,108 @@ class Model:
             padded[b, :len(r)] = r
         return batch_logits(self.params, self.cfg, padded).cpu().numpy()
 
-    def init_whisper(self, *args, **kw):
-        """Whisper is not ported yet (ROADMAP A13)."""
-        raise NotImplementedError("Whisper is a later slice (ROADMAP A13)")
+    # -- whisper ------------------------------------------------------------
+    def init_whisper(self, model_name_or_path_or_model, weight_dtype=None,
+                     device=None):
+        """Load a Whisper checkpoint onto ``device`` (the card unless
+        ``device="cpu"``): a local HF directory (``config.json`` and
+        ``*.safetensors``, read without transformers; its
+        ``tokenizer.json``, when there is one, becomes ``self.tokenizer``)
+        or an in-memory model with ``.config`` and ``.state_dict()``.
 
-    def transcribe_file(self, *args, **kw):
-        """Whisper is not ported yet (ROADMAP A13)."""
-        raise NotImplementedError("Whisper is a later slice (ROADMAP A13)")
+        ``weight_dtype``: quantize the encoder/decoder linears ("int8",
+        "q4_0", "q4_j", a QuantConfig, ...; reference quant_whisper.cpp /
+        quant_utils.h:79 whisper_model_quantize), stored at rest; None
+        keeps them f32. A path that is not a local directory raises (the
+        JAX package falls back to transformers' ``from_pretrained``)."""
+        from .models import whisper as wh
+        self.tokenizer = None
+        if isinstance(model_name_or_path_or_model, str):
+            path = model_name_or_path_or_model
+            if not os.path.isdir(path):
+                raise NotImplementedError(
+                    f"{path} is not a local directory; the port reads local "
+                    "Whisper checkpoint directories (config.json and "
+                    "*.safetensors) only, and fetches nothing")
+            self.params, self.cfg = wh.params_from_dir(
+                path, quant=weight_dtype, device=device)
+            tok = os.path.join(path, "tokenizer.json")
+            if os.path.exists(tok):
+                from .tokenizer import BPETokenizer
+                self.tokenizer = BPETokenizer.from_hf_json(tok)
+        else:
+            self.params, self.cfg = wh.params_from_hf(
+                model_name_or_path_or_model, quant=weight_dtype,
+                device=device)
+        self._whisper = True
+        return self
+
+    def init_whisper_params(self, params, cfg):
+        """Use already-built Whisper params (``models.whisper.init_random``,
+        ``convert.from_jax.whisper_params_from_numpy``)."""
+        self.params, self.cfg, self._whisper = params, cfg, True
+        self.tokenizer = None
+        return self
+
+    def transcribe_file(self, wav_path: str, prompt_ids=None,
+                        max_new_tokens: int = 224, timestamps: bool = False,
+                        language=None, task: str = "transcribe",
+                        num_beams: int = 1, length_penalty: float = 1.0,
+                        token_timestamps: bool = False):
+        """WAV file → token ids (reference: whisper CLI audio_run.cpp), as
+        the JAX ``transcribe_file``.
+
+        ``timestamps=True``: long-form mode, 30 s windows advanced by the
+        last decoded timestamp; returns a list of (start_s, end_s,
+        token_ids) segments (with ``token_timestamps=True`` each also has
+        its per-token (t0, t1) times). Otherwise one flat id list for the
+        first window.
+
+        ``language``: a language code ("en", through the tokenizer of the
+        checkpoint directory), a language token id, or "auto" (one-step
+        detection over the language block). ``task``: "transcribe" or
+        "translate". ``num_beams > 1``: beam decode."""
+        from .models import whisper as wh
+        from .utils.audio import load_audio_16k
+        from .utils.profiling import Timings, maybe_trace
+        if not self._whisper:
+            raise RuntimeError("call init_whisper first")
+        timings = Timings()
+        audio = load_audio_16k(wav_path)
+        mel = wh.log_mel_spectrogram(audio, self.cfg.n_mels)
+        if prompt_ids is not None:
+            prompt = list(prompt_ids)
+        else:
+            lang_tok = None
+            if language == "auto":
+                lang_tok, _ = wh.detect_language(self.params, self.cfg, mel)
+            elif isinstance(language, (int, np.integer)):
+                lang_tok = int(language)
+            elif isinstance(language, str):
+                if self.tokenizer is None:
+                    raise ValueError("language codes need a tokenizer; pass "
+                                     "a token id")
+                lang_tok = self.tokenizer.convert_tokens_to_ids(
+                    f"<|{language}|>")
+            prompt = wh.build_forced_prompt(self.cfg, lang_tok, task,
+                                            timestamps)
+        with maybe_trace("transcribe"), \
+                timings.phase("decode", tokens=max_new_tokens):
+            if timestamps or token_timestamps:
+                text_fn = None
+                if self.tokenizer is not None:
+                    text_fn = lambda i: self.tokenizer.decode([i])
+                out = wh.transcribe_segments(
+                    self.params, self.cfg, mel, prompt, max_new_tokens,
+                    token_timestamps=token_timestamps,
+                    audio=audio if token_timestamps else None,
+                    token_text_fn=text_fn)
+            elif num_beams > 1:
+                out = wh.transcribe_ids_beam(self.params, self.cfg, mel,
+                                             prompt, num_beams,
+                                             max_new_tokens, length_penalty)
+            else:
+                out = wh.transcribe_ids(self.params, self.cfg, mel, prompt,
+                                        max_new_tokens)
+        timings.print_if_verbose()
+        return out

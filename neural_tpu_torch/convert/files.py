@@ -119,6 +119,13 @@ HF_DEFAULTS = {
                      partial_rotary_factor=0.25, rope_theta=10000,
                      max_position_embeddings=4096, bos_token_id=0,
                      eos_token_id=0),
+    # transformers' WhisperConfig (4.57): the attributes
+    # whisper.config_from_hf reads
+    "whisper": dict(vocab_size=51865, d_model=384, encoder_layers=4,
+                    decoder_layers=4, encoder_attention_heads=6,
+                    encoder_ffn_dim=1536, num_mel_bins=80,
+                    max_source_positions=1500, max_target_positions=448,
+                    eos_token_id=50256, decoder_start_token_id=50257),
     # ChatGLM-1/2/3, Qwen v1, Baichuan and Grok-1 have no config class in
     # transformers (each checkpoint carries its own remote code): their
     # config.json has to hold every key their config_from_hf reads, beyond

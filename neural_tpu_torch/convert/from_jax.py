@@ -26,7 +26,8 @@ numpy, so that no JAX import is needed here:
   arrays.
 
 QTensors not yet at rest are converted on the way in
-(``runtime.generate.params_to_native``).
+(``runtime.generate.params_to_native``). A Whisper tree (its own layout,
+``models/whisper.py``) crosses by :func:`whisper_params_from_numpy`.
 """
 from __future__ import annotations
 
@@ -117,3 +118,21 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         if k != "layers":
             params[k] = _leaf(v, dev)
     return Transformer(cfg, params_to_native(params))
+
+
+def whisper_params_from_numpy(tree: Dict[str, Any], device=None):
+    """A JAX Whisper param tree as numpy (``models.whisper.params_from_hf``'s
+    tree, ``enc_layers``/``dec_layers`` stacked along a leading L axis,
+    QTensors as dicts of their fields) → the port's Whisper params:
+    per-layer lists, every QTensor at rest (``params_to_native``), on
+    ``device`` (the card unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    params: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if k in ("enc_layers", "dec_layers"):
+            layers = _unstack(v) if isinstance(v, dict) else v
+            params[k] = [{n: _leaf(a, dev) for n, a in lp.items()}
+                         for lp in layers]
+        else:
+            params[k] = _leaf(v, dev)
+    return params_to_native(params)

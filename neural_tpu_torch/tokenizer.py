@@ -5,9 +5,10 @@ Reference: model_tokenize / model_tokenizer_t (model_utils.cpp:397-620) —
 the llama.cpp SPM bigram-merge algorithm over the vocab+scores stored in
 the model file, with byte fallback; and GPT-2's byte-level BPE over a
 vocab and merges list. A GGUF file's ``tokenizer.ggml.model`` picks one
-(:func:`tokenizer_from_gguf`). The port has no HF tokenizer: a model
-loaded from an HF directory has none (the JAX package asks transformers
-for one).
+(:func:`tokenizer_from_gguf`). The port has no HF tokenizer class: a
+decoder loaded from an HF directory has none (the JAX package asks
+transformers for one); a Whisper directory's byte-level BPE
+``tokenizer.json`` is read by :meth:`BPETokenizer.from_hf_json`.
 """
 from __future__ import annotations
 
@@ -234,6 +235,32 @@ class BPETokenizer:
                    unk_id=int(kv.get("tokenizer.ggml.unknown_token_id", -1)),
                    add_bos=bool(kv.get("tokenizer.ggml.add_bos_token",
                                        False)))
+
+    @classmethod
+    def from_hf_json(cls, path: str) -> "BPETokenizer":
+        """An HF ``tokenizer.json`` of a byte-level BPE model (Whisper's,
+        GPT-2's): its ``model.vocab`` and ``model.merges`` (each "a b" or
+        [a, b]) and its ``added_tokens`` (the special tokens, by id)."""
+        import json
+        with open(path, encoding="utf-8") as fh:
+            d = json.load(fh)
+        ids = dict(d["model"]["vocab"])
+        for t in d.get("added_tokens", []):
+            ids[t["content"]] = int(t["id"])
+        tokens = [""] * (max(ids.values()) + 1)
+        for t, i in ids.items():
+            tokens[i] = t
+        merges = [m if isinstance(m, str) else " ".join(m)
+                  for m in d["model"].get("merges", [])]
+        eos = ids.get("<|endoftext|>", -1)
+        return cls(tokens, merges, eos_id=eos, unk_id=eos)
+
+    def convert_tokens_to_ids(self, token: str) -> int:
+        """The id of one vocab entry (``"<|en|>"``); a token the vocab
+        lacks raises, where an HF tokenizer answers its unk id."""
+        if token not in self.t2i:
+            raise KeyError(f"{token!r} is not in the vocabulary")
+        return self.t2i[token]
 
     def _bpe(self, word: str) -> List[str]:
         if word in self._cache:

@@ -155,9 +155,13 @@ def test_model_server_from_model_path(tmp_path, gguf_file):
 
 
 def test_whisper_entry_points_raise():
-    for fn in (Model().init_whisper, Model().transcribe_file):
-        with pytest.raises(NotImplementedError, match="A13"):
-            fn("x")
+    """Whisper runs on the port (``tests/test_torch_whisper.py``); what
+    still raises: a name that is not a local directory (nothing is
+    fetched), and ``transcribe_file`` before ``init_whisper``."""
+    with pytest.raises(NotImplementedError, match="not a local directory"):
+        Model().init_whisper("x")
+    with pytest.raises(RuntimeError, match="init_whisper"):
+        Model().transcribe_file("x")
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,12 @@ print(",".join(hit))
     "neural_tpu_torch.parallel.multihost",
     "neural_tpu_torch.parallel.run_tp", "neural_tpu_torch.parallel.sp",
     "neural_tpu_torch.parallel.pp", "neural_tpu_torch.parallel.dryrun",
-    "neural_tpu_torch.parallel.collectives"])
+    "neural_tpu_torch.parallel.collectives",
+    "neural_tpu_torch.models.whisper", "neural_tpu_torch.eval",
+    "neural_tpu_torch.eval.perplexity", "neural_tpu_torch.eval.harness",
+    "neural_tpu_torch.eval.diff", "neural_tpu_torch.utils",
+    "neural_tpu_torch.utils.audio", "neural_tpu_torch.utils.profiling",
+    "neural_tpu_torch.utils.prompts"])
 def test_import_pulls_in_nothing_banned(module):
     out = subprocess.run(
         [sys.executable, "-c", PROBE.format(root=str(ROOT), module=module,
