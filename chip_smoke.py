@@ -15,6 +15,8 @@
                                             # result line)
     python3 chip_smoke.py --phase12         # phases 1, 2 and 12 alone (no
                                             # result line)
+    python3 chip_smoke.py --phase13         # phases 1, 2 and 13 alone (no
+                                            # result line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -113,9 +115,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    fused rms prologue equals the norm kernel then K1 over the 7B's own
    residual rows;
 5. card vs plain: a one-layer copy at the same width runs its prefill logits
-   and greedy steps through the kernels on the card and through the plain
-   path on the CPU, and the card's fused path (with and without GLU)
-   against the same CPU rows; then the same through the Scheduler (paged
+   and greedy steps through the kernels and through the plain path on the
+   card's own tensors (``plain_on_card``, as every copy of phases 5-5d
+   since PR 19; the plain path on the host's CPU took three and a half
+   minutes), and the card's fused path (with and without GLU) against the
+   same plain rows; then the same through the Scheduler (paged
    int8 KV, batch 4, 6 requests); then, for fp4, fp8, fp8_e5m2, int1,
    int2, int2 asym, int3, int5, int5 asym, q8_0 and int8 (per channel),
    ``Model.generate`` on the card (a
@@ -129,11 +133,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    copies of Bloom-7B1, MPT-7B and ChatGLM-6B (100-token prompts, bf16
    activations, tolerance 2e-2·max|logit|) the same way, and the paged
    int8 Scheduler check on the Bloom copy; on phase 5's copy also beam
-   search (4 beams) and the first StreamingLLM shift (bf16 and int8, from
-   the CPU's cache) against the CPU, and a copy with a 32001-wide
+   search (4 beams) against the plain path, the first StreamingLLM shift
+   (bf16 and int8) of the plain path's cache on the card against the same
+   shift on the host's CPU, and a copy with a 32001-wide
    quantized lm_head through the counted ``qmm_plain`` route (K1 and K5
-   refuse it) against the CPU; and through the Scheduler a beam group
-   (slots bf16, paged int8; the CPU run forced to the card's beams, every
+   refuse it) against the plain path; and through the Scheduler a beam
+   group (slots bf16, paged int8; the plain run forced to the card's beams,
+   every
    expansion's logits rows held to the card's and its choices proven
    where the margins allow), graphed StreamingLLM slots through their
    first shift (ids by the margins, each card shift against the plain
@@ -148,7 +154,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    each also generating with the fused path and GLU on;
    (4h) TinyLlama-1.1B (head dim 64: ``attend_xla``, no K3/K4/K6 launch)
    through ``Model.generate``, the paged int8 Scheduler, decode at fill
-   128, TTFT; (5d) one-layer copies against the CPU plain path: Mistral
+   128, TTFT; (5d) one-layer copies against the plain path: Mistral
    GPTQ (``Model.generate``, the paged int8 Scheduler, and the copy
    written as a checkpoint directory and loaded with ``Model.init(dir,
    use_gptq=True)``), AWQ, mix_int2_int4, every K2 layout at act_bits 8,
@@ -342,12 +348,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``Model.generate`` at ``NEURAL_TPU_VERBOSE=2`` with its top device ops.
    12d's cases join their kernels' cases in the kernels line.
 
+13. f32 parameters at rest and f32 KV caches (``dtype="float32"``,
+   ``kv_dtype="float32"``), the command-line tools and the accuracy gate:
+   (13c, in phase 3) K4's, K3's and K6's f32-cache branches at Llama-2-7B's
+   heads (K4 at fill 1975, K3 on a 1975-token prompt, K6 at batch 8 with
+   the server's mixed fills), each bit-equal to its bf16 branch over the
+   same values rounded (an f32 cache holding bf16 values, and one off the
+   bf16 grid), held to its plain version, with its time, the bf16 branch's,
+   the plain version's, ``scaled_dot_product_attention``'s over the same
+   f32 tensors and its bound at 4 bytes a K or V element (13d runs them
+   under ``--phase13``); (13a) Llama-2-7B q4_j at full depth loaded with
+   f32 parameters (the embedding and the norms f32, every norm weight
+   redrawn off the bf16 grid): ``Model.generate`` of a 1975-token prompt
+   (K1, K2, K3, K4 counted), and a 2-layer copy against the plain path on
+   the card's own tensors (5e-2·max|logit|, phase 5's); (13b) the batch-8
+   ``ModelServer(kv_dtype="float32")`` over a paged pool (K6, K3 through
+   the page gather) and with ``kv_mode="slots"`` (K4, K3), 8 queries of
+   32-1500 tokens: greedy ids and every token's f32 logits row bit-equal to
+   the same server over a bf16 pool; StreamingLLM slots over an f32 cache
+   on the 2-layer copy through their shift, against the plain path;
+   (13d) every command-line tool (``python -m neural_tpu_torch.cli.*``) on
+   2-layer 7B-width files written here (a Q4_0 GGUF with a vocabulary, an
+   f32 NTPU file, a bf16 HF directory; a 2 + 2-layer large-v3-wide Whisper
+   directory), one process each, all started together: exit 0, and
+   ``accuracy`` refusing, naming lm-eval, where the package is absent; the
+   accuracy gate's PPL ratios printed.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 no CUDA device is present.
 """
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -429,10 +462,10 @@ CFG = ModelConfig(arch="llama", vocab_size=V, hidden_size=D, n_layers=L,
                   intermediate_size=11008, norm_eps=1e-5, rope_theta=10000.0,
                   max_seq_len=4096)
 DEV = "cuda"
-# The depth of the copies held against the CPU's plain path (phases 5, 5c
-# and 5d): one layer runs every kernel and branch of a copy, and the plain
-# path's CPU time, most of the script's, grows with each layer. Gemma-2's
-# copy (5b) keeps two: a sliding and a global layer.
+# The depth of the copies held against the plain path (phases 5, 5c and
+# 5d): one layer runs every kernel and branch of a copy, and the plain
+# path's time grows with each layer. Gemma-2's copy (5b) keeps two: a
+# sliding and a global layer.
 COPY_LAYERS = 1
 
 
@@ -755,6 +788,9 @@ ATTN_BEFORE_MS = {
     ("K4_G>8", "starcoder heads (48 over 1) decode fill 1975"): 1.732,
     ("K4_i8_G>8", "chatglm2 heads (32 over 2) decode fill 1975"): 1.511,
     ("K4_i8_G>8", "starcoder heads (48 over 1) decode fill 1975"): 2.085,
+    # the f32-cache branches: new; their bf16 branch is timed beside them
+    ("K3_f32", "llama 1975-token prefill, f32 cache"): None,
+    ("K4_f32", "llama decode fill 1975, f32 cache"): None,
 }
 ATTN_SLOWER = []    # (key, label, ms, earlier ms) of K3/K4 cases now slower
 
@@ -834,6 +870,7 @@ K16_BEFORE_MS = {
      "live pages"): None,
     ("K6_i8", "llama B=1 decode fill 1975, identity table (K4's cache)"):
     None,
+    ("K6_f32", f"llama B=8 decode fills {_FILLS8}, f32 pool"): None,
 }
 K16_SLOWER = []     # (key, label, ms, earlier ms) of K1/K6 cases now slower
 
@@ -1615,6 +1652,30 @@ def _attn_case(label, entry, run, plain, nbytes, op_s, tol, count,
     return out
 
 
+def _f32_twin(label, fn, args, entry, **kw):
+    """The f32-cache branch of one bf16 case (``args``: q, K, V, the rest;
+    ``kw`` its options): over K and V widened to f32, its output bit-equal
+    to the bf16 branch's; over f32 values off the bf16 grid, bit-equal to
+    the bf16 branch's over them rounded. ``entry`` is the bf16 case's
+    (``flash_decode+alibi``): its f32 twin and the twin's option branch
+    must launch twice."""
+    q, k, v, *rest = args
+    base, _, opt = entry.partition("+")
+    names = [f"{base}_f32"] + ([f"{base}_f32+{opt}"] if opt else [])
+    gen = torch.Generator(device=DEV).manual_seed(len(label))
+    kx, vx = _off_grid(k, gen), _off_grid(v, gen)
+    before = _cuda.launch_counts()
+    pairs = ((fn(*args, **kw), fn(q, k.float(), v.float(), *rest, **kw)),
+             (fn(q, kx.bfloat16(), vx.bfloat16(), *rest, **kw),
+              fn(q, kx, vx, *rest, **kw)))
+    after = _cuda.launch_counts()
+    if any(after[n] != before[n] + 2 for n in names):
+        raise AssertionError(f"{label}: {names} not launched twice")
+    _biteq(f"{label} ({names[-1]})", *pairs[0])
+    _biteq(f"{label} ({names[-1]}, off the grid)", *pairs[1])
+    del kx, vx, pairs
+
+
 def _attn_ops(int8, Dh, Hq, pairs, alibi, decode):
     """Seconds of operations at the peaks: QK^T and PV (int8 QK at the int8
     rate; decode's int8 PV in f32, prefill's in bf16), and ALiBi's product
@@ -1677,6 +1738,8 @@ def check_k3(gen, results):
                 + T * Hq * Dh * 4, op_s,
                 I8_PREFILL_TOL if int8 else BF16_TOL, count,
                 library=library)
+            if not int8:
+                _f32_twin(label, fn, args, entry)
             if what == "gemma2" and T == G2_FILL:
                 window_ms[W] = cases[label]["ms_per_launch"]
             del q, qh, c, kd, vd, library, starts
@@ -1726,6 +1789,8 @@ def check_k4(gen, results):
                 2 * vis * Hkv * row + Hq * Dh * (2 + 4), op_s,
                 I8_DECODE_TOL if int8 else BF16_TOL, count,
                 runs=[lambda a=a: fn(*a) for a in args], library=library)
+            if not int8:
+                _f32_twin(label, fn, args[0], entry)
             if what == "gemma2" and fill == G2_FILL:
                 window_ms[W] = cases[label]["ms_per_launch"]
             del q, caches, args, kvs, library
@@ -1786,6 +1851,8 @@ def check_k6(gen, results):
                 2 * n * Hkv * row + B * maxp * 4 + B * 4
                 + B * Hq * Dh * (2 + 4), op_s,
                 I8_DECODE_TOL if int8 else BF16_TOL, count, library=library)
+            if not int8:
+                _f32_twin(label, fn, args, entry)
             if what == "gemma2" and fills == [G2_FILL]:
                 window_ms[W] = cases[label]["ms_per_launch"]
             del q, c, args, kd, vd, library
@@ -1982,6 +2049,8 @@ def check_k3_options(gen, results):
                 _attn_ops(int8, DH, H, pairs, opt == "alibi", False),
                 I8_PREFILL_TOL if int8 else BF16_TOL, count, library=library,
                 off=[lambda: fn(*base)])
+            if not int8:
+                _f32_twin(label, fn, base, f"{entry}+{opt}", **kw)
             _record(results, f"K3{sfx}_{opt}", {label: case})
             del library
         del q, c, kd, vd, qh
@@ -2020,6 +2089,8 @@ def check_k4_alibi(gen, results):
                 I8_DECODE_TOL if int8 else BF16_TOL, BLOOM_L,
                 runs=[lambda a=a: fn(*a, slopes=sl) for a in args],
                 library=library, off=[lambda a=a: fn(*a) for a in args])
+            if not int8:
+                _f32_twin(label, fn, args[0], f"{entry}+alibi", slopes=sl)
             del q, caches, args, kvs, library
             torch.cuda.empty_cache()
         _record(results, key, cases)
@@ -2061,6 +2132,8 @@ def check_k6_alibi(gen, results):
             _attn_ops(int8, DH, H, n, True, True),
             I8_DECODE_TOL if int8 else BF16_TOL, BLOOM_L, library=library,
             off=[lambda: fn(*args)])
+        if not int8:
+            _f32_twin(label, fn, args, f"{entry}+alibi", slopes=sl)
         _record(results, key, {label: case})
         del q, c, args, kd, vd, library
         torch.cuda.empty_cache()
@@ -2106,6 +2179,8 @@ def check_many_heads(gen, results):
                 library=[lambda kv=kv: _sdpa(
                     q[:, :, None], kv[0][:, :, :fill], kv[1][:, :, :fill],
                     enable_gqa=True) for kv in kvs])
+            if not int8:
+                _f32_twin(label, k4, args[0], "flash_decode+G>8")
             del q, caches, args, kvs
             B, maxp = len(SERVER_FILLS), S_CACHE // ps
             P = B * maxp + 1
@@ -2132,6 +2207,8 @@ def check_many_heads(gen, results):
                 _attn_ops(int8, DH, Hq, n, False, True), tol, count,
                 library=[lambda: _sdpa(q[:, :, None], kd, vd,
                                        attn_mask=mask, enable_gqa=True)])
+            if not int8:
+                _f32_twin(label, k6, a6, "paged_decode+G>8")
             del q, c, a6, kd, vd, mask
             torch.cuda.empty_cache()
         _record(results, f"K4{sfx}_G>8", c4)
@@ -3156,12 +3233,12 @@ def phase_gemma2_card_vs_plain():
     """A 2-layer copy of Gemma-2-9B at full width, its window cut to 32 so
     that it is active on every prompt here: ``Model.generate`` on the card
     (300-token prompt, 4 new tokens; a path with launch counts), its
-    logits fed the card's ids against the CPU plain path; then, on this
-    copy, the paged int8 Scheduler check that phase 5 runs on the Llama
-    copy (prompts of 20-64 tokens)."""
+    logits fed the card's ids against the plain path on the card's own
+    tensors (``plain_on_card``); then, on this copy, the paged int8
+    Scheduler check that phase 5 runs on the Llama copy (prompts of 20-64
+    tokens)."""
     cfg2 = dataclasses.replace(G2_CFG, n_layers=2, sliding_window=32)
     card = init_random(cfg2, seed=3, quant="q4_j", device=DEV)
-    host = init_random(cfg2, seed=3, quant="q4_j", device=DEV).to("cpu")
     gen = torch.Generator().manual_seed(10)
     ids = torch.randint(3, cfg2.vocab_size, (300,), generator=gen).tolist()
     model = Model().init_params(card, cfg2)
@@ -3170,8 +3247,8 @@ def phase_gemma2_card_vs_plain():
         stop_at_eos=False)[0])[len(ids):]
     _check_ids(new, 4, "card gemma2", cfg2.vocab_size)
     rel_tol = 5e-2     # int8 activation codes can move, as for q4_j Llama
-    worst, provable, _ = _steps_card_vs_plain(card, host, cfg2, ids,
-                                              new[:3], rel_tol)
+    worst, provable, _ = _steps_card_vs_plain(card, cfg2, ids, new[:3],
+                                              rel_tol)
     log(f"gemma2 card vs plain (2 layers, full width, window 32, 300-token "
         f"prompt, fed the card's ids {new}): logits max err "
         f"{worst:.3g}·max|logit| (tol {rel_tol}); argmax provably "
@@ -3179,20 +3256,20 @@ def phase_gemma2_card_vs_plain():
     if provable < 2:
         raise AssertionError("too few gemma2 steps with a margin wide "
                              "enough to compare the argmax")
-    sched_worst = _sched_card_vs_plain(card, host, cfg2, rel_tol)
-    del card, host, model
+    sched_worst = _sched_card_vs_plain(card, cfg2, rel_tol)
+    del card, model
     torch.cuda.empty_cache()
     return dict(gemma2_card_vs_plain_rel_err=worst,
                 gemma2_sched_card_vs_plain_rel_err=sched_worst)
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the card against the plain path on the CPU
+# phase 5: the card against the plain path on the card's own tensors
 # ---------------------------------------------------------------------------
 
 
 def _compare_rows(card_rows, host_rows, rel_tol, what="card vs plain"):
-    """Logits rows of the card and of the CPU's plain path: within
+    """Logits rows of the card and of the plain path: within
     ``rel_tol`` of max|logit| at every step, and the argmax equal wherever
     the plain top-2 margin exceeds twice that step's largest logit
     difference. Returns (worst relative difference, steps so proven,
@@ -3220,26 +3297,37 @@ def _compare_rows(card_rows, host_rows, rel_tol, what="card vs plain"):
     return worst, provable, sames
 
 
-def _steps_card_vs_plain(card, host, cfg2, ids, feed, rel_tol):
+def _plain_rows(model, cfg, ids, feed, **kw):
+    """:func:`_step_rows` through the plain path on the card's own
+    tensors."""
+    with plain_on_card():
+        return _step_rows(model, cfg, ids, feed, **kw)
+
+
+def _steps_card_vs_plain(card, cfg2, ids, feed, rel_tol):
     """Logits of the prefill's last row and of one decode step per id of
-    ``feed``, on the card and on the CPU's plain path, held to each other
-    by :func:`_compare_rows`."""
+    ``feed``, through the kernels and through the plain path on the same
+    card tensors, held to each other by :func:`_compare_rows`."""
     return _compare_rows(_step_rows(card, cfg2, ids, feed),
-                         _step_rows(host, cfg2, ids, feed), rel_tol)
+                         _plain_rows(card, cfg2, ids, feed), rel_tol)
 
 
 def phase_card_vs_plain():
+    """Phase 5's one-layer q4_j copy: the kernels against the plain path on
+    the card's own tensors (``plain_on_card``; on the host's CPU this plain
+    side took two minutes of the script's limit)."""
     cfg2 = dataclasses.replace(CFG, n_layers=COPY_LAYERS)
     card = init_random(cfg2, seed=1, quant="q4_j", device=DEV)
-    host = init_random(cfg2, seed=1, quant="q4_j", device=DEV).to("cpu")
     gen = torch.Generator().manual_seed(1)
     ids = torch.randint(3, V, (300,), generator=gen).tolist()
     n_new = 8
     with fusion(UNFUSED):
         g_card = greedy_generate(card, cfg2, ids, max_new_tokens=n_new + 1,
                                  stop_at_eos=False)[len(ids):]
-    g_host = greedy_generate(host, cfg2, ids, max_new_tokens=n_new + 1,
-                             stop_at_eos=False)[len(ids):]
+        with plain_on_card():
+            g_host = greedy_generate(card, cfg2, ids,
+                                     max_new_tokens=n_new + 1,
+                                     stop_at_eos=False)[len(ids):]
     # bf16 activations: last-bit differences (split-K order in K1 and K5,
     # where K3 rounds P, the card's rsqrt/exp) move int8 activation codes
     # of the next K2 product by a step, and layers amplify that; the
@@ -3247,9 +3335,9 @@ def phase_card_vs_plain():
     # CPU
     rel_tol = 5e-2
     feed = g_card[:n_new]
-    host_cache = init_cache(cfg2, 1, len(ids) + N_STEPS, device="cpu")
-    host_rows = _step_rows(host, cfg2, ids, feed, cache=host_cache)
+    host_cache = init_cache(cfg2, 1, len(ids) + N_STEPS, device=DEV)
     with fusion(UNFUSED):
+        host_rows = _plain_rows(card, cfg2, ids, feed, cache=host_cache)
         card_rows = _step_rows(card, cfg2, ids, feed)
     worst, provable, sames = _compare_rows(card_rows, host_rows, rel_tol)
     for step in range(n_new):
@@ -3266,14 +3354,13 @@ def phase_card_vs_plain():
                              "compare the argmax")
     fused_worst = _fused_card_vs_plain(card, cfg2, ids, feed, g_host,
                                        host_rows, rel_tol)
-    fused_worst.update(_fused_steps_card_vs_plain(card, host, len(ids),
+    fused_worst.update(_fused_steps_card_vs_plain(card, len(ids),
                                                   host_cache))
-    sched_worst = _sched_card_vs_plain(card, host, cfg2, rel_tol)
-    fused_worst.update(_sched_beyond_greedy_card_vs_plain(card, host, cfg2,
-                                                          ids, rel_tol))
-    fused_worst.update(_sampling_card_vs_plain(card, host, cfg2, ids,
-                                               rel_tol))
-    del card, host
+    sched_worst = _sched_card_vs_plain(card, cfg2, rel_tol)
+    fused_worst.update(_sched_beyond_greedy_card_vs_plain(card, cfg2, ids,
+                                                          rel_tol))
+    fused_worst.update(_sampling_card_vs_plain(card, cfg2, ids, rel_tol))
+    del card
     # the formats' copies are cut to one layer, which runs every kernel of
     # each format, to keep the script inside its time limit
     return worst, sched_worst, fused_worst, _formats_card_vs_plain(cfg2)
@@ -3373,9 +3460,9 @@ def _beams_held(got, ref, W, rel_tol, what):
     return max(apart), proven
 
 
-def _beams_card_vs_plain(card, host, cfg2, ids, rel_tol):
-    """Beam search (4 beams, 8 new tokens, a 24-token prompt) on the card
-    against the CPU's plain path: rank by rank, equal ids and scores within
+def _beams_card_vs_plain(card, cfg2, ids, rel_tol):
+    """Beam search (4 beams, 8 new tokens, a 24-token prompt) through the
+    kernels against the plain path on the same card tensors: rank by rank, equal ids and scores within
     2·rel_tol·max|logit| (a score is a mean of log-probs, each within twice
     a logit's difference), except at a near tie of the plain run's scores
     (within the same bound), which a rounding may order either way."""
@@ -3384,8 +3471,9 @@ def _beams_card_vs_plain(card, host, cfg2, ids, rel_tol):
                                             "flash_prefill", "flash_decode"),
                     lambda: beam_search(card, cfg2, prompt, beam_size=4,
                                         max_new_tokens=8))
-    ref = beam_search(host, cfg2, prompt, beam_size=4, max_new_tokens=8)
-    scale = _step_rows(host, cfg2, prompt, [])[0].abs().max().item()
+    with plain_on_card():
+        ref = beam_search(card, cfg2, prompt, beam_size=4, max_new_tokens=8)
+    scale = _plain_rows(card, cfg2, prompt, [])[0].abs().max().item()
     tol = 2 * rel_tol * scale
     equal, worst = 0, 0.0
     for i, (a, b) in enumerate(zip(hyps, ref)):
@@ -3409,23 +3497,24 @@ def _beams_card_vs_plain(card, host, cfg2, ids, rel_tol):
     return worst
 
 
-def _shift_card_vs_plain(host, cfg2, ids):
+def _shift_card_vs_plain(card, cfg2, ids):
     """The first StreamingLLM shift of a full 64-position cache (4 sinks, 30
-    dropped), the CPU's prefilled cache copied to the card: shifted on both
-    sides, the values and their scales equal, bf16 keys within one bf16
-    step (at most 2^-7 relative: the rotation's f32 cos/sin may round an
-    ulp apart), int8 key codes within one step and their scales within one
-    bf16 step."""
+    dropped), prefilled on the card by the plain path and copied to the
+    host's CPU: shifted on both sides, the values and their scales equal,
+    bf16 keys within one bf16 step (at most 2^-7 relative: the rotation's
+    f32 cos/sin may round an ulp apart), int8 key codes within one step
+    and their scales within one bf16 step."""
     worst = {}
     for kvdt in (torch.bfloat16, torch.int8):
-        hc = init_cache(cfg2, 1, 64, kvdt, device="cpu")
-        prefill_step(host, torch.tensor([ids[:64]]),
-                     torch.zeros(1, dtype=torch.long), hc)
-        cc = type(hc)(*(None if t is None else t.to(DEV)
-                        for t in (hc.k, hc.v, hc.k_scale, hc.v_scale)))
-        inv = host.rope_inv_freqs
-        ST.shift_cache_impl(hc, inv, cfg2, 4, 30)
-        ST.shift_cache_impl(cc, inv.to(DEV), cfg2, 4, 30)
+        cc = init_cache(cfg2, 1, 64, kvdt, device=DEV)
+        with plain_on_card():
+            prefill_step(card, torch.tensor([ids[:64]], device=DEV),
+                         torch.zeros(1, dtype=torch.long, device=DEV), cc)
+        hc = type(cc)(*(None if t is None else t.cpu()
+                        for t in (cc.k, cc.v, cc.k_scale, cc.v_scale)))
+        inv = card.rope_inv_freqs
+        ST.shift_cache_impl(hc, inv.cpu(), cfg2, 4, 30)
+        ST.shift_cache_impl(cc, inv, cfg2, 4, 30)
         for name in ("v", "v_scale"):
             a, b = getattr(cc, name), getattr(hc, name)
             if b is not None and not torch.equal(a.cpu(), b):
@@ -3451,10 +3540,9 @@ def _lm_head_32001_card_vs_plain(rel_tol):
     (an untied fine-tune's), which neither K1 nor K5 takes (both refuse it
     on the card, checked): its products take the counted ``qmm_plain``
     route, the prefill's last row and every decode step, held against the
-    CPU's plain path as phase 5's copy is."""
+    plain path as phase 5's copy is."""
     cfg3 = dataclasses.replace(CFG, n_layers=COPY_LAYERS, vocab_size=32001)
     card = init_random(cfg3, seed=4, quant="q4_j", device=DEV)
-    host = init_random(cfg3, seed=4, quant="q4_j", device=DEV).to("cpu")
     qt = card.lm_head.qt
     if Q.route(1, D, 32001, qt) != "plain":
         raise AssertionError("the 32001-wide lm_head does not route plain")
@@ -3475,22 +3563,22 @@ def _lm_head_32001_card_vs_plain(rel_tol):
                                            "flash_prefill", "flash_decode"),
                     lambda: _step_rows(card, cfg3, ids, feed))
     plain = LAUNCHES["card_lm_head_32001"]["qmm_plain"]
-    worst, provable, _ = _compare_rows(rows, _step_rows(host, cfg3, ids,
-                                                        feed),
+    worst, provable, _ = _compare_rows(rows, _plain_rows(card, cfg3, ids,
+                                                         feed),
                                        rel_tol, "lm_head 32001 card vs plain")
     log(f"C7: lm_head over 32001 through qmm_plain ({plain} products; K1 and "
         f"K5 refuse it): logits max err {worst:.3g}·max|logit| (tol "
         f"{rel_tol}), argmax provably comparable at {provable} of "
         f"{len(feed) + 1} steps, equal at all of them")
-    del card, host
+    del card
     return worst
 
 
-def _sampling_card_vs_plain(card, host, cfg2, ids, rel_tol):
+def _sampling_card_vs_plain(card, cfg2, ids, rel_tol):
     """Phase 5's checks of the sampling slice on its one-layer copy."""
     return {"beams_card_vs_plain_score_err": _beams_card_vs_plain(
-                card, host, cfg2, ids, rel_tol),
-            "shift_card_vs_plain_k_err": _shift_card_vs_plain(host, cfg2,
+                card, cfg2, ids, rel_tol),
+            "shift_card_vs_plain_k_err": _shift_card_vs_plain(card, cfg2,
                                                               ids),
             "lm_head_32001_card_vs_plain_rel_err":
                 _lm_head_32001_card_vs_plain(rel_tol)}
@@ -3498,9 +3586,9 @@ def _sampling_card_vs_plain(card, host, cfg2, ids, rel_tol):
 
 def _fused_card_vs_plain(card, cfg2, ids, feed, g_host, host_rows, rel_tol):
     """Phase 5's copy on the card with the fused path on (and with GLU),
-    held against the unfused plain path's rows already computed on the
-    CPU: there the fused path without GLU is the unfused chain bit for
-    bit, so the CPU reference stands for it; with GLU the activation is
+    held against the unfused plain path's rows already computed: the
+    plain fused path without GLU is the unfused chain bit for bit, so the
+    unfused reference stands for it; with GLU the activation is
     rounded once where the unfused graph rounds twice, one bf16 step of
     h (2^-8 relative) at some elements, well inside the same 5e-2.
     Greedy ids on the card equal the plain path's up to the first step
@@ -3558,25 +3646,26 @@ def _rel(rows, refs):
                for a, b in zip(rows, refs))
 
 
-def _fused_steps_card_vs_plain(card, host, n, host_cache):
+def _fused_steps_card_vs_plain(card, n, host_cache):
     """N_STEPS teacher-forced decode steps (seeded ids) from one prompt
-    cache: the CPU's prefilled ``host_cache`` copied to the card, so the
-    steps' inputs agree and only the steps' own roundings part the two
-    sides. Fused without GLU on the card against the CPU's unfused steps
-    (on the CPU the fused path computes the same values), fused with GLU
-    against the CPU under ``NTPU_FUSED_DECODE=interpret`` and
-    ``NTPU_FUSE_GLU=1`` (the same single rounding), both within STEPS_TOL,
-    the argmax proven equal at 3 steps or more. Then the GLU shift, GLU on
-    against off, on the card against the CPU's."""
+    cache: the plain path's prefilled ``host_cache`` copied, so the steps'
+    inputs agree and only the steps' own roundings part the two sides.
+    Fused without GLU through the kernels against the plain path's
+    unfused steps (the plain fused path computes the same values), fused
+    with GLU against the plain path under ``NTPU_FUSED_DECODE=interpret``
+    and ``NTPU_FUSE_GLU=1`` (the same single rounding), both within
+    STEPS_TOL, the argmax proven equal at 3 steps or more. Then the GLU
+    shift, GLU on against off, through the kernels against the plain
+    path's. The plain side runs on the card's own tensors."""
     gen = torch.Generator().manual_seed(3)
     feed = torch.randint(3, V, (N_STEPS,), generator=gen).tolist()
     host_rows = {}
     for mode in (UNFUSED, INTERPRET_GLU):
-        with fusion(mode):
-            host_rows[mode[0]] = _decode_rows(host, n, feed, host_cache)
+        with fusion(mode), plain_on_card():
+            host_rows[mode[0]] = _decode_rows(card, n, feed, host_cache)
     card_rows, res = {}, {}
     for mode, ref in ((FUSED, "unfused"), (FUSED_GLU, "interpret_glu")):
-        cache = type(host_cache)(*(None if t is None else t.to(DEV) for t in (
+        cache = type(host_cache)(*(None if t is None else t.clone() for t in (
             host_cache.k, host_cache.v, host_cache.k_scale,
             host_cache.v_scale)))
         with fusion(mode):
@@ -3595,11 +3684,12 @@ def _fused_steps_card_vs_plain(card, host, n, host_cache):
         res[f"card_vs_plain_steps_{mode[0]}_rel_err"] = worst
     shift_card = _rel(card_rows["fused_glu"], card_rows["fused"])
     shift_host = _rel(host_rows["interpret_glu"], host_rows["unfused"])
-    log(f"GLU on against off, decode steps: card {shift_card:.3g}, CPU "
+    log(f"GLU on against off, decode steps: kernels {shift_card:.3g}, plain "
         f"{shift_host:.3g}·max|logit| (held within {GLU_SHIFT}x)")
     if not shift_host / GLU_SHIFT <= shift_card <= shift_host * GLU_SHIFT:
-        raise AssertionError(f"the card's GLU shift {shift_card} is not "
-                             f"within {GLU_SHIFT}x of the CPU's {shift_host}")
+        raise AssertionError(f"the kernels' GLU shift {shift_card} is not "
+                             f"within {GLU_SHIFT}x of the plain path's "
+                             f"{shift_host}")
     res.update(glu_shift_card_rel=shift_card, glu_shift_plain_rel=shift_host)
     return res
 
@@ -3703,12 +3793,12 @@ class _LogitsRecorder:
         return logits
 
 
-def _sched_card_vs_plain(card, host, cfg2, rel_tol, kv_dtype=torch.int8):
+def _sched_card_vs_plain(card, cfg2, rel_tol, kv_dtype=torch.int8):
     """The copy through the Scheduler (paged KV, int8 unless
     ``kv_dtype`` says otherwise, batch 4, 6 requests) on the card, decode
-    step eager so each step's logits can be read, and on the CPU's plain
-    path (``host``; None: the plain path on the card's own tensors,
-    ``plain_on_card``): per request, logits within the tolerance and
+    step eager so each step's logits can be read, and through the plain
+    path on the card's own tensors (``plain_on_card``): per request,
+    logits within the tolerance and
     greedy ids equal at every token whose plain top-2 margin exceeds twice
     the logit difference, up to the first token where the two sides' ids
     part (past it their inputs differ)."""
@@ -3716,13 +3806,11 @@ def _sched_card_vs_plain(card, host, cfg2, rel_tol, kv_dtype=torch.int8):
     lens = torch.randint(20, 64, (6,), generator=gen).tolist()
     prompts = [torch.randint(3, V, (n,), generator=gen).tolist()
                for n in lens]
-    n_new = 3           # the plain path's CPU time sets the size
+    n_new = 3
     done, recs = [], []
-    for model, ctx in ((card, contextlib.nullcontext()),
-                       (host, contextlib.nullcontext()) if host is not None
-                       else (card, plain_on_card())):
-        rec = _LogitsRecorder(model)
-        sched = Scheduler(model, cfg2, max_batch=4, max_len=256,
+    for ctx in (contextlib.nullcontext(), plain_on_card()):
+        rec = _LogitsRecorder(card)
+        sched = Scheduler(card, cfg2, max_batch=4, max_len=256,
                           kv_mode="paged", page_size=64, kv_dtype=kv_dtype,
                           sampling=SamplingParams(greedy=True,
                                                   repeat_penalty=1.0))
@@ -3772,11 +3860,12 @@ def _sched_card_vs_plain(card, host, cfg2, rel_tol, kv_dtype=torch.int8):
 GREEDY_NP = SamplingParams(greedy=True, repeat_penalty=1.0)
 
 
-def _sched_beams_card_vs_plain(card, host, cfg2, ids, rel_tol):
+def _sched_beams_card_vs_plain(card, cfg2, ids, rel_tol):
     """A beam group (3 beams, 8 new tokens, a 24-token prompt) beside a
     greedy request through the Scheduler, slots bf16 and then paged int8:
-    on the card (its decode steps graphed, a path each), then on the CPU's
-    plain path forced to follow the card's beams. Every expansion's logits
+    through the kernels (the decode steps graphed, a path each), then
+    through the plain path on the card's own tensors (its steps eager),
+    forced to follow the kernels' beams. Every expansion's logits
     rows are held to the plain ones and the choices proven where the
     margins allow (:func:`_beams_held`); the hypotheses equal."""
     prompt = ids[:24]
@@ -3786,21 +3875,27 @@ def _sched_beams_card_vs_plain(card, host, cfg2, ids, rel_tol):
                            ("paged", torch.int8, ("flash_prefill_i8",
                                                   "paged_decode_i8"))):
         calls, hyps = [], []
-        for model in (card, host):
+        for plain in (False, True):
             def run():
-                sched = Scheduler(model, cfg2, max_batch=4, max_len=64,
+                sched = Scheduler(card, cfg2, max_batch=4, max_len=64,
                                   kv_mode=mode, page_size=16, kv_dtype=kv,
                                   sampling=GREEDY_NP)
+                if plain:
+                    sched._graphs = None
                 sched.add_request("beam", prompt, max_new_tokens=8,
                                   num_beams=3)
                 sched.add_request("greedy", ids[30:50], max_new_tokens=8)
                 return {q.request_id: q for q in sched.run_to_completion()}
             calls.append([])
-            forced = None if model is card else calls[0]
+            forced = calls[0] if plain else None
             with _ranked(SCHED, calls[-1], forced):
-                done = run() if model is host else run_path(
-                    f"card_vs_plain_sched_beams_{mode}",
-                    ("qmm4_npack", "qmm_general") + attn, run)
+                if plain:
+                    with plain_on_card():
+                        done = run()
+                else:
+                    done = run_path(f"card_vs_plain_sched_beams_{mode}",
+                                    ("qmm4_npack", "qmm_general") + attn,
+                                    run)
             _check_served(done["greedy"].output_ids, 8, "greedy beside "
                           "a beam group", cfg2)
             hyps.append(done["beam"].hypotheses)
@@ -3848,33 +3943,43 @@ def _held_shift(worst):
     return shift
 
 
-def _sched_stream_card_vs_plain(card, host, cfg2, ids, rel_tol):
+def _sched_stream_card_vs_plain(card, cfg2, ids, rel_tol,
+                                kv_dtype=torch.bfloat16):
     """StreamingLLM slots through the Scheduler (bf16 KV, 64 positions, 4
     sinks, 30 dropped, prompts of 60 and 61 tokens, 6 new each: each slot
-    shifts once) on the card, its decode steps graphed, and on the CPU's
-    plain path, each step's logits rows read from the step's output
+    shifts once) through the kernels, the decode steps graphed, and
+    through the plain path on the card's own tensors (its steps eager),
+    each step's logits rows read from the step's output
     (:class:`_SlotRows`): logits within rel_tol, ids equal where the plain
     margin proves them, up to the first parting; each card shift against
     the plain shift of the same row."""
     prompts = [ids[100:160], ids[160:221]]
     worst_k, recs, done = [], [], []
-    for model in (card, host):
-        sched = Scheduler(model, cfg2, max_batch=2, max_len=64,
+    f32 = kv_dtype == torch.float32
+    attn = ("flash_prefill_f32", "flash_decode_f32") if f32 else \
+        ("flash_prefill", "flash_decode")
+    for plain in (False, True):
+        sched = Scheduler(card, cfg2, max_batch=2, max_len=64,
                           streaming=True, n_keep=4, n_discard=30,
-                          sampling=GREEDY_NP)
+                          sampling=GREEDY_NP, kv_dtype=kv_dtype)
+        if plain:
+            sched._graphs = None
         rec = _SlotRows(sched, {0, 1})
         for i, p in enumerate(prompts):
             sched.add_request(i, p, max_new_tokens=6)
         orig = SCHED.shift_cache_impl
-        if model is card:
+        if not plain:
             SCHED.shift_cache_impl = _held_shift(worst_k)
         try:
             run = lambda: {q.request_id: q.output_ids
                            for q in sched.run_to_completion()}
-            done.append(run() if model is host else run_path(
-                "card_vs_plain_sched_stream", ("qmm4_npack", "qmm_general",
-                                               "flash_prefill",
-                                               "flash_decode"), run))
+            if plain:
+                with plain_on_card():
+                    done.append(run())
+            else:
+                done.append(run_path(
+                    "card_vs_plain_sched_stream" + ("_f32" if f32 else ""),
+                    ("qmm4_npack", "qmm_general") + attn, run))
         finally:
             SCHED.shift_cache_impl = orig
         recs.append(rec.rows)
@@ -3899,8 +4004,8 @@ def _sched_stream_card_vs_plain(card, host, cfg2, ids, rel_tol):
                                          "the margin")
                 break
             proven += sure
-    log(f"scheduler streaming card vs plain (64 positions, 2 slots, one "
-        f"shift each): logits max err {worst:.3g}·max|logit| (tol "
+    log(f"scheduler streaming card vs plain ({kv_dtype} cache, 64 "
+        f"positions, 2 slots, one shift each): logits max err {worst:.3g}·max|logit| (tol "
         f"{rel_tol}); card shifts' keys within {max(worst_k):.3g} of the "
         f"plain shift; ids card {done[0]}, plain {done[1]}; proven at "
         f"{proven} tokens")
@@ -3936,10 +4041,10 @@ def _sched_block_card(card, cfg2, ids):
         f"equal over 6 requests, 12 new each")
 
 
-def _sched_beyond_greedy_card_vs_plain(card, host, cfg2, ids, rel_tol):
+def _sched_beyond_greedy_card_vs_plain(card, cfg2, ids, rel_tol):
     """Phase 5's checks of serving beyond greedy on its one-layer copy."""
-    res = _sched_beams_card_vs_plain(card, host, cfg2, ids, rel_tol)
-    res.update(_sched_stream_card_vs_plain(card, host, cfg2, ids, rel_tol))
+    res = _sched_beams_card_vs_plain(card, cfg2, ids, rel_tol)
+    res.update(_sched_stream_card_vs_plain(card, cfg2, ids, rel_tol))
     _sched_block_card(card, cfg2, ids)
     return res
 
@@ -4812,7 +4917,8 @@ def phase_zoo_card_vs_plain(rel_tol=2e-2):
     """One-layer full-width copies of Bloom-7B1, MPT-7B and ChatGLM-6B:
     ``Model.generate`` on the card (a path each: 100-token prompt, 4 new
     tokens), then its logits, fed the card's ids, against the plain path
-    on the CPU, argmax equal wherever the margin proves it. Every product
+    on the card's own tensors, argmax equal wherever the margin proves
+    it. Every product
     here has bf16 activations (100 rows take K5, not the int8 path), as in
     phase 5's formats, so the tolerance is theirs, 2e-2·max|logit|; then,
     on the Bloom copy, phase 5's paged int8 Scheduler check."""
@@ -4821,16 +4927,14 @@ def phase_zoo_card_vs_plain(rel_tol=2e-2):
     for i, (what, cfg, required) in enumerate(ZOO_COPIES):
         cfg2 = dataclasses.replace(cfg, n_layers=COPY_LAYERS)
         card = init_random(cfg2, seed=20 + i, quant="q4_j", device=DEV)
-        host = init_random(cfg2, seed=20 + i, quant="q4_j",
-                           device=DEV).to("cpu")
         ids = torch.randint(3, V, (100,), generator=gen).tolist()
         model = Model().init_params(card, cfg2)
         new = run_path(f"card_{what}", required, lambda: model.generate(
             ids, max_new_tokens=4, do_sample=False,
             stop_at_eos=False)[0])[len(ids):]
         _check_ids(new, 4, f"card {what}", cfg2.vocab_size)
-        worst, provable, _ = _steps_card_vs_plain(card, host, cfg2, ids,
-                                                  new[:3], rel_tol)
+        worst, provable, _ = _steps_card_vs_plain(card, cfg2, ids, new[:3],
+                                                  rel_tol)
         log(f"{what} card vs plain ({cfg2.n_layers} layer(s), full width, "
             f"100-token prompt, "
             f"fed the card's ids {new}): logits max err {worst:.3g}·"
@@ -4842,8 +4946,8 @@ def phase_zoo_card_vs_plain(rel_tol=2e-2):
         res[f"{what}_card_vs_plain_rel_err"] = worst
         if what == "bloom":
             res["bloom_sched_card_vs_plain_rel_err"] = _sched_card_vs_plain(
-                card, host, cfg2, rel_tol)
-        del card, host, model
+                card, cfg2, rel_tol)
+        del card, model
         torch.cuda.empty_cache()
     return res
 
@@ -5118,13 +5222,13 @@ G48_CFG = dataclasses.replace(CFG, hidden_size=6144, n_heads=48,
                               n_kv_heads=1, intermediate_size=24576)
 
 
-def _copy_card_vs_plain(what, card, host, cfg2, required, n_prompt=24,
+def _copy_card_vs_plain(what, card, cfg2, required, n_prompt=24,
                         rel_tol=2e-2, seed=15, n_new=3):
     """``Model.generate`` of a copy on the card (a path with launch
     counts; ``n_prompt`` tokens, ``n_new`` new), then its logits, fed the
-    card's ids, against the CPU plain path; returns (the prompt, the card's
-    new ids, the worst relative difference, the steps whose margin proved
-    the argmax)."""
+    card's ids, against the plain path on the card's own tensors; returns
+    (the prompt, the card's new ids, the worst relative difference, the
+    steps whose margin proved the argmax)."""
     gen = torch.Generator().manual_seed(seed)
     ids = torch.randint(3, min(cfg2.vocab_size, V), (n_prompt,),
                         generator=gen).tolist()
@@ -5133,7 +5237,7 @@ def _copy_card_vs_plain(what, card, host, cfg2, required, n_prompt=24,
         ids, max_new_tokens=n_new, do_sample=False,
         stop_at_eos=False)[0])[len(ids):]
     _check_ids(new, n_new, f"card {what}", cfg2.vocab_size)
-    worst, provable, _ = _steps_card_vs_plain(card, host, cfg2, ids, new,
+    worst, provable, _ = _steps_card_vs_plain(card, cfg2, ids, new,
                                               rel_tol)
     log(f"{what} card vs plain ({cfg2.n_layers} layer(s), full width, "
         f"{n_prompt}-token "
@@ -5173,14 +5277,10 @@ def _g_many_card_paths(card, cfg2, what):
         "int8 Schedulers ran 6 requests each")
 
 
-def _random_pair(cfg2, seed, quant):
-    card = init_random(cfg2, seed=seed, quant=quant, device=DEV)
-    host = init_random(cfg2, seed=seed, quant=quant, device=DEV).to("cpu")
-    return card, host
-
-
 def phase_copies_card_vs_plain():
-    """One-layer full-width copies, card against the CPU plain path (logits
+    """One-layer full-width copies, the kernels against the plain path on
+    the card's own tensors (``plain_on_card``; on the host's CPU it took
+    a minute and a half of the script's limit) (logits
     within 2e-2·max|logit| where every product has bf16 activations, 5e-2
     where a prefill takes the int8 path, as phase 5's q4_j copy; argmax
     equal where the margin proves it): the Mistral GPTQ copy through
@@ -5201,18 +5301,16 @@ def phase_copies_card_vs_plain():
     cfg2 = dataclasses.replace(MISTRAL_CFG, n_layers=COPY_LAYERS)
     sd = gptq_state_dict(cfg2, seed=30)
     card = params_from_gptq_state_dict(sd, cfg2, device=DEV)
-    host = params_from_gptq_state_dict(sd, cfg2, device=DEV).to("cpu")
     gptq_req = ("act_order_gather", "qmm_general", "qmm4_npack_asym",
                 "flash_prefill", "flash_decode")
     # random copies give flat logits (top-2 margins of 0.01-0.8
     # against differences of 0.03-0.08): as phase 5's formats, the argmax
     # must be proven at as many steps as there are copies, over all of them
     ids, new, res["mistral_gptq"], proven = _copy_card_vs_plain(
-        "mistral_gptq", card, host, cfg2, gptq_req)
+        "mistral_gptq", card, cfg2, gptq_req)
     res["mistral_gptq_sched"] = run_path(
         "sched_mistral_gptq", ("act_order_gather", "paged_decode_i8"),
-        lambda: _sched_card_vs_plain(card, host, cfg2, 2e-2))
-    del host
+        lambda: _sched_card_vs_plain(card, cfg2, 2e-2))
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as d:
         with open(os.path.join(d, "config.json"), "w") as fh:
@@ -5240,15 +5338,13 @@ def phase_copies_card_vs_plain():
 
     sd = gptq_state_dict(cfg2, seed=31, fmt="awq")
     card = params_from_gptq_state_dict(sd, cfg2, fmt="awq", device=DEV)
-    host = params_from_gptq_state_dict(sd, cfg2, fmt="awq",
-                                       device=DEV).to("cpu")
     _, _, res["mistral_awq"], n = _copy_card_vs_plain(
-        "mistral_awq", card, host, cfg2,
+        "mistral_awq", card, cfg2,
         ("qmm_general", "qmm4_npack_asym", "flash_prefill", "flash_decode"))
     proven, copies = proven + n, 2
     if LAUNCHES["card_mistral_awq"]["act_order_gather"]:
         raise AssertionError("an AWQ checkpoint has no act-order gather")
-    del sd, card, host
+    del sd, card
     llama2 = dataclasses.replace(CFG, n_layers=COPY_LAYERS)
     # the K2 copy's prefill takes the int8 path, whose activation codes move
     # a step where the card's bf16 roundings differ from the CPU's (as in
@@ -5272,9 +5368,9 @@ def phase_copies_card_vs_plain():
              "q4_j",
              ("qmm_general", "flash_prefill", "flash_decode+G>8"), 24,
              2e-2))):
-        card, host = _random_pair(cfg2, 40 + i, quant)
+        card = init_random(cfg2, seed=40 + i, quant=quant, device=DEV)
         _, _, res[what], n = _copy_card_vs_plain(
-            what, card, host, cfg2, req, n_prompt, tol,
+            what, card, cfg2, req, n_prompt, tol,
             n_new=8 if what == "k2_layouts" else 3)
         proven, copies = proven + n, copies + 1
         if what == "llama_rope_linear":
@@ -5287,14 +5383,14 @@ def phase_copies_card_vs_plain():
             _no_attention_kernels("card_tinyllama")
             res["tinyllama_sched"] = run_path(
                 "sched_tinyllama", ("attend_xla_paged",),
-                lambda: _sched_card_vs_plain(card, host, cfg2, 2e-2))
+                lambda: _sched_card_vs_plain(card, cfg2, 2e-2))
             _no_attention_kernels("sched_tinyllama")
         if what == "heads_g16":
             res["heads_g16_sched"] = run_path(
                 "sched_heads_g16", ("paged_decode_i8+G>8",),
-                lambda: _sched_card_vs_plain(card, host, cfg2, 2e-2))
+                lambda: _sched_card_vs_plain(card, cfg2, 2e-2))
             _g_many_card_paths(card, cfg2, "heads_g16")
-        del card, host
+        del card
         torch.cuda.empty_cache()
     # StarCoder's heads at hidden 6144: the card's paths alone (the copy is
     # 2.3x a Llama copy's CPU time; its kernels are held to their plain
@@ -5459,9 +5555,11 @@ def plain_on_card():
     plain path on the card: the CPU's plain path without a copy to the
     host (on the host's CPU the plain path of the ten 2-layer full-width
     copies would take minutes). Each pair's parameters are checked equal
-    first; the run launches no kernel."""
+    first; the run launches no kernel. The launch counts of a path around
+    it are put back as they were."""
     import inspect
     saved = []
+    before = _cuda.launch_counts()
     try:
         for mod, name, plain in PLAIN_TWINS:
             if callable(plain):
@@ -5486,6 +5584,8 @@ def plain_on_card():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+        _cuda.reset_launches()
+        _cuda.add_launches({fn: n for fn, n in before.items() if n})
 
 
 def graph_step_ms(params, cfg, fill, reps=20, S=S_CACHE):
@@ -6262,7 +6362,7 @@ def zoo_copies_card_vs_plain(rel_tol=2e-2):
         res[f"zoo8_{what}_card_vs_plain_rel_err"] = worst
         if what in ("gptj_6b", "opt_6.7b"):
             res[f"zoo8_{what}_sched_card_vs_plain_rel_err"] = \
-                _sched_card_vs_plain(card, None, cfg2, rel_tol)
+                _sched_card_vs_plain(card, cfg2, rel_tol)
         del card, model
         torch.cuda.empty_cache()
     return res
@@ -6824,7 +6924,7 @@ def moe_copies():
         res[f"moe_{what}_card_vs_plain_rel_err"] = worst
         if what == "mixtral":
             res["moe_mixtral_sched_card_vs_plain_rel_err"] = \
-                _sched_card_vs_plain(card, None, cfg2, MOE_TOL)
+                _sched_card_vs_plain(card, cfg2, MOE_TOL)
         del card, model
         torch.cuda.empty_cache()
     t = time.time()
@@ -8485,6 +8585,498 @@ def phase_whisper(results):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: f32 parameters at rest and f32 KV caches (K3, K4 and K6's
+# f32-cache branches), the command-line tools and the accuracy gate
+# ---------------------------------------------------------------------------
+
+F32_NOISE = 1e-3     # f32 K/V moved off the bf16 grid by this much
+F32_BITEQ = {}       # 13c: each f32 branch equal to the bf16 branch, by case
+F32_BEFORE = {}      # 13c: the bf16 branch's ms per launch, by case
+
+
+def _off_grid(c, gen):
+    """An f32 copy of a cache tensor moved off the bf16 grid (V stays in
+    [-1 - 1e-2, 1 + 1e-2])."""
+    return c.float() + torch.randn(c.shape, generator=gen, device=DEV) \
+        * F32_NOISE
+
+
+def _biteq(what, bf16_out, f32_out):
+    """The f32 branch's output over K/V that the bf16 branch reads rounded
+    is the bf16 branch's, bit for bit."""
+    same = bool(torch.equal(bf16_out, f32_out))
+    F32_BITEQ[what] = same
+    if not same:
+        raise AssertionError(f"{what}: the f32 branch differs from the bf16 "
+                             f"branch by {(bf16_out - f32_out).abs().max()}")
+
+
+def check_f32_attention(gen, results):
+    """13c: K4's, K3's and K6's f32-cache branches at the main path's shapes
+    (Llama-2-7B's heads: K4 at fill 1975, K3 on a 1975-token prompt, K6 at
+    batch 8 with the server's mixed fills over 256-key pages). For each:
+    its output over an f32 cache holding bf16 values, and over f32 values
+    off the bf16 grid, bit-equal to the bf16 branch's over the same values
+    rounded; held to its plain version; its time over the off-grid cache,
+    the bound of its bytes at 4 a K or V element, the plain version's
+    time and ``scaled_dot_product_attention``'s over the same f32
+    tensors; the bf16 branch's time beside it. The f32 branches' option and
+    head-dim cases (head dim 256, the softcap, a window, a chunk at an
+    offset, ALiBi, the prefix, G > 8) are each bf16 case's f32 twin
+    (:func:`_f32_twin`) in ``check_k3``, ``check_k4``, ``check_k6``,
+    ``check_k3_options``, ``check_k4_alibi``, ``check_k6_alibi`` and
+    ``check_many_heads``."""
+    scale = DH ** -0.5
+    row = 4 * DH                     # bytes of an f32 K or V row
+    # K4: decode at fill 1975
+    fill = T_PREFILL
+    q = (torch.randn((1, H, DH), generator=gen, device=DEV)
+         * Q_SPREAD).bfloat16()
+    lengths = torch.tensor([fill], dtype=torch.int32, device=DEV)
+    caches = _attn_cache(gen, (1, H, S_CACHE, DH), False,
+                         _copies(2 * fill * H * row))
+    f32 = [tuple(_off_grid(x, gen) for x in c[:2]) for c in caches]
+    _biteq("K4", A.flash_decode(q, *caches[0][:2], lengths, scale),
+           A.flash_decode(q, *(x.float() for x in caches[0][:2]), lengths,
+                          scale))
+    rounded = [tuple(x.bfloat16() for x in c) for c in f32]
+    _biteq("K4 off the grid", A.flash_decode(q, *rounded[0], lengths, scale),
+           A.flash_decode(q, *f32[0], lengths, scale))
+    label = f"llama decode fill {fill}, f32 cache"
+    case = _attn_case(
+        label, "flash_decode_f32", lambda: A.flash_decode(q, *f32[0], lengths,
+                                                          scale),
+        lambda: A.flash_decode_plain(q, *f32[0], lengths, scale),
+        2 * fill * H * row + H * DH * (2 + 4),
+        _attn_ops(False, DH, H, fill, False, True), BF16_TOL, L,
+        runs=[lambda kv=kv: A.flash_decode(q, *kv, lengths, scale)
+              for kv in f32],
+        library=[lambda kv=kv: _sdpa(q.float()[:, :, None],
+                                     kv[0][:, :, :fill], kv[1][:, :, :fill])
+                 for kv in f32])
+    F32_BEFORE[("K4_f32", label)] = time_ms(
+        [lambda kv=kv: A.flash_decode(q, *kv, lengths, scale)
+         for kv in rounded])
+    _record(results, "K4_f32", {label: case})
+    del q, caches, f32, rounded
+    torch.cuda.empty_cache()
+    # K3: the 1975-token prefill from position 0
+    T = T_PREFILL
+    q = (torch.randn((1, T, H, DH), generator=gen, device=DEV)
+         * Q_SPREAD).bfloat16()
+    starts = torch.zeros(1, dtype=torch.int32, device=DEV)
+    c = _attn_cache(gen, (1, H, S_CACHE, DH), False)[0]
+    _biteq("K3", A.flash_prefill(q, *c[:2], starts, scale),
+           A.flash_prefill(q, *(x.float() for x in c[:2]), starts, scale))
+    kf, vf = (_off_grid(x, gen) for x in c[:2])
+    kb, vb = kf.bfloat16(), vf.bfloat16()
+    _biteq("K3 off the grid", A.flash_prefill(q, kb, vb, starts, scale),
+           A.flash_prefill(q, kf, vf, starts, scale))
+    qh = q.float().transpose(1, 2)
+    label = f"llama {T}-token prefill, f32 cache"
+    case = _attn_case(
+        label, "flash_prefill_f32",
+        lambda: A.flash_prefill(q, kf, vf, starts, scale),
+        lambda: A.flash_prefill_plain(q, kf, vf, starts, scale),
+        T * H * DH * 2 + 2 * T * H * row + T * H * DH * 4,
+        _attn_ops(False, DH, H, _pairs(T, 0), False, False), BF16_TOL, L,
+        library=[lambda: _sdpa(qh, kf[:, :, :T], vf[:, :, :T],
+                               is_causal=True)])
+    F32_BEFORE[("K3_f32", label)] = time_ms(
+        [lambda: A.flash_prefill(q, kb, vb, starts, scale)])
+    _record(results, "K3_f32", {label: case})
+    del q, qh, c, kf, vf, kb, vb
+    torch.cuda.empty_cache()
+    # K6: the server's batch-8 step over 256-key pages
+    ps, fills = 256, SERVER_FILLS
+    B, maxp = len(fills), S_CACHE // ps
+    P = B * maxp + 1
+    table = _server_table(torch.Generator().manual_seed(13), B, maxp, P - 1)
+    lengths = torch.tensor(fills, dtype=torch.int32, device=DEV)
+    q = (torch.randn((B, H, DH), generator=gen, device=DEV)
+         * Q_SPREAD).bfloat16()
+    c = _attn_cache(gen, (P, H, ps, DH), False)[0]
+    _biteq("K6", PA.paged_decode(q, *c[:2], table, lengths, scale),
+           PA.paged_decode(q, *(x.float() for x in c[:2]), table, lengths,
+                           scale))
+    kf, vf = (_off_grid(x, gen) for x in c[:2])
+    kb, vb = kf.bfloat16(), vf.bfloat16()
+    _biteq("K6 off the grid", PA.paged_decode(q, kb, vb, table, lengths,
+                                              scale),
+           PA.paged_decode(q, kf, vf, table, lengths, scale))
+    kd, vd = (PA.gather_pages(x, table) for x in (kf, vf))
+    mask = (torch.arange(maxp * ps, device=DEV)[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+    n = sum(fills)
+    label = f"llama B=8 decode fills {_FILLS8}, f32 pool"
+    case = _attn_case(
+        label, "paged_decode_f32",
+        lambda: PA.paged_decode(q, kf, vf, table, lengths, scale),
+        lambda: PA.paged_decode_plain(q, kf, vf, None, None, table, lengths,
+                                      scale),
+        2 * n * H * row + B * maxp * 4 + B * 4 + B * H * DH * (2 + 4),
+        _attn_ops(False, DH, H, n, False, True), BF16_TOL, L,
+        library=[lambda: _sdpa(q.float()[:, :, None], kd, vd,
+                               attn_mask=mask)])
+    F32_BEFORE[("K6_f32", label)] = time_ms(
+        [lambda: PA.paged_decode(q, kb, vb, table, lengths, scale)])
+    _record(results, "K6_f32", {label: case})
+    for key, lab in F32_BEFORE:
+        ms = results[key]["cases"][lab]["ms_per_launch"]
+        log(f"13c {key} {lab}: {ms:.4f} ms a launch, the bf16 branch over "
+            f"the same values rounded {F32_BEFORE[(key, lab)]:.4f} ms "
+            f"({ms / F32_BEFORE[(key, lab)]:.3f}x)")
+    log(f"13c f32 branches bit-equal to the bf16 branch: {F32_BITEQ}")
+    del q, c, kf, vf, kb, vb, kd, vd
+    torch.cuda.empty_cache()
+
+
+F32_NORM_SPREAD = 0.05     # norm weights 1 + N(0, 0.05²): off the bf16 grid
+F32_NORM = {}              # 13c: the f32 norm weight read as f32, by case
+
+
+def _outside_half_step(out, exact):
+    """The elements of ``out`` (bf16) farther from ``exact`` (f64) than half
+    a bf16 step at ``exact`` plus 2^-16 of it (f32 sums in another order):
+    0 when ``out`` is ``exact`` rounded to bf16."""
+    step_exp = torch.frexp(exact)[1] - 8          # a bf16 step is 2^this
+    bound = torch.ldexp(torch.full_like(exact, 0.5), step_exp) \
+        + exact.abs() * 2 ** -16
+    return int(((out.double() - exact).abs() > bound).sum())
+
+
+def check_f32_norm(gen, results):
+    """13c: the row-norm kernel and K1's fused ``+rms`` prologue read an f32
+    norm weight as f32. At the 7B's rows (K = 4096; M = 1, the server's 8,
+    the 1975-token prefill) with a weight 1 + 0.05·N off the bf16 grid: the
+    kernel's output and ``rms_norm_plain``'s are each the exact norm (f64)
+    rounded to bf16, within half a bf16 step (2^-9 to 2^-8 relative) plus
+    2^-16 of it; the kernel over the weight rounded to bf16 must fail that
+    bound (the control: a kernel that rounded the weight would). The fused
+    route (q4_j 4096 × 4096 to bf16 and the lm_head's 4096 × 32000 to f32,
+    M = 1 and 8) bit-equal to ``rms_norm`` then K1, and apart from it over
+    the rounded weight."""
+    w = 1 + F32_NORM_SPREAD * torch.randn(D, generator=gen, device=DEV)
+    wr = w.bfloat16().float()
+    if torch.equal(w, wr):
+        raise AssertionError("the f32 norm weight sits on the bf16 grid")
+    for M in (1, 8, T_PREFILL):
+        x = (torch.randn((M, D), generator=gen, device=DEV) * 3).bfloat16()
+        x64 = x.double()
+        exact = x64 * torch.rsqrt((x64 * x64).mean(-1, keepdim=True) + 1e-5) \
+            * w.double()
+        before = _cuda.launch_counts()["rms_norm_bf16"]
+        out, ctrl = rms_norm(x, w, 1e-5, 0.0), rms_norm(x, wr, 1e-5, 0.0)
+        if _cuda.launch_counts()["rms_norm_bf16"] != before + 2:
+            raise AssertionError("rms_norm_bf16 was not launched")
+        got = dict(kernel=_outside_half_step(out, exact),
+                   plain=_outside_half_step(rms_norm_plain(x, w, 1e-5, 0.0),
+                                            exact),
+                   rounded_weight=_outside_half_step(ctrl, exact), of=M * D)
+        F32_NORM[f"rms_norm M={M}"] = got
+        if got["kernel"] or got["plain"] or not got["rounded_weight"]:
+            raise AssertionError(f"rms_norm M={M}, f32 weight: elements "
+                                 f"outside half a bf16 step {got}")
+    for N in (D, V):
+        odt = torch.float32 if N == V else torch.bfloat16
+        qt = to_native(quantize(torch.randn((D, N), generator=gen,
+                                            device=DEV) * 0.02,
+                                PRESETS["q4_j"]))
+        fa = (qt.planes[0], qt.scales, qt.group_size, qt.cfg.bits, odt)
+        for M in (1, 8):
+            x = torch.randn((M, D), generator=gen, device=DEV).bfloat16()
+            before = _cuda.launch_counts()["qmm4_npack_fused+rms"]
+            fused = Q.qmm_native_fused(x, *fa, norm=(w, 1e-5, 0.0))
+            ctrl = Q.qmm_native_fused(x, *fa, norm=(wr, 1e-5, 0.0))
+            if _cuda.launch_counts()["qmm4_npack_fused+rms"] != before + 2:
+                raise AssertionError("qmm4_npack_fused+rms was not launched")
+            chain = Q.qmm_native(rms_norm(x, w, 1e-5, 0.0), qt.planes[0],
+                                 qt.scales, None, qt.group_size, qt.cfg.bits,
+                                 odt)
+            got = dict(equal=torch.equal(fused, chain),
+                       rounded_weight_apart=not torch.equal(ctrl, chain))
+            F32_NORM[f"fused rms M={M} {D}x{N}"] = got
+            if not all(got.values()):
+                raise AssertionError(f"fused rms M={M} {D}x{N}, f32 weight: "
+                                     f"{got}")
+        del qt
+    log(f"13c f32 norm weights read as f32: {json.dumps(F32_NORM)}")
+F32_TOL = 5e-2             # phase 5's q4_j copy's (its prefill takes K2)
+F32_NEW = 16
+
+
+def _f32_model(cfg, seed):
+    """Random q4_j weights with f32 parameters at rest (``dtype`` float32:
+    the embedding, the norms), every norm weight redrawn off the bf16 grid
+    (so that reading it rounded would move the logits)."""
+    base = init_random(cfg, seed=seed, quant="q4_j", dtype=torch.float32,
+                       device=DEV)
+    pd = base.param_dict()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    spread = lambda t: (1.0 + F32_NORM_SPREAD * torch.randn(
+        t.shape, generator=gen, device=DEV)).to(t.dtype)
+    for lp in pd["layers"]:
+        for name in [n for n in lp if n.endswith("norm_w")]:
+            lp[name] = spread(lp[name])
+    pd["final_norm_w"] = spread(pd["final_norm_w"])
+    model = TRANSFORMER.Transformer(cfg, pd)
+    w = model.param_dict()["layers"][0]["attn_norm_w"]
+    if w.dtype != torch.float32 or torch.equal(w, w.bfloat16().float()):
+        raise AssertionError("the f32 model's norm weights sit on the bf16 "
+                             "grid")
+    return model
+
+
+def _served_rows(params, cfg, kv_mode, kv_dtype, prompts, n_new):
+    """The batch-8 ``ModelServer`` over a ``kv_dtype`` cache answers
+    ``prompts`` (``n_new`` greedy tokens each), every token's f32 logits row
+    recorded from the decode graph's output (:class:`_SlotRows`): (ids,
+    rows) by query."""
+    srv = ModelServer(params, cfg, max_batch=8, max_len=S_CACHE,
+                      kv_mode=kv_mode, page_size=256, kv_dtype=kv_dtype,
+                      sampling=GREEDY_NP)
+    try:
+        if srv.scheduler.cache.k.dtype != kv_dtype:
+            raise AssertionError(f"the server's cache is "
+                                 f"{srv.scheduler.cache.k.dtype}")
+        rec = _SlotRows(srv.scheduler, set(range(len(prompts))))
+        done, _, _ = _serve(srv, prompts, n_new, cfg)
+    finally:
+        srv.stop()
+    return {i: q.output_ids for i, q in done.items()}, rec.rows
+
+
+def _f32_servers(params):
+    """13b: the f32-pool servers against the same servers over a bf16 pool:
+    ids and every f32 logits row bit-equal, paged (K6, K3 through the page
+    gather) and slots (K4, K3)."""
+    prompts = _server_prompts()[:8]
+    res = {}
+    for mode, attn in (("paged", ("flash_prefill_f32", "paged_decode_f32")),
+                       ("slots", ("flash_prefill_f32", "flash_decode_f32"))):
+        ids32, rows32 = run_path(
+            f"f32_server_{mode}", ("qmm4_npack", "qmm_a8") + attn,
+            lambda: _served_rows(params, CFG, mode, torch.float32, prompts,
+                                 F32_NEW))
+        ids16, rows16 = _served_rows(params, CFG, mode, torch.bfloat16,
+                                     prompts, F32_NEW)
+        for i in range(len(prompts)):
+            _check_served(ids32[i], F32_NEW, f"f32 server {mode}", CFG)
+        if ids32 != ids16 or rows32.keys() != rows16.keys():
+            raise AssertionError(f"f32 server {mode}: ids {ids32} against "
+                                 f"the bf16 pool's {ids16}")
+        apart = [k for k in rows32 if not torch.equal(rows32[k], rows16[k])]
+        if apart:
+            raise AssertionError(f"f32 server {mode}: logits rows {apart} "
+                                 "differ from the bf16 pool's")
+        log(f"13b ModelServer(kv_dtype=\"float32\", kv_mode={mode!r}), batch "
+            f"8, {len(prompts)} queries of {[len(p) for p in prompts]} "
+            f"tokens, {F32_NEW} new: ids and all {len(rows32)} f32 logits "
+            f"rows bit-equal to the bf16 pool's; query 0 {ids32[0]}")
+        res[f"f32_server_{mode}_rows_equal"] = len(rows32)
+    return res
+
+
+def _f32_copy(e2e):
+    """13a's 2-layer copy (f32 parameters, norms off the bf16 grid): its
+    logits through the kernels against the plain path on the card's own
+    tensors, then 13b's StreamingLLM slots over an f32 cache past their
+    shift against the plain path."""
+    cfg2 = dataclasses.replace(CFG, n_layers=2)
+    card = _f32_model(cfg2, seed=61)
+    gen = torch.Generator().manual_seed(61)
+    ids = torch.randint(3, V, (300,), generator=gen).tolist()
+    model = Model().init_params(card, cfg2)
+    new = run_path("f32_copy_generate", GEN_PREFILL, lambda: model.generate(
+        ids, max_new_tokens=4, do_sample=False,
+        stop_at_eos=False)[0])[len(ids):]
+    worst, provable, _ = _steps_card_vs_plain(card, cfg2, ids, new[:3],
+                                              F32_TOL)
+    log(f"13a f32 copy (2 layers, full width, 300-token prompt, fed the "
+        f"card's ids {new}): logits max err {worst:.3g}·max|logit| (tol "
+        f"{F32_TOL}), argmax provably comparable at {provable} of 4 steps, "
+        f"equal at all of them")
+    if provable < 2:
+        raise AssertionError("f32 copy: too few steps with a margin wide "
+                             "enough to compare the argmax")
+    e2e["f32_copy_card_vs_plain_rel_err"] = worst
+    e2e.update({f"f32_{k}": v for k, v in _sched_stream_card_vs_plain(
+        card, cfg2, ids, F32_TOL, kv_dtype=torch.float32).items()})
+    del card, model
+    torch.cuda.empty_cache()
+
+
+def _cli_files(d):
+    """13d's model files: a 2-layer Llama-2-7B-wide Q4_0 GGUF with an SPM
+    vocabulary, the NTPU file of a 2-layer f32 q4_j copy, a 2-layer bf16
+    HF directory and a 2 + 2-layer Whisper large-v3-wide directory, and a
+    seeded WAV and token file."""
+    files = {"gguf": os.path.join(d, "m.gguf"),
+             "ntpu": os.path.join(d, "m.ntpu"),
+             "hf": os.path.join(d, "hf"), "whisper": os.path.join(d, "wh"),
+             "wav": os.path.join(d, "a.wav"),
+             "ids": os.path.join(d, "ids.npy")}
+    write_gguf(files["gguf"], 2, Q4_0_FILE, seed=71, vocab=True)
+    cfg2 = dataclasses.replace(CFG, n_layers=2)
+    Model().init_params(_f32_model(cfg2, seed=72), cfg2).save(files["ntpu"])
+    gen = torch.Generator(device=DEV).manual_seed(73)
+    os.makedirs(files["hf"])
+    hf = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+          "hidden_size": D, "intermediate_size": 11008,
+          "num_hidden_layers": 2, "num_attention_heads": H,
+          "num_key_value_heads": H, "vocab_size": V, "rms_norm_eps": 1e-5,
+          "max_position_embeddings": 4096, "rope_theta": 10000.0,
+          "tie_word_embeddings": False, "bos_token_id": 1,
+          "eos_token_id": 2, "torch_dtype": "bfloat16"}
+    with open(os.path.join(files["hf"], "config.json"), "w") as f:
+        json.dump(hf, f)
+    cfg_hf = llama.config_from_hf(types.SimpleNamespace(**hf))
+    names = {"model.embed_tokens.weight": (V, D),
+             "model.norm.weight": (D,), "lm_head.weight": (V, D)}
+    for i in range(2):
+        for ours, (hf_name, _) in llama.hf_layer_map(i, cfg_hf).items():
+            names[hf_name] = (D,) if ours.endswith("norm_w") else \
+                {"w_gate": (11008, D), "w_up": (11008, D),
+                 "w_down": (D, 11008)}.get(ours, (D, D))
+    write_bf16_safetensors(os.path.join(files["hf"], "model.safetensors"),
+                           names, gen)
+    wcfg = dataclasses.replace(WH_V3, enc_layers=2, dec_layers=2)
+    os.makedirs(files["whisper"])
+    with open(os.path.join(files["whisper"], "config.json"), "w") as f:
+        json.dump({"model_type": "whisper", "vocab_size": wcfg.vocab_size,
+                   "d_model": wcfg.d_model,
+                   "encoder_attention_heads": wcfg.n_heads,
+                   "decoder_attention_heads": wcfg.n_heads,
+                   "encoder_layers": 2, "decoder_layers": 2,
+                   "num_mel_bins": wcfg.n_mels,
+                   "max_source_positions": wcfg.n_audio_ctx,
+                   "max_target_positions": wcfg.n_text_ctx,
+                   "encoder_ffn_dim": wcfg.ffn_dim,
+                   "decoder_ffn_dim": wcfg.ffn_dim,
+                   "eos_token_id": wcfg.eos_token_id,
+                   "decoder_start_token_id": wcfg.sot_token_id}, f)
+    write_bf16_safetensors(os.path.join(files["whisper"],
+                                        "model.safetensors"),
+                           WH.hf_shapes(wcfg), gen)
+    _write_wav(files["wav"], 5.0, seed=13)
+    np.save(files["ids"], np.random.default_rng(13).integers(
+        3, V, 600).astype(np.int32))
+    return files
+
+
+# 13d: each command-line tool as a user runs it (one process each, all
+# started together); accuracy needs lm-eval, which this machine lacks, and
+# must say so
+def _cli_runs(f, d):
+    return {
+        "run": ["--model", f["gguf"], "--prompt", "hello world", "-n", "8"],
+        "inference": ["--model", f["ntpu"], "--ids", "1,306,400,29",
+                      "-n", "8"],
+        "quantize": ["--model_file", f["gguf"], "--out_file",
+                     os.path.join(d, "q.ntpu"), "--weight_dtype", "int4"],
+        "convert": [f["hf"], "--outfile", os.path.join(d, "c.ntpu"),
+                    "--outtype", "q4_j"],
+        "perplexity": ["--model", f["gguf"], "--ids", f["ids"],
+                       "--ctx_size", "256"],
+        "accuracy": ["--model", f["gguf"], "--tasks", "piqa"],
+        "whisper": ["--model", f["whisper"], "--audio", f["wav"],
+                    "--max_new_tokens", "8", "--weight_dtype", "q4_j"],
+        "gate": [],
+    }
+
+
+CLI_TIMEOUT = 300.0
+
+
+def _f32_clis():
+    """13d: every CLI on the files of :func:`_cli_files`, on the card, in
+    processes of their own started together; each exits 0 (accuracy:
+    non-zero, naming lm-eval, when the package is absent) and the gate's
+    ratios are printed."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     ".chip_scratch", "phase13")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    try:
+        t = time.time()
+        files = _cli_files(d)
+        log(f"13d files written in {time.time() - t:.1f} s")
+        t = time.time()
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", f"neural_tpu_torch.cli.{name}", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env) for name, argv in _cli_runs(files, d).items()}
+        outs, res = {}, {}
+        try:
+            for name, p in procs.items():
+                out, err = p.communicate(timeout=CLI_TIMEOUT)
+                outs[name] = (p.returncode, out, err)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        has_lm_eval = importlib.util.find_spec("lm_eval") is not None
+        for name, (rc, out, err) in outs.items():
+            last = (out.strip().splitlines() or [""])[-1]
+            log(f"13d python -m neural_tpu_torch.cli.{name}: exit {rc}; "
+                f"{last[:300]}")
+            refused = name == "accuracy" and not has_lm_eval
+            if refused:
+                if rc == 0 or "lm-eval" not in err:
+                    raise AssertionError(f"cli accuracy without lm-eval: "
+                                         f"exit {rc}\n{err[-2000:]}")
+            elif rc != 0:
+                raise AssertionError(f"cli {name}: exit {rc}\n{out[-2000:]}"
+                                     f"\n{err[-3000:]}")
+            res[f"cli_{name}_exit"] = rc
+        ratios = json.loads(outs["gate"][1].strip().splitlines()[-1])
+        log(f"13d the accuracy gate on the card: PPL ratios {ratios} "
+            "(against baselines/accuracy.json, tol 0.10: passed)")
+        res["gate_ratios"] = ratios
+        log(f"13d the eight tools in {time.time() - t:.1f} s")
+        return res
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_f32(results):
+    """Phase 13: (13c) the f32-cache branches where phase 3 did not run
+    them; (13a) Llama-2-7B at full width and depth with f32 parameters at
+    rest, and its 2-layer copy against the plain path; (13b) the batch-8
+    server over f32 pools against bf16 pools, and StreamingLLM slots over an
+    f32 cache; (13d) the command-line tools and the gate."""
+    t0 = time.time()
+    e2e = {}
+    if "K4_f32" not in results:
+        check_f32_attention(torch.Generator(device=DEV).manual_seed(13),
+                            results)
+        check_f32_norm(torch.Generator(device=DEV).manual_seed(14), results)
+    t = time.time()
+    params = _f32_model(CFG, seed=60)
+    model = Model().init_params(params, CFG)
+    gen = torch.Generator().manual_seed(60)
+    prompt = torch.randint(3, V, (T_PREFILL,), generator=gen).tolist()
+    out = run_path("f32_generate", GEN_PREFILL, lambda: model.generate(
+        prompt, max_new_tokens=F32_NEW, do_sample=False,
+        stop_at_eos=False)[0])
+    _check_ids(out[T_PREFILL:], F32_NEW, "f32 7B generate")
+    e2e["f32_generate_ids"] = out[T_PREFILL:]
+    log(f"13a Llama-2-7B q4_j with f32 parameters (norms off the bf16 "
+        f"grid), {T_PREFILL}-token prompt: greedy ids {out[T_PREFILL:]} "
+        f"({time.time() - t:.1f} s with the load)")
+    e2e.update(_f32_servers(params))
+    del params, model
+    torch.cuda.empty_cache()
+    _f32_copy(e2e)
+    e2e.update(_f32_clis())
+    log(f"phase 13: {time.time() - t0:.1f} s")
+    return e2e
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_META = {
@@ -8578,6 +9170,15 @@ KERNEL_META = {
                       "neural_tpu_torch/csrc/paged_decode.cu",
                       "neural_tpu/ops/paged_attention.py:31")
        for s in ("", "_i8")},
+    # the f32-cache branches (the TPU kernels' astype(bf16) of an f32 block)
+    "K3_f32": ("flash_prefill_f32", "neural_tpu_torch/csrc/flash_prefill.cu",
+               "neural_tpu/ops/attention.py:433 (f32 KV: :502, :530-532)"),
+    "K4_f32": ("flash_decode_f32", "neural_tpu_torch/csrc/flash_decode.cu",
+               "neural_tpu/ops/attention.py:110 (f32 KV: :190-191, "
+               ":213-214)"),
+    "K6_f32": ("paged_decode_f32", "neural_tpu_torch/csrc/paged_decode.cu",
+               "neural_tpu/ops/paged_attention.py:31 (f32 KV: "
+               "attention.py:190-191, :213-214)"),
 }
 
 
@@ -8826,7 +9427,8 @@ def main():
             "--phase9": ("9 moe", phase_moe),
             "--phase10": ("10 parallel", phase_parallel),
             "--phase11": ("11 nocache", phase_nocache),
-            "--phase12": ("12 whisper", phase_whisper)}.get(
+            "--phase12": ("12 whisper", phase_whisper),
+            "--phase13": ("13 f32", phase_f32)}.get(
                 sys.argv[1] if sys.argv[1:] else None)
     # the slice's main path: every phase runs the fused decode path, which
     # the library leaves off by default (``models.transformer.fuse_mode``);
@@ -8865,7 +9467,8 @@ def main():
                       check_k5, check_k1_branches, check_k1_fused,
                       check_k1_reruns, check_rms_norm, check_k2_asym,
                       check_k2_layouts, check_gptq_products,
-                      check_many_heads, check_whisper_kernels):
+                      check_many_heads, check_whisper_kernels,
+                      check_f32_attention, check_f32_norm):
             check(gen, results)
             torch.cuda.empty_cache()
     phase("3 kernels", kernels)
@@ -8914,6 +9517,7 @@ def main():
     e2e.update(phase("10 parallel", phase_parallel, results))
     e2e.update(phase("11 nocache", phase_nocache, results))
     e2e.update(phase("12 whisper", phase_whisper, results))
+    e2e.update(phase("13 f32", phase_f32, results))
 
     kernels = []
     for kid, (kname, src, repl) in KERNEL_META.items():
@@ -8940,6 +9544,8 @@ def main():
                     "k1_reruns": K1_RERUN,
                     "k16_slower": K16_SLOWER,
                     "option_on_over_off": branches,
+                    "f32_bit_equal": F32_BITEQ,
+                    "f32_norm": F32_NORM,
                     "phase_seconds": seconds,
                     "seconds": time.time() - t_start}))
     print(json.dumps({"kernels": kernels}))

@@ -41,6 +41,16 @@ def _to_id_list(x) -> List[List[int]]:
     return [list(map(int, row)) for row in a]
 
 
+def param_dtype(dtype) -> torch.dtype:
+    """The parameters' dtype at rest for a loader's ``dtype``, the JAX
+    package's rule (``neural_tpu/api.py``): bf16 for ``"bfloat16"``, f32
+    for anything else — the embedding, the norm weights, the dense weights
+    and the biases; the activations stay bf16 either way (the graph casts
+    the residual stream to bf16, a dense weight is rounded to x's dtype at
+    its product)."""
+    return torch.bfloat16 if dtype == "bfloat16" else torch.float32
+
+
 class Model:
     """One object that holds a quantized decoder and generates with it."""
 
@@ -70,7 +80,8 @@ class Model:
         ``weight_dtype`` — a preset, a QuantConfig or registry, or a
         reference-style name with ``alg``/``group_size``/``scale_dtype``/
         ``compute_dtype``/``use_ggml`` (:func:`quant_config_from_args`);
-        ``use_quant=False`` keeps bf16 projections. The GPTQ/AWQ branch
+        ``use_quant=False`` keeps bf16 projections (f32 with
+        ``dtype="float32"``: :func:`param_dtype`). The GPTQ/AWQ branch
         (``use_gptq``, ``use_awq``, and ``use_autoround``, which exports
         the GPTQ format) reads the bits and group size of
         ``quantization_config`` or ``quantize_config.json`` and every
@@ -81,8 +92,6 @@ class Model:
             raise ValueError(f"model_hub {model_hub!r} is not available "
                              "offline; use a local huggingface-format "
                              "directory")
-        if dtype != "bfloat16":
-            raise NotImplementedError("only bf16 activations are ported")
         from .convert import files
         from .convert.hf import family
         hf_cfg = files.read_config(model_name_or_path)
@@ -100,7 +109,7 @@ class Model:
             sd = files.read_safetensors_dir(model_name_or_path)
             self.params = params_from_gptq_state_dict(
                 sd, self.cfg, fmt="awq" if use_awq else "gptq", bits=bits,
-                dtype=torch.bfloat16, group_size=gsize, arch_mod=mod,
+                dtype=param_dtype(dtype), group_size=gsize, arch_mod=mod,
                 device=device)
             return self
         from .convert.stream import params_from_hf_dir
@@ -108,7 +117,7 @@ class Model:
                                       scale_dtype, compute_dtype, use_ggml) \
             if use_quant else None
         self.params, self.cfg = params_from_hf_dir(
-            model_name_or_path, qcfg, torch.bfloat16, cfg=self.cfg,
+            model_name_or_path, qcfg, param_dtype(dtype), cfg=self.cfg,
             arch_mod=mod, device=device)
         return self
 
@@ -124,16 +133,15 @@ class Model:
         Baichuan and ChatGLM, through a model object with their config and
         state dict) → ready Model. ``weight_dtype`` and the reference-style
         knobs are those of the JAX ``Model.init`` (:func:`quant_config_from_args`);
-        None keeps bf16 projections.
+        None keeps bf16 projections. ``dtype`` sets the parameters' dtype at
+        rest by :func:`param_dtype`.
         Weights are quantized on ``device`` (the card unless
         ``device="cpu"``)."""
         from .convert.hf import from_hf_model
-        if dtype != "bfloat16":
-            raise NotImplementedError("only bf16 activations are ported")
         qcfg = quant_config_from_args(weight_dtype, alg, group_size,
                                       scale_dtype, compute_dtype, use_ggml)
-        self.params, self.cfg = from_hf_model(model, qcfg, torch.bfloat16,
-                                              device)
+        self.params, self.cfg = from_hf_model(model, qcfg,
+                                              param_dtype(dtype), device)
         return self
 
     def init_params(self, params: Transformer, cfg: ModelConfig):
@@ -246,7 +254,9 @@ class Model:
           ``stopping_criteria`` (``callable(ids_2d, scores) -> bool``, each
           token) and ``interactive`` (the KV cache kept across calls) take
           the host-stepped loop.
-        - ``kv_dtype``: "bf16" or "int8" KV cache.
+        - ``kv_dtype``: "int8" (or ``torch.int8``) for an int8 KV cache,
+          any other value bf16, as in the JAX package (an f32 cache is the
+          server's: ``ModelServer(kv_dtype="float32")``).
         - ``session_file`` (one prompt, no beams): a prompt-keyed KV
           snapshot on disk (reference CLI --session, main_run.cpp:614):
           when the file's saved prompt is a prefix of this one and its
@@ -272,9 +282,6 @@ class Model:
             raise RuntimeError("call init_from_hf_model or init_params first")
         from .utils.profiling import Timings, maybe_trace
         timings = Timings()
-        if kv_dtype not in ("bf16", "int8", torch.bfloat16, torch.int8):
-            raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
-                             f"{kv_dtype!r}")
         kvdt = torch.int8 if kv_dtype in ("int8", torch.int8) else \
             torch.bfloat16
         rows = _to_id_list(input_ids)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Union
 
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
@@ -49,6 +50,15 @@ ARCH_MODULES = {"llama": llama, "mistral": llama, "mixtral": llama,
                 "phi": phi, "phi3": phi, "gemma": gemma, "gemma2": gemma,
                 "stablelm": stablelm, "baichuan": baichuan,
                 "chatglm": chatglm, "chatglm1": chatglm}
+
+
+def register_arch(names, module):
+    """Add ``module`` as the family of each HF ``model_type`` in
+    ``names`` (the JAX package's ``register_arch``)."""
+    for n in names:
+        ARCH_MODULES[n] = module
+
+
 # the model types the JAX package, the port's reference, does not run, each
 # with why (ROADMAP §C)
 REFUSED = {"qwen2_moe": qwen.QWEN2_MOE_GAP, "qwen3": qwen.QWEN3_FAULT}
@@ -463,3 +473,52 @@ def init_random(cfg: ModelConfig, seed: int = 0,
         params["lm_head_b"] = normal((cfg.vocab_size,))
     _add_aux(params, cfg, dev)
     return Transformer(cfg, params)
+
+
+def _jax_shape_for(name: str, cfg: ModelConfig):
+    """The JAX ``init_random``'s shape table (unpadded FFN)."""
+    D, I_ = cfg.hidden_size, cfg.intermediate_size
+    if name in ("attn_norm_w", "ffn_norm_w", "post_attn_norm_w",
+                "attn_norm_b", "ffn_norm_b", "post_ffn_norm_w",
+                "post_ffn_norm_b"):
+        return (D,)
+    return _shape_for(name, cfg, I_)
+
+
+def init_random_numpy(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
+    """The JAX package's ``init_random`` (``neural_tpu/convert/hf.py``) up
+    to its conversion: the HF-named f32 state dict it draws, by its rule —
+    one ``numpy.random.default_rng(seed)``, N(0, 0.02²) weights layer by
+    layer in the family's HF map order, ones for norm weights and biases,
+    then the embedding, the lm_head, the learned positions, zeros for the
+    lm_head bias and ones for the other top-level tensors. Through
+    :func:`build_params` it gives the two packages the same weights from
+    one seed (the port's own :func:`init_random` draws on the device with a
+    ``torch.Generator`` instead). Made on the host in f32: for small
+    models (the accuracy gate's)."""
+    mod = ARCH_MODULES.get(cfg.arch, llama)
+    rng = np.random.default_rng(seed)
+    D, V = cfg.hidden_size, cfg.vocab_size
+
+    def r(*shape):
+        return (rng.standard_normal(shape) * 0.02).astype(np.float32)
+
+    sd: Dict[str, Any] = {}
+    for i in range(cfg.n_layers):
+        for ours, (hf, tr) in mod.hf_layer_map(i, cfg).items():
+            shape = _jax_shape_for(ours.split(".")[-1], cfg)
+            w = r(*shape) if len(shape) > 1 else np.ones(shape, np.float32)
+            sd[hf] = w.T if tr else w
+    for ours, (hf, tr) in mod.hf_top_map(cfg).items():
+        if ours == "embed":
+            sd[hf] = r(V, D)
+        elif ours == "lm_head":
+            sd[hf] = r(D, V).T if tr else r(D, V)
+        elif ours == "pos_embed":
+            sd[hf] = r(cfg.max_seq_len + cfg.pos_offset, D)
+        elif ours == "lm_head_b":
+            sd[hf] = np.zeros(V, np.float32)
+        else:
+            sd[hf] = np.ones(D, np.float32)
+    return sd
+

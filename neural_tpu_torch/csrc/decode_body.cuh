@@ -2,7 +2,8 @@
 // contiguous cache) and K6 (paged_decode.cu, a page pool read through a
 // page table): one template, PAGED, instantiated in each.
 //
-// q [B, Hq, D] bf16 with D = 128 or 256 (a template parameter); keys at
+// q [B, Hq, D] bf16 with D = 128 or 256 (a template parameter); the cache
+// bf16, int8 with bf16 scales, or f32 (the template parameter KV); keys at
 // positions >= lengths[b] masked, and with a sliding window (window > 0)
 // keys below lengths[b] - window too; the G = Hq / Hkv query heads of KV
 // head hk are hk * G .. hk * G + G - 1; output f32 [B, Hq, D]. Key s of
@@ -19,6 +20,10 @@
 //   int32, s = d * (qa * scale / 127) * k_scale; l sums the unscaled P; the
 //   v scale multiplies P in f32, and PV is an f32 product with the int8 v
 //   codes (no bf16 P, no TF32).
+// - f32: each K and V element is rounded to bf16 (to nearest even) once, as
+//   it is read, and from there every step is the bf16 branch's in the same
+//   order, as the TPU kernel's astype(bf16) of an f32 block: on a cache
+//   that holds bf16 values the two branches are bit-equal.
 // - softcap > 0: s = softcap * tanh(s / softcap) on the scaled score,
 //   before the mask; slopes != nullptr (ALiBi, [Hq] f32): slopes[h] *
 //   (pos - (len - 1)) added, a product and a sum each rounded in f32,
@@ -58,6 +63,14 @@
 // block of the row (up to FOLD_HEADS heads a KV head) or by a second
 // launch.
 //
+// The f32 branch: the ring has one stage of raw f32 K and V rows (TMA
+// boxes of whole rows, unswizzled), and the block narrows each tile into
+// one bf16 stage laid out exactly as the bf16 branch's TMA writes it (the
+// 128-byte swizzle); the next tile's copy is issued as soon as the raw
+// stage is narrowed, so it runs under this tile's products. A block holds
+// ~106 KB, two an SM; the split is the bf16 branch's (k4_schedule takes no
+// dtype), so both branches sum in the same order.
+//
 // Precondition of the paged form, as of the TPU kernel's whole-page DMAs:
 // every row of a page that a row's table names holds finite K and V (and
 // finite scales). The boxes are whole, so the rows past the fill in the
@@ -82,7 +95,9 @@ namespace decode_body {
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int NST = 2;           // stages of the K/V ring
+constexpr int NST = 2;           // stages of the K/V ring (f32: 1, raw)
+// the cache's element type
+constexpr int KV_BF16 = 0, KV_I8 = 1, KV_F32 = 2;
 constexpr float NEG = -1e30f;
 // Up to FOLD_HEADS query heads a KV head, the last block of each (row, KV
 // head) to finish merges the splits (an atomic ticket that it puts back to
@@ -97,12 +112,19 @@ __host__ __device__ constexpr int tile_keys() {
   return D == 128 ? 64 : 32;
 }
 
-template <int D, bool I8, int MT>
+template <int D, int KV, int MT>
 struct Smem {
+  static constexpr bool I8 = KV == KV_I8, F32 = KV == KV_F32;
   static constexpr int TK = tile_keys<D>();
   static constexpr int MP = 16 * MT;                // heads, padded
   static constexpr int KT = I8 ? TK * D : TK * D * 2;   // a K (or V) tile
   static constexpr int STAGE = 2 * KT;
+  // the ring: NST stages, or one raw f32 stage (K rows, then V rows) and
+  // the bf16 stage it is narrowed into (CV bytes after the ring)
+  static constexpr int NS = F32 ? 1 : NST;
+  static constexpr int RAWKT = TK * D * 4;
+  static constexpr int RING = F32 ? 2 * RAWKT : NST * STAGE;
+  static constexpr int CV = F32 ? STAGE : 0;
   static constexpr int QLD = I8 ? D + 16 : D + 8;   // q row stride, elements
   static constexpr int PLD = TK + 8;                // bf16 P row stride
   static constexpr int QS = MP * QLD * (I8 ? 1 : 2);
@@ -113,7 +135,8 @@ struct Smem {
   static constexpr int PVLD = MP + 4;              // int8 P·vs row stride
   static constexpr int PB = I8 ? TK * PVLD * 4 : MP * PLD * 2;   // P (·vs)
   static constexpr int QSC = MT == 1 ? (SCB > QS ? SCB : QS) : QS + SCB;
-  static constexpr int BYTES = NST * STAGE + QSC + PB + 1024;
+  static constexpr int BYTES = RING + CV + QSC + PB + 1024;
+  static_assert(BYTES <= 232448, "over the H100's shared memory");
 };
 
 struct Params {
@@ -220,18 +243,21 @@ __device__ __forceinline__ void kv_at(const Params& p, int b, int hk,
   }
 }
 
-template <int D, bool I8, int MT, bool PAGED>
+template <int D, int KV, int MT, bool PAGED>
 __global__ void __launch_bounds__(THREADS)
 decode_partial(const __grid_constant__ Params p) {
-  using SM = Smem<D, I8, MT>;
+  using SM = Smem<D, KV, MT>;
+  constexpr bool I8 = SM::I8, F32 = SM::F32;
   constexpr int TK = SM::TK, MP = SM::MP, KW = TK / 4, NTW = KW / 8;
+  constexpr int NSK = SM::NS;
   constexpr int ES = I8 ? 1 : 2;            // bytes of a cache element
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[NST];
   __shared__ float sm_m[MP], sm_l[MP], sm_a[MP], sm_qk[MP];
   uint8_t* smem = smem_raw + ((1024 - (qmm_tc::smem_u32(smem_raw) & 1023)) &
                               1023);
-  uint8_t* qs = smem + NST * SM::STAGE;
+  uint8_t* cv = smem + SM::RING;            // f32: the narrowed stage
+  uint8_t* qs = cv + SM::CV;
   float* sc = reinterpret_cast<float*>(qs + SM::SC_AT);
   uint8_t* pb = qs + SM::QSC;
 
@@ -252,14 +278,18 @@ decode_partial(const __grid_constant__ Params p) {
   // a tile's K and V rows, TK / br boxes each (one box unless a page is
   // shorter than the tile), all counted on the stage's barrier
   auto issue = [&](int i) {
-    const int s = i % NST;
+    const int s = i % NSK;
     uint8_t* st = smem + s * SM::STAGE;
     const int k0 = (t_lo + i) * TK;
-    qmm_tc::mbar_expect(&full[s], SM::STAGE);
+    qmm_tc::mbar_expect(&full[s], F32 ? SM::RING : SM::STAGE);
     for (int r0 = 0; r0 < TK; r0 += p.br) {
       int outer, row;
       kv_at<PAGED>(p, b, hk, k0 + r0, lo, len, outer, row);
-      if constexpr (I8) {
+      if constexpr (F32) {
+        qmm_tc::tma_load_3d(st + r0 * D * 4, &p.mk, 0, row, outer, &full[s]);
+        qmm_tc::tma_load_3d(st + SM::RAWKT + r0 * D * 4, &p.mv, 0, row, outer,
+                            &full[s]);
+      } else if constexpr (I8) {
         for (int c = 0; c < D / 128; ++c)
           qmm_tc::tma_load_3d(st + c * TK * 128 + r0 * 128, &p.mk, c * 128,
                               row, outer, &full[s]);
@@ -276,9 +306,9 @@ decode_partial(const __grid_constant__ Params p) {
     }
   };
   if (tid == 0) {
-    for (int s = 0; s < NST; ++s) qmm_tc::mbar_init(&full[s], 1);
+    for (int s = 0; s < NSK; ++s) qmm_tc::mbar_init(&full[s], 1);
     qmm_tc::mbar_init_fence();
-    for (int i = 0; i < NST && i < n; ++i) issue(i);
+    for (int i = 0; i < NSK && i < n; ++i) issue(i);
   }
 
   // q rows (padded with zeros), the softmax state, P's padding rows
@@ -411,7 +441,7 @@ decode_partial(const __grid_constant__ Params p) {
   };
   load_scales(0, ksn, vsn);
   for (int i = 0; i < n; ++i) {
-    const int s = i % NST, k0 = (t_lo + i) * TK;
+    const int s = i % NSK, k0 = (t_lo + i) * TK;
     uint8_t* st = smem + s * SM::STAGE;
     if constexpr (I8) {
 #pragma unroll
@@ -423,8 +453,21 @@ decode_partial(const __grid_constant__ Params p) {
       for (int u = 0; u < TK / 32; ++u) vsv[u] = vsn[u];
       if (i + 1 < n) load_scales(i + 1, ksn, vsn);
     }
-    qmm_tc::mbar_wait(&full[s], (i / NST) & 1);
-    const uint32_t kbase = qmm_tc::smem_u32(st);
+    qmm_tc::mbar_wait(&full[s], (i / NSK) & 1);
+    if constexpr (F32) {
+      // narrow the raw tile (K rows, then V rows) into the bf16 stage, 8
+      // values a step, then refill the raw stage with the next tile
+      for (int u = tid; u < 2 * TK * D / 8; u += THREADS) {
+        const int h = u / (TK * D / 8), w = u % (TK * D / 8);
+        const int r = w / (D / 8), c8 = w % (D / 8);
+        *reinterpret_cast<uint4*>(cv + h * SM::KT +
+                                  qmm_tc::sw128_off(r, 16 * c8, TK)) =
+            qmm_tc::bf16x8_rn(st + h * SM::RAWKT + (r * D + 8 * c8) * 4);
+      }
+      __syncthreads();
+      if (tid == 0 && i + 1 < n) issue(i + 1);
+    }
+    const uint32_t kbase = qmm_tc::smem_u32(F32 ? cv : st);
     const uint32_t vbase = kbase + SM::KT;
     const bool edge = k0 < lo || k0 + TK > len;
 
@@ -643,7 +686,8 @@ decode_partial(const __grid_constant__ Params p) {
       }
     }
     __syncthreads();               // the stage is consumed
-    if (tid == 0 && i + NST < n) issue(i + NST);
+    if constexpr (!F32)
+      if (tid == 0 && i + NST < n) issue(i + NST);
   }
 
   // this split's (max, sum, unnormalized output) of each head
@@ -722,20 +766,20 @@ __global__ void __launch_bounds__(128) decode_combine(const Params p) {
                   p.window > 0 ? max(len - p.window, 0) : 0);
 }
 
-template <int D, bool I8, int MT, bool PAGED>
+template <int D, int KV, int MT, bool PAGED>
 int launch_mt(Params& p, void* stream) {
-  using SM = Smem<D, I8, MT>;
+  using SM = Smem<D, KV, MT>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_partial<D, I8, MT, PAGED>,
+        decode_partial<D, KV, MT, PAGED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SM::BYTES);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int G = p.Hq / p.Hkv;
-  decode_partial<D, I8, MT, PAGED>
+  decode_partial<D, KV, MT, PAGED>
       <<<dim3(p.n_split, p.B * p.Hkv, (G + SM::MP - 1) / SM::MP), THREADS,
          SM::BYTES, st>>>(p);
   cudaError_t e = cudaGetLastError();
@@ -744,7 +788,7 @@ int launch_mt(Params& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D, bool I8, bool PAGED>
+template <int D, int KV, bool PAGED>
 int launch_d(Params& p, const void* k, const void* v, long long outer,
              int rows, void* stream) {
   constexpr int TK = tile_keys<D>();
@@ -755,25 +799,32 @@ int launch_d(Params& p, const void* k, const void* v, long long outer,
   p.br = PAGED ? min(TK, rows & -rows) : TK;
   if (p.br < 16) return (int)cudaErrorInvalidValue;
   using qmm_tc::make_map_3d;
-  const bool ok =
-      I8 ? make_map_3d(&p.mk, k, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, rows,
-                       outer, 128, p.br, true) &&
-               make_map_3d(&p.mv, v, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D,
-                           rows, outer, D, p.br, false)
-         : make_map_3d(&p.mk, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, rows,
-                       outer, 64, p.br, true) &&
-               make_map_3d(&p.mv, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D,
-                           rows, outer, 64, p.br, true);
+  bool ok;
+  if constexpr (KV == KV_I8)
+    ok = make_map_3d(&p.mk, k, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, rows,
+                     outer, 128, p.br, true) &&
+         make_map_3d(&p.mv, v, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, rows,
+                     outer, D, p.br, false);
+  else if constexpr (KV == KV_F32)     // whole raw rows, unswizzled
+    ok = make_map_3d(&p.mk, k, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, D, rows,
+                     outer, D, p.br, false) &&
+         make_map_3d(&p.mv, v, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, D, rows,
+                     outer, D, p.br, false);
+  else
+    ok = make_map_3d(&p.mk, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, rows,
+                     outer, 64, p.br, true) &&
+         make_map_3d(&p.mv, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, rows,
+                     outer, 64, p.br, true);
   if (!ok) return (int)cudaErrorInvalidValue;
-  if (p.Hq / p.Hkv <= 16) return launch_mt<D, I8, 1, PAGED>(p, stream);
-  return launch_mt<D, I8, 4, PAGED>(p, stream);
+  if (p.Hq / p.Hkv <= 16) return launch_mt<D, KV, 1, PAGED>(p, stream);
+  return launch_mt<D, KV, 4, PAGED>(p, stream);
 }
 
 // One launch of the body. Contiguous (PAGED false): caches [B, Hkv, S, D];
 // pages, ps and maxp ignored. Paged: pools [P = pages, Hkv, ps, D] read
 // through table [B, maxp], S = maxp * ps. ks / vs: the int8 scales ([B,
-// Hkv, S] or [P, Hkv, ps]), null for bf16.
-template <bool PAGED, bool I8>
+// Hkv, S] or [P, Hkv, ps]), null for bf16 and f32; KV the cache's type.
+template <bool PAGED, int KV>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* table, const void* lengths,
            const void* slopes, void* part_o, void* part_ml, void* tickets,
@@ -806,8 +857,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   p.window = window;
   const long long outer = (long long)(PAGED ? pages : B) * Hkv;
   const int rows = PAGED ? ps : S;
-  if (D == 128) return launch_d<128, I8, PAGED>(p, k, v, outer, rows, stream);
-  if (D == 256) return launch_d<256, I8, PAGED>(p, k, v, outer, rows, stream);
+  if (D == 128) return launch_d<128, KV, PAGED>(p, k, v, outer, rows, stream);
+  if (D == 256) return launch_d<256, KV, PAGED>(p, k, v, outer, rows, stream);
   return (int)cudaErrorInvalidValue;
 }
 

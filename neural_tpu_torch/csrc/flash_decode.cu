@@ -1,9 +1,10 @@
-// K4 flash_decode: split-S decode attention (T = 1) over a contiguous bf16
-// or int8 KV cache for Hopper.
+// K4 flash_decode: split-S decode attention (T = 1) over a contiguous bf16,
+// int8 or f32 KV cache for Hopper.
 //
 // Replaces neural_tpu/ops/attention.py:_decode_kernel (launched by
 // flash_decode). q [B, Hq, D] bf16 with D = 128 or 256; caches [B, Hkv, S,
-// D], bf16, or int8 with bf16 scales [B, Hkv, S]; output f32 [B, Hq, D].
+// D], bf16, int8 with bf16 scales [B, Hkv, S], or f32 (each element
+// rounded to bf16 as it is read); output f32 [B, Hq, D].
 // The device body, its numerics, its options (softcap, ALiBi, window), its
 // bound and its design are in decode_body.cuh, which K6 (paged_decode.cu)
 // instantiates over a page pool.
@@ -20,7 +21,7 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             void* out, int B, int Hq, int Hkv, int S,
                             int n_split, int chunk, int D, float scale,
                             float softcap, int window, void* stream) {
-  return decode_body::launch<false, false>(
+  return decode_body::launch<false, decode_body::KV_BF16>(
       q, k, v, nullptr, nullptr, nullptr, lengths, slopes, part_o, part_ml,
       tickets, out, B, Hq, Hkv, S, 0, 0, 0, n_split, chunk, D, scale,
       softcap, window, stream);
@@ -34,8 +35,22 @@ extern "C" int flash_decode_i8(const void* q, const void* k, const void* v,
                                void* out, int B, int Hq, int Hkv, int S,
                                int n_split, int chunk, int D, float scale,
                                float softcap, int window, void* stream) {
-  return decode_body::launch<false, true>(
+  return decode_body::launch<false, decode_body::KV_I8>(
       q, k, v, k_scale, v_scale, nullptr, lengths, slopes, part_o, part_ml,
+      tickets, out, B, Hq, Hkv, S, 0, 0, 0, n_split, chunk, D, scale,
+      softcap, window, stream);
+}
+
+// an f32 cache, its elements rounded to bf16 as they are read; otherwise as
+// flash_decode (the same schedule)
+extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
+                                const void* lengths, const void* slopes,
+                                void* part_o, void* part_ml, void* tickets,
+                                void* out, int B, int Hq, int Hkv, int S,
+                                int n_split, int chunk, int D, float scale,
+                                float softcap, int window, void* stream) {
+  return decode_body::launch<false, decode_body::KV_F32>(
+      q, k, v, nullptr, nullptr, nullptr, lengths, slopes, part_o, part_ml,
       tickets, out, B, Hq, Hkv, S, 0, 0, 0, n_split, chunk, D, scale,
       softcap, window, stream);
 }

@@ -1,5 +1,5 @@
-// K3 flash_prefill: causal flash attention over a bf16 or int8 KV cache for
-// Hopper.
+// K3 flash_prefill: causal flash attention over a bf16, int8 or f32 KV cache
+// for Hopper.
 //
 // Replaces neural_tpu/ops/attention.py:_prefill_kernel (launched by
 // flash_prefill). q [B, T, Hq, D] bf16 with D = 128 or 256 (a template
@@ -25,6 +25,10 @@
 //   s = d * (qa * scale / 127) * k_scale; the v scale multiplies P, which
 //   is rounded to bf16 for a bf16 PV product against the int8 v codes
 //   widened to bf16 (exact).
+// - f32 cache (flash_prefill_f32): each K and V element is rounded to bf16
+//   (to nearest even) once, as the TPU kernel's astype(bf16) of an f32
+//   block; from there every step is the bf16 branch's, in the same order,
+//   so on a cache that holds bf16 values the two are bit-equal.
 // The softmax runs on scores times log2(e), through exp2f.
 //
 // What bounds it on the H100: the operations (4 * T * S_visible * D per
@@ -42,6 +46,10 @@
 // each consumer warpgroup quantizes its q rows into a swizzled int8 tile
 // in its prologue, and the producer warpgroup widens each stage's V codes
 // to bf16 in the MN-major layout and stages the k and v scales as f32.
+// f32: the producer's thread 0 copies the raw f32 rows of K, then of V, a
+// piece of RAWR rows at a time into a double buffer, and its four warps
+// narrow each piece to bf16 into the stage, in the layout the bf16
+// branch's TMA writes (two stages: the raw buffer takes the third's room).
 // The tensor maps read q as [B * T, Hq, D] and the caches as
 // [B * Hkv, S, D], so a tile past S reads zeros and never the next head's
 // rows. A block's key tiles run from the window floor of its first row (or
@@ -77,6 +85,8 @@ constexpr int THREADS = 384;     // consumer warpgroups 0, 1; producer 2
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+// the cache's element type
+constexpr int KV_BF16 = 0, KV_I8 = 1, KV_F32 = 2;
 // the softmax of tile i runs while P V of tile i - 1 is in flight; at
 // D = 256 the second P and the in-flight products spill, so there the
 // tiles run one after another
@@ -103,17 +113,22 @@ __host__ __device__ constexpr int nst() {
 // [BKV][D] the same way. int8: the q codes [BQ][D] in D / 128 swizzled
 // blocks; a stage: the K codes (D / 128 blocks), V widened to bf16 (D / 64
 // blocks, the MN-major operand), the raw V codes [BKV][D] unswizzled, and
-// the tile's k and v scales as f32.
-template <int D, bool I8>
+// the tile's k and v scales as f32. f32: a stage as bf16's, and after the
+// ring a double buffer of raw pieces, RAWR rows of f32 K or V each.
+template <int D, int KV>
 struct Smem {
-  static constexpr int BKV = bkv<D>(), NST = nst<D>();
+  static constexpr bool I8 = KV == KV_I8, F32 = KV == KV_F32;
+  static constexpr int BKV = bkv<D>(), NST = F32 ? 2 : nst<D>();
   static constexpr int Q = I8 ? BQ * D : BQ * D * 2;
   static constexpr int K = I8 ? BKV * D : BKV * D * 2;
   static constexpr int V = BKV * D * 2;
   static constexpr int VRAW = I8 ? BKV * D : 0;
   static constexpr int SC = I8 ? 2 * BKV * 4 : 0;
   static constexpr int STAGE = (K + V + VRAW + SC + 1023) / 1024 * 1024;
-  static constexpr int BYTES = Q + NST * STAGE + 1024;   // + alignment
+  static constexpr int RAWR = D == 128 ? 64 : 16;
+  static constexpr int RAWP = RAWR * D * 4;
+  static constexpr int RAW = F32 ? 2 * RAWP : 0;
+  static constexpr int BYTES = Q + NST * STAGE + RAW + 1024;   // + alignment
   static_assert(BYTES <= 232448 - 1024, "over the H100's shared memory");
 };
 
@@ -258,15 +273,16 @@ __device__ __forceinline__ Item item_of(const Params& p, int w) {
   return it;
 }
 
-template <int D, bool I8>
+template <int D, int KV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_prefill_kernel(const __grid_constant__ Params p) {
-  using SM = Smem<D, I8>;
+  using SM = Smem<D, KV>;
+  constexpr bool I8 = SM::I8, F32 = SM::F32;
   constexpr int BKV = SM::BKV, NST = SM::NST;
   constexpr int NS = BKV / 2;    // score registers a thread
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t qbar, full[NST], vraw[NST], vfull[NST],
-      empty[NST];
+      empty[NST], rawbar[2];
   __shared__ float qsc[BQ];      // int8: qa * scale of each row
   uint8_t* smem = smem_raw + ((1024 - (qmm_tc::smem_u32(smem_raw) & 1023)) &
                               1023);
@@ -279,11 +295,12 @@ flash_prefill_kernel(const __grid_constant__ Params p) {
   if (tid == 0) {
     qmm_tc::mbar_init(&qbar, 1);
     for (int s = 0; s < NST; ++s) {
-      qmm_tc::mbar_init(&full[s], I8 ? 33 : 1);
+      qmm_tc::mbar_init(&full[s], I8 ? 33 : F32 ? 128 : 1);
       qmm_tc::mbar_init(&vraw[s], 1);
       qmm_tc::mbar_init(&vfull[s], 128);
       qmm_tc::mbar_init(&empty[s], 8);
     }
+    for (int j = 0; j < 2; ++j) qmm_tc::mbar_init(&rawbar[j], 1);
     qmm_tc::mbar_init_fence();
   }
   __syncthreads();
@@ -292,7 +309,7 @@ flash_prefill_kernel(const __grid_constant__ Params p) {
     // ------------------------------------------------------------ producer
     qmm_tc::setmaxnreg_dec<PRODUCER_REGS>();
     const int pt = tid - 256, pw = pt / 32, lane = tid % 32;
-    if constexpr (!I8) {
+    if constexpr (KV == KV_BF16) {
       if (pt == 0) {
         qmm_tc::mbar_expect(&qbar, BQ * D * 2);
         for (int c = 0; c < D / 64; ++c)
@@ -311,6 +328,52 @@ flash_prefill_kernel(const __grid_constant__ Params p) {
                                 it.bk, &full[s]);
           }
         }
+      }
+    } else if constexpr (F32) {
+      // thread 0 copies q as the bf16 branch does, and piece j of the raw
+      // rows (tile j / PPT: its K rows, then its V rows, RAWR a piece) into
+      // buffer j % 2 (onto rawbar); the four warps narrow each piece into
+      // its stage and refill the buffer two pieces ahead, then hand the
+      // stage over (128 arrivals on full)
+      constexpr int RAWR = SM::RAWR, PPT = 2 * BKV / RAWR, HALF = PPT / 2;
+      const int total = n * PPT;
+      uint8_t* raw = smem + SM::Q + NST * SM::STAGE;
+      auto issue_raw = [&](int j) {
+        const int pc = j % PPT;
+        const int k0 = (lo + j / PPT) * BKV + (pc % HALF) * RAWR;
+        qmm_tc::mbar_expect(&rawbar[j % 2], SM::RAWP);
+        qmm_tc::tma_load_3d(raw + (j % 2) * SM::RAWP, pc < HALF ? &p.mk : &p.mv,
+                            0, k0, it.bk, &rawbar[j % 2]);
+      };
+      if (pt == 0) {
+        qmm_tc::mbar_expect(&qbar, BQ * D * 2);
+        for (int c = 0; c < D / 64; ++c)
+          qmm_tc::tma_load_3d(sq + c * BQ * 128, &p.mq, c * 64, h,
+                              b * p.T + t0, &qbar);
+        for (int j = 0; j < 2 && j < total; ++j) issue_raw(j);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % NST;
+        uint8_t* st = stage(s);
+        if (i >= NST) qmm_tc::mbar_wait(&empty[s], (i / NST - 1) & 1);
+        for (int pc = 0; pc < PPT; ++pc) {
+          const int j = i * PPT + pc;
+          const uint8_t* src = raw + (j % 2) * SM::RAWP;
+          uint8_t* dst = st + (pc < HALF ? 0 : SM::K);
+          const int r0 = (pc % HALF) * RAWR;
+          qmm_tc::mbar_wait(&rawbar[j % 2], (j / 2) & 1);
+#pragma unroll 2
+          for (int u = pt; u < RAWR * D / 8; u += 128) {
+            const int r = u / (D / 8), c8 = u % (D / 8);
+            *reinterpret_cast<uint4*>(
+                dst + qmm_tc::sw128_off(r0 + r, 16 * c8, BKV)) =
+                qmm_tc::bf16x8_rn(src + (r * D + 8 * c8) * 4);
+          }
+          qmm_tc::bar_sync(3, 128);        // every thread has read the piece
+          if (pt == 0 && j + 2 < total) issue_raw(j + 2);
+        }
+        qmm_tc::fence_proxy_async();
+        qmm_tc::mbar_arrive(&full[s]);
       }
     } else {
       // thread 0 copies the K codes (onto full) and the raw V codes (onto
@@ -690,12 +753,12 @@ flash_prefill_kernel(const __grid_constant__ Params p) {
   }
 }
 
-template <int D, bool I8>
+template <int D, int KV>
 int launch_d(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* starts, const void* slopes,
              const void* prefix_len, void* out, int B, int T, int Hq, int Hkv,
              int S, float scale, float softcap, int window, void* stream) {
-  using SM = Smem<D, I8>;
+  using SM = Smem<D, KV>;
   constexpr int BKV = SM::BKV;
   // above 48 KB a block's dynamic shared memory must be allowed first;
   // once per kernel, on its first launch (never inside a graph capture:
@@ -703,7 +766,7 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel<D, I8>,
+        flash_prefill_kernel<D, KV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SM::BYTES);
     if (e != cudaSuccess) return (int)e;
     configured = true;
@@ -727,7 +790,7 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
   p.window = window;
   using qmm_tc::make_map_3d;
   bool ok;
-  if constexpr (I8) {
+  if constexpr (KV == KV_I8) {
     ok = make_map_3d(&p.mk, k, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, S,
                      (long long)B * Hkv, 128, BKV, true) &&
          make_map_3d(&p.mv, v, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, S,
@@ -737,30 +800,38 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
     const long long qs[2] = {(long long)D * 2, (long long)Hq * D * 2};
     const int qb[3] = {64, 1, BQ};
     ok = qmm_tc::make_map_nd(&p.mq, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                             qd, qs, qb, true) &&
-         make_map_3d(&p.mk, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, S,
-                     (long long)B * Hkv, 64, BKV, true) &&
-         make_map_3d(&p.mv, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, S,
-                     (long long)B * Hkv, 64, BKV, true);
+                             qd, qs, qb, true);
+    if constexpr (KV == KV_F32)        // raw pieces of whole rows
+      ok = ok &&
+           make_map_3d(&p.mk, k, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, D, S,
+                       (long long)B * Hkv, D, SM::RAWR, false) &&
+           make_map_3d(&p.mv, v, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, D, S,
+                       (long long)B * Hkv, D, SM::RAWR, false);
+    else
+      ok = ok &&
+           make_map_3d(&p.mk, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, S,
+                       (long long)B * Hkv, 64, BKV, true) &&
+           make_map_3d(&p.mv, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, S,
+                       (long long)B * Hkv, 64, BKV, true);
   }
   if (!ok) return (int)cudaErrorInvalidValue;
-  flash_prefill_kernel<D, I8><<<B * Hq * p.n_tb, THREADS, SM::BYTES,
+  flash_prefill_kernel<D, KV><<<B * Hq * p.n_tb, THREADS, SM::BYTES,
                                 reinterpret_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <bool I8>
+template <int KV>
 int launch(int D, const void* q, const void* k, const void* v,
            const void* ks, const void* vs, const void* starts,
            const void* slopes, const void* prefix_len, void* out, int B,
            int T, int Hq, int Hkv, int S, float scale, float softcap,
            int window, void* stream) {
   if (D == 128)
-    return launch_d<128, I8>(q, k, v, ks, vs, starts, slopes, prefix_len,
+    return launch_d<128, KV>(q, k, v, ks, vs, starts, slopes, prefix_len,
                              out, B, T, Hq, Hkv, S, scale, softcap, window,
                              stream);
   if (D == 256)
-    return launch_d<256, I8>(q, k, v, ks, vs, starts, slopes, prefix_len,
+    return launch_d<256, KV>(q, k, v, ks, vs, starts, slopes, prefix_len,
                              out, B, T, Hq, Hkv, S, scale, softcap, window,
                              stream);
   return (int)cudaErrorInvalidValue;
@@ -774,9 +845,22 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const void* prefix_len, void* out, int B, int T,
                              int Hq, int Hkv, int S, int D, float scale,
                              float softcap, int window, void* stream) {
-  return launch<false>(D, q, k, v, nullptr, nullptr, starts, slopes,
-                       prefix_len, out, B, T, Hq, Hkv, S, scale, softcap,
-                       window, stream);
+  return launch<KV_BF16>(D, q, k, v, nullptr, nullptr, starts, slopes,
+                         prefix_len, out, B, T, Hq, Hkv, S, scale, softcap,
+                         window, stream);
+}
+
+// an f32 cache [B, Hkv, S, D], each element rounded to bf16 as it is read;
+// otherwise as flash_prefill
+extern "C" int flash_prefill_f32(const void* q, const void* k, const void* v,
+                                 const void* starts, const void* slopes,
+                                 const void* prefix_len, void* out, int B,
+                                 int T, int Hq, int Hkv, int S, int D,
+                                 float scale, float softcap, int window,
+                                 void* stream) {
+  return launch<KV_F32>(D, q, k, v, nullptr, nullptr, starts, slopes,
+                        prefix_len, out, B, T, Hq, Hkv, S, scale, softcap,
+                        window, stream);
 }
 
 // scale here is the softmax scale / 127
@@ -787,7 +871,7 @@ extern "C" int flash_prefill_i8(const void* q, const void* k, const void* v,
                                 int T, int Hq, int Hkv, int S, int D,
                                 float scale, float softcap, int window,
                                 void* stream) {
-  return launch<true>(D, q, k, v, k_scale, v_scale, starts, slopes,
-                      prefix_len, out, B, T, Hq, Hkv, S, scale, softcap,
-                      window, stream);
+  return launch<KV_I8>(D, q, k, v, k_scale, v_scale, starts, slopes,
+                       prefix_len, out, B, T, Hq, Hkv, S, scale, softcap,
+                       window, stream);
 }

@@ -1,9 +1,10 @@
 // K6 paged_decode: split-S decode attention (T = 1) over a page pool of a
-// bf16 or int8 KV cache for Hopper.
+// bf16, int8 or f32 KV cache for Hopper.
 //
 // Replaces neural_tpu/ops/paged_attention.py:_paged_decode_kernel (launched
 // by paged_flash_decode). Pool [P, Hkv, ps, D] of one layer with D = 128
-// or 256, bf16, or int8 with bf16 scales [P, Hkv, ps]; table [B, MAXP]
+// or 256, bf16, int8 with bf16 scales [P, Hkv, ps], or f32 (each element
+// rounded to bf16 as it is read); table [B, MAXP]
 // int32 maps a row's page ordinal to its physical page; ps a multiple of
 // 16. The TPU kernel reaches the pages through its block index maps (a
 // prefetched table, pages past the fill or below the window floor clamped
@@ -23,7 +24,7 @@ extern "C" int paged_decode(const void* q, const void* k, const void* v,
                             int P, int ps, int maxp, int n_split, int chunk,
                             int D, float scale, float softcap, int window,
                             void* stream) {
-  return decode_body::launch<true, false>(
+  return decode_body::launch<true, decode_body::KV_BF16>(
       q, k, v, nullptr, nullptr, table, lengths, slopes, part_o, part_ml,
       tickets, out, B, Hq, Hkv, 0, P, ps, maxp, n_split, chunk, D, scale,
       softcap, window, stream);
@@ -38,8 +39,24 @@ extern "C" int paged_decode_i8(const void* q, const void* k, const void* v,
                                int Hq, int Hkv, int P, int ps, int maxp,
                                int n_split, int chunk, int D, float scale,
                                float softcap, int window, void* stream) {
-  return decode_body::launch<true, true>(
+  return decode_body::launch<true, decode_body::KV_I8>(
       q, k, v, k_scale, v_scale, table, lengths, slopes, part_o, part_ml,
+      tickets, out, B, Hq, Hkv, 0, P, ps, maxp, n_split, chunk, D, scale,
+      softcap, window, stream);
+}
+
+// an f32 pool, its elements rounded to bf16 as they are read; otherwise as
+// paged_decode (the same schedule)
+extern "C" int paged_decode_f32(const void* q, const void* k, const void* v,
+                                const void* table, const void* lengths,
+                                const void* slopes, void* part_o,
+                                void* part_ml, void* tickets, void* out,
+                                int B, int Hq, int Hkv, int P, int ps,
+                                int maxp, int n_split, int chunk, int D,
+                                float scale, float softcap, int window,
+                                void* stream) {
+  return decode_body::launch<true, decode_body::KV_F32>(
+      q, k, v, nullptr, nullptr, table, lengths, slopes, part_o, part_ml,
       tickets, out, B, Hq, Hkv, 0, P, ps, maxp, n_split, chunk, D, scale,
       softcap, window, stream);
 }

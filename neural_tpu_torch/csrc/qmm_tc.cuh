@@ -18,6 +18,7 @@
 // (row, kbyte) in that layout.
 #pragma once
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -249,6 +250,21 @@ __device__ __forceinline__ float dot_f32(int d) {
 // pair, the first in the low half: their high halves
 __device__ __forceinline__ uint32_t bf16_pair_exact(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// eight f32 values at src (16-byte aligned shared memory) rounded to bf16
+// to nearest even (__float2bfloat16, torch's .to(torch.bfloat16)), as the
+// 16 bytes of eight bf16 values in order: the f32-cache branches of the
+// attention kernels narrow their raw K/V tiles with it
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint4 bf16x8_rn(const uint8_t* src) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 16);
+  return make_uint4(bf16x2_rn(a.x, a.y), bf16x2_rn(a.z, a.w),
+                    bf16x2_rn(b.x, b.y), bf16x2_rn(b.z, b.w));
 }
 
 // makes this thread's plain shared-memory stores visible to the async

@@ -955,10 +955,13 @@ class Transformer(nn.Module):
         Gemma-2-9B's vocab, captured into the decode graph's pool. That
         overload does not exist for the CPU, where the product is taken in
         f32 on f32 copies (exact for bf16 operands, as the card's f32 sums),
-        and so it is under autograd: ``aten::mm.dtype`` has no derivative."""
+        and so it is under autograd: ``aten::mm.dtype`` has no derivative.
+        An f32 embedding (``dtype="float32"``) is rounded to bf16 first, as
+        the JAX package rounds both operands."""
         xb = x.to(torch.bfloat16)
+        emb = self.embed.to(torch.bfloat16)
         if x.device.type == "cuda" and not records_grad(x, self.embed):
-            out = torch.mm(xb.reshape(-1, xb.shape[-1]), self.embed.T,
+            out = torch.mm(xb.reshape(-1, xb.shape[-1]), emb.T,
                            out_dtype=torch.float32)
             return out.reshape(*x.shape[:-1], -1)
-        return xb.to(torch.float32) @ self.embed.to(torch.float32).T
+        return xb.to(torch.float32) @ emb.to(torch.float32).T

@@ -245,6 +245,9 @@ FLASH_PREFILL = Kernel("flash_prefill.cu", {
     # q, k, v, starts, slopes, prefix_len, out, B, T, Hq, Hkv, S, head dim,
     # scale, softcap, window, stream
     "flash_prefill": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, P],
+    # the same over an f32 cache
+    "flash_prefill_f32": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I,
+                          P],
     # q, k8, v8, k_scale, v_scale, starts, slopes, prefix_len, out, B, T,
     # Hq, Hkv, S, head dim, scale / 127, softcap, window, stream
     "flash_prefill_i8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F,
@@ -257,6 +260,9 @@ FLASH_DECODE = Kernel("flash_decode.cu", {
     # S, n_split, chunk, head dim, scale, softcap, window, stream
     "flash_decode": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F,
                      I, P],
+    # the same over an f32 cache
+    "flash_decode_f32": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F,
+                         F, I, P],
     # q, k8, v8, k_scale, v_scale, then as flash_decode (scale / 127)
     "flash_decode_i8": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                         F, F, I, P],
@@ -267,6 +273,9 @@ PAGED_DECODE = Kernel("paged_decode.cu", {
     # window, stream
     "paged_decode": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                      F, F, I, P],
+    # the same over an f32 pool
+    "paged_decode_f32": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                         I, I, F, F, I, P],
     # q, k8, v8, k_scale, v_scale, then as paged_decode (scale / 127)
     "paged_decode_i8": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                         I, I, I, F, F, I, P],

@@ -1,10 +1,10 @@
-"""Attention over the KV cache: the K3 and K4 kernels in their bf16 and int8
-variants, their plain versions, ``quantize_kv``, the f32 reference and the
-dispatch.
+"""Attention over the KV cache: the K3 and K4 kernels in their bf16, int8
+and f32-cache variants, their plain versions, ``quantize_kv``, the f32
+reference and the dispatch.
 
 Port of ``neural_tpu/ops/attention.py`` for the main path. The cache is
-head-major ``[B, Hkv, S, Dh]`` per layer: bf16, or int8 codes with flat
-bf16 per-(token, head) scales ``[B, Hkv, S]``.
+head-major ``[B, Hkv, S, Dh]`` per layer: bf16, f32, or int8 codes with
+flat bf16 per-(token, head) scales ``[B, Hkv, S]``.
 
 - **K4** :func:`flash_decode` / :func:`flash_decode_i8`
   (``csrc/flash_decode.cu``) replace the TPU's ``_decode_kernel``: T = 1,
@@ -21,7 +21,12 @@ q per row (``q8 = round(q · 127/qa)``, ``qa = max|q| + 1e-9``), take an
 exact int8·int8 QK dot and form ``s = d · (qa·scale/127) · k_scale``; l
 sums the unscaled P, and the v scale is folded into P — in f32 for the PV
 product of decode, rounded to bf16 for the bf16 PV product of prefill, as
-each TPU kernel does. Head dim 128 or 256. The options of the TPU kernels,
+each TPU kernel does. An f32 cache takes the bf16 variants' arithmetic
+after each K and V element is rounded to bf16 as it is read (the TPU
+kernels' ``astype(bf16)`` of an f32 block), so on a cache that holds bf16
+values the two are bit-equal (``flash_decode_f32`` / ``flash_prefill_f32``,
+the same kernels' f32-cache branches, with the bf16 variants' schedules).
+Head dim 128 or 256. The options of the TPU kernels,
 each off by default: the tanh softcap (``softcap · tanh(s / softcap)`` on
 the scaled f32 score, before the mask; 0 = off); ALiBi (``slopes`` [Hq]
 f32, None = off: ``slope_h · (kv_pos - q_pos)`` added in f32 after the
@@ -120,14 +125,20 @@ def attend_xla(q, k_cache, v_cache, positions, cfg, k_scale=None,
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq * Dh)
 
 
+def _bf16_f32(c: torch.Tensor) -> torch.Tensor:
+    """A bf16 or f32 cache as the kernels read it: each element rounded to
+    bf16 (a no-op on bf16), then widened to f32."""
+    return c.to(torch.bfloat16).to(torch.float32)
+
+
 def _softmax_pv(s: torch.Tensor, v: torch.Tensor, eq: str) -> torch.Tensor:
     """f32 softmax statistics over the last axis, P rounded to bf16 for the
-    PV product, l summed from the unrounded P."""
+    PV product (V read as bf16), l summed from the unrounded P."""
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     pv = torch.einsum(eq, p.to(torch.bfloat16).to(torch.float32),
-                      v.to(torch.float32))
+                      _bf16_f32(v))
     return pv / l.clamp_min(1e-30)
 
 
@@ -168,14 +179,15 @@ def _decode_opts(s, lengths, softcap: float, window: int, slopes):
 
 def flash_decode_plain(q, k_cache, v_cache, lengths, scale: float,
                        softcap: float = 0.0, window: int = 0, slopes=None):
-    """Plain version of K4. q [B, Hq, Dh] bf16; caches [B, Hkv, S, Dh];
-    keys at positions >= lengths[b] (and, with a window, below lengths[b] -
-    window) masked; ALiBi ``slopes`` [Hq] or None → [B, Hq, Dh] f32."""
+    """Plain version of K4. q [B, Hq, Dh] bf16; caches [B, Hkv, S, Dh], bf16
+    or f32 (read as bf16); keys at positions >= lengths[b] (and, with a
+    window, below lengths[b] - window) masked; ALiBi ``slopes`` [Hq] or
+    None → [B, Hq, Dh] f32."""
     B, Hq, Dh = q.shape
     Hkv = k_cache.shape[1]
     qh = q.to(torch.bfloat16).reshape(B, Hkv, Hq // Hkv, Dh)
     s = torch.einsum("bhgd,bhsd->bhgs", qh.to(torch.float32),
-                     k_cache.to(torch.float32)) * scale
+                     _bf16_f32(k_cache)) * scale
     s = _decode_opts(s, lengths, softcap, window, slopes)
     return _softmax_pv(s, v_cache, "bhgs,bhsd->bhgd").reshape(B, Hq, Dh)
 
@@ -330,21 +342,30 @@ def _k4_launch(fn, q, k, v, k_scale, v_scale, lengths, qk_scale, softcap,
     return out
 
 
+def _float_entry(fn: str, cache) -> str:
+    """The entry of a bf16 or an f32 cache: ``fn`` or ``fn_f32``."""
+    if cache.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{fn} takes a bf16 or f32 cache, got {cache.dtype}")
+    return fn + "_f32" if cache.dtype == torch.float32 else fn
+
+
 def flash_decode(q, k_cache, v_cache, lengths, scale: float,
                  softcap: float = 0.0, window: int = 0, slopes=None):
-    """K4. Same contract as :func:`flash_decode_plain`."""
+    """K4 over a bf16 cache, or its f32-cache branch (``flash_decode_f32``)
+    over an f32 one. Same contract as :func:`flash_decode_plain`."""
     _cuda.refuse_grad("flash_decode (K4)", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, lengths, scale,
                                   softcap, window, slopes)
     B, Hq, Dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    fn = _float_entry("flash_decode", k_cache)
     q = q.to(torch.bfloat16).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B, torch.bfloat16)
+    _check_attention(q, k_cache, v_cache, Hq, Hkv, Dh, B, k_cache.dtype)
     _cuda.check(lengths, "lengths", torch.int32, (B,))
-    return _k4_launch("flash_decode", q, k_cache, v_cache, None, None,
-                      lengths, scale, softcap, window, slopes)
+    return _k4_launch(fn, q, k_cache, v_cache, None, None, lengths, scale,
+                      softcap, window, slopes)
 
 
 def flash_decode_i8(q, k_cache, v_cache, k_scale, v_scale, lengths,
@@ -399,15 +420,15 @@ def _heads_first(q, Hkv):
 def flash_prefill_plain(q, k_cache, v_cache, starts, scale: float,
                         softcap: float = 0.0, window: int = 0, slopes=None,
                         prefix_len=None):
-    """Plain version of K3. q [B, T, Hq, Dh] bf16; caches [B, Hkv, S, Dh]
-    already holding these keys; query t at position starts[b] + t sees keys
+    """Plain version of K3. q [B, T, Hq, Dh] bf16; caches [B, Hkv, S, Dh],
+    bf16 or f32 (read as bf16), already holding these keys; query t at position starts[b] + t sees keys
     s <= starts[b] + t (and, with a window, s > starts[b] + t - window), or
     with ``prefix_len`` [B] any key s < prefix_len[b] - 1; ALiBi ``slopes``
     [Hq] or None → [B, T, Hq, Dh] f32."""
     B, T, Hq, Dh = q.shape
     qh = _heads_first(q.to(torch.bfloat16), k_cache.shape[1])
     s = torch.einsum("bhgtd,bhsd->bhgts", qh.to(torch.float32),
-                     k_cache.to(torch.float32)) * scale
+                     _bf16_f32(k_cache)) * scale
     s = _prefill_opts(s, starts, softcap, window, slopes, prefix_len)
     out = _softmax_pv(s, v_cache, "bhgts,bhsd->bhgtd")
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, Dh)
@@ -532,14 +553,16 @@ def _prefill_args(q, k_cache, v_cache, starts, kv_dtype):
 def flash_prefill(q, k_cache, v_cache, starts, scale: float,
                   softcap: float = 0.0, window: int = 0, slopes=None,
                   prefix_len=None):
-    """K3. Same contract as :func:`flash_prefill_plain`."""
+    """K3 over a bf16 cache, or its f32-cache branch (``flash_prefill_f32``)
+    over an f32 one. Same contract as :func:`flash_prefill_plain`."""
     _cuda.refuse_grad("flash_prefill (K3)", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k_cache, v_cache, starts, scale,
                                    softcap, window, slopes, prefix_len)
-    q, starts = _prefill_args(q, k_cache, v_cache, starts, torch.bfloat16)
-    return _prefill_launch("flash_prefill", q, k_cache, v_cache, None, None,
-                           starts, scale, softcap, window, slopes, prefix_len)
+    fn = _float_entry("flash_prefill", k_cache)
+    q, starts = _prefill_args(q, k_cache, v_cache, starts, k_cache.dtype)
+    return _prefill_launch(fn, q, k_cache, v_cache, None, None, starts,
+                           scale, softcap, window, slopes, prefix_len)
 
 
 def flash_prefill_i8(q, k_cache, v_cache, k_scale, v_scale, starts,
@@ -603,9 +626,9 @@ def attn_options(cfg, T: int, slopes, prefix_len):
 def attend(q, k_cache, v_cache, positions, cfg, k_scale=None, v_scale=None,
            window: int = 0, slopes=None, prefix_len=None):
     """q [B, T, Hq, Dh] at ``positions`` [B, T] against one layer's cache
-    [B, Hkv, S, Dh] (already holding these keys; int8 with ``k_scale`` /
-    ``v_scale`` [B, Hkv, S]) → [B, T, Hq*Dh] f32. T == 1 goes to K4, T > 1
-    to K3, each in the variant of the cache's dtype, with the config's
+    [B, Hkv, S, Dh] (already holding these keys; bf16, f32, or int8 with
+    ``k_scale`` / ``v_scale`` [B, Hkv, S]) → [B, T, Hq*Dh] f32. T == 1 goes
+    to K4, T > 1 to K3, each in the variant of the cache's dtype, with the config's
     softcap, this layer's sliding ``window`` (a Python int, 0 = off), the
     ALiBi ``slopes`` [Hq] of an ALiBi config and, for a prefix-LM config's
     prefill, the prompt lengths ``prefix_len`` [B]. A head dim that is not
@@ -616,8 +639,8 @@ def attend(q, k_cache, v_cache, positions, cfg, k_scale=None, v_scale=None,
     slopes, prefix_len = attn_options(cfg, T, slopes, prefix_len)
     int8 = k_cache.dtype == torch.int8
     if int8 != (k_scale is not None):
-        raise ValueError("an int8 KV cache comes with its scales, a bf16 one "
-                         "without")
+        raise ValueError("an int8 KV cache comes with its scales, a bf16 or "
+                         "f32 one without")
     if Dh % 128:
         _cuda.ROUTES.count("attend_xla")
         return attend_xla(q, k_cache, v_cache, positions, cfg, k_scale,

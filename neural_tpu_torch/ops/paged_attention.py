@@ -20,15 +20,16 @@ dispatch and the page-pool writes (port of
   ``attend_paged``, which takes no prefix bound (so its paged prefill of a
   prefix-LM model is causal), the GLM prefix mask reaches K3 here too.
 
-Layouts (``runtime/paged.py``): per layer a pool ``[P, Hkv, ps, Dh]``,
-int8 scales ``[P, Hkv, ps]`` bf16, table ``[B, MAXP]`` int32.
+Layouts (``runtime/paged.py``): per layer a pool ``[P, Hkv, ps, Dh]``
+(bf16, f32, or int8 codes), int8 scales ``[P, Hkv, ps]`` bf16, table ``[B, MAXP]`` int32.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _cuda
-from .attention import (_k4_launch, attend_xla, attn_options, attn_scale,
+from .attention import (_float_entry, _k4_launch, attend_xla, attn_options,
+                        attn_scale,
                         check_head_dim, flash_decode_i8_plain,
                         flash_decode_plain, flash_prefill, flash_prefill_i8,
                         k6_boxes, quantize_kv)
@@ -54,7 +55,7 @@ def paged_decode_plain(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
     """Plain version of K6: gather the pages, then K4's plain version (bf16
     or int8 by the pool's scales). q [B, Hq, Dh]; pools [P, Hkv, ps, Dh];
     table [B, MAXP]; lengths [B]; ALiBi ``slopes`` [Hq] or None →
-    [B, Hq, Dh] f32."""
+    [B, Hq, Dh] f32. An f32 pool is read as bf16, as K6 reads it."""
     k, v = gather_pages(k_pool, table), gather_pages(v_pool, table)
     if k_scale is None:
         return flash_decode_plain(q, k, v, lengths, scale, softcap, window,
@@ -84,15 +85,17 @@ def _paged_args(q, k_pool, v_pool, table, lengths, kv_dtype):
 
 def paged_decode(q, k_pool, v_pool, table, lengths, scale: float,
                  softcap: float = 0.0, window: int = 0, slopes=None):
-    """K6 over a bf16 pool. Same contract as :func:`paged_decode_plain`."""
+    """K6 over a bf16 pool, or its f32-pool branch (``paged_decode_f32``,
+    each element rounded to bf16 as it is read) over an f32 one. Same
+    contract as :func:`paged_decode_plain`."""
     _cuda.refuse_grad("paged_decode (K6)", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, None, None, table,
                                   lengths, scale, softcap, window, slopes)
-    q, lengths = _paged_args(q, k_pool, v_pool, table, lengths,
-                             torch.bfloat16)
-    return _k4_launch("paged_decode", q, k_pool, v_pool, None, None, lengths,
-                      scale, softcap, window, slopes, table)
+    fn = _float_entry("paged_decode", k_pool)
+    q, lengths = _paged_args(q, k_pool, v_pool, table, lengths, k_pool.dtype)
+    return _k4_launch(fn, q, k_pool, v_pool, None, None, lengths, scale,
+                      softcap, window, slopes, table)
 
 
 def paged_decode_i8(q, k_pool, v_pool, k_scale, v_scale, table, lengths,

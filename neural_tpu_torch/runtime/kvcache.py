@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
@@ -52,12 +53,37 @@ class KVCache:
                                    self.v_scale)))
 
 
+#: the KV cache dtypes the attention kernels read
+KV_DTYPES = (torch.bfloat16, torch.float32, torch.int8)
+_KV_NAMES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+             "float32": torch.float32, "int8": torch.int8}
+
+
+def kv_torch_dtype(kv_dtype) -> torch.dtype:
+    """A KV cache dtype as the JAX server and Scheduler take it — a name
+    (``"bfloat16"``, ``"float32"``, ``"int8"``; ``"bf16"`` too) or a dtype
+    (torch or numpy) — as the port's torch dtype, passed through
+    unchanged; one the kernels do not read raises."""
+    if isinstance(kv_dtype, torch.dtype):
+        dt = kv_dtype
+    else:
+        name = kv_dtype if isinstance(kv_dtype, str) else \
+            np.dtype(kv_dtype).name
+        dt = _KV_NAMES.get(name)
+    if dt not in KV_DTYPES:
+        raise NotImplementedError(
+            f"KV cache dtype {kv_dtype!r}: the port keeps bf16, f32 or int8 "
+            "KV")
+    return dt
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[Union[str, torch.device]] = None) -> KVCache:
-    """A zeroed cache: bf16, or int8 codes with bf16 scales."""
+    """A zeroed cache: bf16 or f32, or int8 codes with bf16 scales."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     dev = resolve_device(device)
+    dtype = kv_torch_dtype(dtype)
     if dtype == torch.int8:
         return KVCache(torch.zeros(shape, dtype=torch.int8, device=dev),
                        torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -65,11 +91,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                    device=dev),
                        torch.zeros(shape[:-1], dtype=torch.bfloat16,
                                    device=dev))
-    if dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"KV cache dtype {dtype}: the port keeps bf16 or int8 KV")
     return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                    torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def cache_nbytes(cache) -> int:
+    """Bytes of a cache's K and V (and int8 scales), contiguous or paged,
+    as the JAX package's ``cache_nbytes`` counts them."""
+    tot = cache.k.numel() * cache.k.element_size() * 2
+    if cache.k_scale is not None:
+        tot += cache.k_scale.numel() * cache.k_scale.element_size() * 2
+    return tot
 
 
 def reorder_batch(cache: KVCache, idx: torch.Tensor,

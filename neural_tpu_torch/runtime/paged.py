@@ -23,7 +23,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.config import ModelConfig
-from .kvcache import LayerKV
+from .kvcache import LayerKV, kv_torch_dtype
 
 
 @dataclasses.dataclass
@@ -68,14 +68,12 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
     table = torch.zeros((batch, maxp), dtype=torch.int32, device=dev)
+    dtype = kv_torch_dtype(dtype)
     if dtype == torch.int8:
         z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=dev)
         return PagedKVCache(z(shape, torch.int8), z(shape, torch.int8),
                             z(shape[:-1], torch.bfloat16),
                             z(shape[:-1], torch.bfloat16), table)
-    if dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"KV cache dtype {dtype}: the port keeps bf16 or int8 KV")
     return PagedKVCache(torch.zeros(shape, dtype=dtype, device=dev),
                         torch.zeros(shape, dtype=dtype, device=dev),
                         None, None, table)

@@ -42,10 +42,10 @@ prefills single-shot, as in the JAX package (its prefix mask needs the
 whole prompt); in paged mode its prefix mask reaches K3 too, where the JAX
 Scheduler's paged prefill is causal.
 
-The TPU's decode block-size hint (``pick_decode_blk``) and the
-weight-residency policy (``ensure_decode_residency``) have no counterpart:
-the port's kernels take no block size, and its weights are native-packed
-once at load.
+The TPU's decode block-size hint (``pick_decode_blk``) has no
+counterpart: the port's kernels take no block size. The weight-residency
+call (``ensure_decode_residency``) stands where the JAX Scheduler makes it,
+but has no policy: the port's weights are native-packed once at load.
 """
 from __future__ import annotations
 
@@ -276,11 +276,19 @@ class Scheduler:
         SamplingParams with its min_new_tokens met, decode advances
         ``decode_block`` tokens per iteration; tokens past a request's EOS
         or max_new_tokens are discarded. Greedy ids equal
-        ``decode_block=1``'s."""
+        ``decode_block=1``'s.
+
+        The params pass through ``runtime.residency.ensure_decode_residency``
+        at this decode shape, where the JAX Scheduler calls it; there it is
+        a placeholder with no policy (the port's weights are native at
+        rest), so they come back unchanged."""
         if streaming and kv_mode != "slots":
             raise ValueError("streaming (StreamingLLM slots) requires "
                              f"kv_mode='slots', got {kv_mode!r}")
         self.sampling = sampling or SamplingParams(greedy=True)
+        from ..runtime.residency import ensure_decode_residency
+        params = ensure_decode_residency(params, cfg, max_batch, max_len,
+                                         kv_dtype)
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch

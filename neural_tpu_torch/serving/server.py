@@ -18,6 +18,7 @@ from typing import Callable, List, Optional
 import torch
 
 from ..models.config import ModelConfig
+from ..runtime.kvcache import kv_torch_dtype
 from ..runtime.sampling import SamplingParams
 from .scheduler import Scheduler, Sequence as Seq
 
@@ -112,8 +113,8 @@ class ModelServer:
             kw.pop(ignored, None)
         if kw:
             raise TypeError(f"unknown server kwargs: {sorted(kw)}")
-        kv = torch.int8 if kv_dtype in ("int8", torch.int8) else \
-            torch.bfloat16
+        # passed through as the JAX server passes it: int8, bf16 or f32
+        kv = kv_torch_dtype(kv_dtype)
         self.scheduler = Scheduler(params, cfg, max_batch=max_batch,
                                    max_len=max_len, sampling=sampling,
                                    kv_dtype=kv, **sched_kw)

@@ -283,7 +283,7 @@ def test_k4_has_its_own_body():
     assert "qmm_tc.cuh" in _cuda.FLASH_PREFILL.headers
     assert not (_cuda.CSRC / "decode_attn.cuh").exists()
     body = (_cuda.CSRC / "decode_body.cuh").read_text()
-    assert "template <int D, bool I8, int MT, bool PAGED>" in body
+    assert "template <int D, int KV, int MT, bool PAGED>" in body
     for src, paged in (("flash_decode.cu", "false"),
                        ("paged_decode.cu", "true")):
         text = (_cuda.CSRC / src).read_text()

@@ -45,7 +45,11 @@ print(",".join(hit))
     "neural_tpu_torch.eval.perplexity", "neural_tpu_torch.eval.harness",
     "neural_tpu_torch.eval.diff", "neural_tpu_torch.utils",
     "neural_tpu_torch.utils.audio", "neural_tpu_torch.utils.profiling",
-    "neural_tpu_torch.utils.prompts"])
+    "neural_tpu_torch.utils.prompts", "neural_tpu_torch.runtime.residency",
+    "neural_tpu_torch.cli.gate", "neural_tpu_torch.cli.run",
+    "neural_tpu_torch.cli.inference", "neural_tpu_torch.cli.quantize",
+    "neural_tpu_torch.cli.convert", "neural_tpu_torch.cli.perplexity",
+    "neural_tpu_torch.cli.accuracy", "neural_tpu_torch.cli.whisper"])
 def test_import_pulls_in_nothing_banned(module):
     out = subprocess.run(
         [sys.executable, "-c", PROBE.format(root=str(ROOT), module=module,
